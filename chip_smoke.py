@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints its lines; any failure exits non-zero, nothing is
+caught and carried on):
+
+1. device   — requires a CUDA card; prints its name and power limit and
+               builds the kernels from ``phi_3_vision_mlx_tpu_torch/csrc``.
+2. kernels  — K1 (W4A16 matmul), K2 (flash attention) and K3 (decode
+               attention) against their plain PyTorch versions on the card
+               at the main path's shapes, with CUDA-event times of both.
+3. reference — a depth-cut (2-layer) full-width Phi-3.5-mini: prefill and
+               decode logits through the kernels on the card against the
+               plain path on the CPU, same weights and prompt.
+4. serving  — full-size 4-bit Phi-3.5-mini (random weights from a seed)
+               behind the port's HTTP handler answers three requests; the
+               launch counters show that K1, K2 and K3 carried them; decode
+               tok/s of the first request through ``api.generate``.
+5. profile  — where a decode token's time goes at a short and a long
+               window: host wall time per token, device busy time per token
+               (``torch.profiler``), the idle share, kernel launches per
+               token and the largest device items.
+
+It imports the port only, never ``jax`` or the JAX package's modules
+directly, and fails if ``jax`` was loaded by the end.
+
+The last three lines are the card's name and power limit, one JSON object
+describing each kernel, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Bench prompt of the JAX package (bench.py:112-116), without its chat markup:
+# the server applies the chat template.
+PROMPT_A = (
+    "Write a detailed mystery story set in a lighthouse on a remote island, "
+    "where the keeper discovers a coded journal from the previous keeper who "
+    "vanished without a trace."
+)
+FILLER = (
+    "The lighthouse keeper logged the weather, the passing ships and the state "
+    "of the lamp every evening before the tide turned. "
+)
+
+K1_SHAPES = ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072), (3072, 32064))
+# K1 compares f32 outputs: both sides round W to bf16 and accumulate in f32,
+# so only the order of the f32 sums differs.
+K1_ATOL, K1_RTOL = 1e-3, 1e-3
+# K2/K3 return bf16: the f32 sums run in another order, then round to bf16
+# (one ulp is 2**-7 relative), so allow two ulps; the absolute term covers
+# outputs near zero (an H100 run measured at most 2.4e-4 there, and one ulp
+# of |x| < 0.25 is under 1e-3).
+ATTN_ATOL, ATTN_RTOL = 2e-3, 2 * 2.0**-7
+# Phase 3: bf16 activations through 2 layers on two devices (an H100 run
+# measured 8.4e-3 relative L2 and 9.3e-5 in max log-prob).
+REF_REL_L2 = 1.5e-2
+REF_LOGPROB = 1e-3
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Stream time per call between two CUDA events (includes any gap the
+    host leaves between launches)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int):
+    """Sum of the device time of every kernel a call launches (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None  # None: the profiler saw no device time
+
+
+def timed(torch, kernel_fn, plain_fn, iters: int) -> dict:
+    t = {
+        "ms": cuda_ms(torch, kernel_fn, iters),
+        "plain_ms": cuda_ms(torch, plain_fn, max(2, iters // 4)),
+        "device_ms": device_ms(torch, kernel_fn, iters),
+        "plain_device_ms": device_ms(torch, plain_fn, max(2, iters // 4)),
+    }
+    dev = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
+    t["text"] = (f"kernel {t['ms']:.4f} ms (device {dev(t['device_ms'])}) "
+                 f"plain {t['plain_ms']:.4f} ms (device {dev(t['plain_device_ms'])})")
+    return t
+
+
+def close(torch, out, ref, atol, rtol):
+    """(max abs err, max rel err, within atol + rtol * |ref|)."""
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all()) and bool(torch.isfinite(out).all())
+    rel = (diff / ref.float().abs().clamp_min(1e-6)).max().item()
+    return diff.max().item(), rel, ok
+
+
+def rotating(n: int):
+    """0, 1, ..., n-1, 0, 1, ...: callers rotate buffers past the 50 MB L2."""
+    state = {"i": -1}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % n
+        return state["i"]
+
+    return nxt
+
+
+def phase_kernels(torch, report):
+    from phi_3_vision_mlx_tpu_torch.core.weights import WORD
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as K2
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as K3
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as K1
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    # --- K1 at every main-path (K, N), M in {1, 64, 256}, both modes.
+    errs = []
+    for k, n in K1_SHAPES:
+        nbytes = k * n // 2 + 4 * (k // 64) * n
+        copies = max(1, math.ceil(150e6 / nbytes))  # weights read cold, as in decode
+        ws = []
+        for _ in range(copies):
+            qw = torch.randint(-(2**31), 2**31, (k // WORD, n), dtype=torch.int32, generator=g, device=dev)
+            s = (0.004 * (1 + 0.1 * torch.randn((k // 64, n), generator=g, device=dev))).to(torch.bfloat16)
+            b = torch.full((k // 64, n), -0.03, dtype=torch.bfloat16, device=dev)
+            ws.append((qw, s, b))
+        for mode in ("affine", "symmetric"):
+            for m in (1, 64, 256):
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+                qw, s, b = ws[0]
+                b = b if mode == "affine" else None
+                out = K1.quant_matmul(x, qw, s, b, out_dtype=torch.float32)
+                ref = K1.quant_matmul_plain(x, qw, s, b, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
+                if m == 1:  # the decode path's bf16 output: one more rounding (1 ulp)
+                    e16 = close(torch, K1.quant_matmul(x, qw, s, b), K1.quant_matmul_plain(x, qw, s, b),
+                                K1_ATOL, 2.0**-7)
+                    ok = ok and e16[2]
+                errs.append(ea)
+                line = f"K1 K={k} N={n} M={m} {mode}: max_abs={ea:.3e} max_rel={er:.3e} " \
+                       f"(atol {K1_ATOL} + rtol {K1_RTOL})"
+                if mode == "affine":
+                    nxt = rotating(copies)
+                    t = timed(torch, lambda: K1.quant_matmul(x, *ws[nxt()]),
+                              lambda: K1.quant_matmul_plain(x, *ws[nxt()]), 20)
+                    line += " " + t.pop("text")
+                    if (k, n, m) == (3072, 9216, 1):
+                        report["K1"].update(t, shape="K=3072 N=9216 M=1 affine")
+                log(line)
+                if not ok:
+                    fail(f"K1 disagrees with its plain version at K={k} N={n} M={m} {mode}")
+        del ws
+    report["K1"]["max_abs_err"] = max(errs)
+
+    # --- K2: left-padded prompts, window = prompt bucket + decode budget.
+    b_, h, kvh, d = 1, 32, 32, 96
+    scale = d**-0.5
+    errs = []
+    for lq, budget, real in ((64, 64, 50), (1024, 32, 1000)):
+        lk = -(-(lq + budget) // 128) * 128
+        q = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        kk = torch.randn((b_, kvh, lk, d), generator=g, device=dev).to(torch.bfloat16)
+        vv = torch.randn((b_, kvh, lk, d), generator=g, device=dev).to(torch.bfloat16)
+        valid = torch.ones((b_, lk), dtype=torch.bool, device=dev)
+        valid[:, : lq - real] = False
+        out = K2.flash_attention(q, kk, vv, valid, 0, scale)
+        ref = K2.flash_attention_plain(q, kk, vv, valid, 0, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        errs.append(ea)
+        t = timed(torch, lambda: K2.flash_attention(q, kk, vv, valid, 0, scale),
+                  lambda: K2.flash_attention_plain(q, kk, vv, valid, 0, scale), 12)
+        log(f"K2 lq={lq} lk={lk} pad={lq - real} H={h} D={d}: max_abs={ea:.3e} max_rel={er:.3e} "
+            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}) {t.pop('text')}")
+        if lq == 1024:
+            report["K2"].update(t, shape=f"lq=1024 lk={lk} H=32 D=96")
+        if not ok:
+            fail(f"K2 disagrees with its plain version at lq={lq}")
+    report["K2"]["max_abs_err"] = max(errs)
+
+    # --- K3: one query against windows 640 and 4224; checked with the offset
+    # mid-window, timed at the window's end (a decode step reads it all).
+    errs = []
+    nl = 8  # layers of the stacked cache, rotated so timing reads it cold
+    for lmax in (640, 4224):
+        ks = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+        vs = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+        q = torch.randn((b_, 1, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        valid = torch.rand((b_, lmax), generator=g, device=dev) > 0.05
+        valid[:, :10] = False  # left padding
+        for offset in (lmax // 2, lmax - 1):
+            for layer in (0, nl - 1):
+                out = K3.dense_kv_attention(q, ks, vs, valid, offset, layer, scale)
+                ref = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, layer, scale)
+                torch.cuda.synchronize()
+                ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+                errs.append(ea)
+                if not ok:
+                    fail(f"K3 disagrees with its plain version at Lmax={lmax} offset={offset} layer={layer}")
+        # Causal edge: the last visible key (offset) and the first hidden one
+        # (offset + 1) both score ~40 against every head's query (random keys
+        # score ~1); their values are -64 and +64.  Right: -64; one key too
+        # many: about 0; the edge key dropped: about 64 or noise.
+        off, layer = lmax // 2, nl - 1
+        edge_k = (4 * q[:, :, 0, :].float()).to(torch.bfloat16)  # H == KV here
+        ks[layer, :, :, off], ks[layer, :, :, off + 1] = edge_k, edge_k
+        vs[layer, :, :, off], vs[layer, :, :, off + 1] = -64.0, 64.0
+        edge_valid = valid.clone()
+        edge_valid[:, off : off + 2] = True
+        out = K3.dense_kv_attention(q, ks, vs, edge_valid, off, layer, scale)
+        ref = K3.dense_kv_attention_plain(q, ks, vs, edge_valid, off, layer, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        edge = (out.float() + 64).abs().max().item()
+        log(f"K3 causal edge at offset {off}: max_abs={ea:.3e} vs plain, max |out + 64| = {edge:.3e} (limit 1)")
+        if not ok or edge > 1:
+            fail(f"K3 mishandles the causal edge at Lmax={lmax} offset={off}")
+        errs.append(ea)
+        nxt = rotating(nl)
+        t = timed(torch, lambda: K3.dense_kv_attention(q, ks, vs, valid, lmax - 1, nxt(), scale),
+                  lambda: K3.dense_kv_attention_plain(q, ks, vs, valid, lmax - 1, nxt(), scale), 20)
+        log(f"K3 Lq=1 Lmax={lmax} offsets {lmax // 2},{lmax - 1} H={h} D={d}: max_abs={max(errs):.3e} "
+            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}); at offset {lmax - 1}: {t.pop('text')}")
+        if lmax == 4224:
+            report["K3"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96")
+        del ks, vs
+    report["K3"]["max_abs_err"] = max(errs)
+
+
+def full_config():
+    from phi_3_vision_mlx_tpu_torch.core.config import QuantConfig, preset
+
+    return preset("phi35_mini").replace(quantized=QuantConfig(group_size=64, bits=4, mode="affine"))
+
+
+def phase_reference(torch, params, proc):
+    """2-layer full-width slice: kernels on the card vs the plain path on the CPU."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM, decode_chunk, run_prefill
+
+    cfg = full_config().replace(num_hidden_layers=2)
+
+    def first_layers(node):
+        if isinstance(node, dict):
+            return {k: first_layers(v) for k, v in node.items()}
+        return node[:2]
+
+    small = {
+        "model": {**params["model"], "layers": first_layers(params["model"]["layers"])},
+        "lm_head": params["lm_head"],
+    }
+    dict_input = proc(_apply_chat_template(PROMPT_A))
+    outs, token = {}, None
+    for device in ("cuda", "cpu"):
+        lm = LM(cfg, small, device=device)
+        logits, state, _, _ = run_prefill(lm, dict_input, 8)
+        if token is None:
+            token = int(logits[0].argmax())
+        _, _, _, maxlp, _ = decode_chunk(lm, torch.tensor([[token]], device=device), state, 1)
+        outs[device] = (logits[0].float().cpu().numpy(), float(maxlp[0, 0]))
+    a, b = outs["cuda"][0], outs["cpu"][0]
+    if a.shape != (cfg.vocab_size,) or not np.isfinite(a).all():
+        fail(f"reference: bad logits shape {a.shape} or non-finite values")
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    dlp = abs(outs["cuda"][1] - outs["cpu"][1])
+    log(f"reference (2 layers, width 3072): prefill logits rel L2 cuda-vs-cpu {rel:.3e} "
+        f"(limit {REF_REL_L2}); decode max log-prob diff {dlp:.3e} (limit {REF_LOGPROB})")
+    if rel > REF_REL_L2 or not dlp <= REF_LOGPROB:
+        fail("reference: the kernel path disagrees with the plain path")
+
+
+def post(port: int, body: dict, timeout: float = 600):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(body).encode(), headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def phase_serving(torch, lm, proc, report):
+    from http.server import HTTPServer
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.kv_attention import dense_kv_attention
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+    from phi_3_vision_mlx_tpu_torch.serve.server import make_handler
+
+    counters = {"K1": quant_matmul, "K2": flash_attention, "K3": dense_kv_attention}
+    requests = [
+        ("a", PROMPT_A, 64),
+        ("b", (FILLER * 20)[:1000], 32),
+        ("c", (FILLER * 60)[:4200], 16),
+    ]
+    httpd = HTTPServer(("127.0.0.1", 0), make_handler((lm, proc)))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        for tag, prompt, max_tokens in requests:
+            t0 = time.perf_counter()
+            status, payload = post(httpd.server_address[1], {"prompt": prompt, "max_tokens": max_tokens})
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            resp = payload.get("responses")
+            if status != 200 or not isinstance(resp, list) or not resp or not resp[0]:
+                fail(f"request ({tag}): status {status}, payload {str(payload)[:200]}")
+            n_prompt = len(proc(api._apply_chat_template(prompt))["input_ids"][0])
+            log(f"request ({tag}): {n_prompt} prompt tokens, max_tokens {max_tokens}: HTTP {status}, "
+                f"{len(resp[0])} chars in {dt:.2f} s")
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    log(f"launch counts over the three requests: {launches}")
+    for name, n in launches.items():
+        report[name]["launches"] = n
+        if n <= 0:
+            fail(f"{name} was never launched on the main path")
+    api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False, stream=False, mute=True)
+    _, tps = api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False,
+                          stream=False, mute=True, return_tps=True)
+    report["decode_tps"] = tps
+    log(f"decode tok/s, request (a) through api.generate (64 tokens, eager): {tps:.2f} "
+        f"on {report['card']}")
+
+
+def short_name(kernel: str) -> str:
+    """``void (anonymous namespace)::w4a16_partial_kernel<1>(...)`` -> ``w4a16_partial_kernel``."""
+    name = kernel.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0].split("::")[-1]
+
+
+def phase_profile(torch, lm, proc, steps: int = 16):
+    """Wall and device time of a decode token at a short and a long window."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+    from phi_3_vision_mlx_tpu_torch.engine.engine import decode_chunk, run_prefill
+
+    for tag, prompt, budget in (("a", PROMPT_A, 512), ("c", (FILLER * 60)[:4200], 16)):
+        dict_input = proc(_apply_chat_template(prompt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state, _, window = run_prefill(lm, dict_input, budget)
+        token = logits.argmax(dim=-1)[:, None]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        token, state, *_ = decode_chunk(lm, token, state, 2)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        token, state, toks, *_ = decode_chunk(lm, token, state, steps)
+        toks.cpu()  # the engine's one device-to-host copy per chunk
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            token, state, toks, *_ = decode_chunk(lm, token, state, steps)
+            torch.cuda.synchronize()
+        per_name, launches = Counter(), 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                per_name[short_name(e.name)] += e.device_time_total / 1e3 / steps
+                launches += 1
+        busy = sum(per_name.values())
+        if busy <= 0:
+            fail(f"profile ({tag}): the profiler saw no device time")
+        top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
+        log(f"profile ({tag}): {len(dict_input['input_ids'][0])} prompt tokens, window {window}: "
+            f"prefill {prefill_ms:.1f} ms; decode wall {wall:.2f} ms/token ({1e3 / wall:.2f} tok/s), "
+            f"device busy {busy:.3f} ms/token, idle share {1 - busy / wall:.3f}, "
+            f"{launches / steps:.0f} launches/token; largest (ms/token): {top}")
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke test runs only on a GPU")
+    try:
+        from phi_3_vision_mlx_tpu_torch.ops.kernels import _build
+    except ImportError as e:
+        fail(f"the port is not importable from {ROOT}: {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # Phase 1: device and build.
+    card = nvidia_smi()
+    log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    _, build_s = _build.library()
+    log(f"kernels built in {build_s:.1f} s")
+    source = "phi_3_vision_mlx_tpu_torch/csrc/"
+    report = {
+        "card": card,
+        "K1": {"name": "w4a16_quant_matmul", "source": source + "quant_matmul.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/quant_matmul.py:541"},
+        "K2": {"name": "flash_attention", "source": source + "attention.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/flash_attention.py:112"},
+        "K3": {"name": "dense_kv_attention", "source": source + "attention.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:213"},
+    }
+
+    # Phase 2: each kernel against its plain version.
+    phase_kernels(torch, report)
+    torch.cuda.empty_cache()
+
+    # Phases 3-5 share the full-size weights.
+    from phi_3_vision_mlx_tpu_torch.core.weights import synth_quantized_params
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+    from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3Processor
+    from phi_3_vision_mlx_tpu_torch.models.tokenizer import ByteTokenizer
+
+    cfg = full_config()
+    t0 = time.perf_counter()
+    params = synth_quantized_params(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"full-size weights: {cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, "
+        f"vocab {cfg.vocab_size}, built in {time.perf_counter() - t0:.1f} s")
+    proc = Phi3Processor(tokenizer=ByteTokenizer())
+    phase_reference(torch, params, proc)
+    lm = LM(cfg, params, device="cuda")
+    phase_serving(torch, lm, proc, report)
+    phase_profile(torch, lm, proc)
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        fail("jax was imported")
+
+    kernels = [
+        {"name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
+         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
+         "plain_device_ms": r["plain_device_ms"], "shape": r["shape"]}
+        for r in (report["K1"], report["K2"], report["K3"])
+    ]
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,97 @@
+"""Public API, text generation
+(counterpart of ``phi_3_vision_mlx_tpu/api.py``).
+
+``load()`` / ``_load()`` return ``(LM, processor)``, the same preload tuple
+the JAX package passes around; ``generate`` runs greedy text generation.
+Checkpoints are the directories the JAX package writes.  The offline
+random-checkpoint fallback of the JAX ``_setup`` builds weights with JAX, so
+here a missing checkpoint raises instead; full-size random weights for smoke
+runs come from ``core.weights.synth_quantized_params``.  Models load onto
+``device="cuda"`` unless a caller names another device; with no CUDA card
+that raises instead of running on the CPU.  ``choose``, ``constrain``,
+vision, sampling and adapters are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+
+from .core import weights as W
+from .core.registry import processor_for
+from .engine.engine import LM, generate_text
+
+PATH_ORIGINAL_PHI3_VISION = "models/phi3_v"
+PATH_QUANTIZED_PHI3_VISION = "models/phi3_v_Q"
+PATH_ORIGINAL_PHI3_BLIND = "models/phi3_mini_128k"
+PATH_QUANTIZED_PHI3_BLIND = "models/phi3_mini_128k_Q"
+
+CHAT_TURN = "<|user|>\n{body}<|end|>\n<|assistant|>\n"
+
+
+def _load(model_path=PATH_QUANTIZED_PHI3_BLIND, device="cuda", **kwargs):
+    """Checkpoint dir written by the JAX package -> (LM, processor)."""
+    cfg, params = W.load_params(model_path, **kwargs)
+    if cfg.has_vision:
+        raise NotImplementedError("vision models are not ported yet")
+    params = W.prepare_params(params, cfg)
+    processor = processor_for(cfg.architecture)(model_path)
+    return LM(cfg, params, model_path=model_path, device=device), processor
+
+
+def load(blind_model: bool = True, quantize_model: bool = True, quantize_cache: bool = False,
+         use_adapter: bool = False, device="cuda", **kwargs):
+    """Flag-based model selection (JAX ``load``); text models only."""
+    if not blind_model:
+        raise NotImplementedError("vision models are not ported yet")
+    if quantize_cache or use_adapter:
+        raise NotImplementedError("the quantized KV cache and adapters are not ported yet")
+    model_path = PATH_QUANTIZED_PHI3_BLIND if quantize_model else PATH_ORIGINAL_PHI3_BLIND
+    if not os.path.exists(model_path):
+        raise FileNotFoundError(
+            f"no checkpoint at {model_path}: convert one with the JAX package "
+            "(phi_3_vision_mlx_tpu.core.weights), or build full-size random weights "
+            "with phi_3_vision_mlx_tpu_torch.core.weights.synth_quantized_params and "
+            "pass preload=(LM(cfg, params, device=...), processor)"
+        )
+    return _load(model_path=model_path, device=device, **kwargs)
+
+
+def _apply_chat_template(prompt, apply_chat_template=True):
+    """Wrap prompt(s) in the Phi-3 chat format (JAX ``_apply_chat_template``,
+    text only)."""
+    if apply_chat_template is False:
+        return prompt
+    prompts = [prompt] if isinstance(prompt, str) else prompt
+    prompts = [CHAT_TURN.format(body=p.strip()) for p in prompts]
+    return prompts[0] if len(prompts) == 1 else prompts
+
+
+def generate(
+    prompt,
+    images=None,
+    preload=None,
+    blind_model=True,
+    quantize_model=True,
+    max_tokens=512,
+    verbose=True,
+    return_tps=False,
+    early_stop=False,
+    stream=True,
+    apply_chat_template=True,
+    mute=False,
+    sample=False,
+    stop=None,
+):
+    """Greedy generation with streaming (JAX ``generate``, text prompts)."""
+    if images is not None:
+        raise NotImplementedError("vision prompts are not ported yet")
+    if preload is None:
+        preload = load(blind_model=blind_model, quantize_model=quantize_model)
+    prompt = _apply_chat_template(prompt, apply_chat_template)
+    if verbose:
+        shown = "\n".join(prompt) if isinstance(prompt, list) else prompt
+        print(f"*** Prompt ***\n{shown}\n*** Images ***\nNone\n*** Output ***")
+    return generate_text(
+        *preload, prompt, max_tokens=max_tokens, verbose=verbose, return_tps=return_tps,
+        early_stop=early_stop, stream=stream, mute=mute, sample=sample, stop=stop,
+    )

@@ -1,0 +1,128 @@
+"""Phi-3 decoder, write path over the dense cache
+(counterpart of ``phi_3_vision_mlx_tpu/models/phi3.py``).
+
+Pre-RMSNorm blocks with a fused qkv projection, su-scaled RoPE, GQA attention
+against the preallocated window and a SwiGLU MLP with a fused gate_up
+projection.  The JAX package scans one compiled layer body over stacked
+weights; here the layers run as a Python loop over zero-copy ``w[layer]``
+views of the same stacked tensors.
+
+Attention routing: a chunk of at most ``MAX_DECODE_ROWS`` queries (a decode
+step) goes through kernel K3, reading the stacked cache in place; a larger
+chunk (prefill, extend) goes through kernel K2 over the layer's whole
+window.  On the CPU both wrappers run the plain ``ops/attention.py`` path.
+The beam read path (``n_beam``) waits for constrained decoding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.config import ModelConfig
+from ..core.weights import torch_dtype
+from ..engine.state import DecodeState, init_state, update_layer_chunk
+from ..ops.kernels.flash_attention import flash_attention
+from ..ops.kernels.kv_attention import dense_kv_attention
+from ..ops.linear import dense, dense_stacked, embedding
+from ..ops.norms import rms_norm
+from ..ops.rope import apply_rotary
+
+MAX_DECODE_ROWS = 16
+
+
+class ForwardResult(NamedTuple):
+    logits: torch.Tensor
+    state: DecodeState
+
+
+def _qkv_split(cfg: ModelConfig, qkv: torch.Tensor):
+    """Fused qkv (B, L, (H + 2KV) * D) -> q (B,H,L,D), k, v (B,KV,L,D) views."""
+    b, l, _ = qkv.shape
+    h, kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    q = qkv[..., : h * d].reshape(b, l, h, d).transpose(1, 2)
+    k = qkv[..., h * d : (h + kv) * d].reshape(b, l, kv, d).transpose(1, 2)
+    v = qkv[..., (h + kv) * d :].reshape(b, l, kv, d).transpose(1, 2)
+    return q, k, v
+
+
+def _layer_step(cfg: ModelConfig, x, layers: dict, i: int, state: DecodeState, cos, sin):
+    """One decoder block; writes the chunk's k/v into layer ``i`` at
+    ``state.offset`` in place."""
+    eps, scale = cfg.rms_norm_eps, cfg.head_dim**-0.5
+    offset = state.offset
+    attn, mlp = layers["self_attn"], layers["mlp"]
+    h = rms_norm(x, layers["input_layernorm"]["weight"][i], eps)
+    q, k, v = _qkv_split(cfg, dense_stacked(attn["qkv_proj"], h, i))
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    update_layer_chunk(state, i, offset, k, v)
+    if q.shape[2] <= MAX_DECODE_ROWS:
+        o = dense_kv_attention(q, state.k, state.v, state.valid, offset, i, scale)
+    else:
+        o = flash_attention(q, state.k[i], state.v[i], state.valid, offset, scale)
+    b, _, l, _ = q.shape
+    o = o.transpose(1, 2).reshape(b, l, -1)
+    x = x + dense_stacked(attn["o_proj"], o, i).to(x.dtype)
+    h = rms_norm(x, layers["post_attention_layernorm"]["weight"][i], eps)
+    gate, up = dense_stacked(mlp["gate_up_proj"], h, i).chunk(2, dim=-1)
+    ff = F.silu(gate.float()).to(up.dtype) * up
+    return x + dense_stacked(mlp["down_proj"], ff, i).to(x.dtype)
+
+
+def decode_forward(
+    params: dict,
+    cfg: ModelConfig,
+    state: DecodeState,
+    input_ids: torch.Tensor,
+    *,
+    advance: Optional[int] = None,
+    last_logit_only: bool = False,
+) -> ForwardResult:
+    """Run a (B, L) chunk through the decoder against the cache window.
+
+    The chunk's k/v are written at ``state.offset``; the returned state
+    shares the cache tensors and advances the offset by ``L`` (or by
+    ``advance``: 0 scores without committing, 1 commits one position).
+    ``last_logit_only`` runs the lm_head for the last position only.
+    """
+    mdl = params["model"]
+    x = embedding(mdl["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
+    b, l, _ = x.shape
+    offset = state.offset
+    if offset + l > state.window:
+        raise ValueError(f"chunk of {l} at offset {offset} overflows window {state.window}")
+    cos = state.cos[:, offset : offset + l]
+    sin = state.sin[:, offset : offset + l]
+    if cos.shape[0] == 1 and b > 1:
+        cos, sin = cos.expand(b, -1, -1), sin.expand(b, -1, -1)
+    for i in range(cfg.num_hidden_layers):
+        x = _layer_step(cfg, x, mdl["layers"], i, state, cos, sin)
+    x = rms_norm(x, mdl["norm"]["weight"], cfg.rms_norm_eps)
+    if last_logit_only:
+        x = x[:, -1:]
+    logits = dense(params["lm_head"], x)[..., : cfg.vocab_size]
+    new_offset = offset + (l if advance is None else advance)
+    return ForwardResult(logits, dataclasses.replace(state, offset=new_offset))
+
+
+def prefill(
+    params: dict,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,
+    *,
+    max_tokens: int,
+    pids=None,
+    prompt_valid=None,
+    last_logit_only: bool = False,
+) -> ForwardResult:
+    """Allocate a window of ``L + max_tokens`` positions and run the prompt."""
+    b, l = input_ids.shape
+    state = init_state(
+        cfg, b, l, l + max_tokens, pids=pids, prompt_valid=prompt_valid,
+        compute_dtype=torch_dtype(cfg.dtype), device=input_ids.device,
+    )
+    return decode_forward(params, cfg, state, input_ids, last_logit_only=last_logit_only)

@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels (``phi_3_vision_mlx_tpu_torch/csrc``).
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+goes to ``csrc/build/`` (listed in ``.gitignore``) under a name keyed by a
+hash of the sources and flags, so an edited source never reuses a stale
+library.  Nothing is built or imported while a module is imported: the CPU
+tests import every module on hosts without ``nvcc`` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# C entry point -> argtypes.  Every pointer and the stream are c_void_p, or
+# ctypes would pass them as 32-bit ints and cut them.
+SIGNATURES = {
+    "k1_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "k2_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _I, _F, _P],
+    "k3_dense_kv_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+@functools.lru_cache(maxsize=1)
+def library():
+    """Compile (once per source hash) and load the kernel library.
+
+    Returns ``(lib, build_seconds)``; ``build_seconds`` is 0.0 when a
+    library built from the same sources was already on disk."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode() + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    target = BUILD_DIR / f"libphi3_kernels_{digest.hexdigest()[:16]}.so"
+    seconds = 0.0
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, seconds
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,67 @@
+"""Linear layers and the quantized embedding lookup
+(counterpart of ``phi_3_vision_mlx_tpu/ops/linear.py``).
+
+A linear leaf is either ``{'weight': (K, N)}`` (full precision) or the
+port's 4-bit layout ``{'qweight': (K/8, N) int32, 'scales': (K/64, N) bf16,
+'biases': (K/64, N) bf16 (absent in symmetric mode)}``, optionally with a
+``'bias': (N,)``.  Dispatch follows the JAX package: up to 256 rows go to
+kernel K1; above that (prefill) the weight is dequantized to the activation
+dtype and multiplied with ``torch.matmul``, as the JAX package leaves that
+product to XLA (ops/linear.py:93-95,186-203).  LoRA leaves are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.weights import unpack_int4
+from .kernels.quant_matmul import quant_matmul
+from .quant import SYMMETRIC_MID, QTensor, dequantize
+
+KERNEL_MAX_ROWS = 256
+
+
+def embedding(p: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Token-embedding lookup; quantized tables dequantize only the looked-up
+    rows (groups along the embedding dim)."""
+    ids = ids.long()
+    rows = p["weight"][ids]
+    if "scales" not in p:
+        return rows if dtype is None else rows.to(dtype)
+    s = p["scales"][ids]
+    *lead, e = rows.shape
+    groups = s.shape[-1]
+    rf = rows.float().reshape(*lead, groups, e // groups)
+    if "biases" in p:
+        out = rf * s.float()[..., None] + p["biases"][ids].float()[..., None]
+    else:
+        out = (rf - SYMMETRIC_MID) * s.float()[..., None]
+    return out.reshape(*lead, e).to(dtype or s.dtype)
+
+
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Apply a linear leaf to ``x`` (..., K) -> (..., N)."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    if "qweight" in p:
+        qw, s, b = p["qweight"], p["scales"], p.get("biases")
+        if x.numel() // k <= KERNEL_MAX_ROWS:
+            y = quant_matmul(x.reshape(-1, k).contiguous(), qw, s, b, out_dtype=x.dtype)
+            y = y.reshape(*lead, -1)
+        else:
+            w = dequantize(QTensor(unpack_int4(qw), s, b), dtype=x.dtype)
+            y = torch.matmul(x, w)
+    else:
+        y = torch.matmul(x, p["weight"].to(x.dtype))
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def layer_view(node: dict, layer: int) -> dict:
+    """Layer ``layer`` of a stacked leaf: zero-copy ``t[layer]`` views."""
+    return {k: v[layer] for k, v in node.items()}
+
+
+def dense_stacked(node: dict, x: torch.Tensor, layer: int) -> torch.Tensor:
+    """Linear over layer ``layer`` of a stacked leaf (JAX ``dense_stacked``)."""
+    return dense(layer_view(node, layer), x)

@@ -1,0 +1,12 @@
+"""Normalization (counterpart of ``phi_3_vision_mlx_tpu/ops/norms.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with float32 accumulation, cast back to ``x.dtype``."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)

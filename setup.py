@@ -20,6 +20,8 @@ setup(
     ],
     extras_require={
         "full": ["transformers", "datasets", "huggingface_hub", "matplotlib", "gradio"],
+        # phi_3_vision_mlx_tpu_torch: the PyTorch/CUDA port (kernels build with nvcc)
+        "torch": ["torch"],
     },
     entry_points={
         "console_scripts": [

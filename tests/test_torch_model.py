@@ -1,0 +1,199 @@
+"""The port's text decoder and engine against the JAX package on the tiny
+preset, 4-bit quantized, loaded by both from one checkpoint that the JAX
+package wrote (``create_random_checkpoint`` + ``quantize_checkpoint``).
+
+The checkpoint's scales and biases are first rounded to bf16-representable
+values (the port stores them as bf16; the JAX CPU path keeps float32), so
+both packages hold the same weights.  fp32 runs must agree to float32
+rounding and give identical greedy tokens; bf16 runs compare logits within a
+stated tolerance, since bf16 argmax near-ties may differ.
+"""
+
+import glob
+import os
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from phi_3_vision_mlx_tpu.api import _load as jax_load  # noqa: E402
+from phi_3_vision_mlx_tpu.core import weights as JW  # noqa: E402
+from phi_3_vision_mlx_tpu.engine import engine as JE  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.api import _load as torch_load  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.core import weights as TW  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.core.convert import from_numpy_params  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.engine import engine as TE  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.ops.rope import su_rope_tables  # noqa: E402
+
+VOCAB = 32064  # full id space, so the ByteTokenizer's special ids are valid
+PROMPT = "<|user|>\nTell me about lighthouses.<|end|>\n<|assistant|>\n"
+# fp32 logits of O(1-10): both sides run the same f32 math, the sums in
+# another order.
+FP32_ATOL = 1e-4
+
+
+def make_checkpoint(root, name, **overrides):
+    """JAX-written quantized tiny checkpoint with bf16-representable
+    scales and biases (rewritten with the port's safetensors writer)."""
+    raw, quant, out = (str(root / f"{name}{s}") for s in ("", "_q", "_qr"))
+    JW.create_random_checkpoint(raw, "tiny", vocab_size=VOCAB, **overrides)
+    JW.quantize_checkpoint(raw, quant)
+    flat = TW.load_safetensors_dir(quant)
+    for key, t in flat.items():
+        if key.endswith((".scales", ".biases")):
+            flat[key] = t.to(torch.bfloat16).float()
+    os.makedirs(out)
+    for f in glob.glob(f"{quant}/*.json"):
+        shutil.copy(f, out)
+    TW.save_safetensors(f"{out}/model.safetensors", flat)
+    return out
+
+
+@pytest.fixture(scope="module")
+def fp32_path(tmp_path_factory):
+    return make_checkpoint(tmp_path_factory.mktemp("ckpt"), "tiny")
+
+
+@pytest.fixture(scope="module")
+def fp32_pair(fp32_path):
+    return jax_load(fp32_path), torch_load(fp32_path, device="cpu")
+
+
+def _prefill_logits(pair, prompt, max_tokens):
+    (jlm, jproc), (tlm, _) = pair
+    dict_input = jproc(prompt)
+    jl, *_ = JE.run_prefill(jlm, dict_input, max_tokens)
+    tl, tstate, _, window = TE.run_prefill(tlm, dict_input, max_tokens)
+    return np.asarray(jl), tl.numpy(), tstate, window
+
+
+def _generate(pair, prompt, max_tokens):
+    (jlm, jproc), (tlm, tproc) = pair
+    kw = dict(max_tokens=max_tokens, verbose=False, stream=False, mute=True)
+    return JE.generate_text(jlm, jproc, prompt, **kw), TE.generate_text(tlm, tproc, prompt, **kw)
+
+
+def test_prefill_logits_fp32_match_jax(fp32_pair):
+    jl, tl, _, _ = _prefill_logits(fp32_pair, PROMPT, 16)
+    assert tl.shape == jl.shape == (1, VOCAB)
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=FP32_ATOL)
+
+
+@pytest.mark.parametrize("prompt", [PROMPT, ["Hi", "A longer second prompt."]])
+def test_greedy_tokens_identical_fp32(fp32_pair, prompt):
+    """16 greedy tokens through ``generate_text`` (single and left-padded
+    batch); ByteTokenizer renders unknown ids visibly, so equal text means
+    equal token ids."""
+    jout, tout = _generate(fp32_pair, prompt, 16)
+    assert tout == jout
+    assert all(len(t) > 0 for t in tout)
+
+
+def test_long_window_switches_to_long_factors(fp32_pair):
+    """A window above ``original_max_position_embeddings`` (128 on the tiny
+    preset) selects the long su-factors; the port still matches JAX."""
+    (_, _), (tlm, _) = fp32_pair
+    cfg = tlm.cfg
+    prompt = PROMPT.replace("lighthouses", "the keeper's log, the weather and the ships")
+    jl, tl, state, window = _prefill_logits(fp32_pair, prompt, 64)
+    assert window > cfg.original_max_position_embeddings
+    long_cos, _ = su_rope_tables(cfg, window)
+    short_cos, _ = su_rope_tables(cfg, cfg.original_max_position_embeddings)
+    assert not torch.allclose(long_cos[:, :16], short_cos[:, :16])
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=FP32_ATOL)
+    jout, tout = _generate(fp32_pair, prompt, 16)
+    assert tout == jout
+
+
+def test_chunked_prefill_matches_jax(fp32_pair, monkeypatch):
+    """Prompts above PREFILL_CHUNK prefill in chunks through decode_forward."""
+    monkeypatch.setattr(JE, "PREFILL_CHUNK", 64)
+    monkeypatch.setattr(TE, "PREFILL_CHUNK", 64)
+    prompt = PROMPT.replace("lighthouses", "lighthouses " * 12)
+    jl, tl, state, _ = _prefill_logits(fp32_pair, prompt, 8)
+    assert state.offset > 64
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=FP32_ATOL)
+
+
+def test_decode_forward_advance_contract(fp32_pair):
+    """``advance=0`` scores without committing; the cache is written in place."""
+    (_, _), (tlm, tproc) = fp32_pair
+    _, state, _, _ = TE.run_prefill(tlm, tproc(PROMPT), 8)
+    k_before = state.k.clone()
+    ids = torch.tensor([[1000 + 65]])
+    res = TM.decode_forward(tlm.params, tlm.cfg, state, ids, advance=0)
+    assert res.state.offset == state.offset and res.state.k is state.k
+    assert not torch.equal(state.k[:, :, :, state.offset], k_before[:, :, :, state.offset])
+    again = TM.decode_forward(tlm.params, tlm.cfg, res.state, ids)
+    assert again.state.offset == state.offset + 1
+    np.testing.assert_allclose(again.logits.numpy(), res.logits.numpy(), rtol=0, atol=1e-5)
+
+
+def test_from_numpy_params_matches_checkpoint_path(fp32_pair):
+    (jlm, _), (tlm, _) = fp32_pair
+    tree = jax.tree_util.tree_map(np.asarray, jlm.params)
+    converted = from_numpy_params(tree, jlm.cfg)
+
+    def walk(a, b, path=""):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), path
+            for k in a:
+                walk(a[k], b[k], f"{path}.{k}")
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+
+    walk(converted, tlm.params)
+
+
+def test_bf16_logits_close_to_jax(tmp_path_factory):
+    """bf16 model: JAX multiplies bf16 x bf16 -> bf16 per matmul on the CPU,
+    the port accumulates in f32 and rounds once, so activations differ at
+    bf16 rounding (2**-8 relative) per op through 2 layers (about 1% relative
+    L2 on the logits); they must agree to 3% and in their top token set."""
+    path = make_checkpoint(tmp_path_factory.mktemp("ckpt16"), "tiny16", dtype="bfloat16")
+    pair = (jax_load(path), torch_load(path, device="cpu"))
+    jl, tl, _, _ = _prefill_logits(pair, PROMPT, 16)
+    rel = np.linalg.norm(tl - jl) / np.linalg.norm(jl)
+    assert rel < 3e-2, rel
+    top_t = set(np.argsort(tl[0])[-5:])
+    assert np.argmax(jl[0]) in top_t
+
+
+def test_unquantized_checkpoint_matches_jax(tmp_path):
+    """``_load`` reads an unquantized JAX checkpoint too (plain matmuls)."""
+    path = str(tmp_path / "raw")
+    JW.create_random_checkpoint(path, "tiny", vocab_size=VOCAB)
+    pair = (jax_load(path), torch_load(path, device="cpu"))
+    assert "weight" in pair[1][0].params["lm_head"]
+    jl, tl, _, _ = _prefill_logits(pair, PROMPT, 8)
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=FP32_ATOL)
+
+
+def test_load_without_checkpoint_names_the_synthetic_path(tmp_path, monkeypatch):
+    """The JAX offline fallback builds weights with JAX; the port raises."""
+    from phi_3_vision_mlx_tpu_torch import api
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="synth_quantized_params"):
+        api.load()
+
+
+def test_no_silent_cpu_fallback(fp32_path, fp32_pair, monkeypatch):
+    """Models load onto CUDA unless the caller names a device; with no card
+    that raises instead of carrying on on the CPU."""
+    from phi_3_vision_mlx_tpu_torch import api
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (_, _), (tlm, _) = fp32_pair
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api._load(fp32_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TE.LM(tlm.cfg, tlm.params, device="cuda")
+    with pytest.raises(TypeError):
+        TE.LM(tlm.cfg, tlm.params)  # the device is never implied
+    assert TE.LM(tlm.cfg, tlm.params, device="cpu").device.type == "cpu"
