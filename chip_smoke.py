@@ -8,18 +8,25 @@ caught and carried on):
 
 1. device   — requires a CUDA card; prints its name and power limit and
                builds the kernels from ``phi_3_vision_mlx_tpu_torch/csrc``.
-2. kernels  — K1 (W4A16 matmul), K2 (flash attention) and K3 (decode
-               attention) against their plain PyTorch versions on the card
-               at the main path's shapes, with CUDA-event times of both.
-3. reference — a depth-cut (2-layer) full-width Phi-3.5-mini: prefill and
-               decode logits through the kernels on the card against the
-               plain path on the CPU, same weights and prompt.
+2. kernels  — K1 (W4A16 matmul), K2 (flash attention), K3 (decode
+               attention), K4 (decode attention over the int4 KV cache) and
+               K5 (flash attention over the int4 KV cache) against their
+               plain PyTorch versions on the card at the main path's shapes,
+               with CUDA-event times of both; causal-edge checks of K3, K4.
+3. reference — a depth-cut (2-layer) full-width Phi-3.5-mini, with the
+               dense and with the int4 KV cache: prefill and decode logits
+               through the kernels on the card against the plain path on the
+               CPU, same weights and prompt.
 4. serving  — full-size 4-bit Phi-3.5-mini (random weights from a seed)
-               behind the port's HTTP handler answers three requests; the
-               launch counters show that K1, K2 and K3 carried them; decode
+               behind the port's HTTP handler answers three requests, once
+               with the dense cache and once with the int4 cache
+               (``use_quantized_cache``); the launch counters show that K1,
+               K2 and K3 carried the first run and K1, K4 and K5 the second,
+               and that neither launched the other cache's kernels; decode
                tok/s of the first request through ``api.generate``.
 5. profile  — where a decode token's time goes at a short and a long
-               window: host wall time per token, device busy time per token
+               window, with the dense and with the int4 cache: host wall
+               time per token, device busy time per token
                (``torch.profiler``), the idle share, kernel launches per
                token and the largest device items.
 
@@ -64,10 +71,20 @@ K1_ATOL, K1_RTOL = 1e-3, 1e-3
 # outputs near zero (an H100 run measured at most 2.4e-4 there, and one ulp
 # of |x| < 0.25 is under 1e-3).
 ATTN_ATOL, ATTN_RTOL = 2e-3, 2 * 2.0**-7
+KV_MEAN = (0.5, -0.3)  # k/v offsets: the int4 cache's bias planes carry signal
 # Phase 3: bf16 activations through 2 layers on two devices (an H100 run
 # measured 8.4e-3 relative L2 and 9.3e-5 in max log-prob).
 REF_REL_L2 = 1.5e-2
 REF_LOGPROB = 1e-3
+# Phase 3 with the int4 cache, each device quantizing its own keys: rounding
+# to 16 levels turns a 1-ulp bf16 difference into a whole step (1/15 of a
+# group's range) wherever it crosses a level boundary.  On the CPU, 1-ulp
+# noise on 2% of the embeddings moved these logits by 1.2e-2 relative L2
+# with the dense cache and 4.1e-2 with the int4 cache; the int4 cache's own
+# effect (int4 vs dense) is 0.156.  The limit sits above the amplified noise
+# and below half of that effect.  With the card's cache entries replayed on
+# the CPU, the comparison is held to REF_REL_L2.
+REF_INT4_OWN_REL_L2 = 5 * REF_REL_L2
 
 
 def fail(msg: str) -> None:
@@ -276,6 +293,101 @@ def phase_kernels(torch, report):
     report["K3"]["max_abs_err"] = max(errs)
 
 
+def phase_quantized_kernels(torch, report):
+    """K4 and K5 against their plain versions over int4 caches made by the
+    port's own quantizer from random bf16 k/v."""
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
+    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    kvq = KVQuantConfig(group_size=32, bits=4)
+    b_, h, kvh, d = 1, 32, 32, 96
+    scale = d**-0.5
+
+    def int4_cache(nl, lmax):
+        k = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[0]
+        v = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[1]
+        return quantize_chunk(k.to(torch.bfloat16), v.to(torch.bfloat16), kvq)
+
+    # --- K4: Lq 1 and 4 against windows 640 and 4224; checked with the
+    # offset mid-window and last, timed at the window's end.  The dequantized
+    # values are bit-identical, so only the order of the sums differs.
+    errs = []
+    nl = 8  # layers of the stacked cache, rotated so timing reads it cold
+    for lmax in (640, 4224):
+        payload, scales = int4_cache(nl, lmax)
+        valid = torch.rand((b_, lmax), generator=g, device=dev) > 0.05
+        valid[:, :10] = False  # left padding
+        for lq in (1, 4):
+            q = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+            for offset in (lmax // 2, lmax - lq):
+                for layer in (0, nl - 1):
+                    out = KV.quantized_kv_attention(q, payload, scales, valid, offset, layer, scale)
+                    ref = KV.quantized_kv_attention_plain(q, payload, scales, valid, offset, layer, scale)
+                    torch.cuda.synchronize()
+                    ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+                    errs.append(ea)
+                    if not ok:
+                        fail(f"K4 disagrees with its plain version at Lmax={lmax} Lq={lq} "
+                             f"offset={offset} layer={layer}")
+        # Causal edge, as for K3.  A group of 32 equal values dequantizes
+        # exactly (scale 1, q = 0, value = bias), so values of -64 and +64
+        # at keys offset and offset + 1 survive quantization.  Right: -64.
+        off, layer = lmax // 2, nl - 1
+        q = torch.randn((b_, 1, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        edge_k = (4 * q[:, :, 0, :].float()).to(torch.bfloat16)  # H == KV here
+        edge_v = torch.tensor([-64.0, 64.0], device=dev)[:, None].expand(2, d).to(torch.bfloat16)
+        p2, s2 = quantize_chunk(torch.stack([edge_k, edge_k], dim=2),
+                                edge_v.expand(b_, kvh, 2, d), kvq)
+        payload[layer, :, :, off : off + 2], scales[layer, :, :, off : off + 2] = p2, s2
+        edge_valid = valid.clone()
+        edge_valid[:, off : off + 2] = True
+        out = KV.quantized_kv_attention(q, payload, scales, edge_valid, off, layer, scale)
+        ref = KV.quantized_kv_attention_plain(q, payload, scales, edge_valid, off, layer, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        edge = (out.float() + 64).abs().max().item()
+        log(f"K4 causal edge at offset {off}: max_abs={ea:.3e} vs plain, max |out + 64| = {edge:.3e} (limit 1)")
+        if not ok or edge > 1:
+            fail(f"K4 mishandles the causal edge at Lmax={lmax} offset={off}")
+        errs.append(ea)
+        nxt = rotating(nl)
+        t = timed(torch, lambda: KV.quantized_kv_attention(q, payload, scales, valid, lmax - 1, nxt(), scale),
+                  lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, lmax - 1, nxt(), scale), 20)
+        log(f"K4 Lq=1,4 Lmax={lmax} offsets {lmax // 2},{lmax - 1} H={h} D={d}: max_abs={max(errs):.3e} "
+            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}); Lq=1 at offset {lmax - 1}: {t.pop('text')}")
+        if lmax == 4224:
+            report["K4"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96 int4")
+        del payload, scales
+    report["K4"]["max_abs_err"] = max(errs)
+
+    # --- K5: left-padded prompts at offset 0, and an extend of 256 queries
+    # at offset 1024, over a window = chunk end + decode budget.
+    errs = []
+    for lq, q_pos0, pad, budget in ((64, 0, 14, 64), (1024, 0, 24, 32), (256, 1024, 24, 32)):
+        lmax = -(-(q_pos0 + lq + budget) // 128) * 128
+        payload, scales = int4_cache(2, lmax)
+        q = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        valid = torch.ones((b_, lmax), dtype=torch.bool, device=dev)
+        valid[:, :pad] = False
+        out = KV.quantized_flash_attention(q, payload, scales, valid, q_pos0, 1, scale)
+        ref = KV.quantized_flash_attention_plain(q, payload, scales, valid, q_pos0, 1, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        errs.append(ea)
+        t = timed(torch, lambda: KV.quantized_flash_attention(q, payload, scales, valid, q_pos0, 1, scale),
+                  lambda: KV.quantized_flash_attention_plain(q, payload, scales, valid, q_pos0, 1, scale), 12)
+        log(f"K5 lq={lq} q_pos0={q_pos0} lk={lmax} pad={pad} H={h} D={d}: max_abs={ea:.3e} "
+            f"max_rel={er:.3e} (atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}) {t.pop('text')}")
+        if (lq, q_pos0) == (1024, 0):
+            report["K5"].update(t, shape=f"lq=1024 lk={lmax} H=32 D=96 int4")
+        if not ok:
+            fail(f"K5 disagrees with its plain version at lq={lq} q_pos0={q_pos0}")
+    report["K5"]["max_abs_err"] = max(errs)
+
+
 def full_config():
     from phi_3_vision_mlx_tpu_torch.core.config import QuantConfig, preset
 
@@ -283,13 +395,17 @@ def full_config():
 
 
 def phase_reference(torch, params, proc):
-    """2-layer full-width slice: kernels on the card vs the plain path on the CPU."""
+    """2-layer full-width slice: kernels on the card vs the plain path on the
+    CPU, with the dense and with the int4 KV cache.  The int4 cache is
+    compared twice: with the CPU run writing the card's quantized entries
+    (the kernels against the plain path on the same cache, at the dense
+    limits), and with each device quantizing its own keys."""
     import numpy as np
 
     from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+    from phi_3_vision_mlx_tpu_torch.engine import state as S
     from phi_3_vision_mlx_tpu_torch.engine.engine import LM, decode_chunk, run_prefill
-
-    cfg = full_config().replace(num_hidden_layers=2)
+    from phi_3_vision_mlx_tpu_torch.models import phi3
 
     def first_layers(node):
         if isinstance(node, dict):
@@ -301,23 +417,47 @@ def phase_reference(torch, params, proc):
         "lm_head": params["lm_head"],
     }
     dict_input = proc(_apply_chat_template(PROMPT_A))
-    outs, token = {}, None
-    for device in ("cuda", "cpu"):
-        lm = LM(cfg, small, device=device)
-        logits, state, _, _ = run_prefill(lm, dict_input, 8)
-        if token is None:
-            token = int(logits[0].argmax())
-        _, _, _, maxlp, _ = decode_chunk(lm, torch.tensor([[token]], device=device), state, 1)
-        outs[device] = (logits[0].float().cpu().numpy(), float(maxlp[0, 0]))
-    a, b = outs["cuda"][0], outs["cpu"][0]
-    if a.shape != (cfg.vocab_size,) or not np.isfinite(a).all():
-        fail(f"reference: bad logits shape {a.shape} or non-finite values")
-    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
-    dlp = abs(outs["cuda"][1] - outs["cpu"][1])
-    log(f"reference (2 layers, width 3072): prefill logits rel L2 cuda-vs-cpu {rel:.3e} "
-        f"(limit {REF_REL_L2}); decode max log-prob diff {dlp:.3e} (limit {REF_LOGPROB})")
-    if rel > REF_REL_L2 or not dlp <= REF_LOGPROB:
-        fail("reference: the kernel path disagrees with the plain path")
+    written = {}  # (layer, offset) -> the card's quantized entries
+
+    def record(state, layer, offset, k_new, v_new):
+        S.update_layer_chunk(state, layer, offset, k_new, v_new)
+        n = k_new.shape[2]
+        written[layer, offset] = (state.k[layer, :, :, offset : offset + n].cpu(),
+                                  state.k_scales[layer, :, :, offset : offset + n].cpu())
+
+    def replay(state, layer, offset, k_new, v_new):
+        payload, scales = written[layer, offset]
+        state.k[layer, :, :, offset : offset + k_new.shape[2]] = payload
+        state.k_scales[layer, :, :, offset : offset + k_new.shape[2]] = scales
+
+    def run(cfg, device, token, write=S.update_layer_chunk):
+        phi3.update_layer_chunk = write
+        try:
+            lm = LM(cfg, small, device=device)
+            logits, state, _, _ = run_prefill(lm, dict_input, 8)
+            token = int(logits[0].argmax()) if token is None else token
+            _, _, _, maxlp, _ = decode_chunk(lm, torch.tensor([[token]], device=device), state, 1)
+        finally:
+            phi3.update_layer_chunk = S.update_layer_chunk
+        return logits[0].float().cpu().numpy(), float(maxlp[0, 0]), token
+
+    for quantized in (False, True):
+        cfg = full_config().replace(num_hidden_layers=2, use_quantized_cache=quantized)
+        a, lp_a, token = run(cfg, "cuda", None, record if quantized else S.update_layer_chunk)
+        if a.shape != (cfg.vocab_size,) or not np.isfinite(a).all():
+            fail(f"reference: bad logits shape {a.shape} or non-finite values")
+        checks = [("dense KV cache", S.update_layer_chunk, REF_REL_L2)]
+        if quantized:
+            checks = [("int4 KV cache, the card's entries replayed", replay, REF_REL_L2),
+                      ("int4 KV cache, each device quantizing", S.update_layer_chunk, REF_INT4_OWN_REL_L2)]
+        for what, write, limit in checks:
+            b, lp_b, _ = run(cfg, "cpu", token, write)
+            rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+            dlp = abs(lp_a - lp_b)
+            log(f"reference (2 layers, width 3072, {what}): prefill logits rel L2 cuda-vs-cpu "
+                f"{rel:.3e} (limit {limit:.3g}); decode max log-prob diff {dlp:.3e} (limit {REF_LOGPROB})")
+            if rel > limit or not dlp <= REF_LOGPROB:
+                fail(f"reference: the kernel path disagrees with the plain path ({what})")
 
 
 def post(port: int, body: dict, timeout: float = 600):
@@ -330,15 +470,24 @@ def post(port: int, body: dict, timeout: float = 600):
 
 
 def phase_serving(torch, lm, proc, report):
+    """Three requests through the HTTP handler; the counters must show the
+    cache's own kernels and none of the other cache's."""
     from http.server import HTTPServer
 
     from phi_3_vision_mlx_tpu_torch import api
     from phi_3_vision_mlx_tpu_torch.ops.kernels.flash_attention import flash_attention
-    from phi_3_vision_mlx_tpu_torch.ops.kernels.kv_attention import dense_kv_attention
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.kv_attention import (
+        dense_kv_attention,
+        quantized_flash_attention,
+        quantized_kv_attention,
+    )
     from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import quant_matmul
     from phi_3_vision_mlx_tpu_torch.serve.server import make_handler
 
-    counters = {"K1": quant_matmul, "K2": flash_attention, "K3": dense_kv_attention}
+    counters = {"K1": quant_matmul, "K2": flash_attention, "K3": dense_kv_attention,
+                "K4": quantized_kv_attention, "K5": quantized_flash_attention}
+    cache = "int4" if lm.cfg.use_quantized_cache else "dense"
+    expected = ("K1", "K4", "K5") if cache == "int4" else ("K1", "K2", "K3")
     requests = [
         ("a", PROMPT_A, 64),
         ("b", (FILLER * 20)[:1000], 32),
@@ -357,26 +506,29 @@ def phase_serving(torch, lm, proc, report):
             dt = time.perf_counter() - t0
             resp = payload.get("responses")
             if status != 200 or not isinstance(resp, list) or not resp or not resp[0]:
-                fail(f"request ({tag}): status {status}, payload {str(payload)[:200]}")
+                fail(f"request ({tag}, {cache} cache): status {status}, payload {str(payload)[:200]}")
             n_prompt = len(proc(api._apply_chat_template(prompt))["input_ids"][0])
-            log(f"request ({tag}): {n_prompt} prompt tokens, max_tokens {max_tokens}: HTTP {status}, "
-                f"{len(resp[0])} chars in {dt:.2f} s")
+            log(f"request ({tag}, {cache} cache): {n_prompt} prompt tokens, max_tokens {max_tokens}: "
+                f"HTTP {status}, {len(resp[0])} chars in {dt:.2f} s")
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    log(f"launch counts over the three requests: {launches}")
+    log(f"launch counts over the three requests ({cache} cache): {launches}")
     for name, n in launches.items():
-        report[name]["launches"] = n
+        if name not in expected:
+            if n != 0:
+                fail(f"{name} was launched {n} times on the {cache}-cache path")
+            continue
+        report[name].setdefault("launches", n)  # K1: the dense path's count
         if n <= 0:
-            fail(f"{name} was never launched on the main path")
+            fail(f"{name} was never launched on the {cache}-cache path")
     api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False, stream=False, mute=True)
     _, tps = api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False,
                           stream=False, mute=True, return_tps=True)
-    report["decode_tps"] = tps
-    log(f"decode tok/s, request (a) through api.generate (64 tokens, eager): {tps:.2f} "
-        f"on {report['card']}")
+    log(f"decode tok/s, request (a) through api.generate (64 tokens, eager, {cache} cache): "
+        f"{tps:.2f} on {report['card']}")
 
 
 def short_name(kernel: str) -> str:
@@ -395,6 +547,7 @@ def phase_profile(torch, lm, proc, steps: int = 16):
     from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
     from phi_3_vision_mlx_tpu_torch.engine.engine import decode_chunk, run_prefill
 
+    cache = "int4" if lm.cfg.use_quantized_cache else "dense"
     for tag, prompt, budget in (("a", PROMPT_A, 512), ("c", (FILLER * 60)[:4200], 16)):
         dict_input = proc(_apply_chat_template(prompt))
         torch.cuda.synchronize()
@@ -421,10 +574,12 @@ def phase_profile(torch, lm, proc, steps: int = 16):
         if busy <= 0:
             fail(f"profile ({tag}): the profiler saw no device time")
         top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
-        log(f"profile ({tag}): {len(dict_input['input_ids'][0])} prompt tokens, window {window}: "
-            f"prefill {prefill_ms:.1f} ms; decode wall {wall:.2f} ms/token ({1e3 / wall:.2f} tok/s), "
-            f"device busy {busy:.3f} ms/token, idle share {1 - busy / wall:.3f}, "
-            f"{launches / steps:.0f} launches/token; largest (ms/token): {top}")
+        attn = sum(ms for name, ms in per_name.items() if "kv_" in name or "flash" in name)
+        log(f"profile ({tag}, {cache} cache): {len(dict_input['input_ids'][0])} prompt tokens, "
+            f"window {window}: prefill {prefill_ms:.1f} ms; decode wall {wall:.2f} ms/token "
+            f"({1e3 / wall:.2f} tok/s), device busy {busy:.3f} ms/token, idle share "
+            f"{1 - busy / wall:.3f}, {launches / steps:.0f} launches/token; attention kernels "
+            f"{attn:.3f} ms/token; largest (ms/token): {top}")
 
 
 def main() -> None:
@@ -455,10 +610,15 @@ def main() -> None:
                "replaces": "phi_3_vision_mlx_tpu/ops/kernels/flash_attention.py:112"},
         "K3": {"name": "dense_kv_attention", "source": source + "attention.cu",
                "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:213"},
+        "K4": {"name": "quantized_kv_attention", "source": source + "quant_kv_attention.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:603"},
+        "K5": {"name": "quantized_flash_attention", "source": source + "quant_kv_attention.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:777"},
     }
 
     # Phase 2: each kernel against its plain version.
     phase_kernels(torch, report)
+    phase_quantized_kernels(torch, report)
     torch.cuda.empty_cache()
 
     # Phases 3-5 share the full-size weights.
@@ -476,8 +636,11 @@ def main() -> None:
     proc = Phi3Processor(tokenizer=ByteTokenizer())
     phase_reference(torch, params, proc)
     lm = LM(cfg, params, device="cuda")
+    lm_int4 = LM(cfg.replace(use_quantized_cache=True), params, device="cuda")
     phase_serving(torch, lm, proc, report)
+    phase_serving(torch, lm_int4, proc, report)
     phase_profile(torch, lm, proc)
+    phase_profile(torch, lm_int4, proc)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
@@ -486,7 +649,7 @@ def main() -> None:
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
          "plain_device_ms": r["plain_device_ms"], "shape": r["shape"]}
-        for r in (report["K1"], report["K2"], report["K3"])
+        for r in (report[k] for k in ("K1", "K2", "K3", "K4", "K5"))
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

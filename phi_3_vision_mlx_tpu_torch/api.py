@@ -8,8 +8,10 @@ random-checkpoint fallback of the JAX ``_setup`` builds weights with JAX, so
 here a missing checkpoint raises instead; full-size random weights for smoke
 runs come from ``core.weights.synth_quantized_params``.  Models load onto
 ``device="cuda"`` unless a caller names another device; with no CUDA card
-that raises instead of running on the CPU.  ``choose``, ``constrain``,
-vision, sampling and adapters are not ported yet.
+that raises instead of running on the CPU.  ``load(quantize_cache=True)``
+(``_load(..., use_quantized_cache=True)``) serves from the 4-bit group-32
+KV cache (kernels K4/K5 on the card).  ``choose``, ``constrain``, vision,
+sampling and adapters are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,11 +42,12 @@ def _load(model_path=PATH_QUANTIZED_PHI3_BLIND, device="cuda", **kwargs):
 
 def load(blind_model: bool = True, quantize_model: bool = True, quantize_cache: bool = False,
          use_adapter: bool = False, device="cuda", **kwargs):
-    """Flag-based model selection (JAX ``load``); text models only."""
+    """Flag-based model selection (JAX ``load``); text models only.
+    ``quantize_cache`` selects the 4-bit KV cache."""
     if not blind_model:
         raise NotImplementedError("vision models are not ported yet")
-    if quantize_cache or use_adapter:
-        raise NotImplementedError("the quantized KV cache and adapters are not ported yet")
+    if use_adapter:
+        raise NotImplementedError("adapters are not ported yet")
     model_path = PATH_QUANTIZED_PHI3_BLIND if quantize_model else PATH_ORIGINAL_PHI3_BLIND
     if not os.path.exists(model_path):
         raise FileNotFoundError(
@@ -53,7 +56,7 @@ def load(blind_model: bool = True, quantize_model: bool = True, quantize_cache: 
             "with phi_3_vision_mlx_tpu_torch.core.weights.synth_quantized_params and "
             "pass preload=(LM(cfg, params, device=...), processor)"
         )
-    return _load(model_path=model_path, device=device, **kwargs)
+    return _load(model_path=model_path, device=device, use_quantized_cache=quantize_cache, **kwargs)
 
 
 def _apply_chat_template(prompt, apply_chat_template=True):

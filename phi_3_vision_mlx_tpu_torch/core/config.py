@@ -7,6 +7,7 @@ presets and of the checkpoint's ``config.json`` schema for both packages.
 
 from phi_3_vision_mlx_tpu.core.config import (  # noqa: F401
     ID_EOS,
+    KVQuantConfig,
     ModelConfig,
     QuantConfig,
     config_from_dict,

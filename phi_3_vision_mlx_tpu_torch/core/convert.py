@@ -1,7 +1,8 @@
-"""JAX-package parameter pytree (as numpy arrays) -> the port's params.
+"""JAX-package state (as numpy arrays) -> the port's tensors: the parameter
+pytree, and the quantized KV cache.
 
 The parity tests use this to make both packages compute the same thing from
-one set of weights.  bf16 arrays leave JAX as ``ml_dtypes.bfloat16``; mixing
+one set of weights and one cache.  bf16 arrays leave JAX as ``ml_dtypes.bfloat16``; mixing
 those with float32 in numpy silently gives garbage, so every floating array
 is cast to float32 at the numpy boundary first, then to the torch dtype (the
 bf16 -> f32 -> bf16 round trip is exact).
@@ -34,3 +35,30 @@ def from_numpy_params(tree: dict, cfg: ModelConfig) -> dict:
         return _to_torch(node, dt)
 
     return prepare_params(walk(tree), cfg)
+
+
+def d_perm(d: int, groups: int) -> np.ndarray:
+    """The JAX package's head-dim permutation of its quantized cache: its
+    column c holds original dim ``(c % G) * (d // G) + c // G``."""
+    c = np.arange(d)
+    return (c % groups) * (d // groups) + c // groups
+
+
+def from_jax_kv_cache(payload, scales, bits: int = 4):
+    """A JAX quantized cache (numpy, any leading dims) -> the port's layout.
+
+    JAX: payload (..., D, L) uint8 at 4 bits or (..., 2D, L) at 8 bits (k
+    rows over v rows), D permuted by :func:`d_perm`; scales (..., 4G, L).
+    Port (``engine/state.py``): payload (..., L, D | 2D) in the original D
+    order, scales (..., L, 4G) bf16.
+    """
+    scales = np.asarray(scales).astype(np.float32)
+    rows = np.swapaxes(np.asarray(payload), -1, -2)
+    unperm = np.argsort(d_perm(rows.shape[-1] // (1 if bits == 4 else 2), scales.shape[-2] // 4))
+    if bits == 4:
+        rows = rows[..., unperm]
+    else:
+        d = rows.shape[-1] // 2
+        rows = np.concatenate([rows[..., :d][..., unperm], rows[..., d:][..., unperm]], axis=-1)
+    return (torch.from_numpy(np.ascontiguousarray(rows)),
+            torch.from_numpy(np.ascontiguousarray(np.swapaxes(scales, -1, -2))).to(torch.bfloat16))

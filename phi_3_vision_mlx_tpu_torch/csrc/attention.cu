@@ -6,160 +6,30 @@
 // phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:dense_kv_attention (:213),
 // body _dense_kernel (:151).
 //
-// Both compute softmax((q * scale) k^T) v where key j is visible from query i
-// iff j <= pos(i) and valid[b, j].  As in the plain path (ops/attention.py),
-// q * scale is rounded to the input type before the dot product, scores and
-// the softmax are f32, masked scores take the finite NEG_INF = -0.7 * FLT_MAX
-// (never -inf), and a row with no visible key comes out as the uniform
-// average of all Lk values — finite, so a padded cache position is never
-// poisoned by 0 * NaN in p.V.  GQA: query head h reads kv head h / (H / KV).
+// The masking and rounding rules, and the flash body that K2 shares with
+// K5, are in attention.cuh.
 //
 // What bounds them on the H100:
 // * K2 (prefill, Lq ~ Lk in the thousands) is bound by FLOPs: 4 * Lq * Lk * D
 //   per head for q.k and p.v, halved by causality.  This first version runs
-//   them on the CUDA cores in f32 (not the tensor cores): one thread per query
-//   row holds its accumulator in registers, 64 rows per block, and K/V tiles
-//   of 32 keys are staged in shared memory as f32 (K transposed so a thread
-//   reads four keys per float4).  Tiles past the causal horizon of the whole
-//   query tile are skipped, which is exact, unless a row in the tile has seen
-//   no visible key yet (a left-pad row): that block walks all tiles to produce
-//   the uniform average.  wgmma for both products is later work.
+//   them on the CUDA cores in f32 (not the tensor cores), with the flash body
+//   of attention.cuh over bf16 tiles; wgmma for both products is later work.
 // * K3 (decode, Lq <= 16) is bound by bytes: the layer's K and V for the
 //   window, 2 * Lk * D * 2 B per (batch, kv head), read once per query row.
 //   One block per (query row, head, batch); each warp takes every 8th key,
 //   a lane holds D/32 dims, the score is a warp all-reduce, and the softmax is
 //   online per warp; warps merge their (max, sum, acc) through shared memory.
 //   At B = 1 this fills only 32 of the 132 SMs; split-K flash-decoding is
-//   later work.  The cache is read in place from the stacked
-//   (layers, B, KV, Lmax, D) buffer: no per-layer copy.
+//   later work (K4 in quant_kv_attention.cu splits the window).  The cache is
+//   read in place from the stacked (layers, B, KV, Lmax, D) buffer: no
+//   per-layer copy.
 //
 // Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
 // cudaErrorInvalidValue until a configuration on the card needs it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention.cuh"
 
 namespace {
-
-constexpr float kNegInf = -0.7f * FLT_MAX;
-constexpr int kBQ = 64;   // K2: query rows (threads) per block
-constexpr int kBK = 32;   // K2: keys per tile
-constexpr int kDecThreads = 256;  // K3: threads per block (8 warps)
-
-__device__ __forceinline__ float bf(const __nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float round_bf(float v) { return __bfloat162float(__float2bfloat16(v)); }
-
-template <int D>
-__global__ void __launch_bounds__(kBQ)
-    flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
-                           __nv_bfloat16* __restrict__ out, int H, int KV, int Lq, int Lk,
-                           long long qsb, long long qsh, long long qsl, long long osb,
-                           long long osh, long long osl, int q_pos0, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;              // [D][kBK]  keys transposed
-  float* vs = kt + D * kBK;      // [kBK][D]
-  float* qs = vs + kBK * D;      // [kBQ][D + 1]  (odd stride: no bank conflicts)
-  __shared__ int key_ok[kBK];
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int i0 = blockIdx.x * kBQ;
-  const int i = i0 + tid;
-  const bool row_ok = i < Lq;
-  const int qpos = q_pos0 + i;
-  const int horizon = q_pos0 + min(Lq, i0 + kBQ) - 1;
-
-  for (int idx = tid; idx < kBQ * D; idx += kBQ) {
-    const int r = idx / D, c = idx % D, qi = i0 + r;
-    qs[r * (D + 1) + c] =
-        qi < Lq ? round_bf(bf(q[b * qsb + h * qsh + qi * qsl + c]) * scale) : 0.f;
-  }
-  const size_t head = ((size_t)b * KV + kvh) * (size_t)Lk * D;
-  const __nv_bfloat16* kb = k + head;
-  const __nv_bfloat16* vb = v + head;
-  const uint8_t* vrow = valid + (size_t)b * Lk;
-
-  float m = kNegInf, l = 0.f;
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
-  for (int j0 = 0; j0 < Lk; j0 += kBK) {
-    if (j0 > horizon && !__syncthreads_or(row_ok && m == kNegInf)) break;
-    __syncthreads();
-    for (int idx = tid; idx < kBK * D; idx += kBQ) {
-      const int r = idx / D, c = idx % D, j = j0 + r;
-      const bool in = j < Lk;
-      kt[c * kBK + r] = in ? bf(kb[(size_t)j * D + c]) : 0.f;
-      vs[r * D + c] = in ? bf(vb[(size_t)j * D + c]) : 0.f;
-    }
-    if (tid < kBK) key_ok[tid] = (j0 + tid < Lk) ? (vrow[j0 + tid] != 0 ? 1 : 0) : -1;
-    __syncthreads();
-    if (!row_ok) continue;
-
-    float s[kBK];
-#pragma unroll
-    for (int c = 0; c < kBK; ++c) s[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qs[tid * (D + 1) + d];
-      const float4* kr = reinterpret_cast<const float4*>(kt + d * kBK);
-#pragma unroll
-      for (int c4 = 0; c4 < kBK / 4; ++c4) {
-        const float4 kk = kr[c4];
-        s[4 * c4 + 0] = fmaf(qd, kk.x, s[4 * c4 + 0]);
-        s[4 * c4 + 1] = fmaf(qd, kk.y, s[4 * c4 + 1]);
-        s[4 * c4 + 2] = fmaf(qd, kk.z, s[4 * c4 + 2]);
-        s[4 * c4 + 3] = fmaf(qd, kk.w, s[4 * c4 + 3]);
-      }
-    }
-    float mt = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < kBK; ++c) {
-      const int ok = key_ok[c];
-      if (ok < 0) s[c] = -INFINITY;                        // past Lk: no key at all
-      else if (!(ok && j0 + c <= qpos)) s[c] = kNegInf;  // masked key
-      mt = fmaxf(mt, s[c]);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kBK; ++c) {
-      s[c] = expf(s[c] - m_new);
-      psum += s[c];
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      float4 a = make_float4(acc[4 * d4] * alpha, acc[4 * d4 + 1] * alpha,
-                             acc[4 * d4 + 2] * alpha, acc[4 * d4 + 3] * alpha);
-#pragma unroll
-      for (int c = 0; c < kBK; ++c) {
-        const float4 vv = reinterpret_cast<const float4*>(vs + c * D)[d4];
-        a.x = fmaf(s[c], vv.x, a.x);
-        a.y = fmaf(s[c], vv.y, a.y);
-        a.z = fmaf(s[c], vv.z, a.z);
-        a.w = fmaf(s[c], vv.w, a.w);
-      }
-      acc[4 * d4] = a.x;
-      acc[4 * d4 + 1] = a.y;
-      acc[4 * d4 + 2] = a.z;
-      acc[4 * d4 + 3] = a.w;
-    }
-    m = m_new;
-  }
-  if (!row_ok) return;
-  const float denom = l == 0.f ? 1.f : l;
-  __nv_bfloat16* o = out + b * osb + h * osh + i * osl;
-#pragma unroll
-  for (int d = 0; d < D; ++d) o[d] = __float2bfloat16(acc[d] / denom);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kDecThreads)
@@ -256,23 +126,6 @@ __global__ void __launch_bounds__(kDecThreads)
 }
 
 template <int D>
-cudaError_t launch_flash(const void* q, const void* k, const void* v, const void* valid,
-                         void* out, int B, int H, int KV, int Lq, int Lk, const long long* st,
-                         int q_pos0, float scale, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * (2 * D * kBK + kBQ * (D + 1));
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<D><<<grid, kBQ, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<__nv_bfloat16*>(out), H, KV, Lq, Lk, st[0], st[1], st[2], st[3], st[4], st[5],
-      q_pos0, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* valid,
                           void* out, int B, int H, int KV, int Lq, int Lmax, const long long* st,
                           int layer, int offset, float scale, cudaStream_t stream) {
@@ -301,7 +154,7 @@ extern "C" int k2_flash_attention(const void* q, const void* k, const void* v, c
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   switch (D) {
-    case 96: return (int)launch_flash<96>(q, k, v, valid, out, B, H, KV, Lq, Lk, st, q_pos0, scale, stream);
+    case 96: return (int)launch_flash<96, DenseKV<96>>(q, k, v, valid, out, B, H, KV, Lq, Lk, st, q_pos0, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,4 @@
-"""Phi-3 decoder, write path over the dense cache
+"""Phi-3 decoder, write path over the dense or quantized cache
 (counterpart of ``phi_3_vision_mlx_tpu/models/phi3.py``).
 
 Pre-RMSNorm blocks with a fused qkv projection, su-scaled RoPE, GQA attention
@@ -7,11 +7,26 @@ projection.  The JAX package scans one compiled layer body over stacked
 weights; here the layers run as a Python loop over zero-copy ``w[layer]``
 views of the same stacked tensors.
 
-Attention routing: a chunk of at most ``MAX_DECODE_ROWS`` queries (a decode
-step) goes through kernel K3, reading the stacked cache in place; a larger
-chunk (prefill, extend) goes through kernel K2 over the layer's whole
-window.  On the CPU both wrappers run the plain ``ops/attention.py`` path.
-The beam read path (``n_beam``) waits for constrained decoding.
+Each layer writes the chunk's k/v into the cache first (quantized first for
+a quantized cache), then attends to the cache, the fresh keys included.
+Attention routing (the port's own table; the JAX package's TPU thresholds
+do not carry over):
+
+=============  ===============================  ================================
+cache          Lq <= ``MAX_DECODE_ROWS`` (16)   Lq > 16 (prefill, extend)
+=============  ===============================  ================================
+dense bf16     K3 over the stacked cache        K2 over the layer's window
+int4           K4 over the stacked payload      K5 over the stacked payload
+int8           ``read_kv`` of the layer to the  ``read_kv``, then K2
+               compute dtype, then K3 on that
+               one-layer view
+=============  ===============================  ================================
+
+The int8 row is explicit routing, not a fallback: K4 and K5 read the
+nibble-packed int4 layout only (the JAX package dispatches its int4 decode
+kernel without checking the bits).  On the CPU every wrapper runs its plain
+``ops/attention.py`` path.  The beam read path (``n_beam``) waits for
+constrained decoding.
 """
 
 from __future__ import annotations
@@ -24,9 +39,9 @@ import torch.nn.functional as F
 
 from ..core.config import ModelConfig
 from ..core.weights import torch_dtype
-from ..engine.state import DecodeState, init_state, update_layer_chunk
+from ..engine.state import DecodeState, init_state, read_kv, update_layer_chunk
 from ..ops.kernels.flash_attention import flash_attention
-from ..ops.kernels.kv_attention import dense_kv_attention
+from ..ops.kernels.kv_attention import dense_kv_attention, quantized_flash_attention, quantized_kv_attention
 from ..ops.linear import dense, dense_stacked, embedding
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rotary
@@ -49,6 +64,23 @@ def _qkv_split(cfg: ModelConfig, qkv: torch.Tensor):
     return q, k, v
 
 
+def _attend(q, state: DecodeState, i: int, offset: int, scale: float):
+    """Attention of the chunk's queries to layer ``i`` of the cache, routed
+    by the table of the module docstring."""
+    decode = q.shape[2] <= MAX_DECODE_ROWS
+    if state.quantized and state.kv_quant.bits == 4:
+        attend = quantized_kv_attention if decode else quantized_flash_attention
+        return attend(q, state.k, state.k_scales, state.valid, offset, i, scale)
+    if state.quantized:
+        k, v = read_kv(state, i, q.dtype)
+        k_stack, v_stack, layer = k[None], v[None], 0
+    else:
+        k_stack, v_stack, layer = state.k, state.v, i
+    if decode:
+        return dense_kv_attention(q, k_stack, v_stack, state.valid, offset, layer, scale)
+    return flash_attention(q, k_stack[layer], v_stack[layer], state.valid, offset, scale)
+
+
 def _layer_step(cfg: ModelConfig, x, layers: dict, i: int, state: DecodeState, cos, sin):
     """One decoder block; writes the chunk's k/v into layer ``i`` at
     ``state.offset`` in place."""
@@ -60,10 +92,7 @@ def _layer_step(cfg: ModelConfig, x, layers: dict, i: int, state: DecodeState, c
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     update_layer_chunk(state, i, offset, k, v)
-    if q.shape[2] <= MAX_DECODE_ROWS:
-        o = dense_kv_attention(q, state.k, state.v, state.valid, offset, i, scale)
-    else:
-        o = flash_attention(q, state.k[i], state.v[i], state.valid, offset, scale)
+    o = _attend(q, state, i, offset, scale)
     b, _, l, _ = q.shape
     o = o.transpose(1, 2).reshape(b, l, -1)
     x = x + dense_stacked(attn["o_proj"], o, i).to(x.dtype)

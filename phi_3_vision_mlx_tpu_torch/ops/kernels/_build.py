@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``phi_3_vision_mlx_tpu_torch/csrc``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build
 goes to ``csrc/build/`` (listed in ``.gitignore``) under a name keyed by a
 hash of the sources and flags, so an edited source never reuses a stale
 library.  Nothing is built or imported while a module is imported: the CPU
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -38,6 +39,10 @@ SIGNATURES = {
                            _L, _L, _L, _L, _L, _L, _I, _F, _P],
     "k3_dense_kv_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
+    "k4_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
+    "k5_quantized_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
 }
 
 
@@ -63,13 +68,29 @@ def library():
     seconds = 0.0
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objs)
+        ]
+        errors = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in SIGNATURES.items():

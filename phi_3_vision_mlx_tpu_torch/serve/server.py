@@ -4,8 +4,10 @@
 POST /v1/completions with {"prompt": str | [str], "max_tokens": int,
 optional "stop"} -> {"model", "responses": [...]}, the same JSON as the JAX
 server.  Decoding is greedy; a request with "temperature" > 0 gets a 500
-JSON error until sampling is ported.  The continuous-batching scheduler is
-not ported yet.
+JSON error until sampling is ported.  ``serve(quantize_cache=True)`` loads
+the model with the 4-bit KV cache (keyword arguments of ``serve`` go to
+``api.load``; as in the JAX server there is no command-line flag for it).
+The continuous-batching scheduler is not ported yet.
 
 Example:
     python -m phi_3_vision_mlx_tpu_torch.serve.server --port 8000

@@ -22,8 +22,14 @@ from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as K3  # noqa: E
 
 D = 32
 SCALE = D**-0.5
-# f32 on both sides; only the order of the f32 sums differs.
-F32_TOL = dict(rtol=1e-5, atol=1e-5)
+# f32 on both sides; only the order of the f32 sums differs.  Outputs are
+# O(1) weighted averages of N(0, 1) values; each score is a 32-term f32 dot
+# product and each softmax runs over at most 96 keys, so the accumulated
+# rounding is a few e-6, more where XLA's CPU threading reorders the sums (a
+# tier-1 run once saw 4.5e-5 against the float64 answer).  1e-4 absolute
+# covers that; test_f32_tolerance_catches_a_dropped_key shows that a real
+# fault still moves the output by far more.
+F32_TOL = dict(rtol=0, atol=1e-4)
 
 
 def _mask(valid, q_pos, lk):
@@ -72,6 +78,21 @@ def test_flash_plain_matches_jax(g, q_pos0):
     np.testing.assert_allclose(ref, exact, **F32_TOL, err_msg="JAX vs float64")
     np.testing.assert_allclose(out.numpy(), exact, **F32_TOL, err_msg="port vs float64")
     np.testing.assert_allclose(out.numpy(), ref, **F32_TOL)
+
+
+def test_f32_tolerance_catches_a_dropped_key():
+    """One visible key dropped from the mask of a row that sees few keys
+    moves that row's output by more than 10x F32_TOL's limit."""
+    b, kvh, lq, lk, pad = 2, 2, 24, 96, 5
+    q, k, v, valid = _inputs(7, b, kvh, kvh, lq, lk, pad)
+    allowed = _mask(valid, np.arange(lq), lk)
+    out = K2.flash_attention(*map(torch.from_numpy, (q, k, v, valid)), 0, SCALE).numpy()
+    faulty = allowed.copy()
+    row = pad + 5  # sees keys pad .. row except the dropped pad + 3
+    faulty[:, :, row, pad + 1] = False
+    moved = np.abs(_float64(q, k, v, faulty) - out)[:, :, row].max()
+    assert moved > 10 * F32_TOL["atol"], moved
+    np.testing.assert_allclose(out, _float64(q, k, v, allowed), **F32_TOL)
 
 
 def test_flash_fully_masked_rows_are_finite_uniform():
@@ -138,4 +159,11 @@ def test_attention_wrappers_have_no_silent_fallback():
         K2.flash_attention(q, k[0], k[0], valid, 0, SCALE)
     with pytest.raises(RuntimeError, match="no kernel"):
         K3.dense_kv_attention(q, k, k, valid, 0, 0, SCALE)
+    payload = torch.empty((1, 1, 1, 8, D), dtype=torch.uint8, device="meta")
+    scales = torch.empty((1, 1, 1, 8, 4), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        K3.quantized_kv_attention(q, payload, scales, valid, 0, 0, SCALE)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        K3.quantized_flash_attention(q, payload, scales, valid, 0, 0, SCALE)
     assert K2.flash_attention.launches == 0 and K3.dense_kv_attention.launches == 0
+    assert K3.quantized_kv_attention.launches == 0 and K3.quantized_flash_attention.launches == 0

@@ -19,14 +19,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from phi_3_vision_mlx_tpu.api import _load as jax_load  # noqa: E402
 from phi_3_vision_mlx_tpu.core import weights as JW  # noqa: E402
+from phi_3_vision_mlx_tpu.core.config import KVQuantConfig  # noqa: E402
 from phi_3_vision_mlx_tpu.engine import engine as JE  # noqa: E402
+from phi_3_vision_mlx_tpu.models import phi3 as JM  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.api import _load as torch_load  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.core import weights as TW  # noqa: E402
-from phi_3_vision_mlx_tpu_torch.core.convert import from_numpy_params  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.core.convert import from_jax_kv_cache, from_numpy_params  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine import engine as TE  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.engine import state as TS  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.rope import su_rope_tables  # noqa: E402
 
@@ -197,3 +201,145 @@ def test_no_silent_cpu_fallback(fp32_path, fp32_pair, monkeypatch):
     with pytest.raises(TypeError):
         TE.LM(tlm.cfg, tlm.params)  # the device is never implied
     assert TE.LM(tlm.cfg, tlm.params, device="cpu").device.type == "cpu"
+
+
+# --- The quantized KV cache: both packages load one checkpoint with
+# ``use_quantized_cache=True``; the 8-bit cases replace ``kv_quant`` (the
+# checkpoint config has no field for it) and pin the routing by bits.
+# D = 96 (three quantization groups, GQA 2:1) overrides the tiny preset.
+#
+# Rounding to 16 (or 256) levels is discontinuous: the two packages' f32
+# activations differ by ~1e-7 (sums in another order), and a value that close
+# to a level boundary rounds to the neighbouring level in one of them.  One
+# such value among ~12K in layer 0 moved the tiny D = 96 model's logits by
+# 0.1.  So the port's run writes the JAX package's quantized entries in place
+# of its own (``ReplayJaxCache``), which holds everything downstream of the
+# quantizer (layout, offsets, routing, attention, engine) to float32
+# agreement, and it checks the port's own entries against the JAX ones:
+# equal but for a few values one level apart.  The quantizer alone is held
+# bit for bit in tests/test_torch_kv_quant.py.
+D96 = dict(hidden_size=192, num_attention_heads=2, num_key_value_heads=1)
+MAX_FLIP_SHARE = 1e-3  # of the values written
+
+
+@pytest.fixture(scope="module")
+def d96_path(tmp_path_factory):
+    return make_checkpoint(tmp_path_factory.mktemp("ckpt96"), "tiny96", **D96)
+
+
+@pytest.fixture(scope="module", params=[(32, 4), (96, 4), (32, 8), (96, 8)],
+                ids=["int4-D32", "int4-D96", "int8-D32", "int8-D96"])
+def qcache_pair(request, fp32_path, d96_path):
+    d, bits = request.param
+    path = fp32_path if d == 32 else d96_path
+    (jlm, jproc), (tlm, tproc) = jax_load(path, use_quantized_cache=True), torch_load(
+        path, device="cpu", use_quantized_cache=True)
+    assert jlm.cfg.use_quantized_cache and tlm.cfg.use_quantized_cache and tlm.cfg.head_dim == d
+    kvq = KVQuantConfig(bits=bits)
+    jlm = JE.LM(jlm.cfg.replace(kv_quant=kvq), jlm.params, model_path=path)
+    tlm = TE.LM(tlm.cfg.replace(kv_quant=kvq), tlm.params, model_path=path, device="cpu")
+    return (jlm, jproc), (tlm, tproc)
+
+
+class ReplayJaxCache:
+    """``update_layer_chunk`` for the port that writes the entries of a JAX
+    cache (every position the run writes must be in it) instead of its own
+    quantization, and counts where its own entries differ."""
+
+    def __init__(self, jax_state, bits: int):
+        kv = jax_state.kv
+        self.payload, self.scales = from_jax_kv_cache(
+            np.asarray(kv.k), np.asarray(kv.k_scales.astype(jnp.float32)), bits)
+        self.bits, self.values, self.flips, self.max_step = bits, 0, 0, 0
+
+    def _levels(self, payload):
+        return torch.stack([payload & 15, payload >> 4]) if self.bits == 4 else payload
+
+    def __call__(self, state, layer, offset, k_new, v_new):
+        pos = slice(offset, offset + k_new.shape[2])
+        want_p, want_s = self.payload[layer, :, :, pos], self.scales[layer, :, :, pos]
+        own_p, own_s = TS.quantize_chunk(k_new, v_new, state.kv_quant)
+        step = (self._levels(own_p).int() - self._levels(want_p).int()).abs()
+        self.values += step.numel()
+        self.flips += int((step > 0).sum())
+        self.max_step = max(self.max_step, int(step.max()))
+        torch.testing.assert_close(own_s.float(), want_s.float(), rtol=2.0**-7, atol=1e-6)
+        state.k[layer, :, :, pos], state.k_scales[layer, :, :, pos] = want_p, want_s
+
+    def check(self):
+        assert self.values > 0 and self.max_step <= 1
+        assert self.flips <= MAX_FLIP_SHARE * self.values, (self.flips, self.values)
+
+
+def _jax_decode(jlm, dict_input, max_tokens):
+    """JAX prefill, then greedy steps through ``decode_forward``: the
+    prefill logits and the state holding every position the run wrote."""
+    jl, state, _, _ = JE.run_prefill(jlm, dict_input, max_tokens)
+    tok = np.asarray(jl).argmax(-1)[:, None]
+    for _ in range(max_tokens - 1):
+        res = JM.decode_forward(jlm.params, jlm.cfg, state, jnp.asarray(tok))
+        state, tok = res.state, np.asarray(res.logits[:, -1]).argmax(-1)[:, None]
+    return np.asarray(jl), state
+
+
+def test_quantized_cache_prefill_logits_match_jax(qcache_pair, monkeypatch):
+    (jlm, jproc), (tlm, _) = qcache_pair
+    dict_input = jproc(PROMPT)
+    jl, jstate, _, _ = JE.run_prefill(jlm, dict_input, 16)
+    replay = ReplayJaxCache(jstate, tlm.cfg.kv_quant.bits)
+    monkeypatch.setattr(TM, "update_layer_chunk", replay)
+    tl, state, _, _ = TE.run_prefill(tlm, dict_input, 16)
+    assert state.quantized and state.k.dtype == torch.uint8 and state.v is None
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=FP32_ATOL)
+    replay.check()
+
+
+@pytest.mark.parametrize("prompt", [PROMPT, ["Hi", "A longer second prompt."]], ids=["single", "batch"])
+def test_quantized_cache_greedy_tokens_identical(qcache_pair, prompt, monkeypatch):
+    """16 greedy tokens through the port's ``generate_text`` (single and
+    left-padded batch) equal the JAX package's ``generate_text``."""
+    (jlm, jproc), (tlm, tproc) = qcache_pair
+    _, jstate = _jax_decode(jlm, jproc(prompt), 16)
+    replay = ReplayJaxCache(jstate, tlm.cfg.kv_quant.bits)
+    monkeypatch.setattr(TM, "update_layer_chunk", replay)
+    jout, tout = _generate(qcache_pair, prompt, 16)
+    assert tout == jout
+    assert all(len(t) > 0 for t in tout)
+    replay.check()
+
+
+def test_quantized_cache_chunked_prefill_matches_jax(qcache_pair, monkeypatch):
+    """Chunks of 64 extend the quantized cache through decode_forward (K5's
+    path on the card; int8 through read_kv and K2)."""
+    (jlm, jproc), (tlm, _) = qcache_pair
+    monkeypatch.setattr(JE, "PREFILL_CHUNK", 64)
+    monkeypatch.setattr(TE, "PREFILL_CHUNK", 64)
+    dict_input = jproc(PROMPT.replace("lighthouses", "lighthouses " * 12))
+    jl, jstate, _, _ = JE.run_prefill(jlm, dict_input, 8)
+    replay = ReplayJaxCache(jstate, tlm.cfg.kv_quant.bits)
+    monkeypatch.setattr(TM, "update_layer_chunk", replay)
+    tl, state, _, _ = TE.run_prefill(tlm, dict_input, 8)
+    assert state.offset > 64
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=FP32_ATOL)
+    replay.check()
+
+
+def test_load_quantize_cache_generates_the_jax_text(fp32_path, tmp_path, monkeypatch):
+    """``api.load(quantize_cache=True)`` and ``_load(..., use_quantized_cache=
+    True)`` set the flag and generate what the JAX package generates."""
+    from phi_3_vision_mlx_tpu_torch import api
+
+    jlm, jproc = jax_load(fp32_path, use_quantized_cache=True)
+    want = JE.generate_text(jlm, jproc, PROMPT, max_tokens=12, verbose=False, stream=False, mute=True)
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("models")
+    os.symlink(fp32_path, api.PATH_QUANTIZED_PHI3_BLIND)
+    for lm, proc in (api.load(quantize_cache=True, device="cpu"),
+                     api._load(fp32_path, device="cpu", use_quantized_cache=True)):
+        assert lm.cfg.use_quantized_cache
+        got = api.generate(PROMPT, preload=(lm, proc), max_tokens=12, verbose=False, stream=False,
+                           mute=True, apply_chat_template=False)
+        assert got == want
+    assert not api.load(device="cpu")[0].cfg.use_quantized_cache
+    with pytest.raises(NotImplementedError, match="adapters"):
+        api.load(quantize_cache=True, use_adapter=True, device="cpu")

@@ -2,7 +2,10 @@
 
 Each server gets its own preload of the same tiny quantized checkpoint (see
 tests/test_torch_model.py:make_checkpoint) and must return the same
-``responses`` for the same request.  The import test runs in a subprocess so
+``responses`` for the same request, once with the dense KV cache and once
+with the 4-bit cache (``use_quantized_cache``).  For the 4-bit pair the
+port's server writes the JAX package's quantized cache entries in place of
+its own (tests/test_torch_model.py:ReplayJaxCache explains why).  The import test runs in a subprocess so
 that ``sys.modules`` starts clean.
 """
 
@@ -22,11 +25,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_model import make_checkpoint  # noqa: E402
+from test_torch_model import ReplayJaxCache, _jax_decode, make_checkpoint  # noqa: E402
 
 from phi_3_vision_mlx_tpu.api import _load as jax_load  # noqa: E402
 from phi_3_vision_mlx_tpu.serve.server import make_handler as jax_handler  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.api import _load as torch_load  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.serve.server import make_handler as torch_handler  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,14 +40,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def ports(tmp_path_factory):
     path = make_checkpoint(tmp_path_factory.mktemp("ckpt"), "tiny")
+    jax_q = jax_load(path, use_quantized_cache=True)
     servers = {
         "jax": HTTPServer(("127.0.0.1", 0), jax_handler(jax_load(path))),
         "torch": HTTPServer(("127.0.0.1", 0), torch_handler(torch_load(path, device="cpu"))),
+        "jax_q": HTTPServer(("127.0.0.1", 0), jax_handler(jax_q)),
+        "torch_q": HTTPServer(("127.0.0.1", 0), torch_handler(
+            torch_load(path, device="cpu", use_quantized_cache=True))),
     }
     threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers.values()]
     for t in threads:
         t.start()
-    yield {name: s.server_address[1] for name, s in servers.items()}
+    yield {**{name: s.server_address[1] for name, s in servers.items()}, "jax_q_lm": jax_q}
     for s in servers.values():
         s.shutdown()
         s.server_close()
@@ -70,15 +79,22 @@ def post(port, data: bytes):
         {"prompt": "Stop early", "max_tokens": 10, "stop": ">"},
     ],
 )
-def test_same_responses_as_jax_server(ports, body):
+def test_same_responses_as_jax_server(ports, body, monkeypatch):
     data = json.dumps(body).encode()
-    jcode, jpayload = post(ports["jax"], data)
-    tcode, tpayload = post(ports["torch"], data)
-    assert jcode == tcode == 200
-    assert tpayload == jpayload
-    assert tpayload["model"] == "phi-3-vision-tpu"
     n = 1 if isinstance(body["prompt"], str) else len(body["prompt"])
-    assert len(tpayload["responses"]) == n
+    jlm, jproc = ports["jax_q_lm"]
+    _, jstate = _jax_decode(jlm, jproc(_apply_chat_template(body["prompt"])), body["max_tokens"])
+    replay = ReplayJaxCache(jstate, jlm.cfg.kv_quant.bits)
+    for jax_server, torch_server in (("jax", "torch"), ("jax_q", "torch_q")):
+        if torch_server == "torch_q":
+            monkeypatch.setattr(TM, "update_layer_chunk", replay)
+        jcode, jpayload = post(ports[jax_server], data)
+        tcode, tpayload = post(ports[torch_server], data)
+        assert jcode == tcode == 200
+        assert tpayload == jpayload, torch_server
+        assert tpayload["model"] == "phi-3-vision-tpu"
+        assert len(tpayload["responses"]) == n
+    replay.check()
 
 
 def test_error_paths(ports):
