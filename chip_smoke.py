@@ -24,14 +24,29 @@ caught and carried on):
                K2 and K3 carried the first run and K1, K4 and K5 the second,
                and that neither launched the other cache's kernels; decode
                tok/s of the first request through ``api.generate``.
-5. profile  — where a decode token's time goes at a short and a long
+5. continuous — the same model behind the continuous handler and
+               scheduler over the paged pool (4 slots, window 1024, page
+               64): (a) dense pool, (b) int4 pool, six concurrent requests
+               each; (c) the dense pool cut to 20 pages, which must preempt
+               and resume.  Every request answers; the counters show K1 and
+               K6 (dense) or K7 (int4) on decode, K2 or K5 on admission, and
+               no K3 or K4.  Then aggregate decode tok/s of 4 busy slots and
+               one profiled paged decode chunk, beside the single-stream
+               figure of phase 4.
+6. profile  — where a decode token's time goes at a short and a long
                window, with the dense and with the int4 cache: host wall
                time per token, device busy time per token
                (``torch.profiler``), the idle share, kernel launches per
                token and the largest device items.
 
-It imports the port only, never ``jax`` or the JAX package's modules
-directly, and fails if ``jax`` was loaded by the end.
+Phase 2 also checks K6 and K7 (paged decode attention over the dense and
+the int4 page pool).  Each kernel's line in the JSON carries its bound (its
+bytes at 3.35 TB/s or its operations at 989 TFLOP/s, whichever is longer,
+from this run's inputs) and the time of one PyTorch call computing the same
+function where there is one (``library_ms``).
+
+It imports the port only, and fails if ``jax`` or any module of the JAX
+package ``phi_3_vision_mlx_tpu`` was loaded by the end.
 
 The last three lines are the card's name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``.
@@ -85,6 +100,21 @@ REF_LOGPROB = 1e-3
 # and below half of that effect.  With the card's cache entries replayed on
 # the CPU, the comparison is held to REF_REL_L2.
 REF_INT4_OWN_REL_L2 = 5 * REF_REL_L2
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): a kernel's
+# bound is the larger of its bytes over the memory rate and its operations
+# over the bf16 tensor-core rate.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work of ``nbytes`` moved and
+    ``flops`` done, and which of the two sets it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return ({"bound_ms": by_bytes, "bound_by": "bytes"} if by_bytes >= by_ops
+            else {"bound_ms": by_ops, "bound_by": "operations"})
 
 
 def fail(msg: str) -> None:
@@ -169,8 +199,36 @@ def rotating(n: int):
     return nxt
 
 
+def int4pack_ms(torch, x, k: int, n: int, copies: int, g):
+    """Time of PyTorch's own 4-bit group-64 matmul (``_weight_int4pack_mm``)
+    on K1's shape, weights rotated like K1's; None where this PyTorch has no
+    such kernel for the card."""
+    try:
+        ws = []
+        for _ in range(copies):
+            w = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device="cuda", generator=g)
+            sz = (0.01 * torch.randn((k // 64, n, 2), generator=g, device="cuda")).to(torch.bfloat16)
+            ws.append((torch._convert_weight_to_int4pack(w, 8), sz))
+        nxt = rotating(copies)
+
+        def call():
+            packed, sz = ws[nxt()]
+            return torch._weight_int4pack_mm(x, packed, 64, sz)
+
+        call()
+        torch.cuda.synchronize()
+        return cuda_ms(torch, call, 20)
+    except (AttributeError, RuntimeError, TypeError) as e:
+        log(f"K1 library call: torch._weight_int4pack_mm unavailable ({type(e).__name__}: "
+            f"{str(e)[:160]})")
+        return None
+
+
 def phase_kernels(torch, report):
     from phi_3_vision_mlx_tpu_torch.core.weights import WORD
+    import torch.nn.functional as F
+
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
     from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as K2
     from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as K3
     from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as K1
@@ -206,12 +264,19 @@ def phase_kernels(torch, report):
                 line = f"K1 K={k} N={n} M={m} {mode}: max_abs={ea:.3e} max_rel={er:.3e} " \
                        f"(atol {K1_ATOL} + rtol {K1_RTOL})"
                 if mode == "affine":
+                    if m == 1:
+                        b1 = bound(k * n // 2 + 2 * 2 * (k // 64) * n + 2 * m * k + 2 * m * n,
+                                   2 * m * k * n)
+                        line += f" bound {b1['bound_ms']:.4f} ms ({b1['bound_by']})"
                     nxt = rotating(copies)
                     t = timed(torch, lambda: K1.quant_matmul(x, *ws[nxt()]),
                               lambda: K1.quant_matmul_plain(x, *ws[nxt()]), 20)
                     line += " " + t.pop("text")
                     if (k, n, m) == (3072, 9216, 1):
-                        report["K1"].update(t, shape="K=3072 N=9216 M=1 affine")
+                        nbytes = k * n // 2 + 2 * 2 * (k // 64) * n + 2 * m * k + 2 * m * n
+                        report["K1"].update(t, shape="K=3072 N=9216 M=1 affine",
+                                            library_ms=int4pack_ms(torch, x, k, n, copies, g),
+                                            **bound(nbytes, 2 * m * k * n))
                 log(line)
                 if not ok:
                     fail(f"K1 disagrees with its plain version at K={k} N={n} M={m} {mode}")
@@ -239,7 +304,13 @@ def phase_kernels(torch, report):
         log(f"K2 lq={lq} lk={lk} pad={lq - real} H={h} D={d}: max_abs={ea:.3e} max_rel={er:.3e} "
             f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}) {t.pop('text')}")
         if lq == 1024:
-            report["K2"].update(t, shape=f"lq=1024 lk={lk} H=32 D=96")
+            mask = causal_valid_mask(valid, torch.arange(lq, device=dev))
+            keys = min(lk, lq)  # keys past the last query are never needed
+            nbytes = 2 * (2 * q.numel() + 2 * b_ * kvh * keys * d) + b_ * lk
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=mask, scale=scale), 12)
+            report["K2"].update(t, shape=f"lq=1024 lk={lk} H=32 D=96", library_ms=lib,
+                                **bound(nbytes, 4 * h * d * int(mask.sum())))
         if not ok:
             fail(f"K2 disagrees with its plain version at lq={lq}")
     report["K2"]["max_abs_err"] = max(errs)
@@ -288,7 +359,17 @@ def phase_kernels(torch, report):
         log(f"K3 Lq=1 Lmax={lmax} offsets {lmax // 2},{lmax - 1} H={h} D={d}: max_abs={max(errs):.3e} "
             f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}); at offset {lmax - 1}: {t.pop('text')}")
         if lmax == 4224:
-            report["K3"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96")
+            mask = causal_valid_mask(valid, torch.tensor([lmax - 1], device=dev))
+
+            def library():
+                layer = nxt()
+                return F.scaled_dot_product_attention(q, ks[layer], vs[layer], attn_mask=mask,
+                                                      scale=scale)
+
+            lib = cuda_ms(torch, library, 20)
+            nbytes = 2 * 2 * kvh * lmax * d + lmax + 2 * 2 * h * d
+            report["K3"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96", library_ms=lib,
+                                **bound(nbytes, 4 * h * d * int(mask.sum())))
         del ks, vs
     report["K3"]["max_abs_err"] = max(errs)
 
@@ -298,6 +379,7 @@ def phase_quantized_kernels(torch, report):
     port's own quantizer from random bf16 k/v."""
     from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
     from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
     from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
 
     dev = "cuda"
@@ -359,7 +441,9 @@ def phase_quantized_kernels(torch, report):
         log(f"K4 Lq=1,4 Lmax={lmax} offsets {lmax // 2},{lmax - 1} H={h} D={d}: max_abs={max(errs):.3e} "
             f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}); Lq=1 at offset {lmax - 1}: {t.pop('text')}")
         if lmax == 4224:
-            report["K4"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96 int4")
+            nbytes = kvh * lmax * (d + 8 * (d // 32)) + lmax + 2 * 2 * h * d
+            report["K4"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96 int4",
+                                library_ms=None, **bound(nbytes, 4 * h * d * int(valid.sum())))
         del payload, scales
     report["K4"]["max_abs_err"] = max(errs)
 
@@ -382,7 +466,10 @@ def phase_quantized_kernels(torch, report):
         log(f"K5 lq={lq} q_pos0={q_pos0} lk={lmax} pad={pad} H={h} D={d}: max_abs={ea:.3e} "
             f"max_rel={er:.3e} (atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}) {t.pop('text')}")
         if (lq, q_pos0) == (1024, 0):
-            report["K5"].update(t, shape=f"lq=1024 lk={lmax} H=32 D=96 int4")
+            pairs = int(causal_valid_mask(valid, torch.arange(lq, device=dev)).sum())
+            nbytes = kvh * lq * (d + 8 * (d // 32)) + lmax + 2 * 2 * q.numel()
+            report["K5"].update(t, shape=f"lq=1024 lk={lmax} H=32 D=96 int4", library_ms=None,
+                                **bound(nbytes, 4 * h * d * pairs))
         if not ok:
             fail(f"K5 disagrees with its plain version at lq={lq} q_pos0={q_pos0}")
     report["K5"]["max_abs_err"] = max(errs)
@@ -469,23 +556,26 @@ def post(port: int, body: dict, timeout: float = 600):
         return resp.status, json.loads(resp.read())
 
 
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+
+    return {"K1": quant_matmul, "K2": flash_attention, "K3": KV.dense_kv_attention,
+            "K4": KV.quantized_kv_attention, "K5": KV.quantized_flash_attention,
+            "K6": KV.paged_kv_attention, "K7": KV.paged_quantized_kv_attention}
+
+
 def phase_serving(torch, lm, proc, report):
     """Three requests through the HTTP handler; the counters must show the
     cache's own kernels and none of the other cache's."""
     from http.server import HTTPServer
 
     from phi_3_vision_mlx_tpu_torch import api
-    from phi_3_vision_mlx_tpu_torch.ops.kernels.flash_attention import flash_attention
-    from phi_3_vision_mlx_tpu_torch.ops.kernels.kv_attention import (
-        dense_kv_attention,
-        quantized_flash_attention,
-        quantized_kv_attention,
-    )
-    from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import quant_matmul
     from phi_3_vision_mlx_tpu_torch.serve.server import make_handler
 
-    counters = {"K1": quant_matmul, "K2": flash_attention, "K3": dense_kv_attention,
-                "K4": quantized_kv_attention, "K5": quantized_flash_attention}
+    counters = kernel_counters()
     cache = "int4" if lm.cfg.use_quantized_cache else "dense"
     expected = ("K1", "K4", "K5") if cache == "int4" else ("K1", "K2", "K3")
     requests = [
@@ -527,8 +617,245 @@ def phase_serving(torch, lm, proc, report):
     api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False, stream=False, mute=True)
     _, tps = api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False,
                           stream=False, mute=True, return_tps=True)
+    report[f"single_stream_tps_{cache}"] = tps
     log(f"decode tok/s, request (a) through api.generate (64 tokens, eager, {cache} cache): "
         f"{tps:.2f} on {report['card']}")
+
+
+def phase_paged_kernels(torch, report):
+    """K6 and K7 against their plain versions at the continuous server's
+    shapes: 4 slots, 32 heads of 96, a window of 16 pages of 64, a pool of
+    64 pages and the spare, ragged offsets, Lq 1 and 4 (the fresh region),
+    pools rotated past the L2.  Timed at Lq = 1; K6's library time is SDPA
+    on the gathered window with the same mask."""
+    import random
+
+    import torch.nn.functional as F
+
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
+    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(3)
+    s_, h, kvh, d, page, window, pool = 4, 32, 32, 96, 64, 1024, 64
+    offsets_l = (100, 400, 700, 1000)
+    scale = d**-0.5
+    rng = random.Random(3)
+    ids = rng.sample(range(pool), pool)
+    tables = torch.full((s_, window // page), pool, dtype=torch.int32)
+    for i, off in enumerate(offsets_l):
+        n = -(-(off + 4) // page)
+        tables[i, :n] = torch.tensor([ids.pop() for _ in range(n)])
+    tables = tables.to(dev)
+    offsets = torch.tensor(offsets_l, dtype=torch.int32, device=dev)
+    valid = torch.rand((s_, window), generator=g, device=dev) > 0.05
+    valid[:, :10] = False  # left padding; the bits past each offset stay random
+    shape = f"S=4 offsets {','.join(map(str, offsets_l))} window 1024 page 64 pool 64+1 H=32 D=96"
+
+    def needed(lq, per_key):
+        """Bytes a call must move and operations it must do: each slot's keys
+        up to its last query, q in, out back."""
+        keys = sum(o + lq for o in offsets_l)
+        vis = int(KV.paged_visible(valid, offsets, lq).sum())
+        nbytes = kvh * keys * per_key + s_ * window + 4 * tables.numel() + 2 * 2 * s_ * h * lq * d
+        return bound(nbytes, 4 * h * d * vis)
+
+    def check(name, kernel, plain, pools, nl):
+        errs = []
+        for lq in (1, 4):
+            q = torch.randn((s_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+            for layer in (0, nl - 1):
+                out = kernel(q, *pools, tables, valid, offsets, layer, scale)
+                ref = plain(q, *pools, tables, valid, offsets, layer, scale)
+                torch.cuda.synchronize()
+                ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+                errs.append(ea)
+                if not ok:
+                    fail(f"{name} disagrees with its plain version at Lq={lq} layer={layer}")
+        nxt = rotating(nl)
+        t = timed(torch, lambda: kernel(q1, *pools, tables, valid, offsets, nxt(), scale),
+                  lambda: plain(q1, *pools, tables, valid, offsets, nxt(), scale), 20)
+        log(f"{name} Lq=1,4 {shape}: max_abs={max(errs):.3e} (atol {ATTN_ATOL} + rtol "
+            f"{ATTN_RTOL:.4f}); Lq=1: {t.pop('text')}")
+        return t, max(errs)
+
+    q1 = torch.randn((s_, 1, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    nl = 4  # 51 MB of k and v per layer
+    pk = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev).to(torch.bfloat16)
+    pv = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev).to(torch.bfloat16)
+    t, err = check("K6", KV.paged_kv_attention, KV.paged_kv_attention_plain, (pk, pv), nl)
+    mask = KV.paged_visible(valid, offsets, 1)
+    wins = [(KV.gather_pages(pk[i], tables), KV.gather_pages(pv[i], tables)) for i in range(nl)]
+    nxt = rotating(nl)
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q1, *wins[nxt()], attn_mask=mask, scale=scale), 20)
+    report["K6"].update(t, shape=shape + " Lq=1", max_abs_err=err, library_ms=lib,
+                        **needed(1, 2 * 2 * d))
+    log(f"K6 library call (SDPA on the gathered windows): {lib:.4f} ms")
+    del pk, pv, wins
+
+    nl = 8  # 16 MB of payload and scales per layer
+    k = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev) + KV_MEAN[0]
+    v = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev) + KV_MEAN[1]
+    pools = quantize_chunk(k.to(torch.bfloat16), v.to(torch.bfloat16), KVQuantConfig(group_size=32, bits=4))
+    del k, v
+    t, err = check("K7", KV.paged_quantized_kv_attention, KV.paged_quantized_kv_attention_plain,
+                   pools, nl)
+    report["K7"].update(t, shape=shape + " Lq=1 int4", max_abs_err=err, library_ms=None,
+                        **needed(1, d + 8 * (d // 32)))
+
+
+SERVE_SLOTS, SERVE_WINDOW = 4, 1024  # the JAX server's defaults (page 64)
+
+
+def phase_continuous(torch, lm, proc, report, run: str, pool_pages: int = 0):
+    """Six concurrent requests (prompts of 100-700 tokens, 64-200 new
+    tokens; run c: about 300 and 192-256) through the continuous handler over
+    the paged pool: more requests than slots, so slots are reused.  All must
+    answer; run c's pool of ``pool_pages`` must preempt.  The counters show
+    which kernels decode (K6 dense, K7 int4) and admission (K2, K5) ran."""
+    from http.server import ThreadingHTTPServer
+
+    from phi_3_vision_mlx_tpu_torch.serve.server import ContinuousScheduler, make_continuous_handler
+
+    cache = "int4" if lm.cfg.use_quantized_cache else "dense"
+    expected = {"K1", "K5", "K7"} if cache == "int4" else {"K1", "K2", "K6"}
+    if pool_pages:
+        # Five pages of prompt each, growing to nine or ten: three running
+        # requests outgrow a 20-page pool whatever the admission timing.
+        requests = [((FILLER * 3)[: 260 + 10 * i], 192 + 16 * (i % 5)) for i in range(6)]
+    else:
+        requests = [((FILLER * 6)[: 100 + 120 * i], (64, 200, 120, 90, 160, 100)[i]) for i in range(6)]
+    sched = ContinuousScheduler(lm, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW, paged=True,
+                                pool_pages=pool_pages)
+    eng = sched.engine
+    # The pump's ticks, and the admission prefills, on the host clock: a tick
+    # that overlaps a prefill shares the GIL with it.
+    ticks, prefills = [], []
+
+    def clocked(fn, log_to):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                log_to.append((t0, time.perf_counter()))
+        return wrapper
+
+    eng.step_pipelined = clocked(eng.step_pipelined, ticks)
+    eng.prepare_many = clocked(eng.prepare_many, prefills)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_continuous_handler(sched))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    counters = kernel_counters()
+    results = {}
+
+    def worker(i, prompt, n):
+        t0 = time.perf_counter()
+        results[i] = (*post(httpd.server_address[1], {"prompt": prompt, "max_tokens": n}),
+                      time.perf_counter() - t0)
+
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        posts = [threading.Thread(target=worker, args=(i, p, n)) for i, (p, n) in enumerate(requests)]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    tag = f"continuous run ({run}, {cache} pool of {eng.pool_pages} pages)"
+    for i, (prompt, n) in enumerate(requests):
+        if i not in results:
+            fail(f"{tag}: request {i} did not answer")
+        status, payload, dt = results[i]
+        resp = payload.get("responses")
+        if status != 200 or not isinstance(resp, list) or not resp or not resp[0]:
+            fail(f"{tag}: request {i}: status {status}, payload {str(payload)[:200]}")
+    tokens = sum(len(r.tokens) for r in eng.requests.values())
+    lat = ", ".join(f"{results[i][2]:.2f}" for i in range(len(requests)))
+    log(f"{tag}: {len(requests)} requests of {[len(p) + 1 for p, _ in requests]} prompt tokens, "
+        f"max_tokens {[n for _, n in requests]}: all HTTP 200; {tokens} tokens in {wall:.2f} s "
+        f"({tokens / wall:.2f} tok/s with admission); latencies {lat} s; preemptions "
+        f"{eng.preemptions}")
+    busy = [(a, b) for a, b in ticks[1:]]
+    overlap = [b - a for a, b in busy if any(pa < b and a < pb for pa, pb in prefills)]
+    alone = [b - a for a, b in busy if not any(pa < b and a < pb for pa, pb in prefills)]
+    med = lambda xs: sorted(xs)[len(xs) // 2] * 1e3 if xs else float("nan")  # noqa: E731
+    log(f"{tag}: pump tick (8-step chunk) median {med(alone):.1f} ms alone ({len(alone)} ticks), "
+        f"{med(overlap):.1f} ms while an admission prefill runs ({len(overlap)} ticks); "
+        f"{len(prefills)} batched prefills")
+    log(f"{tag}: launch counts {launches}")
+    for name, n in launches.items():
+        if name in expected and n <= 0:
+            fail(f"{name} was never launched on the {tag} path")
+        if name not in expected and n != 0:
+            fail(f"{name} was launched {n} times on the {tag} path")
+        if name in ("K6", "K7") and name in expected:
+            report[name].setdefault("launches", n)
+            report[name].setdefault("per_request", n / len(requests))
+    if pool_pages and eng.preemptions <= 0:
+        fail(f"{tag}: the pool never preempted")
+
+
+def phase_paged_profile(torch, lm, proc, report, chunk: int = 8):
+    """Steady decode of 4 busy slots over the paged pool: aggregate tok/s
+    over timed chunks, then one profiled chunk (device busy, idle share,
+    launches per step), beside the single-stream figure of this run."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine
+
+    cache = "int4" if lm.cfg.use_quantized_cache else "dense"
+    eng = PagedBatchEngine(lm, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW)
+    prompts = [(FILLER * 6)[: 150 + 150 * i] for i in range(SERVE_SLOTS)]
+    for p in eng.prepare_many(prompts, [dict(max_tokens=400)] * SERVE_SLOTS):
+        eng.admit(p)
+    for _ in range(2):
+        eng.step(chunk)  # warm-up
+    torch.cuda.synchronize()
+    n_chunks = 6
+    t0 = time.perf_counter()
+    for _ in range(n_chunks):
+        eng.step_pipelined(chunk)
+    eng.flush()
+    wall = time.perf_counter() - t0
+    if len(eng.by_slot) != SERVE_SLOTS:
+        fail(f"paged profile ({cache}): a slot finished early")
+    t0 = time.perf_counter()
+    eng.step(chunk)
+    step_ms = (time.perf_counter() - t0) * 1e3 / chunk
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step(chunk)
+        torch.cuda.synchronize()
+    per_name, launches = Counter(), 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[short_name(e.name)] += e.device_time_total / 1e3 / chunk
+            launches += 1
+    busy = sum(per_name.values())
+    if busy <= 0:
+        fail(f"paged profile ({cache}): the profiler saw no device time")
+    rate = SERVE_SLOTS * chunk * n_chunks / wall
+    single = report.get(f"single_stream_tps_{cache}", float("nan"))
+    top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
+    attn = sum(ms for name, ms in per_name.items() if "paged" in name)
+    log(f"paged decode ({cache} pool, {SERVE_SLOTS} busy slots, window {SERVE_WINDOW}, chunks of "
+        f"{chunk}): {rate:.2f} tok/s aggregate ({rate / SERVE_SLOTS:.2f} per slot) against "
+        f"{single:.2f} tok/s single-stream in this run; step wall {step_ms:.2f} ms, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / step_ms:.3f}, {launches / chunk:.0f} launches per "
+        f"step; paged attention {attn:.3f} ms per step; largest (ms/step): {top} on {report['card']}")
 
 
 def short_name(kernel: str) -> str:
@@ -614,11 +941,16 @@ def main() -> None:
                "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:603"},
         "K5": {"name": "quantized_flash_attention", "source": source + "quant_kv_attention.cu",
                "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:777"},
+        "K6": {"name": "paged_kv_attention", "source": source + "paged_kv_attention.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:354"},
+        "K7": {"name": "paged_quantized_kv_attention", "source": source + "paged_kv_attention.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:519"},
     }
 
     # Phase 2: each kernel against its plain version.
     phase_kernels(torch, report)
     phase_quantized_kernels(torch, report)
+    phase_paged_kernels(torch, report)
     torch.cuda.empty_cache()
 
     # Phases 3-5 share the full-size weights.
@@ -639,18 +971,21 @@ def main() -> None:
     lm_int4 = LM(cfg.replace(use_quantized_cache=True), params, device="cuda")
     phase_serving(torch, lm, proc, report)
     phase_serving(torch, lm_int4, proc, report)
+    phase_continuous(torch, lm, proc, report, "a")
+    phase_continuous(torch, lm_int4, proc, report, "b")
+    phase_continuous(torch, lm, proc, report, "c", pool_pages=20)
+    phase_paged_profile(torch, lm, proc, report)
+    phase_paged_profile(torch, lm_int4, proc, report)
     phase_profile(torch, lm, proc)
     phase_profile(torch, lm_int4, proc)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("jax was imported")
+    for pkg in ("jax", "phi_3_vision_mlx_tpu"):
+        if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
+            fail(f"{pkg} was imported")
 
-    kernels = [
-        {"name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
-         "plain_device_ms": r["plain_device_ms"], "shape": r["shape"]}
-        for r in (report[k] for k in ("K1", "K2", "K3", "K4", "K5"))
-    ]
+    keys = ("name", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "device_ms", "plain_device_ms", "shape")
+    kernels = [{"route": "cuda", **{k: r[k] for k in keys}}
+               for r in (report[f"K{i}"] for i in range(1, 8))]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

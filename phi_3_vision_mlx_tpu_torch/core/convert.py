@@ -62,3 +62,28 @@ def from_jax_kv_cache(payload, scales, bits: int = 4):
         rows = np.concatenate([rows[..., :d][..., unperm], rows[..., d:][..., unperm]], axis=-1)
     return (torch.from_numpy(np.ascontiguousarray(rows)),
             torch.from_numpy(np.ascontiguousarray(np.swapaxes(scales, -1, -2))).to(torch.bfloat16))
+
+
+def from_jax_paged_pool(pool_k, pool_v, quantized: bool = False, bits: int = 4,
+                        dtype: torch.dtype = torch.float32):
+    """A JAX page pool (numpy, with or without the layer axis) -> the port's
+    pool (``engine/paging.py``), with the spare page appended.
+
+    JAX dense: pool_k/pool_v (..., P, KV, page, D) -> port k/v (..., P + 1,
+    KV, page, D) in ``dtype``.  JAX quantized: pool_k the payload (..., P,
+    KV, D | 2D, page), D permuted, pool_v the scales (..., P, KV, 4G, page)
+    -> port payload (..., P + 1, KV, page, D | 2D) and scales (..., P + 1,
+    KV, page, 4G) bf16 (:func:`from_jax_kv_cache`).  Returns (k, v) or
+    (payload, scales); the spare page is zero.
+    """
+    if quantized:
+        a, b = from_jax_kv_cache(pool_k, pool_v, bits)
+    else:
+        a, b = _to_torch(pool_k, dtype), _to_torch(pool_v, dtype)
+
+    def with_spare(t):
+        axis = t.dim() - 4  # the page axis
+        spare = t.new_zeros((*t.shape[:axis], 1, *t.shape[axis + 1:]))
+        return torch.cat([t, spare], dim=axis).contiguous()
+
+    return with_spare(a), with_spare(b)

@@ -1,6 +1,7 @@
-// Shared by the attention kernels: the masking and rounding rules, and the
-// flash-attention body of K2 (attention.cu) and K5 (quant_kv_attention.cu),
-// which differ only in how a tile of keys and values reaches shared memory.
+// Shared by the attention kernels: the masking and rounding rules, the int4
+// cache's per-key scale loads (K4, K7), and the flash-attention body of K2
+// (attention.cu) and K5 (quant_kv_attention.cu), which differ only in how a
+// tile of keys and values reaches shared memory.
 //
 // The rules, as in the plain path (ops/attention.py): q * scale is rounded
 // to the input type before the dot product, scores and the softmax are f32,
@@ -41,6 +42,27 @@ __device__ __forceinline__ float round_bf(float v) { return __bfloat162float(__f
 // path's _kv_dequantize(...).to(bfloat16).
 __device__ __forceinline__ float dequant(unsigned q, float s, float b) {
   return round_bf(__fadd_rn(__fmul_rn(static_cast<float>(q), s), b));
+}
+
+// The int4 cache (K4, K7): one key's 4G scales: G loads of 8 bytes (4G bf16 = 8G bytes per key).
+// at(i) widens bf16 i to f32 (its bits are the f32's top half); i is a
+// constant after unrolling, so the words stay in registers.
+template <int G>
+struct KeyScales {
+  uint2 w[G];
+  __device__ __forceinline__ float at(int i) const {
+    const unsigned word = (i % 4) < 2 ? w[i / 4].x : w[i / 4].y;
+    return __uint_as_float(i % 2 ? word & 0xffff0000u : word << 16);
+  }
+};
+
+template <int G>
+__device__ __forceinline__ KeyScales<G> load_scales(const __nv_bfloat16* sc) {
+  KeyScales<G> ks;
+  const uint2* src = reinterpret_cast<const uint2*>(sc);
+#pragma unroll
+  for (int t = 0; t < G; ++t) ks.w[t] = __ldg(src + t);
+  return ks;
 }
 
 // How the flash body reads key j's dim c of the cache: a key/value source

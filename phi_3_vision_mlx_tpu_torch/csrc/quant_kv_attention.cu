@@ -55,27 +55,6 @@ struct Int4KV {
   }
 };
 
-// One key's 4G scales: G loads of 8 bytes (4G bf16 = 8G bytes per key).
-// at(i) widens bf16 i to f32 (its bits are the f32's top half); i is a
-// constant after unrolling, so the words stay in registers.
-template <int G>
-struct KeyScales {
-  uint2 w[G];
-  __device__ __forceinline__ float at(int i) const {
-    const unsigned word = (i % 4) < 2 ? w[i / 4].x : w[i / 4].y;
-    return __uint_as_float(i % 2 ? word & 0xffff0000u : word << 16);
-  }
-};
-
-template <int G>
-__device__ __forceinline__ KeyScales<G> load_scales(const __nv_bfloat16* sc) {
-  KeyScales<G> ks;
-  const uint2* src = reinterpret_cast<const uint2*>(sc);
-#pragma unroll
-  for (int t = 0; t < G; ++t) ks.w[t] = __ldg(src + t);
-  return ks;
-}
-
 // The uniform average of every value of the window, for a query row that
 // sees no key.  Called by the whole block; sm_acc is [kWarps][D] scratch.
 template <int D>

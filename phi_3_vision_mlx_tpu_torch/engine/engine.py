@@ -9,7 +9,8 @@ tokens and the two logit statistics the stoppers need once per chunk, then
 replays the stoppers in the reference order.  Chunk sizes ramp from
 ``DECODE_CHUNK_MIN`` by 4x up to ``DECODE_CHUNK_MAX``.  Decode runs eagerly
 (one kernel launch at a time); CUDA graphs are later work.  Sampling,
-speculation, vision prompts and the slot engines are not ported yet.
+speculation and vision prompts are not ported yet; the continuous-batching
+engines are ``engine/batching.py`` and ``engine/paging.py``.
 """
 
 from __future__ import annotations

@@ -80,27 +80,33 @@ def init_state(
 ) -> DecodeState:
     """Allocate a fresh decode window of ``l_all`` positions.  Positions at
     or past ``prompt_len`` start valid (they will hold decoded tokens)."""
-    nl, kvh, d = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
     valid = torch.ones((batch, l_all), dtype=torch.bool, device=device)
     if prompt_valid is not None:
         valid[:, :prompt_len] = torch.as_tensor(prompt_valid, device=device).bool()
     cos, sin = su_rope_tables(cfg, l_all, pids, device=device)
-    lead = (nl, batch, kvh, l_all)
+    lead = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, l_all)
+    return DecodeState(offset=0, valid=valid, cos=cos, sin=sin,
+                       **alloc_cache(cfg, lead, compute_dtype, device))
+
+
+def alloc_cache(cfg: ModelConfig, lead: tuple, compute_dtype, device) -> dict:
+    """Zeroed cache tensors with leading dims ``lead`` (layers, rows, KV,
+    positions) in the layout of the module docstring: the ``k``, ``v``,
+    ``k_scales`` and ``kv_quant`` fields of a state.  The slot and paged
+    engines use it with (slots, window) and (pages, page) in place of
+    (B, Lmax)."""
+    d = cfg.head_dim
     if not cfg.use_quantized_cache:
-        k = torch.zeros((*lead, d), dtype=compute_dtype, device=device)
-        v = torch.zeros((*lead, d), dtype=compute_dtype, device=device)
-        return DecodeState(k=k, v=v, offset=0, valid=valid, cos=cos, sin=sin)
+        return dict(k=torch.zeros((*lead, d), dtype=compute_dtype, device=device),
+                    v=torch.zeros((*lead, d), dtype=compute_dtype, device=device))
     kvq = cfg.kv_quant
     if kvq.bits not in (4, 8) or d % min(kvq.group_size, d):
         raise ValueError(f"KV quantization {kvq} does not fit head dim {d}")
     groups = d // min(kvq.group_size, d)
     width = d if kvq.bits == 4 else 2 * d
-    return DecodeState(
-        k=torch.zeros((*lead, width), dtype=torch.uint8, device=device),
-        v=None, offset=0, valid=valid, cos=cos, sin=sin,
-        k_scales=torch.zeros((*lead, 4 * groups), dtype=torch.bfloat16, device=device),
-        kv_quant=kvq,
-    )
+    return dict(k=torch.zeros((*lead, width), dtype=torch.uint8, device=device), v=None,
+                k_scales=torch.zeros((*lead, 4 * groups), dtype=torch.bfloat16, device=device),
+                kv_quant=kvq)
 
 
 def _kv_quantize(x, kvq: KVQuantConfig):

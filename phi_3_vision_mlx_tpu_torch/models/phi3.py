@@ -26,12 +26,15 @@ The int8 row is explicit routing, not a fallback: K4 and K5 read the
 nibble-packed int4 layout only (the JAX package dispatches its int4 decode
 kernel without checking the bits).  On the CPU every wrapper runs its plain
 ``ops/attention.py`` path.  The beam read path (``n_beam``) waits for
-constrained decoding.
+constrained decoding.  The continuous-batching engines run the same
+:func:`block` with their own ``attend`` (per-slot offsets; the paged pool's
+K6/K7, ``engine/paging.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -81,18 +84,18 @@ def _attend(q, state: DecodeState, i: int, offset: int, scale: float):
     return flash_attention(q, k_stack[layer], v_stack[layer], state.valid, offset, scale)
 
 
-def _layer_step(cfg: ModelConfig, x, layers: dict, i: int, state: DecodeState, cos, sin):
-    """One decoder block; writes the chunk's k/v into layer ``i`` at
-    ``state.offset`` in place."""
-    eps, scale = cfg.rms_norm_eps, cfg.head_dim**-0.5
-    offset = state.offset
+def block(cfg: ModelConfig, x, layers: dict, i: int, cos, sin, attend):
+    """Decoder block ``i``.  ``attend(q, k, v)`` gets the rotated chunk
+    (B, H|KV, L, D), writes its k/v into the cache and returns the attention
+    output (B, H, L, D); the single-stream and the slot engines differ only
+    there."""
+    eps = cfg.rms_norm_eps
     attn, mlp = layers["self_attn"], layers["mlp"]
     h = rms_norm(x, layers["input_layernorm"]["weight"][i], eps)
     q, k, v = _qkv_split(cfg, dense_stacked(attn["qkv_proj"], h, i))
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    update_layer_chunk(state, i, offset, k, v)
-    o = _attend(q, state, i, offset, scale)
+    o = attend(q, k, v)
     b, _, l, _ = q.shape
     o = o.transpose(1, 2).reshape(b, l, -1)
     x = x + dense_stacked(attn["o_proj"], o, i).to(x.dtype)
@@ -128,8 +131,14 @@ def decode_forward(
     sin = state.sin[:, offset : offset + l]
     if cos.shape[0] == 1 and b > 1:
         cos, sin = cos.expand(b, -1, -1), sin.expand(b, -1, -1)
+    scale = cfg.head_dim**-0.5
+
+    def attend(q, k, v, i):
+        update_layer_chunk(state, i, offset, k, v)
+        return _attend(q, state, i, offset, scale)
+
     for i in range(cfg.num_hidden_layers):
-        x = _layer_step(cfg, x, mdl["layers"], i, state, cos, sin)
+        x = block(cfg, x, mdl["layers"], i, cos, sin, functools.partial(attend, i=i))
     x = rms_norm(x, mdl["norm"]["weight"], cfg.rms_norm_eps)
     if last_logit_only:
         x = x[:, -1:]

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -43,7 +44,15 @@ SIGNATURES = {
                                   _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
     "k5_quantized_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
+    "k6_paged_kv_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _I, _F, _I, _I, _P],
+    "k7_paged_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                        _I, _I, _L, _L, _L, _L, _L, _L, _I, _F, _I, _I, _P],
 }
+# The continuous server prefills on its admission thread while its pump
+# thread decodes: the first build and every launch count are shared.
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -53,12 +62,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-@functools.lru_cache(maxsize=1)
 def library():
     """Compile (once per source hash) and load the kernel library.
 
     Returns ``(lib, build_seconds)``; ``build_seconds`` is 0.0 when a
-    library built from the same sources was already on disk."""
+    library built from the same sources was already on disk.  Safe to call
+    from several threads."""
+    with _BUILD_LOCK:
+        return _library()
+
+
+@functools.lru_cache(maxsize=1)
+def _library():
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for src in sources + sorted(CSRC.glob("*.cuh")):
@@ -98,6 +113,12 @@ def library():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, seconds
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (from any thread)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, name: str) -> None:

@@ -73,7 +73,7 @@ def flash_attention(q, k, v, valid, q_pos0: int, scale: float):
         int(q_pos0), float(scale), _build.stream_ptr(q.device),
     )
     _build.check(err, "k2_flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

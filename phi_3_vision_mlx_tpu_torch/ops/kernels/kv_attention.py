@@ -1,4 +1,4 @@
-"""Kernels K3, K4 and K5: attention over the stacked KV cache, read in place.
+"""Kernels K3-K7: attention over the stacked KV cache or page pool, read in place.
 
 Each takes the whole ``(layers, ...)`` cache and a layer index, so a layer is
 read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
@@ -18,6 +18,20 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
   length over the int4 cache.  Replaces
   ``kv_attention.py:quantized_flash_attention``; CUDA source
   ``csrc/quant_kv_attention.cu`` (``k5_quantized_flash_attention``).
+* K6 :func:`paged_kv_attention` — decode (Lq <= 16) of every slot of the
+  paged engine through its page table over the dense page pool
+  ``(layers, P + 1, KV, page, D)`` (``engine/paging.py``).  Replaces
+  ``kv_attention.py:paged_kv_attention``; CUDA source
+  ``csrc/paged_kv_attention.cu`` (``k6_paged_kv_attention``).
+* K7 :func:`paged_quantized_kv_attention` — K6 over the int4 page pool
+  (payload ``(layers, P + 1, KV, page, D)`` uint8, scales ``(..., 4G)``).
+  Replaces ``kv_attention.py:paged_quantized_kv_attention``; same source
+  (``k7_paged_quantized_kv_attention``).
+
+K6 and K7 take per-slot offsets ``(S,)`` on the device and apply the
+fresh-region rule: query ``i`` of slot ``s`` sees key ``j`` iff ``j <=
+offsets[s] + i`` and (``valid[s, j]`` or ``j >= offsets[s]``) — the keys
+from the offset on are the step's own, whose validity bits commit after it.
 
 The JAX package permutes the head dim of its quantized cache and of the
 queries for the TPU's lane tiling; the port does not.  Each wrapper launches
@@ -33,12 +47,14 @@ from __future__ import annotations
 import torch
 
 from ...engine.state import dequantize_kv
-from ..attention import decode_attention
+from ..attention import decode_attention, masked_attention
 from . import _build
 from .flash_attention import HEAD_DIMS, check_attention_inputs, flash_attention_plain, head_major_empty
 
 KV_GROUP = 32  # the kernels' quantization group along D
 K4_SPLIT_KEYS = 256  # K4: keys per block; longer windows split across blocks
+PAGED_SPLIT_KEYS = 256  # K6/K7: the same
+MAX_PAGED_ROWS = 16  # K6/K7: queries per slot (decode and, later, speculation)
 
 
 def dense_kv_attention_plain(q, k_stack, v_stack, valid, offset: int, layer_idx: int, scale: float):
@@ -67,7 +83,7 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset: int, layer_idx: int, 
         _build.stream_ptr(q.device),
     )
     _build.check(err, "k3_dense_kv_attention")
-    dense_kv_attention.launches += 1
+    _build.count_launch(dense_kv_attention)
     return out
 
 
@@ -134,7 +150,7 @@ def quantized_kv_attention(q, payload, scales, valid, offset: int, layer_idx: in
         n_split, K4_SPLIT_KEYS, _build.stream_ptr(q.device),
     )
     _build.check(err, "k4_quantized_kv_attention")
-    quantized_kv_attention.launches += 1
+    _build.count_launch(quantized_kv_attention)
     return out
 
 
@@ -160,8 +176,137 @@ def quantized_flash_attention(q, payload, scales, valid, q_pos0: int, layer_idx:
         int(layer_idx), int(q_pos0), float(scale), _build.stream_ptr(q.device),
     )
     _build.check(err, "k5_quantized_flash_attention")
-    quantized_flash_attention.launches += 1
+    _build.count_launch(quantized_flash_attention)
     return out
 
 
 quantized_flash_attention.launches = 0
+
+
+def gather_pages(pool_layer, page_tables):
+    """One layer's pool ``(P + 1, KV, page, X)`` -> each slot's logical
+    window ``(S, KV, W, X)`` through its page table ``(S, W / page)``."""
+    g = pool_layer[page_tables.long()]  # (S, mp, KV, page, X)
+    s, mp, kvh, page, x = g.shape
+    return g.transpose(1, 2).reshape(s, kvh, mp * page, x)
+
+
+def paged_visible(valid, offsets, lq: int):
+    """(S, 1, Lq, W) bool: the fresh-region rule of the module docstring."""
+    key = torch.arange(valid.shape[1], device=valid.device)
+    off = offsets.long()[:, None, None]
+    q_pos = off + torch.arange(lq, device=valid.device)[None, :, None]
+    return (((key < off) & valid[:, None, :]) | ((key >= off) & (key <= q_pos)))[:, None]
+
+
+def paged_kv_attention_plain(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx: int,
+                             scale: float):
+    k = gather_pages(pool_k[layer_idx], page_tables)
+    v = gather_pages(pool_v[layer_idx], page_tables)
+    return masked_attention(q, k, v, paged_visible(valid, offsets, q.shape[2]), scale)
+
+
+def paged_quantized_kv_attention_plain(q, payload, scales, page_tables, valid, offsets,
+                                       layer_idx: int, scale: float):
+    k, v = dequantize_kv(gather_pages(payload[layer_idx], page_tables),
+                         gather_pages(scales[layer_idx], page_tables), q.dtype, bits=4)
+    return masked_attention(q, k, v, paged_visible(valid, offsets, q.shape[2]), scale)
+
+
+def check_paged_inputs(q, pool_a, pool_b, page_tables, valid, offsets, layer_idx: int,
+                       b_width: int, name: str) -> None:
+    """Device, dtype, shape and layout checks shared by K6 and K7;
+    ``b_width`` is the last dim ``pool_b`` must have."""
+    s, h, lq, d = q.shape
+    if any(t.device != q.device for t in (pool_a, pool_b, page_tables, valid, offsets)):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if q.dtype != torch.bfloat16 or page_tables.dtype != torch.int32 or offsets.dtype != torch.int32:
+        raise TypeError(f"{name} kernel takes bf16 q and int32 page tables and offsets, got "
+                        f"{q.dtype}/{page_tables.dtype}/{offsets.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"{name}: valid must be a bool tensor")
+    if pool_a.dim() != 5 or not 0 <= layer_idx < pool_a.shape[0]:
+        raise ValueError(f"{name}: pool {tuple(pool_a.shape)}, layer {layer_idx}")
+    _, _, kvh, page, width = pool_a.shape
+    mp = page_tables.shape[-1]
+    if d not in HEAD_DIMS or width != d or pool_b.shape != (*pool_a.shape[:4], b_width):
+        raise ValueError(f"{name}: head dim {d}, pools {tuple(pool_a.shape)} and "
+                         f"{tuple(pool_b.shape)} do not match")
+    if (h % kvh or not 1 <= lq <= MAX_PAGED_ROWS or page_tables.shape != (s, mp)
+            or valid.shape != (s, mp * page) or offsets.shape != (s,)):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, pool {tuple(pool_a.shape)}, tables "
+                         f"{tuple(page_tables.shape)}, valid {tuple(valid.shape)}, offsets "
+                         f"{tuple(offsets.shape)} do not match")
+    if q.stride(-1) != 1 or not all(t.is_contiguous() for t in (pool_a, pool_b, page_tables,
+                                                                 valid, offsets)):
+        raise ValueError(f"{name}: q needs unit stride along D; pools, tables, valid and offsets "
+                         "must be contiguous")
+
+
+def _paged_launch(entry: str, q, pool_a, pool_b, page_tables, valid, offsets, layer_idx: int,
+                  scale: float):
+    s, h, lq, d = q.shape
+    _, p1, kvh, page, _ = pool_a.shape
+    mp = page_tables.shape[1]
+    n_split = -(-(mp * page) // PAGED_SPLIT_KEYS)
+    out = head_major_empty(q)
+    partial = (torch.empty((n_split, s * h * lq, d + 2), dtype=torch.float32, device=q.device)
+               if n_split > 1 else None)
+    lib, _ = _build.library()
+    err = getattr(lib, entry)(
+        q.data_ptr(), pool_a.data_ptr(), pool_b.data_ptr(), page_tables.data_ptr(),
+        valid.view(torch.uint8).data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), s, h, kvh, lq, p1, page, mp, d,
+        *q.stride()[:3], *out.stride()[:3], int(layer_idx), float(scale), n_split,
+        PAGED_SPLIT_KEYS, _build.stream_ptr(q.device),
+    )
+    _build.check(err, entry)
+    return out
+
+
+def paged_kv_attention(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx: int, scale: float):
+    """K6: decode attention of every slot over layer ``layer_idx`` of the
+    dense page pool.  q (S, H, Lq, D); pool_k/pool_v (layers, P + 1, KV,
+    page, D); page_tables (S, W / page) int32 with entries in [0, P];
+    valid (S, W) bool; offsets (S,) int32.  Returns (S, H, Lq, D)."""
+    if q.device.type == "cpu":
+        return paged_kv_attention_plain(q, pool_k, pool_v, page_tables, valid, offsets,
+                                        layer_idx, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"paged_kv_attention: no kernel for device {q.device}")
+    check_paged_inputs(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx, q.shape[-1],
+                       "paged_kv_attention")
+    if pool_k.dtype != torch.bfloat16 or pool_v.dtype != torch.bfloat16:
+        raise TypeError(f"paged_kv_attention kernel takes a bf16 pool, got {pool_k.dtype}")
+    out = _paged_launch("k6_paged_kv_attention", q, pool_k, pool_v, page_tables, valid, offsets,
+                        layer_idx, scale)
+    _build.count_launch(paged_kv_attention)
+    return out
+
+
+paged_kv_attention.launches = 0
+
+
+def paged_quantized_kv_attention(q, payload, scales, page_tables, valid, offsets, layer_idx: int,
+                                 scale: float):
+    """K7: K6 over layer ``layer_idx`` of the int4 page pool; payload
+    (layers, P + 1, KV, page, D) uint8 ``k | v << 4``, scales (..., 4G)
+    bf16.  Returns (S, H, Lq, D)."""
+    if q.device.type == "cpu":
+        return paged_quantized_kv_attention_plain(q, payload, scales, page_tables, valid, offsets,
+                                                  layer_idx, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"paged_quantized_kv_attention: no kernel for device {q.device}")
+    d = q.shape[-1]
+    check_paged_inputs(q, payload, scales, page_tables, valid, offsets, layer_idx,
+                       4 * (d // KV_GROUP), "paged_quantized_kv_attention")
+    if payload.dtype != torch.uint8 or scales.dtype != torch.bfloat16 or scales.data_ptr() % 8:
+        raise TypeError("paged_quantized_kv_attention kernel takes a uint8 payload and 8-byte "
+                        f"aligned bf16 scales, got {payload.dtype}/{scales.dtype}")
+    out = _paged_launch("k7_paged_quantized_kv_attention", q, payload, scales, page_tables, valid,
+                        offsets, layer_idx, scale)
+    _build.count_launch(paged_quantized_kv_attention)
+    return out
+
+
+paged_quantized_kv_attention.launches = 0

@@ -92,7 +92,7 @@ def quant_matmul(
         int(out_dtype == torch.float32), _build.stream_ptr(x.device),
     )
     _build.check(err, "k1_w4a16_matmul")
-    quant_matmul.launches += 1
+    _build.count_launch(quant_matmul)
     return out
 
 

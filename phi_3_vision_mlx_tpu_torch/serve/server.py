@@ -1,4 +1,4 @@
-"""Single-stream HTTP completion server
+"""HTTP completion server
 (counterpart of ``phi_3_vision_mlx_tpu/serve/server.py``).
 
 POST /v1/completions with {"prompt": str | [str], "max_tokens": int,
@@ -7,10 +7,16 @@ server.  Decoding is greedy; a request with "temperature" > 0 gets a 500
 JSON error until sampling is ported.  ``serve(quantize_cache=True)`` loads
 the model with the 4-bit KV cache (keyword arguments of ``serve`` go to
 ``api.load``; as in the JAX server there is no command-line flag for it).
-The continuous-batching scheduler is not ported yet.
+
+``serve(continuous=True)`` (``--continuous``) serves through
+:class:`ContinuousScheduler`: requests join a running decode batch of
+``slots`` lanes (``engine/batching.py``), over a shared page pool with
+``paged=True`` (``engine/paging.py``, kernels K6/K7 on the card).  Image
+requests get a 500 JSON error until vision is ported.
 
 Example:
     python -m phi_3_vision_mlx_tpu_torch.serve.server --port 8000
+    python -m phi_3_vision_mlx_tpu_torch.serve.server --continuous --paged --slots 4 --window 1024
     curl -X POST http://localhost:8000/v1/completions \\
       -H "Content-Type: application/json" \\
       -d '{"prompt": "Hello", "max_tokens": 64}'
@@ -19,8 +25,11 @@ Example:
 from __future__ import annotations
 
 import json
-from http.server import BaseHTTPRequestHandler, HTTPServer
+import threading
+from collections import deque
+from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
+from ..engine.batching import refuse_unported
 from ..engine.stream import validate_stops
 
 MODEL_NAME = "phi-3-vision-tpu"
@@ -73,12 +82,163 @@ def make_handler(preload):
     return CompletionHandler
 
 
-def serve(host: str = "127.0.0.1", port: int = 8000, preload=None, **load_kwargs):
+class ContinuousScheduler:
+    """Thread-safe front end over the slot engine (``paged=False``) or the
+    paged engine (``paged=True``).
+
+    HTTP handler threads call :meth:`complete`.  An admission thread drains
+    queued requests, up to ``admit_batch`` at a time, into one batched
+    prefill (``engine.prepare_many``) outside the lock, then adopts them
+    under it; a pump thread steps the engine by chunks of ``chunk`` tokens,
+    pipelined (``step_pipelined``) unless ``pipelined=False``, and runs the
+    preempted requests' recompute prefills outside the lock.  Both threads
+    launch on the default stream, so launch order orders their work.  An
+    engine error fails the requests it owns, not the pump.
+    """
+
+    def __init__(self, lm, processor, slots: int = 4, window: int = 1024, paged: bool = False,
+                 admit_batch: int = 0, chunk: int = 8, pipelined: bool = True, **engine_kw):
+        if paged:
+            from ..engine.paging import PagedBatchEngine as Engine
+        else:
+            from ..engine.batching import BatchEngine as Engine
+        if lm.device.type == "cuda":
+            from ..ops.kernels import _build
+
+            _build.library()  # build once, before two threads launch kernels
+        self.engine = Engine(lm, processor, slots=slots, window=window, **engine_kw)
+        # Resumes are prefilled here, outside the lock, not inside step().
+        self.engine.resume_in_step = False
+        self.admit_batch = admit_batch or min(8, max(2, slots))
+        self.chunk, self.pipelined = chunk, pipelined
+        self._cv = threading.Condition()
+        self._tickets = deque()
+        threading.Thread(target=self._admission_worker, daemon=True).start()
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def complete(self, prompt: str, max_tokens: int, temperature: float = 0.0, stop=None,
+                 images=None) -> str:
+        refuse_unported(temperature, images)
+        ticket = {"prompt": prompt, "opts": dict(max_tokens=max_tokens, stop=stop),
+                  "rid": None, "error": None}
+        with self._cv:
+            self._tickets.append(ticket)
+            self._cv.notify_all()
+            while ticket["rid"] is None and ticket["error"] is None:
+                self._cv.wait()
+            if ticket["error"] is not None:
+                raise RuntimeError(ticket["error"])
+            req = self.engine.requests[ticket["rid"]]
+            while not req.done:
+                self._cv.wait()
+            return self.engine.result(ticket["rid"])  # raises if the request failed
+
+    def _admission_worker(self):
+        while True:
+            with self._cv:
+                while not self._tickets:
+                    self._cv.wait()
+                n = min(len(self._tickets), self.admit_batch)
+                batch = [self._tickets.popleft() for _ in range(n)]
+            try:
+                prepared = self.engine.prepare_many([t["prompt"] for t in batch],
+                                                    [t["opts"] for t in batch])
+            except Exception as e:
+                with self._cv:
+                    for t in batch:
+                        t["error"] = f"{type(e).__name__}: {e}"
+                    self._cv.notify_all()
+                continue
+            for t, p in zip(batch, prepared):
+                with self._cv:
+                    try:
+                        while not self.engine.can_admit(p):
+                            self._cv.wait()
+                        t["rid"] = self.engine.admit(p)
+                    except Exception as e:
+                        t["error"] = f"{type(e).__name__}: {e}"
+                    self._cv.notify_all()
+
+    def _pump(self):
+        while True:
+            with self._cv:
+                while not self.engine.pending():
+                    self._cv.wait()
+                resume = getattr(self.engine, "resume_candidate", None)
+                rid = resume() if resume else None
+            prepared = None
+            if rid is not None:
+                try:
+                    prepared = self.engine.prepare_resume(rid)
+                except Exception as e:
+                    with self._cv:
+                        self.engine._fail_request(self.engine.requests[rid], f"{type(e).__name__}: {e}")
+                        if self.engine.preempted and self.engine.preempted[0] == rid:
+                            self.engine.preempted.pop(0)
+                        self._cv.notify_all()
+            with self._cv:
+                try:
+                    if prepared is not None:
+                        self.engine.admit_resume(prepared)
+                    if self.pipelined:
+                        # Ticking while pending() also collects the last
+                        # in-flight chunk once by_slot is empty.
+                        self.engine.step_pipelined(self.chunk)
+                    elif self.engine.by_slot:
+                        self.engine.step(self.chunk)
+                except Exception as e:  # fail the owners, keep the pump alive
+                    self.engine.fail_all_active(f"{type(e).__name__}: {e}")
+                self._cv.notify_all()
+
+
+def make_continuous_handler(scheduler: ContinuousScheduler):
+    class ContinuousHandler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            if self.path != "/v1/completions":
+                self.send_error(404)
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                prompts = body.get("prompt", "")
+                prompts = [prompts] if isinstance(prompts, str) else prompts
+                try:
+                    stop = validate_stops(body.get("stop"))
+                except ValueError as e:
+                    _send_json(self, 400, {"error": str(e)})
+                    return
+                temperature = float(body.get("temperature", 0.0))
+                max_tokens = int(body.get("max_tokens", 128))
+                responses = [
+                    scheduler.complete(p, max_tokens, temperature=temperature, stop=stop,
+                                       images=body.get("images"))
+                    for p in prompts
+                ]
+                _send_json(self, 200, {"model": MODEL_NAME, "responses": responses})
+            except Exception as e:
+                _send_json(self, 500, {"error": str(e)})
+
+        def log_message(self, fmt, *args):
+            pass
+
+    return ContinuousHandler
+
+
+def serve(host: str = "127.0.0.1", port: int = 8000, preload=None, continuous: bool = False,
+          slots: int = 4, window: int = 1024, paged: bool = False, pipeline_depth: int = 1,
+          **load_kwargs):
     from ..api import load
 
     preload = preload or load(**load_kwargs)
-    httpd = HTTPServer((host, port), make_handler(preload))
-    print(f"Serving on http://{host}:{port}/v1/completions")
+    if continuous:
+        scheduler = ContinuousScheduler(*preload, slots=slots, window=window, paged=paged,
+                                        pipeline_depth=pipeline_depth)
+        httpd = ThreadingHTTPServer((host, port), make_continuous_handler(scheduler))
+        print(f"Serving (continuous batching, {slots} slots x {window} window) "
+              f"on http://{host}:{port}/v1/completions")
+    else:
+        httpd = HTTPServer((host, port), make_handler(preload))
+        print(f"Serving on http://{host}:{port}/v1/completions")
     httpd.serve_forever()
 
 
@@ -88,5 +248,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--continuous", action="store_true", help="continuous batching over a slot pool")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--window", type=int, default=1024)
+    ap.add_argument("--paged", action="store_true", help="page-pool KV (engine/paging.py)")
+    ap.add_argument("--pipeline-depth", type=int, default=1,
+                    help="decode chunks kept in flight by the pump")
     a = ap.parse_args()
-    serve(a.host, a.port)
+    serve(a.host, a.port, continuous=a.continuous, slots=a.slots, window=a.window, paged=a.paged,
+          pipeline_depth=a.pipeline_depth)

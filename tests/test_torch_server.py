@@ -117,6 +117,9 @@ def test_port_imports_no_jax():
         "import phi_3_vision_mlx_tpu_torch.serve.server, phi_3_vision_mlx_tpu_torch.api, chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
         "assert not bad, bad\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k == 'phi_3_vision_mlx_tpu' or k.startswith('phi_3_vision_mlx_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('clean')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -138,23 +141,14 @@ def _is_jax_side(module):
     return top in ("jax", "jaxlib", "phi_3_vision_mlx_tpu")
 
 
-# The port's only doors into the JAX package: framework-free host modules it
-# shares instead of copying (config, registry, tokenizer, processor, stops).
-SHIMS = {"core/config.py", "core/registry.py", "models/tokenizer.py",
-         "models/preprocess.py", "engine/stream.py"}
-
-
 def test_chip_smoke_and_port_import_no_jax_package_directly():
-    bad = [m for m in _imported_modules(os.path.join(ROOT, "chip_smoke.py")) if _is_jax_side(m)]
-    assert not bad, f"chip_smoke.py imports {bad}"
-    pkg = os.path.join(ROOT, "phi_3_vision_mlx_tpu_torch")
-    for path in glob.glob(os.path.join(pkg, "**", "*.py"), recursive=True):
-        rel = os.path.relpath(path, pkg)
+    """No file of the port, and not chip_smoke.py, imports jax or any module
+    of the JAX package: the port keeps its own copies of the host modules."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths += glob.glob(os.path.join(ROOT, "phi_3_vision_mlx_tpu_torch", "**", "*.py"), recursive=True)
+    for path in paths:
         mods = [m for m in _imported_modules(path) if _is_jax_side(m)]
-        if rel in SHIMS:
-            assert mods and all(m.startswith("phi_3_vision_mlx_tpu.") for m in mods), rel
-        else:
-            assert not mods, f"{rel} imports {mods}"
+        assert not mods, f"{os.path.relpath(path, ROOT)} imports {mods}"
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
