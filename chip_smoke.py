@@ -9,14 +9,16 @@ caught and carried on):
 1. device   — requires a CUDA card; prints its name and power limit and
                builds the kernels from ``phi_3_vision_mlx_tpu_torch/csrc``.
 2. kernels  — K1 (W4A16 matmul), K2 (flash attention), K3 (decode
-               attention), K4 (decode attention over the int4 KV cache) and
-               K5 (flash attention over the int4 KV cache) against their
-               plain PyTorch versions on the card at the main path's shapes,
-               with CUDA-event times of both; causal-edge checks of K3, K4.
-3. reference — a depth-cut (2-layer) full-width Phi-3.5-mini, with the
-               dense and with the int4 KV cache: prefill and decode logits
-               through the kernels on the card against the plain path on the
-               CPU, same weights and prompt.
+               attention), K4 (decode attention over the int4 KV cache), K5
+               (flash attention over the int4 KV cache) and K8 (W8A16
+               matmul, levels over the full 0-255 range) against their plain
+               PyTorch versions on the card at the main path's shapes, with
+               CUDA-event times of both; causal-edge checks of K3, K4.
+3. reference — a depth-cut (2-layer) full-width Phi-3.5-mini with 4-bit
+               and with 8-bit weights, each with the dense and with the int4
+               KV cache: prefill and decode logits through the kernels on
+               the card against the plain path on the CPU, same weights and
+               prompt.
 4. serving  — full-size 4-bit Phi-3.5-mini (random weights from a seed)
                behind the port's HTTP handler answers three requests, once
                with the dense cache and once with the int4 cache
@@ -38,6 +40,12 @@ caught and carried on):
                time per token, device busy time per token
                (``torch.profiler``), the idle share, kernel launches per
                token and the largest device items.
+7. 8-bit    — the port alone writes a 2-layer full-width random checkpoint,
+               quantizes it to 8 bits, loads it on the card and generates
+               from it; then full-size random 8-bit Phi-3.5-mini answers
+               phase 4's requests with both caches and phase 5's run (a),
+               with K8 launched and K1 not (the 4-bit runs launch K1 and not
+               K8), and its decode token is profiled at the short window.
 
 Phase 2 also checks K6 and K7 (paged decode attention over the dense and
 the int4 page pool).  Each kernel's line in the JSON carries its bound (its
@@ -78,8 +86,11 @@ FILLER = (
 )
 
 K1_SHAPES = ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072), (3072, 32064))
-# K1 compares f32 outputs: both sides round W to bf16 and accumulate in f32,
-# so only the order of the f32 sums differs.
+# K8 at every main-path (K, N), M = 1, and at M = 4 and 256 for qkv.
+K8_CASES = (((3072, 9216), (1, 4, 256)), ((3072, 3072), (1,)), ((3072, 16384), (1,)),
+            ((8192, 3072), (1,)), ((3072, 32064), (1,)))
+# K1 and K8 compare f32 outputs: both sides round W to bf16 and accumulate in
+# f32, so only the order of the f32 sums differs.
 K1_ATOL, K1_RTOL = 1e-3, 1e-3
 # K2/K3 return bf16: the f32 sums run in another order, then round to bf16
 # (one ulp is 2**-7 relative), so allow two ulps; the absolute term covers
@@ -100,6 +111,13 @@ REF_LOGPROB = 1e-3
 # and below half of that effect.  With the card's cache entries replayed on
 # the CPU, the comparison is held to REF_REL_L2.
 REF_INT4_OWN_REL_L2 = 5 * REF_REL_L2
+# The decode max log-prob of that comparison: it is taken from bf16 logits,
+# whose ulp is 1.6e-2 at 2-4 and 3.1e-2 at 4-8, so a logit that moves by the
+# noise above can move it by whole ulps.  On the CPU the same 1-ulp noise on
+# 2% of the embeddings moved it by up to 6.4e-2 with the int4 cache (4-bit and
+# 8-bit weights, four noise seeds each; 3.1e-2 with the dense cache).  An
+# H100 run with 8-bit weights measured 1.6e-2, one ulp.
+REF_INT4_OWN_LOGPROB = 0.1
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): a kernel's
@@ -115,6 +133,14 @@ def bound(nbytes: float, flops: float) -> dict:
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     return ({"bound_ms": by_bytes, "bound_by": "bytes"} if by_bytes >= by_ops
             else {"bound_ms": by_ops, "bound_by": "operations"})
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The command's time so far, after ``phase``."""
+    log(f"[{time.perf_counter() - T_START:.1f} s] {phase} done")
 
 
 def fail(msg: str) -> None:
@@ -263,7 +289,7 @@ def phase_kernels(torch, report):
                 errs.append(ea)
                 line = f"K1 K={k} N={n} M={m} {mode}: max_abs={ea:.3e} max_rel={er:.3e} " \
                        f"(atol {K1_ATOL} + rtol {K1_RTOL})"
-                if mode == "affine":
+                if mode == "affine" and (m == 1 or n == 9216):  # timed: decode, and qkv's M
                     if m == 1:
                         b1 = bound(k * n // 2 + 2 * 2 * (k // 64) * n + 2 * m * k + 2 * m * n,
                                    2 * m * k * n)
@@ -272,6 +298,9 @@ def phase_kernels(torch, report):
                     t = timed(torch, lambda: K1.quant_matmul(x, *ws[nxt()]),
                               lambda: K1.quant_matmul_plain(x, *ws[nxt()]), 20)
                     line += " " + t.pop("text")
+                    if (k, n, m) == (3072, 32064, 1):  # K1b, lm_head
+                        lib = int4pack_ms(torch, x, k, n, copies, g)
+                        line += " library " + ("not measured" if lib is None else f"{lib:.4f} ms")
                     if (k, n, m) == (3072, 9216, 1):
                         nbytes = k * n // 2 + 2 * 2 * (k // 64) * n + 2 * m * k + 2 * m * n
                         report["K1"].update(t, shape="K=3072 N=9216 M=1 affine",
@@ -475,15 +504,65 @@ def phase_quantized_kernels(torch, report):
     report["K5"]["max_abs_err"] = max(errs)
 
 
-def full_config():
+def phase_w8_kernels(torch, report):
+    """K8 against its plain version at every main-path shape, levels drawn
+    over the full 0-255 range (4 uniform bytes per word), scales and biases
+    of the synthetic weights; weights rotated past the L2 for timing.  No
+    PyTorch call computes group-64 affine W8A16: ``_weight_int8pack_mm`` is
+    per-channel with no zero point, another function."""
+    from phi_3_vision_mlx_tpu_torch.core.weights import WORD8
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as K
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+    errs = []
+    for (k, n), ms in K8_CASES:
+        wbytes = k * n + 2 * 2 * (k // 64) * n
+        copies = max(1, math.ceil(150e6 / wbytes))
+        ws = [(torch.randint(-(2**31), 2**31, (k // WORD8, n), dtype=torch.int32, generator=g, device=dev),
+               (0.004 * 15 / 255 * (1 + 0.1 * torch.randn((k // 64, n), generator=g, device=dev))
+                ).to(torch.bfloat16),
+               torch.full((k // 64, n), -0.03, dtype=torch.bfloat16, device=dev))
+              for _ in range(copies)]
+        for m in ms:
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            out = K.quant_matmul_w8(x, *ws[0], out_dtype=torch.float32)
+            ref = K.quant_matmul_w8_plain(x, *ws[0], out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
+            if m == 1:  # the decode path's bf16 output: one more rounding (1 ulp)
+                ok = ok and close(torch, K.quant_matmul_w8(x, *ws[0]), K.quant_matmul_w8_plain(x, *ws[0]),
+                                  K1_ATOL, 2.0**-7)[2]
+            errs.append(ea)
+            nxt = rotating(copies)
+            t = timed(torch, lambda: K.quant_matmul_w8(x, *ws[nxt()]),
+                      lambda: K.quant_matmul_w8_plain(x, *ws[nxt()]), 20)
+            b8 = bound(wbytes + 2 * m * k + 2 * m * n, 2 * m * k * n)
+            log(f"K8 K={k} N={n} M={m}: max_abs={ea:.3e} max_rel={er:.3e} (atol {K1_ATOL} + rtol "
+                f"{K1_RTOL}) bound {b8['bound_ms']:.4f} ms ({b8['bound_by']}) {t.pop('text')}; "
+                f"library none (no group-64 affine W8A16 call)")
+            if (k, n, m) == (3072, 9216, 1):
+                report["K8"].update(t, shape="K=3072 N=9216 M=1 affine 8-bit", library_ms=None, **b8)
+            if not ok:
+                fail(f"K8 disagrees with its plain version at K={k} N={n} M={m}")
+        del ws
+    report["K8"]["max_abs_err"] = max(errs)
+
+
+def full_config(bits: int = 4):
     from phi_3_vision_mlx_tpu_torch.core.config import QuantConfig, preset
 
-    return preset("phi35_mini").replace(quantized=QuantConfig(group_size=64, bits=4, mode="affine"))
+    return preset("phi35_mini").replace(quantized=QuantConfig(group_size=64, bits=bits, mode="affine"))
 
 
-def phase_reference(torch, params, proc):
-    """2-layer full-width slice: kernels on the card vs the plain path on the
-    CPU, with the dense and with the int4 KV cache.  The int4 cache is
+def weights_of(lm) -> str:
+    return f"{lm.cfg.quantized.bits}-bit"
+
+
+def phase_reference(torch, params, proc, bits: int = 4):
+    """2-layer full-width slice with ``bits``-bit weights: kernels on the
+    card vs the plain path on the CPU, with the dense and with the int4 KV
+    cache.  The int4 cache is
     compared twice: with the CPU run writing the card's quantized entries
     (the kernels against the plain path on the same cache, at the dense
     limits), and with each device quantizing its own keys."""
@@ -529,22 +608,24 @@ def phase_reference(torch, params, proc):
         return logits[0].float().cpu().numpy(), float(maxlp[0, 0]), token
 
     for quantized in (False, True):
-        cfg = full_config().replace(num_hidden_layers=2, use_quantized_cache=quantized)
+        cfg = full_config(bits).replace(num_hidden_layers=2, use_quantized_cache=quantized)
         a, lp_a, token = run(cfg, "cuda", None, record if quantized else S.update_layer_chunk)
         if a.shape != (cfg.vocab_size,) or not np.isfinite(a).all():
             fail(f"reference: bad logits shape {a.shape} or non-finite values")
-        checks = [("dense KV cache", S.update_layer_chunk, REF_REL_L2)]
+        checks = [("dense KV cache", S.update_layer_chunk, REF_REL_L2, REF_LOGPROB)]
         if quantized:
-            checks = [("int4 KV cache, the card's entries replayed", replay, REF_REL_L2),
-                      ("int4 KV cache, each device quantizing", S.update_layer_chunk, REF_INT4_OWN_REL_L2)]
-        for what, write, limit in checks:
+            checks = [("int4 KV cache, the card's entries replayed", replay, REF_REL_L2, REF_LOGPROB),
+                      ("int4 KV cache, each device quantizing", S.update_layer_chunk,
+                       REF_INT4_OWN_REL_L2, REF_INT4_OWN_LOGPROB)]
+        for what, write, limit, lp_limit in checks:
             b, lp_b, _ = run(cfg, "cpu", token, write)
             rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
             dlp = abs(lp_a - lp_b)
-            log(f"reference (2 layers, width 3072, {what}): prefill logits rel L2 cuda-vs-cpu "
-                f"{rel:.3e} (limit {limit:.3g}); decode max log-prob diff {dlp:.3e} (limit {REF_LOGPROB})")
-            if rel > limit or not dlp <= REF_LOGPROB:
-                fail(f"reference: the kernel path disagrees with the plain path ({what})")
+            log(f"reference (2 layers, width 3072, {bits}-bit weights, {what}): prefill logits "
+                f"rel L2 cuda-vs-cpu {rel:.3e} (limit {limit:.3g}); decode max log-prob diff "
+                f"{dlp:.3e} (limit {lp_limit})")
+            if rel > limit or not dlp <= lp_limit:
+                fail(f"reference: the kernel path disagrees with the plain path ({bits}-bit, {what})")
 
 
 def post(port: int, body: dict, timeout: float = 600):
@@ -560,11 +641,17 @@ def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
     from phi_3_vision_mlx_tpu_torch.ops.kernels.flash_attention import flash_attention
-    from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import quant_matmul, quant_matmul_w8
 
     return {"K1": quant_matmul, "K2": flash_attention, "K3": KV.dense_kv_attention,
             "K4": KV.quantized_kv_attention, "K5": KV.quantized_flash_attention,
-            "K6": KV.paged_kv_attention, "K7": KV.paged_quantized_kv_attention}
+            "K6": KV.paged_kv_attention, "K7": KV.paged_quantized_kv_attention,
+            "K8": quant_matmul_w8}
+
+
+def matmul_kernel(lm) -> str:
+    """K1 serves 4-bit weights, K8 8-bit ones."""
+    return "K8" if lm.cfg.quantized.bits == 8 else "K1"
 
 
 def phase_serving(torch, lm, proc, report):
@@ -577,7 +664,8 @@ def phase_serving(torch, lm, proc, report):
 
     counters = kernel_counters()
     cache = "int4" if lm.cfg.use_quantized_cache else "dense"
-    expected = ("K1", "K4", "K5") if cache == "int4" else ("K1", "K2", "K3")
+    expected = (matmul_kernel(lm),) + (("K4", "K5") if cache == "int4" else ("K2", "K3"))
+    label = f"{weights_of(lm)} weights, {cache} cache"
     requests = [
         ("a", PROMPT_A, 64),
         ("b", (FILLER * 20)[:1000], 32),
@@ -596,29 +684,28 @@ def phase_serving(torch, lm, proc, report):
             dt = time.perf_counter() - t0
             resp = payload.get("responses")
             if status != 200 or not isinstance(resp, list) or not resp or not resp[0]:
-                fail(f"request ({tag}, {cache} cache): status {status}, payload {str(payload)[:200]}")
+                fail(f"request ({tag}, {label}): status {status}, payload {str(payload)[:200]}")
             n_prompt = len(proc(api._apply_chat_template(prompt))["input_ids"][0])
-            log(f"request ({tag}, {cache} cache): {n_prompt} prompt tokens, max_tokens {max_tokens}: "
+            log(f"request ({tag}, {label}): {n_prompt} prompt tokens, max_tokens {max_tokens}: "
                 f"HTTP {status}, {len(resp[0])} chars in {dt:.2f} s")
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    log(f"launch counts over the three requests ({cache} cache): {launches}")
+    log(f"launch counts over the three requests ({label}): {launches}")
     for name, n in launches.items():
         if name not in expected:
             if n != 0:
-                fail(f"{name} was launched {n} times on the {cache}-cache path")
+                fail(f"{name} was launched {n} times on the path of {label}")
             continue
-        report[name].setdefault("launches", n)  # K1: the dense path's count
+        report[name].setdefault("launches", n)  # K1, K8: the dense path's count
         if n <= 0:
-            fail(f"{name} was never launched on the {cache}-cache path")
-    api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False, stream=False, mute=True)
+            fail(f"{name} was never launched on the path of {label}")
     _, tps = api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False,
                           stream=False, mute=True, return_tps=True)
-    report[f"single_stream_tps_{cache}"] = tps
-    log(f"decode tok/s, request (a) through api.generate (64 tokens, eager, {cache} cache): "
+    report[f"single_stream_tps_{weights_of(lm)}_{cache}"] = tps
+    log(f"decode tok/s, request (a) through api.generate (64 tokens, eager, {label}): "
         f"{tps:.2f} on {report['card']}")
 
 
@@ -720,7 +807,7 @@ def phase_continuous(torch, lm, proc, report, run: str, pool_pages: int = 0):
     from phi_3_vision_mlx_tpu_torch.serve.server import ContinuousScheduler, make_continuous_handler
 
     cache = "int4" if lm.cfg.use_quantized_cache else "dense"
-    expected = {"K1", "K5", "K7"} if cache == "int4" else {"K1", "K2", "K6"}
+    expected = {matmul_kernel(lm)} | ({"K5", "K7"} if cache == "int4" else {"K2", "K6"})
     if pool_pages:
         # Five pages of prompt each, growing to nine or ten: three running
         # requests outgrow a 20-page pool whatever the admission timing.
@@ -772,7 +859,7 @@ def phase_continuous(torch, lm, proc, report, run: str, pool_pages: int = 0):
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    tag = f"continuous run ({run}, {cache} pool of {eng.pool_pages} pages)"
+    tag = f"continuous run ({run}, {weights_of(lm)} weights, {cache} pool of {eng.pool_pages} pages)"
     for i, (prompt, n) in enumerate(requests):
         if i not in results:
             fail(f"{tag}: request {i} did not answer")
@@ -806,7 +893,7 @@ def phase_continuous(torch, lm, proc, report, run: str, pool_pages: int = 0):
         fail(f"{tag}: the pool never preempted")
 
 
-def phase_paged_profile(torch, lm, proc, report, chunk: int = 8):
+def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int = 4):
     """Steady decode of 4 busy slots over the paged pool: aggregate tok/s
     over timed chunks, then one profiled chunk (device busy, idle share,
     launches per step), beside the single-stream figure of this run."""
@@ -836,25 +923,26 @@ def phase_paged_profile(torch, lm, proc, report, chunk: int = 8):
     t0 = time.perf_counter()
     eng.step(chunk)
     step_ms = (time.perf_counter() - t0) * 1e3 / chunk
+    # A short profiled chunk: the profiler's events cost host seconds to read.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.step(chunk)
+        eng.step(profiled)
         torch.cuda.synchronize()
     per_name, launches = Counter(), 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            per_name[short_name(e.name)] += e.device_time_total / 1e3 / chunk
+            per_name[short_name(e.name)] += e.device_time_total / 1e3 / profiled
             launches += 1
     busy = sum(per_name.values())
     if busy <= 0:
         fail(f"paged profile ({cache}): the profiler saw no device time")
     rate = SERVE_SLOTS * chunk * n_chunks / wall
-    single = report.get(f"single_stream_tps_{cache}", float("nan"))
+    single = report.get(f"single_stream_tps_{weights_of(lm)}_{cache}", float("nan"))
     top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
     attn = sum(ms for name, ms in per_name.items() if "paged" in name)
     log(f"paged decode ({cache} pool, {SERVE_SLOTS} busy slots, window {SERVE_WINDOW}, chunks of "
         f"{chunk}): {rate:.2f} tok/s aggregate ({rate / SERVE_SLOTS:.2f} per slot) against "
         f"{single:.2f} tok/s single-stream in this run; step wall {step_ms:.2f} ms, device busy "
-        f"{busy:.3f} ms, idle share {1 - busy / step_ms:.3f}, {launches / chunk:.0f} launches per "
+        f"{busy:.3f} ms, idle share {1 - busy / step_ms:.3f}, {launches / profiled:.0f} launches per "
         f"step; paged attention {attn:.3f} ms per step; largest (ms/step): {top} on {report['card']}")
 
 
@@ -864,8 +952,9 @@ def short_name(kernel: str) -> str:
     return name.split("<")[0].split("(")[0].split("::")[-1]
 
 
-def phase_profile(torch, lm, proc, steps: int = 16):
-    """Wall and device time of a decode token at a short and a long window."""
+def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a", "c")):
+    """Wall and device time of a decode token at a short (tag a) and a long
+    (tag c) window."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -875,7 +964,9 @@ def phase_profile(torch, lm, proc, steps: int = 16):
     from phi_3_vision_mlx_tpu_torch.engine.engine import decode_chunk, run_prefill
 
     cache = "int4" if lm.cfg.use_quantized_cache else "dense"
-    for tag, prompt, budget in (("a", PROMPT_A, 512), ("c", (FILLER * 60)[:4200], 16)):
+    prompts = {"a": (PROMPT_A, 512), "c": ((FILLER * 60)[:4200], 16)}
+    for tag in tags:
+        prompt, budget = prompts[tag]
         dict_input = proc(_apply_chat_template(prompt))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -890,23 +981,59 @@ def phase_profile(torch, lm, proc, steps: int = 16):
         toks.cpu()  # the engine's one device-to-host copy per chunk
         wall = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            token, state, toks, *_ = decode_chunk(lm, token, state, steps)
+            token, state, toks, *_ = decode_chunk(lm, token, state, profiled)
             torch.cuda.synchronize()
         per_name, launches = Counter(), 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                per_name[short_name(e.name)] += e.device_time_total / 1e3 / steps
+                per_name[short_name(e.name)] += e.device_time_total / 1e3 / profiled
                 launches += 1
         busy = sum(per_name.values())
         if busy <= 0:
             fail(f"profile ({tag}): the profiler saw no device time")
         top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
         attn = sum(ms for name, ms in per_name.items() if "kv_" in name or "flash" in name)
-        log(f"profile ({tag}, {cache} cache): {len(dict_input['input_ids'][0])} prompt tokens, "
+        matmul = per_name["wq_partial_kernel"] + per_name["sum_splits_kernel"]
+        log(f"profile ({tag}, {weights_of(lm)} weights, {cache} cache): "
+            f"{len(dict_input['input_ids'][0])} prompt tokens, "
             f"window {window}: prefill {prefill_ms:.1f} ms; decode wall {wall:.2f} ms/token "
             f"({1e3 / wall:.2f} tok/s), device busy {busy:.3f} ms/token, idle share "
-            f"{1 - busy / wall:.3f}, {launches / steps:.0f} launches/token; attention kernels "
-            f"{attn:.3f} ms/token; largest (ms/token): {top}")
+            f"{1 - busy / wall:.3f}, {launches / profiled:.0f} launches/token; attention kernels "
+            f"{attn:.3f} ms/token; {matmul_kernel(lm)} {matmul:.3f} ms/token; largest (ms/token): {top}")
+
+
+def phase_checkpoint(torch):
+    """The port alone makes an 8-bit model: a 2-layer full-width random
+    checkpoint (``create_random_checkpoint``), quantized to 8 bits
+    (``quantize_checkpoint``), loaded on the card (``api._load``) and
+    generating through ``api.generate`` on K8 (K1 never launched)."""
+    import tempfile
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.core.weights import create_random_checkpoint, quantize_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        create_random_checkpoint(f"{tmp}/raw", "phi35_mini", seed=0, num_hidden_layers=2)
+        t1 = time.perf_counter()
+        cfg = quantize_checkpoint(f"{tmp}/raw", f"{tmp}/q8", q_bits=8)
+        t2 = time.perf_counter()
+        lm, proc = api._load(f"{tmp}/q8", device="cuda")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        text = api.generate(PROMPT_A, preload=(lm, proc), max_tokens=16, verbose=False,
+                            stream=False, mute=True)
+        launches = {name: fn.launches for name, fn in counters.items()}
+    if cfg.quantized.bits != 8 or lm.cfg.quantized.bits != 8 or not text or not text[0]:
+        fail(f"checkpoint flow: bits {cfg.quantized.bits}/{lm.cfg.quantized.bits}, text {text!r}")
+    log(f"checkpoint flow (2 layers, width 3072): create_random_checkpoint {t1 - t0:.1f} s, "
+        f"quantize_checkpoint(q_bits=8) {t2 - t1:.1f} s, _load on cuda {t3 - t2:.1f} s; "
+        f"api.generate gave {len(text[0])} chars; launches {launches}")
+    if launches["K8"] <= 0 or launches["K1"] != 0:
+        fail(f"checkpoint flow: K8 {launches['K8']} launches, K1 {launches['K1']}")
 
 
 def main() -> None:
@@ -945,13 +1072,17 @@ def main() -> None:
                "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:354"},
         "K7": {"name": "paged_quantized_kv_attention", "source": source + "paged_kv_attention.cu",
                "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:519"},
+        "K8": {"name": "w8a16_quant_matmul", "source": source + "quant_matmul.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/quant_matmul.py:312"},
     }
 
     # Phase 2: each kernel against its plain version.
     phase_kernels(torch, report)
     phase_quantized_kernels(torch, report)
     phase_paged_kernels(torch, report)
+    phase_w8_kernels(torch, report)
     torch.cuda.empty_cache()
+    stamp("phase 2")
 
     # Phases 3-5 share the full-size weights.
     from phi_3_vision_mlx_tpu_torch.core.weights import synth_quantized_params
@@ -967,17 +1098,39 @@ def main() -> None:
         f"vocab {cfg.vocab_size}, built in {time.perf_counter() - t0:.1f} s")
     proc = Phi3Processor(tokenizer=ByteTokenizer())
     phase_reference(torch, params, proc)
+    stamp("phase 3")
     lm = LM(cfg, params, device="cuda")
     lm_int4 = LM(cfg.replace(use_quantized_cache=True), params, device="cuda")
     phase_serving(torch, lm, proc, report)
     phase_serving(torch, lm_int4, proc, report)
+    stamp("phase 4")
     phase_continuous(torch, lm, proc, report, "a")
     phase_continuous(torch, lm_int4, proc, report, "b")
     phase_continuous(torch, lm, proc, report, "c", pool_pages=20)
     phase_paged_profile(torch, lm, proc, report)
     phase_paged_profile(torch, lm_int4, proc, report)
+    stamp("phase 5")
     phase_profile(torch, lm, proc)
     phase_profile(torch, lm_int4, proc)
+    stamp("phase 6")
+
+    # Phase 7: 8-bit weights, from the port's own checkpoint writers, then
+    # at full size beside the 4-bit weights.
+    phase_checkpoint(torch)
+    stamp("phase 7 checkpoint flow")
+    cfg8 = full_config(bits=8)
+    t0 = time.perf_counter()
+    params8 = synth_quantized_params(cfg8, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"full-size 8-bit weights built in {time.perf_counter() - t0:.1f} s")
+    phase_reference(torch, params8, proc, bits=8)
+    lm8 = LM(cfg8, params8, device="cuda")
+    lm8_int4 = LM(cfg8.replace(use_quantized_cache=True), params8, device="cuda")
+    phase_serving(torch, lm8, proc, report)
+    phase_serving(torch, lm8_int4, proc, report)
+    phase_continuous(torch, lm8, proc, report, "d")
+    phase_profile(torch, lm8, proc, tags=("a",))
+    stamp("phase 7")
     for pkg in ("jax", "phi_3_vision_mlx_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             fail(f"{pkg} was imported")
@@ -985,7 +1138,7 @@ def main() -> None:
     keys = ("name", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms", "plain_device_ms", "shape")
     kernels = [{"route": "cuda", **{k: r[k] for k in keys}}
-               for r in (report[f"K{i}"] for i in range(1, 8))]
+               for r in (report[f"K{i}"] for i in range(1, 9))]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,12 @@
 
 ``load()`` / ``_load()`` return ``(LM, processor)``, the same preload tuple
 the JAX package passes around; ``generate`` runs greedy text generation.
-Checkpoints are the directories the JAX package writes.  The offline
-random-checkpoint fallback of the JAX ``_setup`` builds weights with JAX, so
-here a missing checkpoint raises instead; full-size random weights for smoke
-runs come from ``core.weights.synth_quantized_params``.  Models load onto
+Checkpoints are the (in, out) directories either package writes, with 4-bit
+or 8-bit weights (kernel K1 or K8 on the card).  A missing checkpoint raises
+(the JAX ``_setup`` downloads one or, offline, writes a random one): make one
+with ``core.weights.create_random_checkpoint`` and ``quantize_checkpoint``,
+or build full-size random weights on the device with
+``core.weights.synth_quantized_params``.  Models load onto
 ``device="cuda"`` unless a caller names another device; with no CUDA card
 that raises instead of running on the CPU.  ``load(quantize_cache=True)``
 (``_load(..., use_quantized_cache=True)``) serves from the 4-bit group-32
@@ -31,7 +33,8 @@ CHAT_TURN = "<|user|>\n{body}<|end|>\n<|assistant|>\n"
 
 
 def _load(model_path=PATH_QUANTIZED_PHI3_BLIND, device="cuda", **kwargs):
-    """Checkpoint dir written by the JAX package -> (LM, processor)."""
+    """Checkpoint dir in the (in, out) layout, unquantized or with 4-bit or
+    8-bit weights -> (LM, processor)."""
     cfg, params = W.load_params(model_path, **kwargs)
     if cfg.has_vision:
         raise NotImplementedError("vision models are not ported yet")
@@ -51,10 +54,10 @@ def load(blind_model: bool = True, quantize_model: bool = True, quantize_cache: 
     model_path = PATH_QUANTIZED_PHI3_BLIND if quantize_model else PATH_ORIGINAL_PHI3_BLIND
     if not os.path.exists(model_path):
         raise FileNotFoundError(
-            f"no checkpoint at {model_path}: convert one with the JAX package "
-            "(phi_3_vision_mlx_tpu.core.weights), or build full-size random weights "
-            "with phi_3_vision_mlx_tpu_torch.core.weights.synth_quantized_params and "
-            "pass preload=(LM(cfg, params, device=...), processor)"
+            f"no checkpoint at {model_path}: make one with "
+            "phi_3_vision_mlx_tpu_torch.core.weights.create_random_checkpoint and "
+            "quantize_checkpoint (q_bits=4 or 8), or build full-size random weights with "
+            "synth_quantized_params and pass preload=(LM(cfg, params, device=...), processor)"
         )
     return _load(model_path=model_path, device=device, use_quantized_cache=quantize_cache, **kwargs)
 
@@ -75,6 +78,7 @@ def generate(
     preload=None,
     blind_model=True,
     quantize_model=True,
+    quantize_cache=False,
     max_tokens=512,
     verbose=True,
     return_tps=False,
@@ -85,11 +89,13 @@ def generate(
     sample=False,
     stop=None,
 ):
-    """Greedy generation with streaming (JAX ``generate``, text prompts)."""
+    """Greedy generation with streaming (JAX ``generate``, text prompts).
+    Without ``preload`` it loads the model with ``quantize_cache``."""
     if images is not None:
         raise NotImplementedError("vision prompts are not ported yet")
     if preload is None:
-        preload = load(blind_model=blind_model, quantize_model=quantize_model)
+        preload = load(blind_model=blind_model, quantize_model=quantize_model,
+                       quantize_cache=quantize_cache)
     prompt = _apply_chat_template(prompt, apply_chat_template)
     if verbose:
         shown = "\n".join(prompt) if isinstance(prompt, list) else prompt

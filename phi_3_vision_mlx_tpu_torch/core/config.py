@@ -3,8 +3,9 @@
 
 Frozen, hashable dataclasses and the checkpoint's HF-style ``config.json``
 schema.  The port keeps its own copy, field for field the JAX package's
-(``tests/test_torch_host.py`` holds the presets and ``config_from_dict`` to
-it), so that nothing of the JAX package is imported at run time.
+(``tests/test_torch_host.py`` holds the presets, ``config_from_dict`` and
+``config_to_dict`` to it), so that nothing of the JAX package is imported at
+run time.
 """
 
 from __future__ import annotations
@@ -153,6 +154,40 @@ def config_from_dict(raw: dict, **overrides) -> ModelConfig:
         use_quantized_cache=bool(raw.get("use_quantized_cache", False)),
         dtype=str(raw.get("jax_dtype", raw.get("dtype_override", "bfloat16"))),
     )
+
+
+def config_to_dict(cfg: ModelConfig) -> dict:
+    """The HF-style config dict a checkpoint's ``config.json`` holds (the
+    inverse of :func:`config_from_dict` for the saved fields)."""
+    d = {
+        "architectures": [cfg.architecture],
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "original_max_position_embeddings": cfg.original_max_position_embeddings,
+        "model_type": "phi3_v" if cfg.has_vision else "phi3",
+        "sanitized": True,
+        "jax_dtype": cfg.dtype,
+    }
+    if cfg.rope_scaling is not None:
+        d["rope_scaling"] = {
+            "type": cfg.rope_scaling.type,
+            "long_factor": list(cfg.rope_scaling.long_factor),
+            "short_factor": list(cfg.rope_scaling.short_factor),
+        }
+    if cfg.has_vision:
+        d["img_processor"] = {"image_dim_out": cfg.image_dim_out}
+        d["vision_config"] = {k: getattr(cfg.vision, k) for k in _VISION_KEYS}
+    if cfg.quantized is not None:
+        d["quantized"] = {"group_size": cfg.quantized.group_size, "bits": cfg.quantized.bits,
+                          "mode": cfg.quantized.mode}
+    return d
 
 
 def _synthetic_su_factors(half_dim: int) -> RopeScalingConfig:

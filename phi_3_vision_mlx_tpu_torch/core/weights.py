@@ -1,4 +1,4 @@
-"""Checkpoint I/O, the Hopper weight layout, and synthetic full-size weights.
+"""Checkpoint I/O, the Hopper weight layouts, and random weights.
 
 Counterpart of ``phi_3_vision_mlx_tpu/core/weights.py``:
 
@@ -7,15 +7,20 @@ Counterpart of ``phi_3_vision_mlx_tpu/core/weights.py``:
   JSON header, then raw bytes), so neither the ``safetensors`` package nor
   ``ml_dtypes`` is needed; BF16 is read as int16 and reinterpreted.
 * :func:`build_params` / :func:`load_params` stack the per-layer tensors of a
-  checkpoint the JAX package wrote (linear weights stored ``(in, out)``,
-  config ``"layout": "in_out"``).
+  checkpoint in the (in, out) layout (linear weights stored ``(in, out)``,
+  config ``"layout": "in_out"``), written by either package.
+* :func:`save_checkpoint`, :func:`quantize_checkpoint` and
+  :func:`create_random_checkpoint` write that format: ``config.json``,
+  per-layer keys, plain ``(K, N)`` uint8 payloads with their scales and
+  biases.  A checkpoint either package writes loads in the other.
 * :func:`prepare_params` replaces the JAX ``kernelize_params``: it turns the
   checkpoint's plain ``(K, N)`` one-value-per-byte payload into the port's
-  own layout for kernel K1 (ops/kernels/quant_matmul.py) — eight 4-bit
-  values of one column per int32 word, ``(K/8, N)``, so decode reads 0.5 B
-  per weight — plus bf16 scales and biases ``(K/64, N)``.  There is no
-  tiling, no group-interleaved row permutation and no lm_head vocab padding:
-  those were TPU constraints, and the kernel masks the ragged N edge itself.
+  own layout — eight 4-bit values of one column per int32 word, ``(K/8, N)``
+  for kernel K1, or four 8-bit values, ``(K/4, N)`` for kernel K8
+  (ops/kernels/quant_matmul.py) — plus bf16 scales and biases ``(K/64, N)``.
+  There is no tiling, no group-interleaved row permutation, no signed cast
+  of the 8-bit levels and no lm_head vocab padding: those were TPU
+  constraints, and the kernels mask the ragged N edge themselves.
 * :func:`synth_quantized_params` builds full-size random quantized weights
   directly on the device from a seeded ``torch.Generator`` (the torch
   counterpart of ``bench.py:synth_quantized_params``).
@@ -26,13 +31,16 @@ from __future__ import annotations
 import glob
 import json
 import mmap
+import os
 import re
+import shutil
 import struct
 from typing import Dict
 
 import torch
 
-from .config import ModelConfig, config_from_dict
+from ..ops.quant import quantize
+from .config import ModelConfig, QuantConfig, config_from_dict, config_to_dict, preset
 
 # ---------------------------------------------------------------------------
 # safetensors
@@ -79,26 +87,28 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
 
 def save_safetensors(path: str, flat: Dict[str, torch.Tensor]) -> None:
     """Write tensors in the safetensors format (readable by the JAX package)."""
-    header, blobs, offset = {}, [], 0
+    header, offset = {}, 0
     # Widest dtypes first (as the safetensors package orders them), so every
     # tensor starts at an offset aligned to its element size.
-    for name in sorted(flat, key=lambda k: (-flat[k].dtype.itemsize, k)):
-        t = flat[name].detach().to("cpu").contiguous()
-        data = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+    names = sorted(flat, key=lambda k: (-flat[k].dtype.itemsize, k))
+    for name in names:
+        t = flat[name]
+        size = t.numel() * t.dtype.itemsize
         header[name] = {
             "dtype": _ST_NAMES[t.dtype],
             "shape": list(t.shape),
-            "data_offsets": [offset, offset + len(data)],
+            "data_offsets": [offset, offset + size],
         }
-        blobs.append(data)
-        offset += len(data)
+        offset += size
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for data in blobs:
-            f.write(data)
+        for name in names:  # one tensor's bytes in memory at a time
+            t = flat[name].detach().to("cpu").contiguous()
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
 
 
 def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
@@ -152,23 +162,24 @@ def build_params(cfg: ModelConfig, flat: Dict[str, torch.Tensor]) -> dict:
 
 
 def load_params(model_path: str, **cfg_overrides):
-    """Checkpoint dir written by the JAX package -> (cfg, nested CPU params)."""
+    """Checkpoint dir in the (in, out) layout -> (cfg, nested CPU params)."""
     with open(f"{model_path}/config.json") as f:
         raw_cfg = json.load(f)
     if raw_cfg.get("layout") != "in_out":
         raise ValueError(
-            f"{model_path} is not in the (in, out) layout; convert it first with "
-            "phi_3_vision_mlx_tpu.core.weights.sanitize_checkpoint"
+            f"{model_path} is not in the (in, out) layout; an HF checkpoint is converted by "
+            "the JAX package's sanitize_checkpoint, which is not ported"
         )
     cfg = config_from_dict(raw_cfg, **cfg_overrides)
     return cfg, build_params(cfg, load_safetensors_dir(model_path))
 
 
 # ---------------------------------------------------------------------------
-# The port's 4-bit layout
+# The port's 4-bit and 8-bit layouts
 # ---------------------------------------------------------------------------
 
 WORD = 8  # 4-bit values per int32 word
+WORD8 = 4  # 8-bit values per int32 word
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -194,10 +205,47 @@ def unpack_int4(words: torch.Tensor) -> torch.Tensor:
     return q.reshape(*lead, kw * WORD, n).to(torch.uint8)
 
 
-def prepare_linear(node: dict) -> dict:
-    """A quantized linear leaf of the checkpoint -> the port's K1 layout."""
+def pack_int8(q: torch.Tensor) -> torch.Tensor:
+    """(..., K, N) uint8 levels in [0, 255] -> (..., K/4, N) int32 words.
+
+    Byte ``j`` (bits 8j..8j+7) of word ``[r, n]`` holds ``q[4r + j, n]``, as
+    an unsigned level.  The bytes are reinterpreted in place, which assumes
+    a little-endian host (as every PyTorch platform is).
+    """
+    *lead, k, n = q.shape
+    if k % WORD8:
+        raise ValueError(f"K={k} is not a multiple of {WORD8}")
+    q4 = q.reshape(*lead, k // WORD8, WORD8, n).transpose(-1, -2).contiguous()
+    return q4.view(torch.int32).squeeze(-1)
+
+
+def unpack_int8(words: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int8`: (..., K/4, N) int32 -> (..., K, N) uint8."""
+    *lead, kw, n = words.shape
+    q = words.contiguous().unsqueeze(-1).view(torch.uint8)  # (..., K/4, N, 4)
+    return q.transpose(-1, -2).reshape(*lead, kw * WORD8, n)
+
+
+# bits -> (values per int32 word, pack, unpack)
+LAYOUTS = {4: (WORD, pack_int4, unpack_int4), 8: (WORD8, pack_int8, unpack_int8)}
+
+
+def leaf_bits(qweight: torch.Tensor, k: int) -> int:
+    """The width of a prepared linear leaf, from its word count against K:
+    ``(K/8, N)`` words hold 4-bit values, ``(K/4, N)`` 8-bit ones."""
+    for bits, (per_word, _, _) in LAYOUTS.items():
+        if qweight.shape[-2] * per_word == k:
+            return bits
+    raise ValueError(f"qweight {tuple(qweight.shape)} is no packed layout of K={k}")
+
+
+def prepare_linear(node: dict, bits: int = 4) -> dict:
+    """A quantized linear leaf of the checkpoint -> the port's K1 (4-bit) or
+    K8 (8-bit) layout."""
+    if bits == 8 and node.get("biases") is None:
+        raise NotImplementedError("symmetric mode is 4-bit only (ops/quant.py)")
     out = {k: v for k, v in node.items() if k not in ("weight", "scales", "biases")}
-    out["qweight"] = pack_int4(node["weight"])
+    out["qweight"] = LAYOUTS[bits][1](node["weight"])
     out["scales"] = node["scales"].to(torch.bfloat16)
     if node.get("biases") is not None:
         out["biases"] = node["biases"].to(torch.bfloat16)
@@ -205,14 +253,15 @@ def prepare_linear(node: dict) -> dict:
 
 
 def prepare_params(params: dict, cfg: ModelConfig) -> dict:
-    """Convert every 4-bit linear leaf to the port's layout (the counterpart
-    of the JAX ``kernelize_params``).  The quantized embedding keeps its plain
-    ``(V, E)`` payload (only looked-up rows are read) with bf16 scales and
-    biases.  No-op on unquantized checkpoints."""
+    """Convert every quantized linear leaf to the port's layout for its
+    width (the counterpart of the JAX ``kernelize_params``).  The quantized
+    embedding keeps its plain ``(V, E)`` payload (only looked-up rows are
+    read) with bf16 scales and biases.  No-op on unquantized checkpoints."""
     if cfg.quantized is None:
         return params
-    if cfg.quantized.bits != 4:
-        raise NotImplementedError("the port carries 4-bit weights only")
+    bits = cfg.quantized.bits
+    if bits not in LAYOUTS:
+        raise NotImplementedError(f"the port carries 4-bit and 8-bit weights, not {bits}-bit")
 
     def walk(node):
         if not isinstance(node, dict):
@@ -220,7 +269,7 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
         if "scales" in node and torch.is_tensor(node.get("weight")):
             q, s = node["weight"], node["scales"]
             if s.shape[-1] == q.shape[-1]:  # linear: scales (K/g, N)
-                return prepare_linear(node)
+                return prepare_linear(node, bits)
             out = dict(node)  # embedding: scales (V, E/g)
             out["scales"] = s.to(torch.bfloat16)
             if node.get("biases") is not None:
@@ -239,24 +288,32 @@ def params_to(params: dict, device) -> dict:
 
 
 def synth_quantized_params(cfg: ModelConfig, device, seed: int = 0) -> dict:
-    """Full-size random 4-bit params in the port's layout, built on ``device``.
+    """Full-size random 4-bit or 8-bit params (``cfg.quantized.bits``) in the
+    port's layout, built on ``device``.
 
-    Same distribution as the JAX ``bench.py:synth_quantized_params``:
+    At 4 bits the distribution of the JAX ``bench.py:synth_quantized_params``:
     uniform nibbles, scales ``0.004 * (1 + 0.1 * N(0, 1))``, biases ``-0.03``
-    (affine mode), unit norms.  ``torch.Generator`` gives other numbers than
+    (affine mode), unit norms.  At 8 bits uniform bytes under the same law
+    with the scale's step divided by 255 / 15, so the weights span the same
+    range (-0.03 to 0.03 about zero) as an 8-bit quantization of the same
+    weights would.  ``torch.Generator`` gives other numbers than
     ``jax.random`` from the same seed.
     """
-    if cfg.quantized is None or cfg.quantized.bits != 4:
-        raise ValueError("synth_quantized_params needs a 4-bit QuantConfig")
+    if cfg.quantized is None or cfg.quantized.bits not in LAYOUTS:
+        raise ValueError("synth_quantized_params needs a 4-bit or 8-bit QuantConfig")
     g = torch.Generator(device=device).manual_seed(seed)
     e, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     h, kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    nl, gs = cfg.num_hidden_layers, cfg.quantized.group_size
+    nl, gs, bits = cfg.num_hidden_layers, cfg.quantized.group_size, cfg.quantized.bits
     symmetric = cfg.quantized.mode == "symmetric"
+    if symmetric and bits != 4:
+        raise NotImplementedError("symmetric mode is 4-bit only (ops/quant.py)")
+    per_word = LAYOUTS[bits][0]
+    step = 0.004 * (15 / ((1 << bits) - 1))
     dt = torch_dtype(cfg.dtype)
 
     def scale_bias(shape):
-        s = 0.004 * (1.0 + 0.1 * torch.randn(shape, generator=g, device=device))
+        s = step * (1.0 + 0.1 * torch.randn(shape, generator=g, device=device))
         out = {"scales": s.to(torch.bfloat16)}
         if not symmetric:
             out["biases"] = torch.full(shape, -0.03, dtype=torch.bfloat16, device=device)
@@ -264,12 +321,12 @@ def synth_quantized_params(cfg: ModelConfig, device, seed: int = 0) -> dict:
 
     def linear(*lead, k, n):
         words = torch.randint(
-            -(2**31), 2**31, (*lead, k // WORD, n), dtype=torch.int32, generator=g, device=device
+            -(2**31), 2**31, (*lead, k // per_word, n), dtype=torch.int32, generator=g, device=device
         )
         return {"qweight": words, **scale_bias((*lead, k // gs, n))}
 
     embed = {
-        "weight": torch.randint(0, 16, (v, e), dtype=torch.uint8, generator=g, device=device),
+        "weight": torch.randint(0, 1 << bits, (v, e), dtype=torch.uint8, generator=g, device=device),
         **scale_bias((v, e // gs)),
     }
     ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)  # noqa: E731
@@ -292,3 +349,120 @@ def synth_quantized_params(cfg: ModelConfig, device, seed: int = 0) -> dict:
         },
         "lm_head": linear(k=e, n=v),
     }
+
+
+# ---------------------------------------------------------------------------
+# Writing checkpoints (JAX save_checkpoint, quantize_checkpoint,
+# create_random_checkpoint)
+# ---------------------------------------------------------------------------
+
+# Tensors whose ``.weight`` is a linear matmul weight.
+_LINEAR_RE = re.compile(
+    r"(qkv_proj|o_proj|gate_up_proj|down_proj|lm_head"
+    r"|q_proj|k_proj|v_proj|out_proj|fc1|fc2|img_projection\.\d+)\.weight$"
+)
+
+
+def flatten_params(params: dict) -> Dict[str, torch.Tensor]:
+    """Nested params -> flat ``{dotted name: tensor}``, every stacked
+    ``...layers`` subtree unstacked back to per-layer keys."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix, stacked):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else k, stacked or k == "layers")
+        elif stacked:
+            base, rest = re.match(r"^(.*layers)\.(.+)$", prefix).groups()
+            for i in range(node.shape[0]):
+                out[f"{base}.{i}.{rest}"] = node[i]
+        else:
+            out[prefix] = node
+
+    walk(params, "", False)
+    return out
+
+
+def save_checkpoint(path: str, cfg: ModelConfig, params: dict, shard_gb: float = 4.0) -> None:
+    """Write ``config.json`` (``"layout": "in_out"``) and the model's
+    safetensors, sharded by size, in the JAX package's format."""
+    os.makedirs(path, exist_ok=True)
+    d = config_to_dict(cfg)
+    d["layout"] = "in_out"
+    with open(f"{path}/config.json", "w") as f:
+        json.dump(d, f, indent=2)
+    shards: list = [{}]
+    size, limit = 0, int(shard_gb * (1 << 30))
+    for k, v in flatten_params(params).items():
+        nbytes = v.numel() * v.dtype.itemsize
+        if size + nbytes > limit and shards[-1]:
+            shards.append({})
+            size = 0
+        shards[-1][k] = v
+        size += nbytes
+    for i, shard in enumerate(shards):
+        suffix = f"-{i:05d}-of-{len(shards):05d}" if len(shards) > 1 else ""
+        save_safetensors(f"{path}/model{suffix}.safetensors", shard)
+
+
+def _quantize_tree(params: dict, qcfg: QuantConfig) -> dict:
+    """Quantize every linear leaf (groups along K) and the token embedding
+    (groups along E) of a nested params dict (JAX ``_quantize_tree``)."""
+
+    def as_node(t):
+        out = {"weight": t.q, "scales": t.scales}
+        if t.biases is not None:
+            out["biases"] = t.biases
+        return out
+
+    def walk(node, path):
+        if not isinstance(node, dict):
+            return node
+        w = node.get("weight")
+        if not torch.is_tensor(w):
+            return {k: walk(v, path + [k]) for k, v in node.items()}
+        g = qcfg.group_size
+        if path and path[-1] == "embed_tokens":
+            if w.shape[-1] % g:
+                return node
+            return as_node(quantize(w, g, qcfg.bits, axis=-1, mode=qcfg.mode))
+        if _LINEAR_RE.search(".".join(path) + ".weight") and w.dim() >= 2 and w.shape[-2] % g == 0:
+            out = as_node(quantize(w, g, qcfg.bits, axis=-2, mode=qcfg.mode))
+            if "bias" in node:
+                out["bias"] = node["bias"]
+            return out
+        return node
+
+    return walk(params, [])
+
+
+def _copy_tokenizer_files(from_path: str, to_path: str) -> None:
+    for f in glob.glob(f"{from_path}/*.json") + glob.glob(f"{from_path}/*.model"):
+        if os.path.basename(f) != "config.json":
+            shutil.copy(f, to_path)
+
+
+def quantize_checkpoint(from_path: str, to_path: str, q_group_size: int = 64, q_bits: int = 4):
+    """A checkpoint in the (in, out) layout -> its group-quantized copy
+    (the reference's ``_quantize``): 4-bit or 8-bit affine, groups of
+    ``q_group_size``.  Floating weights are first cast to the config's
+    dtype, as the JAX package does.  Returns the quantized config."""
+    cfg, params = load_params(from_path)
+    qcfg = QuantConfig(group_size=q_group_size, bits=q_bits)
+    cfg = cfg.replace(quantized=qcfg)
+    save_checkpoint(to_path, cfg, _quantize_tree(params, qcfg))
+    _copy_tokenizer_files(from_path, to_path)
+    return cfg
+
+
+def create_random_checkpoint(path: str, preset_name: str, seed: int = 0, **overrides) -> ModelConfig:
+    """Write a random-weight checkpoint of a preset (``models/phi3.py:
+    init_params`` from a CPU ``torch.Generator`` seeded with ``seed``).  Text
+    models only."""
+    from ..models.phi3 import init_params
+
+    cfg = preset(preset_name, **overrides)
+    if cfg.has_vision:
+        raise NotImplementedError("vision models are not ported yet")
+    save_checkpoint(path, cfg, init_params(cfg, torch.Generator().manual_seed(seed)))
+    return cfg

@@ -28,7 +28,8 @@ kernel without checking the bits).  On the CPU every wrapper runs its plain
 ``ops/attention.py`` path.  The beam read path (``n_beam``) waits for
 constrained decoding.  The continuous-batching engines run the same
 :func:`block` with their own ``attend`` (per-slot offsets; the paged pool's
-K6/K7, ``engine/paging.py``).
+K6/K7, ``engine/paging.py``).  :func:`init_params` draws random weights
+for ``core/weights.py:create_random_checkpoint``.
 """
 
 from __future__ import annotations
@@ -145,6 +146,49 @@ def decode_forward(
     logits = dense(params["lm_head"], x)[..., : cfg.vocab_size]
     new_offset = offset + (l if advance is None else advance)
     return ForwardResult(logits, dataclasses.replace(state, offset=new_offset))
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None) -> dict:
+    """Random parameters in the tree of a loaded unquantized checkpoint (the
+    layer subtree stacked along axis 0), drawn on ``generator``'s device.
+
+    The JAX ``init_params`` law: normal with scale ``fan_in ** -0.5`` for
+    the linears (stored ``(in, out)``) and 0.02 for the embedding, unit
+    norms; ``torch.Generator`` gives other numbers than ``jax.random``.
+    """
+    if cfg.has_vision:
+        raise NotImplementedError("vision models are not ported yet")
+    dt = dtype or torch_dtype(cfg.dtype)
+    e, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    h, kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    nl = cfg.num_hidden_layers
+
+    def nrm(shape, scale=None):
+        scale = scale if scale is not None else shape[-2] ** -0.5
+        return (torch.randn(shape, generator=generator, device=generator.device) * scale).to(dt)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=generator.device)
+
+    return {
+        "model": {
+            "embed_tokens": {"weight": nrm((v, e), 0.02)},
+            "layers": {
+                "self_attn": {
+                    "qkv_proj": {"weight": nrm((nl, e, (h + 2 * kv) * d))},
+                    "o_proj": {"weight": nrm((nl, h * d, e))},
+                },
+                "mlp": {
+                    "gate_up_proj": {"weight": nrm((nl, e, 2 * i))},
+                    "down_proj": {"weight": nrm((nl, i, e))},
+                },
+                "input_layernorm": {"weight": ones(nl, e)},
+                "post_attention_layernorm": {"weight": ones(nl, e)},
+            },
+            "norm": {"weight": ones(e)},
+        },
+        "lm_head": {"weight": nrm((e, v))},
+    }
 
 
 def prefill(

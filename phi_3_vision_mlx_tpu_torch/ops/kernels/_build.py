@@ -36,6 +36,7 @@ _F = ctypes.c_float
 # ctypes would pass them as 32-bit ints and cut them.
 SIGNATURES = {
     "k1_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "k8_w8a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "k2_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _F, _P],
     "k3_dense_kv_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

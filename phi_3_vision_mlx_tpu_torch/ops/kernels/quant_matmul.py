@@ -1,14 +1,20 @@
-"""Kernel K1: W4A16 matmul over the port's packed 4-bit layout.
+"""Kernels K1 (W4A16) and K8 (W8A16): matmul over the port's packed layouts.
 
-Replaces ``phi_3_vision_mlx_tpu/ops/kernels/quant_matmul.py:quant_matmul_tiled``
-and ``quant_matmul_tiled_stacked``; the CUDA source is ``csrc/quant_matmul.cu``.
-A stacked weight's layer is a zero-copy ``w[layer]`` view, so one wrapper
-covers both.
+K1 replaces ``phi_3_vision_mlx_tpu/ops/kernels/quant_matmul.py:quant_matmul_tiled``
+and ``quant_matmul_tiled_stacked``; K8 replaces ``quant_matmul_interleaved``.
+Both are one CUDA source, ``csrc/quant_matmul.cu``, a template over the
+width.  A stacked weight's layer is a zero-copy ``w[layer]`` view, so one
+wrapper covers both variants of a width.
 
-:func:`quant_matmul` launches the kernel for CUDA tensors and runs the plain
-PyTorch version :func:`quant_matmul_plain` only for CPU tensors; a CUDA
-tensor the kernel does not take raises.  ``quant_matmul.launches`` counts
-kernel launches.
+K8 computes the function the JAX package means, the XLA path
+(``ops/quant.py:quantized_matmul``) on unsigned 8-bit levels 0..255; the TPU
+kernel's signed int8 payload turns levels >= 128 into ``q - 256``.
+
+:func:`quant_matmul` and :func:`quant_matmul_w8` launch their kernel for CUDA
+tensors and run the plain PyTorch versions :func:`quant_matmul_plain` and
+:func:`quant_matmul_w8_plain` only for CPU tensors; a CUDA tensor a kernel
+does not take raises.  ``quant_matmul.launches`` and
+``quant_matmul_w8.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ...core.weights import WORD, unpack_int4
+from ...core.weights import WORD, WORD8, unpack_int4, unpack_int8
 from ..quant import QTensor, dequantize
 from . import _build
 
@@ -26,11 +32,21 @@ _TARGET_BLOCKS = 528  # four waves of blocks over the H100's 132 SMs
 _THREADS = 128  # output columns per block (csrc/quant_matmul.cu kThreads)
 
 
-def quant_matmul_plain(x, qweight, scales, biases=None, out_dtype=None):
+def _plain(unpack, x, qweight, scales, biases, out_dtype):
     """``x @ W`` with ``W = dequantize(...)`` rounded to ``x.dtype`` and the
     product accumulated in float32 (``ops/quant.py:quantized_matmul``)."""
-    w = dequantize(QTensor(unpack_int4(qweight), scales, biases), dtype=x.dtype)
+    w = dequantize(QTensor(unpack(qweight), scales, biases), dtype=x.dtype)
     return (x.float() @ w.float()).to(out_dtype or x.dtype)
+
+
+def quant_matmul_plain(x, qweight, scales, biases=None, out_dtype=None):
+    """K1's plain version: qweight (K/8, N) int32 of 4-bit levels."""
+    return _plain(unpack_int4, x, qweight, scales, biases, out_dtype)
+
+
+def quant_matmul_w8_plain(x, qweight, scales, biases, out_dtype=None):
+    """K8's plain version: qweight (K/4, N) int32 of unsigned 8-bit levels."""
+    return _plain(unpack_int8, x, qweight, scales, biases, out_dtype)
 
 
 def _splits(m: int, k: int, n: int) -> tuple[int, int]:
@@ -43,6 +59,54 @@ def _splits(m: int, k: int, n: int) -> tuple[int, int]:
     return -(-groups // per), per
 
 
+def _run(wrapper, entry, per_word, plain, x, qweight, scales, biases, out_dtype):
+    """Check the inputs, then run ``plain`` (CPU tensors) or launch the C
+    entry ``entry`` and count the launch on ``wrapper``."""
+    name = wrapper.__name__
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 2 or qweight.dim() != 2:
+        raise ValueError(f"x {tuple(x.shape)} and qweight {tuple(qweight.shape)} must be 2-D")
+    m, k = x.shape
+    n = qweight.shape[1]
+    if qweight.shape[0] * per_word != k or scales.shape[-1] != n:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, qweight {tuple(qweight.shape)}, "
+                         f"scales {tuple(scales.shape)} do not match")
+    if x.device.type == "cpu":
+        return plain(x, qweight, scales, biases, out_dtype)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+    tensors = [x, qweight, scales] + ([] if biases is None else [biases])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if x.dtype != torch.bfloat16 or out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes bf16 x and bf16/f32 output, got "
+                        f"{x.dtype} -> {out_dtype}")
+    if qweight.dtype != torch.int32 or scales.dtype != torch.bfloat16 or (
+        biases is not None and biases.dtype != torch.bfloat16
+    ):
+        raise TypeError(f"{name} kernel takes int32 qweight and bf16 scales/biases")
+    if k % GROUP or scales.shape != (k // GROUP, n) or (
+        biases is not None and biases.shape != scales.shape
+    ):
+        raise ValueError(f"{name} kernel needs group {GROUP}: K={k}, scales "
+                         f"{tuple(scales.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} kernel needs contiguous tensors")
+    lib, _ = _build.library()
+    splits, per = _splits(m, k, n)
+    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    err = getattr(lib, entry)(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+        None if biases is None else biases.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), m, k, n, splits, per,
+        int(out_dtype == torch.float32), _build.stream_ptr(x.device),
+    )
+    _build.check(err, entry)
+    _build.count_launch(wrapper)
+    return out
+
+
 def quant_matmul(
     x: torch.Tensor,
     qweight: torch.Tensor,
@@ -50,50 +114,27 @@ def quant_matmul(
     biases: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """y (M, N) = x (M, K) @ W; qweight (K/8, N) int32, scales/biases
+    """K1: y (M, N) = x (M, K) @ W; qweight (K/8, N) int32, scales/biases
     (K/64, N) bf16 (biases None in symmetric mode)."""
-    out_dtype = out_dtype or x.dtype
-    if x.dim() != 2 or qweight.dim() != 2:
-        raise ValueError(f"x {tuple(x.shape)} and qweight {tuple(qweight.shape)} must be 2-D")
-    m, k = x.shape
-    n = qweight.shape[1]
-    if qweight.shape[0] * WORD != k or scales.shape[-1] != n:
-        raise ValueError(f"shapes x {tuple(x.shape)}, qweight {tuple(qweight.shape)}, "
-                         f"scales {tuple(scales.shape)} do not match")
-    if x.device.type == "cpu":
-        return quant_matmul_plain(x, qweight, scales, biases, out_dtype)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"quant_matmul: no kernel for device {x.device}")
-    tensors = [x, qweight, scales] + ([] if biases is None else [biases])
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("quant_matmul: all tensors must be on one device")
-    if x.dtype != torch.bfloat16 or out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"quant_matmul kernel takes bf16 x and bf16/f32 output, got "
-                        f"{x.dtype} -> {out_dtype}")
-    if qweight.dtype != torch.int32 or scales.dtype != torch.bfloat16 or (
-        biases is not None and biases.dtype != torch.bfloat16
-    ):
-        raise TypeError("quant_matmul kernel takes int32 qweight and bf16 scales/biases")
-    if k % GROUP or scales.shape != (k // GROUP, n) or (
-        biases is not None and biases.shape != scales.shape
-    ):
-        raise ValueError(f"quant_matmul kernel needs group {GROUP}: K={k}, scales "
-                         f"{tuple(scales.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("quant_matmul kernel needs contiguous tensors")
-    lib, _ = _build.library()
-    splits, per = _splits(m, k, n)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    err = lib.k1_w4a16_matmul(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-        None if biases is None else biases.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), m, k, n, splits, per,
-        int(out_dtype == torch.float32), _build.stream_ptr(x.device),
-    )
-    _build.check(err, "k1_w4a16_matmul")
-    _build.count_launch(quant_matmul)
-    return out
+    return _run(quant_matmul, "k1_w4a16_matmul", WORD, quant_matmul_plain,
+                x, qweight, scales, biases, out_dtype)
+
+
+def quant_matmul_w8(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    biases: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """K8: y (M, N) = x (M, K) @ W; qweight (K/4, N) int32 of unsigned 8-bit
+    levels, scales/biases (K/64, N) bf16 (affine only: symmetric mode is
+    4-bit only, as in ``ops/quant.py``)."""
+    if biases is None:
+        raise ValueError("quant_matmul_w8: 8-bit weights are affine and need biases")
+    return _run(quant_matmul_w8, "k8_w8a16_matmul", WORD8, quant_matmul_w8_plain,
+                x, qweight, scales, biases, out_dtype)
 
 
 quant_matmul.launches = 0
+quant_matmul_w8.launches = 0

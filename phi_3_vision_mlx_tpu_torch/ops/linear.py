@@ -1,24 +1,27 @@
 """Linear layers and the quantized embedding lookup
 (counterpart of ``phi_3_vision_mlx_tpu/ops/linear.py``).
 
-A linear leaf is either ``{'weight': (K, N)}`` (full precision) or the
-port's 4-bit layout ``{'qweight': (K/8, N) int32, 'scales': (K/64, N) bf16,
-'biases': (K/64, N) bf16 (absent in symmetric mode)}``, optionally with a
-``'bias': (N,)``.  Dispatch follows the JAX package: up to 256 rows go to
-kernel K1; above that (prefill) the weight is dequantized to the activation
+A linear leaf is either ``{'weight': (K, N)}`` (full precision) or one of the
+port's packed layouts ``{'qweight': (K/8, N) int32 (4-bit) or (K/4, N) int32
+(8-bit), 'scales': (K/64, N) bf16, 'biases': (K/64, N) bf16 (absent in
+symmetric mode)}``, optionally with a ``'bias': (N,)``.  The width is read
+from the word count against K (``core/weights.py:leaf_bits``).  Dispatch
+follows the JAX package: up to 256 rows go to kernel K1 (4-bit) or K8
+(8-bit); above that (prefill) the weight is dequantized to the activation
 dtype and multiplied with ``torch.matmul``, as the JAX package leaves that
-product to XLA (ops/linear.py:93-95,186-203).  LoRA leaves are not ported.
+product to XLA (ops/linear.py:123-131,186-203).  LoRA leaves are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.weights import unpack_int4
-from .kernels.quant_matmul import quant_matmul
+from ..core.weights import LAYOUTS, leaf_bits
+from .kernels.quant_matmul import quant_matmul, quant_matmul_w8
 from .quant import SYMMETRIC_MID, QTensor, dequantize
 
 KERNEL_MAX_ROWS = 256
+KERNELS = {4: quant_matmul, 8: quant_matmul_w8}  # bits -> K1 or K8
 
 
 def embedding(p: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -44,11 +47,12 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     lead, k = x.shape[:-1], x.shape[-1]
     if "qweight" in p:
         qw, s, b = p["qweight"], p["scales"], p.get("biases")
+        bits = leaf_bits(qw, k)
         if x.numel() // k <= KERNEL_MAX_ROWS:
-            y = quant_matmul(x.reshape(-1, k).contiguous(), qw, s, b, out_dtype=x.dtype)
+            y = KERNELS[bits](x.reshape(-1, k).contiguous(), qw, s, b, out_dtype=x.dtype)
             y = y.reshape(*lead, -1)
         else:
-            w = dequantize(QTensor(unpack_int4(qw), s, b), dtype=x.dtype)
+            w = dequantize(QTensor(LAYOUTS[bits][2](qw), s, b), dtype=x.dtype)
             y = torch.matmul(x, w)
     else:
         y = torch.matmul(x, p["weight"].to(x.dtype))

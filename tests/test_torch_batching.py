@@ -288,6 +288,12 @@ def _post(port, body):
 def test_continuous_server_matches_jax_server(pair):
     """Four threads post at once to each continuous server (paged, 3 slots,
     a pool that preempts); every response equals the JAX server's."""
+    continuous_servers_agree(pair)
+
+
+def continuous_servers_agree(pair):
+    """Post the same bodies to the JAX and the port's continuous servers
+    over ``pair`` from concurrent threads; the responses must be equal."""
     (jlm, jproc), (tlm, tproc) = pair
     kw = dict(slots=3, window=128, paged=True, page_size=32, pool_pages=8)
     servers = [

@@ -62,6 +62,20 @@ def test_config_from_dict_on_a_saved_config_json(tmp_path):
     assert TC.ID_EOS == JC.ID_EOS
 
 
+@pytest.mark.parametrize("bits", [None, 4, 8])
+@pytest.mark.parametrize("name", ["phi35_mini", "phi35_vision", "tiny", "tiny_vision"])
+def test_config_to_dict_matches(name, bits):
+    """The dict a checkpoint's config.json holds, from each package's
+    ``config_to_dict``, and back through the port's ``config_from_dict``."""
+    want, got = JC.preset(name), TC.preset(name)
+    if bits:
+        want, got = want.replace(quantized=JC.QuantConfig(64, bits)), got.replace(
+            quantized=TC.QuantConfig(64, bits))
+    d = TC.config_to_dict(got)
+    assert d == JC.config_to_dict(want)
+    assert _fields(TC.config_from_dict(json.loads(json.dumps(d)))) == _fields(got)
+
+
 def test_registry_matches():
     assert TR.processor_for("Phi3ForCausalLM") is TP.Phi3Processor
     assert TR.processor_for("Phi3VForCausalLM") is TP.Phi3VProcessor

@@ -41,12 +41,13 @@ PROMPT = "<|user|>\nTell me about lighthouses.<|end|>\n<|assistant|>\n"
 FP32_ATOL = 1e-4
 
 
-def make_checkpoint(root, name, **overrides):
-    """JAX-written quantized tiny checkpoint with bf16-representable
-    scales and biases (rewritten with the port's safetensors writer)."""
+def make_checkpoint(root, name, q_bits=4, **overrides):
+    """JAX-written quantized (``q_bits``) tiny checkpoint with
+    bf16-representable scales and biases (rewritten with the port's
+    safetensors writer)."""
     raw, quant, out = (str(root / f"{name}{s}") for s in ("", "_q", "_qr"))
     JW.create_random_checkpoint(raw, "tiny", vocab_size=VOCAB, **overrides)
-    JW.quantize_checkpoint(raw, quant)
+    JW.quantize_checkpoint(raw, quant, q_bits=q_bits)
     flat = TW.load_safetensors_dir(quant)
     for key, t in flat.items():
         if key.endswith((".scales", ".biases")):
@@ -179,11 +180,13 @@ def test_unquantized_checkpoint_matches_jax(tmp_path):
 
 
 def test_load_without_checkpoint_names_the_synthetic_path(tmp_path, monkeypatch):
-    """The JAX offline fallback builds weights with JAX; the port raises."""
+    """The JAX offline fallback writes a random checkpoint; the port raises
+    and names its own checkpoint writers and the synthetic weights."""
     from phi_3_vision_mlx_tpu_torch import api
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(FileNotFoundError, match="synth_quantized_params"):
+    with pytest.raises(FileNotFoundError, match="create_random_checkpoint.*quantize_checkpoint"
+                                                ".*synth_quantized_params"):
         api.load()
 
 
