@@ -46,12 +46,25 @@ caught and carried on):
                phase 4's requests with both caches and phase 5's run (a),
                with K8 launched and K1 not (the 4-bit runs launch K1 and not
                K8), and its decode token is profiled at the short window.
+8. packed   — the 4-bit weights moved to the JAX package's flat packed
+               layout (``packed_params``): the 2-layer reference with packed
+               leaves against the CPU (dense cache), then phase 4's three
+               requests at full size with K9 on every decoder linear and K1
+               once per forward pass (lm_head), and the packed decode token
+               profiled at the short window.
+9. experiments — the port's entry points of the three kernel experiments
+               run once each at their scripts' shapes (E1 against K1 at
+               K = 3072, N = 9216; E2 and E3 over a 32-layer int4 cache of
+               32768 positions), printing their tables.
 
 Phase 2 also checks K6 and K7 (paged decode attention over the dense and
-the int4 page pool).  Each kernel's line in the JSON carries its bound (its
-bytes at 3.35 TB/s or its operations at 989 TFLOP/s, whichever is longer,
-from this run's inputs) and the time of one PyTorch call computing the same
-function where there is one (``library_ms``).
+the int4 page pool), K9 (the packed layout), E1 (W4A8) and every mode of
+E2/E3 (K4's kernel with another dequantization).  Each kernel's line in the
+JSON carries its bound (its bytes at 3.35 TB/s or its operations at 989
+TFLOP/s bf16, 1979 TOP/s int8, whichever is longer, from this run's inputs)
+and the time of one PyTorch call computing the same function where there is
+one (``library_ms``).  E1-E3's launches are counted over their experiment's
+run, the others' over the served path.
 
 It imports the port only, and fails if ``jax`` or any module of the JAX
 package ``phi_3_vision_mlx_tpu`` was loaded by the end.
@@ -86,6 +99,9 @@ FILLER = (
 )
 
 K1_SHAPES = ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072), (3072, 32064))
+# K9 at every main-path (K, N) the packed layout takes (lm_head's N = 32064
+# is no multiple of 512 and keeps K1's layout).
+K9_SHAPES = K1_SHAPES[:4]
 # K8 at every main-path (K, N), M = 1, and at M = 4 and 256 for qkv.
 K8_CASES = (((3072, 9216), (1, 4, 256)), ((3072, 3072), (1,)), ((3072, 16384), (1,)),
             ((8192, 3072), (1,)), ((3072, 32064), (1,)))
@@ -125,12 +141,13 @@ REF_INT4_OWN_LOGPROB = 0.1
 # over the bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> dict:
     """The least time the card could take for work of ``nbytes`` moved and
-    ``flops`` done, and which of the two sets it."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    ``flops`` done at ``rate``, and which of the two sets it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return ({"bound_ms": by_bytes, "bound_by": "bytes"} if by_bytes >= by_ops
             else {"bound_ms": by_ops, "bound_by": "operations"})
 
@@ -298,6 +315,8 @@ def phase_kernels(torch, report):
                     t = timed(torch, lambda: K1.quant_matmul(x, *ws[nxt()]),
                               lambda: K1.quant_matmul_plain(x, *ws[nxt()]), 20)
                     line += " " + t.pop("text")
+                    if m == 1:
+                        report["k1_m1_device_ms"][k, n] = t["device_ms"]
                     if (k, n, m) == (3072, 32064, 1):  # K1b, lm_head
                         lib = int4pack_ms(torch, x, k, n, copies, g)
                         line += " library " + ("not measured" if lib is None else f"{lib:.4f} ms")
@@ -549,23 +568,182 @@ def phase_w8_kernels(torch, report):
     report["K8"]["max_abs_err"] = max(errs)
 
 
+def phase_packed_kernels(torch, report):
+    """K9 (K10 is K9 on a ``w[layer]`` view) against its plain version at
+    every main-path (K, N) of the packed layout, M = 1, 4 and 256, under K1's
+    limits: uniform random payload bytes (every byte is two valid levels),
+    the synthetic weights' scales and biases, weights rotated past the L2
+    for timing.  Its library call is K1's (``_weight_int4pack_mm``, the same
+    function on the same shape)."""
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as K
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    errs = []
+    for k, n in K9_SHAPES:
+        wbytes = k * n // 2 + 2 * 2 * (k // 64) * n
+        copies = max(1, math.ceil(150e6 / wbytes))
+        ws = [(torch.randint(0, 256, (k, n // 2), dtype=torch.uint8, generator=g, device=dev),
+               (0.004 * (1 + 0.1 * torch.randn((k // 64, n), generator=g, device=dev))).to(torch.bfloat16),
+               torch.full((k // 64, n), -0.03, dtype=torch.bfloat16, device=dev))
+              for _ in range(copies)]
+        for m in (1, 4, 256):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            out = K.quant_matmul_packed(x, *ws[0], out_dtype=torch.float32)
+            ref = K.quant_matmul_packed_plain(x, *ws[0], out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
+            if m == 1:  # the decode path's bf16 output: one more rounding (1 ulp)
+                ok = ok and close(torch, K.quant_matmul_packed(x, *ws[0]),
+                                  K.quant_matmul_packed_plain(x, *ws[0]), K1_ATOL, 2.0**-7)[2]
+            errs.append(ea)
+            line = (f"K9 K={k} N={n} M={m}: max_abs={ea:.3e} max_rel={er:.3e} (atol {K1_ATOL} + rtol "
+                    f"{K1_RTOL})")
+            if m == 1:
+                b9 = bound(wbytes + 2 * m * k + 2 * m * n, 2 * m * k * n)
+                nxt = rotating(copies)
+                t = timed(torch, lambda: K.quant_matmul_packed(x, *ws[nxt()]),
+                          lambda: K.quant_matmul_packed_plain(x, *ws[nxt()]), 20)
+                k1 = report["k1_m1_device_ms"].get((k, n))
+                ratio = "not measured" if k1 is None or t["device_ms"] is None else \
+                    f"{t['device_ms'] / k1:.2f}x K1's device time ({k1:.4f} ms)"
+                line += f" bound {b9['bound_ms']:.4f} ms ({b9['bound_by']}) {t.pop('text')}; {ratio}"
+                if (k, n) == (3072, 9216):
+                    report["K9"].update(t, shape="K=3072 N=9216 M=1 packed", **b9,
+                                        library_ms=int4pack_ms(torch, x, k, n, copies, g))
+            log(line)
+            if not ok:
+                fail(f"K9 disagrees with its plain version at K={k} N={n} M={m}")
+        del ws
+    report["K9"]["max_abs_err"] = max(errs)
+
+
+# E2 (qkv_probe.py) and E3 (qdecode_sweep.py): the modes each reaches, and the
+# one its kernel line reports (E2's convert; E3's default sweep is fp32, K4
+# itself, and mxu).
+E2_MODES = ("fp32", "convert", "nosoftmax")
+E3_MODES = ("fp32", "bf16", "convert", "nomul", "fbias", "mxu")
+E_SHOWN = {"E2": "convert", "E3": "mxu"}
+
+
+def phase_experiment_kernels(torch, report):
+    """E1 against its plain version at K = 3072, N = 9216, M = 1, 16 and 256
+    under K1's f32 limits (the same int8 activations on both sides: only the
+    order of the f32 sums differs), timed at M = 1; every E2/E3 mode against
+    its plain version at K4's shapes and limits (no-softmax: plus 1e-5 of the
+    largest output, the f32 order noise of its 4224 summed terms), timed at
+    Lq = 1, offset 4223, layers rotated past the L2.  No PyTorch call
+    computes grouped W4A8 (``torch._int_mm`` has no group scales) or
+    attention over the int4 cache."""
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
+    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as E1
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(6)
+    k, n = 3072, 9216
+    wbytes = k * n // 2 + 2 * (k // 64) * n
+    copies = max(1, math.ceil(150e6 / wbytes))
+    ws = [(torch.randint(-(2**31), 2**31, (k // 8, n), dtype=torch.int32, generator=g, device=dev),
+           (0.01 * torch.randn((k // 64, n), generator=g, device=dev)).to(torch.bfloat16))
+          for _ in range(copies)]
+    errs = []
+    for m in (1, 16, 256):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        out = E1.w4a8_matmul(x, *ws[0])
+        ref = E1.w4a8_matmul_plain(*E1.quantize_activations(x), *ws[0])
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
+        errs.append(ea)
+        line = f"E1 K={k} N={n} M={m}: max_abs={ea:.3e} max_rel={er:.3e} (atol {K1_ATOL} + rtol {K1_RTOL})"
+        if m == 1:
+            b1 = bound(wbytes + m * k + 4 * m + 4 * m * n, 2 * m * k * n, INT8_OPS)
+            nxt = rotating(copies)
+            t = timed(torch, lambda: E1.w4a8_matmul(x, *ws[nxt()]),
+                      lambda: E1.w4a8_matmul_plain(*E1.quantize_activations(x), *ws[nxt()]), 20)
+            line += f" bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}) {t.pop('text')}; library none"
+            report["E1"].update(t, shape="K=3072 N=9216 M=1 symmetric", library_ms=None, **b1)
+        log(line)
+        if not ok:
+            fail(f"E1 disagrees with its plain version at M={m}")
+    report["E1"]["max_abs_err"] = max(errs)
+    del ws
+
+    b_, h, kvh, d, nl, lmax = 1, 32, 32, 96, 8, 4224
+    scale = d**-0.5
+    kk = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[0]
+    vv = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[1]
+    payload, scales = quantize_chunk(kk.to(torch.bfloat16), vv.to(torch.bfloat16), KVQuantConfig(32, 4))
+    del kk, vv
+    valid = torch.rand((b_, lmax), generator=g, device=dev) > 0.05
+    valid[:, :10] = False  # left padding
+    qs = {lq: torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+          for lq in (1, 4)}
+    modes = {}
+    for mode in KV.VARIANT_MODES:
+        merr = 0.0
+        for lq, q in qs.items():
+            for offset in (lmax // 2, lmax - lq):
+                for layer in (0, nl - 1):
+                    out = KV.quantized_kv_attention_variant(q, payload, scales, valid, offset, layer, scale,
+                                                            mode=mode)
+                    ref = KV.quantized_kv_attention_variant_plain(q, payload, scales, valid, offset, layer,
+                                                                  scale, mode)
+                    torch.cuda.synchronize()
+                    atol = ATTN_ATOL + (1e-5 * ref.float().abs().max().item() if mode == "nosoftmax" else 0)
+                    ea, er, ok = close(torch, out, ref, atol, ATTN_RTOL)
+                    merr = max(merr, ea)
+                    if not ok:
+                        fail(f"E2/E3 mode {mode} disagrees with its plain version at Lq={lq} "
+                             f"offset={offset} layer={layer}")
+        nxt = rotating(nl)
+        q1 = qs[1]
+        t = timed(torch, lambda: KV.quantized_kv_attention_variant(q1, payload, scales, valid, lmax - 1,
+                                                                   nxt(), scale, mode=mode),
+                  lambda: KV.quantized_kv_attention_variant_plain(q1, payload, scales, valid, lmax - 1,
+                                                                  nxt(), scale, mode), 20)
+        per_key = d + (0 if mode in ("convert", "nosoftmax") else 8 * (d // 32))
+        keys = lmax if mode == "nosoftmax" else int(valid.sum())
+        bm = bound(kvh * lmax * per_key + (0 if mode == "nosoftmax" else lmax) + 2 * 2 * h * d,
+                   4 * h * d * keys)
+        log(f"E2/E3 mode {mode} Lq=1,4 Lmax={lmax} H={h} D={d}: max_abs={merr:.3e} (atol {ATTN_ATOL} + "
+            f"rtol {ATTN_RTOL:.4f}); Lq=1 at offset {lmax - 1}: bound {bm['bound_ms']:.4f} ms "
+            f"({bm['bound_by']}) {t.pop('text')}; library none")
+        modes[mode] = {**t, **bm, "max_abs_err": merr}
+    for name, owned in (("E2", E2_MODES), ("E3", E3_MODES)):
+        shown = modes[E_SHOWN[name]]
+        report[name].update({key: shown[key] for key in ("ms", "plain_ms", "device_ms", "plain_device_ms",
+                                                         "bound_ms", "bound_by")},
+                            shape=f"Lq=1 Lmax=4224 offset=4223 H=32 D=96 int4, mode {E_SHOWN[name]}",
+                            library_ms=None, max_abs_err=max(modes[m]["max_abs_err"] for m in owned),
+                            modes={m: modes[m] for m in owned})
+
+
 def full_config(bits: int = 4):
     from phi_3_vision_mlx_tpu_torch.core.config import QuantConfig, preset
 
     return preset("phi35_mini").replace(quantized=QuantConfig(group_size=64, bits=bits, mode="affine"))
 
 
+def is_packed(params) -> bool:
+    from phi_3_vision_mlx_tpu_torch.core.weights import is_packed_leaf
+
+    return is_packed_leaf(params["model"]["layers"]["mlp"]["down_proj"])
+
+
 def weights_of(lm) -> str:
-    return f"{lm.cfg.quantized.bits}-bit"
+    return f"{lm.cfg.quantized.bits}-bit" + (" packed" if is_packed(lm.params) else "")
 
 
-def phase_reference(torch, params, proc, bits: int = 4):
-    """2-layer full-width slice with ``bits``-bit weights: kernels on the
-    card vs the plain path on the CPU, with the dense and with the int4 KV
-    cache.  The int4 cache is
-    compared twice: with the CPU run writing the card's quantized entries
-    (the kernels against the plain path on the same cache, at the dense
-    limits), and with each device quantizing its own keys."""
+def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
+    """2-layer full-width slice with ``bits``-bit weights (in the packed
+    layout if ``params`` holds it): kernels on the card vs the plain path
+    on the CPU, with the dense and (``caches``) with the int4 KV cache.  The
+    int4 cache is compared twice: with the CPU run writing the card's
+    quantized entries (the kernels against the plain path on the same
+    cache, at the dense limits), and with each device quantizing its own
+    keys."""
     import numpy as np
 
     from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
@@ -607,7 +785,8 @@ def phase_reference(torch, params, proc, bits: int = 4):
             phi3.update_layer_chunk = S.update_layer_chunk
         return logits[0].float().cpu().numpy(), float(maxlp[0, 0]), token
 
-    for quantized in (False, True):
+    label = f"{bits}-bit" + (" packed" if is_packed(params) else "")
+    for quantized in caches:
         cfg = full_config(bits).replace(num_hidden_layers=2, use_quantized_cache=quantized)
         a, lp_a, token = run(cfg, "cuda", None, record if quantized else S.update_layer_chunk)
         if a.shape != (cfg.vocab_size,) or not np.isfinite(a).all():
@@ -621,11 +800,11 @@ def phase_reference(torch, params, proc, bits: int = 4):
             b, lp_b, _ = run(cfg, "cpu", token, write)
             rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
             dlp = abs(lp_a - lp_b)
-            log(f"reference (2 layers, width 3072, {bits}-bit weights, {what}): prefill logits "
+            log(f"reference (2 layers, width 3072, {label} weights, {what}): prefill logits "
                 f"rel L2 cuda-vs-cpu {rel:.3e} (limit {limit:.3g}); decode max log-prob diff "
                 f"{dlp:.3e} (limit {lp_limit})")
             if rel > limit or not dlp <= lp_limit:
-                fail(f"reference: the kernel path disagrees with the plain path ({bits}-bit, {what})")
+                fail(f"reference: the kernel path disagrees with the plain path ({label}, {what})")
 
 
 def post(port: int, body: dict, timeout: float = 600):
@@ -641,17 +820,23 @@ def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
     from phi_3_vision_mlx_tpu_torch.ops.kernels.flash_attention import flash_attention
-    from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import quant_matmul, quant_matmul_w8
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import (quant_matmul, quant_matmul_packed,
+                                                                      quant_matmul_w8)
 
     return {"K1": quant_matmul, "K2": flash_attention, "K3": KV.dense_kv_attention,
             "K4": KV.quantized_kv_attention, "K5": KV.quantized_flash_attention,
             "K6": KV.paged_kv_attention, "K7": KV.paged_quantized_kv_attention,
-            "K8": quant_matmul_w8}
+            "K8": quant_matmul_w8, "K9": quant_matmul_packed}
 
 
 def matmul_kernel(lm) -> str:
-    """K1 serves 4-bit weights, K8 8-bit ones."""
-    return "K8" if lm.cfg.quantized.bits == 8 else "K1"
+    """K1 serves 4-bit weights, K8 8-bit ones; packed 4-bit decoder linears
+    run K9 and lm_head K1."""
+    return "K8" if lm.cfg.quantized.bits == 8 else "K9+K1" if is_packed(lm.params) else "K1"
+
+
+def matmul_kernels(lm) -> tuple:
+    return tuple(matmul_kernel(lm).split("+"))
 
 
 def phase_serving(torch, lm, proc, report):
@@ -662,10 +847,18 @@ def phase_serving(torch, lm, proc, report):
     from phi_3_vision_mlx_tpu_torch import api
     from phi_3_vision_mlx_tpu_torch.serve.server import make_handler
 
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
     counters = kernel_counters()
     cache = "int4" if lm.cfg.use_quantized_cache else "dense"
-    expected = (matmul_kernel(lm),) + (("K4", "K5") if cache == "int4" else ("K2", "K3"))
+    expected = matmul_kernels(lm) + (("K4", "K5") if cache == "int4" else ("K2", "K3"))
     label = f"{weights_of(lm)} weights, {cache} cache"
+    passes = [0]  # forward passes: each runs lm_head once
+    forward = phi3.decode_forward
+
+    def counted(*a, **kw):
+        passes[0] += 1
+        return forward(*a, **kw)
     requests = [
         ("a", PROMPT_A, 64),
         ("b", (FILLER * 20)[:1000], 32),
@@ -674,6 +867,7 @@ def phase_serving(torch, lm, proc, report):
     httpd = HTTPServer(("127.0.0.1", 0), make_handler((lm, proc)))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
+    phi3.decode_forward = counted
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -690,16 +884,20 @@ def phase_serving(torch, lm, proc, report):
                 f"HTTP {status}, {len(resp[0])} chars in {dt:.2f} s")
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
+        phi3.decode_forward = forward
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    log(f"launch counts over the three requests ({label}): {launches}")
+    log(f"launch counts over the three requests ({label}): {launches}; {passes[0]} forward passes")
+    if "K9" in expected and launches["K1"] != passes[0]:
+        fail(f"K1 ran {launches['K1']} times in {passes[0]} forward passes of {label}: "
+             "packed weights leave it lm_head only")
     for name, n in launches.items():
         if name not in expected:
             if n != 0:
                 fail(f"{name} was launched {n} times on the path of {label}")
             continue
-        report[name].setdefault("launches", n)  # K1, K8: the dense path's count
+        report[name].setdefault("launches", n)  # K1, K8: the first (4-bit / 8-bit dense) path's count
         if n <= 0:
             fail(f"{name} was never launched on the path of {label}")
     _, tps = api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False,
@@ -807,7 +1005,7 @@ def phase_continuous(torch, lm, proc, report, run: str, pool_pages: int = 0):
     from phi_3_vision_mlx_tpu_torch.serve.server import ContinuousScheduler, make_continuous_handler
 
     cache = "int4" if lm.cfg.use_quantized_cache else "dense"
-    expected = {matmul_kernel(lm)} | ({"K5", "K7"} if cache == "int4" else {"K2", "K6"})
+    expected = set(matmul_kernels(lm)) | ({"K5", "K7"} if cache == "int4" else {"K2", "K6"})
     if pool_pages:
         # Five pages of prompt each, growing to nine or ten: three running
         # requests outgrow a 20-page pool whatever the admission timing.
@@ -993,13 +1191,39 @@ def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a"
             fail(f"profile ({tag}): the profiler saw no device time")
         top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
         attn = sum(ms for name, ms in per_name.items() if "kv_" in name or "flash" in name)
-        matmul = per_name["wq_partial_kernel"] + per_name["sum_splits_kernel"]
+        matmul = sum(per_name[k] for k in ("wq_partial_kernel", "packed_partial_kernel", "sum_splits_kernel"))
         log(f"profile ({tag}, {weights_of(lm)} weights, {cache} cache): "
             f"{len(dict_input['input_ids'][0])} prompt tokens, "
             f"window {window}: prefill {prefill_ms:.1f} ms; decode wall {wall:.2f} ms/token "
             f"({1e3 / wall:.2f} tok/s), device busy {busy:.3f} ms/token, idle share "
             f"{1 - busy / wall:.3f}, {launches / profiled:.0f} launches/token; attention kernels "
             f"{attn:.3f} ms/token; {matmul_kernel(lm)} {matmul:.3f} ms/token; largest (ms/token): {top}")
+
+
+def phase_experiments(torch, report):
+    """The port's three experiment entry points at their scripts' shapes:
+    E1 at K = 3072, N = 9216 against K1; E2 over a 32-layer, 32-head int4
+    cache of 32768 positions; E3 over the same size, every mode.  Each
+    kernel's launches are its experiment's."""
+    from phi_3_vision_mlx_tpu_torch.experiments import qdecode_sweep, qkv_probe, w4a8_bench
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.kv_attention import quantized_kv_attention_variant
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.w4a8 import w4a8_matmul
+
+    runs = (("E1", w4a8_matmul, lambda: w4a8_bench.main([])),
+            ("E2", quantized_kv_attention_variant, lambda: qkv_probe.main(["32768"])),
+            ("E3", quantized_kv_attention_variant, lambda: qdecode_sweep.main([])))
+    os.environ["QD_LMAX"] = "32768"
+    os.environ["QD_MODES"] = ",".join(qdecode_sweep.MODES)
+    for name, wrapper, run in runs:
+        wrapper.launches = 0
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        report[name]["launches"] = wrapper.launches
+        log(f"{name} experiment: {wrapper.launches} kernel launches in {time.perf_counter() - t0:.1f} s")
+        if wrapper.launches <= 0:
+            fail(f"{name} was never launched by its experiment")
+        torch.cuda.empty_cache()
 
 
 def phase_checkpoint(torch):
@@ -1074,6 +1298,15 @@ def main() -> None:
                "replaces": "phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:519"},
         "K8": {"name": "w8a16_quant_matmul", "source": source + "quant_matmul.cu",
                "replaces": "phi_3_vision_mlx_tpu/ops/kernels/quant_matmul.py:312"},
+        "K9": {"name": "w4a16_packed_quant_matmul", "source": source + "quant_matmul.cu",
+               "replaces": "phi_3_vision_mlx_tpu/ops/kernels/quant_matmul.py:139"},
+        "E1": {"name": "w4a8_matmul", "source": source + "w4a8_matmul.cu",
+               "replaces": "experiments/w4a8_bench.py:87"},
+        "E2": {"name": "quantized_kv_attention_variant (qkv_probe)", "source": source + "quant_kv_attention.cu",
+               "replaces": "experiments/qkv_probe.py:84"},
+        "E3": {"name": "quantized_kv_attention_variant (qdecode_sweep)",
+               "source": source + "quant_kv_attention.cu", "replaces": "experiments/qdecode_sweep.py:196"},
+        "k1_m1_device_ms": {},
     }
 
     # Phase 2: each kernel against its plain version.
@@ -1081,6 +1314,8 @@ def main() -> None:
     phase_quantized_kernels(torch, report)
     phase_paged_kernels(torch, report)
     phase_w8_kernels(torch, report)
+    phase_packed_kernels(torch, report)
+    phase_experiment_kernels(torch, report)
     torch.cuda.empty_cache()
     stamp("phase 2")
 
@@ -1130,15 +1365,38 @@ def main() -> None:
     phase_serving(torch, lm8_int4, proc, report)
     phase_continuous(torch, lm8, proc, report, "d")
     phase_profile(torch, lm8, proc, tags=("a",))
+    del lm8, lm8_int4, params8
+    torch.cuda.empty_cache()
     stamp("phase 7")
+
+    # Phase 8: the flat packed layout (K9 on the decoder linears).
+    from phi_3_vision_mlx_tpu_torch.core.weights import packed_params
+
+    t0 = time.perf_counter()
+    params_packed = packed_params(params, cfg)
+    torch.cuda.synchronize()
+    log(f"full-size 4-bit weights moved to the packed layout in {time.perf_counter() - t0:.1f} s")
+    phase_reference(torch, params_packed, proc, caches=(False,))
+    lm_packed = LM(cfg, params_packed, device="cuda")
+    phase_serving(torch, lm_packed, proc, report)
+    phase_profile(torch, lm_packed, proc, tags=("a",))
+    del lm, lm_int4, lm_packed, params, params_packed
+    torch.cuda.empty_cache()
+    stamp("phase 8")
+
+    # Phase 9: the experiments' entry points, each kernel's launches counted
+    # over its own run.
+    phase_experiments(torch, report)
+    stamp("phase 9")
     for pkg in ("jax", "phi_3_vision_mlx_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             fail(f"{pkg} was imported")
 
     keys = ("name", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "device_ms", "plain_device_ms", "shape")
-    kernels = [{"route": "cuda", **{k: r[k] for k in keys}}
-               for r in (report[f"K{i}"] for i in range(1, 9))]
+    names = [f"K{i}" for i in range(1, 10)] + ["E1", "E2", "E3"]
+    kernels = [{"route": "cuda", **{k: report[n][k] for k in keys},
+                **({"modes": report[n]["modes"]} if "modes" in report[n] else {})} for n in names]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,8 @@ def _to_torch(a, dtype: torch.dtype) -> torch.Tensor:
 
 def from_numpy_params(tree: dict, cfg: ModelConfig) -> dict:
     """Nested dict of numpy arrays (JAX ``build_params`` structure, plain
-    ``(K, N)`` uint8 payloads) -> the port's CPU params (K1 layout)."""
+    ``(K, N)`` uint8 payloads, or linears already in the flat packed layout)
+    -> the port's CPU params (K1 layout; packed leaves kept for K9)."""
     dt = torch_dtype(cfg.dtype)
 
     def walk(node):

@@ -21,6 +21,14 @@ Counterpart of ``phi_3_vision_mlx_tpu/core/weights.py``:
   There is no tiling, no group-interleaved row permutation, no signed cast
   of the 8-bit levels and no lm_head vocab padding: those were TPU
   constraints, and the kernels mask the ragged N edge themselves.
+* :func:`to_packed_layout` / :func:`from_packed_layout` are the port's copies
+  of the JAX package's flat packed 4-bit layout (``ops/kernels/
+  quant_matmul.py:_perm_for, pack_nibbles, unpack_nibbles,
+  unpermute_payload``): ``(K, N/2)`` uint8, rows group-interleaved within
+  512-row blocks, two columns per byte.  :func:`packed_params` turns the
+  eligible 4-bit linears of a prepared params tree into that layout (the
+  counterpart of ``kernelize_params``, which emits another layout); kernel
+  K9 reads it in place.  :func:`prepare_params` keeps such a leaf as it is.
 * :func:`synth_quantized_params` builds full-size random quantized weights
   directly on the device from a seeded ``torch.Generator`` (the torch
   counterpart of ``bench.py:synth_quantized_params``).
@@ -252,11 +260,29 @@ def prepare_linear(node: dict, bits: int = 4) -> dict:
     return out
 
 
+def is_packed_leaf(node: dict) -> bool:
+    """A linear leaf in the flat packed 4-bit layout: a uint8 ``(..., K,
+    N/2)`` payload beside ``(..., K/g, N)`` scales (the JAX rule,
+    ``ops/linear.py:102,205``, ``models/phi3.py:77-80``)."""
+    q, s = node.get("weight"), node.get("scales")
+    return (torch.is_tensor(q) and s is not None and q.dtype == torch.uint8
+            and q.shape[-1] * 2 == s.shape[-1])
+
+
+def _bf16_planes(node: dict) -> dict:
+    out = dict(node)
+    out["scales"] = node["scales"].to(torch.bfloat16)
+    if node.get("biases") is not None:
+        out["biases"] = node["biases"].to(torch.bfloat16)
+    return out
+
+
 def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     """Convert every quantized linear leaf to the port's layout for its
     width (the counterpart of the JAX ``kernelize_params``).  The quantized
     embedding keeps its plain ``(V, E)`` payload (only looked-up rows are
-    read) with bf16 scales and biases.  No-op on unquantized checkpoints."""
+    read), and a linear leaf already in the packed layout keeps its payload,
+    both with bf16 scales and biases.  No-op on unquantized checkpoints."""
     if cfg.quantized is None:
         return params
     bits = cfg.quantized.bits
@@ -267,15 +293,96 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
         if not isinstance(node, dict):
             return node
         if "scales" in node and torch.is_tensor(node.get("weight")):
-            q, s = node["weight"], node["scales"]
-            if s.shape[-1] == q.shape[-1]:  # linear: scales (K/g, N)
+            if is_packed_leaf(node):
+                if bits != 4 or node.get("biases") is None:
+                    raise ValueError("the packed layout holds 4-bit affine weights")
+                return _bf16_planes(node)
+            if node["scales"].shape[-1] == node["weight"].shape[-1]:  # linear: scales (K/g, N)
                 return prepare_linear(node, bits)
-            out = dict(node)  # embedding: scales (V, E/g)
-            out["scales"] = s.to(torch.bfloat16)
-            if node.get("biases") is not None:
-                out["biases"] = node["biases"].to(torch.bfloat16)
-            return out
+            return _bf16_planes(node)  # embedding: scales (V, E/g)
         return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# The flat packed 4-bit layout (JAX ops/kernels/quant_matmul.py:39-100,274-282)
+# ---------------------------------------------------------------------------
+
+PACK_BLOCK_K = 512  # rows are group-interleaved within blocks of min(512, K)
+PACK_BLOCK_N = 512  # byte j of a 512-column block: column j | column j + 256 << 4
+
+
+def packed_block_k(k: int) -> int:
+    return min(PACK_BLOCK_K, k)
+
+
+def packed_row_perm(k: int, group: int = 64) -> torch.Tensor:
+    """Packed row -> original row: within each ``block_k`` block, row
+    ``i * gk + gl`` holds original row ``block_start + gl * group + i``
+    (``gk = block_k / group``; JAX ``_perm_for``)."""
+    bk = packed_block_k(k)
+    return torch.arange(k).reshape(k // bk, bk // group, group).transpose(1, 2).reshape(k)
+
+
+def packable(k: int, n: int, group: int = 64) -> bool:
+    """The JAX kernel's own conditions (``quant_matmul.py:150,234``)."""
+    bk = packed_block_k(k)
+    return k % bk == 0 and bk % group == 0 and n % PACK_BLOCK_N == 0
+
+
+def to_packed_layout(q: torch.Tensor, group: int = 64) -> torch.Tensor:
+    """Plain ``(..., K, N)`` uint8 levels in [0, 15] -> the packed ``(..., K,
+    N/2)`` uint8 payload (JAX ``pack_nibbles(q[_perm_for(...)])``)."""
+    *lead, k, n = q.shape
+    if not packable(k, n, group):
+        raise ValueError(f"K={k}, N={n} do not fit the packed layout's blocks")
+    half = PACK_BLOCK_N // 2
+    qp = q[..., packed_row_perm(k, group).to(q.device), :].reshape(*lead, k, n // PACK_BLOCK_N,
+                                                                   PACK_BLOCK_N)
+    return (qp[..., :half] | (qp[..., half:] << 4)).reshape(*lead, k, n // 2)
+
+
+def from_packed_layout(packed: torch.Tensor, group: int = 64) -> torch.Tensor:
+    """Inverse of :func:`to_packed_layout` (JAX ``unpermute_payload(
+    unpack_nibbles(...))``): ``(..., K, N/2)`` -> ``(..., K, N)`` uint8."""
+    *lead, k, nh = packed.shape
+    p = packed.reshape(*lead, k, nh * 2 // PACK_BLOCK_N, PACK_BLOCK_N // 2)
+    q = torch.cat([p & 15, p >> 4], dim=-1).reshape(*lead, k, nh * 2)
+    inv = torch.argsort(packed_row_perm(k, group)).to(packed.device)
+    return q[..., inv, :]
+
+
+def packed_params(params: dict, cfg: ModelConfig) -> dict:
+    """The port's prepared 4-bit affine params with every linear whose (K,
+    N) the packed layout takes (K a multiple of ``min(512, K)``, N of 512)
+    moved to that layout: ``{'weight': (..., K, N/2) uint8, 'scales',
+    'biases'}`` in bf16.  Others (lm_head at N = 32064) keep K1's layout.
+    Stacked leaves convert one layer at a time.  Like the JAX
+    ``kernelize_params`` it transforms a loaded tree; ``api.load`` does not
+    call it."""
+    q = cfg.quantized
+    if q is None or q.bits != 4 or q.mode != "affine":
+        raise ValueError("the packed layout holds 4-bit affine weights")
+
+    def convert(node):
+        qw = node["qweight"]
+        k, n = qw.shape[-2] * WORD, qw.shape[-1]
+        group = k // node["scales"].shape[-2]
+        if not packable(k, n, group):
+            return node
+        flat = qw.reshape(-1, qw.shape[-2], n)
+        payload = torch.stack([to_packed_layout(unpack_int4(w), group) for w in flat])
+        out = {key: v for key, v in node.items() if key != "qweight"}
+        out["weight"] = payload.reshape(*qw.shape[:-2], k, n // 2)
+        return out
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if "qweight" in node and node.get("biases") is not None:
+            return convert(node)
+        return {key: walk(v) for key, v in node.items()}
 
     return walk(params)
 

@@ -33,6 +33,25 @@
 //   staging it in shared memory; the window is read in place from the
 //   stacked cache, with no dequantized copy.
 //
+// E2 and E3 (the experiment kernels experiments/qkv_probe.py:probe_attention
+// (:84) and experiments/qdecode_sweep.py:qkv_attn (:196)) are K4's decode
+// kernel with a compile-time MODE that changes how a key and a value are
+// dequantized (entry e23_quantized_kv_attention_variant):
+//   kFp32      K4 itself (E2 "full", E3 "fp32" and "u8"): bf16(q * s + b);
+//   kBf16      bf16 arithmetic: bf16(bf16(q * s) + b);
+//   kConvert   the raw level q (E2 "convert", E3 "noscale"; no scale loads);
+//   kNoMul     bf16(q + s), no multiply and no bias;
+//   kFBias     bf16(q * s), the bias factored out: each score gains
+//              sum_g b_g * (sum of the query over group g), the output
+//              sum_j p_j * b_g(d), both accumulated beside the main sums;
+//   kMxu       scale and bias both factored: scores (q_d * lvl) * s_g, the
+//              output (p * s_g) * lvl, and the biases as in kFBias;
+//   kNoSoftmax E2 "mxuonly": kConvert with no mask and no softmax over all
+//              Lmax keys, out = sum_j score_j * lvl_j.
+// The groups are the port's d / 32, not the TPU's permuted c % G.  K4's
+// production instantiation is MODE = kFp32, whose code the other modes leave
+// as it was (each difference is an `if constexpr`).
+//
 // Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
 // cudaErrorInvalidValue until a configuration on the card needs it.
 
@@ -55,9 +74,43 @@ struct Int4KV {
   }
 };
 
+enum Mode { kFp32 = 0, kBf16, kConvert, kNoMul, kFBias, kMxu, kNoSoftmax };
+
+// Modes that read no scales, and modes that add the bias outside the dot
+// products.
+template <int MODE>
+constexpr bool kRaw = MODE == kConvert || MODE == kNoSoftmax;
+template <int MODE>
+constexpr bool kFactored = MODE == kFBias || MODE == kMxu;
+
+template <int MODE, int G>
+__device__ __forceinline__ KeyScales<G> mode_scales(const __nv_bfloat16* sc) {
+  if constexpr (kRaw<MODE>) return KeyScales<G>{};
+  else return load_scales<G>(sc);
+}
+
+// A level q with its group's scale s and bias b as the mode dequantizes it
+// (without the bias in the factored modes).
+template <int MODE>
+__device__ __forceinline__ float deq(unsigned q, float s, float b) {
+  if constexpr (MODE == kFp32) return dequant(q, s, b);
+  else if constexpr (MODE == kBf16) return round_bf(__fadd_rn(round_bf(__fmul_rn(static_cast<float>(q), s)), b));
+  else if constexpr (MODE == kNoMul) return round_bf(__fadd_rn(static_cast<float>(q), s));
+  else if constexpr (MODE == kFBias) return round_bf(__fmul_rn(static_cast<float>(q), s));
+  else if constexpr (MODE == kMxu) return __fmul_rn(static_cast<float>(q), s);
+  else return static_cast<float>(q);
+}
+
+// A value as the mode dequantizes it, bias included.
+template <int MODE>
+__device__ __forceinline__ float deq_value(unsigned q, float s, float b) {
+  if constexpr (kFactored<MODE>) return __fadd_rn(deq<MODE>(q, s, b), b);
+  else return deq<MODE>(q, s, b);
+}
+
 // The uniform average of every value of the window, for a query row that
 // sees no key.  Called by the whole block; sm_acc is [kWarps][D] scratch.
-template <int D>
+template <int D, int MODE>
 __device__ void store_uniform_average(const uint8_t* pb, const __nv_bfloat16* sb, int Lmax,
                                       float (*sm_acc)[D], __nv_bfloat16* o) {
   constexpr int G = D / kGroup;
@@ -68,10 +121,10 @@ __device__ void store_uniform_average(const uint8_t* pb, const __nv_bfloat16* sb
 #pragma unroll
   for (int r = 0; r < G; ++r) sum[r] = 0.f;
   for (int j = warp; j < Lmax; j += kWarps) {
-    const KeyScales<G> sc = load_scales<G>(sb + (size_t)j * 4 * G);
+    const KeyScales<G> sc = mode_scales<MODE, G>(sb + (size_t)j * 4 * G);
 #pragma unroll
     for (int r = 0; r < G; ++r)
-      sum[r] += dequant(pb[(size_t)j * D + lane + 32 * r] >> 4, sc.at(2 * G + r), sc.at(3 * G + r));
+      sum[r] += deq_value<MODE>(pb[(size_t)j * D + lane + 32 * r] >> 4, sc.at(2 * G + r), sc.at(3 * G + r));
   }
 #pragma unroll
   for (int r = 0; r < G; ++r) sm_acc[warp][lane + 32 * r] = sum[r];
@@ -88,7 +141,9 @@ __device__ void store_uniform_average(const uint8_t* pb, const __nv_bfloat16* sb
 // [s * split_keys, min((s + 1) * split_keys, pos(i) + 1)).  With one split it
 // writes the output; otherwise it writes (max, sum, unnormalized output) to
 // partial[s, row] for the combine kernel, row = (b * H + h) * Lq + i.
-template <int D>
+// kNoSoftmax runs over keys [s * split_keys, (s + 1) * split_keys) of the
+// whole window, with no mask, and writes plain sums.
+template <int D, int MODE>
 __global__ void __launch_bounds__(kDecThreads)
     quantized_kv_partial_kernel(const __nv_bfloat16* __restrict__ q,
                                 const uint8_t* __restrict__ payload,
@@ -113,12 +168,26 @@ __global__ void __launch_bounds__(kDecThreads)
   const uint8_t* vrow = valid + (size_t)b * Lmax;
   const int qpos = offset + i;
   const int jbeg = split * split_keys;
-  const int jend = min(min(Lmax, qpos + 1), jbeg + split_keys);
+  const int jend = MODE == kNoSoftmax ? min(Lmax, jbeg + split_keys)
+                                      : min(min(Lmax, qpos + 1), jbeg + split_keys);
 
   float qv[G];
 #pragma unroll
   for (int r = 0; r < G; ++r)
     qv[r] = round_bf(bf(q[b * qsb + h * qsh + i * qsl + lane + 32 * r]) * scale);
+  // The factored modes: the sum of the query over each group (lane l holds
+  // dim l + 32 r of group r), and the bias term of the output.
+  float qs[G], pbias[G];
+  if constexpr (kFactored<MODE>) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      float t = qv[r];
+#pragma unroll
+      for (int sh = 16; sh > 0; sh >>= 1) t += __shfl_xor_sync(0xffffffffu, t, sh);
+      qs[r] = t;
+      pbias[r] = 0.f;
+    }
+  }
 
   float m = kNegInf, l = 0.f, acc[G];
 #pragma unroll
@@ -127,21 +196,42 @@ __global__ void __launch_bounds__(kDecThreads)
     unsigned byte[G];
 #pragma unroll
     for (int r = 0; r < G; ++r) byte[r] = pb[(size_t)j * D + lane + 32 * r];
-    const KeyScales<G> sc = load_scales<G>(sb + (size_t)j * 4 * G);
+    const KeyScales<G> sc = mode_scales<MODE, G>(sb + (size_t)j * 4 * G);
     float part = 0.f;
 #pragma unroll
-    for (int r = 0; r < G; ++r) part = fmaf(qv[r], dequant(byte[r] & 15u, sc.at(r), sc.at(G + r)), part);
+    for (int r = 0; r < G; ++r) {
+      if constexpr (MODE == kMxu) part = fmaf(qv[r] * static_cast<float>(byte[r] & 15u), sc.at(r), part);
+      else part = fmaf(qv[r], deq<MODE>(byte[r] & 15u, sc.at(r), sc.at(G + r)), part);
+    }
 #pragma unroll
     for (int sh = 16; sh > 0; sh >>= 1) part += __shfl_xor_sync(0xffffffffu, part, sh);
+    if constexpr (kFactored<MODE>) {
+#pragma unroll
+      for (int r = 0; r < G; ++r) part = fmaf(qs[r], sc.at(G + r), part);
+    }
+    if constexpr (MODE == kNoSoftmax) {
+#pragma unroll
+      for (int r = 0; r < G; ++r) acc[r] = fmaf(part, static_cast<float>(byte[r] >> 4), acc[r]);
+      continue;
+    }
     const float s = vrow[j] ? part : kNegInf;
     const float m_new = fmaxf(m, s);
     const float alpha = expf(m - m_new);
     const float p = expf(s - m_new);
     l = l * alpha + p;
 #pragma unroll
-    for (int r = 0; r < G; ++r)
-      acc[r] = fmaf(p, dequant(byte[r] >> 4, sc.at(2 * G + r), sc.at(3 * G + r)), acc[r] * alpha);
+    for (int r = 0; r < G; ++r) {
+      if constexpr (MODE == kMxu)
+        acc[r] = fmaf(p * sc.at(2 * G + r), static_cast<float>(byte[r] >> 4), acc[r] * alpha);
+      else
+        acc[r] = fmaf(p, deq<MODE>(byte[r] >> 4, sc.at(2 * G + r), sc.at(3 * G + r)), acc[r] * alpha);
+      if constexpr (kFactored<MODE>) pbias[r] = fmaf(p, sc.at(3 * G + r), pbias[r] * alpha);
+    }
     m = m_new;
+  }
+  if constexpr (kFactored<MODE>) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) acc[r] += pbias[r];
   }
   if (lane == 0) {
     sm_m[warp] = m;
@@ -174,16 +264,20 @@ __global__ void __launch_bounds__(kDecThreads)
     return;
   }
   __nv_bfloat16* o = out + b * osb + h * osh + i * osl;
+  if constexpr (MODE == kNoSoftmax) {
+    if (threadIdx.x < D) o[threadIdx.x] = __float2bfloat16(a);
+    return;
+  }
   if (mx > kNegInf) {
     if (threadIdx.x < D) o[threadIdx.x] = __float2bfloat16(a / lsum);
     return;
   }
-  store_uniform_average<D>(pb, sb, Lmax, sm_acc, o);
+  store_uniform_average<D, MODE>(pb, sb, Lmax, sm_acc, o);
 }
 
 // Grid (H, B * Lq): merges the n_split partial results of one query row in
-// split order.
-template <int D>
+// split order (kNoSoftmax: adds them).
+template <int D, int MODE>
 __global__ void __launch_bounds__(kDecThreads)
     quantized_kv_combine_kernel(const float* __restrict__ partial,
                                 const uint8_t* __restrict__ payload,
@@ -197,9 +291,17 @@ __global__ void __launch_bounds__(kDecThreads)
   const int h = blockIdx.x, b = blockIdx.y / Lq, i = blockIdx.y % Lq;
   const size_t rows = (size_t)gridDim.x * gridDim.y;
   const float* src = partial + (((size_t)b * H + h) * Lq + i) * (D + 2);
+  __nv_bfloat16* o = out + b * osb + h * osh + i * osl;
+  if constexpr (MODE == kNoSoftmax) {
+    if (threadIdx.x < D) {
+      float a = 0.f;
+      for (int s = 0; s < n_split; ++s) a += src[s * rows * (D + 2) + 2 + threadIdx.x];
+      o[threadIdx.x] = __float2bfloat16(a);
+    }
+    return;
+  }
   float mx = kNegInf;
   for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, src[s * rows * (D + 2)]);
-  __nv_bfloat16* o = out + b * osb + h * osh + i * osl;
   if (mx > kNegInf) {
     if (threadIdx.x < D) {
       float lsum = 0.f, a = 0.f;
@@ -215,10 +317,10 @@ __global__ void __launch_bounds__(kDecThreads)
   }
   const int kvh = h / (H / KV);
   const size_t key0 = ((size_t)b * KV + kvh) * (size_t)Lmax;
-  store_uniform_average<D>(payload + key0 * D, scales + key0 * 4 * G, Lmax, sm_acc, o);
+  store_uniform_average<D, MODE>(payload + key0 * D, scales + key0 * 4 * G, Lmax, sm_acc, o);
 }
 
-template <int D>
+template <int D, int MODE>
 cudaError_t launch_quantized_decode(const void* q, const void* payload, const void* scales,
                                     const void* valid, void* out, void* partial, int B, int H,
                                     int KV, int Lq, int Lmax, const long long* st, int layer,
@@ -230,13 +332,13 @@ cudaError_t launch_quantized_decode(const void* q, const void* payload, const vo
   const uint8_t* p = static_cast<const uint8_t*>(payload) + (size_t)layer * layer_keys * D;
   const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(scales) + (size_t)layer * layer_keys * 4 * G;
   dim3 grid(n_split, H, B * Lq);
-  quantized_kv_partial_kernel<D><<<grid, kDecThreads, 0, stream>>>(
+  quantized_kv_partial_kernel<D, MODE><<<grid, kDecThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), p, s, static_cast<const uint8_t*>(valid),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(partial), H, KV, Lq, Lmax, st[0],
       st[1], st[2], st[3], st[4], st[5], offset, scale, split_keys);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
-  quantized_kv_combine_kernel<D><<<dim3(H, B * Lq), kDecThreads, 0, stream>>>(
+  quantized_kv_combine_kernel<D, MODE><<<dim3(H, B * Lq), kDecThreads, 0, stream>>>(
       static_cast<const float*>(partial), p, s, static_cast<__nv_bfloat16*>(out), H, KV, Lq, Lmax,
       st[3], st[4], st[5], n_split);
   return cudaGetLastError();
@@ -260,7 +362,7 @@ extern "C" int k4_quantized_kv_attention(const void* q, const void* payload, con
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   switch (D) {
-    case 96: return (int)launch_quantized_decode<96>(q, payload, scales, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, offset, scale, n_split, split_keys, stream);
+    case 96: return (int)launch_quantized_decode<96, kFp32>(q, payload, scales, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, offset, scale, n_split, split_keys, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -285,4 +387,36 @@ extern "C" int k5_quantized_flash_attention(const void* q, const void* payload, 
     }
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// E2/E3.  As k4_quantized_kv_attention, with `mode` one of Mode (kFp32 is
+// K4's own instantiation).  kNoSoftmax ignores offset and valid and splits
+// the whole window.  Returns a cudaError_t.
+extern "C" int e23_quantized_kv_attention_variant(const void* q, const void* payload,
+                                                  const void* scales, const void* valid, void* out,
+                                                  void* partial, int B, int H, int KV, int Lq,
+                                                  int Lmax, int D, long long qsb, long long qsh,
+                                                  long long qsl, long long osb, long long osh,
+                                                  long long osl, int layer, int offset,
+                                                  float scale, int n_split, int split_keys,
+                                                  int mode, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
+  if (D != 96) return (int)cudaErrorInvalidValue;
+#define E23_CASE(M)                                                                               \
+  case M:                                                                                         \
+    return (int)launch_quantized_decode<96, M>(q, payload, scales, valid, out, partial, B, H, KV, \
+                                               Lq, Lmax, st, layer, offset, scale, n_split,      \
+                                               split_keys, stream);
+  switch (mode) {
+    E23_CASE(kFp32)
+    E23_CASE(kBf16)
+    E23_CASE(kConvert)
+    E23_CASE(kNoMul)
+    E23_CASE(kFBias)
+    E23_CASE(kMxu)
+    E23_CASE(kNoSoftmax)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef E23_CASE
 }

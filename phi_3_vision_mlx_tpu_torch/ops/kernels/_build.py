@@ -37,12 +37,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     "k1_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "k8_w8a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "k9_w4a16_packed_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "e1_w4a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "k2_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _F, _P],
     "k3_dense_kv_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
     "k4_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
+    "e23_quantized_kv_attention_variant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                           _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _I, _P],
     "k5_quantized_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
     "k6_paged_kv_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -14,6 +14,12 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
   ``(layers, B, KV, Lmax, 4G)`` bf16; ``engine/state.py``).  Replaces
   ``kv_attention.py:quantized_kv_attention``; CUDA source
   ``csrc/quant_kv_attention.cu`` (``k4_quantized_kv_attention``).
+* E2/E3 :func:`quantized_kv_attention_variant` — K4 with another
+  dequantization (``VARIANT_MODES``), the kernels of the experiments
+  ``experiments/qkv_probe.py:probe_attention`` and
+  ``experiments/qdecode_sweep.py:qkv_attn``; same CUDA source
+  (``e23_quantized_kv_attention_variant``, K4's kernel with a mode
+  parameter).  Reached by the port's ``experiments/`` entry points only.
 * K5 :func:`quantized_flash_attention` — prefill and extend chunks of any
   length over the int4 cache.  Replaces
   ``kv_attention.py:quantized_flash_attention``; CUDA source
@@ -155,6 +161,90 @@ def quantized_kv_attention(q, payload, scales, valid, offset: int, layer_idx: in
 
 
 quantized_kv_attention.launches = 0
+
+
+# E2/E3 modes, in the order of csrc/quant_kv_attention.cu's Mode: how a level
+# q of group g (scale s, bias b) becomes a key or a value.  "fp32" is K4;
+# "fbias" and "mxu" add the bias outside the dot products, which changes
+# only the rounding; "nosoftmax" drops the mask and the softmax.
+VARIANT_MODES = ("fp32", "bf16", "convert", "nomul", "fbias", "mxu", "nosoftmax")
+
+
+def _variant_kv(payload, scales, mode: str, dtype):
+    """(payload, scales) of one layer -> (k, v) as ``mode`` dequantizes them,
+    float32 holding values rounded to ``dtype`` where the mode rounds."""
+    if mode == "fp32":
+        k, v = dequantize_kv(payload, scales, dtype, bits=4)
+        return k.float(), v.float()
+    g = scales.shape[-1] // 4
+    per = payload.shape[-1] // g
+    planes = [scales[..., i * g : (i + 1) * g].float().repeat_interleave(per, dim=-1) for i in range(4)]
+    r = lambda t, dt=dtype: t.to(dt).float()  # noqa: E731
+    out = []
+    for lvl, s, b in ((payload & 15, *planes[:2]), (payload >> 4, *planes[2:])):
+        lvl = lvl.float()
+        if mode == "bf16":
+            out.append(r(r(lvl * s, torch.bfloat16) + b, torch.bfloat16))
+        elif mode in ("convert", "nosoftmax"):
+            out.append(lvl)
+        elif mode == "nomul":
+            out.append(r(lvl + s))
+        elif mode == "fbias":
+            out.append(r(lvl * s) + b)
+        else:  # mxu
+            out.append(lvl * s + b)
+    return tuple(out)
+
+
+def quantized_kv_attention_variant_plain(q, payload, scales, valid, offset: int, layer_idx: int,
+                                         scale: float, mode: str = "fp32"):
+    """The plain version of every mode: attention over the mode's keys and
+    values; "nosoftmax" sums ``score * value`` over the whole window."""
+    k, v = _variant_kv(payload[layer_idx], scales[layer_idx], mode, q.dtype)
+    if mode != "nosoftmax":
+        q_pos = offset + torch.arange(q.shape[2], device=q.device)
+        return decode_attention(q, k, v, valid, q_pos, scale)
+    b, h, lq, d = q.shape
+    kvh = k.shape[1]
+    qg = (q * scale).reshape(b, kvh, h // kvh, lq, d).float()
+    s = torch.matmul(qg, k[:, :, None].transpose(-1, -2))
+    return torch.matmul(s, v[:, :, None]).reshape(b, h, lq, d).to(q.dtype)
+
+
+def quantized_kv_attention_variant(q, payload, scales, valid, offset: int, layer_idx: int,
+                                   scale: float, mode: str = "fp32",
+                                   split_keys: int = K4_SPLIT_KEYS):
+    """E2/E3: K4 with the dequantization of ``mode`` (``VARIANT_MODES``);
+    ``split_keys`` is the keys per block of the split window.  Shapes as in
+    :func:`quantized_kv_attention`."""
+    if mode not in VARIANT_MODES:
+        raise ValueError(f"quantized_kv_attention_variant: mode {mode!r} is not one of {VARIANT_MODES}")
+    if q.device.type == "cpu":
+        return quantized_kv_attention_variant_plain(q, payload, scales, valid, offset, layer_idx,
+                                                    scale, mode)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"quantized_kv_attention_variant: no kernel for device {q.device}")
+    check_quantized_inputs(q, payload, scales, valid, layer_idx, "quantized_kv_attention_variant")
+    b, h, lq, d = q.shape
+    kvh, lmax = payload.shape[2], payload.shape[3]
+    span = lmax if mode == "nosoftmax" else min(lmax, offset + lq)
+    n_split = -(-span // split_keys)
+    out = head_major_empty(q)
+    partial = (torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
+               if n_split > 1 else None)
+    lib, _ = _build.library()
+    err = lib.e23_quantized_kv_attention_variant(
+        q.data_ptr(), payload.data_ptr(), scales.data_ptr(), valid.view(torch.uint8).data_ptr(),
+        out.data_ptr(), None if partial is None else partial.data_ptr(), b, h, kvh, lq, lmax, d,
+        *q.stride()[:3], *out.stride()[:3], int(layer_idx), int(offset), float(scale),
+        n_split, int(split_keys), VARIANT_MODES.index(mode), _build.stream_ptr(q.device),
+    )
+    _build.check(err, "e23_quantized_kv_attention_variant")
+    _build.count_launch(quantized_kv_attention_variant)
+    return out
+
+
+quantized_kv_attention_variant.launches = 0
 
 
 def quantized_flash_attention(q, payload, scales, valid, q_pos0: int, layer_idx: int, scale: float):

@@ -1,20 +1,23 @@
-"""Kernels K1 (W4A16) and K8 (W8A16): matmul over the port's packed layouts.
+"""Kernels K1 (W4A16), K8 (W8A16) and K9 (W4A16 over the flat packed
+layout): matmul over the port's quantized layouts.
 
 K1 replaces ``phi_3_vision_mlx_tpu/ops/kernels/quant_matmul.py:quant_matmul_tiled``
-and ``quant_matmul_tiled_stacked``; K8 replaces ``quant_matmul_interleaved``.
-Both are one CUDA source, ``csrc/quant_matmul.cu``, a template over the
-width.  A stacked weight's layer is a zero-copy ``w[layer]`` view, so one
-wrapper covers both variants of a width.
+and ``quant_matmul_tiled_stacked``; K8 replaces ``quant_matmul_interleaved``;
+K9 replaces ``quant_matmul_packed`` and ``quant_matmul_packed_stacked`` (K10).
+All are one CUDA source, ``csrc/quant_matmul.cu``: K1 and K8 a template over
+the width, K9 a loader for the packed bytes with K1's K split.  A stacked
+weight's layer is a zero-copy ``w[layer]`` view, so one wrapper covers both
+variants of a layout.
 
 K8 computes the function the JAX package means, the XLA path
 (``ops/quant.py:quantized_matmul``) on unsigned 8-bit levels 0..255; the TPU
 kernel's signed int8 payload turns levels >= 128 into ``q - 256``.
 
-:func:`quant_matmul` and :func:`quant_matmul_w8` launch their kernel for CUDA
-tensors and run the plain PyTorch versions :func:`quant_matmul_plain` and
-:func:`quant_matmul_w8_plain` only for CPU tensors; a CUDA tensor a kernel
-does not take raises.  ``quant_matmul.launches`` and
-``quant_matmul_w8.launches`` count kernel launches.
+Each wrapper (:func:`quant_matmul`, :func:`quant_matmul_w8`,
+:func:`quant_matmul_packed`) launches its kernel for CUDA tensors and runs
+its plain PyTorch version (``*_plain``) only for CPU tensors; a CUDA tensor
+a kernel does not take raises.  ``<wrapper>.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from typing import Optional
 
 import torch
 
-from ...core.weights import WORD, WORD8, unpack_int4, unpack_int8
+from ...core.weights import (WORD, WORD8, from_packed_layout, packable, packed_block_k,
+                             unpack_int4, unpack_int8)
 from ..quant import QTensor, dequantize
 from . import _build
 
@@ -59,32 +63,31 @@ def _splits(m: int, k: int, n: int) -> tuple[int, int]:
     return -(-groups // per), per
 
 
-def _run(wrapper, entry, per_word, plain, x, qweight, scales, biases, out_dtype):
-    """Check the inputs, then run ``plain`` (CPU tensors) or launch the C
-    entry ``entry`` and count the launch on ``wrapper``."""
-    name = wrapper.__name__
-    out_dtype = out_dtype or x.dtype
-    if x.dim() != 2 or qweight.dim() != 2:
-        raise ValueError(f"x {tuple(x.shape)} and qweight {tuple(qweight.shape)} must be 2-D")
-    m, k = x.shape
-    n = qweight.shape[1]
-    if qweight.shape[0] * per_word != k or scales.shape[-1] != n:
-        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, qweight {tuple(qweight.shape)}, "
+def _check_shapes(name, x, payload, k_rows, n, scales):
+    """``x`` (M, K) against a 2-D payload of ``k_rows`` rows for K and
+    ``scales`` of N = ``n`` columns."""
+    if x.dim() != 2 or payload.dim() != 2:
+        raise ValueError(f"x {tuple(x.shape)} and the payload {tuple(payload.shape)} must be 2-D")
+    if k_rows != x.shape[1] or scales.shape[-1] != n:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, payload {tuple(payload.shape)}, "
                          f"scales {tuple(scales.shape)} do not match")
-    if x.device.type == "cpu":
-        return plain(x, qweight, scales, biases, out_dtype)
+
+
+def _check_cuda(name, x, payload, payload_dtype, scales, biases, out_dtype, n):
+    """Device, dtype, group and layout checks before a launch."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {x.device}")
-    tensors = [x, qweight, scales] + ([] if biases is None else [biases])
+    k = x.shape[1]
+    tensors = [x, payload, scales] + ([] if biases is None else [biases])
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one device")
     if x.dtype != torch.bfloat16 or out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name} kernel takes bf16 x and bf16/f32 output, got "
                         f"{x.dtype} -> {out_dtype}")
-    if qweight.dtype != torch.int32 or scales.dtype != torch.bfloat16 or (
+    if payload.dtype != payload_dtype or scales.dtype != torch.bfloat16 or (
         biases is not None and biases.dtype != torch.bfloat16
     ):
-        raise TypeError(f"{name} kernel takes int32 qweight and bf16 scales/biases")
+        raise TypeError(f"{name} kernel takes a {payload_dtype} payload and bf16 scales/biases")
     if k % GROUP or scales.shape != (k // GROUP, n) or (
         biases is not None and biases.shape != scales.shape
     ):
@@ -92,19 +95,38 @@ def _run(wrapper, entry, per_word, plain, x, qweight, scales, biases, out_dtype)
                          f"{tuple(scales.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel needs contiguous tensors")
+
+
+def _launch(wrapper, entry, x, payload, scales, biases, out_dtype, n, splits_n, *extra):
+    """Launch the C entry ``entry`` (its K split sized for ``splits_n``
+    columns of threads) and count the launch on ``wrapper``."""
+    m, k = x.shape
     lib, _ = _build.library()
-    splits, per = _splits(m, k, n)
+    splits, per = _splits(m, k, splits_n)
     partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     err = getattr(lib, entry)(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+        x.data_ptr(), payload.data_ptr(), scales.data_ptr(),
         None if biases is None else biases.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), m, k, n, splits, per,
+        partial.data_ptr(), out.data_ptr(), m, k, n, *extra, splits, per,
         int(out_dtype == torch.float32), _build.stream_ptr(x.device),
     )
     _build.check(err, entry)
     _build.count_launch(wrapper)
     return out
+
+
+def _run(wrapper, entry, per_word, plain, x, qweight, scales, biases, out_dtype):
+    """Check the inputs, then run ``plain`` (CPU tensors) or launch the C
+    entry ``entry`` and count the launch on ``wrapper``."""
+    name = wrapper.__name__
+    out_dtype = out_dtype or x.dtype
+    n = qweight.shape[-1]
+    _check_shapes(name, x, qweight, qweight.shape[0] * per_word, n, scales)
+    if x.device.type == "cpu":
+        return plain(x, qweight, scales, biases, out_dtype)
+    _check_cuda(name, x, qweight, torch.int32, scales, biases, out_dtype, n)
+    return _launch(wrapper, entry, x, qweight, scales, biases, out_dtype, n, n)
 
 
 def quant_matmul(
@@ -136,5 +158,44 @@ def quant_matmul_w8(
                 x, qweight, scales, biases, out_dtype)
 
 
+def quant_matmul_packed_plain(x, weight, scales, biases, out_dtype=None):
+    """K9's plain version: unpack and unpermute the packed payload, then
+    K1's function."""
+    group = weight.shape[-2] // scales.shape[-2]
+    return _plain(lambda w: from_packed_layout(w, group), x, weight, scales, biases, out_dtype)
+
+
+def quant_matmul_packed(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    scales: torch.Tensor,
+    biases: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """K9: y (M, N) = x (M, K) @ W; weight (K, N/2) uint8 in the flat packed
+    layout (``core/weights.py:to_packed_layout``), scales/biases (K/64, N)
+    bf16 (affine only: the JAX kernel reads ``biases``).  A stacked leaf's
+    ``w[layer]`` view is K10."""
+    name = "quant_matmul_packed"
+    out_dtype = out_dtype or x.dtype
+    if biases is None:
+        raise ValueError(f"{name}: the packed layout is affine and needs biases")
+    n = 2 * weight.shape[-1]
+    _check_shapes(name, x, weight, weight.shape[0], n, scales)
+    if x.device.type == "cpu":
+        return quant_matmul_packed_plain(x, weight, scales, biases, out_dtype)
+    _check_cuda(name, x, weight, torch.uint8, scales, biases, out_dtype, n)
+    k = x.shape[1]
+    if not packable(k, n, GROUP):
+        raise ValueError(f"{name}: K={k}, N={n} do not fit the packed layout's blocks")
+    if any(t.data_ptr() % 8 for t in (weight, scales, biases)):
+        raise ValueError(f"{name} kernel needs 8-byte aligned payload, scales and biases")
+    # A block of four warps covers 256 output columns (K1's block: 128), so
+    # size the K split as for K1 over n / 2 columns.
+    return _launch(quant_matmul_packed, "k9_w4a16_packed_matmul", x, weight, scales, biases,
+                   out_dtype, n, n // 2, packed_block_k(k))
+
+
 quant_matmul.launches = 0
 quant_matmul_w8.launches = 0
+quant_matmul_packed.launches = 0

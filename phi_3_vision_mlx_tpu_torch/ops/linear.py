@@ -1,23 +1,26 @@
 """Linear layers and the quantized embedding lookup
 (counterpart of ``phi_3_vision_mlx_tpu/ops/linear.py``).
 
-A linear leaf is either ``{'weight': (K, N)}`` (full precision) or one of the
-port's packed layouts ``{'qweight': (K/8, N) int32 (4-bit) or (K/4, N) int32
+A linear leaf is either ``{'weight': (K, N)}`` (full precision), one of the
+port's word layouts ``{'qweight': (K/8, N) int32 (4-bit) or (K/4, N) int32
 (8-bit), 'scales': (K/64, N) bf16, 'biases': (K/64, N) bf16 (absent in
-symmetric mode)}``, optionally with a ``'bias': (N,)``.  The width is read
-from the word count against K (``core/weights.py:leaf_bits``).  Dispatch
-follows the JAX package: up to 256 rows go to kernel K1 (4-bit) or K8
-(8-bit); above that (prefill) the weight is dequantized to the activation
+symmetric mode)}``, or the JAX package's flat packed 4-bit layout
+``{'weight': (K, N/2) uint8, 'scales', 'biases'}`` (``core/weights.py:
+is_packed_leaf``), optionally with a ``'bias': (N,)``.  The width of a word
+layout is read from the word count against K (``core/weights.py:
+leaf_bits``).  Dispatch follows the JAX package (ops/linear.py:101-131,
+204-227): up to 256 rows go to kernel K1 (4-bit), K8 (8-bit) or K9 (packed);
+above that (prefill) the weight is unpacked, dequantized to the activation
 dtype and multiplied with ``torch.matmul``, as the JAX package leaves that
-product to XLA (ops/linear.py:123-131,186-203).  LoRA leaves are not ported.
+product to XLA.  LoRA leaves are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.weights import LAYOUTS, leaf_bits
-from .kernels.quant_matmul import quant_matmul, quant_matmul_w8
+from ..core.weights import LAYOUTS, from_packed_layout, is_packed_leaf, leaf_bits
+from .kernels.quant_matmul import quant_matmul, quant_matmul_packed, quant_matmul_w8
 from .quant import SYMMETRIC_MID, QTensor, dequantize
 
 KERNEL_MAX_ROWS = 256
@@ -46,13 +49,20 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Apply a linear leaf to ``x`` (..., K) -> (..., N)."""
     lead, k = x.shape[:-1], x.shape[-1]
     if "qweight" in p:
-        qw, s, b = p["qweight"], p["scales"], p.get("biases")
-        bits = leaf_bits(qw, k)
+        payload, bits = p["qweight"], leaf_bits(p["qweight"], k)
+        kernel, unpack = KERNELS[bits], LAYOUTS[bits][2]
+    elif is_packed_leaf(p):
+        payload, kernel = p["weight"], quant_matmul_packed
+        unpack = lambda w: from_packed_layout(w, k // p["scales"].shape[-2])  # noqa: E731
+    elif "scales" in p:
+        raise ValueError("a quantized linear leaf needs core/weights.prepare_params first")
+    if "scales" in p:
+        s, b = p["scales"], p.get("biases")
         if x.numel() // k <= KERNEL_MAX_ROWS:
-            y = KERNELS[bits](x.reshape(-1, k).contiguous(), qw, s, b, out_dtype=x.dtype)
+            y = kernel(x.reshape(-1, k).contiguous(), payload, s, b, out_dtype=x.dtype)
             y = y.reshape(*lead, -1)
         else:
-            w = dequantize(QTensor(LAYOUTS[bits][2](qw), s, b), dtype=x.dtype)
+            w = dequantize(QTensor(unpack(payload), s, b), dtype=x.dtype)
             y = torch.matmul(x, w)
     else:
         y = torch.matmul(x, p["weight"].to(x.dtype))

@@ -115,6 +115,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import phi_3_vision_mlx_tpu_torch.serve.server, phi_3_vision_mlx_tpu_torch.api, chip_smoke\n"
+        "from phi_3_vision_mlx_tpu_torch.experiments import qdecode_sweep, qkv_probe, w4a8_bench\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "bad = sorted(k for k in sys.modules\n"
@@ -146,6 +147,8 @@ def test_chip_smoke_and_port_import_no_jax_package_directly():
     of the JAX package: the port keeps its own copies of the host modules."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     paths += glob.glob(os.path.join(ROOT, "phi_3_vision_mlx_tpu_torch", "**", "*.py"), recursive=True)
+    experiments = {os.path.basename(p) for p in paths if os.sep + "experiments" + os.sep in p}
+    assert {"__init__.py", "w4a8_bench.py", "qkv_probe.py", "qdecode_sweep.py"} <= experiments
     for path in paths:
         mods = [m for m in _imported_modules(path) if _is_jax_side(m)]
         assert not mods, f"{os.path.relpath(path, ROOT)} imports {mods}"
