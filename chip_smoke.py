@@ -13,7 +13,11 @@ caught and carried on):
                (flash attention over the int4 KV cache) and K8 (W8A16
                matmul, levels over the full 0-255 range) against their plain
                PyTorch versions on the card at the main path's shapes, with
-               CUDA-event times of both; causal-edge checks of K3, K4.
+               CUDA-event times of both; causal-edge checks of K3, K4; K2
+               on a batch of two left pads, an extend chunk, ragged tiles,
+               GQA and the 4207-token prompt's bucket; K3 at its split
+               plan's edges (run boundaries, a masked run, no visible key,
+               Lq = 4, GQA).
 3. reference — a depth-cut (2-layer) full-width Phi-3.5-mini with 4-bit
                and with 8-bit weights, each with the dense and with the int4
                KV cache: prefill and decode logits through the kernels on
@@ -36,7 +40,8 @@ caught and carried on):
                one profiled paged decode chunk, beside the single-stream
                figure of phase 4.
 6. profile  — where a decode token's time goes at a short and a long
-               window, with the dense and with the int4 cache: host wall
+               window, with the dense, the int4 and the int8 cache (the
+               last dequantizes the window, then runs K2/K3): host wall
                time per token, device busy time per token
                (``torch.profiler``), the idle share, kernel launches per
                token and the largest device items.
@@ -113,6 +118,13 @@ K1_ATOL, K1_RTOL = 1e-3, 1e-3
 # outputs near zero (an H100 run measured at most 2.4e-4 there, and one ulp
 # of |x| < 0.25 is under 1e-3).
 ATTN_ATOL, ATTN_RTOL = 2e-3, 2 * 2.0**-7
+# K2 rounds its softmax weights to bf16 before p @ v, as the JAX kernel does
+# (phi_3_vision_mlx_tpu/ops/kernels/flash_attention.py:86); its plain version
+# keeps them in f32.  Outputs near zero of rows over few keys then differ by
+# more than ATTN_ATOL beyond the relative term: H100 runs measured 1.6e-3 to
+# 3.0e-3 over 24 draws (lq 1024 and 256) and 3.15e-3 at lq = 4224.  So K2's
+# absolute term is 4e-3, its relative term ATTN_RTOL.
+K2_ATOL = 4e-3
 KV_MEAN = (0.5, -0.3)  # k/v offsets: the int4 cache's bias planes carry signal
 # Phase 3: bf16 activations through 2 layers on two devices (an H100 run
 # measured 8.4e-3 relative L2 and 9.3e-5 in max log-prob).
@@ -231,6 +243,11 @@ def close(torch, out, ref, atol, rtol):
     return diff.max().item(), rel, ok
 
 
+def excess(out, ref) -> float:
+    """max(|out - ref| - ATTN_RTOL |ref|): how much of the absolute term a check used."""
+    return ((out.float() - ref.float()).abs() - ATTN_RTOL * ref.float().abs()).max().item()
+
+
 def rotating(n: int):
     """0, 1, ..., n-1, 0, 1, ...: callers rotate buffers past the 50 MB L2."""
     state = {"i": -1}
@@ -331,36 +348,56 @@ def phase_kernels(torch, report):
         del ws
     report["K1"]["max_abs_err"] = max(errs)
 
-    # --- K2: left-padded prompts, window = prompt bucket + decode budget.
+    # --- K2: left-padded prompts (window = prompt bucket + decode budget),
+    # a batch of two prompts with different left pads (admission batches
+    # them), an extend chunk at q_pos0 = 1000, lq and lk off the 64-row and
+    # 64-key tiles, 16 kv heads (GQA), and the 4207-token prompt's bucket.
     b_, h, kvh, d = 1, 32, 32, 96
     scale = d**-0.5
     errs = []
-    for lq, budget, real in ((64, 64, 50), (1024, 32, 1000)):
-        lk = -(-(lq + budget) // 128) * 128
-        q = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
-        kk = torch.randn((b_, kvh, lk, d), generator=g, device=dev).to(torch.bfloat16)
-        vv = torch.randn((b_, kvh, lk, d), generator=g, device=dev).to(torch.bfloat16)
-        valid = torch.ones((b_, lk), dtype=torch.bool, device=dev)
-        valid[:, : lq - real] = False
-        out = K2.flash_attention(q, kk, vv, valid, 0, scale)
-        ref = K2.flash_attention_plain(q, kk, vv, valid, 0, scale)
+    # (lq, lk, q_pos0, left pad of each batch row, kv heads, timed)
+    k2_cases = ((64, 128, 0, (14,), kvh, True), (1024, 1152, 0, (24,), kvh, True),
+                (256, 384, 0, (0, 100), kvh, False), (100, 1152, 1000, (24,), kvh, False),
+                (333, 397, 0, (5,), kvh, False), (200, 264, 0, (9,), 16, False),
+                (4224, 4352, 0, (17,), kvh, True))
+    for lq, lk, q_pos0, pads, kvh_, is_timed in k2_cases:
+        nb = len(pads)
+        q = torch.randn((nb, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        kk = torch.randn((nb, kvh_, lk, d), generator=g, device=dev).to(torch.bfloat16)
+        vv = torch.randn((nb, kvh_, lk, d), generator=g, device=dev).to(torch.bfloat16)
+        valid = torch.ones((nb, lk), dtype=torch.bool, device=dev)
+        for i, pad in enumerate(pads):
+            valid[i, :pad] = False
+        out = K2.flash_attention(q, kk, vv, valid, q_pos0, scale)
+        ref = K2.flash_attention_plain(q, kk, vv, valid, q_pos0, scale)
         torch.cuda.synchronize()
-        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        ea, er, ok = close(torch, out, ref, K2_ATOL, ATTN_RTOL)
         errs.append(ea)
-        t = timed(torch, lambda: K2.flash_attention(q, kk, vv, valid, 0, scale),
-                  lambda: K2.flash_attention_plain(q, kk, vv, valid, 0, scale), 12)
-        log(f"K2 lq={lq} lk={lk} pad={lq - real} H={h} D={d}: max_abs={ea:.3e} max_rel={er:.3e} "
-            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}) {t.pop('text')}")
-        if lq == 1024:
-            mask = causal_valid_mask(valid, torch.arange(lq, device=dev))
-            keys = min(lk, lq)  # keys past the last query are never needed
-            nbytes = 2 * (2 * q.numel() + 2 * b_ * kvh * keys * d) + b_ * lk
+        line = (f"K2 B={nb} lq={lq} lk={lk} q_pos0={q_pos0} pads={pads} H={h} KV={kvh_} D={d}: "
+                f"max_abs={ea:.3e} max_rel={er:.3e} max(|err| - rtol |ref|)={excess(out, ref):.3e} "
+                f"(atol {K2_ATOL} + rtol {ATTN_RTOL:.4f})")
+        if is_timed:
+            t = timed(torch, lambda: K2.flash_attention(q, kk, vv, valid, q_pos0, scale),
+                      lambda: K2.flash_attention_plain(q, kk, vv, valid, q_pos0, scale),
+                      12 if lq < 4096 else 4)
+            line += " " + t.pop("text")
+        if lq in (1024, 4224):
+            mask = causal_valid_mask(valid, q_pos0 + torch.arange(lq, device=dev))
+            keys = min(lk, q_pos0 + lq)  # keys past the last query are never needed
+            nbytes = 2 * (2 * q.numel() + 2 * nb * kvh_ * keys * d) + nb * lk
             lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, kk, vv, attn_mask=mask, scale=scale), 12)
-            report["K2"].update(t, shape=f"lq=1024 lk={lk} H=32 D=96", library_ms=lib,
-                                **bound(nbytes, 4 * h * d * int(mask.sum())))
+                q, kk, vv, attn_mask=mask, scale=scale), 12 if lq < 4096 else 4)
+            b2 = bound(nbytes, 4 * h * d * int(mask.sum()))
+            line += (f" bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}) library (SDPA, same mask) "
+                     f"{lib:.4f} ms")
+            if lq == 1024:
+                report["K2"].update(t, shape=f"lq=1024 lk={lk} H=32 D=96", library_ms=lib, **b2)
+            del mask
+        log(line)
         if not ok:
-            fail(f"K2 disagrees with its plain version at lq={lq}")
+            fail(f"K2 disagrees with its plain version at B={nb} lq={lq} lk={lk} q_pos0={q_pos0} "
+                 f"KV={kvh_}")
+        del q, kk, vv, out, ref
     report["K2"]["max_abs_err"] = max(errs)
 
     # --- K3: one query against windows 640 and 4224; checked with the offset
@@ -418,6 +455,45 @@ def phase_kernels(torch, report):
             nbytes = 2 * 2 * kvh * lmax * d + lmax + 2 * 2 * h * d
             report["K3"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96", library_ms=lib,
                                 **bound(nbytes, 4 * h * d * int(mask.sum())))
+        del ks, vs
+
+    # K3 at the edges of its split plan (runs of K3_SPLIT_KEYS keys), Lq 1
+    # and 4, 32 and 16 kv heads, over three runs and a part: the last row's
+    # key just before, at and just after a run boundary; a run of invalid
+    # keys longer than one split mid-window (split 1 wholly masked); a window
+    # whose every visible key is invalid, which must give the uniform average
+    # of all Lmax values.
+    sk = K3.K3_SPLIT_KEYS
+    lmax = 3 * sk + 128
+    for kvh_ in (kvh, 16):
+        ks = torch.randn((2, b_, kvh_, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+        vs = torch.randn((2, b_, kvh_, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+        mean_v = vs[1].float().mean(dim=2).repeat_interleave(h // kvh_, dim=1)  # (B, H, D)
+        for lq in (1, 4):
+            q = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+            edges = ((f"last key {2 * sk - 2}", 2 * sk - 1 - lq, ()),
+                     (f"last key {2 * sk - 1}", 2 * sk - lq, ()),
+                     (f"last key {2 * sk}", 2 * sk + 1 - lq, ()),
+                     (f"keys {sk - 8}-{2 * sk + 43} invalid", 3 * sk, ((sk - 8, 2 * sk + 44),)),
+                     ("no visible key", sk + 44, ((0, sk + 44 + lq),)))
+            for what, offset, holes in edges:
+                valid = torch.rand((b_, lmax), generator=g, device=dev) > 0.05
+                for lo, hi in holes:
+                    valid[:, lo:hi] = False
+                out = K3.dense_kv_attention(q, ks, vs, valid, offset, 1, scale)
+                ref = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, 1, scale)
+                torch.cuda.synchronize()
+                ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+                if what == "no visible key":
+                    ok = ok and close(torch, out, mean_v[:, :, None].expand_as(out), ATTN_ATOL,
+                                      ATTN_RTOL)[2]
+                errs.append(ea)
+                n_split, _ = K3.dense_kv_split_plan(lmax, offset, lq)
+                log(f"K3 edge Lmax={lmax} Lq={lq} KV={kvh_} offset={offset} ({what}, {n_split} "
+                    f"splits of {sk}): max_abs={ea:.3e} (atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f})")
+                if not ok:
+                    fail(f"K3 disagrees with its plain version at Lmax={lmax} Lq={lq} KV={kvh_} "
+                         f"offset={offset} ({what})")
         del ks, vs
     report["K3"]["max_abs_err"] = max(errs)
 
@@ -829,6 +905,11 @@ def kernel_counters() -> dict:
             "K8": quant_matmul_w8, "K9": quant_matmul_packed}
 
 
+def cache_of(lm) -> str:
+    """The KV cache a model serves from: dense, int4 or int8."""
+    return f"int{lm.cfg.kv_quant.bits}" if lm.cfg.use_quantized_cache else "dense"
+
+
 def matmul_kernel(lm) -> str:
     """K1 serves 4-bit weights, K8 8-bit ones; packed 4-bit decoder linears
     run K9 and lm_head K1."""
@@ -850,7 +931,7 @@ def phase_serving(torch, lm, proc, report):
     from phi_3_vision_mlx_tpu_torch.models import phi3
 
     counters = kernel_counters()
-    cache = "int4" if lm.cfg.use_quantized_cache else "dense"
+    cache = cache_of(lm)
     expected = matmul_kernels(lm) + (("K4", "K5") if cache == "int4" else ("K2", "K3"))
     label = f"{weights_of(lm)} weights, {cache} cache"
     passes = [0]  # forward passes: each runs lm_head once
@@ -1004,7 +1085,7 @@ def phase_continuous(torch, lm, proc, report, run: str, pool_pages: int = 0):
 
     from phi_3_vision_mlx_tpu_torch.serve.server import ContinuousScheduler, make_continuous_handler
 
-    cache = "int4" if lm.cfg.use_quantized_cache else "dense"
+    cache = cache_of(lm)
     expected = set(matmul_kernels(lm)) | ({"K5", "K7"} if cache == "int4" else {"K2", "K6"})
     if pool_pages:
         # Five pages of prompt each, growing to nine or ten: three running
@@ -1102,7 +1183,7 @@ def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int =
 
     from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine
 
-    cache = "int4" if lm.cfg.use_quantized_cache else "dense"
+    cache = cache_of(lm)
     eng = PagedBatchEngine(lm, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW)
     prompts = [(FILLER * 6)[: 150 + 150 * i] for i in range(SERVE_SLOTS)]
     for p in eng.prepare_many(prompts, [dict(max_tokens=400)] * SERVE_SLOTS):
@@ -1161,7 +1242,7 @@ def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a"
     from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
     from phi_3_vision_mlx_tpu_torch.engine.engine import decode_chunk, run_prefill
 
-    cache = "int4" if lm.cfg.use_quantized_cache else "dense"
+    cache = cache_of(lm)
     prompts = {"a": (PROMPT_A, 512), "c": ((FILLER * 60)[:4200], 16)}
     for tag in tags:
         prompt, budget = prompts[tag]
@@ -1320,6 +1401,7 @@ def main() -> None:
     stamp("phase 2")
 
     # Phases 3-5 share the full-size weights.
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
     from phi_3_vision_mlx_tpu_torch.core.weights import synth_quantized_params
     from phi_3_vision_mlx_tpu_torch.engine.engine import LM
     from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3Processor
@@ -1347,6 +1429,11 @@ def main() -> None:
     stamp("phase 5")
     phase_profile(torch, lm, proc)
     phase_profile(torch, lm_int4, proc)
+    # The int8 cache dequantizes each layer's window (read_kv), then runs K2/K3.
+    lm_int8 = LM(cfg.replace(use_quantized_cache=True, kv_quant=KVQuantConfig(group_size=32, bits=8)),
+                 params, device="cuda")
+    phase_profile(torch, lm_int8, proc)
+    del lm_int8
     stamp("phase 6")
 
     # Phase 7: 8-bit weights, from the port's own checkpoint writers, then

@@ -43,10 +43,14 @@ def _load(model_path=PATH_QUANTIZED_PHI3_BLIND, device="cuda", **kwargs):
     return LM(cfg, params, model_path=model_path, device=device), processor
 
 
-def load(blind_model: bool = True, quantize_model: bool = True, quantize_cache: bool = False,
+def load(blind_model: bool = True, quantize_model: bool = False, quantize_cache: bool = False,
          use_adapter: bool = False, device="cuda", **kwargs):
     """Flag-based model selection (JAX ``load``); text models only.
-    ``quantize_cache`` selects the 4-bit KV cache."""
+    ``quantize_model`` picks the 4-bit checkpoint over the unquantized one,
+    as in the JAX package (default ``False``).  ``blind_model`` defaults to
+    ``True`` where the JAX package has ``False``: the text model is the
+    port's only one until vision is ported, and then the default goes back
+    to ``False``.  ``quantize_cache`` selects the 4-bit KV cache."""
     if not blind_model:
         raise NotImplementedError("vision models are not ported yet")
     if use_adapter:
@@ -62,13 +66,25 @@ def load(blind_model: bool = True, quantize_model: bool = True, quantize_cache: 
     return _load(model_path=model_path, device=device, use_quantized_cache=quantize_cache, **kwargs)
 
 
-def _apply_chat_template(prompt, apply_chat_template=True):
+def _print_io_banner(prompt) -> None:
+    """The JAX ``_print_io_banner``: a list of prompts is shown stripped and
+    joined, one per line; no images are ported yet."""
+    if isinstance(prompt, list):
+        prompt = "\n".join(map(str.strip, prompt)).strip()
+    print(f"*** Prompt ***\n{prompt}\n*** Images ***\nNone\n*** Output ***")
+
+
+def _apply_chat_template(prompt, apply_chat_template=True, verbose=False):
     """Wrap prompt(s) in the Phi-3 chat format (JAX ``_apply_chat_template``,
-    text only)."""
+    text only); ``verbose`` prints the JAX package's banner."""
     if apply_chat_template is False:
+        if verbose:
+            _print_io_banner(prompt)
         return prompt
     prompts = [prompt] if isinstance(prompt, str) else prompt
     prompts = [CHAT_TURN.format(body=p.strip()) for p in prompts]
+    if verbose:
+        _print_io_banner(prompts)
     return prompts[0] if len(prompts) == 1 else prompts
 
 
@@ -77,7 +93,7 @@ def generate(
     images=None,
     preload=None,
     blind_model=True,
-    quantize_model=True,
+    quantize_model=False,
     quantize_cache=False,
     max_tokens=512,
     verbose=True,
@@ -90,16 +106,14 @@ def generate(
     stop=None,
 ):
     """Greedy generation with streaming (JAX ``generate``, text prompts).
-    Without ``preload`` it loads the model with ``quantize_cache``."""
+    Without ``preload`` it loads the model as :func:`load` does (the same
+    defaults and their reasons) with ``quantize_cache``."""
     if images is not None:
         raise NotImplementedError("vision prompts are not ported yet")
     if preload is None:
         preload = load(blind_model=blind_model, quantize_model=quantize_model,
                        quantize_cache=quantize_cache)
-    prompt = _apply_chat_template(prompt, apply_chat_template)
-    if verbose:
-        shown = "\n".join(prompt) if isinstance(prompt, list) else prompt
-        print(f"*** Prompt ***\n{shown}\n*** Images ***\nNone\n*** Output ***")
+    prompt = _apply_chat_template(prompt, apply_chat_template, verbose)
     return generate_text(
         *preload, prompt, max_tokens=max_tokens, verbose=verbose, return_tps=return_tps,
         early_stop=early_stop, stream=stream, mute=mute, sample=sample, stop=stop,

@@ -1,7 +1,7 @@
 // Shared by the attention kernels: the masking and rounding rules, the int4
-// cache's per-key scale loads (K4, K7), and the flash-attention body of K2
-// (attention.cu) and K5 (quant_kv_attention.cu), which differ only in how a
-// tile of keys and values reaches shared memory.
+// cache's per-key scale loads (K4, K7), and the CUDA-core flash-attention
+// body of K5 (quant_kv_attention.cu), which takes a tile of keys and values
+// through a loader.  K2 runs the tensor-core body of flash_mma.cuh.
 //
 // The rules, as in the plain path (ops/attention.py): q * scale is rounded
 // to the input type before the dot product, scores and the softmax are f32,
@@ -68,17 +68,8 @@ __device__ __forceinline__ KeyScales<G> load_scales(const __nv_bfloat16* sc) {
 // How the flash body reads key j's dim c of the cache: a key/value source
 // is a stateless loader over the kernel's two cache pointers `a` and `b`
 // (__restrict__ kernel arguments), `key` being the key's index in the
-// layer's (B, KV, Lk) keys.  DenseKV: a = k, b = v, bf16 (B, KV, Lk, D).
-template <int D>
-struct DenseKV {
-  static __device__ __forceinline__ void load(const void* __restrict__ a,
-                                              const void* __restrict__ b, size_t key, int c,
-                                              float& kk, float& vv) {
-    kk = bf(static_cast<const __nv_bfloat16*>(a)[key * D + c]);
-    vv = bf(static_cast<const __nv_bfloat16*>(b)[key * D + c]);
-  }
-};
-
+// layer's (B, KV, Lk) keys: `static void load(a, b, size_t key, int c,
+// float& k, float& v)` (quant_kv_attention.cu: Int4KV).
 template <int D, class KVSource>
 __global__ void __launch_bounds__(kBQ)
     flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kv_a,

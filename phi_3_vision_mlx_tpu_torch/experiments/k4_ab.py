@@ -1,30 +1,41 @@
-"""Time kernel K4 (decode attention over the int4 cache) of several source
-trees of this repository in turns, on one card, each tree in its own
-process built from its own ``csrc/``.
+"""Time the attention kernels K2, K3, K4 and K5 of several source trees of
+this repository in turns, on one card, each tree in its own process built
+from its own ``csrc/``.
 
-    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab TREE [TREE ...]
+    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K2,K3,K4,K5] TREE [TREE ...]
 
 Give the trees in the order to run them (parent, change, change, parent) so
-that drift on the card shows.  Each run times K4 at chip_smoke.py's shape
-(Lq = 1, 4224 keys at offset 4223, 32 heads of 96, 8 stacked layers rotated
-past the L2): five rounds of CUDA-event time over 200 calls and the
-profiler's device time over 50.  The timing code is this module's own, so a
-tree from before this module existed times the same way.  Prints one JSON
-line per tree.
+that drift on the card shows.  Each run times every case of the chosen
+kernels (all four by default) at chip_smoke.py's shapes, 32 heads of 96:
+
+* K2 (flash attention, dense): lq = 1024 over 1152 keys (24 left-pad rows)
+  and lq = 4224 over 4352 keys (the 4207-token prompt's bucket);
+* K3 (decode, dense cache) and K4 (decode, int4 cache): Lq = 1 at the end
+  of a 640- and a 4224-key window, 8 stacked layers rotated past the L2;
+* K5 (flash attention, int4 cache): lq = 1024 over 1152 keys.
+
+For each case: rounds of CUDA-event time per call and the profiler's device
+time per call (every kernel the call launches, and by kernel).  The timing code is this
+module's own, so a tree from before this module took K2, K3 and K5 times
+the same way.  Prints one JSON line per tree.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
 import sys
+
+KERNELS = ("K2", "K3", "K4", "K5")
 
 _RUN = r'''
 import json, sys, torch
 sys.path.insert(0, ".")
 from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
 from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as FA
 from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -44,38 +55,95 @@ def cuda_ms(fn, iters, warmup):
 
 
 def device_ms(fn, iters):
+    """(device ms per call, {kernel: device ms per call})."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("<")[0]
+            by[name] = by.get(name, 0.0) + e.device_time_total / 1e3 / iters
+    return sum(by.values()), by
 
+
+kernels = sys.argv[1].split(",")
 g = torch.Generator(device="cuda").manual_seed(2)
-nl, b, h, d, lmax = 8, 1, 32, 96, 4224
-k = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") + 0.5
-v = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") - 0.3
-payload, scales = quantize_chunk(k.to(torch.bfloat16), v.to(torch.bfloat16), KVQuantConfig(32, 4))
-valid = torch.rand((b, lmax), generator=g, device="cuda") > 0.05
-valid[:, :10] = False
-q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(torch.bfloat16).transpose(1, 2)
-turn = iter(range(10**9))
-call = lambda: KV.quantized_kv_attention(q, payload, scales, valid, lmax - 1, next(turn) % nl, d**-0.5)
-events = [cuda_ms(call, 200, warmup=5) for _ in range(5)]
-print(json.dumps({"events_ms": events, "device_ms": device_ms(call, 50),
-                  "card": torch.cuda.get_device_name(0)}))
+b, h, d, nl = 1, 32, 96, 8
+scale = d**-0.5
+bf16 = lambda t: t.to(torch.bfloat16)
+qrow = lambda lq: bf16(torch.randn((b, lq, h, d), generator=g, device="cuda")).transpose(1, 2)
+cases = {}
+
+
+def decode_window(lmax):
+    valid = torch.rand((b, lmax), generator=g, device="cuda") > 0.05
+    valid[:, :10] = False
+    return valid
+
+
+def flash_window(lq, lk, pad):
+    valid = torch.ones((b, lk), dtype=torch.bool, device="cuda")
+    valid[:, :pad] = False
+    return valid
+
+
+if "K2" in kernels:
+    for lq, lk, pad, iters in ((1024, 1152, 24, 100), (4224, 4352, 17, 10)):
+        q, valid = qrow(lq), flash_window(lq, lk, pad)
+        k, v = (bf16(torch.randn((b, h, lk, d), generator=g, device="cuda")) for _ in range(2))
+        cases[f"K2 lq={lq} lk={lk}"] = (lambda q=q, k=k, v=v, valid=valid: FA.flash_attention(
+            q, k, v, valid, 0, scale), iters)
+for lmax in (640, 4224):
+    q, valid = qrow(1), decode_window(lmax)
+    if "K3" in kernels:
+        ks, vs = (bf16(torch.randn((nl, b, h, lmax, d), generator=g, device="cuda")) for _ in range(2))
+        turn = iter(range(10**9))
+        cases[f"K3 Lq=1 Lmax={lmax}"] = (lambda q=q, ks=ks, vs=vs, valid=valid, lmax=lmax, turn=turn:
+                                        KV.dense_kv_attention(q, ks, vs, valid, lmax - 1,
+                                                              next(turn) % nl, scale), 200)
+    if "K4" in kernels:
+        kk = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") + 0.5
+        vv = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") - 0.3
+        payload, scales = quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
+        del kk, vv
+        turn = iter(range(10**9))
+        cases[f"K4 Lq=1 Lmax={lmax}"] = (lambda q=q, p=payload, s=scales, valid=valid, lmax=lmax, turn=turn:
+                                        KV.quantized_kv_attention(q, p, s, valid, lmax - 1,
+                                                                  next(turn) % nl, scale), 200)
+if "K5" in kernels:
+    lq, lk = 1024, 1152
+    q, valid = qrow(lq), flash_window(lq, lk, 24)
+    kk = torch.randn((2, b, h, lk, d), generator=g, device="cuda") + 0.5
+    vv = torch.randn((2, b, h, lk, d), generator=g, device="cuda") - 0.3
+    payload, scales = quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
+    cases[f"K5 lq={lq} lk={lk}"] = (lambda q=q, p=payload, s=scales, valid=valid:
+                                   KV.quantized_flash_attention(q, p, s, valid, 0, 1, scale), 100)
+res = {}
+for name, (call, iters) in cases.items():
+    dev, by_kernel = device_ms(call, max(5, iters // 4))
+    res[name] = {"events_ms": [cuda_ms(call, iters, warmup=3) for _ in range(5)],
+                 "device_ms": dev, "device_ms_by_kernel": by_kernel}
+print(json.dumps({"cases": res, "card": torch.cuda.get_device_name(0)}))
 '''
 
 
 def main(argv=None) -> list:
-    trees = list(argv if argv is not None else sys.argv[1:])
-    if not trees:
-        raise SystemExit(__doc__)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated subset of {','.join(KERNELS)}")
+    ap.add_argument("trees", nargs="+", help="source trees, in the order to time them")
+    a = ap.parse_args(argv)
+    bad = set(a.kernels.split(",")) - set(KERNELS)
+    if bad:
+        ap.error(f"unknown kernels {sorted(bad)}")
     results = []
-    for tree in trees:
-        out = subprocess.run([sys.executable, "-c", _RUN], cwd=tree, capture_output=True, text=True,
-                             timeout=600)
+    for tree in a.trees:
+        out = subprocess.run([sys.executable, "-c", _RUN, a.kernels], cwd=tree, capture_output=True,
+                             text=True, timeout=900)
         if out.returncode != 0:
             raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stderr[-3000:]}")
         res = {"tree": os.path.abspath(tree), **json.loads(out.stdout.strip().splitlines()[-1])}

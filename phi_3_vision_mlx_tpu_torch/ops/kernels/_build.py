@@ -41,8 +41,8 @@ SIGNATURES = {
     "e1_w4a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "k2_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _F, _P],
-    "k3_dense_kv_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
+    "k3_dense_kv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
     "k4_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
     "e23_quantized_kv_attention_variant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,7 +1,10 @@
 """Kernel K2: masked flash attention for prefill and extend.
 
 Replaces ``phi_3_vision_mlx_tpu/ops/kernels/flash_attention.py:flash_attention``;
-the CUDA source is ``csrc/attention.cu`` (``k2_flash_attention``).  Query
+the CUDA source is ``csrc/attention.cu`` (``k2_flash_attention``) over the
+tensor-core body of ``csrc/flash_mma.cuh``, which rounds the softmax
+weights to bf16 before ``p @ v`` as the JAX kernel does (the plain version
+keeps them in f32).  Query
 ``i`` sits at absolute position ``q_pos0 + i`` and sees key ``j`` iff
 ``j <= q_pos0 + i`` and ``valid[b, j]``.  Head dim 96 runs as is (no padding
 to 128 lanes, which was TPU-only); GQA maps query head ``h`` to kv head
@@ -30,7 +33,8 @@ def flash_attention_plain(q, k, v, valid, q_pos0: int, scale: float):
 
 
 def check_attention_inputs(q, k, v, valid, name: str) -> None:
-    """Device, dtype, shape and layout checks shared by K2 and K3."""
+    """Device, dtype, shape, layout and alignment checks shared by K2 and
+    K3 (both copy K and V rows with 16-byte loads)."""
     b, h, _, d = q.shape
     if any(t.device != q.device for t in (k, v, valid)):
         raise ValueError(f"{name}: all tensors must be on one device")
@@ -46,6 +50,8 @@ def check_attention_inputs(q, k, v, valid, name: str) -> None:
                          f"valid {tuple(valid.shape)} do not match")
     if q.stride(-1) != 1 or not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q needs unit stride along D and k/v must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k and v must be 16-byte aligned")
 
 
 def head_major_empty(q: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
 ``valid[b, j]``.  Queries and outputs are in the original D order.
 
 * K3 :func:`dense_kv_attention` — decode (Lq <= 16) over the dense bf16
-  cache ``(layers, B, KV, Lmax, D)``.  Replaces
+  cache ``(layers, B, KV, Lmax, D)``, the window split into runs of
+  ``K3_SPLIT_KEYS`` keys (:func:`dense_kv_split_plan`), one block each,
+  merged by a second kernel.  Replaces
   ``phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:dense_kv_attention``;
   CUDA source ``csrc/attention.cu`` (``k3_dense_kv_attention``).
 * K4 :func:`quantized_kv_attention` — decode over the int4 cache (payload
@@ -58,6 +60,14 @@ from . import _build
 from .flash_attention import HEAD_DIMS, check_attention_inputs, flash_attention_plain, head_major_empty
 
 KV_GROUP = 32  # the kernels' quantization group along D
+# K3: keys per block of the split window.  A block requests its run's K and
+# V (24 KB at 64 keys, D = 96) at once, and eight such blocks fit an SM's
+# shared memory: at B = 1 and 32 heads that is 12 x 32 = 384 blocks at the
+# main path's 768-key window and 68 x 32 = 2176 at 4352, two rounds of the
+# card's 1056 slots.  On the H100 (NVIDIA H100 80GB HBM3, 700 W) 64-key runs
+# beat 128 and 256 at both 640 and 4224 keys (PERF.md, Findings).
+K3_SPLIT_KEYS = 64
+K3_MAX_ROWS = 16  # K3: query rows per (batch, head), the decode chunk's limit
 K4_SPLIT_KEYS = 256  # K4: keys per block; longer windows split across blocks
 PAGED_SPLIT_KEYS = 256  # K6/K7: the same
 MAX_PAGED_ROWS = 16  # K6/K7: queries per slot (decode and, later, speculation)
@@ -66,6 +76,15 @@ MAX_PAGED_ROWS = 16  # K6/K7: queries per slot (decode and, later, speculation)
 def dense_kv_attention_plain(q, k_stack, v_stack, valid, offset: int, layer_idx: int, scale: float):
     q_pos = offset + torch.arange(q.shape[2], device=q.device)
     return decode_attention(q, k_stack[layer_idx], v_stack[layer_idx], valid, q_pos, scale)
+
+
+def dense_kv_split_plan(lmax: int, offset: int, lq: int) -> tuple[int, int]:
+    """K3's split of the window: ``(n_split, split_keys)``.  Split ``s``
+    covers keys ``[s * split_keys, min((s + 1) * split_keys, kend))``, with
+    ``kend = min(lmax, offset + lq)``: every key some query row can see, in
+    exactly one split."""
+    kend = min(lmax, offset + lq)
+    return -(-kend // K3_SPLIT_KEYS), K3_SPLIT_KEYS
 
 
 def dense_kv_attention(q, k_stack, v_stack, valid, offset: int, layer_idx: int, scale: float):
@@ -79,14 +98,20 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset: int, layer_idx: int, 
         raise ValueError(f"dense_kv_attention: cache {tuple(k_stack.shape)}, layer {layer_idx}")
     check_attention_inputs(q, k_stack, v_stack, valid, "dense_kv_attention")
     b, h, lq, d = q.shape
+    if not 1 <= lq <= K3_MAX_ROWS or offset < 0:
+        raise ValueError(f"dense_kv_attention: {lq} query rows at offset {offset} "
+                         f"(the kernel takes 1-{K3_MAX_ROWS})")
     kvh, lmax = k_stack.shape[2], k_stack.shape[3]
+    n_split, split_keys = dense_kv_split_plan(lmax, offset, lq)
     out = head_major_empty(q)
+    # Per split: (max score, sum of exp, unnormalized output) of each query row.
+    partial = torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
     lib, _ = _build.library()
     err = lib.k3_dense_kv_attention(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
-        valid.view(torch.uint8).data_ptr(), out.data_ptr(), b, h, kvh, lq, lmax, d,
-        *q.stride()[:3], *out.stride()[:3], int(layer_idx), int(offset), float(scale),
-        _build.stream_ptr(q.device),
+        valid.view(torch.uint8).data_ptr(), out.data_ptr(), partial.data_ptr(), b, h, kvh, lq,
+        lmax, d, *q.stride()[:3], *out.stride()[:3], int(layer_idx), int(offset), float(scale),
+        n_split, split_keys, _build.stream_ptr(q.device),
     )
     _build.check(err, "k3_dense_kv_attention")
     _build.count_launch(dense_kv_attention)

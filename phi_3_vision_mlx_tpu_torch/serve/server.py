@@ -14,8 +14,12 @@ the model with the 4-bit KV cache (keyword arguments of ``serve`` go to
 ``paged=True`` (``engine/paging.py``, kernels K6/K7 on the card).  Image
 requests get a 500 JSON error until vision is ported.
 
+``--blind`` and ``--quantize`` are the JAX server's flags: without
+``--quantize`` it loads the unquantized checkpoint ``models/phi3_mini_128k``,
+with it the 4-bit ``models/phi3_mini_128k_Q``.
+
 Example:
-    python -m phi_3_vision_mlx_tpu_torch.serve.server --port 8000
+    python -m phi_3_vision_mlx_tpu_torch.serve.server --blind --quantize --port 8000
     python -m phi_3_vision_mlx_tpu_torch.serve.server --continuous --paged --slots 4 --window 1024
     curl -X POST http://localhost:8000/v1/completions \\
       -H "Content-Type: application/json" \\
@@ -242,18 +246,32 @@ def serve(host: str = "127.0.0.1", port: int = 8000, preload=None, continuous: b
     httpd.serve_forever()
 
 
-if __name__ == "__main__":
+def build_parser():
+    """The command line of the JAX server (``--spec-k`` waits for
+    speculative serving).  ``--blind`` selects the text model, which is the
+    port's only one until vision is ported, so the text model is served
+    with or without it; ``--quantize`` picks the 4-bit checkpoint."""
     import argparse
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--blind", action="store_true", help="the text model (the port's only one)")
+    ap.add_argument("--quantize", action="store_true", help="the 4-bit checkpoint")
     ap.add_argument("--continuous", action="store_true", help="continuous batching over a slot pool")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--window", type=int, default=1024)
     ap.add_argument("--paged", action="store_true", help="page-pool KV (engine/paging.py)")
     ap.add_argument("--pipeline-depth", type=int, default=1,
                     help="decode chunks kept in flight by the pump")
-    a = ap.parse_args()
-    serve(a.host, a.port, continuous=a.continuous, slots=a.slots, window=a.window, paged=a.paged,
-          pipeline_depth=a.pipeline_depth)
+    return ap
+
+
+def main(argv=None) -> None:
+    a = build_parser().parse_args(argv)
+    serve(a.host, a.port, blind_model=True, quantize_model=a.quantize, continuous=a.continuous,
+          slots=a.slots, window=a.window, paged=a.paged, pipeline_depth=a.pipeline_depth)
+
+
+if __name__ == "__main__":
+    main()

@@ -167,3 +167,179 @@ def test_attention_wrappers_have_no_silent_fallback():
         K3.quantized_flash_attention(q, payload, scales, valid, 0, 0, SCALE)
     assert K2.flash_attention.launches == 0 and K3.dense_kv_attention.launches == 0
     assert K3.quantized_kv_attention.launches == 0 and K3.quantized_flash_attention.launches == 0
+
+
+# --- the kernels' algorithms, modelled in plain PyTorch (the CUDA kernels run
+# only on the card; chip_smoke.py holds them to the plain versions there) ----
+
+
+def _k3_split_model(q, k_stack, v_stack, valid, offset, layer, scale):
+    """K3 as the card computes it: each split of the plan gives every query
+    row its (max, sum, unnormalized output) over the keys the row sees in
+    it — max NEG_INF and sum 0 where it sees none — and the merge weighs the
+    splits by exp(max - overall max); a row that sees no key anywhere gets
+    the uniform average of all Lmax values.  Returns (out, per-split max)."""
+    k, v = k_stack[layer].float(), v_stack[layer].float()
+    b, h, lq, d = q.shape
+    kvh, lmax = k.shape[1], k.shape[2]
+    g = h // kvh
+    n_split, split = K3.dense_kv_split_plan(lmax, offset, lq)
+    kend = min(lmax, offset + lq)
+    qs = (q * scale).float()
+    rows = offset + torch.arange(lq)[:, None]
+    ms, ls, accs = [], [], []
+    for s in range(n_split):
+        j = torch.arange(s * split, min((s + 1) * split, kend))
+        kk, vv = (t[:, :, j].repeat_interleave(g, dim=1) for t in (k, v))
+        seen = valid[:, None, None, j] & (j[None, :] <= rows)[None, None]
+        sc = torch.where(seen, qs @ kk.transpose(-1, -2), -torch.inf)
+        mx = sc.amax(dim=-1, keepdim=True)
+        p = torch.where(seen, torch.exp(sc - mx), 0.0)
+        ms.append(torch.where(mx == -torch.inf, TA.NEG_INF, mx))
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(p @ vv)
+    m_all = torch.stack(ms).amax(dim=0)
+    w = [torch.exp(m - m_all) for m in ms]
+    out = sum(wi * a for wi, a in zip(w, accs)) / sum(wi * li for wi, li in zip(w, ls)).clamp_min(1e-30)
+    uniform = v.mean(dim=2, keepdim=True).repeat_interleave(g, dim=1).expand_as(out)
+    return torch.where(m_all > TA.NEG_INF, out, uniform), torch.stack(ms)
+
+
+SK = K3.K3_SPLIT_KEYS
+K3_LMAX = 3 * SK + 128
+# (offset of row 0, invalid key ranges) in a window of three splits and a
+# part: row 0 just before, at and just after the split boundary 2 * SK, the
+# last row at it; a run of invalid keys longer than one split mid-window
+# (split 1 wholly masked); rows that see no key at all; rows 0-1 blind, the
+# rest not; the window's end.
+K3_EDGES = {
+    "kend-at-boundary": (lambda lq: 2 * SK - lq, ()),
+    "row0-before-boundary": (lambda lq: 2 * SK - 1, ()),
+    "row0-at-boundary": (lambda lq: 2 * SK, ()),
+    "row0-after-boundary": (lambda lq: 2 * SK + 1, ()),
+    "masked-split": (lambda lq: 3 * SK, ((SK - 8, 2 * SK + 44),)),
+    "no-visible-key": (lambda lq: SK + 44, ((0, SK + 44 + 16),)),
+    "first-rows-blind": (lambda lq: SK + 44, ((0, SK + 46),)),
+    "window-end": (lambda lq: K3_LMAX - lq, ((0, 7),)),
+}
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("lq", [1, 4])
+@pytest.mark.parametrize("edge", list(K3_EDGES))
+def test_k3_split_model_matches_plain(edge, lq, g):
+    """The split-and-combine of K3 equals dense_kv_attention_plain (f32) at
+    the edges chip_smoke.py checks on the card."""
+    nl, b, kvh, lmax, layer = 2, 2, 2, K3_LMAX, 1
+    offset_of, holes = K3_EDGES[edge]
+    offset = offset_of(lq)
+    rng = np.random.default_rng(sorted(K3_EDGES).index(edge) + 10 * lq + 100 * g)
+    ks = torch.from_numpy(rng.standard_normal((nl, b, kvh, lmax, D)).astype(np.float32))
+    vs = torch.from_numpy(rng.standard_normal((nl, b, kvh, lmax, D)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, kvh * g, lq, D)).astype(np.float32))
+    valid = torch.from_numpy(rng.random((b, lmax)) > 0.05)
+    for lo, hi in holes:
+        valid[:, lo:hi] = False
+    out, ms = _k3_split_model(q, ks, vs, valid, offset, layer, SCALE)
+    ref = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, layer, SCALE)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    if edge == "masked-split":
+        assert (ms[1] == TA.NEG_INF).all()
+        assert (ms[0] > TA.NEG_INF).all() and (ms[2] > TA.NEG_INF).all()
+    if edge == "no-visible-key":
+        assert (ms == TA.NEG_INF).all()
+        mean_v = vs[layer].mean(dim=2).repeat_interleave(g, dim=1)
+        for i in range(lq):
+            np.testing.assert_allclose(ref[:, :, i].numpy(), mean_v.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("lmax", [64, 640, 768, 4352])
+def test_k3_split_plan_covers_each_key_once(lmax):
+    """Every key up to the last row's position falls in exactly one split,
+    each split is non-empty, and no split reaches past the window."""
+    for lq in (1, 4, 16):
+        for offset in sorted({0, 1, SK - 1, SK, SK + 1, lmax // 2, lmax - lq, lmax - 1, lmax + 5}):
+            n_split, split = K3.dense_kv_split_plan(lmax, offset, lq)
+            kend = min(lmax, offset + lq)
+            covered = np.zeros(lmax, int)
+            for s in range(n_split):
+                lo, hi = s * split, min((s + 1) * split, kend)
+                assert lo < hi <= lmax
+                covered[lo:hi] += 1
+            assert (covered[:kend] == 1).all() and (covered[kend:] == 0).all()
+            assert kend - 1 == min(lmax - 1, offset + lq - 1)
+
+
+def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p):
+    """K2 as the card computes it: 64-row query tiles, 64-key tiles, one max
+    and one rescale per key tile, tiles past the query tile's causal horizon
+    skipped unless a row has seen no visible key; ``round_p`` rounds the
+    softmax weights to bf16 before p @ v (the row sums stay f32)."""
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    qs, k, v = (q * scale).float(), k.float(), v.float()
+    out = torch.empty((b, h, lq, d))
+    for bi in range(b):
+        for hi in range(h):
+            kh, vh = k[bi, hi // (h // kvh)], v[bi, hi // (h // kvh)]
+            for i0 in range(0, lq, 64):
+                rows = torch.arange(i0, min(i0 + 64, lq))
+                horizon = q_pos0 + min(lq, i0 + 64) - 1
+                m = torch.full((len(rows),), TA.NEG_INF)
+                l = torch.zeros(len(rows))
+                acc = torch.zeros((len(rows), d))
+                for j0 in range(0, lk, 64):
+                    if j0 > horizon and not (m == TA.NEG_INF).any():
+                        break
+                    j = torch.arange(j0, min(j0 + 64, lk))
+                    ok = valid[bi, j][None, :] & (j[None, :] <= q_pos0 + rows[:, None])
+                    s = torch.where(ok, qs[bi, hi, rows] @ kh[j].T, TA.NEG_INF)
+                    m_new = torch.maximum(m, s.amax(dim=-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[:, None])
+                    l = l * alpha + p.sum(dim=-1)
+                    pv = p.to(torch.bfloat16).float() if round_p else p
+                    acc = acc * alpha[:, None] + pv @ vh[j]
+                    m = m_new
+                out[bi, hi, rows] = acc / torch.where(l == 0, 1.0, l)[:, None]
+    return out
+
+
+# (lq, q_pos0, lk, left pads per batch row): prompts left-padded differently
+# in one batch, an extend chunk at q_pos0 = 1000, lq and lk off the tiles.
+K2_EDGES = {
+    "batch-pads": (130, 0, 200, (0, 70)),
+    "extend": (100, 1000, 1130, (12, 40)),
+    "ragged": (77, 3, 145, (5, 0)),
+}
+
+
+@pytest.mark.parametrize("round_p", [False, True])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("edge", list(K2_EDGES))
+def test_k2_tile_model_matches_plain(edge, g, round_p):
+    """K2's tiling, masking and causal skipping equal flash_attention_plain
+    in f32; with p rounded to bf16 (the card's P V operand) they stay within
+    chip_smoke.py's limits for the card, ATTN_ATOL + ATTN_RTOL * |ref|."""
+    lq, q_pos0, lk, pads = K2_EDGES[edge]
+    b, kvh = len(pads), 2
+    rng = np.random.default_rng(len(edge) + 10 * g)
+    q = torch.from_numpy(rng.standard_normal((b, kvh * g, lq, D)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, kvh, lk, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, kvh, lk, D)).astype(np.float32))
+    valid = torch.ones((b, lk), dtype=torch.bool)
+    for bi, pad in enumerate(pads):
+        valid[bi, :pad] = False
+    valid[:, lk // 2] = False
+    out = _k2_tile_model(q, k, v, valid, q_pos0, SCALE, round_p)
+    ref = K2.flash_attention_plain(q, k, v, valid, q_pos0, SCALE)
+    if round_p:
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=2 * 2.0**-7, atol=2e-3)
+        assert (out - ref).abs().max() > 0  # the rounding is real
+    else:
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    if q_pos0 == 0:  # left-pad rows see no key: the uniform average of all lk values
+        for bi, pad in enumerate(pads):
+            mean_v = v[bi].mean(dim=1).repeat_interleave(g, dim=0)
+            for i in range(pad):
+                np.testing.assert_allclose(out[bi, :, i].numpy(), mean_v.numpy(), **F32_TOL)

@@ -336,7 +336,8 @@ def test_load_quantize_cache_generates_the_jax_text(fp32_path, tmp_path, monkeyp
     want = JE.generate_text(jlm, jproc, PROMPT, max_tokens=12, verbose=False, stream=False, mute=True)
     monkeypatch.chdir(tmp_path)
     os.makedirs("models")
-    os.symlink(fp32_path, api.PATH_QUANTIZED_PHI3_BLIND)
+    for path in (api.PATH_ORIGINAL_PHI3_BLIND, api.PATH_QUANTIZED_PHI3_BLIND):
+        os.symlink(fp32_path, path)
     for lm, proc in (api.load(quantize_cache=True, device="cpu"),
                      api._load(fp32_path, device="cpu", use_quantized_cache=True)):
         assert lm.cfg.use_quantized_cache

@@ -416,7 +416,8 @@ def test_generate_quantize_cache_reaches_the_int4_cache(w8_path, tmp_path, monke
     monkeypatch.setattr(TM, "quantized_flash_attention", counting("K5", TM.quantized_flash_attention))
     monkeypatch.chdir(tmp_path)
     os.makedirs("models")
-    os.symlink(w8_path, api.PATH_QUANTIZED_PHI3_BLIND)
+    for path in (api.PATH_ORIGINAL_PHI3_BLIND, api.PATH_QUANTIZED_PHI3_BLIND):
+        os.symlink(w8_path, path)
     kw = dict(max_tokens=8, verbose=False, stream=False, mute=True)
     got = api.generate("Hi", quantize_cache=True, **kw)
     assert loaded[-1][0].cfg.use_quantized_cache and loaded[-1][0].cfg.kv_quant.bits == 4
