@@ -64,7 +64,11 @@ caught and carried on):
 
 Phase 2 also checks K6 and K7 (paged decode attention over the dense and
 the int4 page pool), K9 (the packed layout), E1 (W4A8) and every mode of
-E2/E3 (K4's kernel with another dequantization).  Each kernel's line in the
+E2/E3 (K4's kernel with another dequantization).  K1 (both modes) and K9 are
+checked at every main-path (K, N) for M = 1, 4, 8, 15, 16, 17, 192 and 256
+(K1 crosses from route A at M = 1 to route B), with scales and biases drawn
+per column, each call repeated and required bit-identical, and timed at
+M = 1-256 beside ``_weight_int4pack_mm``.  Each kernel's line in the
 JSON carries its bound (its bytes at 3.35 TB/s or its operations at 989
 TFLOP/s bf16, 1979 TOP/s int8, whichever is longer, from this run's inputs)
 and the time of one PyTorch call computing the same function where there is
@@ -207,19 +211,37 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int):
-    """Sum of the device time of every kernel a call launches (profiler)."""
+def kernel_times(torch, run, per: int, tries: int = 3):
+    """(device ms by short kernel name, kernel launches) of ``run()`` under
+    the profiler, times divided by ``per``.  The profiler now and then
+    records no kernel of a window; such a window is run again, and after
+    ``tries`` empty ones both are empty."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        per_name, launches = Counter(), 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                per_name[short_name(e.name)] += e.device_time_total / 1e3 / per
+                launches += 1
+        if sum(per_name.values()) > 0:
+            return per_name, launches
+    return Counter(), 0
+
+
+def device_ms(torch, fn, iters: int):
+    """Sum of the device time of every kernel a call launches (profiler)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None  # None: the profiler saw no device time
+    per_name, _ = kernel_times(torch, lambda: [fn() for _ in range(iters)], iters)
+    ms = sum(per_name.values())
+    return ms if ms > 0 else None  # None: the profiler saw no device time
 
 
 def timed(torch, kernel_fn, plain_fn, iters: int) -> dict:
@@ -284,6 +306,55 @@ def int4pack_ms(torch, x, k: int, n: int, copies: int, g):
         return None
 
 
+# K1 and K9 are checked at every M of W4_CHECK_ROWS (K1's route A at M = 1,
+# route B's row tiles and the prefill buckets) and timed at W4_TIMED_ROWS for
+# the (K, N) of W4_TIMED (K9: the packed ones), beside PyTorch's own 4-bit
+# matmul at the same M.
+W4_CHECK_ROWS = (1, 4, 8, 15, 16, 17, 192, 256)
+W4_TIMED_ROWS = (1, 4, 16, 64, 192, 256)
+W4_TIMED = ((3072, 9216), (3072, 16384), (3072, 32064))
+
+
+def w4_planes(torch, k: int, n: int, g):
+    """Scales and biases of the synthetic weights' magnitude, both drawn per
+    column, so that a kernel reading another column's scale or bias fails
+    K1's limits."""
+    s = 0.004 * (1 + 0.1 * torch.randn((k // 64, n), generator=g, device="cuda"))
+    b = -0.03 + 0.001 * torch.randn((k // 64, n), generator=g, device="cuda")
+    return s.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def w4_check(torch, call, ref, ref16):
+    """``call(out_dtype=f32)`` against ``ref`` under K1's limits, repeated
+    (bit-identical?); with ``ref16``, also the bf16 output within one ulp.
+    Returns (max abs err, max rel err, within limits, repeat identical)."""
+    out = call(out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
+    same = torch.equal(out, call(out_dtype=torch.float32))
+    if ref16 is not None:  # the decode path's bf16 output: one more rounding (1 ulp)
+        ok = ok and close(torch, call(), ref16, K1_ATOL, 2.0**-7)[2]
+    return ea, er, ok, same
+
+
+def w4_timing(torch, name, kernel, plain, ws, x, k, n, m, g, report):
+    """Time ``kernel`` and ``plain`` on ``ws`` rotated past the L2, log the
+    line with the bound and ``_weight_int4pack_mm``'s time at the same M,
+    and keep it in ``report[name]["timings"]``."""
+    nxt = rotating(len(ws))
+    t = timed(torch, lambda: kernel(ws[nxt()]), lambda: plain(ws[nxt()]), 20)
+    nbytes = k * n // 2 + 2 * 2 * (k // 64) * n + 2 * m * k + 2 * m * n
+    bd = bound(nbytes, 2 * m * k * n)
+    lib = int4pack_ms(torch, x, k, n, len(ws), g)
+    dev = t["device_ms"]
+    ratio = "not measured" if dev is None or lib is None else f"{dev / lib:.2f}x"
+    log(f"{name} K={k} N={n} M={m} timed: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) {t.pop('text')}; "
+        f"library " + ("not measured" if lib is None else f"{lib:.4f} ms") + f" (device / library {ratio})")
+    t.update(bd, library_ms=lib)
+    report[name].setdefault("timings", []).append({"shape": f"K={k} N={n} M={m}", **t})
+    return t
+
+
 def phase_kernels(torch, report):
     from phi_3_vision_mlx_tpu_torch.core.weights import WORD
     import torch.nn.functional as F
@@ -296,7 +367,9 @@ def phase_kernels(torch, report):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
 
-    # --- K1 at every main-path (K, N), M in {1, 64, 256}, both modes.
+    # --- K1 at every main-path (K, N) and every M of W4_CHECK_ROWS, both
+    # modes; timed (affine) at every shape for M = 1 and at W4_TIMED for
+    # W4_TIMED_ROWS, beside _weight_int4pack_mm.
     errs = []
     for k, n in K1_SHAPES:
         nbytes = k * n // 2 + 4 * (k // 64) * n
@@ -304,47 +377,29 @@ def phase_kernels(torch, report):
         ws = []
         for _ in range(copies):
             qw = torch.randint(-(2**31), 2**31, (k // WORD, n), dtype=torch.int32, generator=g, device=dev)
-            s = (0.004 * (1 + 0.1 * torch.randn((k // 64, n), generator=g, device=dev))).to(torch.bfloat16)
-            b = torch.full((k // 64, n), -0.03, dtype=torch.bfloat16, device=dev)
-            ws.append((qw, s, b))
+            ws.append((qw, *w4_planes(torch, k, n, g)))
         for mode in ("affine", "symmetric"):
-            for m in (1, 64, 256):
+            for m in W4_CHECK_ROWS:
                 x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
                 qw, s, b = ws[0]
                 b = b if mode == "affine" else None
-                out = K1.quant_matmul(x, qw, s, b, out_dtype=torch.float32)
                 ref = K1.quant_matmul_plain(x, qw, s, b, out_dtype=torch.float32)
-                torch.cuda.synchronize()
-                ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
-                if m == 1:  # the decode path's bf16 output: one more rounding (1 ulp)
-                    e16 = close(torch, K1.quant_matmul(x, qw, s, b), K1.quant_matmul_plain(x, qw, s, b),
-                                K1_ATOL, 2.0**-7)
-                    ok = ok and e16[2]
+                ref16 = K1.quant_matmul_plain(x, qw, s, b) if m == 1 else None
+                ea, er, ok, same = w4_check(torch, lambda **kw: K1.quant_matmul(x, qw, s, b, **kw), ref, ref16)
                 errs.append(ea)
-                line = f"K1 K={k} N={n} M={m} {mode}: max_abs={ea:.3e} max_rel={er:.3e} " \
-                       f"(atol {K1_ATOL} + rtol {K1_RTOL})"
-                if mode == "affine" and (m == 1 or n == 9216):  # timed: decode, and qkv's M
-                    if m == 1:
-                        b1 = bound(k * n // 2 + 2 * 2 * (k // 64) * n + 2 * m * k + 2 * m * n,
-                                   2 * m * k * n)
-                        line += f" bound {b1['bound_ms']:.4f} ms ({b1['bound_by']})"
-                    nxt = rotating(copies)
-                    t = timed(torch, lambda: K1.quant_matmul(x, *ws[nxt()]),
-                              lambda: K1.quant_matmul_plain(x, *ws[nxt()]), 20)
-                    line += " " + t.pop("text")
-                    if m == 1:
-                        report["k1_m1_device_ms"][k, n] = t["device_ms"]
-                    if (k, n, m) == (3072, 32064, 1):  # K1b, lm_head
-                        lib = int4pack_ms(torch, x, k, n, copies, g)
-                        line += " library " + ("not measured" if lib is None else f"{lib:.4f} ms")
-                    if (k, n, m) == (3072, 9216, 1):
-                        nbytes = k * n // 2 + 2 * 2 * (k // 64) * n + 2 * m * k + 2 * m * n
-                        report["K1"].update(t, shape="K=3072 N=9216 M=1 affine",
-                                            library_ms=int4pack_ms(torch, x, k, n, copies, g),
-                                            **bound(nbytes, 2 * m * k * n))
-                log(line)
-                if not ok:
-                    fail(f"K1 disagrees with its plain version at K={k} N={n} M={m} {mode}")
+                log(f"K1 K={k} N={n} M={m} {mode} route {K1.route(m, 'k1')}: max_abs={ea:.3e} "
+                    f"max_rel={er:.3e} (atol {K1_ATOL} + rtol {K1_RTOL}); repeat bit-identical {same}")
+                if not ok or not same:
+                    fail(f"K1 disagrees with its plain version (or itself) at K={k} N={n} M={m} {mode}")
+        timed_rows = W4_TIMED_ROWS if (k, n) in W4_TIMED else (1,)
+        for m in timed_rows:
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            t = w4_timing(torch, "K1", lambda w: K1.quant_matmul(x, *w), lambda w: K1.quant_matmul_plain(x, *w),
+                          ws, x, k, n, m, g, report)
+            if m == 1:
+                report["k1_m1_device_ms"][k, n] = t["device_ms"]
+            if (k, n, m) == (3072, 9216, 1):
+                report["K1"].update(t, shape="K=3072 N=9216 M=1 affine")
         del ws
     report["K1"]["max_abs_err"] = max(errs)
 
@@ -646,8 +701,9 @@ def phase_w8_kernels(torch, report):
 
 def phase_packed_kernels(torch, report):
     """K9 (K10 is K9 on a ``w[layer]`` view) against its plain version at
-    every main-path (K, N) of the packed layout, M = 1, 4 and 256, under K1's
-    limits: uniform random payload bytes (every byte is two valid levels),
+    every main-path (K, N) of the packed layout and every M of
+    W4_CHECK_ROWS, under K1's limits, twice (bit-identical); timed as K1 is:
+    uniform random payload bytes (every byte is two valid levels),
     the synthetic weights' scales and biases, weights rotated past the L2
     for timing.  Its library call is K1's (``_weight_int4pack_mm``, the same
     function on the same shape)."""
@@ -660,37 +716,39 @@ def phase_packed_kernels(torch, report):
         wbytes = k * n // 2 + 2 * 2 * (k // 64) * n
         copies = max(1, math.ceil(150e6 / wbytes))
         ws = [(torch.randint(0, 256, (k, n // 2), dtype=torch.uint8, generator=g, device=dev),
-               (0.004 * (1 + 0.1 * torch.randn((k // 64, n), generator=g, device=dev))).to(torch.bfloat16),
-               torch.full((k // 64, n), -0.03, dtype=torch.bfloat16, device=dev))
-              for _ in range(copies)]
-        for m in (1, 4, 256):
+               *w4_planes(torch, k, n, g)) for _ in range(copies)]
+        for m in W4_CHECK_ROWS:
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-            out = K.quant_matmul_packed(x, *ws[0], out_dtype=torch.float32)
             ref = K.quant_matmul_packed_plain(x, *ws[0], out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
-            if m == 1:  # the decode path's bf16 output: one more rounding (1 ulp)
-                ok = ok and close(torch, K.quant_matmul_packed(x, *ws[0]),
-                                  K.quant_matmul_packed_plain(x, *ws[0]), K1_ATOL, 2.0**-7)[2]
+            ref16 = K.quant_matmul_packed_plain(x, *ws[0]) if m == 1 else None
+            ea, er, ok, same = w4_check(torch, lambda **kw: K.quant_matmul_packed(x, *ws[0], **kw), ref, ref16)
             errs.append(ea)
-            line = (f"K9 K={k} N={n} M={m}: max_abs={ea:.3e} max_rel={er:.3e} (atol {K1_ATOL} + rtol "
-                    f"{K1_RTOL})")
-            if m == 1:
-                b9 = bound(wbytes + 2 * m * k + 2 * m * n, 2 * m * k * n)
-                nxt = rotating(copies)
-                t = timed(torch, lambda: K.quant_matmul_packed(x, *ws[nxt()]),
-                          lambda: K.quant_matmul_packed_plain(x, *ws[nxt()]), 20)
-                k1 = report["k1_m1_device_ms"].get((k, n))
-                ratio = "not measured" if k1 is None or t["device_ms"] is None else \
-                    f"{t['device_ms'] / k1:.2f}x K1's device time ({k1:.4f} ms)"
-                line += f" bound {b9['bound_ms']:.4f} ms ({b9['bound_by']}) {t.pop('text')}; {ratio}"
-                if (k, n) == (3072, 9216):
-                    report["K9"].update(t, shape="K=3072 N=9216 M=1 packed", **b9,
-                                        library_ms=int4pack_ms(torch, x, k, n, copies, g))
-            log(line)
-            if not ok:
-                fail(f"K9 disagrees with its plain version at K={k} N={n} M={m}")
+            log(f"K9 K={k} N={n} M={m}: max_abs={ea:.3e} max_rel={er:.3e} "
+                f"(atol {K1_ATOL} + rtol {K1_RTOL}); repeat bit-identical {same}")
+            if not ok or not same:
+                fail(f"K9 disagrees with its plain version (or itself) at K={k} N={n} M={m}")
+        for m in W4_TIMED_ROWS if (k, n) in W4_TIMED else (1,):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            t = w4_timing(torch, "K9", lambda w: K.quant_matmul_packed(x, *w),
+                          lambda w: K.quant_matmul_packed_plain(x, *w), ws, x, k, n, m, g, report)
+            k1 = report["k1_m1_device_ms"].get((k, n))
+            if m == 1 and k1 is not None and t["device_ms"] is not None:
+                log(f"K9 K={k} N={n} M=1: {t['device_ms'] / k1:.2f}x K1's device time ({k1:.4f} ms)")
+            if (k, n, m) == (3072, 9216, 1):
+                report["K9"].update(t, shape="K=3072 N=9216 M=1 packed")
         del ws
+    # An odd number of 512-column blocks, which route B's 128-column tiles
+    # cross (no main-path shape has one).
+    k, n = 1024, 1536
+    w = (torch.randint(0, 256, (k, n // 2), dtype=torch.uint8, generator=g, device=dev), *w4_planes(torch, k, n, g))
+    for m in (1, 4, 17):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        ea, er, ok = close(torch, K.quant_matmul_packed(x, *w, out_dtype=torch.float32),
+                           K.quant_matmul_packed_plain(x, *w, out_dtype=torch.float32), K1_ATOL, K1_RTOL)
+        errs.append(ea)
+        log(f"K9 K={k} N={n} M={m}: max_abs={ea:.3e} max_rel={er:.3e}")
+        if not ok:
+            fail(f"K9 disagrees with its plain version at K={k} N={n} M={m}")
     report["K9"]["max_abs_err"] = max(errs)
 
 
@@ -1176,11 +1234,6 @@ def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int =
     """Steady decode of 4 busy slots over the paged pool: aggregate tok/s
     over timed chunks, then one profiled chunk (device busy, idle share,
     launches per step), beside the single-stream figure of this run."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine
 
     cache = cache_of(lm)
@@ -1203,14 +1256,7 @@ def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int =
     eng.step(chunk)
     step_ms = (time.perf_counter() - t0) * 1e3 / chunk
     # A short profiled chunk: the profiler's events cost host seconds to read.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.step(profiled)
-        torch.cuda.synchronize()
-    per_name, launches = Counter(), 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_name[short_name(e.name)] += e.device_time_total / 1e3 / profiled
-            launches += 1
+    per_name, launches = kernel_times(torch, lambda: eng.step(profiled), profiled)
     busy = sum(per_name.values())
     if busy <= 0:
         fail(f"paged profile ({cache}): the profiler saw no device time")
@@ -1234,11 +1280,6 @@ def short_name(kernel: str) -> str:
 def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a", "c")):
     """Wall and device time of a decode token at a short (tag a) and a long
     (tag c) window."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
     from phi_3_vision_mlx_tpu_torch.engine.engine import decode_chunk, run_prefill
 
@@ -1259,20 +1300,15 @@ def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a"
         token, state, toks, *_ = decode_chunk(lm, token, state, steps)
         toks.cpu()  # the engine's one device-to-host copy per chunk
         wall = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            token, state, toks, *_ = decode_chunk(lm, token, state, profiled)
-            torch.cuda.synchronize()
-        per_name, launches = Counter(), 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                per_name[short_name(e.name)] += e.device_time_total / 1e3 / profiled
-                launches += 1
+        # A window the profiler missed decodes the same tokens again (room is left).
+        per_name, launches = kernel_times(torch, lambda: decode_chunk(lm, token, state, profiled), profiled)
         busy = sum(per_name.values())
         if busy <= 0:
             fail(f"profile ({tag}): the profiler saw no device time")
         top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
         attn = sum(ms for name, ms in per_name.items() if "kv_" in name or "flash" in name)
-        matmul = sum(per_name[k] for k in ("wq_partial_kernel", "packed_partial_kernel", "sum_splits_kernel"))
+        matmul = sum(per_name[k] for k in ("wq_partial_kernel", "k1_gemv_kernel",
+                                           "wq_mma_kernel", "sum_splits_kernel"))
         log(f"profile ({tag}, {weights_of(lm)} weights, {cache} cache): "
             f"{len(dict_input['input_ids'][0])} prompt tokens, "
             f"window {window}: prefill {prefill_ms:.1f} ms; decode wall {wall:.2f} ms/token "
@@ -1483,7 +1519,8 @@ def main() -> None:
             "bound_by", "library_ms", "device_ms", "plain_device_ms", "shape")
     names = [f"K{i}" for i in range(1, 10)] + ["E1", "E2", "E3"]
     kernels = [{"route": "cuda", **{k: report[n][k] for k in keys},
-                **({"modes": report[n]["modes"]} if "modes" in report[n] else {})} for n in names]
+                **{extra: report[n][extra] for extra in ("modes", "timings") if extra in report[n]}}
+               for n in names]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,25 +55,35 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> dict:
+def device_ms(fn, iters: int, tries: int = 3) -> dict:
     """Device time per call of ``fn`` by kernel name (the profiler's CUDA
-    kernel events), with the total under ``"all"``."""
+    kernel events), with the total under ``"all"``.  The profiler now and
+    then records no kernel of a window; such a window is profiled again, and
+    after ``tries`` empty ones ``"all"`` is None (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {"all": 0.0}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.device_time_total / 1e3 / iters
-            out[e.name] = out.get(e.name, 0.0) + ms
-            out["all"] += ms
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {"all": 0.0}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms = e.device_time_total / 1e3 / iters
+                out[e.name] = out.get(e.name, 0.0) + ms
+                out["all"] += ms
+        if out["all"] > 0:
+            return out
+    return {"all": None}
+
+
+def ms_text(ms) -> str:
+    """A time for a table: four decimals, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def layer_sum(attend, nl: int, q):

@@ -1,23 +1,29 @@
-"""Time the attention kernels K2, K3, K4 and K5 of several source trees of
-this repository in turns, on one card, each tree in its own process built
-from its own ``csrc/``.
+"""Time kernels of several source trees of this repository in turns, on one
+card, each tree in its own process built from its own ``csrc/``.
 
-    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K2,K3,K4,K5] TREE [TREE ...]
+    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,K2,K3,K4,K5,K9] TREE [TREE ...]
 
 Give the trees in the order to run them (parent, change, change, parent) so
 that drift on the card shows.  Each run times every case of the chosen
-kernels (all four by default) at chip_smoke.py's shapes, 32 heads of 96:
+kernels (all six by default) at chip_smoke.py's shapes:
 
+* K1 (W4A16) at qkv (K = 3072, N = 9216) with M = 1 and 192, and at lm_head
+  (N = 32064) with M = 1; K9 (the packed layout) at qkv with M = 1 and 192;
+  weights rotated past the 50 MB L2, as decode reads them;
 * K2 (flash attention, dense): lq = 1024 over 1152 keys (24 left-pad rows)
   and lq = 4224 over 4352 keys (the 4207-token prompt's bucket);
 * K3 (decode, dense cache) and K4 (decode, int4 cache): Lq = 1 at the end
   of a 640- and a 4224-key window, 8 stacked layers rotated past the L2;
-* K5 (flash attention, int4 cache): lq = 1024 over 1152 keys.
+* K5 (flash attention, int4 cache): lq = 1024 over 1152 keys;
+
+attention with 32 heads of 96.  K1's route A (M = 1) against route B at a
+few rows is timed with a sibling tree whose ``route()`` (and the C entry's
+``launch_route``) sends M = 1 to route B.
 
 For each case: rounds of CUDA-event time per call and the profiler's device
-time per call (every kernel the call launches, and by kernel).  The timing code is this
-module's own, so a tree from before this module took K2, K3 and K5 times
-the same way.  Prints one JSON line per tree.
+time per call (every kernel the call launches, and by kernel).  The timing
+code is this module's own, so an older tree is timed the same way.  Prints
+one JSON line per tree.
 """
 
 from __future__ import annotations
@@ -28,11 +34,12 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("K2", "K3", "K4", "K5")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K9")
 
 _RUN = r'''
-import json, sys, torch
+import json, math, sys, torch
 sys.path.insert(0, ".")
+from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as QM
 from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
 from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
 from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as FA
@@ -55,19 +62,24 @@ def cuda_ms(fn, iters, warmup):
 
 
 def device_ms(fn, iters):
-    """(device ms per call, {kernel: device ms per call})."""
+    """(device ms per call, {kernel: device ms per call}); a window in which
+    the profiler recorded no kernel is profiled again, up to three times,
+    and then the time is None."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("<")[0]
-            by[name] = by.get(name, 0.0) + e.device_time_total / 1e3 / iters
-    return sum(by.values()), by
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("<")[0]
+                by[name] = by.get(name, 0.0) + e.device_time_total / 1e3 / iters
+        if sum(by.values()) > 0:
+            return sum(by.values()), by
+    return None, {}
 
 
 kernels = sys.argv[1].split(",")
@@ -114,6 +126,33 @@ for lmax in (640, 4224):
         cases[f"K4 Lq=1 Lmax={lmax}"] = (lambda q=q, p=payload, s=scales, valid=valid, lmax=lmax, turn=turn:
                                         KV.quantized_kv_attention(q, p, s, valid, lmax - 1,
                                                                   next(turn) % nl, scale), 200)
+
+
+def w4_weights(k, n, packed):
+    """Enough (payload, scales, biases) copies of one (K, N) to exceed the L2."""
+    copies = max(1, math.ceil(150e6 / (k * n // 2 + 4 * (k // 64) * n)))
+    s = lambda: (0.004 * (1 + 0.1 * torch.randn((k // 64, n), generator=g, device="cuda"))).to(torch.bfloat16)
+    b = lambda: torch.full((k // 64, n), -0.03, dtype=torch.bfloat16, device="cuda")
+    q = ((lambda: torch.randint(0, 256, (k, n // 2), dtype=torch.uint8, generator=g, device="cuda")) if packed
+         else (lambda: torch.randint(-(2**31), 2**31, (k // 8, n), dtype=torch.int32, generator=g, device="cuda")))
+    return [(q(), s(), b()) for _ in range(copies)]
+
+
+def w4_case(name, fn, ws, m, k):
+    x = bf16(torch.randn((m, k), generator=g, device="cuda"))
+    turn = iter(range(10**9))
+    cases[name] = (lambda: fn(x, *ws[next(turn) % len(ws)]), 200)
+
+
+W4 = {"K1": (QM.quant_matmul, False, ((3072, 9216, (1, 192)), (3072, 32064, (1,)))),
+      "K9": (QM.quant_matmul_packed, True, ((3072, 9216, (1, 192)),))}
+for name, (fn, packed, shapes) in W4.items():
+    if name not in kernels:
+        continue
+    for k, n, ms in shapes:
+        ws = w4_weights(k, n, packed)
+        for m in ms:
+            w4_case(f"{name} K={k} N={n} M={m}", fn, ws, m, k)
 if "K5" in kernels:
     lq, lk = 1024, 1152
     q, valid = qrow(lq), flash_window(lq, lk, 24)
@@ -142,8 +181,8 @@ def main(argv=None) -> list:
         ap.error(f"unknown kernels {sorted(bad)}")
     results = []
     for tree in a.trees:
-        out = subprocess.run([sys.executable, "-c", _RUN, a.kernels], cwd=tree, capture_output=True,
-                             text=True, timeout=900)
+        out = subprocess.run([sys.executable, "-c", _RUN, a.kernels], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stderr[-3000:]}")
         res = {"tree": os.path.abspath(tree), **json.loads(out.stdout.strip().splitlines()[-1])}

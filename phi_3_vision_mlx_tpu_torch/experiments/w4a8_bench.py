@@ -24,7 +24,7 @@ import torch
 
 from ..ops.kernels.quant_matmul import quant_matmul
 from ..ops.kernels.w4a8 import w4a8_matmul
-from . import card, cuda_ms, device_from, device_ms
+from . import card, cuda_ms, device_from, device_ms, ms_text
 
 M_SWEEP = (1, 2, 4, 8, 16, 64, 256)
 GROUP = 64
@@ -72,12 +72,13 @@ def main(argv=None) -> dict:
         e1_dev = device_ms(e1, 20)
         row = {"m": m, "k1_ms": cuda_ms(k1, 50), "e1_ms": cuda_ms(e1, 50),
                "k1_device_ms": device_ms(k1, 20)["all"], "e1_device_ms": e1_dev["all"],
-               "e1_kernel_device_ms": sum(ms for name, ms in e1_dev.items()
-                                          if "w4a8_partial" in name or "sum_splits" in name)}
+               "e1_kernel_device_ms": None if e1_dev["all"] is None else sum(
+                   ms for name, ms in e1_dev.items() if "w4a8_partial" in name or "sum_splits" in name)}
         result["rows"].append(row)
-        print(f"| {m} | {row['k1_ms']:.4f} / {row['k1_device_ms']:.4f} | {row['e1_ms']:.4f} / "
-              f"{row['e1_device_ms']:.4f} | {row['e1_kernel_device_ms']:.4f} | "
-              f"{row['e1_device_ms'] / row['k1_device_ms']:.2f}x |")
+        measured = row["k1_device_ms"] is not None and row["e1_device_ms"] is not None
+        ratio = f"{row['e1_device_ms'] / row['k1_device_ms']:.2f}x" if measured else "not measured"
+        print(f"| {m} | {row['k1_ms']:.4f} / {ms_text(row['k1_device_ms'])} | {row['e1_ms']:.4f} / "
+              f"{ms_text(row['e1_device_ms'])} | {ms_text(row['e1_kernel_device_ms'])} | {ratio} |")
     return result
 
 

@@ -4,10 +4,14 @@ layout): matmul over the port's quantized layouts.
 K1 replaces ``phi_3_vision_mlx_tpu/ops/kernels/quant_matmul.py:quant_matmul_tiled``
 and ``quant_matmul_tiled_stacked``; K8 replaces ``quant_matmul_interleaved``;
 K9 replaces ``quant_matmul_packed`` and ``quant_matmul_packed_stacked`` (K10).
-All are one CUDA source, ``csrc/quant_matmul.cu``: K1 and K8 a template over
-the width, K9 a loader for the packed bytes with K1's K split.  A stacked
-weight's layer is a zero-copy ``w[layer]`` view, so one wrapper covers both
-variants of a layout.
+All are one CUDA source, ``csrc/quant_matmul.cu``.  A stacked weight's layer
+is a zero-copy ``w[layer]`` view, so one wrapper covers both variants of a
+layout.
+
+K1 and K9 run on the tensor cores (route B); K1 at one row (decode) runs
+a GEMV on the CUDA cores instead (route A, :func:`route`), the crossover
+measured on the H100 (PERF.md section 6).  :func:`plan` sizes the K split of
+each; K8 keeps its own (``_splits``).
 
 K8 computes the function the JAX package means, the XLA path
 (``ops/quant.py:quantized_matmul``) on unsigned 8-bit levels 0..255; the TPU
@@ -22,6 +26,7 @@ launches.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -33,7 +38,16 @@ from . import _build
 
 GROUP = 64
 _TARGET_BLOCKS = 528  # four waves of blocks over the H100's 132 SMs
-_THREADS = 128  # output columns per block (csrc/quant_matmul.cu kThreads)
+_THREADS = 128  # K8: output columns per block (csrc/quant_matmul.cu kThreads)
+
+_A_TARGET_BLOCKS = 1056  # route A: eight blocks per SM
+_A_COLUMNS = 128  # route A: output columns per block, 32 lanes x 4
+_A_MAX_GROUPS = 64  # route A: groups per split (x staged as f32 in 16 KB)
+_A_WARPS = 4  # route A: a block's warps split its groups: keep their shares even
+_A_MAX_SPLITS = 32  # the second pass adds at most this many partial sums per output
+_B_COLUMNS = 128  # route B: output columns per block
+_B_TARGET_BLOCKS = 792  # route B: six blocks per SM
+_B_MIN_GROUPS = 4  # route B: groups per split, so the cp.async ring has work to overlap
 
 
 def _plain(unpack, x, qweight, scales, biases, out_dtype):
@@ -54,12 +68,41 @@ def quant_matmul_w8_plain(x, qweight, scales, biases, out_dtype=None):
 
 
 def _splits(m: int, k: int, n: int) -> tuple[int, int]:
-    """K splits so the grid holds about ``_TARGET_BLOCKS`` blocks."""
+    """K8's (and E1's) K splits, so the grid holds about ``_TARGET_BLOCKS``
+    blocks of ``_THREADS`` columns."""
     groups = k // GROUP
     bm = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
     base = -(-n // _THREADS) * -(-m // bm)
     want = max(1, min(groups, -(-_TARGET_BLOCKS // base)))
     per = -(-groups // want)
+    return -(-groups // per), per
+
+
+def route(m: int, layout: str) -> str:
+    """The route of K1 (``layout="k1"``) or K9 (``"k9"``) for ``m`` rows, as
+    ``csrc/quant_matmul.cu:launch_route`` takes it: ``"a"`` (the CUDA-core
+    GEMV) for K1 at one row, else ``"b"`` (tensor cores).  On the H100 route
+    A lost to route B from two rows on, and a GEMV over K9's packed rows at
+    every M."""
+    return "a" if layout == "k1" and m == 1 else "b"
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, k: int, n: int, layout: str) -> tuple[int, int]:
+    """(splits, groups per split) of K1 (``layout="k1"``) or K9 (``"k9"``) on
+    its :func:`route`: enough blocks to fill the card; on route A, each
+    split's groups a multiple of the block's warps and its staged x within
+    16 KB."""
+    groups = k // GROUP
+    if route(m, layout) == "a":
+        per = -(-groups // max(1, -(-_A_TARGET_BLOCKS // -(-n // _A_COLUMNS))))
+        per = max(per, -(-groups // _A_MAX_SPLITS))
+        per = min(-(-per // _A_WARPS) * _A_WARPS, _A_MAX_GROUPS)
+    else:
+        rows = 16 if m <= 16 else 32 if m <= 32 else 64
+        tiles = -(-n // _B_COLUMNS) * -(-m // rows)
+        per = max(_B_MIN_GROUPS, -(-groups // max(1, -(-_B_TARGET_BLOCKS // tiles))))
+    per = max(1, min(per, groups))
     return -(-groups // per), per
 
 
@@ -97,36 +140,36 @@ def _check_cuda(name, x, payload, payload_dtype, scales, biases, out_dtype, n):
         raise ValueError(f"{name} kernel needs contiguous tensors")
 
 
-def _launch(wrapper, entry, x, payload, scales, biases, out_dtype, n, splits_n, *extra):
-    """Launch the C entry ``entry`` (its K split sized for ``splits_n``
-    columns of threads) and count the launch on ``wrapper``."""
+def _check_aligned(name, *tensors):
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} kernel needs 16-byte aligned x, payload, scales and biases")
+
+
+def _launch(wrapper, entry, x, payload, scales, biases, out_dtype, n, splits, per, scratch, *extra):
+    """Launch the C entry ``entry`` with the K split (``splits``, ``per``),
+    f32 partial sums in a scratch tensor if ``scratch``, and count the
+    launch on ``wrapper``."""
     m, k = x.shape
     lib, _ = _build.library()
-    splits, per = _splits(m, k, splits_n)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if scratch else None
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     err = getattr(lib, entry)(
         x.data_ptr(), payload.data_ptr(), scales.data_ptr(),
         None if biases is None else biases.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), m, k, n, *extra, splits, per,
-        int(out_dtype == torch.float32), _build.stream_ptr(x.device),
+        None if partial is None else partial.data_ptr(), out.data_ptr(), m, k, n, *extra,
+        splits, per, int(out_dtype == torch.float32), _build.stream_ptr(x.device),
     )
     _build.check(err, entry)
     _build.count_launch(wrapper)
     return out
 
 
-def _run(wrapper, entry, per_word, plain, x, qweight, scales, biases, out_dtype):
-    """Check the inputs, then run ``plain`` (CPU tensors) or launch the C
-    entry ``entry`` and count the launch on ``wrapper``."""
-    name = wrapper.__name__
-    out_dtype = out_dtype or x.dtype
-    n = qweight.shape[-1]
-    _check_shapes(name, x, qweight, qweight.shape[0] * per_word, n, scales)
-    if x.device.type == "cpu":
-        return plain(x, qweight, scales, biases, out_dtype)
-    _check_cuda(name, x, qweight, torch.int32, scales, biases, out_dtype, n)
-    return _launch(wrapper, entry, x, qweight, scales, biases, out_dtype, n, n)
+def _launch_w4(wrapper, entry, layout, x, payload, scales, biases, out_dtype, n, *extra):
+    """K1's or K9's launch: :func:`plan`'s K split, scratch only for more
+    than one split (one split writes the output itself)."""
+    splits, per = plan(x.shape[0], x.shape[1], n, layout)
+    return _launch(wrapper, entry, x, payload, scales, biases, out_dtype, n, splits, per, splits > 1,
+                   *extra)
 
 
 def quant_matmul(
@@ -138,8 +181,17 @@ def quant_matmul(
 ) -> torch.Tensor:
     """K1: y (M, N) = x (M, K) @ W; qweight (K/8, N) int32, scales/biases
     (K/64, N) bf16 (biases None in symmetric mode)."""
-    return _run(quant_matmul, "k1_w4a16_matmul", WORD, quant_matmul_plain,
-                x, qweight, scales, biases, out_dtype)
+    name = "quant_matmul"
+    out_dtype = out_dtype or x.dtype
+    n = qweight.shape[-1]
+    _check_shapes(name, x, qweight, qweight.shape[0] * WORD, n, scales)
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, qweight, scales, biases, out_dtype)
+    _check_cuda(name, x, qweight, torch.int32, scales, biases, out_dtype, n)
+    if n % 8:
+        raise ValueError(f"{name} kernel needs N a multiple of 8, got {n}")
+    _check_aligned(name, x, qweight, scales, biases)
+    return _launch_w4(quant_matmul, "k1_w4a16_matmul", "k1", x, qweight, scales, biases, out_dtype, n)
 
 
 def quant_matmul_w8(
@@ -152,10 +204,18 @@ def quant_matmul_w8(
     """K8: y (M, N) = x (M, K) @ W; qweight (K/4, N) int32 of unsigned 8-bit
     levels, scales/biases (K/64, N) bf16 (affine only: symmetric mode is
     4-bit only, as in ``ops/quant.py``)."""
+    name = "quant_matmul_w8"
     if biases is None:
-        raise ValueError("quant_matmul_w8: 8-bit weights are affine and need biases")
-    return _run(quant_matmul_w8, "k8_w8a16_matmul", WORD8, quant_matmul_w8_plain,
-                x, qweight, scales, biases, out_dtype)
+        raise ValueError(f"{name}: 8-bit weights are affine and need biases")
+    out_dtype = out_dtype or x.dtype
+    n = qweight.shape[-1]
+    _check_shapes(name, x, qweight, qweight.shape[0] * WORD8, n, scales)
+    if x.device.type == "cpu":
+        return quant_matmul_w8_plain(x, qweight, scales, biases, out_dtype)
+    _check_cuda(name, x, qweight, torch.int32, scales, biases, out_dtype, n)
+    splits, per = _splits(*x.shape, n)
+    return _launch(quant_matmul_w8, "k8_w8a16_matmul", x, qweight, scales, biases, out_dtype, n, splits, per,
+                   True)
 
 
 def quant_matmul_packed_plain(x, weight, scales, biases, out_dtype=None):
@@ -188,12 +248,9 @@ def quant_matmul_packed(
     k = x.shape[1]
     if not packable(k, n, GROUP):
         raise ValueError(f"{name}: K={k}, N={n} do not fit the packed layout's blocks")
-    if any(t.data_ptr() % 8 for t in (weight, scales, biases)):
-        raise ValueError(f"{name} kernel needs 8-byte aligned payload, scales and biases")
-    # A block of four warps covers 256 output columns (K1's block: 128), so
-    # size the K split as for K1 over n / 2 columns.
-    return _launch(quant_matmul_packed, "k9_w4a16_packed_matmul", x, weight, scales, biases,
-                   out_dtype, n, n // 2, packed_block_k(k))
+    _check_aligned(name, x, weight, scales, biases)
+    return _launch_w4(quant_matmul_packed, "k9_w4a16_packed_matmul", "k9", x, weight, scales, biases,
+                      out_dtype, n, packed_block_k(k))
 
 
 quant_matmul.launches = 0

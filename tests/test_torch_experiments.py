@@ -223,6 +223,43 @@ def test_qdecode_sweep_main_on_the_cpu(monkeypatch):
         qdecode_sweep.main(["--device", "cpu"])
 
 
+@pytest.mark.parametrize("kernels_in_window", [(True,), (False, True), (False, False, False)])
+def test_device_ms_profiles_again_a_window_with_no_kernel(monkeypatch, kernels_in_window):
+    """The profiler now and then records no kernel of a window: device_ms
+    profiles it again, and after three empty windows its time is None
+    (a table then says "not measured") instead of 0."""
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    from phi_3_vision_mlx_tpu_torch import experiments
+
+    class Event:
+        device_type, name, device_time_total = DeviceType.CUDA, "k1", 800.0  # us
+
+    windows = []
+
+    class Profile:
+        def __init__(self, activities):
+            windows.append(self)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [Event()] if kernels_in_window[len(windows) - 1] else []
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    out = experiments.device_ms(lambda: calls.append(1), 4)
+    assert len(windows) == len(kernels_in_window) and len(calls) == 1 + 4 * len(windows)
+    assert out == ({"all": 0.2, "k1": 0.2} if kernels_in_window[-1] else {"all": None})
+    assert experiments.ms_text(out["all"]) == ("0.2000" if kernels_in_window[-1] else "not measured")
+
+
 def test_experiments_refuse_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")

@@ -309,3 +309,34 @@ def test_packed_model_bf16_close_to_the_jax_packed_kernels(tmp_path_factory, mon
     rel = np.linalg.norm(tl - jl) / np.linalg.norm(jl)
     assert rel < 3e-2, rel
     assert np.argmax(jl[0]) in set(np.argsort(tl[0])[-5:])
+
+
+# --- K9 as the card computes it (csrc/quant_matmul.cu), modelled in plain
+# PyTorch; route B shares K1's model (tests/test_torch_quant.py) -------------
+
+from test_torch_quant import MODEL_TOL, _route_b_model  # noqa: E402
+
+from phi_3_vision_mlx_tpu_torch.ops.quant import QTensor, dequantize  # noqa: E402
+
+
+# (K, N): an odd number of 512-column blocks (route B's 128-column tiles
+# cross them), 128 groups (down_proj's K = 8192), block_k = K = 256 (gk = 4).
+K9_MODEL_SHAPES = {"odd-blocks": (512, 1536), "128-groups": (8192, 512), "block-k-256": (256, 1024)}
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 70])
+@pytest.mark.parametrize("shape", list(K9_MODEL_SHAPES))
+def test_k9_route_b_model_matches_plain(shape, m):
+    """K9's route B: PackedTiles' B fragments (two byte columns a thread,
+    low nibbles columns j = 0, 1, high j = 2, 3, rows in k order through the
+    group interleave) are ``dequantize``'s bf16 W bit for bit, and the tile
+    walk equals the plain version in f32."""
+    k, n = K9_MODEL_SHAPES[shape]
+    q, s, b = (torch.from_numpy(a) for a in _affine4(40 + m + len(shape), k, n))
+    s, b = s.to(torch.bfloat16), b.to(torch.bfloat16)
+    packed = TW.to_packed_layout(q)
+    x = _x(m, m, k, jnp.bfloat16)[1]
+    w_ref = dequantize(QTensor(q, s, b), dtype=torch.bfloat16)
+    out = _route_b_model(x, "k9", packed, s, b, w_ref)
+    ref = TK.quant_matmul_packed_plain(x, packed, s, b, torch.float32)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **MODEL_TOL)

@@ -8,6 +8,8 @@ as tests/test_quant_kernels.py runs them.  Scales and biases are rounded to
 bf16 on both sides (the TPU kernels store them as bf16, the port too).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -187,10 +189,23 @@ def test_k1_wrapper_has_no_silent_fallback():
 
 
 def test_k1_split_plan_covers_every_group():
-    for m, k, n in [(1, 3072, 9216), (1, 8192, 3072), (64, 3072, 32064), (256, 3072, 3072), (1, 64, 5)]:
-        splits, per = TK._splits(m, k, n)
+    """Every split plan (K8's ``_splits``; K1's and K9's ``plan`` on their
+    route) covers each group once, with no empty split; route A's staged x
+    fits its 16 KB, its four warps get equal shares where the groups allow,
+    and its second pass adds at most 32 partial sums."""
+    cases = [(1, 3072, 9216), (1, 8192, 3072), (2, 8192, 3072), (64, 3072, 32064), (256, 3072, 3072),
+             (1, 64, 5), (1, 3072, 32064)]
+    for m, k, n in cases:
         groups = k // GROUP
-        assert splits * per >= groups and (splits - 1) * per < groups
+        plans = [TK._splits(m, k, n)]
+        for layout in ("k1", "k9"):
+            splits, per = TK.plan(m, k, n, layout)
+            plans.append((splits, per))
+            if TK.route(m, layout) == "a":
+                assert per <= 64 and splits <= 32
+                assert per % 4 == 0 or per == groups
+        for splits, per in plans:
+            assert splits * per >= groups and (splits - 1) * per < groups
 
 
 def test_synth_quantized_params_shapes():
@@ -238,3 +253,218 @@ def test_safetensors_roundtrip_is_readable_by_both(tmp_path):
     path.write_bytes(struct.pack("<Q", len(head)) + head + blob[fe[0] : fe[1]] + blob[fa[0] : fa[1]])
     back = TW.load_safetensors(str(path))
     assert torch.equal(back["a"], flat["e"]) and torch.equal(back["b"], flat["a"])
+
+
+# --- K1 and K9 as the card computes them (csrc/quant_matmul.cu), modelled in
+# plain PyTorch: the CUDA kernels run only on the card, where chip_smoke.py
+# holds them to the plain versions; here their decomposition is held to the
+# plain versions at narrow widths -------------------------------------------
+
+
+def _level(byte, affine):
+    """The kernel's ``level()``: the byte as the low mantissa bits of 2^23,
+    minus 2^23 (affine) or 2^23 + 8 (symmetric), which is exact."""
+    return (byte.to(torch.int32) | 0x4B000000).view(torch.float32) - (2.0**23 if affine else 2.0**23 + 8)
+
+
+def _weight(lv, s, b):
+    """``dequant()`` then one rounding to bf16: s * lv and + b, each rounded."""
+    w = s.float() * lv
+    return (w if b is None else w + b.float()).to(torch.bfloat16)
+
+
+def _lo_hi(v, mask):
+    """Nibble 2e of ``v`` in byte e of lo, nibble 2e + 1 in byte e of hi."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    return v & mask, (v >> 4) & mask
+
+
+def _byte(v, e):
+    return (v >> (8 * e)) & 0xFF
+
+
+def _k1_route_a_model(x, qw, s, b):
+    """K1's route A (one row): lane l of block x owns the columns 4 (32 x +
+    l) .. + 3;
+    a split's four warps take its groups g0 + w, g0 + w + 4, ...; in a group,
+    byte e of word row r gives rows 8 r + 2 e (lo) and 8 r + 2 e + 1 (hi);
+    the warps' f32 sums are added in order, then the splits'.  Returns (out,
+    the W it multiplied, how many lanes own each column)."""
+    m, k = x.shape
+    n = qw.shape[1]
+    owners = torch.zeros(-(-n // 128) * 128, dtype=torch.int64)
+    lanes = torch.arange(owners.numel() // 4)
+    owners.index_add_(0, (4 * lanes[:, None] + torch.arange(4)).flatten(), torch.ones(owners.numel(), dtype=torch.int64))
+    assert TK.route(m, "k1") == "a"
+    splits, per = TK.plan(m, k, n, "k1")
+    xf, w_used, out = x.float(), torch.zeros((k, n), dtype=torch.bfloat16), torch.zeros((m, n))
+    for sp in range(splits):
+        g0, g1 = sp * per, min(k // GROUP, (sp + 1) * per)
+        total = torch.zeros((m, n))
+        for warp in range(4):
+            acc = torch.zeros((m, n))
+            for g in range(g0 + warp, g1, 4):
+                lo, hi = _lo_hi(qw[g * 8:(g + 1) * 8], 0x0F0F0F0F)  # (word row r, n)
+                lv = torch.stack([torch.stack([_byte(lo, e), _byte(hi, e)], 1) for e in range(4)], 1)
+                lv = lv.reshape(64, n)  # row 8 r + 2 e + (0 lo, 1 hi)
+                w_g = _weight(_level(lv, b is not None), s[g], None if b is None else b[g])
+                w_used[g * 64:(g + 1) * 64] = w_g
+                acc = acc + xf[:, g * 64:(g + 1) * 64] @ w_g.float()
+            total = total + acc
+        out = out + total
+    return out, w_used, owners[:n]
+
+
+# The thread coordinates of a route-B warp's B fragments: (warp, gid, t, s, j,
+# e), and the group row k = 16 t + 4 s + e each holds (the kernel's k order).
+_WARP, _GID, _T, _S, _J, _E = torch.meshgrid(*(torch.arange(v) for v in (4, 8, 4, 4, 4, 4)), indexing="ij")
+_KSLOT = 16 * _T + 4 * _S + _E
+# The mma's k index of (t, e) (A and B alike: a0/b0 hold e = 0, 1 at 2 t, 2 t
+# + 1; a2/b1 e = 2, 3 at 2 t + 8, 2 t + 9), as the order of the 16 (t, e).
+_TE_OF_KK = torch.argsort(torch.tensor([2 * t + (e & 1) + 8 * (e >> 1) for t in range(4) for e in range(4)]))
+_A_KSLOT = (16 * torch.arange(4)[None, :, None] + 4 * torch.arange(4)[:, None, None]
+            + torch.arange(4)[None, None, :]).reshape(4, 16)[:, _TE_OF_KK]  # [s][kk] -> group row
+
+
+def _route_b_model(x, layout, payload, s, b, w_ref):
+    """Route B as the card computes it, for K1's words (``layout="k1"``) or
+    K9's packed bytes (``"k9"``): 128-column tiles, the plan's K splits; per
+    group, the staged scales, each thread's B fragments (levels picked by
+    byte as the kernel's loaders do), held bit for bit to ``w_ref`` (the
+    plain dequantized W); the mma's k slots fed from x in the same order;
+    outputs written through the loaders' two runs of four columns.  Returns
+    out (f32)."""
+    m, k = x.shape
+    n = s.shape[1]
+    affine = b is not None
+    assert TK.route(m, layout) == "b"
+    splits, per = TK.plan(m, k, n, layout)
+    xf = x.float()
+    out = torch.zeros((splits, m, n))
+    for tile in range(-(-n // 128)):
+        if layout == "k1":
+            col_of = tile * 128 + 32 * _WARP + 4 * _GID + _J  # WordTiles
+            scale_cols = tile * 128 + torch.arange(128)
+            idx = 32 * _WARP + 4 * _GID + _J
+        else:
+            lo0 = (tile // 4) * 512 + (tile % 4) * 64  # PackedTiles
+            col_of = lo0 + 256 * (_J // 2) + 16 * _WARP + 2 * _GID + (_J & 1)
+            c8 = torch.arange(16)
+            scale_cols = (lo0 + torch.where(c8 < 8, 8 * c8, 256 + 8 * (c8 - 8))[:, None] + torch.arange(8)).flatten()
+            idx = (_J // 2) * 64 + 16 * _WARP + 2 * _GID + (_J & 1)
+        valid, col_c = col_of < n, col_of.clamp(max=n - 1)
+        for sp in range(splits):
+            # every group of the split at once: leading axis g
+            gs = torch.arange(sp * per, min(k // GROUP, (sp + 1) * per))
+            gx = gs.view(-1, *[1] * _KSLOT.dim())
+            staged = [torch.where(scale_cols < n, p[gs][:, scale_cols.clamp(max=n - 1)].float(), 0.0)
+                      for p in ((s, b) if affine else (s,))]
+            sj, bj = staged[0][:, idx], staged[1][:, idx] if affine else None
+            if layout == "k1":
+                word = torch.where(valid, payload[gx * 8 + 2 * _T + _S // 2, col_c], 0)
+                lo, hi = _lo_hi(word, 0x0F0F0F0F)
+                lv = _byte(torch.where(_E % 2 == 0, lo, hi), 2 * (_S % 2) + _E // 2)
+            else:
+                gk = min(512, k) // GROUP
+                row = (gx // gk) * min(512, k) + _KSLOT * gk + gx % gk
+                byte0 = (tile // 4) * 256 + (tile % 4) * 64 + 16 * _WARP + 2 * _GID
+                v = payload[row, byte0].to(torch.int64) | (payload[row, byte0 + 1].to(torch.int64) << 8)
+                lo, hi = _lo_hi(v, 0x0F0F)
+                lv = _byte(torch.where(_J < 2, lo, hi), _J & 1)
+            frag = _weight(_level(lv, affine), sj, bj)
+            want = w_ref[gx * 64 + _KSLOT, col_c]
+            assert torch.equal(frag[:, valid].view(torch.int16), want[:, valid].view(torch.int16))
+            # B [g][warp][s][kk][nn = gid][j] and A [row][g][s][kk], both in the mma's k order
+            bmat = frag.float().permute(0, 1, 4, 3, 6, 2, 5).reshape(len(gs), 4, 4, 16, 8, 4)[:, :, :, _TE_OF_KK]
+            a = xf[:, gs[:, None, None] * 64 + _A_KSLOT]
+            acc = torch.einsum("rgsk,gwsknj->rwnj", a, bmat)  # [row][warp][nn][j]
+            # the epilogue: thread t writes the mma's columns 2 t and 2 t + 1
+            # of its four n-tiles as two runs of four output columns
+            for warp in range(4):
+                for t in range(4):
+                    for which in range(2):
+                        for i in range(4):
+                            if layout == "k1":
+                                j, cc = i, which
+                                col = tile * 128 + 32 * warp + 8 * t + 4 * which + i
+                            else:
+                                j, cc = 2 * which + (i & 1), i >> 1
+                                col = lo0 + 256 * which + 16 * warp + 4 * t + i
+                            assert col == col_of[warp, 2 * t + cc, 0, 0, j, 0]
+                            if col < n:
+                                out[sp, :, col] = acc[:, warp, 2 * t + cc, j]
+    total = torch.zeros((m, n))
+    for sp in range(splits):
+        total = total + out[sp]
+    return total
+
+
+def _levels_and_planes(seed, k, n, mode):
+    """Random 4-bit levels and bf16 scales (and biases, affine) of the
+    synthetic weights' magnitude."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(0, 16, (k, n), dtype=np.uint8))
+    s = torch.from_numpy(0.004 * (1 + 0.1 * rng.standard_normal((k // GROUP, n)))).to(torch.bfloat16)
+    b = torch.from_numpy(-0.03 + 0.001 * rng.standard_normal((k // GROUP, n))).to(torch.bfloat16)
+    return q, s, (b if mode == "affine" else None)
+
+
+def _bf16_x(seed, m, k):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal((m, k)).astype(np.float32)).to(
+        torch.bfloat16)
+
+
+# (K, N) at narrow widths: N off the 128-column blocks (lm_head's ragged
+# edge), and 128 groups (down_proj's K = 8192).
+K1_MODEL_SHAPES = {"ragged-n": (512, 520), "128-groups": (8192, 128)}
+MODEL_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 sums in another order, outputs O(1)
+
+
+@pytest.mark.parametrize("mode", ["affine", "symmetric"])
+@pytest.mark.parametrize("shape", list(K1_MODEL_SHAPES))
+def test_k1_route_a_model_matches_plain(shape, mode):
+    """K1's route A (M = 1): every column owned by exactly one lane, every
+    weight it multiplies equal bit for bit to ``dequantize``, and its split
+    plan's sums equal to the plain version's in f32."""
+    k, n = K1_MODEL_SHAPES[shape]
+    m = 1
+    q, s, b = _levels_and_planes(m + 10 * len(shape), k, n, mode)
+    x = _bf16_x(m, m, k)
+    qw = TW.pack_int4(q)
+    out, w_used, owners = _k1_route_a_model(x, qw, s, b)
+    assert (owners == 1).all()
+    w_ref = TQ.dequantize(TQ.QTensor(q, s, b), dtype=torch.bfloat16)
+    assert torch.equal(w_used.view(torch.int16), w_ref.view(torch.int16))
+    ref = TK.quant_matmul_plain(x, qw, s, b, torch.float32)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("m", [2, 4, 8, 15, 17, 70, 256])
+@pytest.mark.parametrize("mode", ["affine", "symmetric"])
+@pytest.mark.parametrize("shape", list(K1_MODEL_SHAPES))
+def test_k1_route_b_model_matches_plain(shape, mode, m):
+    """K1's route B: the B fragments each thread dequantizes from the staged
+    word tile are ``dequantize``'s bf16 W bit for bit (checked inside the
+    model, ragged edge excluded), the mma's k order pairs them with the right
+    x, and the output runs land on the right columns: equal to the plain
+    version in f32 over row tiles of 16 (M = 2-15 included), 32 and 64 (two
+    and four of them)."""
+    k, n = K1_MODEL_SHAPES[shape]
+    q, s, b = _levels_and_planes(m + 10 * len(shape), k, n, mode)
+    x = _bf16_x(m, m, k)
+    qw = TW.pack_int4(q)
+    w_ref = TQ.dequantize(TQ.QTensor(q, s, b), dtype=torch.bfloat16)
+    out = _route_b_model(x, "k1", qw, s, b, w_ref)
+    ref = TK.quant_matmul_plain(x, qw, s, b, torch.float32)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **MODEL_TOL)
+
+
+def test_route_pick_and_its_limits():
+    """The route: K1's route A (the GEMV) at one row only, route B from two
+    rows on and for K9 at every M; the wrappers leave the choice to M (no
+    argument forces a route)."""
+    assert TK.route(1, "k1") == "a"
+    assert all(TK.route(m, "k1") == "b" for m in range(2, 257))
+    assert all(TK.route(m, "k9") == "b" for m in range(1, 257))
+    for fn in (TK.quant_matmul, TK.quant_matmul_packed):
+        assert "route" not in inspect.signature(fn).parameters
