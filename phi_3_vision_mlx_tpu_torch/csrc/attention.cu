@@ -12,8 +12,8 @@
 // * K2 (prefill, Lq ~ Lk in the thousands) is bound by operations: 4 * Lq *
 //   Lk * D per head for q.k and p.v, halved by causality.  It runs the
 //   tensor-core flash body of flash_mma.cuh (bf16 mma.sync, f32 softmax, K/V
-//   tiles in a cp.async ring) with the dense tile loader.  (K5 keeps the
-//   CUDA-core body of attention.cuh.)
+//   tiles in a cp.async ring) with the dense tile loader, DenseTiles (K5
+//   runs the same body with the int4 loader).
 // * K3 (decode, Lq <= 16) is bound by bytes: the layer's K and V for the
 //   keys any row can see, 2 * Lk * D * 2 B per (batch, kv head).  The window
 //   is split into runs of `split_keys` keys (the wrapper's plan), one block

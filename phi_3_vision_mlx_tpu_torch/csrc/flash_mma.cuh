@@ -1,7 +1,8 @@
-// The tensor-core flash-attention body of K2 (attention.cu), written so that
-// another cache layout can reuse it: a tile of keys and values reaches
-// shared memory through a `Tiles` loader (the seam), and everything after
-// that point — the products, the mask, the softmax, the output — is shared.
+// The tensor-core flash-attention body of K2 (attention.cu, the dense
+// cache) and K5 (quant_kv_attention.cu, the int4 cache): a tile of keys and
+// values reaches the bf16 K and V tiles in shared memory through a `Tiles`
+// loader (the seam), and everything after that point — the products, the
+// mask, the softmax, the output — is shared.
 //
 // What bounds it on the H100: prefill attention is bound by operations, 4 *
 // Lq * Lk * D per head (halved by causality), so both products run on the
@@ -10,11 +11,14 @@
 //   the Q tile (q * scale rounded to bf16, the rule of attention.cuh) is
 //   staged once and held as A fragments in registers (6 k-steps of 16 at
 //   D = 96);
-// * keys come in tiles of 64, K and V as bf16 in a two-stage ring in shared
-//   memory filled by 16-byte cp.async: the next tile's copy is in flight
-//   while the tensor cores work on this one.  Rows are padded to D + 8
-//   elements (208 B), so the eight 16-byte rows an ldmatrix reads fall in
-//   distinct banks;
+// * keys come in tiles of 64 through a two-stage ring filled by 16-byte
+//   cp.async: the next tile's copy is in flight while the tensor cores work
+//   on this one.  DenseTiles copies K and V as bf16 straight into a
+//   two-stage ring of K and V tiles; a loader of another layout (Int4Tiles)
+//   copies its raw tile into a two-stage raw ring and converts it, after
+//   the copy lands, into single-buffered K and V tiles.  Rows are padded to
+//   D + 8 elements (208 B), so the eight 16-byte rows an ldmatrix reads fall
+//   in distinct banks;
 // * S = Q K^T comes from ldmatrix on K's rows; the online softmax runs per
 //   row in f32 registers, one max and one rescale per key tile (the four
 //   threads of a quad share a row), on visible scores times log2(e) so that
@@ -31,11 +35,12 @@
 //   (exact) unless a row of the tile has seen no visible key yet (a left-pad
 //   row), which walks every tile to the uniform average of all Lk values.
 // Why 64-row tiles and no persistent blocks: at lq = 1024, 16 tiles x 32
-// heads = 512 blocks of 128 threads, with 66.5 KB of shared memory each and
-// at most 168 registers a thread (3 blocks per SM: the launch bound), fill
-// the 132 SMs; the blocks are launched heaviest first (the query tile with
-// the longest causal range has the lowest block index), so the short tiles
-// fill the tail.  A 128-row tile would halve that count.
+// heads = 512 blocks of 128 threads, with at most 168 registers a thread (3
+// blocks per SM: the launch bound, set by the registers; K2's 65 KB and
+// K5's 54 KB of shared memory would allow 3 and 4), fill the 132 SMs; the
+// blocks are launched heaviest first (the query tile with the longest
+// causal range has the lowest block index), so the short tiles fill the
+// tail.  A 128-row tile would halve that count.
 #pragma once
 
 #include "attention.cuh"
@@ -48,16 +53,30 @@ constexpr int kMmaBK = 64;        // keys per tile
 constexpr int kMmaThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;  // scores in log2 units: exp2 is one MUFU op
 
-// The seam: how a tile of kMmaBK keys reaches shared memory.  issue() is
-// called by every thread of the block and starts the copy of keys [j0, j0 +
-// kMmaBK) of the (batch, kv head) whose keys start at `key0` into the
-// stage's K and V tiles ([kMmaBK][kStride] bf16 each); the kernel commits
-// and waits.  DenseTiles: a = k, b = v, bf16 (B, KV, Lk, D) contiguous.
+// The seam: how a tile of kMmaBK keys reaches the K and V tiles
+// ([kMmaBK][kStride] bf16 each) that the products read.  A loader has
+// kStride and kRawBytes, the bytes of one stage of its raw ring (0: no raw
+// ring, the copy lands in the K and V tiles themselves), and two hooks, each
+// called by every thread of the block:
+// * issue(ks, vs, raw, a, b, key0, j0, Lk) starts the copy of keys [j0, j0 +
+//   kMmaBK) of the (batch, kv head) whose keys start at `key0` into the
+//   stage's K and V tiles, or into its raw stage; the kernel commits and
+//   waits;
+// * convert(ks, vs, raw), after the copy has landed and a barrier, fills
+//   the K and V tiles from the raw stage; the kernel adds a barrier after it
+//   when there is a raw ring.
+// With a raw ring the K and V tiles are single-buffered (the raw ring keeps
+// the next copy in flight); without one they are the two-stage ring.
+template <class Tiles>
+constexpr int kTileStages = Tiles::kRawBytes > 0 ? 1 : 2;
+
+// DenseTiles: a = k, b = v, bf16 (B, KV, Lk, D) contiguous.
 template <int D>
 struct DenseTiles {
   static constexpr int kStride = D + 8;
+  static constexpr int kRawBytes = 0;
   static __device__ __forceinline__ void issue(__nv_bfloat16* ks, __nv_bfloat16* vs,
-                                               const void* __restrict__ a,
+                                               unsigned char*, const void* __restrict__ a,
                                                const void* __restrict__ b, size_t key0, int j0,
                                                int Lk) {
     constexpr int kChunks = D / 8;  // 16-byte chunks per row
@@ -70,7 +89,53 @@ struct DenseTiles {
       cp_async16(vs + r * kStride + c * 8, v + src);
     }
   }
+  static __device__ __forceinline__ void convert(__nv_bfloat16*, __nv_bfloat16*,
+                                                 const unsigned char*) {}
 };
+
+// The int4 cache's raw tile (K5's Int4Tiles, K7's Int4Run): kMmaBK rows of D
+// payload bytes (byte d = k_q[d] | v_q[d] << 4), then kMmaBK rows of 4G bf16
+// scales (k scale, k bias, v scale, v bias for each group of kGroup values).
+template <int D>
+constexpr int kInt4TileBytes = kMmaBK * (D + 8 * (D / kGroup));
+
+// Fills the bf16 tiles ks and vs ([kMmaBK][D + 8] each) with the raw
+// tile's keys and values, as the plain path's bf16 bits (attention.cuh:
+// dequant_fma).  Called by the whole block; each thread takes 16 values of
+// a key at a time: one 16-byte payload chunk, its group's k and v scale and
+// bias, two 16-byte stores to each tile.
+template <int D>
+__device__ __forceinline__ void dequantize_int4_tile(__nv_bfloat16* __restrict__ ks,
+                                                     __nv_bfloat16* __restrict__ vs,
+                                                     const unsigned char* __restrict__ raw) {
+  constexpr int G = D / kGroup, kChunks = D / 16;
+  static_assert(D % 16 == 0 && kInt4TileBytes<D> % 16 == 0, "16-byte chunks and raw stages");
+  const __nv_bfloat16* rs = reinterpret_cast<const __nv_bfloat16*>(raw + kMmaBK * D);
+  for (int idx = threadIdx.x; idx < kMmaBK * kChunks; idx += kMmaThreads) {
+    const int r = idx / kChunks, c = idx % kChunks, g = c * 16 / kGroup;
+    const uint4 w = *reinterpret_cast<const uint4*>(raw + r * D + c * 16);
+    const __nv_bfloat16* sr = rs + r * 4 * G;
+    const float k_s = bf(sr[g]), k_b = bf(sr[G + g]), v_s = bf(sr[2 * G + g]), v_b = bf(sr[3 * G + g]);
+    const unsigned words[4] = {w.x, w.y, w.z, w.w};
+    unsigned kp[8], vp[8];  // 16 values each, two to a register
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const unsigned lo = words[i] >> (16 * e), hi = lo >> 8;  // bytes 2e and 2e + 1
+        kp[2 * i + e] = pack_bf16(dequant_fma(lo & 15u, k_s, k_b), dequant_fma(hi & 15u, k_s, k_b));
+        vp[2 * i + e] = pack_bf16(dequant_fma((lo >> 4) & 15u, v_s, v_b),
+                                  dequant_fma((hi >> 4) & 15u, v_s, v_b));
+      }
+    }
+    uint4* kd = reinterpret_cast<uint4*>(ks + r * (D + 8) + c * 16);
+    uint4* vd = reinterpret_cast<uint4*>(vs + r * (D + 8) + c * 16);
+    kd[0] = make_uint4(kp[0], kp[1], kp[2], kp[3]);
+    kd[1] = make_uint4(kp[4], kp[5], kp[6], kp[7]);
+    vd[0] = make_uint4(vp[0], vp[1], vp[2], vp[3]);
+    vd[1] = make_uint4(vp[4], vp[5], vp[6], vp[7]);
+  }
+}
 
 // Grid (H, B, ceil(Lq / kMmaBQ)), kMmaThreads threads; query tile
 // gridDim.z - 1 - blockIdx.z, so the longest causal ranges start first.
@@ -86,10 +151,12 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   constexpr int KD = D / 16;         // k-steps of Q K^T
   constexpr int ND = D / 8;          // n-tiles of P V
   constexpr int NK = kMmaBK / 8;     // n-tiles of S
+  constexpr int kStages = kTileStages<Tiles>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kMmaBQ][S]
-  __nv_bfloat16* ks = qs + kMmaBQ * S;                             // [2][kMmaBK][S]
-  __nv_bfloat16* vs = ks + 2 * kMmaBK * S;                         // [2][kMmaBK][S]
+  __nv_bfloat16* ks = qs + kMmaBQ * S;                             // [kStages][kMmaBK][S]
+  __nv_bfloat16* vs = ks + kStages * kMmaBK * S;                   // [kStages][kMmaBK][S]
+  unsigned char* raw = reinterpret_cast<unsigned char*>(vs + kStages * kMmaBK * S);  // [2][kRawBytes]
   __shared__ unsigned vmask[2][2];  // per stage: valid bits of keys 0-31, 32-63
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -105,9 +172,11 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   // Thread tid < kMmaBK holds the valid byte of key tid of the last tile
   // issued, read with the tile's copy and turned into bits when it is used.
   unsigned vbyte = 0;
+  auto tile = [&](int t) { return (t & (kStages - 1)) * kMmaBK * S; };  // tile t's K/V stage
   auto issue = [&](int t) {
     const int j0 = t * kMmaBK;
-    Tiles::issue(ks + (t & 1) * kMmaBK * S, vs + (t & 1) * kMmaBK * S, kv_a, kv_b, key0, j0, Lk);
+    Tiles::issue(ks + tile(t), vs + tile(t), raw + (t & 1) * Tiles::kRawBytes, kv_a, kv_b, key0,
+                 j0, Lk);
     if (tid < kMmaBK) vbyte = (j0 + tid < Lk) & (vrow[min(j0 + tid, Lk - 1)] != 0);
   };
   issue(0);
@@ -143,12 +212,14 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    Tiles::convert(ks + tile(t), vs + tile(t), raw + st * Tiles::kRawBytes);
+    if constexpr (Tiles::kRawBytes > 0) __syncthreads();
 
     // S = Q K^T: per warp 16 rows x 64 keys.
     float s[NK][4];
 #pragma unroll
     for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    const __nv_bfloat16* kt = ks + st * kMmaBK * S;
+    const __nv_bfloat16* kt = ks + tile(t);
 #pragma unroll
     for (int kk = 0; kk < KD; kk += 2) {
 #pragma unroll
@@ -201,7 +272,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
     }
 
     // O += P V, P from registers (S's accumulator layout is the A layout).
-    const __nv_bfloat16* vt = vs + st * kMmaBK * S;
+    const __nv_bfloat16* vt = vs + tile(t);
 #pragma unroll
     for (int kj = 0; kj < kMmaBK / 16; ++kj) {
       const unsigned pa[4] = {pack_bf16(s[2 * kj][0], s[2 * kj][1]),
@@ -252,7 +323,8 @@ cudaError_t launch_flash_mma(const void* q, const void* kv_a, const void* kv_b, 
                              void* out, int B, int H, int KV, int Lq, int Lk, const long long* st,
                              int q_pos0, float scale, cudaStream_t stream) {
   if (Lq < 1 || Lk < 1 || KV < 1 || H % KV) return cudaErrorInvalidValue;
-  const size_t bytes = sizeof(__nv_bfloat16) * (kMmaBQ + 4 * kMmaBK) * Tiles::kStride;
+  const size_t bytes = sizeof(__nv_bfloat16) * (kMmaBQ + 2 * kTileStages<Tiles> * kMmaBK) *
+                           Tiles::kStride + 2 * Tiles::kRawBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<D, Tiles>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;

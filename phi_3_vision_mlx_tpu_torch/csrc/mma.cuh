@@ -1,5 +1,6 @@
-// Tensor-core and copy helpers shared by K2's flash body (flash_mma.cuh) and
-// the quantized matmuls' tensor-core route (quant_matmul.cu): cp.async into
+// Tensor-core and copy helpers shared by the flash body of K2 and K5
+// (flash_mma.cuh), K7's page runs (paged_kv_attention.cu) and the quantized
+// matmuls' tensor-core route (quant_matmul.cu): cp.async into
 // shared memory, ldmatrix, bf16 mma.sync.m16n8k16 with f32 sums, and packing
 // two f32 values into one bf16x2 operand register.
 #pragma once
@@ -16,6 +17,12 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+// 8 bytes, through the L1 (cp.async.cg takes 16 only): the int4 cache's
+// per-key scales, 24 bytes a key, are 8-byte aligned but not 16.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src));
 }
 
 // As cp_async16, but copies only `bytes` (0 or 16) and zero-fills the rest:

@@ -28,10 +28,18 @@
 //   a second kernel merges the blocks' (max, sum, output) in a fixed order:
 //   deterministic, and 17 x 32 blocks at a 4352-key window.  A window of one
 //   run skips the second kernel.
-// * K5 (prefill, extend) is bound by FLOPs like K2 and runs K2's flash body
-//   (attention.cuh) with a tile loader that dequantizes the int4 tile while
-//   staging it in shared memory; the window is read in place from the
-//   stacked cache, with no dequantized copy.
+// * K5 (prefill, extend) is bound by operations like K2 and runs K2's
+//   tensor-core flash body (flash_mma.cuh) behind its `Tiles` seam, with the
+//   loader Int4Tiles: a tile of 64 keys arrives raw (6 KB of payload, 1.5 KB
+//   of scales) in a two-stage ring of 16- and 8-byte cp.async copies, read
+//   in place from the stacked cache with no dequantized copy in memory, and
+//   is dequantized once per block into the bf16 K and V tiles the products
+//   read — not per warp into fragments, which would dequantize every value
+//   four times (each warp needs every key).  The dequantized values are the
+//   plain path's bits (attention.cuh: dequant_fma); as in K2, P is rounded
+//   to bf16 before P V.  Shared memory: 13 KB of Q, 15 KB of raw ring and
+//   26 KB of K and V tiles, 54 KB a block; three blocks an SM, as K2 (the
+//   launch bound).
 //
 // E2 and E3 (the experiment kernels experiments/qkv_probe.py:probe_attention
 // (:84) and experiments/qdecode_sweep.py:qkv_attn (:196)) are K4's decode
@@ -55,22 +63,42 @@
 // Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
 // cudaErrorInvalidValue until a configuration on the card needs it.
 
-#include "attention.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-// The flash body's loader for the int4 cache (attention.cuh): a = the
-// layer's payload (B, KV, Lk, D) uint8, b = its scales (B, KV, Lk, 4G) bf16.
+// K5's loader behind the flash body's seam (flash_mma.cuh): a = the layer's
+// payload (B, KV, Lk, D) uint8, 16-byte aligned, b = its scales (B, KV, Lk,
+// 4G) bf16, 8-byte aligned.  A raw stage is the int4 raw tile
+// (flash_mma.cuh: kInt4TileBytes); keys past Lk are copied from the clamped
+// key Lk - 1, as in DenseTiles (the kernel masks them in the scores).
 template <int D>
-struct Int4KV {
+struct Int4Tiles {
   static constexpr int G = D / kGroup;
-  static __device__ __forceinline__ void load(const void* __restrict__ a,
-                                              const void* __restrict__ b, size_t key, int c,
-                                              float& kk, float& vv) {
-    const unsigned byte = static_cast<const uint8_t*>(a)[key * D + c];
-    const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(b) + key * 4 * G + c / kGroup;
-    kk = dequant(byte & 15u, bf(sc[0]), bf(sc[G]));
-    vv = dequant(byte >> 4, bf(sc[2 * G]), bf(sc[3 * G]));
+  static constexpr int kStride = D + 8;
+  static constexpr int kRawBytes = kInt4TileBytes<D>;
+
+  static __device__ __forceinline__ void issue(__nv_bfloat16*, __nv_bfloat16*, unsigned char* raw,
+                                               const void* __restrict__ a,
+                                               const void* __restrict__ b, size_t key0, int j0,
+                                               int Lk) {
+    constexpr int kChunks = D / 16;  // 16-byte payload chunks per key
+    const uint8_t* p = static_cast<const uint8_t*>(a) + key0 * D;
+    const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(b) + key0 * 4 * G;
+    __nv_bfloat16* rs = reinterpret_cast<__nv_bfloat16*>(raw + kMmaBK * D);
+    for (int idx = threadIdx.x; idx < kMmaBK * kChunks; idx += kMmaThreads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      cp_async16(raw + r * D + c * 16, p + (size_t)min(j0 + r, Lk - 1) * D + c * 16);
+    }
+    for (int idx = threadIdx.x; idx < kMmaBK * G; idx += kMmaThreads) {  // G pieces of 8 B a key
+      const int r = idx / G, c = idx % G;
+      cp_async8(rs + r * 4 * G + c * 4, sc + (size_t)min(j0 + r, Lk - 1) * 4 * G + c * 4);
+    }
+  }
+
+  static __device__ __forceinline__ void convert(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                                 const unsigned char* raw) {
+    dequantize_int4_tile<D>(ks, vs, raw);
   }
 };
 
@@ -367,8 +395,9 @@ extern "C" int k4_quantized_kv_attention(const void* q, const void* payload, con
   }
 }
 
-// K5.  q, out, valid as in K4, any Lq; the cache as in K4.  Query i sits at
-// absolute position q_pos0 + i.  Returns a cudaError_t.
+// K5.  q, out, valid as in K4, any Lq, out 4-byte aligned; the cache as in
+// K4, the payload 16-byte aligned.  Query i sits at absolute position
+// q_pos0 + i.  Returns a cudaError_t.
 extern "C" int k5_quantized_flash_attention(const void* q, const void* payload, const void* scales,
                                             const void* valid, void* out, int B, int H, int KV,
                                             int Lq, int Lmax, int D, long long qsb, long long qsh,
@@ -380,10 +409,10 @@ extern "C" int k5_quantized_flash_attention(const void* q, const void* payload, 
   const size_t layer_keys = (size_t)B * KV * Lmax;
   switch (D) {
     case 96: {
-      constexpr int G = Int4KV<96>::G;
+      constexpr int G = Int4Tiles<96>::G;
       const void* p = static_cast<const uint8_t*>(payload) + (size_t)layer * layer_keys * 96;
       const void* s = static_cast<const __nv_bfloat16*>(scales) + (size_t)layer * layer_keys * 4 * G;
-      return (int)launch_flash<96, Int4KV<96>>(q, p, s, valid, out, B, H, KV, Lq, Lmax, st, q_pos0, scale, stream);
+      return (int)launch_flash_mma<96, Int4Tiles<96>>(q, p, s, valid, out, B, H, KV, Lq, Lmax, st, q_pos0, scale, stream);
     }
     default: return (int)cudaErrorInvalidValue;
   }

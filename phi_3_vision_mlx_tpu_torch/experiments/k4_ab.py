@@ -1,11 +1,11 @@
 """Time kernels of several source trees of this repository in turns, on one
 card, each tree in its own process built from its own ``csrc/``.
 
-    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,K2,K3,K4,K5,K9] TREE [TREE ...]
+    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,K2,K3,K4,K5,K6,K7,K9] TREE [TREE ...]
 
 Give the trees in the order to run them (parent, change, change, parent) so
 that drift on the card shows.  Each run times every case of the chosen
-kernels (all six by default) at chip_smoke.py's shapes:
+kernels (all eight by default) at chip_smoke.py's shapes:
 
 * K1 (W4A16) at qkv (K = 3072, N = 9216) with M = 1 and 192, and at lm_head
   (N = 32064) with M = 1; K9 (the packed layout) at qkv with M = 1 and 192;
@@ -14,7 +14,12 @@ kernels (all six by default) at chip_smoke.py's shapes:
   and lq = 4224 over 4352 keys (the 4207-token prompt's bucket);
 * K3 (decode, dense cache) and K4 (decode, int4 cache): Lq = 1 at the end
   of a 640- and a 4224-key window, 8 stacked layers rotated past the L2;
-* K5 (flash attention, int4 cache): lq = 1024 over 1152 keys;
+* K5 (flash attention, int4 cache): lq = 1024 over 1152 keys and lq = 4224
+  over 4352 keys, as K2;
+* K6 (paged, dense pool) at Lq = 1 and K7 (paged, int4 pool) at Lq = 1, 4
+  and 16: the continuous server's shapes (4 slots at offsets 100, 400, 700
+  and 1000, a window of 16 pages of 64, a pool of 64 pages and the spare),
+  4 (K6) or 8 (K7) stacked layers rotated past the L2;
 
 attention with 32 heads of 96.  K1's route A (M = 1) against route B at a
 few rows is timed with a sibling tree whose ``route()`` (and the C entry's
@@ -34,10 +39,10 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K9")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9")
 
 _RUN = r'''
-import json, math, sys, torch
+import json, math, random, sys, torch
 sys.path.insert(0, ".")
 from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as QM
 from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
@@ -154,13 +159,40 @@ for name, (fn, packed, shapes) in W4.items():
         for m in ms:
             w4_case(f"{name} K={k} N={n} M={m}", fn, ws, m, k)
 if "K5" in kernels:
-    lq, lk = 1024, 1152
-    q, valid = qrow(lq), flash_window(lq, lk, 24)
-    kk = torch.randn((2, b, h, lk, d), generator=g, device="cuda") + 0.5
-    vv = torch.randn((2, b, h, lk, d), generator=g, device="cuda") - 0.3
-    payload, scales = quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
-    cases[f"K5 lq={lq} lk={lk}"] = (lambda q=q, p=payload, s=scales, valid=valid:
-                                   KV.quantized_flash_attention(q, p, s, valid, 0, 1, scale), 100)
+    for lq, lk, pad, iters in ((1024, 1152, 24, 100), (4224, 4352, 17, 10)):
+        q, valid = qrow(lq), flash_window(lq, lk, pad)
+        kk = torch.randn((2, b, h, lk, d), generator=g, device="cuda") + 0.5
+        vv = torch.randn((2, b, h, lk, d), generator=g, device="cuda") - 0.3
+        payload, scales = quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
+        del kk, vv
+        cases[f"K5 lq={lq} lk={lk}"] = (lambda q=q, p=payload, s=scales, valid=valid:
+                                       KV.quantized_flash_attention(q, p, s, valid, 0, 1, scale), iters)
+if "K6" in kernels or "K7" in kernels:
+    slots, page, window, pool, offs = 4, 64, 1024, 64, (100, 400, 700, 1000)
+    ids = random.Random(3).sample(range(pool), pool)
+    tables = torch.full((slots, window // page), pool, dtype=torch.int32)
+    for i, off in enumerate(offs):
+        n = -(-(off + 4) // page)
+        tables[i, :n] = torch.tensor([ids.pop() for _ in range(n)])
+    tables, offsets = tables.cuda(), torch.tensor(offs, dtype=torch.int32, device="cuda")
+    pvalid = torch.rand((slots, window), generator=g, device="cuda") > 0.05
+    pvalid[:, :10] = False
+    srow = lambda lq: bf16(torch.randn((slots, lq, h, d), generator=g, device="cuda")).transpose(1, 2)
+    shape = lambda nl: (nl, pool + 1, h, page, d)
+    if "K6" in kernels:
+        pk, pv = (bf16(torch.randn(shape(4), generator=g, device="cuda")) for _ in range(2))
+        turn = iter(range(10**9))
+        cases["K6 Lq=1"] = (lambda q=srow(1), pk=pk, pv=pv, turn=turn: KV.paged_kv_attention(
+            q, pk, pv, tables, pvalid, offsets, next(turn) % 4, scale), 200)
+    if "K7" in kernels:
+        kk = torch.randn(shape(8), generator=g, device="cuda") + 0.5
+        vv = torch.randn(shape(8), generator=g, device="cuda") - 0.3
+        pools = quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
+        del kk, vv
+        for lq in (1, 4, 16):
+            turn = iter(range(10**9))
+            cases[f"K7 Lq={lq}"] = (lambda q=srow(lq), turn=turn: KV.paged_quantized_kv_attention(
+                q, *pools, tables, pvalid, offsets, next(turn) % 8, scale), 200)
 res = {}
 for name, (call, iters) in cases.items():
     dev, by_kernel = device_ms(call, max(5, iters // 4))

@@ -23,17 +23,22 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
   (``e23_quantized_kv_attention_variant``, K4's kernel with a mode
   parameter).  Reached by the port's ``experiments/`` entry points only.
 * K5 :func:`quantized_flash_attention` — prefill and extend chunks of any
-  length over the int4 cache.  Replaces
-  ``kv_attention.py:quantized_flash_attention``; CUDA source
-  ``csrc/quant_kv_attention.cu`` (``k5_quantized_flash_attention``).
+  length over the int4 cache: K2's tensor-core flash body
+  (``csrc/flash_mma.cuh``) with a loader that dequantizes each 64-key tile
+  once per block.  Replaces ``kv_attention.py:quantized_flash_attention``;
+  CUDA source ``csrc/quant_kv_attention.cu``
+  (``k5_quantized_flash_attention``).
 * K6 :func:`paged_kv_attention` — decode (Lq <= 16) of every slot of the
   paged engine through its page table over the dense page pool
   ``(layers, P + 1, KV, page, D)`` (``engine/paging.py``).  Replaces
   ``kv_attention.py:paged_kv_attention``; CUDA source
   ``csrc/paged_kv_attention.cu`` (``k6_paged_kv_attention``).
 * K7 :func:`paged_quantized_kv_attention` — K6 over the int4 page pool
-  (payload ``(layers, P + 1, KV, page, D)`` uint8, scales ``(..., 4G)``).
-  Replaces ``kv_attention.py:paged_quantized_kv_attention``; same source
+  (payload ``(layers, P + 1, KV, page, D)`` uint8, scales ``(..., 4G)``),
+  on K3's split design: runs of ``PAGED_RUN_KEYS`` keys
+  (:func:`paged_split_plan`), one block per (run, head, slot) for all of a
+  slot's query rows, merged by a second kernel.  Replaces
+  ``kv_attention.py:paged_quantized_kv_attention``; same source
   (``k7_paged_quantized_kv_attention``).
 
 K6 and K7 take per-slot offsets ``(S,)`` on the device and apply the
@@ -69,7 +74,10 @@ KV_GROUP = 32  # the kernels' quantization group along D
 K3_SPLIT_KEYS = 64
 K3_MAX_ROWS = 16  # K3: query rows per (batch, head), the decode chunk's limit
 K4_SPLIT_KEYS = 256  # K4: keys per block; longer windows split across blocks
-PAGED_SPLIT_KEYS = 256  # K6/K7: the same
+K6_SPLIT_KEYS = 256  # K6: the same
+# K7: keys per run of the split window (the kernel's kRunKeys): one page at
+# the served page of 64, so a run reads one contiguous block of the pool.
+PAGED_RUN_KEYS = 64
 MAX_PAGED_ROWS = 16  # K6/K7: queries per slot (decode and, later, speculation)
 
 
@@ -281,6 +289,8 @@ def quantized_flash_attention(q, payload, scales, valid, q_pos0: int, layer_idx:
     if q.device.type != "cuda":
         raise RuntimeError(f"quantized_flash_attention: no kernel for device {q.device}")
     check_quantized_inputs(q, payload, scales, valid, layer_idx, "quantized_flash_attention")
+    if payload.data_ptr() % 16:
+        raise ValueError("quantized_flash_attention: the payload must be 16-byte aligned")
     b, h, lq, d = q.shape
     kvh, lmax = payload.shape[2], payload.shape[3]
     out = head_major_empty(q)
@@ -358,22 +368,31 @@ def check_paged_inputs(q, pool_a, pool_b, page_tables, valid, offsets, layer_idx
                          "must be contiguous")
 
 
+def paged_split_plan(window: int) -> tuple[int, int]:
+    """K7's split of a slot's window of ``window`` keys: ``(n_split,
+    split_keys)``.  Run ``r`` covers keys ``[r * split_keys, min((r + 1) *
+    split_keys, window))``: every key of the window in exactly one run.  The
+    plan depends on the window only, never on the offsets, which stay on the
+    device (a captured launch replays for any offsets); a run past a slot's
+    last visible key finds nothing to do."""
+    return -(-window // PAGED_RUN_KEYS), PAGED_RUN_KEYS
+
+
 def _paged_launch(entry: str, q, pool_a, pool_b, page_tables, valid, offsets, layer_idx: int,
-                  scale: float):
+                  scale: float, n_split: int, split_keys: int):
     s, h, lq, d = q.shape
     _, p1, kvh, page, _ = pool_a.shape
     mp = page_tables.shape[1]
-    n_split = -(-(mp * page) // PAGED_SPLIT_KEYS)
     out = head_major_empty(q)
-    partial = (torch.empty((n_split, s * h * lq, d + 2), dtype=torch.float32, device=q.device)
-               if n_split > 1 else None)
+    # Per run: (max score, sum of exp, unnormalized output) of each query row
+    # (K6 leaves it unread with one run).
+    partial = torch.empty((n_split, s * h * lq, d + 2), dtype=torch.float32, device=q.device)
     lib, _ = _build.library()
     err = getattr(lib, entry)(
         q.data_ptr(), pool_a.data_ptr(), pool_b.data_ptr(), page_tables.data_ptr(),
         valid.view(torch.uint8).data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), s, h, kvh, lq, p1, page, mp, d,
-        *q.stride()[:3], *out.stride()[:3], int(layer_idx), float(scale), n_split,
-        PAGED_SPLIT_KEYS, _build.stream_ptr(q.device),
+        partial.data_ptr(), s, h, kvh, lq, p1, page, mp, d, *q.stride()[:3], *out.stride()[:3],
+        int(layer_idx), float(scale), n_split, split_keys, _build.stream_ptr(q.device),
     )
     _build.check(err, entry)
     return out
@@ -393,8 +412,9 @@ def paged_kv_attention(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx
                        "paged_kv_attention")
     if pool_k.dtype != torch.bfloat16 or pool_v.dtype != torch.bfloat16:
         raise TypeError(f"paged_kv_attention kernel takes a bf16 pool, got {pool_k.dtype}")
+    window = page_tables.shape[1] * pool_k.shape[3]
     out = _paged_launch("k6_paged_kv_attention", q, pool_k, pool_v, page_tables, valid, offsets,
-                        layer_idx, scale)
+                        layer_idx, scale, -(-window // K6_SPLIT_KEYS), K6_SPLIT_KEYS)
     _build.count_launch(paged_kv_attention)
     return out
 
@@ -415,11 +435,15 @@ def paged_quantized_kv_attention(q, payload, scales, page_tables, valid, offsets
     d = q.shape[-1]
     check_paged_inputs(q, payload, scales, page_tables, valid, offsets, layer_idx,
                        4 * (d // KV_GROUP), "paged_quantized_kv_attention")
-    if payload.dtype != torch.uint8 or scales.dtype != torch.bfloat16 or scales.data_ptr() % 8:
-        raise TypeError("paged_quantized_kv_attention kernel takes a uint8 payload and 8-byte "
-                        f"aligned bf16 scales, got {payload.dtype}/{scales.dtype}")
+    if payload.dtype != torch.uint8 or scales.dtype != torch.bfloat16:
+        raise TypeError("paged_quantized_kv_attention kernel takes a uint8 payload and bf16 "
+                        f"scales, got {payload.dtype}/{scales.dtype}")
+    if payload.data_ptr() % 16 or scales.data_ptr() % 8:
+        raise ValueError("paged_quantized_kv_attention: the payload must be 16-byte and the "
+                         "scales 8-byte aligned")
+    n_split, split_keys = paged_split_plan(page_tables.shape[1] * payload.shape[3])
     out = _paged_launch("k7_paged_quantized_kv_attention", q, payload, scales, page_tables, valid,
-                        offsets, layer_idx, scale)
+                        offsets, layer_idx, scale, n_split, split_keys)
     _build.count_launch(paged_quantized_kv_attention)
     return out
 

@@ -8,7 +8,9 @@ head dim permuted) reaches the port's layout through
 mode, as ``tests/test_quant_kernels.py`` runs them, and the JAX XLA path is
 ``read_kv`` + ``masked_attention``.  D = 96 (three groups of 32) is covered
 beside D = 32 (one group), since one group cannot show a group or
-permutation mistake.
+permutation mistake.  At the end, the exactness the kernels' dequantization
+rests on, and a plain-PyTorch model of the card's K5 (its int4 tiles and K2's
+tile walk over them) held to the plain version.
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
-from test_torch_attention import F32_TOL  # noqa: E402
+from test_torch_attention import F32_TOL, _k2_tile_model  # noqa: E402
 
 from phi_3_vision_mlx_tpu.core.config import KVQuantConfig, preset  # noqa: E402
 from phi_3_vision_mlx_tpu.engine import state as JS  # noqa: E402
@@ -178,3 +180,85 @@ def test_plain_versions_bf16_dequantize_like_the_kernels():
     k, v = TS.dequantize_kv(payload[0], scales[0], torch.bfloat16)
     ref = TK.dense_kv_attention(q.to(torch.bfloat16), k[None], v[None], valid, w - 1, 0, d**-0.5)
     assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+
+
+# --- K5 on the card: K2's tensor-core flash body over tiles that
+# Int4Tiles::convert dequantizes (csrc/quant_kv_attention.cu), modelled in
+# plain PyTorch.  chip_smoke.py holds the kernel to its plain version there.
+
+
+def test_int4_level_times_scale_is_exact_in_f32():
+    """For every level q in 0..15 and every finite bf16 scale s, q * s is
+    exact in f32 wherever it lies in f32's range (4 + 8 significant bits;
+    a bf16 subnormal's lowest bit, 2^-133, is far above f32's): so one fused
+    multiply-add, the kernels' dequantization (attention.cuh: dequant_fma),
+    rounds q * s + b once, to the bits of the plain path's f32 q * s, then
+    + b.  Only products past FLT_MAX (|s| > FLT_MAX / q) are not exact."""
+    s = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    s = s[np.isfinite(s)].astype(np.float64)
+    assert s.size == (1 << 16) - 2 * (1 << 7)  # every bf16 but the infinities and NaNs
+    prod = np.arange(16, dtype=np.float64)[:, None] * s[None, :]  # exact in float64
+    with np.errstate(over="ignore"):
+        f32 = prod.astype(np.float32)
+    fits = np.abs(prod) <= np.finfo(np.float32).max
+    assert np.array_equal(f32[fits].astype(np.float64), prod[fits])
+    assert np.isinf(f32[~fits]).all()
+
+
+# K2's tile-model edges (tests/test_torch_attention.py) at D = 96, three
+# groups: (lq, q_pos0, lk, left pads per batch row).
+K5_EDGES = {
+    "batch-pads": (130, 0, 200, (0, 70)),
+    "extend": (100, 1000, 1130, (12, 40)),
+    "ragged": (77, 3, 145, (5, 0)),
+}
+# chip_smoke.py's limits for K2 and K5 (K2_ATOL + ATTN_RTOL): P rounded to
+# bf16 before P V on the card, kept f32 by the plain version.
+K2_LIMITS = dict(rtol=2 * 2.0**-7, atol=4e-3)
+
+
+def _k5_tiles(payload, scales, lk):
+    """Int4Tiles as the card fills its K and V tiles: each 64-key tile of a
+    (B, KV, Lk, D) layer (keys past lk from the clamped key lk - 1), 16
+    values of a key at a time from one payload chunk and its group's scale
+    and bias, a level times the scale plus the bias in f32 (the product is
+    exact, so fused or not the sum rounds once), rounded to bf16.  Returns
+    the tiles' (k, v), each (B, KV, n_tiles * 64, D) bf16."""
+    d, g = payload.shape[-1], scales.shape[-1] // 4
+    ks, vs = [], []
+    for j0 in range(0, lk, 64):
+        rows = torch.clamp(torch.arange(j0, j0 + 64), max=lk - 1)
+        chunks = payload[:, :, rows].reshape(*payload.shape[:2], 64, d // 16, 16)
+        group = torch.arange(d // 16) * 16 // 32
+        sc = scales[:, :, rows].float()
+        plane = lambda i: sc[..., i * g + group][..., None]  # noqa: E731 - (B, KV, 64, D/16, 1)
+        for lvl, s, b, out in ((chunks & 15, plane(0), plane(1), ks), (chunks >> 4, plane(2), plane(3), vs)):
+            out.append((lvl.float() * s + b).to(torch.bfloat16).reshape(*payload.shape[:2], 64, d))
+    return torch.cat(ks, dim=2), torch.cat(vs, dim=2)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("edge", list(K5_EDGES))
+def test_k5_tile_model_matches_plain(edge, g):
+    """K5's tiles hold dequantize_kv's bits, and K2's tile walk over them
+    (64-row and 64-key tiles, P rounded to bf16) stays within K2's limits of
+    quantized_flash_attention_plain: left pads, an extend at q_pos0 > 0, lq
+    and lk off the tiles."""
+    lq, q_pos0, lk, pads = K5_EDGES[edge]
+    b, kvh, d, layer = len(pads), 2, 96, 1
+    k, v = _kv(len(edge) + 10 * g, (2, b, kvh, lk, d))
+    payload, scales = TS.quantize_chunk(torch.from_numpy(k), torch.from_numpy(v), KVQuantConfig(bits=4))
+    q = torch.from_numpy(np.random.default_rng(g).standard_normal((b, kvh * g, lq, d)).astype(np.float32))
+    q = q.to(torch.bfloat16)
+    valid = torch.ones((b, lk), dtype=torch.bool)
+    for bi, pad in enumerate(pads):
+        valid[bi, :pad] = False
+    valid[:, lk // 2] = False
+    kt, vt = _k5_tiles(payload[layer], scales[layer], lk)
+    kd, vd = TS.dequantize_kv(payload[layer], scales[layer], torch.bfloat16)
+    assert torch.equal(kt[:, :, :lk], kd) and torch.equal(vt[:, :, :lk], vd)
+    assert torch.equal(kt[:, :, lk:], kd[:, :, -1:].expand_as(kt[:, :, lk:]))  # the clamped key
+    out = _k2_tile_model(q, kt[:, :, :lk], vt[:, :, :lk], valid, q_pos0, d**-0.5, round_p=True)
+    ref = TK.quantized_flash_attention_plain(q, payload, scales, valid, q_pos0, layer, d**-0.5)
+    np.testing.assert_allclose(out.numpy(), ref.float().numpy(), **K2_LIMITS)
+    assert (out - ref.float()).abs().max() > 0  # the rounding of P is real

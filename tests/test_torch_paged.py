@@ -9,7 +9,8 @@ their plain versions on CPU tensors.  Each case covers ragged offsets across
 slots, table tails at the sentinel, a partly filled last page and a
 left-padded, holed validity row whose bits past the offset are random (the
 fresh-region rule must ignore them); Lq = 1 is a decode step and Lq = 4 the
-fresh region of several queries.
+fresh region of several queries.  A plain-PyTorch model of the card's K7
+(its split plan, runs and merge) is held to the plain version at the end.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from test_torch_attention import F32_TOL  # noqa: E402
 
 from phi_3_vision_mlx_tpu.core.config import KVQuantConfig  # noqa: E402
 from phi_3_vision_mlx_tpu.engine import state as JS  # noqa: E402
@@ -175,3 +177,122 @@ def test_wrappers_raise_without_a_kernel():
         TK.paged_kv_attention(q, pool, pool, *args)
     with pytest.raises(RuntimeError, match="no kernel"):
         TK.paged_quantized_kv_attention(q, pool, pool, *args)
+
+
+# --- K7 on the card: runs of the split plan, all of a slot's rows in one
+# block, merged up to each row's last visible key (csrc/paged_kv_attention.cu),
+# modelled in plain PyTorch.  chip_smoke.py holds the kernel to its plain
+# version there.
+
+
+def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale):
+    """K7 as the card computes it.  Each run of ``paged_split_plan`` gives
+    every row of a slot its (max, sum, unnormalized output) over the keys
+    the row sees in the run — max NEG_INF and sum 0 where it sees none; the
+    output's weights enter as bf16 hi + lo (hi = bf16(p), lo = bf16(p -
+    hi)), the sum as f32 p; a run at or past the slot's ``min(W, offset +
+    Lq)`` is empty.  A row's
+    merge reads its runs up to its last visible key ``offset + i`` and weighs
+    them by exp(max - their max); a row that sees no key gets the uniform
+    average of every value of its window.  Each key's row comes from the
+    table, clamped into the pool.  Returns (out, live runs per (slot, row))."""
+    from phi_3_vision_mlx_tpu_torch.engine.state import dequantize_kv
+    from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
+
+    s_, h, lq, d = q.shape
+    p1, kvh, page = payload.shape[1:4]
+    w = tables.shape[1] * page
+    n_split, split = TK.paged_split_plan(w)
+    k, v = dequantize_kv(payload[layer], scales[layer], q.dtype)  # (P1, KV, page, D)
+    qs = (q * scale).float()
+    out = torch.empty((s_, h, lq, d))
+    live = torch.empty((s_, lq), dtype=torch.long)
+    for s in range(s_):
+        off = int(offsets[s])
+        pid = tables[s].long().clamp(0, p1 - 1).repeat_interleave(page)
+        row = torch.arange(w) % page
+        ks, vs = (t[pid, :, row].transpose(0, 1).float().repeat_interleave(h // kvh, dim=0) for t in (k, v))
+        ms, ls, accs = [], [], []
+        for r in range(n_split):
+            j = torch.arange(r * split, max(r * split, min((r + 1) * split, w, off + lq)))
+            seen = (valid[s, j] | (j >= off))[None, :] & (j[None, :] <= off + torch.arange(lq)[:, None])
+            sc = torch.where(seen, qs[s] @ ks[:, j].transpose(-1, -2), -torch.inf)  # (H, Lq, n)
+            mx = sc.amax(dim=-1, keepdim=True) if len(j) else torch.full((h, lq, 1), -torch.inf)
+            p = torch.where(seen, torch.exp(sc - mx), 0.0)
+            ms.append(torch.where(mx == -torch.inf, NEG_INF, mx))
+            ls.append(p.sum(dim=-1, keepdim=True))
+            hi = p.to(torch.bfloat16).float()
+            accs.append((hi + (p - hi).to(torch.bfloat16).float()) @ vs[:, j])
+        for i in range(lq):
+            live[s, i] = n = min(n_split, min(w - 1, off + i) // split + 1)
+            m_all = torch.stack([m[:, i] for m in ms[:n]]).amax(dim=0)
+            wt = [torch.exp(m[:, i] - m_all) for m in ms[:n]]
+            o = sum(a * acc[:, i] for a, acc in zip(wt, accs)) / sum(a * l_[:, i] for a, l_ in zip(wt, ls))
+            out[s, :, i] = torch.where(m_all > NEG_INF, o, vs.mean(dim=1))
+    return out, live
+
+
+# (spare pages withheld from the table, offsets): slot 0 past its window
+# with no valid key (no visible key at all), slot 1 at offset 0 (fresh keys
+# only), slot 2's rows across a run boundary, slot 3 reading the spare page
+# inside its visible range.
+K7_OFFSETS = (160, 0, 62, 100)
+
+
+@pytest.mark.parametrize("lq", [1, 4, 16])
+def test_k7_split_model_matches_plain(lq):
+    """K7's runs and merge equal paged_quantized_kv_attention_plain (f32) at
+    ragged offsets, a row that sees no key and table entries at the spare
+    page; the merge never reads a run the split kernel left empty."""
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig as TKVQ
+    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+
+    rng = np.random.default_rng(lq)
+    d, h, kvh, page, mp = 96, 4, 2, 16, 10  # a window of 160: runs of 64, 64 and 32 keys
+    s_, w = len(K7_OFFSETS), mp * page
+    n_pages = 24
+    tables = np.full((s_, mp), n_pages, np.int32)  # the spare page
+    ids = iter(rng.permutation(n_pages))
+    for i, off in enumerate(K7_OFFSETS):
+        need = min(mp, -(-(off + lq) // page)) - (i == 3)  # slot 3: its last page left at the spare
+        tables[i, :need] = [next(ids) for _ in range(need)]
+    valid = torch.from_numpy(rng.random((s_, w)) > 0.15)
+    valid[:, :3] = False  # left padding
+    valid[0] = False
+    k = torch.from_numpy((rng.standard_normal((2, n_pages + 1, kvh, page, d)) * 1.5 + 0.7).astype(np.float32))
+    v = torch.from_numpy((rng.standard_normal((2, n_pages + 1, kvh, page, d)) - 0.4).astype(np.float32))
+    payload, scales = quantize_chunk(k, v, TKVQ(group_size=32, bits=4))
+    q = torch.from_numpy(rng.standard_normal((s_, h, lq, d)).astype(np.float32))
+    args = (torch.from_numpy(tables), valid, torch.tensor(K7_OFFSETS, dtype=torch.int32), 1, d**-0.5)
+    out, live = _k7_split_model(q, payload, scales, *args)
+    ref = TK.paged_quantized_kv_attention_plain(q, payload, scales, *args)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    n_split, split = TK.paged_split_plan(w)
+    kend = [min(w, off + lq) for off in K7_OFFSETS]
+    for s in range(s_):  # every run the merge reads holds keys of the slot
+        assert all((live[s, i] - 1) * split < kend[s] for i in range(lq))
+    if lq == 16:
+        assert live[2].tolist() == [1, 1] + [2] * 14  # rows 0-1 end in run 0, the rest in run 1
+        vis = TK.paged_visible(valid, args[2], lq)[0, 0]
+        assert not vis.any()  # slot 0 sees no key: the uniform average
+        assert (torch.from_numpy(tables[3]) == n_pages).any()
+
+
+@pytest.mark.parametrize("window", [16, 64, 160, 1000, 1024])
+def test_paged_split_plan_covers_each_visible_key_once(window):
+    """Each key of the window falls in exactly one run, each run is
+    non-empty, and the plan takes only the window: for any offset and Lq,
+    the runs holding some key a row can see are those a merge reads."""
+    n_split, split = TK.paged_split_plan(window)
+    assert split == TK.PAGED_RUN_KEYS
+    covered = np.zeros(window, int)
+    for r in range(n_split):
+        lo, hi = r * split, min((r + 1) * split, window)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    for lq in (1, 4, 16):
+        for off in sorted({0, 1, split - 1, split, window // 2, window - lq, window - 1, window + 3}):
+            kend = min(window, off + lq)
+            runs = {j // split for j in range(kend)}
+            assert runs == set(range(min(n_split, (min(window - 1, off + lq - 1)) // split + 1)))
