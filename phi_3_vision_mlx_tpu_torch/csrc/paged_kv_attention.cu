@@ -29,26 +29,23 @@
 // so the number of blocks comes from the window, which the host knows, and
 // a block past its slot's last visible key finds nothing to do.  The TPU
 // kernel walks every page of the table; the answer is the same.
-// * K7 runs K3's split design over the pages (paged_split_kernel): the
-//   window is cut into runs of kRunKeys = 64 keys, one block per (run,
-//   query head, slot) taking all of the slot's Lq <= 16 rows, so a page is
-//   read once per head, not once per query row.  At the served page of 64
-//   a run is one page: one contiguous 6 KB block of payload and one of 1.5
-//   KB of scales, which the block requests at once into shared memory
-//   (16- and 8-byte cp.async, each key's row from the table, so a run may
-//   span pages or part of one).  The run's keys and values are dequantized
-//   once into bf16 tiles (flash_mma.cuh: dequantize_int4_tile, K5's), and
-//   both products run on the tensor cores with the slot's rows as one
-//   16-row tile: one max and one sum per row over the run, no per-key
-//   rescale.  The block writes each row's (max, sum, unnormalized
-//   output) to the f32 partials, and paged_run_combine_kernel merges each
-//   row's runs up to its last visible key in a fixed order, one warp a
-//   row.  The run's loader is a template parameter (Int4Run), so the dense
-//   pool can take the same kernel behind a dense loader.
-// * K6 keeps the first design (paged_partial_kernel): a warp takes one key
-//   at a time, lane l holds dims l, l + 32 and l + 64, the window is cut
-//   into runs of `split_keys` keys, one block per (run, query head, slot
-//   row), and paged_combine_kernel merges the runs in run order.
+//
+// Both run K3's split design over the pages (paged_split_kernel): the
+// window is cut into runs of kRunKeys = 64 keys, one block per (run, query
+// head, slot) taking all of the slot's Lq <= 16 rows, so a page is read once
+// per head, not once per query row.  At the served page of 64 a run is one
+// page.  The run's loader, a template parameter, is the seam between the
+// pools: DenseRun (K6) copies each key's bf16 K and V rows (16-byte
+// cp.async, each key's row from the table, so a run may span pages or part
+// of one) straight into the padded bf16 tiles; Int4Run (K7) requests one
+// contiguous 6 KB block of payload and 1.5 KB of scales into a raw stage and
+// dequantizes it once into the same tiles (flash_mma.cuh:
+// dequantize_int4_tile, K5's).  Both products then run on the tensor cores
+// with the slot's rows as one 16-row tile: one max and one sum per row over
+// the run, no per-key rescale.  The block writes each row's (max, sum,
+// unnormalized output) to the f32 partials, and paged_run_combine_kernel
+// merges each row's runs up to its last visible key in a fixed order, one
+// warp a row.
 //
 // Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
 // cudaErrorInvalidValue until a configuration on the card needs it.
@@ -56,25 +53,6 @@
 #include "flash_mma.cuh"
 
 namespace {
-
-// K6: key row `row` of the dense pool's layer: lane holds dims lane + 32 r.
-template <int D>
-struct DenseKey {
-  static constexpr int PER = D / 32;
-  float kf[PER], vf[PER];
-  __device__ __forceinline__ void load(const void* __restrict__ a, const void* __restrict__ b,
-                                       size_t row, int lane) {
-    const __nv_bfloat16* kr = static_cast<const __nv_bfloat16*>(a) + row * D + lane;
-    const __nv_bfloat16* vr = static_cast<const __nv_bfloat16*>(b) + row * D + lane;
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      kf[r] = bf(kr[32 * r]);
-      vf[r] = bf(vr[32 * r]);
-    }
-  }
-  __device__ __forceinline__ float k(int r) const { return kf[r]; }
-  __device__ __forceinline__ float v(int r) const { return vf[r]; }
-};
 
 // Where slot s's logical key j of kv head kvh lies in the layer's pool.
 struct Pages {
@@ -86,206 +64,72 @@ struct Pages {
   }
 };
 
-// The uniform average of every value of slot s's window, for a query row
-// that sees no key.  Called by the whole block; sm_acc is [kWarps][D].
-template <int D, class Key>
-__device__ void store_paged_uniform_average(const void* a, const void* b, const Pages& pg, int s,
-                                            int kvh, float (*sm_acc)[D], __nv_bfloat16* o) {
-  constexpr int PER = D / 32;
-  constexpr int kWarps = kDecThreads / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int W = pg.mp * pg.page;
-  __syncthreads();
-  float sum[PER];
-#pragma unroll
-  for (int r = 0; r < PER; ++r) sum[r] = 0.f;
-  for (int j = warp; j < W; j += kWarps) {
-    Key key;
-    key.load(a, b, pg.row(s, kvh, j), lane);
-#pragma unroll
-    for (int r = 0; r < PER; ++r) sum[r] += key.v(r);
-  }
-#pragma unroll
-  for (int r = 0; r < PER; ++r) sm_acc[warp][lane + 32 * r] = sum[r];
-  __syncthreads();
-  if (threadIdx.x < D) {
-    float acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) acc += sm_acc[w][threadIdx.x];
-    o[threadIdx.x] = __float2bfloat16(acc / (float)W);
-  }
-}
-
-// Grid (n_split, H, S * Lq).  Block `split` attends query row i of head h of
-// slot s to keys [split * split_keys, min((split + 1) * split_keys,
-// offsets[s] + i + 1, W)).  With one split it writes the output; otherwise
-// (max, sum, unnormalized output) to partial[split, row] for the combine
-// kernel, row = (s * H + h) * Lq + i.
-template <int D, class Key>
-__global__ void __launch_bounds__(kDecThreads)
-    paged_partial_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ a,
-                         const void* __restrict__ b, Pages pg, const uint8_t* __restrict__ valid,
-                         const int* __restrict__ offsets, __nv_bfloat16* __restrict__ out,
-                         float* __restrict__ partial, int H, int Lq, long long qsb, long long qsh,
-                         long long qsl, long long osb, long long osh, long long osl, float scale,
-                         int split_keys) {
-  constexpr int PER = D / 32;
-  constexpr int kWarps = kDecThreads / 32;
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][D];
-
-  const int split = blockIdx.x, h = blockIdx.y;
-  const int s = blockIdx.z / Lq, i = blockIdx.z % Lq;
-  const int kvh = h / (H / pg.KV);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int W = pg.mp * pg.page;
-  const uint8_t* vrow = valid + (size_t)s * W;
-  const int off = offsets[s];
-  const int jbeg = split * split_keys;
-  const int jend = min(min(W, off + i + 1), jbeg + split_keys);
-
-  float qv[PER];
-#pragma unroll
-  for (int r = 0; r < PER; ++r)
-    qv[r] = round_bf(bf(q[s * qsb + h * qsh + i * qsl + lane + 32 * r]) * scale);
-
-  float m = kNegInf, l = 0.f, acc[PER];
-#pragma unroll
-  for (int r = 0; r < PER; ++r) acc[r] = 0.f;
-  for (int j = jbeg + warp; j < jend; j += kWarps) {
-    Key key;
-    key.load(a, b, pg.row(s, kvh, j), lane);
-    float part = 0.f;
-#pragma unroll
-    for (int r = 0; r < PER; ++r) part = fmaf(qv[r], key.k(r), part);
-#pragma unroll
-    for (int sh = 16; sh > 0; sh >>= 1) part += __shfl_xor_sync(0xffffffffu, part, sh);
-    const float sc = (j >= off || vrow[j]) ? part : kNegInf;
-    const float m_new = fmaxf(m, sc);
-    const float alpha = expf(m - m_new);
-    const float p = expf(sc - m_new);
-    l = l * alpha + p;
-#pragma unroll
-    for (int r = 0; r < PER; ++r) acc[r] = fmaf(p, key.v(r), acc[r] * alpha);
-    m = m_new;
-  }
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int r = 0; r < PER; ++r) sm_acc[warp][lane + 32 * r] = acc[r];
-  __syncthreads();
-
-  float mx = kNegInf;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
-  float lsum = 0.f, o_acc = 0.f;
-  if (threadIdx.x < D) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w] - mx);
-      lsum += sm_l[w] * f;
-      o_acc += sm_acc[w][threadIdx.x] * f;
-    }
-  }
-  if (gridDim.x > 1) {
-    const size_t row = ((size_t)s * H + h) * Lq + i;
-    float* dst = partial + ((size_t)split * gridDim.y * gridDim.z + row) * (D + 2);
-    if (threadIdx.x < D) dst[2 + threadIdx.x] = o_acc;
-    if (threadIdx.x == 0) {
-      dst[0] = mx;
-      dst[1] = lsum;
-    }
-    return;
-  }
-  __nv_bfloat16* o = out + s * osb + h * osh + i * osl;
-  if (mx > kNegInf) {
-    if (threadIdx.x < D) o[threadIdx.x] = __float2bfloat16(o_acc / lsum);
-    return;
-  }
-  store_paged_uniform_average<D, Key>(a, b, pg, s, kvh, sm_acc, o);
-}
-
-// Grid (H, S * Lq): merges the n_split partial results of one query row in
-// split order.
-template <int D, class Key>
-__global__ void __launch_bounds__(kDecThreads)
-    paged_combine_kernel(const float* __restrict__ partial, const void* __restrict__ a,
-                         const void* __restrict__ b, Pages pg, __nv_bfloat16* __restrict__ out,
-                         int H, int Lq, long long osb, long long osh, long long osl,
-                         int n_split) {
-  constexpr int kWarps = kDecThreads / 32;
-  __shared__ float sm_acc[kWarps][D];
-
-  const int h = blockIdx.x, s = blockIdx.y / Lq, i = blockIdx.y % Lq;
-  const size_t rows = (size_t)gridDim.x * gridDim.y;
-  const float* src = partial + (((size_t)s * H + h) * Lq + i) * (D + 2);
-  float mx = kNegInf;
-  for (int t = 0; t < n_split; ++t) mx = fmaxf(mx, src[t * rows * (D + 2)]);
-  __nv_bfloat16* o = out + s * osb + h * osh + i * osl;
-  if (mx > kNegInf) {
-    if (threadIdx.x < D) {
-      float lsum = 0.f, acc = 0.f;
-      for (int t = 0; t < n_split; ++t) {
-        const float* ps = src + t * rows * (D + 2);
-        const float f = expf(ps[0] - mx);
-        lsum += ps[1] * f;
-        acc += ps[2 + threadIdx.x] * f;
-      }
-      o[threadIdx.x] = __float2bfloat16(acc / lsum);
-    }
-    return;
-  }
-  store_paged_uniform_average<D, Key>(a, b, pg, s, h / (H / pg.KV), sm_acc, o);
-}
-
-template <int D, class Key>
-cudaError_t launch_paged(const void* q, const void* a, const void* b, Pages pg, const void* valid,
-                         const void* offsets, void* out, void* partial, int S, int H, int Lq,
-                         const long long* st, float scale, int n_split, int split_keys,
-                         cudaStream_t stream) {
-  if (n_split < 1 || split_keys < 1 || (long long)n_split * split_keys < (long long)pg.mp * pg.page ||
-      (n_split > 1 && partial == nullptr) || Lq < 1 || pg.KV < 1 || H % pg.KV || pg.page < 1)
-    return cudaErrorInvalidValue;
-  dim3 grid(n_split, H, S * Lq);
-  paged_partial_kernel<D, Key><<<grid, kDecThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), a, b, pg, static_cast<const uint8_t*>(valid),
-      static_cast<const int*>(offsets), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(partial), H, Lq, st[0], st[1], st[2], st[3], st[4], st[5], scale,
-      split_keys);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return err;
-  paged_combine_kernel<D, Key><<<dim3(H, S * Lq), kDecThreads, 0, stream>>>(
-      static_cast<const float*>(partial), a, b, pg, static_cast<__nv_bfloat16*>(out), H, Lq,
-      st[3], st[4], st[5], n_split);
-  return cudaGetLastError();
-}
-
-// ---- K7: runs of pages, K3's split design on the tensor cores ----
+// ---- Runs of pages, K3's split design on the tensor cores ----
 
 constexpr int kRunKeys = kMmaBK;         // keys per run: one page at the served page of 64
 constexpr int kRunThreads = kMmaThreads;  // four warps
 constexpr int kRunMaxRows = 16;           // a slot's query rows (MAX_PAGED_ROWS): one m16 row tile
 constexpr int kPStride = kRunKeys + 8;    // P's row stride (floats): A-fragment reads conflict-free
 
-// The split kernel's loader for the int4 pool: a = the layer's payload (P1,
-// KV, page, D) uint8, 16-byte aligned; b = its scales (P1, KV, page, 4G)
-// bf16, 8-byte aligned.  The raw stage is the int4 raw tile (flash_mma.cuh:
+// The seam: a run's loader has kRawBytes, the bytes of its raw stage (0: the
+// copy lands in the bf16 tiles themselves), and three hooks, each called by
+// every thread of the block:
+// * issue(kt, vt, raw, a, b, pg, s, kvh, j0, n) starts the copy of keys [j0,
+//   j0 + n) of slot s's window, kv head kvh, into the K and V tiles
+//   ([kRunKeys][D + 8] bf16 each) or the raw stage; rows past n repeat key
+//   j0 + n - 1, so the tiles hold finite values there; the kernel commits,
+//   waits and adds a barrier;
+// * tiles(kt, vt, raw) fills the tiles from the raw stage (the kernel adds a
+//   barrier after it when there is a raw stage);
+// * window_value(a, b, row, d) reads dim d of the value at pool row `row`
+//   (the uniform average of a row that sees no key).
+
+// K6's loader for the dense pool: a = the layer's keys, b = its values,
+// (P1, KV, page, D) bf16, 16-byte aligned.  Threads 2r and 2r + 1 copy row
+// r, one table lookup each, half of its K row and half of its V row each,
+// in 16-byte chunks straight into the padded tiles.
+template <int D>
+struct DenseRun {
+  static constexpr int kRawBytes = 0;
+
+  static __device__ __forceinline__ void issue(__nv_bfloat16* kt, __nv_bfloat16* vt, unsigned char*,
+                                               const void* __restrict__ a, const void* __restrict__ b,
+                                               const Pages& pg, int s, int kvh, int j0, int n) {
+    static_assert(kRunThreads == 2 * kRunKeys && D % 16 == 0, "two threads per row, 16-byte halves");
+    const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (D / 2);
+    const size_t row = pg.row(s, kvh, j0 + min(r, n - 1));
+    const __nv_bfloat16* kr = static_cast<const __nv_bfloat16*>(a) + row * D + c0;
+    const __nv_bfloat16* vr = static_cast<const __nv_bfloat16*>(b) + row * D + c0;
+#pragma unroll
+    for (int c = 0; c < D / 2; c += 8) {  // D / 16 chunks of 16 B each
+      cp_async16(kt + r * (D + 8) + c0 + c, kr + c);
+      cp_async16(vt + r * (D + 8) + c0 + c, vr + c);
+    }
+  }
+
+  static __device__ __forceinline__ void tiles(__nv_bfloat16*, __nv_bfloat16*, const unsigned char*) {}
+
+  static __device__ __forceinline__ float window_value(const void* __restrict__, const void* __restrict__ b,
+                                                       size_t row, int d) {
+    return bf(static_cast<const __nv_bfloat16*>(b)[row * D + d]);
+  }
+};
+
+// K7's loader for the int4 pool: a = the layer's payload (P1, KV, page, D)
+// uint8, 16-byte aligned; b = its scales (P1, KV, page, 4G) bf16, 8-byte
+// aligned.  The raw stage is the int4 raw tile (flash_mma.cuh:
 // kInt4TileBytes), which tiles() dequantizes into the bf16 tiles of keys
-// and values.  A dense loader would copy bf16 rows instead.
+// and values.
 template <int D>
 struct Int4Run {
   static constexpr int G = D / kGroup;
   static constexpr int kRawBytes = kInt4TileBytes<D>;
 
-  // Starts the copy of keys [j0, j0 + n) of slot s's window, kv head kvh
-  // (rows past n repeat key j0 + n - 1, so the tile holds finite values
-  // there): threads 2r and 2r + 1 copy row r, one table lookup each, half
-  // of its payload and of its scales each.
-  static __device__ __forceinline__ void issue(unsigned char* raw, const void* __restrict__ a,
-                                               const void* __restrict__ b, const Pages& pg, int s,
-                                               int kvh, int j0, int n) {
+  // Threads 2r and 2r + 1 copy row r, one table lookup each, half of its
+  // payload and of its scales each.
+  static __device__ __forceinline__ void issue(__nv_bfloat16*, __nv_bfloat16*, unsigned char* raw,
+                                               const void* __restrict__ a, const void* __restrict__ b,
+                                               const Pages& pg, int s, int kvh, int j0, int n) {
     static_assert(kRunThreads == 2 * kRunKeys, "two threads per row");
     const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
     const size_t row = pg.row(s, kvh, j0 + min(r, n - 1));
@@ -303,8 +147,6 @@ struct Int4Run {
     dequantize_int4_tile<D>(ks, vs, raw);
   }
 
-  // Dim d of the value at pool row `row`, read from the pool (the uniform
-  // average of a row that sees no key).
   static __device__ __forceinline__ float window_value(const void* __restrict__ a,
                                                        const void* __restrict__ b, size_t row,
                                                        int d) {
@@ -325,10 +167,10 @@ struct Int4Run {
 //
 // Both products run on the tensor cores (bf16 mma.sync.m16n8k16, f32 sums),
 // the slot's rows as one 16-row tile (rows past Lq zero):
-// * the run's keys and values are dequantized once, in one pass, into two
-//   bf16 tiles (timed on an NVIDIA H100 80GB HBM3 at 700 W against keys,
-//   then values, through one tile at eight blocks an SM: 9% faster at
-//   Lq = 1 though six blocks fit an SM);
+// * the run's keys and values reach two bf16 tiles through the loader, the
+//   int4 pool's dequantized once, in one pass (timed on an NVIDIA H100 80GB
+//   HBM3 at 700 W against keys, then values, through one tile at eight
+//   blocks an SM: 9% faster at Lq = 1 though six blocks fit an SM);
 // * S = Q K^T: Q's A fragments come straight from q (q * scale rounded to
 //   bf16, the rule of attention.cuh); warp w scores keys [16 w, 16 w + 16).
 //   The masked scores go to shared memory, and one max and one sum per row
@@ -373,7 +215,7 @@ __global__ void __launch_bounds__(kRunThreads)
     }
     return;
   }
-  Run::issue(raw, a, b, pg, s, kvh, j0, n);
+  Run::issue(kt, vt, raw, a, b, pg, s, kvh, j0, n);
   cp_async_commit();
   if (tid < kRunKeys) listed[tid] = tid < n && (j0 + tid >= off || valid[(size_t)s * W + j0 + tid] != 0);
   unsigned qa[KD][4];  // A fragments: rows gid, gid + 8; columns 2 tig, 2 tig + 8 of each k-step
@@ -389,7 +231,7 @@ __global__ void __launch_bounds__(kRunThreads)
   cp_async_wait<0>();
   __syncthreads();
   Run::tiles(kt, vt, raw);
-  __syncthreads();
+  if constexpr (Run::kRawBytes > 0) __syncthreads();
 
   // S = Q K^T, warp w: keys [16 w, 16 w + 16), two n-tiles.
   float sc[2][4] = {};
@@ -568,7 +410,7 @@ cudaError_t launch_paged_runs(const void* q, const void* a, const void* b, Pages
       split_keys != kRunKeys || n_split != (W + kRunKeys - 1) / kRunKeys || partial == nullptr)
     return cudaErrorInvalidValue;
   const size_t bytes = Run::kRawBytes + 2 * sizeof(__nv_bfloat16) * kRunKeys * (D + 8) +
-                       sizeof(float) * (size_t)Lq * kPStride;  // 34-39 KB: five or six blocks an SM
+                       sizeof(float) * (size_t)Lq * kPStride;  // int4 34-39 KB, dense 27-31 KB a block
   paged_split_kernel<D, Run><<<dim3(n_split, H, S), kRunThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), a, b, pg, static_cast<const uint8_t*>(valid),
       static_cast<const int*>(offsets), static_cast<float*>(partial), H, Lq, st[0], st[1], st[2],
@@ -584,11 +426,12 @@ cudaError_t launch_paged_runs(const void* q, const void* a, const void* b, Pages
 }  // namespace
 
 // K6.  q (S, H, Lq, D) bf16 with element strides (qsb, qsh, qsl) and unit
-// stride along D; pool_k, pool_v (layers, P1, KV, page, D) bf16 contiguous,
-// read at `layer` in place; tables (S, mp) int32; valid (S, mp * page) uint8;
-// offsets (S,) int32; out (S, H, Lq, D) bf16 with strides (osb, osh, osl);
-// partial f32 scratch of n_split * S * H * Lq * (D + 2) floats (unused when
-// n_split is 1), n_split * split_keys >= mp * page.  Returns a cudaError_t.
+// stride along D, Lq <= 16; pool_k, pool_v (layers, P1, KV, page, D) bf16
+// contiguous and 16-byte aligned, read at `layer` in place; tables (S, mp)
+// int32; valid (S, mp * page) uint8; offsets (S,) int32; out (S, H, Lq, D)
+// bf16 with strides (osb, osh, osl); partial f32 scratch of n_split * S * H
+// * Lq * (D + 2) floats; split_keys = 64 and n_split = ceil(mp * page / 64)
+// (the wrapper's paged_split_plan).  Returns a cudaError_t.
 extern "C" int k6_paged_kv_attention(const void* q, const void* pool_k, const void* pool_v,
                                      const void* tables, const void* valid, const void* offsets,
                                      void* out, void* partial, int S, int H, int KV, int Lq,
@@ -601,7 +444,7 @@ extern "C" int k6_paged_kv_attention(const void* q, const void* pool_k, const vo
   const Pages pg{static_cast<const int*>(tables), mp, page, KV, P1};
   const size_t layer_elems = (size_t)P1 * KV * page * D;
   switch (D) {
-    case 96: return (int)launch_paged<96, DenseKey<96>>(
+    case 96: return (int)launch_paged_runs<96, DenseRun<96>>(
         q, static_cast<const __nv_bfloat16*>(pool_k) + (size_t)layer * layer_elems,
         static_cast<const __nv_bfloat16*>(pool_v) + (size_t)layer * layer_elems, pg, valid,
         offsets, out, partial, S, H, Lq, st, scale, n_split, split_keys, stream);
@@ -611,9 +454,7 @@ extern "C" int k6_paged_kv_attention(const void* q, const void* pool_k, const vo
 
 // K7.  As K6, with payload (layers, P1, KV, page, D) uint8 (16-byte
 // aligned) and scales (layers, P1, KV, page, 4G) bf16 (8-byte aligned) in
-// place of pool_k and pool_v, Lq <= 16, partial always given, split_keys =
-// 64 and n_split = ceil(mp * page / 64) (the wrapper's paged_split_plan).
-// Returns a cudaError_t.
+// place of pool_k and pool_v.  Returns a cudaError_t.
 extern "C" int k7_paged_quantized_kv_attention(const void* q, const void* payload,
                                                const void* scales, const void* tables,
                                                const void* valid, const void* offsets, void* out,

@@ -26,146 +26,28 @@
 // (0.0147 ms for qkv at 989 TFLOP/s bf16), so the work must reach the tensor
 // cores and each weight must be dequantized few times.
 //
-// K1 and K9 (the TPU kernel fed its dequantized tile to the MXU) run on
-// route B, the tensor cores (mma.sync.m16n8k16, bf16 in, f32 sums): tiles of
+// All three run on route B, the tensor cores (mma.sync.m16n8k16, bf16 in,
+// f32 sums; the TPU kernels fed their dequantized tile to the MXU): tiles of
 // BM = 16/32/64 rows x 128 columns, x, payload and scales of the next 64-row
 // group in flight by cp.async while this one runs, B fragments dequantized
-// once per block straight into registers.  K1 at M = 1 (decode) takes route
-// A, a GEMV on the CUDA cores for the bytes: 16-byte loads per lane, the next
-// group's loads in flight while this one is dequantized, x staged once per
-// block, scales and biases 8 bytes at a time.  Both turn a level into f32 by
-// a byte permute into 2^23's mantissa (no int-to-float conversion).  On the
-// H100 route A lost to route B from M = 2 on, and a GEMV over K9's packed
-// rows lost to route B at every M (PERF.md section 6).  Both routes write f32
-// partial sums per K split; sum_splits adds them in a fixed order
+// once per block straight into registers.  K1 and K8 at M = 1 (decode) take
+// route A, a GEMV on the CUDA cores for the bytes: 16-byte loads per lane,
+// the next loads in flight while this buffer is dequantized, x staged once
+// per block, scales and biases 8 bytes at a time.  Both turn a level into
+// f32 by a byte permute into 2^23's mantissa (no int-to-float conversion).
+// On the H100 route A lost to route B from M = 2 on, and a GEMV over K9's
+// packed rows lost to route B at every M (PERF.md section 6).  Both routes
+// write f32 partial sums per K split; sum_splits adds them in a fixed order
 // (deterministic) and casts, or, with one split, the kernel writes the
 // output itself (adding the splits in the last block of each tile measured
-// slower).  Layouts reach route B through a loader (the seam, as
-// flash_mma.cuh's Tiles): WordTiles for K1's (K/8, N) words, PackedTiles
-// for K9's bytes.  K8 keeps the first design: wq_partial_kernel<8, BM>, one
-// output column per thread, the activation group staged as f32, BM <= 8 row
-// blocks, the same split-K sum.
-
-#include <type_traits>
+// slower).  Layouts reach the routes through a loader (the seam, as
+// flash_mma.cuh's Tiles): WordTiles<4> for K1's (K/8, N) words,
+// WordTiles<8> for K8's (K/4, N) words, PackedTiles for K9's bytes.
 
 #include "mma.cuh"
 #include "quant_matmul.cuh"
 
 namespace {
-
-// --- K8: one output column per thread ---------------------------------------
-//
-// The payload is (K * BITS / 32, N) int32, 32 / BITS K-consecutive values of
-// one column per word, so a warp reads 32 consecutive words (128 B) of one
-// row and each thread owns one output column.  The activation tile of one
-// 64-wide group is staged in shared memory as f32 and broadcast to all
-// threads.  M is tiled by BM rows (BM = 1, 2, 4 or 8) so the accumulators stay
-// in registers at M = 256.  K is split across blockIdx.z; each split writes f32
-// partial sums and sum_splits_kernel adds them.  The ragged N edge is masked
-// per thread.
-
-template <int BITS, int BM>
-__global__ void wq_partial_kernel(const __nv_bfloat16* __restrict__ x,
-                                  const int32_t* __restrict__ qw,
-                                  const __nv_bfloat16* __restrict__ scales,
-                                  const __nv_bfloat16* __restrict__ biases,
-                                  float* __restrict__ partial, int M, int K, int N,
-                                  int groups_per_split) {
-  constexpr int kPer = 32 / BITS;               // values per int32 word
-  constexpr int kWords = kGroup / kPer;         // words per group and column
-  constexpr uint32_t kMask = (1u << BITS) - 1;  // one value's bits
-  constexpr int kMid = 1 << (BITS - 1);         // symmetric zero point
-  __shared__ __align__(16) float xs[BM][kGroup];
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int split = blockIdx.z;
-  const int G = K / kGroup;
-  const int g0 = split * groups_per_split;
-  const int g1 = min(G, g0 + groups_per_split);
-  const bool col_ok = n < N;
-
-  float acc[BM];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) acc[r] = 0.f;
-
-  for (int g = g0; g < g1; ++g) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < BM * kGroup; idx += kThreads) {
-      const int r = idx / kGroup, c = idx % kGroup, m = m0 + r;
-      xs[r][c] = m < M ? __bfloat162float(x[(size_t)m * K + (size_t)g * kGroup + c]) : 0.f;
-    }
-    __syncthreads();
-    if (!col_ok) continue;
-    const float s = __bfloat162float(scales[(size_t)g * N + n]);
-    const float b = biases ? __bfloat162float(biases[(size_t)g * N + n]) : 0.f;
-#pragma unroll
-    for (int w = 0; w < kWords; ++w) {
-      const uint32_t word = static_cast<uint32_t>(qw[((size_t)g * kWords + w) * N + n]);
-      float wv[kPer];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int q = (int)((word >> (BITS * j)) & kMask);
-        const float f = biases ? __fadd_rn(__fmul_rn(s, (float)q), b) : __fmul_rn(s, (float)(q - kMid));
-        wv[j] = __bfloat162float(__float2bfloat16(f));
-      }
-#pragma unroll
-      for (int r = 0; r < BM; ++r) {
-        float a = acc[r];
-#pragma unroll
-        for (int j4 = 0; j4 < kPer; j4 += 4) {
-          const float4 xa = *reinterpret_cast<const float4*>(&xs[r][w * kPer + j4]);
-          a = fmaf(xa.x, wv[j4], a);
-          a = fmaf(xa.y, wv[j4 + 1], a);
-          a = fmaf(xa.z, wv[j4 + 2], a);
-          a = fmaf(xa.w, wv[j4 + 3], a);
-        }
-        acc[r] = a;
-      }
-    }
-  }
-  if (!col_ok) return;
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    const int m = m0 + r;
-    if (m < M) partial[((size_t)split * M + m) * N + n] = acc[r];
-  }
-}
-
-template <int BITS, int BM>
-void launch_partial(const __nv_bfloat16* x, const int32_t* qw, const __nv_bfloat16* s,
-                    const __nv_bfloat16* b, float* partial, int M, int K, int N, int splits,
-                    int groups_per_split, cudaStream_t stream) {
-  dim3 grid((N + kThreads - 1) / kThreads, (M + BM - 1) / BM, splits);
-  wq_partial_kernel<BITS, BM><<<grid, kThreads, 0, stream>>>(x, qw, s, b, partial, M, K, N,
-                                                             groups_per_split);
-}
-
-template <int BITS>
-int wq_matmul(const void* x, const void* qw, const void* scales, const void* biases,
-              void* partial, void* out, int M, int K, int N, int splits, int groups_per_split,
-              int out_f32, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* qp = static_cast<const int32_t*>(qw);
-  const auto* sp = static_cast<const __nv_bfloat16*>(scales);
-  const auto* bp = static_cast<const __nv_bfloat16*>(biases);
-  auto* pp = static_cast<float*>(partial);
-  if (M <= 1)
-    launch_partial<BITS, 1>(xp, qp, sp, bp, pp, M, K, N, splits, groups_per_split, stream);
-  else if (M <= 2)
-    launch_partial<BITS, 2>(xp, qp, sp, bp, pp, M, K, N, splits, groups_per_split, stream);
-  else if (M <= 4)
-    launch_partial<BITS, 4>(xp, qp, sp, bp, pp, M, K, N, splits, groups_per_split, stream);
-  else
-    launch_partial<BITS, 8>(xp, qp, sp, bp, pp, M, K, N, splits, groups_per_split, stream);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return sum_splits(pp, out, M, N, splits, out_f32, stream);
-}
-
-// ---------------------------------------------------------------------------
-// K1 and K9: route A (CUDA cores) and route B (tensor cores).
-// ---------------------------------------------------------------------------
 
 constexpr int kAWarps = kThreads / 32;    // route A: a block's warps split its K range
 constexpr int kAMaxGroups = 64;           // route A: groups per split (x staged as f32, 16 KB)
@@ -174,16 +56,17 @@ constexpr int kXStride = kGroup + 8;      // route B: bf16 per staged x row (144
 constexpr float kAffineZero = 8388608.f;     // 2^23: level() gives q
 constexpr float kSymmetricZero = 8388616.f;  // 2^23 + 8: level() gives q - 8
 
-// The 4-bit level in byte b of v, minus the zero point, exactly: the byte
-// becomes the low mantissa bits of 2^23 (a PRMT and an FADD; an int-to-float
-// conversion runs at a quarter of the rate).
+// The level in byte b of v, minus the zero point, exactly: the byte becomes
+// the low mantissa bits of 2^23 (a PRMT and an FADD; an int-to-float
+// conversion runs at a quarter of the rate).  4-bit levels are masked to a
+// nibble per byte first; an 8-bit level is the whole byte, 0..255.
 __device__ __forceinline__ float level(unsigned v, int b, float zero) {
   return __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540 | b)), zero);
 }
 
 // One weight in f32 as the plain version computes it, rn(rn(s * lv) + b) or
 // rn(s * lv); the caller rounds it to bf16.  s is a bf16 (8 significant
-// bits) and lv an integer of at most 4 bits, so s * lv is exact in f32 and
+// bits) and lv an integer of at most 8 bits, so s * lv is exact in f32 and
 // the fused multiply-add rounds once to the same value as __fmul_rn then
 // __fadd_rn: one instruction per weight instead of two, bit for bit.
 template <bool AFFINE>
@@ -204,75 +87,113 @@ __device__ __forceinline__ void store4(void* dst, int dst_bf16, size_t i, float 
     *reinterpret_cast<float4*>(static_cast<float*>(dst) + i) = make_float4(a, b, c, d);
 }
 
-// --- Route A: K1 at M = 1 on the CUDA cores, bound by the weight bytes ------
+// --- Route A: K1 and K8 at M = 1 on the CUDA cores, bound by the weight bytes
 //
 // A block's x row for its whole K range is staged once as f32 behind one
 // barrier; its four warps split the K range and add their sums in warp order
 // at the end (deterministic); the splits' sums go through sum_splits.
 
-// K1, route A: one group's words, scales and biases for a lane's columns.
-struct K1Group {
+// Route A's register buffer: eight 16-byte rows of (K * BITS / 32, N) words
+// for a lane's four columns, and their group's scales and biases.  At 4 bits
+// it holds a whole group (64 rows of K), at 8 bits half of one (32 rows): two
+// buffers of 8 rows stay within the registers either way, where two of a
+// whole 8-bit group would not.
+struct GemvUnit {
   uint4 w[8];
   uint2 s, b;
 };
 
-template <bool AFFINE>
-__device__ __forceinline__ void k1_load(K1Group& d, const int32_t* __restrict__ qw,
-                                        const __nv_bfloat16* __restrict__ scales,
-                                        const __nv_bfloat16* __restrict__ biases, int g, int n, int N) {
+// Loads half `half` of group g (at 4 bits, half 0: the group) into d.  The
+// scales and biases are read for half 0; half 1 takes those of `first`,
+// which holds half 0 of the same group.
+template <int BITS, bool AFFINE>
+__device__ __forceinline__ void gemv_load(GemvUnit& d, const GemvUnit& first, const int32_t* __restrict__ qw,
+                                          const __nv_bfloat16* __restrict__ scales,
+                                          const __nv_bfloat16* __restrict__ biases, int g, int half, int n,
+                                          int N) {
+  constexpr int kRows = 2 * BITS;  // word rows of a group
 #pragma unroll
-  for (int r = 0; r < 8; ++r) d.w[r] = __ldg(reinterpret_cast<const uint4*>(qw + ((size_t)g * 8 + r) * N + n));
-  d.s = __ldg(reinterpret_cast<const uint2*>(scales + (size_t)g * N + n));
-  d.b = AFFINE ? __ldg(reinterpret_cast<const uint2*>(biases + (size_t)g * N + n)) : make_uint2(0u, 0u);
+  for (int r = 0; r < 8; ++r)
+    d.w[r] = __ldg(reinterpret_cast<const uint4*>(qw + ((size_t)g * kRows + 8 * half + r) * N + n));
+  if (half == 0) {
+    d.s = __ldg(reinterpret_cast<const uint2*>(scales + (size_t)g * N + n));
+    d.b = AFFINE ? __ldg(reinterpret_cast<const uint2*>(biases + (size_t)g * N + n)) : make_uint2(0u, 0u);
+  } else {
+    d.s = first.s;
+    d.b = first.b;
+  }
 }
 
-template <bool AFFINE>
-__device__ __forceinline__ void k1_compute(float (&acc)[4], const K1Group& d, const float* xg) {
+// acc[c] += the unit's rows of column c times x; xg is x at the unit's first
+// row of K.  4 bits: nibble n of word row r is row 8 r + n.  8 bits: byte e
+// of word row r is row 4 r + e.
+template <int BITS, bool AFFINE>
+__device__ __forceinline__ void gemv_compute(float (&acc)[4], const GemvUnit& d, const float* xg) {
   const float zero = AFFINE ? kAffineZero : kSymmetricZero;
   const float s[4] = {lo_f32(d.s.x), hi_f32(d.s.x), lo_f32(d.s.y), hi_f32(d.s.y)};
   const float b[4] = {lo_f32(d.b.x), hi_f32(d.b.x), lo_f32(d.b.y), hi_f32(d.b.y)};
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    const float4 p = *reinterpret_cast<const float4*>(xg + r * 8);
-    const float4 q = *reinterpret_cast<const float4*>(xg + r * 8 + 4);
-    const float xv[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
     const unsigned wc[4] = {d.w[r].x, d.w[r].y, d.w[r].z, d.w[r].w};
+    if constexpr (BITS == 4) {
+      const float4 p = *reinterpret_cast<const float4*>(xg + r * 8);
+      const float4 q = *reinterpret_cast<const float4*>(xg + r * 8 + 4);
+      const float xv[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      // nibble 2e of the word is byte e of lo, nibble 2e + 1 byte e of hi
-      const unsigned lo = wc[c] & 0x0F0F0F0Fu, hi = (wc[c] >> 4) & 0x0F0F0F0Fu;
+      for (int c = 0; c < 4; ++c) {
+        // nibble 2e of the word is byte e of lo, nibble 2e + 1 byte e of hi
+        const unsigned lo = wc[c] & 0x0F0F0F0Fu, hi = (wc[c] >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const unsigned u = pack_bf16(dequant<AFFINE>(level(lo, e, zero), s[c], b[c]),
-                                     dequant<AFFINE>(level(hi, e, zero), s[c], b[c]));
-        acc[c] = fmaf(xv[2 * e], lo_f32(u), acc[c]);
-        acc[c] = fmaf(xv[2 * e + 1], hi_f32(u), acc[c]);
+        for (int e = 0; e < 4; ++e) {
+          const unsigned u = pack_bf16(dequant<AFFINE>(level(lo, e, zero), s[c], b[c]),
+                                       dequant<AFFINE>(level(hi, e, zero), s[c], b[c]));
+          acc[c] = fmaf(xv[2 * e], lo_f32(u), acc[c]);
+          acc[c] = fmaf(xv[2 * e + 1], hi_f32(u), acc[c]);
+        }
+      }
+    } else {
+      const float4 p = *reinterpret_cast<const float4*>(xg + r * 4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const unsigned u0 = pack_bf16(dequant<AFFINE>(level(wc[c], 0, zero), s[c], b[c]),
+                                      dequant<AFFINE>(level(wc[c], 1, zero), s[c], b[c]));
+        const unsigned u1 = pack_bf16(dequant<AFFINE>(level(wc[c], 2, zero), s[c], b[c]),
+                                      dequant<AFFINE>(level(wc[c], 3, zero), s[c], b[c]));
+        acc[c] = fmaf(p.x, lo_f32(u0), acc[c]);
+        acc[c] = fmaf(p.y, hi_f32(u0), acc[c]);
+        acc[c] = fmaf(p.z, lo_f32(u1), acc[c]);
+        acc[c] = fmaf(p.w, hi_f32(u1), acc[c]);
       }
     }
   }
 }
 
-// K1, route A.  Lane l of block x owns the four columns n = 4 (32 x + l) ..
-// n + 3: one 16-byte load gives their words of one row of (K/8, N) words,
-// so a group is eight 16-byte loads (128 B) per lane and a warp reads 512
-// consecutive bytes of each row.  Warp w takes groups g0 + w, g0 + w + 4,
-// ..., the next one's loads issued before this one's arithmetic (two
-// register buffers), so the bytes stream while the CUDA cores dequantize.
-// Warps 1-3 hand their sums to warp 0 through red, which adds them in warp
-// order.
-template <bool AFFINE>
+// Route A (K1: BITS = 4, K8: BITS = 8).  Lane l of block x owns the four
+// columns n = 4 (32 x + l) .. n + 3: one 16-byte load gives their words of
+// one row of (K * BITS / 32, N) words, so a unit is eight 16-byte loads (128
+// B) per lane and a warp reads 512 consecutive bytes of each row.  Warp w
+// takes groups g0 + w, g0 + w + 4, ..., as units: one per group at 4 bits,
+// its two halves at 8 bits.  The next unit's loads are issued before this
+// one's arithmetic (two register buffers), so the bytes stream while the CUDA
+// cores dequantize.  Warps 1-3 hand their sums to warp 0 through red, which
+// adds them in warp order.
+template <int BITS, bool AFFINE>
 __global__ void __launch_bounds__(kThreads)
     k1_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ qw,
                    const __nv_bfloat16* __restrict__ scales, const __nv_bfloat16* __restrict__ biases,
                    void* __restrict__ dst, int dst_bf16, int K, int N, int gps) {
+  static_assert(BITS == 4 || (BITS == 8 && AFFINE), "4-bit levels, or affine 8-bit ones");
+  constexpr int U = BITS / 4;  // units per group
   extern __shared__ __align__(16) float xs[];  // [kr]
   __shared__ __align__(16) float4 red[kAWarps - 1][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n = (blockIdx.x * 32 + lane) * 4;
   const int G = K / kGroup, g0 = blockIdx.y * gps, g1 = min(G, g0 + gps), kr = (g1 - g0) * kGroup;
-  K1Group da, db;
-  int g = g0 + warp;
-  if (n < N && g < g1) k1_load<AFFINE>(da, qw, scales, biases, g, n, N);  // in flight over the x copy
+  // Unit u of this warp: group g0 + warp + kAWarps * (u / U), half u % U.
+  const int nu = g0 + warp < g1 ? (g1 - g0 - warp + kAWarps - 1) / kAWarps * U : 0;
+  auto group = [&](int u) { return g0 + warp + kAWarps * (u / U); };
+  GemvUnit da, db;
+  if (n < N && nu > 0) gemv_load<BITS, AFFINE>(da, da, qw, scales, biases, group(0), 0, n, N);  // over the x copy
   for (int c = threadIdx.x; c < kr / 8; c += kThreads) {
     const uint4 v = __ldg(reinterpret_cast<const uint4*>(x + g0 * kGroup + c * 8));
     float4* d = reinterpret_cast<float4*>(xs + c * 8);
@@ -283,13 +204,14 @@ __global__ void __launch_bounds__(kThreads)
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
   if (n < N) {
-    for (; g < g1; g += 2 * kAWarps) {
-      const int gb = g + kAWarps;
-      if (gb < g1) k1_load<AFFINE>(db, qw, scales, biases, gb, n, N);
-      k1_compute<AFFINE>(acc, da, xs + (g - g0) * kGroup);
-      if (gb >= g1) break;
-      if (gb + kAWarps < g1) k1_load<AFFINE>(da, qw, scales, biases, gb + kAWarps, n, N);
-      k1_compute<AFFINE>(acc, db, xs + (gb - g0) * kGroup);
+    // x of unit u: its group's 64 rows, and the half's 32 at 8 bits.
+    auto xg = [&](int u) { return xs + (group(u) - g0) * kGroup + (u % U) * (kGroup / U); };
+    for (int u = 0; u < nu; u += 2) {
+      if (u + 1 < nu) gemv_load<BITS, AFFINE>(db, da, qw, scales, biases, group(u + 1), (u + 1) % U, n, N);
+      gemv_compute<BITS, AFFINE>(acc, da, xg(u));
+      if (u + 1 >= nu) break;
+      if (u + 2 < nu) gemv_load<BITS, AFFINE>(da, db, qw, scales, biases, group(u + 2), (u + 2) % U, n, N);
+      gemv_compute<BITS, AFFINE>(acc, db, xg(u + 1));
     }
   }
   if (warp > 0) red[warp - 1][lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -306,7 +228,7 @@ __global__ void __launch_bounds__(kThreads)
   store4(dst, dst_bf16, (size_t)blockIdx.y * N + n, acc[0], acc[1], acc[2], acc[3]);
 }
 
-// --- Route B: M >= 2 (K9: every M) on the tensor cores ----------------------
+// --- Route B: K1 and K8 at M >= 2, K9 at every M, on the tensor cores -------
 //
 // A block owns BM rows x kBN = 128 columns; warp w the 32 columns of its
 // quarter for all BM rows, as (BM / 16) x 4 tiles of mma.sync.m16n8k16.  Per
@@ -329,20 +251,33 @@ __global__ void __launch_bounds__(kThreads)
 // thread's 4 x 4 x 2 B registers come out of the tile (frags), and where its
 // outputs go (two runs of four columns: run_col, run_val).
 
-// K1's (K/8, N) int32 words: thread (gid, t) of warp w owns columns n0 + 32 w
-// + 4 gid + j (one 16-byte word of a row) and the word rows 2 t, 2 t + 1 of
-// the group.  Rows are padded to 528 B so a quarter-warp's 16-byte reads hit
-// distinct banks.  The ragged N edge arrives as zeros and is not stored.
+// K1's (K/8, N) and K8's (K/4, N) int32 words: thread (gid, t) of warp w
+// owns columns n0 + 32 w + 4 gid + j (one 16-byte word of a row).  4 bits:
+// it reads the group's word rows 2 t and 2 t + 1 (rows 16 t .. 16 t + 15 of
+// K), from rows padded to 528 B so that a quarter-warp's 16-byte reads hit
+// distinct banks.  8 bits: for k-step s it reads word row 4 t + s, whose
+// bytes e = 0..3 are the rows 16 t + 4 s + e of K the mma's k slots want;
+// word row 4 t + s is staged at slot 4 s + t of rows padded to 544 B, so the
+// four t and two gid of a quarter-warp read eight distinct 16-byte banks.
+// The ragged N edge arrives as zeros and is not stored.
+template <int BITS>
 struct WordTiles {
-  static constexpr int kRowBytes = kBN * 4 + 16;
-  static constexpr int kBytes = 8 * kRowBytes;
+  static_assert(BITS == 4 || BITS == 8, "4- or 8-bit words");
+  static constexpr int kBits = BITS;
+  static constexpr bool kGemv = true;       // route A takes M = 1
+  static constexpr bool kSymmetric = BITS == 4;  // symmetric mode: 4 bits only
+  static constexpr int kRows = 2 * BITS;    // word rows of a group
+  static constexpr int kRowBytes = kBN * 4 + (BITS == 4 ? 16 : 32);
+  static constexpr int kBytes = kRows * kRowBytes;
   static constexpr bool kRagged = true;
+  // Where the tile stages the group's word row r.
+  static __device__ __forceinline__ int slot(int r) { return BITS == 4 ? r : 4 * (r % 4) + r / 4; }
   static __device__ __forceinline__ void issue(uint8_t* dst, const void* __restrict__ q, int N, int,
                                                int g, int tile) {
     const int32_t* qw = static_cast<const int32_t*>(q);
-    for (int idx = threadIdx.x; idx < 8 * (kBN / 4); idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kRows * (kBN / 4); idx += kThreads) {
       const int r = idx / (kBN / 4), c = idx % (kBN / 4), n = tile * kBN + 4 * c;
-      cp_async16_zfill(dst + r * kRowBytes + c * 16, qw + ((size_t)g * 8 + r) * N + min(n, N - 4),
+      cp_async16_zfill(dst + slot(r) * kRowBytes + c * 16, qw + ((size_t)g * kRows + r) * N + min(n, N - 4),
                        n < N ? 16 : 0);
     }
   }
@@ -356,24 +291,39 @@ struct WordTiles {
                                                unsigned (&f)[4][4][2]) {
     const float zero = AFFINE ? kAffineZero : kSymmetricZero;
     const uint8_t* p = st + warp * 128 + gid * 16;
-    const uint4 wa = *reinterpret_cast<const uint4*>(p + (2 * t) * kRowBytes);
-    const uint4 wb = *reinterpret_cast<const uint4*>(p + (2 * t + 1) * kRowBytes);
-    const unsigned w[2][4] = {{wa.x, wa.y, wa.z, wa.w}, {wb.x, wb.y, wb.z, wb.w}};
+    if constexpr (BITS == 4) {
+      const uint4 wa = *reinterpret_cast<const uint4*>(p + (2 * t) * kRowBytes);
+      const uint4 wb = *reinterpret_cast<const uint4*>(p + (2 * t + 1) * kRowBytes);
+      const unsigned w[2][4] = {{wa.x, wa.y, wa.z, wa.w}, {wb.x, wb.y, wb.z, wb.w}};
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // row 16 t + 8 h + n is nibble n of w[h][j]: nibble 2e in byte e of
-        // lo, 2e + 1 in byte e of hi; step s = 2 h + sh takes nibbles 4 sh ..
-        const unsigned lo = w[h][j] & 0x0F0F0F0Fu, hi = (w[h][j] >> 4) & 0x0F0F0F0Fu;
+        for (int j = 0; j < 4; ++j) {
+          // row 16 t + 8 h + n is nibble n of w[h][j]: nibble 2e in byte e of
+          // lo, 2e + 1 in byte e of hi; step s = 2 h + sh takes nibbles 4 sh ..
+          const unsigned lo = w[h][j] & 0x0F0F0F0Fu, hi = (w[h][j] >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
-        for (int sh = 0; sh < 2; ++sh) {
-          f[2 * h + sh][j][0] = pack_bf16(dequant<AFFINE>(level(lo, 2 * sh, zero), s[j], b[j]),
-                                          dequant<AFFINE>(level(hi, 2 * sh, zero), s[j], b[j]));
-          f[2 * h + sh][j][1] = pack_bf16(dequant<AFFINE>(level(lo, 2 * sh + 1, zero), s[j], b[j]),
-                                          dequant<AFFINE>(level(hi, 2 * sh + 1, zero), s[j], b[j]));
+          for (int sh = 0; sh < 2; ++sh) {
+            f[2 * h + sh][j][0] = pack_bf16(dequant<AFFINE>(level(lo, 2 * sh, zero), s[j], b[j]),
+                                            dequant<AFFINE>(level(hi, 2 * sh, zero), s[j], b[j]));
+            f[2 * h + sh][j][1] = pack_bf16(dequant<AFFINE>(level(lo, 2 * sh + 1, zero), s[j], b[j]),
+                                            dequant<AFFINE>(level(hi, 2 * sh + 1, zero), s[j], b[j]));
+          }
+        }
+    } else {
+#pragma unroll
+      for (int sx = 0; sx < 4; ++sx) {
+        const uint4 wv = *reinterpret_cast<const uint4*>(p + slot(4 * t + sx) * kRowBytes);
+        const unsigned w[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // byte e of w[j] is row 16 t + 4 sx + e
+          f[sx][j][0] = pack_bf16(dequant<AFFINE>(level(w[j], 0, zero), s[j], b[j]),
+                                  dequant<AFFINE>(level(w[j], 1, zero), s[j], b[j]));
+          f[sx][j][1] = pack_bf16(dequant<AFFINE>(level(w[j], 2, zero), s[j], b[j]),
+                                  dequant<AFFINE>(level(w[j], 3, zero), s[j], b[j]));
         }
       }
+    }
   }
   // v[j][c]: the sum of n-tile j at the mma's column 2 t + c.
   static __device__ __forceinline__ int run_col(int tile, int warp, int t, int which) {
@@ -392,6 +342,8 @@ struct WordTiles {
 // packed row (g / gk) * block_k + i * gk + g % gk), 64 B each, with 16 B of
 // padding every 16 rows so the four t of a warp read distinct banks.
 struct PackedTiles {
+  static constexpr bool kGemv = false;  // route B at every M
+  static constexpr bool kSymmetric = false;
   static constexpr int kRowBytes = kBN / 2;
   static constexpr int kBytes = kGroup * kRowBytes + 4 * 16;
   static constexpr bool kRagged = false;
@@ -549,19 +501,22 @@ void launch_mma(const __nv_bfloat16* x, const void* q, const __nv_bfloat16* s,
                                                               block_k, gps);
 }
 
-// Route A for K1 at M = 1, else route B with the smallest row tile that
-// holds M (the wrapper's plan() sizes the K split for the same route).
-template <bool PACKED, bool AFFINE>
+// Route A for K1 and K8 at M = 1, else route B with the smallest row tile
+// that holds M (the wrapper's plan() sizes the K split for the same route).
+template <class L, bool AFFINE>
 void launch_route(const __nv_bfloat16* x, const void* q, const __nv_bfloat16* s,
                   const __nv_bfloat16* b, void* dst, int dst_bf16, int M, int K, int N, int block_k,
                   int splits, int gps, cudaStream_t stream) {
-  using L = typename std::conditional<PACKED, PackedTiles, WordTiles>::type;
 #define ARGS x, q, s, b, dst, dst_bf16, M, K, N, block_k, splits, gps, stream
-  if (!PACKED && M == 1) {
-    dim3 grid((N / 4 + 31) / 32, splits);  // 32 lanes x 4 columns per block
-    k1_gemv_kernel<AFFINE><<<grid, kThreads, (size_t)gps * kGroup * sizeof(float), stream>>>(
-        x, static_cast<const int32_t*>(q), s, b, dst, dst_bf16, K, N, gps);
-  } else if (M <= 16) {
+  if constexpr (L::kGemv) {
+    if (M == 1) {
+      dim3 grid((N / 4 + 31) / 32, splits);  // 32 lanes x 4 columns per block
+      k1_gemv_kernel<L::kBits, AFFINE><<<grid, kThreads, (size_t)gps * kGroup * sizeof(float), stream>>>(
+          x, static_cast<const int32_t*>(q), s, b, dst, dst_bf16, K, N, gps);
+      return;
+    }
+  }
+  if (M <= 16) {
     launch_mma<16, L, AFFINE>(ARGS);
   } else if (M <= 32) {
     launch_mma<32, L, AFFINE>(ARGS);
@@ -571,14 +526,14 @@ void launch_route(const __nv_bfloat16* x, const void* q, const __nv_bfloat16* s,
 #undef ARGS
 }
 
-// Both layouts: check the plan, launch a route, then add the splits.
-template <bool PACKED>
-int w4a16_matmul(const void* x, const void* q, const void* scales, const void* biases,
-                 void* partial, void* out, int M, int K, int N, int block_k, int splits, int gps,
-                 int out_f32, void* stream_ptr) {
+// Every layout: check the plan, launch a route, then add the splits.
+template <class L>
+int wq_matmul(const void* x, const void* q, const void* scales, const void* biases, void* partial,
+              void* out, int M, int K, int N, int block_k, int splits, int gps, int out_f32,
+              void* stream_ptr) {
   const int G = K / kGroup;
   const bool plan_ok = M >= 1 && K % kGroup == 0 && gps >= 1 && splits == (G + gps - 1) / gps &&
-                       (splits == 1 || partial != nullptr) && (PACKED || M > 1 || gps <= kAMaxGroups);
+                       (splits == 1 || partial != nullptr) && (!L::kGemv || M > 1 || gps <= kAMaxGroups);
   if (!plan_ok) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
@@ -587,9 +542,9 @@ int w4a16_matmul(const void* x, const void* q, const void* scales, const void* b
   void* dst = splits > 1 ? partial : out;
   const int dst_bf16 = splits > 1 ? 0 : !out_f32;
   if (biases != nullptr)
-    launch_route<PACKED, true>(xp, q, sp, bp, dst, dst_bf16, M, K, N, block_k, splits, gps, stream);
-  else if constexpr (!PACKED)
-    launch_route<PACKED, false>(xp, q, sp, bp, dst, dst_bf16, M, K, N, block_k, splits, gps, stream);
+    launch_route<L, true>(xp, q, sp, bp, dst, dst_bf16, M, K, N, block_k, splits, gps, stream);
+  else if constexpr (L::kSymmetric)
+    launch_route<L, false>(xp, q, sp, bp, dst, dst_bf16, M, K, N, block_k, splits, gps, stream);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return sum_splits(static_cast<const float*>(partial), out, M, N, splits, out_f32, stream);
@@ -611,20 +566,23 @@ extern "C" int k1_w4a16_matmul(const void* x, const void* qw, const void* scales
                                int N, int splits, int groups_per_split, int out_f32,
                                void* stream_ptr) {
   if (N % 8) return (int)cudaErrorInvalidValue;
-  return w4a16_matmul<false>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
-                             groups_per_split, out_f32, stream_ptr);
+  return wq_matmul<WordTiles<4>>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
+                                  groups_per_split, out_f32, stream_ptr);
 }
 
 // K8.  x (M, K) bf16; qw (K/4, N) int32 of unsigned 8-bit levels (byte j of
 // word [r, n] holds q[4r + j, n]); scales/biases (K/64, N) bf16, biases never
-// null (affine only); partial (splits, M, N) f32 scratch; out (M, N) bf16 or
-// f32.  Returns cudaGetLastError().
+// null (affine only); splits, partial, out as in k1_w4a16_matmul (route A at
+// M = 1, gps <= 64; route B above).  N must be a multiple of 8, every
+// pointer 16-byte aligned.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a plan it does not take).
 extern "C" int k8_w8a16_matmul(const void* x, const void* qw, const void* scales,
                                const void* biases, void* partial, void* out, int M, int K,
                                int N, int splits, int groups_per_split, int out_f32,
                                void* stream_ptr) {
-  return wq_matmul<8>(x, qw, scales, biases, partial, out, M, K, N, splits, groups_per_split,
-                      out_f32, stream_ptr);
+  if (N % 8 || biases == nullptr) return (int)cudaErrorInvalidValue;
+  return wq_matmul<WordTiles<8>>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
+                                 groups_per_split, out_f32, stream_ptr);
 }
 
 // K9 (and K10, on a w[layer] view).  x (M, K) bf16; qp (K, N/2) uint8 in the
@@ -639,6 +597,6 @@ extern "C" int k9_w4a16_packed_matmul(const void* x, const void* qp, const void*
                                       int out_f32, void* stream_ptr) {
   if (N % 512 || block_k % kGroup || block_k < kGroup || K % block_k || biases == nullptr)
     return (int)cudaErrorInvalidValue;
-  return w4a16_matmul<true>(x, qp, scales, biases, partial, out, M, K, N, block_k, splits,
-                            groups_per_split, out_f32, stream_ptr);
+  return wq_matmul<PackedTiles>(x, qp, scales, biases, partial, out, M, K, N, block_k, splits,
+                                groups_per_split, out_f32, stream_ptr);
 }

@@ -1,8 +1,7 @@
 // Shared by the quantized matmuls (quant_matmul.cu: K1, K8, K9;
-// w4a8_matmul.cu: E1): the quantization group, the threads per block (one
-// output column, or column pair, each), and the second pass of the K split,
-// which adds the splits' f32 partial sums in a fixed order (deterministic)
-// and casts to the output type.
+// w4a8_matmul.cu: E1): the quantization group, the threads per block, and
+// the second pass of the K split, which adds the splits' f32 partial sums in
+// a fixed order (deterministic) and casts to the output type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,7 +11,7 @@
 namespace {
 
 constexpr int kGroup = 64;     // quantization group along K
-constexpr int kThreads = 128;  // threads per block of the partial kernels
+constexpr int kThreads = 128;  // threads per block of every quantized matmul
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);

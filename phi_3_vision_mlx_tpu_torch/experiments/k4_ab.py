@@ -1,23 +1,25 @@
 """Time kernels of several source trees of this repository in turns, on one
 card, each tree in its own process built from its own ``csrc/``.
 
-    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,K2,K3,K4,K5,K6,K7,K9] TREE [TREE ...]
+    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,K2,K3,K4,K5,K6,K7,K8,K9] TREE [TREE ...]
 
 Give the trees in the order to run them (parent, change, change, parent) so
 that drift on the card shows.  Each run times every case of the chosen
-kernels (all eight by default) at chip_smoke.py's shapes:
+kernels (all nine by default) at chip_smoke.py's shapes:
 
 * K1 (W4A16) at qkv (K = 3072, N = 9216) with M = 1 and 192, and at lm_head
-  (N = 32064) with M = 1; K9 (the packed layout) at qkv with M = 1 and 192;
-  weights rotated past the 50 MB L2, as decode reads them;
+  (N = 32064) with M = 1; K8 (W8A16, (K/4, N) words) at qkv with M = 1 and
+  192 and at down (K = 8192, N = 3072) with M = 1; K9 (the packed layout) at
+  qkv with M = 1 and 192; weights rotated past the 50 MB L2, as decode reads
+  them;
 * K2 (flash attention, dense): lq = 1024 over 1152 keys (24 left-pad rows)
   and lq = 4224 over 4352 keys (the 4207-token prompt's bucket);
 * K3 (decode, dense cache) and K4 (decode, int4 cache): Lq = 1 at the end
   of a 640- and a 4224-key window, 8 stacked layers rotated past the L2;
 * K5 (flash attention, int4 cache): lq = 1024 over 1152 keys and lq = 4224
   over 4352 keys, as K2;
-* K6 (paged, dense pool) at Lq = 1 and K7 (paged, int4 pool) at Lq = 1, 4
-  and 16: the continuous server's shapes (4 slots at offsets 100, 400, 700
+* K6 (paged, dense pool) and K7 (paged, int4 pool) at Lq = 1, 4 and 16:
+  the continuous server's shapes (4 slots at offsets 100, 400, 700
   and 1000, a window of 16 pages of 64, a pool of 64 pages and the spare),
   4 (K6) or 8 (K7) stacked layers rotated past the L2;
 
@@ -39,7 +41,7 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 
 _RUN = r'''
 import json, math, random, sys, torch
@@ -133,31 +135,38 @@ for lmax in (640, 4224):
                                                                   next(turn) % nl, scale), 200)
 
 
-def w4_weights(k, n, packed):
-    """Enough (payload, scales, biases) copies of one (K, N) to exceed the L2."""
-    copies = max(1, math.ceil(150e6 / (k * n // 2 + 4 * (k // 64) * n)))
+def w_weights(k, n, layout):
+    """Enough (payload, scales, biases) copies of one (K, N) to exceed the L2:
+    ``layout`` "words4" (K/8, N) or "words8" (K/4, N) int32, "packed" (K,
+    N/2) uint8."""
+    per_weight = 1.0 if layout == "words8" else 0.5
+    copies = max(1, math.ceil(150e6 / (k * n * per_weight + 4 * (k // 64) * n)))
     s = lambda: (0.004 * (1 + 0.1 * torch.randn((k // 64, n), generator=g, device="cuda"))).to(torch.bfloat16)
     b = lambda: torch.full((k // 64, n), -0.03, dtype=torch.bfloat16, device="cuda")
-    q = ((lambda: torch.randint(0, 256, (k, n // 2), dtype=torch.uint8, generator=g, device="cuda")) if packed
-         else (lambda: torch.randint(-(2**31), 2**31, (k // 8, n), dtype=torch.int32, generator=g, device="cuda")))
+    if layout == "packed":
+        q = lambda: torch.randint(0, 256, (k, n // 2), dtype=torch.uint8, generator=g, device="cuda")
+    else:
+        rows = k // (8 if layout == "words4" else 4)
+        q = lambda: torch.randint(-(2**31), 2**31, (rows, n), dtype=torch.int32, generator=g, device="cuda")
     return [(q(), s(), b()) for _ in range(copies)]
 
 
-def w4_case(name, fn, ws, m, k):
+def matmul_case(name, fn, ws, m, k):
     x = bf16(torch.randn((m, k), generator=g, device="cuda"))
     turn = iter(range(10**9))
     cases[name] = (lambda: fn(x, *ws[next(turn) % len(ws)]), 200)
 
 
-W4 = {"K1": (QM.quant_matmul, False, ((3072, 9216, (1, 192)), (3072, 32064, (1,)))),
-      "K9": (QM.quant_matmul_packed, True, ((3072, 9216, (1, 192)),))}
-for name, (fn, packed, shapes) in W4.items():
+MATMULS = {"K1": (QM.quant_matmul, "words4", ((3072, 9216, (1, 192)), (3072, 32064, (1,)))),
+           "K8": (QM.quant_matmul_w8, "words8", ((3072, 9216, (1, 192)), (8192, 3072, (1,)))),
+           "K9": (QM.quant_matmul_packed, "packed", ((3072, 9216, (1, 192)),))}
+for name, (fn, layout, shapes) in MATMULS.items():
     if name not in kernels:
         continue
     for k, n, ms in shapes:
-        ws = w4_weights(k, n, packed)
+        ws = w_weights(k, n, layout)
         for m in ms:
-            w4_case(f"{name} K={k} N={n} M={m}", fn, ws, m, k)
+            matmul_case(f"{name} K={k} N={n} M={m}", fn, ws, m, k)
 if "K5" in kernels:
     for lq, lk, pad, iters in ((1024, 1152, 24, 100), (4224, 4352, 17, 10)):
         q, valid = qrow(lq), flash_window(lq, lk, pad)
@@ -181,9 +190,10 @@ if "K6" in kernels or "K7" in kernels:
     shape = lambda nl: (nl, pool + 1, h, page, d)
     if "K6" in kernels:
         pk, pv = (bf16(torch.randn(shape(4), generator=g, device="cuda")) for _ in range(2))
-        turn = iter(range(10**9))
-        cases["K6 Lq=1"] = (lambda q=srow(1), pk=pk, pv=pv, turn=turn: KV.paged_kv_attention(
-            q, pk, pv, tables, pvalid, offsets, next(turn) % 4, scale), 200)
+        for lq in (1, 4, 16):
+            turn = iter(range(10**9))
+            cases[f"K6 Lq={lq}"] = (lambda q=srow(lq), turn=turn: KV.paged_kv_attention(
+                q, pk, pv, tables, pvalid, offsets, next(turn) % 4, scale), 200)
     if "K7" in kernels:
         kk = torch.randn(shape(8), generator=g, device="cuda") + 0.5
         vv = torch.randn(shape(8), generator=g, device="cuda") - 0.3

@@ -30,14 +30,14 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
   (``k5_quantized_flash_attention``).
 * K6 :func:`paged_kv_attention` — decode (Lq <= 16) of every slot of the
   paged engine through its page table over the dense page pool
-  ``(layers, P + 1, KV, page, D)`` (``engine/paging.py``).  Replaces
-  ``kv_attention.py:paged_kv_attention``; CUDA source
-  ``csrc/paged_kv_attention.cu`` (``k6_paged_kv_attention``).
+  ``(layers, P + 1, KV, page, D)`` (``engine/paging.py``), on K3's split
+  design: runs of ``PAGED_RUN_KEYS`` keys (:func:`paged_split_plan`), one
+  block per (run, head, slot) for all of a slot's query rows, merged by a
+  second kernel.  Replaces ``kv_attention.py:paged_kv_attention``; CUDA
+  source ``csrc/paged_kv_attention.cu`` (``k6_paged_kv_attention``).
 * K7 :func:`paged_quantized_kv_attention` — K6 over the int4 page pool
-  (payload ``(layers, P + 1, KV, page, D)`` uint8, scales ``(..., 4G)``),
-  on K3's split design: runs of ``PAGED_RUN_KEYS`` keys
-  (:func:`paged_split_plan`), one block per (run, head, slot) for all of a
-  slot's query rows, merged by a second kernel.  Replaces
+  (payload ``(layers, P + 1, KV, page, D)`` uint8, scales ``(..., 4G)``):
+  the same kernels behind another loader.  Replaces
   ``kv_attention.py:paged_quantized_kv_attention``; same source
   (``k7_paged_quantized_kv_attention``).
 
@@ -74,9 +74,8 @@ KV_GROUP = 32  # the kernels' quantization group along D
 K3_SPLIT_KEYS = 64
 K3_MAX_ROWS = 16  # K3: query rows per (batch, head), the decode chunk's limit
 K4_SPLIT_KEYS = 256  # K4: keys per block; longer windows split across blocks
-K6_SPLIT_KEYS = 256  # K6: the same
-# K7: keys per run of the split window (the kernel's kRunKeys): one page at
-# the served page of 64, so a run reads one contiguous block of the pool.
+# K6/K7: keys per run of the split window (the kernel's kRunKeys): one page
+# at the served page of 64, so a run reads one contiguous block of the pool.
 PAGED_RUN_KEYS = 64
 MAX_PAGED_ROWS = 16  # K6/K7: queries per slot (decode and, later, speculation)
 
@@ -369,7 +368,7 @@ def check_paged_inputs(q, pool_a, pool_b, page_tables, valid, offsets, layer_idx
 
 
 def paged_split_plan(window: int) -> tuple[int, int]:
-    """K7's split of a slot's window of ``window`` keys: ``(n_split,
+    """K6's and K7's split of a slot's window of ``window`` keys: ``(n_split,
     split_keys)``.  Run ``r`` covers keys ``[r * split_keys, min((r + 1) *
     split_keys, window))``: every key of the window in exactly one run.  The
     plan depends on the window only, never on the offsets, which stay on the
@@ -384,8 +383,7 @@ def _paged_launch(entry: str, q, pool_a, pool_b, page_tables, valid, offsets, la
     _, p1, kvh, page, _ = pool_a.shape
     mp = page_tables.shape[1]
     out = head_major_empty(q)
-    # Per run: (max score, sum of exp, unnormalized output) of each query row
-    # (K6 leaves it unread with one run).
+    # Per run: (max score, sum of exp, unnormalized output) of each query row.
     partial = torch.empty((n_split, s * h * lq, d + 2), dtype=torch.float32, device=q.device)
     lib, _ = _build.library()
     err = getattr(lib, entry)(
@@ -412,9 +410,11 @@ def paged_kv_attention(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx
                        "paged_kv_attention")
     if pool_k.dtype != torch.bfloat16 or pool_v.dtype != torch.bfloat16:
         raise TypeError(f"paged_kv_attention kernel takes a bf16 pool, got {pool_k.dtype}")
-    window = page_tables.shape[1] * pool_k.shape[3]
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError("paged_kv_attention: the pools must be 16-byte aligned")
+    n_split, split_keys = paged_split_plan(page_tables.shape[1] * pool_k.shape[3])
     out = _paged_launch("k6_paged_kv_attention", q, pool_k, pool_v, page_tables, valid, offsets,
-                        layer_idx, scale, -(-window // K6_SPLIT_KEYS), K6_SPLIT_KEYS)
+                        layer_idx, scale, n_split, split_keys)
     _build.count_launch(paged_kv_attention)
     return out
 

@@ -8,10 +8,10 @@ All are one CUDA source, ``csrc/quant_matmul.cu``.  A stacked weight's layer
 is a zero-copy ``w[layer]`` view, so one wrapper covers both variants of a
 layout.
 
-K1 and K9 run on the tensor cores (route B); K1 at one row (decode) runs
-a GEMV on the CUDA cores instead (route A, :func:`route`), the crossover
+All three run on the tensor cores (route B); K1 and K8 at one row (decode)
+run a GEMV on the CUDA cores instead (route A, :func:`route`), the crossover
 measured on the H100 (PERF.md section 6).  :func:`plan` sizes the K split of
-each; K8 keeps its own (``_splits``).
+each on its route.
 
 K8 computes the function the JAX package means, the XLA path
 (``ops/quant.py:quantized_matmul``) on unsigned 8-bit levels 0..255; the TPU
@@ -37,8 +37,6 @@ from ..quant import QTensor, dequantize
 from . import _build
 
 GROUP = 64
-_TARGET_BLOCKS = 528  # four waves of blocks over the H100's 132 SMs
-_THREADS = 128  # K8: output columns per block (csrc/quant_matmul.cu kThreads)
 
 _A_TARGET_BLOCKS = 1056  # route A: eight blocks per SM
 _A_COLUMNS = 128  # route A: output columns per block, 32 lanes x 4
@@ -67,32 +65,21 @@ def quant_matmul_w8_plain(x, qweight, scales, biases, out_dtype=None):
     return _plain(unpack_int8, x, qweight, scales, biases, out_dtype)
 
 
-def _splits(m: int, k: int, n: int) -> tuple[int, int]:
-    """K8's (and E1's) K splits, so the grid holds about ``_TARGET_BLOCKS``
-    blocks of ``_THREADS`` columns."""
-    groups = k // GROUP
-    bm = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
-    base = -(-n // _THREADS) * -(-m // bm)
-    want = max(1, min(groups, -(-_TARGET_BLOCKS // base)))
-    per = -(-groups // want)
-    return -(-groups // per), per
-
-
 def route(m: int, layout: str) -> str:
-    """The route of K1 (``layout="k1"``) or K9 (``"k9"``) for ``m`` rows, as
-    ``csrc/quant_matmul.cu:launch_route`` takes it: ``"a"`` (the CUDA-core
-    GEMV) for K1 at one row, else ``"b"`` (tensor cores).  On the H100 route
-    A lost to route B from two rows on, and a GEMV over K9's packed rows at
-    every M."""
-    return "a" if layout == "k1" and m == 1 else "b"
+    """The route of K1 (``layout="k1"``), K8 (``"k8"``) or K9 (``"k9"``) for
+    ``m`` rows, as ``csrc/quant_matmul.cu:launch_route`` takes it: ``"a"``
+    (the CUDA-core GEMV) for K1 and K8 at one row, else ``"b"`` (tensor
+    cores).  On the H100 route A lost to route B from two rows on, and a
+    GEMV over K9's packed rows at every M."""
+    return "a" if layout in ("k1", "k8") and m == 1 else "b"
 
 
 @functools.lru_cache(maxsize=256)
 def plan(m: int, k: int, n: int, layout: str) -> tuple[int, int]:
-    """(splits, groups per split) of K1 (``layout="k1"``) or K9 (``"k9"``) on
-    its :func:`route`: enough blocks to fill the card; on route A, each
-    split's groups a multiple of the block's warps and its staged x within
-    16 KB."""
+    """(splits, groups per split) of K1 (``layout="k1"``), K8 (``"k8"``) or
+    K9 (``"k9"``) on its :func:`route`: enough blocks to fill the card; on
+    route A, each split's groups a multiple of the block's warps and its
+    staged x within 16 KB."""
     groups = k // GROUP
     if route(m, layout) == "a":
         per = -(-groups // max(1, -(-_A_TARGET_BLOCKS // -(-n // _A_COLUMNS))))
@@ -145,13 +132,14 @@ def _check_aligned(name, *tensors):
         raise ValueError(f"{name} kernel needs 16-byte aligned x, payload, scales and biases")
 
 
-def _launch(wrapper, entry, x, payload, scales, biases, out_dtype, n, splits, per, scratch, *extra):
-    """Launch the C entry ``entry`` with the K split (``splits``, ``per``),
-    f32 partial sums in a scratch tensor if ``scratch``, and count the
-    launch on ``wrapper``."""
+def _launch(wrapper, entry, layout, x, payload, scales, biases, out_dtype, n, *extra):
+    """Launch the C entry ``entry`` on :func:`plan`'s K split for ``layout``,
+    f32 partial sums in a scratch tensor only for more than one split (one
+    split writes the output itself), and count the launch on ``wrapper``."""
     m, k = x.shape
+    splits, per = plan(m, k, n, layout)
     lib, _ = _build.library()
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if scratch else None
+    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     err = getattr(lib, entry)(
         x.data_ptr(), payload.data_ptr(), scales.data_ptr(),
@@ -162,14 +150,6 @@ def _launch(wrapper, entry, x, payload, scales, biases, out_dtype, n, splits, pe
     _build.check(err, entry)
     _build.count_launch(wrapper)
     return out
-
-
-def _launch_w4(wrapper, entry, layout, x, payload, scales, biases, out_dtype, n, *extra):
-    """K1's or K9's launch: :func:`plan`'s K split, scratch only for more
-    than one split (one split writes the output itself)."""
-    splits, per = plan(x.shape[0], x.shape[1], n, layout)
-    return _launch(wrapper, entry, x, payload, scales, biases, out_dtype, n, splits, per, splits > 1,
-                   *extra)
 
 
 def quant_matmul(
@@ -191,7 +171,7 @@ def quant_matmul(
     if n % 8:
         raise ValueError(f"{name} kernel needs N a multiple of 8, got {n}")
     _check_aligned(name, x, qweight, scales, biases)
-    return _launch_w4(quant_matmul, "k1_w4a16_matmul", "k1", x, qweight, scales, biases, out_dtype, n)
+    return _launch(quant_matmul, "k1_w4a16_matmul", "k1", x, qweight, scales, biases, out_dtype, n)
 
 
 def quant_matmul_w8(
@@ -213,9 +193,10 @@ def quant_matmul_w8(
     if x.device.type == "cpu":
         return quant_matmul_w8_plain(x, qweight, scales, biases, out_dtype)
     _check_cuda(name, x, qweight, torch.int32, scales, biases, out_dtype, n)
-    splits, per = _splits(*x.shape, n)
-    return _launch(quant_matmul_w8, "k8_w8a16_matmul", x, qweight, scales, biases, out_dtype, n, splits, per,
-                   True)
+    if n % 8:
+        raise ValueError(f"{name} kernel needs N a multiple of 8, got {n}")
+    _check_aligned(name, x, qweight, scales, biases)
+    return _launch(quant_matmul_w8, "k8_w8a16_matmul", "k8", x, qweight, scales, biases, out_dtype, n)
 
 
 def quant_matmul_packed_plain(x, weight, scales, biases, out_dtype=None):
@@ -249,8 +230,8 @@ def quant_matmul_packed(
     if not packable(k, n, GROUP):
         raise ValueError(f"{name}: K={k}, N={n} do not fit the packed layout's blocks")
     _check_aligned(name, x, weight, scales, biases)
-    return _launch_w4(quant_matmul_packed, "k9_w4a16_packed_matmul", "k9", x, weight, scales, biases,
-                      out_dtype, n, packed_block_k(k))
+    return _launch(quant_matmul_packed, "k9_w4a16_packed_matmul", "k9", x, weight, scales, biases,
+                   out_dtype, n, packed_block_k(k))
 
 
 quant_matmul.launches = 0

@@ -26,7 +26,21 @@ import torch
 from ...core.weights import WORD, unpack_int4
 from ..quant import SYMMETRIC_MID
 from . import _build
-from .quant_matmul import GROUP, _splits
+from .quant_matmul import GROUP
+
+_TARGET_BLOCKS = 528  # four waves of blocks over the H100's 132 SMs
+_THREADS = 128  # output columns per block (csrc/quant_matmul.cuh kThreads)
+
+
+def _splits(m: int, k: int, n: int) -> tuple[int, int]:
+    """E1's K splits, so the grid holds about ``_TARGET_BLOCKS`` blocks of
+    ``_THREADS`` columns and up to 8 rows (``csrc/w4a8_matmul.cu``'s BM)."""
+    groups = k // GROUP
+    bm = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+    base = -(-n // _THREADS) * -(-m // bm)
+    want = max(1, min(groups, -(-_TARGET_BLOCKS // base)))
+    per = -(-groups // want)
+    return -(-groups // per), per
 
 
 def quantize_activations(x: torch.Tensor):

@@ -9,8 +9,9 @@ their plain versions on CPU tensors.  Each case covers ragged offsets across
 slots, table tails at the sentinel, a partly filled last page and a
 left-padded, holed validity row whose bits past the offset are random (the
 fresh-region rule must ignore them); Lq = 1 is a decode step and Lq = 4 the
-fresh region of several queries.  A plain-PyTorch model of the card's K7
-(its split plan, runs and merge) is held to the plain version at the end.
+fresh region of several queries.  A plain-PyTorch model of the card's K6
+and K7 (their split plan, runs and merge) is held to the plain versions at
+the end.
 """
 
 import numpy as np
@@ -179,31 +180,30 @@ def test_wrappers_raise_without_a_kernel():
         TK.paged_quantized_kv_attention(q, pool, pool, *args)
 
 
-# --- K7 on the card: runs of the split plan, all of a slot's rows in one
-# block, merged up to each row's last visible key (csrc/paged_kv_attention.cu),
-# modelled in plain PyTorch.  chip_smoke.py holds the kernel to its plain
-# version there.
+# --- K6 and K7 on the card: runs of the split plan, all of a slot's rows in
+# one block, merged up to each row's last visible key
+# (csrc/paged_kv_attention.cu), modelled in plain PyTorch.  chip_smoke.py
+# holds the kernels to their plain versions there.
 
 
-def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale):
-    """K7 as the card computes it.  Each run of ``paged_split_plan`` gives
-    every row of a slot its (max, sum, unnormalized output) over the keys
-    the row sees in the run — max NEG_INF and sum 0 where it sees none; the
-    output's weights enter as bf16 hi + lo (hi = bf16(p), lo = bf16(p -
-    hi)), the sum as f32 p; a run at or past the slot's ``min(W, offset +
-    Lq)`` is empty.  A row's
-    merge reads its runs up to its last visible key ``offset + i`` and weighs
-    them by exp(max - their max); a row that sees no key gets the uniform
-    average of every value of its window.  Each key's row comes from the
-    table, clamped into the pool.  Returns (out, live runs per (slot, row))."""
-    from phi_3_vision_mlx_tpu_torch.engine.state import dequantize_kv
+def _paged_split_model(q, k, v, tables, valid, offsets, scale):
+    """K6 and K7 as the card computes them, over one layer's pool of keys
+    and values ``(P1, KV, page, D)`` (K7's dequantized).  Each run of
+    ``paged_split_plan`` gives every row of a slot its (max, sum,
+    unnormalized output) over the keys the row sees in the run — max NEG_INF
+    and sum 0 where it sees none; the output's weights enter as bf16 hi + lo
+    (hi = bf16(p), lo = bf16(p - hi)), the sum as f32 p; a run at or past the
+    slot's ``min(W, offset + Lq)`` is empty.  A row's merge reads its runs up
+    to its last visible key ``offset + i`` and weighs them by exp(max - their
+    max); a row that sees no key gets the uniform average of every value of
+    its window.  Each key's row comes from the table, clamped into the pool.
+    Returns (out, live runs per (slot, row))."""
     from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
 
     s_, h, lq, d = q.shape
-    p1, kvh, page = payload.shape[1:4]
+    p1, kvh, page = k.shape[:3]
     w = tables.shape[1] * page
     n_split, split = TK.paged_split_plan(w)
-    k, v = dequantize_kv(payload[layer], scales[layer], q.dtype)  # (P1, KV, page, D)
     qs = (q * scale).float()
     out = torch.empty((s_, h, lq, d))
     live = torch.empty((s_, lq), dtype=torch.long)
@@ -230,6 +230,15 @@ def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale):
             o = sum(a * acc[:, i] for a, acc in zip(wt, accs)) / sum(a * l_[:, i] for a, l_ in zip(wt, ls))
             out[s, :, i] = torch.where(m_all > NEG_INF, o, vs.mean(dim=1))
     return out, live
+
+
+def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale):
+    """K7: the int4 pool's layer dequantized once (``Int4Run``'s tiles),
+    then the runs and merge of :func:`_paged_split_model`."""
+    from phi_3_vision_mlx_tpu_torch.engine.state import dequantize_kv
+
+    k, v = dequantize_kv(payload[layer], scales[layer], q.dtype)  # (P1, KV, page, D)
+    return _paged_split_model(q, k, v, tables, valid, offsets, scale)
 
 
 # (spare pages withheld from the table, offsets): slot 0 past its window
@@ -296,3 +305,41 @@ def test_paged_split_plan_covers_each_visible_key_once(window):
             kend = min(window, off + lq)
             runs = {j // split for j in range(kend)}
             assert runs == set(range(min(n_split, (min(window - 1, off + lq - 1)) // split + 1)))
+
+
+@pytest.mark.parametrize("lq", [1, 4, 16])
+def test_k6_split_model_matches_plain(lq):
+    """K6's runs over the dense pool (``DenseRun`` copies the bf16 rows as
+    they are) and merge equal paged_kv_attention_plain (f32) at K7's edges:
+    ragged offsets, a row that sees no key, fresh keys only, rows across a
+    run boundary and table entries at the spare page; and table entries
+    outside [0, P], which the kernel clamps into the pool, equal the plain
+    version over the clamped table."""
+    rng = np.random.default_rng(10 + lq)
+    d, h, kvh, page, mp = 96, 4, 2, 16, 10  # a window of 160: runs of 64, 64 and 32 keys
+    s_, w = len(K7_OFFSETS), mp * page
+    n_pages = 24
+    tables = np.full((s_, mp), n_pages, np.int32)  # the spare page
+    ids = iter(rng.permutation(n_pages))
+    for i, off in enumerate(K7_OFFSETS):
+        need = min(mp, -(-(off + lq) // page)) - (i == 3)  # slot 3: its last page left at the spare
+        tables[i, :need] = [next(ids) for _ in range(need)]
+    bad = tables.copy()
+    bad[3, 0], bad[2, 1], bad[1, 0] = n_pages + 9, -4, -1  # all inside the slots' visible keys
+    valid = torch.from_numpy(rng.random((s_, w)) > 0.15)
+    valid[:, :3] = False  # left padding
+    valid[0] = False
+    pool = [torch.from_numpy((rng.standard_normal((2, n_pages + 1, kvh, page, d)) * a + c).astype(np.float32))
+            for a, c in ((1.5, 0.7), (1.0, -0.4))]
+    q = torch.from_numpy(rng.standard_normal((s_, h, lq, d)).astype(np.float32))
+    offsets = torch.tensor(K7_OFFSETS, dtype=torch.int32)
+    out, live = _paged_split_model(q, pool[0][1], pool[1][1], torch.from_numpy(bad), valid, offsets, d**-0.5)
+    clamped = torch.from_numpy(bad).clamp(0, n_pages)
+    ref = TK.paged_kv_attention_plain(q, *pool, clamped, valid, offsets, 1, d**-0.5)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    assert not torch.equal(clamped, torch.from_numpy(tables))  # the clamp changed what is read
+    same, _ = _paged_split_model(q, pool[0][1], pool[1][1], clamped, valid, offsets, d**-0.5)
+    assert torch.equal(out, same)
+    assert not TK.paged_visible(valid, offsets, lq)[0, 0].any()  # slot 0 sees no key
+    if lq == 16:
+        assert live[2].tolist() == [1, 1] + [2] * 14

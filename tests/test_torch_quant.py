@@ -189,16 +189,18 @@ def test_k1_wrapper_has_no_silent_fallback():
 
 
 def test_k1_split_plan_covers_every_group():
-    """Every split plan (K8's ``_splits``; K1's and K9's ``plan`` on their
-    route) covers each group once, with no empty split; route A's staged x
-    fits its 16 KB, its four warps get equal shares where the groups allow,
-    and its second pass adds at most 32 partial sums."""
+    """Every split plan (E1's ``_splits``; K1's, K8's and K9's ``plan`` on
+    their route) covers each group once, with no empty split; route A's
+    staged x fits its 16 KB, its four warps get equal shares where the groups
+    allow, and its second pass adds at most 32 partial sums."""
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as TE1
+
     cases = [(1, 3072, 9216), (1, 8192, 3072), (2, 8192, 3072), (64, 3072, 32064), (256, 3072, 3072),
-             (1, 64, 5), (1, 3072, 32064)]
+             (1, 64, 5), (1, 3072, 32064), (192, 3072, 9216), (17, 8192, 3072)]
     for m, k, n in cases:
         groups = k // GROUP
-        plans = [TK._splits(m, k, n)]
-        for layout in ("k1", "k9"):
+        plans = [TE1._splits(m, k, n)]
+        for layout in ("k1", "k8", "k9"):
             splits, per = TK.plan(m, k, n, layout)
             plans.append((splits, per))
             if TK.route(m, layout) == "a":
@@ -283,11 +285,13 @@ def _byte(v, e):
     return (v >> (8 * e)) & 0xFF
 
 
-def _k1_route_a_model(x, qw, s, b):
-    """K1's route A (one row): lane l of block x owns the columns 4 (32 x +
-    l) .. + 3;
-    a split's four warps take its groups g0 + w, g0 + w + 4, ...; in a group,
-    byte e of word row r gives rows 8 r + 2 e (lo) and 8 r + 2 e + 1 (hi);
+def _route_a_model(x, qw, s, b, layout="k1"):
+    """Route A (one row) of K1 (``layout="k1"``, (K/8, N) words) or K8
+    (``"k8"``, (K/4, N) words): lane l of block x owns the columns 4 (32 x +
+    l) .. + 3; a split's four warps take its groups g0 + w, g0 + w + 4, ...;
+    4 bits: byte e of word row r gives rows 8 r + 2 e (lo) and 8 r + 2 e + 1
+    (hi); 8 bits: a group is two units of eight word rows (the second reusing
+    the first's scales and biases), byte e of word row r giving row 4 r + e;
     the warps' f32 sums are added in order, then the splits'.  Returns (out,
     the W it multiplied, how many lanes own each column)."""
     m, k = x.shape
@@ -295,8 +299,8 @@ def _k1_route_a_model(x, qw, s, b):
     owners = torch.zeros(-(-n // 128) * 128, dtype=torch.int64)
     lanes = torch.arange(owners.numel() // 4)
     owners.index_add_(0, (4 * lanes[:, None] + torch.arange(4)).flatten(), torch.ones(owners.numel(), dtype=torch.int64))
-    assert TK.route(m, "k1") == "a"
-    splits, per = TK.plan(m, k, n, "k1")
+    assert TK.route(m, layout) == "a"
+    splits, per = TK.plan(m, k, n, layout)
     xf, w_used, out = x.float(), torch.zeros((k, n), dtype=torch.bfloat16), torch.zeros((m, n))
     for sp in range(splits):
         g0, g1 = sp * per, min(k // GROUP, (sp + 1) * per)
@@ -304,12 +308,19 @@ def _k1_route_a_model(x, qw, s, b):
         for warp in range(4):
             acc = torch.zeros((m, n))
             for g in range(g0 + warp, g1, 4):
-                lo, hi = _lo_hi(qw[g * 8:(g + 1) * 8], 0x0F0F0F0F)  # (word row r, n)
-                lv = torch.stack([torch.stack([_byte(lo, e), _byte(hi, e)], 1) for e in range(4)], 1)
-                lv = lv.reshape(64, n)  # row 8 r + 2 e + (0 lo, 1 hi)
-                w_g = _weight(_level(lv, b is not None), s[g], None if b is None else b[g])
-                w_used[g * 64:(g + 1) * 64] = w_g
-                acc = acc + xf[:, g * 64:(g + 1) * 64] @ w_g.float()
+                if layout == "k1":
+                    lo, hi = _lo_hi(qw[g * 8:(g + 1) * 8], 0x0F0F0F0F)  # (word row r, n)
+                    lv = torch.stack([torch.stack([_byte(lo, e), _byte(hi, e)], 1) for e in range(4)], 1)
+                    units = [(0, lv.reshape(64, n))]  # row 8 r + 2 e + (0 lo, 1 hi)
+                else:
+                    words = qw[g * 16:(g + 1) * 16].to(torch.int64) & 0xFFFFFFFF
+                    units = [(32 * h, torch.stack([_byte(words[8 * h:8 * h + 8], e) for e in range(4)], 1).reshape(32, n))
+                             for h in range(2)]  # row 4 r + e of the half
+                for r0, lv in units:
+                    w_u = _weight(_level(lv, b is not None), s[g], None if b is None else b[g])
+                    rows = slice(g * 64 + r0, g * 64 + r0 + lv.shape[0])
+                    w_used[rows] = w_u
+                    acc = acc + xf[:, rows] @ w_u.float()
             total = total + acc
         out = out + total
     return out, w_used, owners[:n]
@@ -327,8 +338,9 @@ _A_KSLOT = (16 * torch.arange(4)[None, :, None] + 4 * torch.arange(4)[:, None, N
 
 
 def _route_b_model(x, layout, payload, s, b, w_ref):
-    """Route B as the card computes it, for K1's words (``layout="k1"``) or
-    K9's packed bytes (``"k9"``): 128-column tiles, the plan's K splits; per
+    """Route B as the card computes it, for K1's words (``layout="k1"``),
+    K8's (``"k8"``) or K9's packed bytes (``"k9"``): 128-column tiles, the
+    plan's K splits; per
     group, the staged scales, each thread's B fragments (levels picked by
     byte as the kernel's loaders do), held bit for bit to ``w_ref`` (the
     plain dequantized W); the mma's k slots fed from x in the same order;
@@ -342,7 +354,7 @@ def _route_b_model(x, layout, payload, s, b, w_ref):
     xf = x.float()
     out = torch.zeros((splits, m, n))
     for tile in range(-(-n // 128)):
-        if layout == "k1":
+        if layout != "k9":
             col_of = tile * 128 + 32 * _WARP + 4 * _GID + _J  # WordTiles
             scale_cols = tile * 128 + torch.arange(128)
             idx = 32 * _WARP + 4 * _GID + _J
@@ -364,6 +376,9 @@ def _route_b_model(x, layout, payload, s, b, w_ref):
                 word = torch.where(valid, payload[gx * 8 + 2 * _T + _S // 2, col_c], 0)
                 lo, hi = _lo_hi(word, 0x0F0F0F0F)
                 lv = _byte(torch.where(_E % 2 == 0, lo, hi), 2 * (_S % 2) + _E // 2)
+            elif layout == "k8":  # word row 4 t + s, byte e: row 16 t + 4 s + e
+                word = torch.where(valid, payload[gx * 16 + 4 * _T + _S, col_c], 0).to(torch.int64) & 0xFFFFFFFF
+                lv = _byte(word, _E)
             else:
                 gk = min(512, k) // GROUP
                 row = (gx // gk) * min(512, k) + _KSLOT * gk + gx % gk
@@ -384,7 +399,7 @@ def _route_b_model(x, layout, payload, s, b, w_ref):
                 for t in range(4):
                     for which in range(2):
                         for i in range(4):
-                            if layout == "k1":
+                            if layout != "k9":
                                 j, cc = i, which
                                 col = tile * 128 + 32 * warp + 8 * t + 4 * which + i
                             else:
@@ -431,7 +446,7 @@ def test_k1_route_a_model_matches_plain(shape, mode):
     q, s, b = _levels_and_planes(m + 10 * len(shape), k, n, mode)
     x = _bf16_x(m, m, k)
     qw = TW.pack_int4(q)
-    out, w_used, owners = _k1_route_a_model(x, qw, s, b)
+    out, w_used, owners = _route_a_model(x, qw, s, b)
     assert (owners == 1).all()
     w_ref = TQ.dequantize(TQ.QTensor(q, s, b), dtype=torch.bfloat16)
     assert torch.equal(w_used.view(torch.int16), w_ref.view(torch.int16))
@@ -460,11 +475,86 @@ def test_k1_route_b_model_matches_plain(shape, mode, m):
 
 
 def test_route_pick_and_its_limits():
-    """The route: K1's route A (the GEMV) at one row only, route B from two
-    rows on and for K9 at every M; the wrappers leave the choice to M (no
-    argument forces a route)."""
-    assert TK.route(1, "k1") == "a"
-    assert all(TK.route(m, "k1") == "b" for m in range(2, 257))
+    """The route: K1's and K8's route A (the GEMV) at one row only, route B
+    from two rows on and for K9 at every M; K1 and K8 share a plan at every
+    M; the wrappers leave the choice to M (no argument forces a route)."""
+    for layout in ("k1", "k8"):
+        assert TK.route(1, layout) == "a"
+        assert all(TK.route(m, layout) == "b" for m in range(2, 257))
     assert all(TK.route(m, "k9") == "b" for m in range(1, 257))
-    for fn in (TK.quant_matmul, TK.quant_matmul_packed):
+    assert all(TK.plan(m, k, n, "k8") == TK.plan(m, k, n, "k1")
+               for m in (1, 2, 17, 192) for k, n in ((3072, 9216), (8192, 3072), (3072, 32064)))
+    for fn in (TK.quant_matmul, TK.quant_matmul_w8, TK.quant_matmul_packed):
         assert "route" not in inspect.signature(fn).parameters
+
+
+# --- K8 on both routes (csrc/quant_matmul.cu: route A's 8-bit units, route
+# B's WordTiles<8>), modelled as K1's above -------------------------------
+
+
+def _k8_weights(seed, k, n):
+    """Random 8-bit levels over 0..255 and the synthetic 8-bit weights'
+    scales (the 4-bit step cut by 15/255) and biases, drawn per column."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(0, 256, (k, n), dtype=np.uint8))
+    s = torch.from_numpy(0.004 * 15 / 255 * (1 + 0.1 * rng.standard_normal((k // GROUP, n)))).to(torch.bfloat16)
+    b = torch.from_numpy(-0.03 + 0.001 * rng.standard_normal((k // GROUP, n))).to(torch.bfloat16)
+    return q, s, b
+
+
+@pytest.mark.parametrize("shape", list(K1_MODEL_SHAPES))
+def test_k8_route_a_model_matches_plain(shape):
+    """K8's route A (M = 1): every column owned by exactly one lane, every
+    weight of both half-group units equal bit for bit to ``dequantize`` over
+    levels 0..255, and the split plan's sums equal to the plain version's in
+    f32, at a ragged N and at 128 groups."""
+    k, n = K1_MODEL_SHAPES[shape]
+    q, s, b = _k8_weights(len(shape), k, n)
+    assert int(q.min()) == 0 and int(q.max()) == 255
+    x = _bf16_x(1, 1, k)
+    qw = TW.pack_int8(q)
+    out, w_used, owners = _route_a_model(x, qw, s, b, layout="k8")
+    assert (owners == 1).all()
+    w_ref = TQ.dequantize(TQ.QTensor(q, s, b), dtype=torch.bfloat16)
+    assert torch.equal(w_used.view(torch.int16), w_ref.view(torch.int16))
+    ref = TK.quant_matmul_w8_plain(x, qw, s, b, torch.float32)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("m", [2, 4, 15, 17, 70, 256])
+@pytest.mark.parametrize("shape", list(K1_MODEL_SHAPES))
+def test_k8_route_b_model_matches_plain(shape, m):
+    """K8's route B: each thread's B fragments, byte e of word row 4 t + s
+    for k-step s, are ``dequantize``'s bf16 W bit for bit over levels 0..255
+    (checked inside the model, ragged edge excluded), and the tile walk
+    equals the plain version in f32 over row tiles of 16, 32 and 64."""
+    k, n = K1_MODEL_SHAPES[shape]
+    q, s, b = _k8_weights(m + len(shape), k, n)
+    x = _bf16_x(m, m, k)
+    qw = TW.pack_int8(q)
+    w_ref = TQ.dequantize(TQ.QTensor(q, s, b), dtype=torch.bfloat16)
+    out = _route_b_model(x, "k8", qw, s, b, w_ref)
+    ref = TK.quant_matmul_w8_plain(x, qw, s, b, torch.float32)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **MODEL_TOL)
+
+
+# WordTiles<BITS> (csrc/quant_matmul.cu): (row stride in bytes, the slot of
+# word row r, the word rows thread t reads for its four k-steps).
+WORD_TILES = {4: (528, lambda r: r, lambda t: [2 * t, 2 * t, 2 * t + 1, 2 * t + 1]),
+              8: (544, lambda r: 4 * (r % 4) + r // 4, lambda t: [4 * t + s for s in range(4)])}
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_word_tile_reads_are_conflict_free(bits):
+    """Route B's word tiles: every word row of a group has its own 16-byte
+    aligned slot, and each quarter-warp's 16-byte fragment reads (lanes 4 gid
+    + t, eight at a time) fall in eight distinct 16-byte bank groups."""
+    stride, slot, rows_of = WORD_TILES[bits]
+    n_rows = 2 * bits
+    assert sorted(slot(r) for r in range(n_rows)) == list(range(n_rows)) and stride % 16 == 0
+    for warp in range(4):
+        for step in range(4):
+            for quarter in range(4):
+                lanes = range(8 * quarter, 8 * quarter + 8)
+                addr = [slot(rows_of(lane % 4)[step]) * stride + warp * 128 + (lane // 4) * 16 for lane in lanes]
+                assert len({a // 16 % 8 for a in addr}) == 8, (bits, warp, step, quarter)
