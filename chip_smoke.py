@@ -13,7 +13,8 @@ caught and carried on):
                (flash attention over the int4 KV cache) and K8 (W8A16
                matmul, levels over the full 0-255 range) against their plain
                PyTorch versions on the card at the main path's shapes, with
-               CUDA-event times of both; causal-edge checks of K3, K4; K2
+               CUDA-event times of both (K4 at Lq = 1, 4 and 16); causal-edge
+               checks of K3, K4, and K4 over a row with no valid key; K2
                on a batch of two left pads, an extend chunk, ragged tiles,
                GQA and the 4207-token prompt's bucket; K3 at its split
                plan's edges (run boundaries, a masked run, no visible key,
@@ -143,6 +144,7 @@ FLASH_CASES = ((64, 128, 0, (14,), 32, True), (1024, 1152, 0, (24,), 32, True),
                (333, 397, 0, (5,), 32, False), (200, 264, 0, (9,), 16, False),
                (4224, 4352, 0, (17,), 32, True))
 KV_MEAN = (0.5, -0.3)  # k/v offsets: the int4 cache's bias planes carry signal
+K4_ROWS = (1, 4, 16)  # K4's query rows: a decode step, a chunk, the kernel's limit
 # Phase 3: bf16 activations through 2 layers on two devices (an H100 run
 # measured 8.4e-3 relative L2 and 9.3e-5 in max log-prob).  The prefill and
 # the decode step's logits are held to REF_REL_L2.
@@ -590,7 +592,7 @@ def phase_quantized_kernels(torch, report):
     """K4 and K5 against their plain versions over int4 caches made by the
     port's own quantizer from random bf16 k/v; K5 at K2's cases."""
     from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
-    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.engine.state import dequantize_kv, quantize_chunk
     from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
     from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
 
@@ -605,7 +607,7 @@ def phase_quantized_kernels(torch, report):
         v = torch.randn((nl, nb, kvh_, lmax, d), generator=g, device=dev) + KV_MEAN[1]
         return quantize_chunk(k.to(torch.bfloat16), v.to(torch.bfloat16), kvq)
 
-    # --- K4: Lq 1 and 4 against windows 640 and 4224; checked with the
+    # --- K4: Lq 1, 4 and 16 against windows 640 and 4224; checked with the
     # offset mid-window and last, timed at the window's end.  The dequantized
     # values are bit-identical, so only the order of the sums differs.
     errs = []
@@ -614,8 +616,9 @@ def phase_quantized_kernels(torch, report):
         payload, scales = int4_cache(nl, lmax)
         valid = torch.rand((b_, lmax), generator=g, device=dev) > 0.05
         valid[:, :10] = False  # left padding
-        for lq in (1, 4):
-            q = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        qs = {lq: torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+              for lq in K4_ROWS}
+        for lq, q in qs.items():
             for offset in (lmax // 2, lmax - lq):
                 for layer in (0, nl - 1):
                     out = KV.quantized_kv_attention(q, payload, scales, valid, offset, layer, scale)
@@ -626,11 +629,25 @@ def phase_quantized_kernels(torch, report):
                     if not ok:
                         fail(f"K4 disagrees with its plain version at Lmax={lmax} Lq={lq} "
                              f"offset={offset} layer={layer}")
+        # A batch row with no valid key: every query row sees none and gets
+        # the uniform average of all Lmax values (H == KV here).
+        none = torch.zeros_like(valid)
+        mean_v = dequantize_kv(payload[nl - 1], scales[nl - 1], torch.bfloat16)[1].float().mean(dim=2)
+        for lq in (1, K4_ROWS[-1]):
+            out = KV.quantized_kv_attention(qs[lq], payload, scales, none, lmax // 2, nl - 1, scale)
+            ref = KV.quantized_kv_attention_plain(qs[lq], payload, scales, none, lmax // 2, nl - 1, scale)
+            torch.cuda.synchronize()
+            ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+            ok = ok and close(torch, out, mean_v[:, :, None].expand_as(out), ATTN_ATOL, ATTN_RTOL)[2]
+            log(f"K4 no valid key Lmax={lmax} Lq={lq}: max_abs={ea:.3e} vs plain (and the uniform average)")
+            if not ok:
+                fail(f"K4 misses the uniform average of a row with no valid key at Lmax={lmax} Lq={lq}")
+            errs.append(ea)
         # Causal edge, as for K3.  A group of 32 equal values dequantizes
         # exactly (scale 1, q = 0, value = bias), so values of -64 and +64
         # at keys offset and offset + 1 survive quantization.  Right: -64.
         off, layer = lmax // 2, nl - 1
-        q = torch.randn((b_, 1, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        q = qs[1]
         edge_k = (4 * q[:, :, 0, :].float()).to(torch.bfloat16)  # H == KV here
         edge_v = torch.tensor([-64.0, 64.0], device=dev)[:, None].expand(2, d).to(torch.bfloat16)
         p2, s2 = quantize_chunk(torch.stack([edge_k, edge_k], dim=2),
@@ -647,15 +664,23 @@ def phase_quantized_kernels(torch, report):
         if not ok or edge > 1:
             fail(f"K4 mishandles the causal edge at Lmax={lmax} offset={off}")
         errs.append(ea)
-        nxt = rotating(nl)
-        t = timed(torch, lambda: KV.quantized_kv_attention(q, payload, scales, valid, lmax - 1, nxt(), scale),
-                  lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, lmax - 1, nxt(), scale), 20)
-        log(f"K4 Lq=1,4 Lmax={lmax} offsets {lmax // 2},{lmax - 1} H={h} D={d}: max_abs={max(errs):.3e} "
-            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}); Lq=1 at offset {lmax - 1}: {t.pop('text')}")
-        if lmax == 4224:
-            nbytes = kvh * lmax * (d + 8 * (d // 32)) + lmax + 2 * 2 * h * d
-            report["K4"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96 int4",
-                                library_ms=None, **bound(nbytes, 4 * h * d * int(valid.sum())))
+        n_split, block_keys = KV.quantized_split_plan(lmax)
+        for lq, q in qs.items():
+            nxt = rotating(nl)
+            t = timed(torch, lambda: KV.quantized_kv_attention(q, payload, scales, valid, lmax - lq, nxt(), scale),
+                      lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, lmax - lq, nxt(), scale),
+                      20)
+            pairs = int(causal_valid_mask(valid, lmax - lq + torch.arange(lq, device=dev)).sum())
+            nbytes = kvh * lmax * (d + 8 * (d // 32)) + lmax + 2 * 2 * h * lq * d
+            t.update(bound(nbytes, 4 * h * d * pairs), library_ms=None)
+            shape = f"Lq={lq} Lmax={lmax} offset={lmax - lq} H=32 D=96 int4"
+            log(f"K4 {shape} ({n_split} blocks of {block_keys} keys): {t.pop('text')} bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            report["K4"].setdefault("timings", []).append({"shape": shape, **t})
+            if lmax == 4224 and lq == 1:
+                report["K4"].update(t, shape=shape)
+        log(f"K4 Lq={','.join(map(str, K4_ROWS))} Lmax={lmax} offsets {lmax // 2},{lmax}-Lq H={h} D={d}: "
+            f"max_abs={max(errs):.3e} (atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f})")
         del payload, scales
     report["K4"]["max_abs_err"] = max(errs)
 
@@ -817,12 +842,14 @@ def phase_experiment_kernels(torch, report):
     under K1's f32 limits (the same int8 activations on both sides: only the
     order of the f32 sums differs), timed at M = 1; every E2/E3 mode against
     its plain version at K4's shapes and limits (no-softmax: plus 1e-5 of the
-    largest output, the f32 order noise of its 4224 summed terms), timed at
+    largest output, the f32 order noise of its 4224 summed terms), at K4's
+    plan and at each of E3's keys per block (``qdecode_sweep.SPLITS``), timed at
     Lq = 1, offset 4223, layers rotated past the L2.  No PyTorch call
     computes grouped W4A8 (``torch._int_mm`` has no group scales) or
     attention over the int4 cache."""
     from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
     from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.experiments import qdecode_sweep
     from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
     from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as E1
 
@@ -872,17 +899,19 @@ def phase_experiment_kernels(torch, report):
         for lq, q in qs.items():
             for offset in (lmax // 2, lmax - lq):
                 for layer in (0, nl - 1):
-                    out = KV.quantized_kv_attention_variant(q, payload, scales, valid, offset, layer, scale,
-                                                            mode=mode)
                     ref = KV.quantized_kv_attention_variant_plain(q, payload, scales, valid, offset, layer,
                                                                   scale, mode)
-                    torch.cuda.synchronize()
                     atol = ATTN_ATOL + (1e-5 * ref.float().abs().max().item() if mode == "nosoftmax" else 0)
-                    ea, er, ok = close(torch, out, ref, atol, ATTN_RTOL)
-                    merr = max(merr, ea)
-                    if not ok:
-                        fail(f"E2/E3 mode {mode} disagrees with its plain version at Lq={lq} "
-                             f"offset={offset} layer={layer}")
+                    # K4's plan, and E3's sweep of keys per block.
+                    for split in (None, *qdecode_sweep.SPLITS):
+                        out = KV.quantized_kv_attention_variant(q, payload, scales, valid, offset, layer,
+                                                                scale, mode=mode, split_keys=split)
+                        torch.cuda.synchronize()
+                        ea, er, ok = close(torch, out, ref, atol, ATTN_RTOL)
+                        merr = max(merr, ea)
+                        if not ok:
+                            fail(f"E2/E3 mode {mode} disagrees with its plain version at Lq={lq} "
+                                 f"offset={offset} layer={layer} split_keys={split}")
         nxt = rotating(nl)
         q1 = qs[1]
         t = timed(torch, lambda: KV.quantized_kv_attention_variant(q1, payload, scales, valid, lmax - 1,
@@ -1386,7 +1415,7 @@ def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int =
     rate = SERVE_SLOTS * chunk * n_chunks / wall
     single = report.get(f"single_stream_tps_{weights_of(lm)}_{cache}", float("nan"))
     top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
-    paged_by = {name: ms for name, ms in per_name.items() if "paged" in name}
+    paged_by = {name: ms for name, ms in per_name.items() if name in SPLIT_RUN_KERNELS}
     attn = sum(paged_by.values())
     log(f"paged decode ({cache} pool, {SERVE_SLOTS} busy slots, window {SERVE_WINDOW}, chunks of "
         f"{chunk}): {rate:.2f} tok/s aggregate ({rate / SERVE_SLOTS:.2f} per slot) against "
@@ -1398,6 +1427,8 @@ def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int =
 
 # The quantized matmuls' kernels (K1, K8: route A or B and the split sum; K9: route B).
 MATMUL_KERNELS = ("k1_gemv_kernel", "wq_mma_kernel", "sum_splits_kernel")
+# The split-run decode attention's kernels (K4, K6, K7: csrc/split_runs.cuh).
+SPLIT_RUN_KERNELS = ("split_run_kernel", "run_combine_kernel")
 
 
 def by_text(by_name: dict) -> str:
@@ -1440,7 +1471,8 @@ def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a"
         if busy <= 0:
             fail(f"profile ({tag}): the profiler saw no device time")
         top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
-        attn = sum(ms for name, ms in per_name.items() if "kv_" in name or "flash" in name)
+        attn = sum(ms for name, ms in per_name.items()
+                   if "kv_" in name or "flash" in name or name in SPLIT_RUN_KERNELS)
         matmul_by = {k: per_name[k] for k in MATMUL_KERNELS if per_name[k] > 0}
         matmul = sum(matmul_by.values())
         log(f"profile ({tag}, {weights_of(lm)} weights, {cache} cache): "

@@ -93,7 +93,7 @@ struct DenseTiles {
                                                  const unsigned char*) {}
 };
 
-// The int4 cache's raw tile (K5's Int4Tiles, K7's Int4Run): kMmaBK rows of D
+// The int4 cache's raw tile (K5's Int4Tiles, K4's and K7's Int4Run): kMmaBK rows of D
 // payload bytes (byte d = k_q[d] | v_q[d] << 4), then kMmaBK rows of 4G bf16
 // scales (k scale, k bias, v scale, v bias for each group of kGroup values).
 template <int D>
@@ -101,10 +101,11 @@ constexpr int kInt4TileBytes = kMmaBK * (D + 8 * (D / kGroup));
 
 // Fills the bf16 tiles ks and vs ([kMmaBK][D + 8] each) with the raw
 // tile's keys and values, as the plain path's bf16 bits (attention.cuh:
-// dequant_fma).  Called by the whole block; each thread takes 16 values of
-// a key at a time: one 16-byte payload chunk, its group's k and v scale and
-// bias, two 16-byte stores to each tile.
-template <int D>
+// dequant_fma), or as E2/E3's MODE has them (attention.cuh: tile_value).
+// Called by the whole block; each thread takes 16 values of a key at a
+// time: one 16-byte payload chunk, its group's k and v scale and bias, two
+// 16-byte stores to each tile.
+template <int D, int MODE = kFp32>
 __device__ __forceinline__ void dequantize_int4_tile(__nv_bfloat16* __restrict__ ks,
                                                      __nv_bfloat16* __restrict__ vs,
                                                      const unsigned char* __restrict__ raw) {
@@ -120,12 +121,13 @@ __device__ __forceinline__ void dequantize_int4_tile(__nv_bfloat16* __restrict__
     unsigned kp[8], vp[8];  // 16 values each, two to a register
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      const unsigned kw = words[i] & 0x0F0F0F0Fu, vw = (words[i] >> 4) & 0x0F0F0F0Fu;  // four levels each
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const unsigned lo = words[i] >> (16 * e), hi = lo >> 8;  // bytes 2e and 2e + 1
-        kp[2 * i + e] = pack_bf16(dequant_fma(lo & 15u, k_s, k_b), dequant_fma(hi & 15u, k_s, k_b));
-        vp[2 * i + e] = pack_bf16(dequant_fma((lo >> 4) & 15u, v_s, v_b),
-                                  dequant_fma((hi >> 4) & 15u, v_s, v_b));
+      for (int e = 0; e < 2; ++e) {  // bytes 2e and 2e + 1
+        kp[2 * i + e] = pack_bf16(tile_value<MODE>(byte_level(kw, 2 * e), k_s, k_b),
+                                  tile_value<MODE>(byte_level(kw, 2 * e + 1), k_s, k_b));
+        vp[2 * i + e] = pack_bf16(tile_value<MODE>(byte_level(vw, 2 * e), v_s, v_b),
+                                  tile_value<MODE>(byte_level(vw, 2 * e + 1), v_s, v_b));
       }
     }
     uint4* kd = reinterpret_cast<uint4*>(ks + r * (D + 8) + c * 16);

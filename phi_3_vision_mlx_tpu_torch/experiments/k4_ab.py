@@ -1,11 +1,11 @@
 """Time kernels of several source trees of this repository in turns, on one
 card, each tree in its own process built from its own ``csrc/``.
 
-    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,K2,K3,K4,K5,K6,K7,K8,K9] TREE [TREE ...]
+    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,...,K9,E3,K4S] TREE [TREE ...]
 
 Give the trees in the order to run them (parent, change, change, parent) so
 that drift on the card shows.  Each run times every case of the chosen
-kernels (all nine by default) at chip_smoke.py's shapes:
+kernels (K1-K9 by default) at chip_smoke.py's shapes:
 
 * K1 (W4A16) at qkv (K = 3072, N = 9216) with M = 1 and 192, and at lm_head
   (N = 32064) with M = 1; K8 (W8A16, (K/4, N) words) at qkv with M = 1 and
@@ -14,8 +14,16 @@ kernels (all nine by default) at chip_smoke.py's shapes:
   them;
 * K2 (flash attention, dense): lq = 1024 over 1152 keys (24 left-pad rows)
   and lq = 4224 over 4352 keys (the 4207-token prompt's bucket);
-* K3 (decode, dense cache) and K4 (decode, int4 cache): Lq = 1 at the end
-  of a 640- and a 4224-key window, 8 stacked layers rotated past the L2;
+* K3 (decode, dense cache): Lq = 1 at the end of a 640- and a 4224-key
+  window, 8 stacked layers rotated past the L2; K4 (decode, int4 cache)
+  the same at Lq = 1, 4 and 16;
+* E3 (K4's kernels with a mode): modes fp32 and mxu at 256 and 1024 keys
+  per block (qdecode_sweep's sweep), Lq = 1 at the end of 4224 keys;
+* K4S (the sweep behind K4's plan, ``kv_attention.K4_BLOCK_KEYS``): K4's
+  kernels (E3's fp32 mode, whose instantiation K4 is) at 64-1024 keys per
+  block, Lq = 1 and 16, at the end of 640- and 4224-key windows, Lq = 1
+  at the end of 2048 keys and at chip_smoke.py phase 6's decode shapes
+  (offset 200 of a 768-key window, 4220 of 4352);
 * K5 (flash attention, int4 cache): lq = 1024 over 1152 keys and lq = 4224
   over 4352 keys, as K2;
 * K6 (paged, dense pool) and K7 (paged, int4 pool) at Lq = 1, 4 and 16:
@@ -41,7 +49,8 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "E3", "K4S")
+DEFAULT = KERNELS[:9]
 
 _RUN = r'''
 import json, math, random, sys, torch
@@ -116,6 +125,18 @@ if "K2" in kernels:
         k, v = (bf16(torch.randn((b, h, lk, d), generator=g, device="cuda")) for _ in range(2))
         cases[f"K2 lq={lq} lk={lk}"] = (lambda q=q, k=k, v=v, valid=valid: FA.flash_attention(
             q, k, v, valid, 0, scale), iters)
+def int4_stack(lmax):
+    kk = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") + 0.5
+    vv = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") - 0.3
+    return quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
+
+
+def variant_case(name, q, cache, valid, offset, mode, split):
+    turn = iter(range(10**9))
+    cases[name] = (lambda: KV.quantized_kv_attention_variant(
+        q, *cache, valid, offset, next(turn) % nl, scale, mode=mode, split_keys=split), 200)
+
+
 for lmax in (640, 4224):
     q, valid = qrow(1), decode_window(lmax)
     if "K3" in kernels:
@@ -124,15 +145,34 @@ for lmax in (640, 4224):
         cases[f"K3 Lq=1 Lmax={lmax}"] = (lambda q=q, ks=ks, vs=vs, valid=valid, lmax=lmax, turn=turn:
                                         KV.dense_kv_attention(q, ks, vs, valid, lmax - 1,
                                                               next(turn) % nl, scale), 200)
+    if not {"K4", "E3", "K4S"} & set(kernels):
+        continue
+    payload, scales = int4_stack(lmax)
+    qs = {lq: qrow(lq) for lq in (1, 4, 16)}
     if "K4" in kernels:
-        kk = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") + 0.5
-        vv = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") - 0.3
-        payload, scales = quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
-        del kk, vv
-        turn = iter(range(10**9))
-        cases[f"K4 Lq=1 Lmax={lmax}"] = (lambda q=q, p=payload, s=scales, valid=valid, lmax=lmax, turn=turn:
-                                        KV.quantized_kv_attention(q, p, s, valid, lmax - 1,
-                                                                  next(turn) % nl, scale), 200)
+        for lq, ql in qs.items():
+            turn = iter(range(10**9))
+            cases[f"K4 Lq={lq} Lmax={lmax}"] = (
+                lambda q=ql, p=payload, s=scales, valid=valid, off=lmax - lq, turn=turn:
+                KV.quantized_kv_attention(q, p, s, valid, off, next(turn) % nl, scale), 200)
+    if "E3" in kernels and lmax == 4224:
+        for mode in ("fp32", "mxu"):
+            for split in (256, 1024):
+                variant_case(f"E3 {mode} split={split} Lq=1 Lmax={lmax}", q, (payload, scales), valid,
+                             lmax - 1, mode, split)
+    if "K4S" in kernels:
+        for lq in (1, 16):
+            for split in (64, 128, 256, 512, 1024):
+                variant_case(f"K4S Lq={lq} Lmax={lmax} offset={lmax - lq} keys={split}", qs[lq],
+                             (payload, scales), valid, lmax - lq, "fp32", split)
+    del payload, scales
+if "K4S" in kernels:  # chip_smoke.py phase 6's decode windows, short and long, and one between
+    for lmax, offset in ((768, 200), (2048, 2047), (4352, 4220)):
+        q, valid = qrow(1), decode_window(lmax)
+        cache = int4_stack(lmax)
+        for split in (64, 128, 256, 512, 1024):
+            variant_case(f"K4S Lq=1 Lmax={lmax} offset={offset} keys={split}", q, cache, valid, offset,
+                         "fp32", split)
 
 
 def w_weights(k, n, layout):
@@ -214,7 +254,7 @@ print(json.dumps({"cases": res, "card": torch.cuda.get_device_name(0)}))
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default=",".join(KERNELS),
+    ap.add_argument("--kernels", default=",".join(DEFAULT),
                     help=f"comma-separated subset of {','.join(KERNELS)}")
     ap.add_argument("trees", nargs="+", help="source trees, in the order to time them")
     a = ap.parse_args(argv)

@@ -11,17 +11,22 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
   merged by a second kernel.  Replaces
   ``phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:dense_kv_attention``;
   CUDA source ``csrc/attention.cu`` (``k3_dense_kv_attention``).
-* K4 :func:`quantized_kv_attention` — decode over the int4 cache (payload
-  ``(layers, B, KV, Lmax, D)`` uint8 ``k | v << 4``, scales
-  ``(layers, B, KV, Lmax, 4G)`` bf16; ``engine/state.py``).  Replaces
+* K4 :func:`quantized_kv_attention` — decode (Lq <= 16) over the int4 cache
+  (payload ``(layers, B, KV, Lmax, D)`` uint8 ``k | v << 4``, scales
+  ``(layers, B, KV, Lmax, 4G)`` bf16; ``engine/state.py``) on K7's split-run
+  kernels (``csrc/split_runs.cuh``) behind the stacked cache's window:
+  blocks of ``block_keys`` keys (:func:`quantized_split_plan`), each walking
+  its 64-key runs, one block per (block, head, batch row) for all of the
+  row's query rows, merged by a second kernel.  Replaces
   ``kv_attention.py:quantized_kv_attention``; CUDA source
   ``csrc/quant_kv_attention.cu`` (``k4_quantized_kv_attention``).
 * E2/E3 :func:`quantized_kv_attention_variant` — K4 with another
   dequantization (``VARIANT_MODES``), the kernels of the experiments
   ``experiments/qkv_probe.py:probe_attention`` and
   ``experiments/qdecode_sweep.py:qkv_attn``; same CUDA source
-  (``e23_quantized_kv_attention_variant``, K4's kernel with a mode
-  parameter).  Reached by the port's ``experiments/`` entry points only.
+  (``e23_quantized_kv_attention_variant``, K4's kernels with a
+  compile-time mode).  Reached by the port's ``experiments/`` entry points
+  only.
 * K5 :func:`quantized_flash_attention` — prefill and extend chunks of any
   length over the int4 cache: K2's tensor-core flash body
   (``csrc/flash_mma.cuh``) with a loader that dequantizes each 64-key tile
@@ -30,11 +35,12 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
   (``k5_quantized_flash_attention``).
 * K6 :func:`paged_kv_attention` — decode (Lq <= 16) of every slot of the
   paged engine through its page table over the dense page pool
-  ``(layers, P + 1, KV, page, D)`` (``engine/paging.py``), on K3's split
-  design: runs of ``PAGED_RUN_KEYS`` keys (:func:`paged_split_plan`), one
-  block per (run, head, slot) for all of a slot's query rows, merged by a
-  second kernel.  Replaces ``kv_attention.py:paged_kv_attention``; CUDA
-  source ``csrc/paged_kv_attention.cu`` (``k6_paged_kv_attention``).
+  ``(layers, P + 1, KV, page, D)`` (``engine/paging.py``), on the same
+  split-run kernels behind the page tables' window: runs of
+  ``PAGED_RUN_KEYS`` keys (:func:`paged_split_plan`), one block per (run,
+  head, slot) for all of a slot's query rows, merged by a second kernel.
+  Replaces ``kv_attention.py:paged_kv_attention``; CUDA source
+  ``csrc/paged_kv_attention.cu`` (``k6_paged_kv_attention``).
 * K7 :func:`paged_quantized_kv_attention` — K6 over the int4 page pool
   (payload ``(layers, P + 1, KV, page, D)`` uint8, scales ``(..., 4G)``):
   the same kernels behind another loader.  Replaces
@@ -73,11 +79,18 @@ KV_GROUP = 32  # the kernels' quantization group along D
 # beat 128 and 256 at both 640 and 4224 keys (PERF.md, Findings).
 K3_SPLIT_KEYS = 64
 K3_MAX_ROWS = 16  # K3: query rows per (batch, head), the decode chunk's limit
-K4_SPLIT_KEYS = 256  # K4: keys per block; longer windows split across blocks
-# K6/K7: keys per run of the split window (the kernel's kRunKeys): one page
-# at the served page of 64, so a run reads one contiguous block of the pool.
-PAGED_RUN_KEYS = 64
-MAX_PAGED_ROWS = 16  # K6/K7: queries per slot (decode and, later, speculation)
+# K4, K6, K7: keys per run of the split window (the kernels' kRunKeys): one
+# page at the served page of 64, so a run reads one contiguous block of the
+# pool.  A block walks one or more consecutive runs.
+RUN_KEYS = 64
+# K4: keys per block (a multiple of RUN_KEYS) by window, (largest window,
+# keys), first match.  Timed on the H100 (NVIDIA H100 80GB HBM3, 700 W) at
+# 64-1024 keys a block, Lq = 1 (experiments/k4_ab.py --kernels K4S; PERF.md,
+# Findings): one run a block is fastest up to 768 keys, two at 2048, four
+# at 4224 and 4352, where fewer blocks mean fewer partials to merge.
+K4_BLOCK_KEYS = ((1024, 64), (2048, 128), (1 << 31, 256))
+PAGED_RUN_KEYS = RUN_KEYS  # K6/K7: one run a block
+MAX_PAGED_ROWS = 16  # K4, K6, K7: query rows per block (decode and, later, speculation)
 
 
 def dense_kv_attention_plain(q, k_stack, v_stack, valid, offset: int, layer_idx: int, scale: float):
@@ -164,30 +177,53 @@ def check_quantized_inputs(q, payload, scales, valid, layer_idx: int, name: str)
         raise ValueError(f"{name}: scales must be 8-byte aligned")
 
 
+def quantized_split_plan(lmax: int) -> tuple[int, int]:
+    """K4's split of the window: ``(n_split, block_keys)``.  Block ``t``
+    covers keys ``[t * block_keys, min((t + 1) * block_keys, lmax))`` in
+    runs of ``RUN_KEYS``: every key of the window in exactly one block.  The
+    plan depends on the window only, never on the offset (a captured launch
+    replays for any offset); a block past ``offset + Lq`` finds nothing to
+    do."""
+    keys = next(k for w, k in K4_BLOCK_KEYS if lmax <= w)
+    return -(-lmax // keys), keys
+
+
+def _quantized_decode_launch(entry: str, q, payload, scales, valid, offset: int, layer_idx: int,
+                             scale: float, block_keys: int, *mode):
+    """Launch K4 or E2/E3 (``entry``) with ``block_keys`` keys per block."""
+    b, h, lq, d = q.shape
+    kvh, lmax = payload.shape[2], payload.shape[3]
+    if not 1 <= lq <= MAX_PAGED_ROWS or offset < 0:
+        raise ValueError(f"{entry}: {lq} query rows at offset {offset} (the kernel takes "
+                         f"1-{MAX_PAGED_ROWS})")
+    if payload.data_ptr() % 16:
+        raise ValueError(f"{entry}: the payload must be 16-byte aligned")
+    n_split = -(-lmax // block_keys)
+    out = head_major_empty(q)
+    # Per block: (max score, sum of exp, unnormalized output) of each query row.
+    partial = torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
+    lib, _ = _build.library()
+    err = getattr(lib, entry)(
+        q.data_ptr(), payload.data_ptr(), scales.data_ptr(), valid.view(torch.uint8).data_ptr(),
+        out.data_ptr(), partial.data_ptr(), b, h, kvh, lq, lmax, d, *q.stride()[:3],
+        *out.stride()[:3], int(layer_idx), int(offset), float(scale), n_split, int(block_keys),
+        *mode, _build.stream_ptr(q.device),
+    )
+    _build.check(err, entry)
+    return out
+
+
 def quantized_kv_attention(q, payload, scales, valid, offset: int, layer_idx: int, scale: float):
     """Decode attention over layer ``layer_idx`` of the int4 cache.  q (B, H,
-    Lq, D); payload (layers, B, KV, Lmax, D) uint8; scales (layers, B, KV,
-    Lmax, 4G) bf16; valid (B, Lmax) bool.  Returns (B, H, Lq, D)."""
+    Lq, D), Lq <= 16; payload (layers, B, KV, Lmax, D) uint8; scales (layers,
+    B, KV, Lmax, 4G) bf16; valid (B, Lmax) bool.  Returns (B, H, Lq, D)."""
     if q.device.type == "cpu":
         return quantized_kv_attention_plain(q, payload, scales, valid, offset, layer_idx, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"quantized_kv_attention: no kernel for device {q.device}")
     check_quantized_inputs(q, payload, scales, valid, layer_idx, "quantized_kv_attention")
-    b, h, lq, d = q.shape
-    kvh, lmax = payload.shape[2], payload.shape[3]
-    n_split = -(-min(lmax, offset + lq) // K4_SPLIT_KEYS)
-    out = head_major_empty(q)
-    # Per split: (max score, sum of exp, unnormalized output) of each query row.
-    partial = (torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
-               if n_split > 1 else None)
-    lib, _ = _build.library()
-    err = lib.k4_quantized_kv_attention(
-        q.data_ptr(), payload.data_ptr(), scales.data_ptr(), valid.view(torch.uint8).data_ptr(),
-        out.data_ptr(), None if partial is None else partial.data_ptr(), b, h, kvh, lq, lmax, d,
-        *q.stride()[:3], *out.stride()[:3], int(layer_idx), int(offset), float(scale),
-        n_split, K4_SPLIT_KEYS, _build.stream_ptr(q.device),
-    )
-    _build.check(err, "k4_quantized_kv_attention")
+    out = _quantized_decode_launch("k4_quantized_kv_attention", q, payload, scales, valid, offset,
+                                   layer_idx, scale, quantized_split_plan(payload.shape[3])[1])
     _build.count_launch(quantized_kv_attention)
     return out
 
@@ -195,8 +231,8 @@ def quantized_kv_attention(q, payload, scales, valid, offset: int, layer_idx: in
 quantized_kv_attention.launches = 0
 
 
-# E2/E3 modes, in the order of csrc/quant_kv_attention.cu's Mode: how a level
-# q of group g (scale s, bias b) becomes a key or a value.  "fp32" is K4;
+# E2/E3 modes, in the order of csrc/attention.cuh's Mode: how a level q of
+# group g (scale s, bias b) becomes a key or a value.  "fp32" is K4;
 # "fbias" and "mxu" add the bias outside the dot products, which changes
 # only the rounding; "nosoftmax" drops the mask and the softmax.
 VARIANT_MODES = ("fp32", "bf16", "convert", "nomul", "fbias", "mxu", "nosoftmax")
@@ -244,34 +280,25 @@ def quantized_kv_attention_variant_plain(q, payload, scales, valid, offset: int,
 
 
 def quantized_kv_attention_variant(q, payload, scales, valid, offset: int, layer_idx: int,
-                                   scale: float, mode: str = "fp32",
-                                   split_keys: int = K4_SPLIT_KEYS):
+                                   scale: float, mode: str = "fp32", split_keys: int | None = None):
     """E2/E3: K4 with the dequantization of ``mode`` (``VARIANT_MODES``);
-    ``split_keys`` is the keys per block of the split window.  Shapes as in
+    ``split_keys`` is the keys per block of the split window, a multiple of
+    ``RUN_KEYS`` (default: K4's :func:`quantized_split_plan`).  Shapes as in
     :func:`quantized_kv_attention`."""
     if mode not in VARIANT_MODES:
         raise ValueError(f"quantized_kv_attention_variant: mode {mode!r} is not one of {VARIANT_MODES}")
+    if split_keys is not None and (split_keys < RUN_KEYS or split_keys % RUN_KEYS):
+        raise ValueError(f"quantized_kv_attention_variant: split_keys {split_keys} is not a "
+                         f"multiple of the {RUN_KEYS}-key run")
     if q.device.type == "cpu":
         return quantized_kv_attention_variant_plain(q, payload, scales, valid, offset, layer_idx,
                                                     scale, mode)
     if q.device.type != "cuda":
         raise RuntimeError(f"quantized_kv_attention_variant: no kernel for device {q.device}")
     check_quantized_inputs(q, payload, scales, valid, layer_idx, "quantized_kv_attention_variant")
-    b, h, lq, d = q.shape
-    kvh, lmax = payload.shape[2], payload.shape[3]
-    span = lmax if mode == "nosoftmax" else min(lmax, offset + lq)
-    n_split = -(-span // split_keys)
-    out = head_major_empty(q)
-    partial = (torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
-               if n_split > 1 else None)
-    lib, _ = _build.library()
-    err = lib.e23_quantized_kv_attention_variant(
-        q.data_ptr(), payload.data_ptr(), scales.data_ptr(), valid.view(torch.uint8).data_ptr(),
-        out.data_ptr(), None if partial is None else partial.data_ptr(), b, h, kvh, lq, lmax, d,
-        *q.stride()[:3], *out.stride()[:3], int(layer_idx), int(offset), float(scale),
-        n_split, int(split_keys), VARIANT_MODES.index(mode), _build.stream_ptr(q.device),
-    )
-    _build.check(err, "e23_quantized_kv_attention_variant")
+    block_keys = quantized_split_plan(payload.shape[3])[1] if split_keys is None else split_keys
+    out = _quantized_decode_launch("e23_quantized_kv_attention_variant", q, payload, scales, valid,
+                                   offset, layer_idx, scale, block_keys, VARIANT_MODES.index(mode))
     _build.count_launch(quantized_kv_attention_variant)
     return out
 
@@ -369,8 +396,9 @@ def check_paged_inputs(q, pool_a, pool_b, page_tables, valid, offsets, layer_idx
 
 def paged_split_plan(window: int) -> tuple[int, int]:
     """K6's and K7's split of a slot's window of ``window`` keys: ``(n_split,
-    split_keys)``.  Run ``r`` covers keys ``[r * split_keys, min((r + 1) *
-    split_keys, window))``: every key of the window in exactly one run.  The
+    split_keys)``, one run a block.  Run ``r`` covers keys ``[r *
+    split_keys, min((r + 1) * split_keys, window))``: every key of the
+    window in exactly one run.  The
     plan depends on the window only, never on the offsets, which stay on the
     device (a captured launch replays for any offsets); a run past a slot's
     last visible key finds nothing to do."""

@@ -266,3 +266,24 @@ def test_experiments_refuse_a_missing_card():
     for main in (w4a8_bench.main, qdecode_sweep.main):
         with pytest.raises(SystemExit, match="no CUDA device"):
             main([])
+
+
+def test_ptxas_report_parses_nvcc_output():
+    """The register report reads each kernel's registers, stack frame,
+    spills and static shared memory from ``nvcc -Xptxas -v`` output."""
+    from phi_3_vision_mlx_tpu_torch.experiments import ptxas_report
+
+    text = """ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    24 bytes stack frame, 40 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 24 bytes cumulative stack size, 16 bytes smem
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+    rows = ptxas_report.parse(text)
+    assert [r["registers"] for r in rows] == [168, 32]
+    assert [(r["stack"], r["spill_stores"], r["spill_loads"], r["smem"]) for r in rows] == [(24, 40, 32, 16),
+                                                                                          (0, 0, 0, 0)]
+    assert rows[0]["kernel"] in ("foo", "_Z3fooPf")  # demangled where c++filt is installed

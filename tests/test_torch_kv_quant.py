@@ -9,8 +9,9 @@ mode, as ``tests/test_quant_kernels.py`` runs them, and the JAX XLA path is
 ``read_kv`` + ``masked_attention``.  D = 96 (three groups of 32) is covered
 beside D = 32 (one group), since one group cannot show a group or
 permutation mistake.  At the end, the exactness the kernels' dequantization
-rests on, and a plain-PyTorch model of the card's K5 (its int4 tiles and K2's
-tile walk over them) held to the plain version.
+rests on, and plain-PyTorch models of the card's K5 (its int4 tiles and K2's
+tile walk over them) and K4 (its blocks of 64-key runs over the stacked
+cache, and E2/E3's modes on the same kernels) held to the plain versions.
 """
 
 import numpy as np
@@ -262,3 +263,186 @@ def test_k5_tile_model_matches_plain(edge, g):
     ref = TK.quantized_flash_attention_plain(q, payload, scales, valid, q_pos0, layer, d**-0.5)
     np.testing.assert_allclose(out.numpy(), ref.float().numpy(), **K2_LIMITS)
     assert (out - ref.float()).abs().max() > 0  # the rounding of P is real
+
+
+# --- K4 on the card: the split-run kernels (csrc/split_runs.cuh) behind the
+# stacked cache's window, and E2/E3's modes on the same kernels, modelled in
+# plain PyTorch.  chip_smoke.py holds the kernels to their plain versions
+# there.
+
+
+def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys, mode="fp32"):
+    """K4 (mode "fp32") and E2/E3's modes as the card computes them over one
+    layer of the stacked int4 cache.  The window is cut into blocks of
+    ``block_keys`` keys, each walked in 64-key runs: the tiles hold the
+    mode's values (Int4Run::tiles, rounded to q's type where the kernel
+    rounds to bf16); a score is q * scale (rounded to q's type) dotted with
+    the key tile (kMxu: per group, times the key's k scale), plus, in the
+    factored modes, the query's group sums times the key's k biases; key j
+    is seen from query i iff valid[b, j] and j <= offset + i (no fresh
+    region); per run, the row's running max, its alpha = exp(old - new) on
+    the sum and the output, and p = exp(score - max) entering P V as bf16 hi
+    + lo (kMxu: p * v_scale per group); the factored modes' value biases
+    summed beside the softmax sum and added to the block's output.  A
+    row's merge reads its blocks up to its last visible key; a row that
+    sees no key gets the uniform average of the window's values.
+    kNoSoftmax: no mask, P is the score, every block is added.  Returns
+    (out, live blocks per query row)."""
+    from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
+
+    b, h, lq, d = q.shape
+    pl, sl = payload[layer], scales[layer]  # (B, KV, L, D), (B, KV, L, 4G)
+    kvh, lmax, g = pl.shape[1], pl.shape[2], sl.shape[-1] // 4
+    rnd = lambda t: t.to(q.dtype).float()  # noqa: E731 - the tiles' bf16 rounding, at q's type
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    dims = lambda t: t.repeat_interleave(d // g, dim=-1)  # noqa: E731 - (..., G) -> (..., D)
+    heads = lambda t: t.repeat_interleave(h // kvh, dim=1)  # noqa: E731 - kv heads -> query heads
+    ks, kb, vs, vb = (heads(sl[..., i * g : (i + 1) * g].float()) for i in range(4))  # (B, H, L, G)
+    lk, lv = heads((pl & 15).float()), heads((pl >> 4).float())
+
+    def tile(lvl, s, bias):
+        s, bias = dims(s), dims(bias)
+        return {"fp32": lambda: rnd(lvl * s + bias), "bf16": lambda: bf(bf(lvl * s) + bias),
+                "nomul": lambda: rnd(lvl + s), "fbias": lambda: rnd(lvl * s)}.get(mode, lambda: lvl)()
+
+    kt, vt = tile(lk, ks, kb), tile(lv, vs, vb)
+    v_full = {"fbias": lambda: vt + dims(vb), "mxu": lambda: lv * dims(vs) + dims(vb)}.get(mode, lambda: vt)()
+    factored, softmax = mode in ("fbias", "mxu"), mode != "nosoftmax"
+    qs = (q * scale).float()
+    qsum = qs.reshape(b, h, lq, g, d // g).sum(-1)  # (B, H, Lq, G)
+    hl = lambda p: bf(p) + bf(p - bf(p))  # noqa: E731 - P as bf16 hi + lo
+    n_split = -(-lmax // block_keys)
+    kend = min(lmax, offset + lq) if softmax else lmax
+    rows = offset + torch.arange(lq)
+    parts = []
+    for t in range(n_split):
+        m = torch.full((b, h, lq), -torch.inf)
+        l_ = torch.zeros((b, h, lq))
+        acc = torch.zeros((b, h, lq, d))
+        pb = torch.zeros((b, h, lq, g))
+        for j0 in range(t * block_keys, min(kend, (t + 1) * block_keys), 64):
+            j = torch.arange(j0, min(j0 + 64, kend, (t + 1) * block_keys))
+            if mode == "mxu":
+                sc = sum((qs[..., c * 32 : (c + 1) * 32] @ kt[:, :, j, c * 32 : (c + 1) * 32].transpose(-1, -2))
+                         * ks[:, :, None, j, c] for c in range(g))
+            else:
+                sc = qs @ kt[:, :, j].transpose(-1, -2)  # (B, H, Lq, n)
+            if factored:
+                sc = sc + qsum @ kb[:, :, j].transpose(-1, -2)
+            if softmax:
+                seen = valid[:, None, None, j] & (j[None, None, None, :] <= rows[None, None, :, None])
+                sc = torch.where(seen, sc, -torch.inf)
+                m_new = torch.maximum(m, sc.amax(dim=-1))
+                alpha = torch.where(m_new == -torch.inf, 1.0, torch.exp(m - m_new))
+                p = torch.where(m_new[..., None] == -torch.inf, 0.0, torch.exp(sc - m_new[..., None]))
+                l_ = l_ * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None]
+                pb = pb * alpha[..., None] + p @ vb[:, :, j]
+                m = m_new
+            else:
+                p = sc
+            if mode == "mxu":
+                acc = acc + torch.cat([hl(p * vs[:, :, None, j, c]) @ vt[:, :, j, c * 32 : (c + 1) * 32]
+                                       for c in range(g)], dim=-1)
+            else:
+                acc = acc + hl(p) @ vt[:, :, j]
+        if factored:
+            acc = acc + dims(pb)
+        parts.append((torch.where(m == -torch.inf, NEG_INF, m), l_, acc))
+    if not softmax:
+        return sum(acc for _, _, acc in parts), torch.full((lq,), n_split)
+    out = torch.empty((b, h, lq, d))
+    live = torch.tensor([min(n_split, min(lmax - 1, offset + i) // block_keys + 1) for i in range(lq)])
+    for i in range(lq):
+        ms = torch.stack([m[..., i] for m, _, _ in parts[: live[i]]])
+        m_all = ms.amax(dim=0)
+        wt = torch.exp(ms - m_all)
+        o = sum(w[..., None] * acc[..., i, :] for w, (_, _, acc) in zip(wt, parts))
+        o = o / sum(w * l_[..., i] for w, (_, l_, _) in zip(wt, parts))[..., None]
+        out[:, :, i] = torch.where((m_all > NEG_INF)[..., None], o, v_full.mean(dim=2))
+    return out, live
+
+
+def _k4_case(seed, lq, lmax=320, offset=150):
+    """Two batch rows over a 320-key window (five runs, the last two of 64
+    keys), offset 150 mid-run: row 0 left-padded, holed, and with the key at
+    the offset (the step's own, fresh) not valid; row 1 with no valid key
+    (every query row sees none)."""
+    d, h, kvh = 96, 4, 2
+    k, v = _kv(seed, (2, 2, kvh, lmax, d))
+    payload, scales = TS.quantize_chunk(torch.from_numpy(k), torch.from_numpy(v), KVQuantConfig(bits=4))
+    q = torch.from_numpy(np.random.default_rng(seed).standard_normal((2, h, lq, d)).astype(np.float32))
+    valid = torch.from_numpy(np.random.default_rng(seed + 1).random((2, lmax)) > 0.15)
+    valid[:, :3] = False  # left padding
+    valid[0, offset] = False  # a fresh key that is not valid: K4 hides it, K7's rule would not
+    valid[1] = False
+    return q, payload, scales, valid, offset, d**-0.5
+
+
+@pytest.mark.parametrize("block_keys", [64, 128, 256, 1024])
+@pytest.mark.parametrize("lq", [1, 4, 16])
+def test_k4_split_model_matches_plain(lq, block_keys):
+    """K4's blocks of runs (the rescale between runs), merge and P as bf16
+    hi + lo equal quantized_kv_attention_plain (f32) at an offset mid-run,
+    left padding, a fresh key with valid False and a row that sees no key;
+    the merge reads exactly the blocks holding a key the row can see."""
+    q, payload, scales, valid, offset, scale = _k4_case(lq, lq)
+    out, live = _k4_split_model(q, payload, scales, valid, offset, 1, scale, block_keys)
+    ref = TK.quantized_kv_attention_plain(q, payload, scales, valid, offset, 1, scale)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    for i in range(lq):  # every block the merge reads holds keys up to the row's own
+        assert live[i] == (offset + i) // block_keys + 1
+    fresh = valid.clone()
+    fresh[0, offset] = True  # K7's fresh-region rule would see the key
+    seen = TK.quantized_kv_attention_plain(q, payload, scales, fresh, offset, 1, scale)
+    assert (seen[0] - ref[0]).abs().max() > 1e-3
+    mean_v = TS.dequantize_kv(payload[1], scales[1], torch.float32)[1][1].mean(dim=1)  # (KV, D)
+    np.testing.assert_allclose(ref[1].numpy(), mean_v.repeat_interleave(2, dim=0)[:, None].expand(-1, lq, -1),
+                               **F32_TOL)
+
+
+@pytest.mark.parametrize("block_keys", [64, 256])
+@pytest.mark.parametrize("mode", TK.VARIANT_MODES)
+def test_k4_mode_model_matches_variant_plain(mode, block_keys):
+    """Each E2/E3 mode on K4's kernels (the mode's tiles; kMxu's per-group
+    scores and p * v_scale operand; the factored biases; kNoSoftmax's raw
+    scores over every block) equals quantized_kv_attention_variant_plain:
+    in f32 with a softmax; with none, each of the window's score * value
+    terms carries P's hi + lo rounding, at most 2^-16 of the term."""
+    q, payload, scales, valid, offset, scale = _k4_case(7, 4)
+    out, _ = _k4_split_model(q, payload, scales, valid, offset, 1, scale, block_keys, mode)
+    ref = TK.quantized_kv_attention_variant_plain(q, payload, scales, valid, offset, 1, scale, mode)
+    if mode != "nosoftmax":
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+        return
+    k, v = TK._variant_kv(payload[1], scales[1], mode, q.dtype)
+    s = (q * scale).reshape(2, 2, 2, 4, 96) @ k[:, :, None].transpose(-1, -2)
+    terms = (s.abs() @ v[:, :, None].abs()).reshape(ref.shape)
+    assert ((out - ref).abs() <= F32_TOL["atol"] + 2.0**-16 * terms).all()
+
+
+@pytest.mark.parametrize("lmax", [64, 200, 640, 1024, 1088, 4224, 4352])
+def test_quantized_split_plan_covers_each_key_once(lmax):
+    """K4's plan takes the window only; its blocks are whole runs, each
+    non-empty, and each key of the window falls in exactly one."""
+    import inspect
+
+    assert list(inspect.signature(TK.quantized_split_plan).parameters) == ["lmax"]
+    n_split, keys = TK.quantized_split_plan(lmax)
+    assert keys % TK.RUN_KEYS == 0 and keys > 0
+    covered = np.zeros(lmax, int)
+    for t in range(n_split):
+        lo, hi = t * keys, min((t + 1) * keys, lmax)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
+def test_variant_split_keys_must_be_whole_runs():
+    """E3's keys per block are whole 64-key runs; another count raises."""
+    q, payload, scales, valid, offset, scale = _k4_case(3, 1)
+    for bad in (0, 32, 100, 1000):
+        with pytest.raises(ValueError, match="multiple"):
+            TK.quantized_kv_attention_variant(q, payload, scales, valid, offset, 1, scale, split_keys=bad)
+    out = TK.quantized_kv_attention_variant(q, payload, scales, valid, offset, 1, scale, split_keys=1024)
+    assert torch.equal(out, TK.quantized_kv_attention_plain(q, payload, scales, valid, offset, 1, scale))
