@@ -64,7 +64,9 @@ caught and carried on):
                32768 positions), printing their tables.
 
 Phase 2 also checks K6 and K7 (paged decode attention over the dense and
-the int4 page pool), K9 (the packed layout), E1 (W4A8) and every mode of
+the int4 page pool), K9 (the packed layout), E1 (W4A8: its dp4a GEMV at
+M = 1 and its int8 tensor-core route at M = 2-256, timed at M = 1, 16, 192
+and 256) and every mode of
 E2/E3 (K4's kernel with another dequantization).  K1 (both modes) and K9 are
 checked at every main-path (K, N) for M = 1, 4, 8, 15, 16, 17, 192 and 256
 (K1 crosses from route A at M = 1 to route B), with scales and biases drawn
@@ -829,6 +831,13 @@ def phase_packed_kernels(torch, report):
     report["K9"]["max_abs_err"] = max(errs)
 
 
+# E1 (w4a8_bench.py's gate_up shape) at M = 1 (route A) and M = 2, 16, 64,
+# 192, 256 (route B's row tiles of 16, 32, 64), and at an N off the
+# 128-column tiles with K split four ways and, at K = 256, not split (the
+# kernel writes the output itself); timed at E1_TIMED_ROWS on the main shape.
+E1_SHAPE = (3072, 9216)
+E1_CASES = ((*E1_SHAPE, (1, 2, 16, 64, 192, 256)), (1024, 1160, (1, 2, 17)), (256, 1160, (1, 64)))
+E1_TIMED_ROWS = (1, 16, 192, 256)
 # E2 (qkv_probe.py) and E3 (qdecode_sweep.py): the modes each reaches, and the
 # one its kernel line reports (E2's convert; E3's default sweep is fp32, K4
 # itself, and mxu).
@@ -838,9 +847,11 @@ E_SHOWN = {"E2": "convert", "E3": "mxu"}
 
 
 def phase_experiment_kernels(torch, report):
-    """E1 against its plain version at K = 3072, N = 9216, M = 1, 16 and 256
-    under K1's f32 limits (the same int8 activations on both sides: only the
-    order of the f32 sums differs), timed at M = 1; every E2/E3 mode against
+    """E1 against its plain version at K = 3072, N = 9216, M = 1, 2, 16, 64,
+    192 and 256 (route A, and route B's row tiles of 16, 32 and 64) and at a
+    ragged N, under K1's f32 limits (the same int8 activations on both sides:
+    only the order of the f32 sums differs), timed at M = 1, 16, 192 and 256;
+    every E2/E3 mode against
     its plain version at K4's shapes and limits (no-softmax: plus 1e-5 of the
     largest output, the f32 order noise of its 4224 summed terms), at K4's
     plan and at each of E3's keys per block (``qdecode_sweep.SPLITS``), timed at
@@ -855,33 +866,37 @@ def phase_experiment_kernels(torch, report):
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(6)
-    k, n = 3072, 9216
-    wbytes = k * n // 2 + 2 * (k // 64) * n
-    copies = max(1, math.ceil(150e6 / wbytes))
-    ws = [(torch.randint(-(2**31), 2**31, (k // 8, n), dtype=torch.int32, generator=g, device=dev),
-           (0.01 * torch.randn((k // 64, n), generator=g, device=dev)).to(torch.bfloat16))
-          for _ in range(copies)]
     errs = []
-    for m in (1, 16, 256):
-        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-        out = E1.w4a8_matmul(x, *ws[0])
-        ref = E1.w4a8_matmul_plain(*E1.quantize_activations(x), *ws[0])
-        torch.cuda.synchronize()
-        ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
-        errs.append(ea)
-        line = f"E1 K={k} N={n} M={m}: max_abs={ea:.3e} max_rel={er:.3e} (atol {K1_ATOL} + rtol {K1_RTOL})"
-        if m == 1:
-            b1 = bound(wbytes + m * k + 4 * m + 4 * m * n, 2 * m * k * n, INT8_OPS)
-            nxt = rotating(copies)
-            t = timed(torch, lambda: E1.w4a8_matmul(x, *ws[nxt()]),
-                      lambda: E1.w4a8_matmul_plain(*E1.quantize_activations(x), *ws[nxt()]), 20)
-            line += f" bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}) {t.pop('text')}; library none"
-            report["E1"].update(t, shape="K=3072 N=9216 M=1 symmetric", library_ms=None, **b1)
-        log(line)
-        if not ok:
-            fail(f"E1 disagrees with its plain version at M={m}")
+    for k, n, rows in E1_CASES:
+        wbytes = k * n // 2 + 2 * (k // 64) * n
+        copies = max(1, math.ceil(150e6 / wbytes)) if (k, n) == E1_SHAPE else 1
+        ws = [(torch.randint(-(2**31), 2**31, (k // 8, n), dtype=torch.int32, generator=g, device=dev),
+               (0.01 * torch.randn((k // 64, n), generator=g, device=dev)).to(torch.bfloat16))
+              for _ in range(copies)]
+        for m in rows:
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            out = E1.w4a8_matmul(x, *ws[0])
+            ref = E1.w4a8_matmul_plain(*E1.quantize_activations(x), *ws[0])
+            torch.cuda.synchronize()
+            ea, er, ok = close(torch, out, ref, K1_ATOL, K1_RTOL)
+            errs.append(ea)
+            line = (f"E1 K={k} N={n} M={m} (route {E1.route(m)}, plan {E1.plan(m, k, n)}): max_abs={ea:.3e} "
+                    f"max_rel={er:.3e} (atol {K1_ATOL} + rtol {K1_RTOL})")
+            if (k, n) == E1_SHAPE and m in E1_TIMED_ROWS:
+                bd = bound(wbytes + m * k + 4 * m + 4 * m * n, 2 * m * k * n, INT8_OPS)
+                nxt = rotating(copies)
+                t = timed(torch, lambda: E1.w4a8_matmul(x, *ws[nxt()]),
+                          lambda: E1.w4a8_matmul_plain(*E1.quantize_activations(x), *ws[nxt()]), 20)
+                line += f" bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) {t.pop('text')}; library none"
+                t.update(bd, library_ms=None)
+                report["E1"].setdefault("timings", []).append({"shape": f"K={k} N={n} M={m} symmetric", **t})
+                if m == 1:
+                    report["E1"].update(t, shape=f"K={k} N={n} M=1 symmetric")
+            log(line)
+            if not ok:
+                fail(f"E1 disagrees with its plain version at K={k} N={n} M={m}")
+        del ws
     report["E1"]["max_abs_err"] = max(errs)
-    del ws
 
     b_, h, kvh, d, nl, lmax = 1, 32, 32, 96, 8, 4224
     scale = d**-0.5

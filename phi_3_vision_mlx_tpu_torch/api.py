@@ -4,10 +4,11 @@
 ``load()`` / ``_load()`` return ``(LM, processor)``, the same preload tuple
 the JAX package passes around; ``generate`` runs greedy text generation.
 Checkpoints are the (in, out) directories either package writes, with 4-bit
-or 8-bit weights (kernel K1 or K8 on the card).  A missing checkpoint raises
-(the JAX ``_setup`` downloads one or, offline, writes a random one): make one
-with ``core.weights.create_random_checkpoint`` and ``quantize_checkpoint``,
-or build full-size random weights on the device with
+or 8-bit weights (kernel K1 or K8 on the card).  ``load`` with no checkpoint
+on disk calls :func:`_setup`, which, as the JAX ``_setup`` does offline,
+writes a random text checkpoint pair under ``PHI3V_TPU_ALLOW_RANDOM=1`` and
+raises ``RuntimeError`` without it (the port downloads nothing).  Full-size
+random weights can also be built on the device with
 ``core.weights.synth_quantized_params``.  Models load onto
 ``device="cuda"`` unless a caller names another device; with no CUDA card
 that raises instead of running on the CPU.  ``load(quantize_cache=True)``
@@ -18,6 +19,7 @@ sampling and adapters are not ported yet.
 
 from __future__ import annotations
 
+import json
 import os
 
 from .core import weights as W
@@ -32,9 +34,40 @@ PATH_QUANTIZED_PHI3_BLIND = "models/phi3_mini_128k_Q"
 CHAT_TURN = "<|user|>\n{body}<|end|>\n<|assistant|>\n"
 
 
-def _load(model_path=PATH_QUANTIZED_PHI3_BLIND, device="cuda", **kwargs):
+def _setup(allow_random: bool = None):
+    """The JAX ``_setup`` offline: under ``PHI3V_TPU_ALLOW_RANDOM=1`` write a
+    random-weight Phi-3.5-mini checkpoint and its 4-bit copy
+    (``PHI3V_TPU_RANDOM_LAYERS`` sets the depth, ``PHI3V_TPU_RANDOM_OVERRIDES``
+    any config fields as JSON); without it raise ``RuntimeError``.  The
+    checkpoints are not downloaded (``download_and_convert`` needs the
+    network and is not ported), and only the text pair is written until
+    vision is ported."""
+    if allow_random is None:
+        allow_random = os.environ.get("PHI3V_TPU_ALLOW_RANDOM", "") == "1"
+    if os.path.exists(PATH_ORIGINAL_PHI3_BLIND) and os.path.exists(PATH_QUANTIZED_PHI3_BLIND):
+        return
+    if not allow_random:
+        raise RuntimeError(
+            f"no checkpoint at {PATH_ORIGINAL_PHI3_BLIND} and the port downloads none. "
+            "Set PHI3V_TPU_ALLOW_RANDOM=1 to create random-weight checkpoints for offline "
+            "testing, write one with core.weights.create_random_checkpoint and quantize_checkpoint "
+            "(q_bits=4 or 8), or build full-size random weights with synth_quantized_params and pass "
+            "preload=(LM(cfg, params, device=...), processor)"
+        )
+    n_layers = int(os.environ.get("PHI3V_TPU_RANDOM_LAYERS", "0")) or None
+    overrides = {"num_hidden_layers": n_layers} if n_layers else {}
+    extra = os.environ.get("PHI3V_TPU_RANDOM_OVERRIDES")
+    if extra:
+        overrides.update(json.loads(extra))
+    W.create_random_checkpoint(PATH_ORIGINAL_PHI3_BLIND, "phi35_mini", **overrides)
+    W.quantize_checkpoint(PATH_ORIGINAL_PHI3_BLIND, PATH_QUANTIZED_PHI3_BLIND)
+
+
+def _load(model_path=PATH_ORIGINAL_PHI3_BLIND, device="cuda", **kwargs):
     """Checkpoint dir in the (in, out) layout, unquantized or with 4-bit or
-    8-bit weights -> (LM, processor)."""
+    8-bit weights -> (LM, processor).  The default is the unquantized text
+    checkpoint (the JAX default, the unquantized vision one, waits for
+    vision)."""
     cfg, params = W.load_params(model_path, **kwargs)
     if cfg.has_vision:
         raise NotImplementedError("vision models are not ported yet")
@@ -57,12 +90,7 @@ def load(blind_model: bool = True, quantize_model: bool = False, quantize_cache:
         raise NotImplementedError("adapters are not ported yet")
     model_path = PATH_QUANTIZED_PHI3_BLIND if quantize_model else PATH_ORIGINAL_PHI3_BLIND
     if not os.path.exists(model_path):
-        raise FileNotFoundError(
-            f"no checkpoint at {model_path}: make one with "
-            "phi_3_vision_mlx_tpu_torch.core.weights.create_random_checkpoint and "
-            "quantize_checkpoint (q_bits=4 or 8), or build full-size random weights with "
-            "synth_quantized_params and pass preload=(LM(cfg, params, device=...), processor)"
-        )
+        _setup()
     return _load(model_path=model_path, device=device, use_quantized_cache=quantize_cache, **kwargs)
 
 

@@ -1,8 +1,9 @@
 // Tensor-core and copy helpers shared by the flash body of K2 and K5
-// (flash_mma.cuh), K7's page runs (paged_kv_attention.cu) and the quantized
-// matmuls' tensor-core route (quant_matmul.cu): cp.async into
-// shared memory, ldmatrix, bf16 mma.sync.m16n8k16 with f32 sums, and packing
-// two f32 values into one bf16x2 operand register.
+// (flash_mma.cuh), the split runs of K4, K6 and K7 (split_runs.cuh) and the
+// quantized matmuls' tensor-core routes (quant_matmul.cu, w4a8_matmul.cu):
+// cp.async into shared memory, ldmatrix, bf16 mma.sync.m16n8k16 with f32
+// sums, int8 mma.sync.m16n8k32 with int32 sums, and packing two f32 values
+// into one bf16x2 operand register.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +60,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = c + a (16 x 32, row-major) * b (32 x 8, column-major), signed int8 in,
+// int32 sums (exact).  A register holds four consecutive k of one row (a0:
+// row gid, k 4 t..4 t + 3; a1: row gid + 8; a2, a3: the same rows at k + 16),
+// b0 / b1 the same k of column gid; c and d as mma_bf16's c.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1,
+                                       const int (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(c[0]), "r"(c[1]), "r"(c[2]),
+        "r"(c[3]));
 }
 
 // Two f32 values rounded to bf16, the lower column in the low half.

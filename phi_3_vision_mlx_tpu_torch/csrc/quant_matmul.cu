@@ -74,10 +74,6 @@ __device__ __forceinline__ float dequant(float lv, float s, float b) {
   return AFFINE ? __fmaf_rn(s, lv, b) : __fmul_rn(s, lv);
 }
 
-// The bf16 in the low / high half of u, widened to f32.
-__device__ __forceinline__ float lo_f32(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_f32(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
-
 __device__ __forceinline__ void store4(void* dst, int dst_bf16, size_t i, float a, float b, float c,
                                        float d) {
   if (dst_bf16)

@@ -1,7 +1,8 @@
 // Shared by the quantized matmuls (quant_matmul.cu: K1, K8, K9;
-// w4a8_matmul.cu: E1): the quantization group, the threads per block, and
-// the second pass of the K split, which adds the splits' f32 partial sums in
-// a fixed order (deterministic) and casts to the output type.
+// w4a8_matmul.cu: E1): the quantization group, the threads per block, the
+// widening of packed bf16 scales, and the second pass of the K split, which
+// adds the splits' f32 partial sums in a fixed order (deterministic) and
+// casts to the output type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +13,10 @@ namespace {
 
 constexpr int kGroup = 64;     // quantization group along K
 constexpr int kThreads = 128;  // threads per block of every quantized matmul
+
+// The bf16 in the low / high half of u, widened to f32.
+__device__ __forceinline__ float lo_f32(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f32(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);

@@ -1,7 +1,7 @@
 """Time kernels of several source trees of this repository in turns, on one
 card, each tree in its own process built from its own ``csrc/``.
 
-    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,...,K9,E3,K4S] TREE [TREE ...]
+    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,...,K9,E1,E3,K4S] TREE [TREE ...]
 
 Give the trees in the order to run them (parent, change, change, parent) so
 that drift on the card shows.  Each run times every case of the chosen
@@ -17,6 +17,9 @@ kernels (K1-K9 by default) at chip_smoke.py's shapes:
 * K3 (decode, dense cache): Lq = 1 at the end of a 640- and a 4224-key
   window, 8 stacked layers rotated past the L2; K4 (decode, int4 cache)
   the same at Lq = 1, 4 and 16;
+* E1 (W4A8) and K1 (symmetric, bf16 out, as ``w4a8_bench`` calls it) on
+  the same words and scales at w4a8_bench's shape (K = 3072, N = 9216) with
+  M = 1, 2, 16, 64, 192 and 256, rotated past the L2;
 * E3 (K4's kernels with a mode): modes fp32 and mxu at 256 and 1024 keys
   per block (qdecode_sweep's sweep), Lq = 1 at the end of 4224 keys;
 * K4S (the sweep behind K4's plan, ``kv_attention.K4_BLOCK_KEYS``): K4's
@@ -49,7 +52,7 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "E3", "K4S")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "E1", "E3", "K4S")
 DEFAULT = KERNELS[:9]
 
 _RUN = r'''
@@ -207,6 +210,13 @@ for name, (fn, layout, shapes) in MATMULS.items():
         ws = w_weights(k, n, layout)
         for m in ms:
             matmul_case(f"{name} K={k} N={n} M={m}", fn, ws, m, k)
+if "E1" in kernels:
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as E1
+    ws = [(q, s) for q, s, _ in w_weights(3072, 9216, "words4")]
+    for m in (1, 2, 16, 64, 192, 256):
+        matmul_case(f"E1 K=3072 N=9216 M={m}", E1.w4a8_matmul, ws, m, 3072)
+        matmul_case(f"E1's K1 K=3072 N=9216 M={m}", lambda x, q, s: QM.quant_matmul(x, q, s), ws, m, 3072)
+    del ws
 if "K5" in kernels:
     for lq, lk, pad, iters in ((1024, 1152, 24, 100), (4224, 4352, 17, 10)):
         q, valid = qrow(lq), flash_window(lq, lk, pad)

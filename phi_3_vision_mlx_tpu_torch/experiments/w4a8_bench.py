@@ -1,7 +1,9 @@
 """E1, the W4A8 experiment (the port of ``experiments/w4a8_bench.py``).
 
 Question: a 4-bit decode matmul reads its payload once, so it is bound by
-bytes; would int8 activations and an int8 contraction help?  Kernel E1
+bytes; would int8 activations and an int8 contraction help?  E1 takes a
+``dp4a`` GEMV at M = 1 and the int8 tensor cores above, K1 a bf16 GEMV and
+the bf16 tensor cores.  Kernel E1
 (``ops/kernels/w4a8.py``) against K1 (``ops/kernels/quant_matmul.py``) in
 symmetric mode on the same ``(K/8, N)`` words and bf16 scales, at the
 gate_up shape of the JAX script (K = 3072, N = 9216) and decode batches M
@@ -61,7 +63,8 @@ def main(argv=None) -> dict:
 
     # Events: stream time per call, host launch gaps included.  Device: the
     # profiler's kernel time per call (E1's includes its activation
-    # prologue; "E1 kernel" is the contraction and the split sum alone).
+    # prologue; "E1 kernel" is the contraction, on E1's route for M, and
+    # the split sum alone).
     print("| M | K1 ms (events / device) | E1 ms (events / device) | E1 kernel device ms | ratio (device) |")
     print("|---|---|---|---|---|")
     for m in M_SWEEP:
@@ -73,7 +76,7 @@ def main(argv=None) -> dict:
         row = {"m": m, "k1_ms": cuda_ms(k1, 50), "e1_ms": cuda_ms(e1, 50),
                "k1_device_ms": device_ms(k1, 20)["all"], "e1_device_ms": e1_dev["all"],
                "e1_kernel_device_ms": None if e1_dev["all"] is None else sum(
-                   ms for name, ms in e1_dev.items() if "w4a8_partial" in name or "sum_splits" in name)}
+                   ms for name, ms in e1_dev.items() if "e1_" in name or "sum_splits" in name)}
         result["rows"].append(row)
         measured = row["k1_device_ms"] is not None and row["e1_device_ms"] is not None
         ratio = f"{row['e1_device_ms'] / row['k1_device_ms']:.2f}x" if measured else "not measured"

@@ -77,18 +77,25 @@ def route(m: int, layout: str) -> str:
 @functools.lru_cache(maxsize=256)
 def plan(m: int, k: int, n: int, layout: str) -> tuple[int, int]:
     """(splits, groups per split) of K1 (``layout="k1"``), K8 (``"k8"``) or
-    K9 (``"k9"``) on its :func:`route`: enough blocks to fill the card; on
-    route A, each split's groups a multiple of the block's warps and its
-    staged x within 16 KB."""
+    K9 (``"k9"``) on its :func:`route`."""
+    return route_plan(route(m, layout), m, k, n)
+
+
+def route_plan(rt: str, m: int, k: int, n: int, b_target: int = _B_TARGET_BLOCKS) -> tuple[int, int]:
+    """(splits, groups per split) of a quantized matmul on route ``rt`` (K1,
+    K8, K9 and E1 share the routes' blocks): about ``b_target`` blocks on
+    route B and ``_A_TARGET_BLOCKS`` on route A, to fill the card; on route
+    A, each split's groups a multiple of the block's warps and its staged x
+    within 16 KB (E1 stages x8 in 4 KB under the same limit)."""
     groups = k // GROUP
-    if route(m, layout) == "a":
+    if rt == "a":
         per = -(-groups // max(1, -(-_A_TARGET_BLOCKS // -(-n // _A_COLUMNS))))
         per = max(per, -(-groups // _A_MAX_SPLITS))
         per = min(-(-per // _A_WARPS) * _A_WARPS, _A_MAX_GROUPS)
     else:
         rows = 16 if m <= 16 else 32 if m <= 32 else 64
         tiles = -(-n // _B_COLUMNS) * -(-m // rows)
-        per = max(_B_MIN_GROUPS, -(-groups // max(1, -(-_B_TARGET_BLOCKS // tiles))))
+        per = max(_B_MIN_GROUPS, -(-groups // max(1, -(-b_target // tiles))))
     per = max(1, min(per, groups))
     return -(-groups // per), per
 

@@ -14,6 +14,12 @@ clip(round(x / sx), -127, 127)`` in f32, half to even.  The weight is K1's
 symmetric layout (``(K/8, N)`` int32 words, bf16 ``(K/64, N)`` scales), so
 an A/B against K1 reads the same bytes.
 
+Two routes, as K1's (:func:`route`; no argument forces one): route A at one
+row, a ``dp4a`` GEMV on the CUDA cores; route B from two rows on, the int8
+tensor cores (``mma.sync.m16n8k32``).  :func:`plan` sizes the K split of
+each on K1's blocks (``quant_matmul.route_plan``), route B with fewer
+splits.
+
 :func:`w4a8_matmul` launches the kernel for CUDA tensors and runs the plain
 version :func:`w4a8_matmul_plain` only for CPU tensors;
 ``w4a8_matmul.launches`` counts kernel launches.
@@ -21,26 +27,34 @@ version :func:`w4a8_matmul_plain` only for CPU tensors;
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...core.weights import WORD, unpack_int4
 from ..quant import SYMMETRIC_MID
 from . import _build
-from .quant_matmul import GROUP
-
-_TARGET_BLOCKS = 528  # four waves of blocks over the H100's 132 SMs
-_THREADS = 128  # output columns per block (csrc/quant_matmul.cuh kThreads)
+from .quant_matmul import GROUP, route_plan
 
 
-def _splits(m: int, k: int, n: int) -> tuple[int, int]:
-    """E1's K splits, so the grid holds about ``_TARGET_BLOCKS`` blocks of
-    ``_THREADS`` columns and up to 8 rows (``csrc/w4a8_matmul.cu``'s BM)."""
-    groups = k // GROUP
-    bm = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
-    base = -(-n // _THREADS) * -(-m // bm)
-    want = max(1, min(groups, -(-_TARGET_BLOCKS // base)))
-    per = -(-groups // want)
-    return -(-groups // per), per
+# Route B: blocks to aim for, two an SM.  Fewer splits than K1's six an SM
+# (``quant_matmul._B_TARGET_BLOCKS``): E1's f32 partial sums are as large as
+# its output, and on the H100 two an SM took the least time over M = 2-256
+# of 264, 396, 528 and 792 blocks (PERF.md section 6, E1).
+_B_TARGET_BLOCKS = 264
+
+
+def route(m: int) -> str:
+    """E1's route for ``m`` rows, as ``csrc/w4a8_matmul.cu:e1_w4a8_matmul``
+    takes it: ``"a"`` (the ``dp4a`` GEMV) at one row, else ``"b"`` (int8
+    tensor cores)."""
+    return "a" if m == 1 else "b"
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(splits, groups per split) of E1 on its :func:`route`."""
+    return route_plan(route(m), m, k, n, b_target=_B_TARGET_BLOCKS)
 
 
 def quantize_activations(x: torch.Tensor):
@@ -88,13 +102,16 @@ def w4a8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor) ->
         raise TypeError("w4a8_matmul kernel takes int32 qweight and bf16 scales")
     if not (qweight.is_contiguous() and scales.is_contiguous()):
         raise ValueError("w4a8_matmul kernel needs contiguous tensors")
+    if n % 8 or any(t.data_ptr() % 16 for t in (x8, qweight, scales)):
+        raise ValueError(f"w4a8_matmul kernel needs N a multiple of 8 (got {n}) and 16-byte aligned tensors")
     lib, _ = _build.library()
-    splits, per = _splits(m, k, n)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    splits, per = plan(m, k, n)
+    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     err = lib.e1_w4a8_matmul(
-        x8.data_ptr(), sx.data_ptr(), qweight.data_ptr(), scales.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), m, k, n, splits, per, _build.stream_ptr(x.device),
+        x8.data_ptr(), sx.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+        None if partial is None else partial.data_ptr(), out.data_ptr(), m, k, n, splits, per,
+        _build.stream_ptr(x.device),
     )
     _build.check(err, "e1_w4a8_matmul")
     _build.count_launch(w4a8_matmul)

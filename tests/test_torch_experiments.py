@@ -15,6 +15,7 @@ kernels round p to bf16 before p . v and scale the scores after the dot.
 """
 
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -266,6 +267,35 @@ def test_experiments_refuse_a_missing_card():
     for main in (w4a8_bench.main, qdecode_sweep.main):
         with pytest.raises(SystemExit, match="no CUDA device"):
             main([])
+
+
+@pytest.mark.parametrize("kernels", ["E1", "K1,E1,E3", None])
+def test_k4_ab_takes_its_kernels(monkeypatch, kernels):
+    """``k4_ab`` runs its timing code once per tree, in the given order, for
+    the named kernels (E1 among them; K1-K9 by default), and refuses an
+    unknown one."""
+    from phi_3_vision_mlx_tpu_torch.experiments import k4_ab
+
+    runs = []
+
+    class Done:
+        returncode, stderr = 0, ""
+
+        def __init__(self, kernels):
+            self.stdout = json.dumps({"cases": {k: {} for k in kernels.split(",")}, "card": "stub"})
+
+    def run(argv, cwd, **kw):
+        runs.append((cwd, argv[-1]))
+        return Done(argv[-1])
+
+    monkeypatch.setattr(k4_ab.subprocess, "run", run)
+    argv = (["--kernels", kernels] if kernels else []) + ["parent", ".", "parent"]
+    results = k4_ab.main(argv)
+    want = kernels or ",".join(k4_ab.DEFAULT)
+    assert runs == [("parent", want), (".", want), ("parent", want)]
+    assert [sorted(r["cases"]) for r in results] == [sorted(want.split(","))] * 3
+    with pytest.raises(SystemExit):
+        k4_ab.main(["--kernels", "E1,E9", "."])
 
 
 def test_ptxas_report_parses_nvcc_output():

@@ -180,13 +180,15 @@ def test_unquantized_checkpoint_matches_jax(tmp_path):
 
 
 def test_load_without_checkpoint_names_the_synthetic_path(tmp_path, monkeypatch):
-    """The JAX offline fallback writes a random checkpoint; the port raises
-    and names its own checkpoint writers and the synthetic weights."""
+    """With no checkpoint and no ``PHI3V_TPU_ALLOW_RANDOM``, ``load`` raises
+    ``RuntimeError`` as the JAX offline ``_setup`` does, and names the
+    variable, the port's own checkpoint writers and the synthetic weights."""
     from phi_3_vision_mlx_tpu_torch import api
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(FileNotFoundError, match="create_random_checkpoint.*quantize_checkpoint"
-                                                ".*synth_quantized_params"):
+    monkeypatch.delenv("PHI3V_TPU_ALLOW_RANDOM", raising=False)
+    with pytest.raises(RuntimeError, match="PHI3V_TPU_ALLOW_RANDOM.*create_random_checkpoint"
+                                           ".*quantize_checkpoint.*synth_quantized_params"):
         api.load()
 
 

@@ -24,6 +24,7 @@ from phi_3_vision_mlx_tpu_torch.core import weights as TW  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops import linear as TL  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops import quant as TQ  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as TK  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as TE1  # noqa: E402
 
 GROUP = 64
 K, N = 512, 512  # the JAX tiled layout needs multiples of its 512 blocks
@@ -189,25 +190,30 @@ def test_k1_wrapper_has_no_silent_fallback():
 
 
 def test_k1_split_plan_covers_every_group():
-    """Every split plan (E1's ``_splits``; K1's, K8's and K9's ``plan`` on
-    their route) covers each group once, with no empty split; route A's
-    staged x fits its 16 KB, its four warps get equal shares where the groups
-    allow, and its second pass adds at most 32 partial sums."""
-    from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as TE1
-
+    """Every split plan (K1's, K8's and K9's ``plan``, and E1's, on their
+    route) covers each group once, with no empty split; route A's staged x
+    fits its 16 KB (E1's x8 its 4 KB), its four warps get equal shares where
+    the groups allow, and its second pass adds at most 32 partial sums.  E1
+    takes route A at one row only, with K1's plan; on route B it aims at
+    fewer blocks than K1, so it splits K no more than K1 does."""
     cases = [(1, 3072, 9216), (1, 8192, 3072), (2, 8192, 3072), (64, 3072, 32064), (256, 3072, 3072),
-             (1, 64, 5), (1, 3072, 32064), (192, 3072, 9216), (17, 8192, 3072)]
+             (1, 64, 5), (1, 3072, 32064), (192, 3072, 9216), (17, 8192, 3072), (16, 3072, 9216)]
     for m, k, n in cases:
         groups = k // GROUP
-        plans = [TE1._splits(m, k, n)]
+        plans = [(TE1.route(m), TE1.plan(m, k, n))]
+        if m == 1:
+            assert plans[0][1] == TK.plan(m, k, n, "k1")
+        else:
+            assert plans[0][1][0] <= TK.plan(m, k, n, "k1")[0]
         for layout in ("k1", "k8", "k9"):
-            splits, per = TK.plan(m, k, n, layout)
-            plans.append((splits, per))
-            if TK.route(m, layout) == "a":
+            plans.append((TK.route(m, layout), TK.plan(m, k, n, layout)))
+        for rt, (splits, per) in plans:
+            assert splits * per >= groups and (splits - 1) * per < groups
+            if rt == "a":
                 assert per <= 64 and splits <= 32
                 assert per % 4 == 0 or per == groups
-        for splits, per in plans:
-            assert splits * per >= groups and (splits - 1) * per < groups
+    assert TE1.route(1) == "a" and all(TE1.route(m) == "b" for m in range(2, 257))
+    assert "route" not in inspect.signature(TE1.w4a8_matmul).parameters
 
 
 def test_synth_quantized_params_shapes():
@@ -558,3 +564,239 @@ def test_word_tile_reads_are_conflict_free(bits):
                 lanes = range(8 * quarter, 8 * quarter + 8)
                 addr = [slot(rows_of(lane % 4)[step]) * stride + warp * 128 + (lane // 4) * 16 for lane in lanes]
                 assert len({a // 16 % 8 for a in addr}) == 8, (bits, warp, step, quarter)
+
+
+# --- E1 on both routes (csrc/w4a8_matmul.cu), modelled at the level of its
+# integer instructions: dp4a, the byte permutes and the m16n8k32 s8 fragments
+# as PTX lays them out.  Words are int64 holding the 32 unsigned bits. ------
+
+_M4 = 0x0F0F0F0F  # the low nibble of each byte
+_ONES = 0x01010101
+_MAGIC_BITS = 0x4B400000  # 1.5 * 2^23 as f32
+
+
+def _bytes_of(w):
+    """Words -> their four bytes, unsigned, low byte first."""
+    return (w[..., None] >> (8 * torch.arange(4))) & 0xFF
+
+
+def _signed(b):
+    return b - 256 * (b >= 128)
+
+
+def _word(b):
+    """(..., 4) bytes -> the word."""
+    return (b.to(torch.int64) << (8 * torch.arange(4))).sum(-1)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte i of the result is byte (sel >> 4 i) & 7 of y:x."""
+    b = torch.cat([_bytes_of(x), _bytes_of(y)], -1)
+    return _word(torch.stack([b[..., (sel >> (4 * i)) & 7] for i in range(4)], -1))
+
+
+def _dp4a(a, b, c, a_signed):
+    """c + the four products of a's bytes (signed, or unsigned: dp4a.u32.s32)
+    and b's signed bytes."""
+    ab = _bytes_of(torch.as_tensor(a))
+    return c + ((_signed(ab) if a_signed else ab) * _signed(_bytes_of(torch.as_tensor(b)))).sum(-1)
+
+
+def _x8_words(x8):
+    """x8 (M, K) int8 -> (M, K/4) words, word i holding x8[:, 4 i .. 4 i + 3]."""
+    m, k = x8.shape
+    return _word((x8.to(torch.int64) & 0xFF).reshape(m, k // 4, 4))
+
+
+def _e1_group_sums(x8, qw):
+    """The plain version's exact per-group products x8 . (q - 8): (G, M, N) int64."""
+    m, k = x8.shape
+    q = TW.unpack_int4(qw).to(torch.int64) - 8
+    return torch.einsum("mgk,gkn->gmn", x8.to(torch.int64).reshape(m, k // GROUP, GROUP),
+                        q.reshape(k // GROUP, GROUP, -1))
+
+
+def _e1_route_a_model(x8, sx, qw, s):
+    """E1's route A (one row): the block's x8 staged run by run (rows 0, 2,
+    4, 6 then 1, 3, 5, 7 of each 8-row run, by byte permutes) with each
+    group's sum from its eight runs; per group and column, two dp4a.u32.s32
+    per word row (its low and high nibbles against the two staged words),
+    less 8 sum(x8), held exactly to the plain version's group sums; a split's
+    four warps take its groups g0 + w, g0 + w + 4, ..., their f32 sums added
+    in warp order, times sx, then the splits' in order."""
+    m, k = x8.shape
+    n, groups = qw.shape[1], k // GROUP
+    assert m == 1 and TE1.route(m) == "a"
+    splits, per = TE1.plan(m, k, n)
+    xw = _x8_words(x8)[0]
+    lo, hi = xw[0::2], xw[1::2]  # run c: x8 bytes 8 c .. 8 c + 3 and 8 c + 4 .. 8 c + 7
+    staged = torch.stack([_byte_perm(lo, hi, 0x6420), _byte_perm(lo, hi, 0x7531)], 1)
+    xsum = _dp4a(lo, _ONES, _dp4a(hi, _ONES, 0, True), True).reshape(groups, 8).sum(1)
+    words = qw.to(torch.int64) & 0xFFFFFFFF
+    want = _e1_group_sums(x8, qw)[:, 0]
+    out = torch.zeros(n)
+    for sp in range(splits):
+        g0, g1 = sp * per, min(groups, (sp + 1) * per)
+        total = None
+        for warp in range(4):
+            acc = torch.zeros(n)
+            for g in range(g0 + warp, g1, 4):
+                isum = torch.zeros(n, dtype=torch.int64)
+                for r in range(8):
+                    wr, (xe, xo) = words[8 * g + r], staged[8 * g + r]
+                    isum = _dp4a(wr & _M4, xe, isum, False)
+                    isum = _dp4a((wr >> 4) & _M4, xo, isum, False)
+                isum = isum - 8 * xsum[g]
+                assert torch.equal(isum, want[g])
+                acc = acc + isum.float() * s[g].float()
+            total = acc if total is None else total + acc
+        out = out + total * sx[0]
+    return out[None]
+
+
+# The PTX layout of mma.m16n8k32's s8 fragments for lane (gid, t): A register
+# q's byte e at row gid + 8 (q % 2), k 4 t + e + 16 (q // 2); B register p's
+# byte e at k 4 t + e + 16 p, column gid; C/D element i at row gid + 8 (i //
+# 2), column 2 t + i % 2.
+_FGID, _FT = torch.meshgrid(torch.arange(8), torch.arange(4), indexing="ij")
+_FQ, _FE = torch.arange(4)[:, None], torch.arange(4)[None, :]
+_A_ROW = (_FGID[..., None, None] + 8 * (_FQ % 2)).expand(8, 4, 4, 4)
+_A_K = 4 * _FT[..., None, None] + _FE + 16 * (_FQ // 2)
+_B_K = 4 * _FT[..., None, None] + _FE + 16 * torch.arange(2)[:, None]
+_B_COL = _FGID[..., None, None].expand(8, 4, 2, 4)
+_C_ROW = _FGID[..., None] + 8 * (torch.arange(4) // 2)
+_C_COL = 2 * _FT[..., None] + torch.arange(4) % 2
+
+
+def _mma_s8(a, b, c):
+    """mma.sync.m16n8k32.s32.s8.s8.s32 on the fragments of a warp: a (...,
+    8, 4, 4) words [gid, t, q], b (..., 8, 4, 2), c (..., 8, 4, 4) int ->
+    d (..., 8, 4, 4).  The products are exact in float64."""
+    am = torch.zeros(*a.shape[:-3], 16, 32, dtype=torch.float64)
+    am[..., _A_ROW, _A_K] = _signed(_bytes_of(a)).double()
+    bm = torch.zeros(*b.shape[:-3], 32, 8, dtype=torch.float64)
+    bm[..., _B_K, _B_COL] = _signed(_bytes_of(b)).double()
+    cm = torch.zeros(*c.shape[:-3], 16, 8, dtype=torch.float64)
+    cm[..., _C_ROW, _C_COL] = c.double()
+    return (cm + am @ bm)[..., _C_ROW, _C_COL].long()
+
+
+def test_mma_s8_fragment_maps_are_one_to_one():
+    """Each of a warp's A (16 x 32), B (32 x 8) and C (16 x 8) slots is held
+    by exactly one (lane, register, byte)."""
+    for rows, cols, shape in ((_A_ROW, _A_K, (16, 32)), (_B_K, _B_COL, (32, 8)), (_C_ROW, _C_COL, (16, 8))):
+        seen = torch.zeros(shape, dtype=torch.int64)
+        seen.index_put_((rows.flatten(), cols.flatten()), torch.ones(rows.numel(), dtype=torch.int64),
+                        accumulate=True)
+        assert (seen == 1).all()
+
+
+def _less8(lv):
+    """The kernel's ``less8``: levels a byte to signed bytes q - 8, with bit 7
+    set against borrows, then flipped."""
+    return (((lv | 0x80808080) - 0x08080808) ^ 0x80808080) & 0xFFFFFFFF
+
+
+def _e1_route_b_model(x8, sx, qw, s):
+    """E1's route B: 128-column tiles of BM rows, the plan's K splits.  Per
+    group, lane (gid, t) of warp w reads word rows 2 t + h of its columns 32
+    w + 4 gid + j (b0 / b1: their low / high nibbles as signed q - 8), bytes
+    16 t .. + 15 of x8 rows gid and gid + 8 (a: their even and odd rows by
+    byte permutes) and starts its int32 fragment at 1.5 * 2^23's bits; two
+    m16n8k32 k-steps, the fragment read as f32 less 1.5 * 2^23, held exactly
+    to the plain version's group sums; scaled
+    into f32 sums in group order, times sx, each split's sums equal to the
+    plain version over the split's groups bit for bit, then added in split
+    order.  Rows past M are zero and never stored."""
+    m, k = x8.shape
+    n, groups = qw.shape[1], k // GROUP
+    assert TE1.route(m) == "b"
+    bm = 16 if m <= 16 else 32 if m <= 32 else 64
+    mtiles, tiles = -(-m // bm) * bm // 16, -(-n // 128)
+    splits, per = TE1.plan(m, k, n)
+    xp = torch.zeros((mtiles * 16, k), dtype=torch.int8)
+    xp[:m] = x8
+    # A side, per (m-tile, group): words [gid, t, i] of rows gid and gid + 8
+    xw = _x8_words(xp).reshape(mtiles, 16, groups, 16).permute(0, 2, 1, 3)
+    u, v = (xw[:, :, h * 8:(h + 1) * 8].reshape(mtiles, groups, 8, 4, 4) for h in range(2))
+    c0 = torch.full((mtiles, groups, 8, 4, 4), _MAGIC_BITS, dtype=torch.int64)
+    a = [torch.stack([_byte_perm(u[..., 2 * h], u[..., 2 * h + 1], 0x6420),
+                      _byte_perm(v[..., 2 * h], v[..., 2 * h + 1], 0x6420),
+                      _byte_perm(u[..., 2 * h], u[..., 2 * h + 1], 0x7531),
+                      _byte_perm(v[..., 2 * h], v[..., 2 * h + 1], 0x7531)], -1) for h in range(2)]
+    # B side, per (tile, warp, n-tile j, group): word [g, 2 t + h, column 32 w + 4 gid + j]
+    words = torch.zeros((k // 8, tiles * 128), dtype=torch.int64)
+    words[:, :n] = qw.to(torch.int64) & 0xFFFFFFFF
+    wt = words.reshape(groups, 4, 2, tiles, 4, 8, 4).permute(3, 4, 6, 0, 2, 5, 1)  # [T, w, j, g, h, gid, t]
+    b = [torch.stack([_less8(wt[:, :, :, :, h] & _M4), _less8((wt[:, :, :, :, h] >> 4) & _M4)], -1)
+         for h in range(2)]
+    lead_a = (mtiles, 1, 1, 1, groups)
+    d = _mma_s8(a[0].view(*lead_a, 8, 4, 4), b[0], c0.view(*lead_a, 8, 4, 4))
+    d = _mma_s8(a[1].view(*lead_a, 8, 4, 4), b[1], d)  # [mt, T, w, j, g, gid, t, i]
+    isum_f = d.to(torch.int32).view(torch.float32) - 12582912.0
+    # where each fragment element lands: D column 2 t + i % 2 is B column gid' =
+    # 2 t + i % 2, i.e. output column 32 w + 4 gid' + j: the kernel's 32 w + 8 t + 4 c + j
+    mt_, tile_, w_, j_, gid_, t_, i_ = torch.meshgrid(*(torch.arange(v) for v in (mtiles, tiles, 4, 4, 8, 4, 4)),
+                                                      indexing="ij")
+    row = 16 * mt_ + gid_ + 8 * (i_ // 2)
+    col = 128 * tile_ + 32 * w_ + 4 * (2 * t_ + i_ % 2) + j_
+    assert torch.equal(col, 128 * tile_ + 32 * w_ + 8 * t_ + 4 * (i_ % 2) + j_)
+    flat = (row * tiles * 128 + col).flatten()
+    assert torch.equal(torch.bincount(flat, minlength=mtiles * 16 * tiles * 128), torch.ones(mtiles * 16 * tiles * 128, dtype=torch.int64))
+    by_g = d.permute(4, 0, 1, 2, 3, 5, 6, 7).reshape(groups, -1)  # [g, (mt, T, w, j, gid, t, i)]
+    isum = torch.zeros((groups, mtiles * 16 * tiles * 128), dtype=torch.int64)
+    isum[:, flat] = by_g - _MAGIC_BITS
+    isum = isum.reshape(groups, mtiles * 16, tiles * 128)
+    assert torch.equal(isum[:, :m, :n], _e1_group_sums(x8, qw))
+    isum_f_out = torch.zeros((groups, mtiles * 16 * tiles * 128))
+    isum_f_out[:, flat] = isum_f.permute(4, 0, 1, 2, 3, 5, 6, 7).reshape(groups, -1)
+    isum_f_out = isum_f_out.reshape(groups, mtiles * 16, tiles * 128)[:, :m, :n]
+    assert torch.equal(isum_f_out, isum[:, :m, :n].float())
+    total = torch.zeros((m, n))
+    for sp in range(splits):
+        g0, g1 = sp * per, min(groups, (sp + 1) * per)
+        acc = torch.zeros((m, n))
+        for g in range(g0, g1):
+            acc = acc + isum_f_out[g] * s[g].float()
+        part = acc * sx[:, None]
+        ks = slice(g0 * GROUP, g1 * GROUP)
+        want = TE1.w4a8_matmul_plain(x8[:, ks], sx, qw[g0 * 8:g1 * 8], s[g0:g1])
+        assert torch.equal(part, want)
+        total = total + part
+    return total
+
+
+def _e1_inputs(seed, m, k, n):
+    """Random levels over 0..15, bf16 scales, and x through E1's prologue
+    (rows of absmax 127, so every x8 level from -127 to 127 can occur)."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(0, 16, (k, n), dtype=np.uint8))
+    s = torch.from_numpy(0.01 * rng.standard_normal((k // GROUP, n)).astype(np.float32)).to(torch.bfloat16)
+    x8, sx = TE1.quantize_activations(_bf16_x(seed, m, k))
+    return x8, sx, TW.pack_int4(q), s
+
+
+@pytest.mark.parametrize("shape", list(K1_MODEL_SHAPES))
+def test_e1_route_a_model_matches_plain(shape):
+    """E1's route A (M = 1): the staged K order and the zero point taken out
+    give each group's exact integer sum, and the warps' and splits' f32 sums
+    equal the plain version in f32, at a ragged N and at 128 groups."""
+    k, n = K1_MODEL_SHAPES[shape]
+    x8, sx, qw, s = _e1_inputs(len(shape), 1, k, n)
+    assert int(x8.abs().max()) == 127
+    out = _e1_route_a_model(x8, sx, qw, s)
+    np.testing.assert_allclose(out.numpy(), TE1.w4a8_matmul_plain(x8, sx, qw, s).numpy(), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("m", [2, 15, 17, 70, 256])
+@pytest.mark.parametrize("shape", list(K1_MODEL_SHAPES))
+def test_e1_route_b_model_matches_plain(shape, m):
+    """E1's route B: the m16n8k32 fragments built as the kernel builds them
+    give each group's exact integer sum at every (row, column), each split
+    equals the plain version over its groups bit for bit, and the whole
+    equals the plain version in f32, over row tiles of 16 (M = 2, 15), 32
+    and 64 (two and four of them) at a ragged N and at 128 groups."""
+    k, n = K1_MODEL_SHAPES[shape]
+    x8, sx, qw, s = _e1_inputs(m + len(shape), m, k, n)
+    out = _e1_route_b_model(x8, sx, qw, s)
+    np.testing.assert_allclose(out.numpy(), TE1.w4a8_matmul_plain(x8, sx, qw, s).numpy(), **MODEL_TOL)
