@@ -18,7 +18,9 @@ caught and carried on):
                on a batch of two left pads, an extend chunk, ragged tiles,
                GQA and the 4207-token prompt's bucket; K3 at its split
                plan's edges (run boundaries, a masked run, no visible key,
-               Lq = 4, GQA).
+               Lq = 4, GQA) and timed at a short offset in a 4352-key window
+               (its plan takes the window only; K3 and K4 read the offset
+               from device memory).
 3. reference — a depth-cut (2-layer) full-width Phi-3.5-mini with 4-bit
                and with 8-bit weights, each with the dense and with the int4
                KV cache: prefill and decode logits through the kernels on
@@ -27,37 +29,50 @@ caught and carried on):
 4. serving  — full-size 4-bit Phi-3.5-mini (random weights from a seed)
                behind the port's HTTP handler answers three requests, once
                with the dense cache and once with the int4 cache
-               (``use_quantized_cache``); the launch counters show that K1,
-               K2 and K3 carried the first run and K1, K4 and K5 the second,
-               and that neither launched the other cache's kernels; decode
-               tok/s of the first request through ``api.generate``.
+               (``use_quantized_cache``), each decode step a CUDA graph
+               replay (``engine/graphs.py``); the launch counters (a
+               graph's capture records its launches, each replay adds them)
+               show that K1, K2 and K3 carried the first run and K1, K4 and
+               K5 the second, and that neither launched the other cache's
+               kernels; decode tok/s of the first request through
+               ``api.generate``.
 5. continuous — the same model behind the continuous handler and
                scheduler over the paged pool (4 slots, window 1024, page
                64): (a) dense pool, (b) int4 pool, six concurrent requests
                each; (c) the dense pool cut to 20 pages, which must preempt
                and resume.  Every request answers; the counters show K1 and
                K6 (dense) or K7 (int4) on decode, K2 or K5 on admission, and
-               no K3 or K4.  Then aggregate decode tok/s of 4 busy slots and
-               one profiled paged decode chunk, beside the single-stream
-               figure of phase 4.
-6. profile  — where a decode token's time goes at a short and a long
-               window, with the dense, the int4 and the int8 cache (the
-               last dequantizes the window, then runs K2/K3): host wall
+               no K3 or K4.  Then the paged engine with both pools on one
+               fixed schedule, eager and through its graph: equal streams
+               and launch totals, with the graph captured inside the run
+               (by its first chunk; plus its warm-up step) and before it.
+               Then aggregate decode tok/s of 4 busy slots and one profiled
+               paged decode chunk, eager and graph, beside the
+               single-stream figure of phase 4.
+6. profile  — each single-stream request at a short and a long window,
+               with the dense, the int4 and the int8 cache (the last
+               dequantizes the window, then runs K2/K3), eager and through
+               the decode step's CUDA graph (a request whose first chunk
+               captures it, then one that replays it): bitwise-equal tokens
+               and max and EOS log-probs and equal launch totals (plus the
+               capture's warm-up step), then host wall
                time per token, device busy time per token
-               (``torch.profiler``), the idle share, kernel launches per
-               token and the largest device items.
+               (``torch.profiler``), the idle share, kernels (graph nodes)
+               per token, the graph's capture ms and entry bytes, and the
+               largest device items.
 7. 8-bit    — the port alone writes a 2-layer full-width random checkpoint,
                quantizes it to 8 bits, loads it on the card and generates
                from it; then full-size random 8-bit Phi-3.5-mini answers
                phase 4's requests with both caches and phase 5's run (a),
                with K8 launched and K1 not (the 4-bit runs launch K1 and not
-               K8), and its decode token is profiled at the short window.
+               K8), and its decode token is profiled (eager against graph)
+               at the short window.
 8. packed   — the 4-bit weights moved to the JAX package's flat packed
                layout (``packed_params``): the 2-layer reference with packed
                leaves against the CPU (dense cache), then phase 4's three
                requests at full size with K9 on every decoder linear and K1
                once per forward pass (lm_head), and the packed decode token
-               profiled at the short window.
+               profiled (eager against graph) at the short window.
 9. experiments — the port's entry points of the three kernel experiments
                run once each at their scripts' shapes (E1 against K1 at
                K = 3072, N = 9216; E2 and E3 over a 32-layer int4 cache of
@@ -289,6 +304,12 @@ def drop_below_bound(report, names) -> None:
                     t[key] = None
 
 
+def dev_offset(torch, offset: int):
+    """A decode offset as the engine keeps it for K3 and K4: a (1,) int32
+    tensor on the card."""
+    return torch.tensor([offset], dtype=torch.int32, device="cuda")
+
+
 def timed(torch, kernel_fn, plain_fn, iters: int) -> dict:
     t = {
         "ms": cuda_ms(torch, kernel_fn, iters),
@@ -494,6 +515,7 @@ def phase_kernels(torch, report):
 
     # --- K3: one query against windows 640 and 4224; checked with the offset
     # mid-window, timed at the window's end (a decode step reads it all).
+    # The offset goes in as the engine keeps it, a (1,) int32 on the device.
     errs = []
     nl = 8  # layers of the stacked cache, rotated so timing reads it cold
     for lmax in (640, 4224):
@@ -504,7 +526,7 @@ def phase_kernels(torch, report):
         valid[:, :10] = False  # left padding
         for offset in (lmax // 2, lmax - 1):
             for layer in (0, nl - 1):
-                out = K3.dense_kv_attention(q, ks, vs, valid, offset, layer, scale)
+                out = K3.dense_kv_attention(q, ks, vs, valid, dev_offset(torch, offset), layer, scale)
                 ref = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, layer, scale)
                 torch.cuda.synchronize()
                 ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
@@ -521,7 +543,7 @@ def phase_kernels(torch, report):
         vs[layer, :, :, off], vs[layer, :, :, off + 1] = -64.0, 64.0
         edge_valid = valid.clone()
         edge_valid[:, off : off + 2] = True
-        out = K3.dense_kv_attention(q, ks, vs, edge_valid, off, layer, scale)
+        out = K3.dense_kv_attention(q, ks, vs, edge_valid, dev_offset(torch, off), layer, scale)
         ref = K3.dense_kv_attention_plain(q, ks, vs, edge_valid, off, layer, scale)
         torch.cuda.synchronize()
         ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
@@ -530,11 +552,15 @@ def phase_kernels(torch, report):
         if not ok or edge > 1:
             fail(f"K3 mishandles the causal edge at Lmax={lmax} offset={off}")
         errs.append(ea)
-        nxt = rotating(nl)
-        t = timed(torch, lambda: K3.dense_kv_attention(q, ks, vs, valid, lmax - 1, nxt(), scale),
-                  lambda: K3.dense_kv_attention_plain(q, ks, vs, valid, lmax - 1, nxt(), scale), 20)
+        nxt, end = rotating(nl), dev_offset(torch, lmax - 1)
+        t = timed(torch, lambda: K3.dense_kv_attention(q, ks, vs, valid, end, nxt(), scale),
+                  lambda: K3.dense_kv_attention_plain(q, ks, vs, valid, end, nxt(), scale), 20)
+        nbytes = 2 * 2 * kvh * lmax * d + lmax + 2 * 2 * h * d
+        t.update(bound(nbytes, 4 * h * d * int(valid.sum())), library_ms=None)
+        report["K3"].setdefault("timings", []).append({"shape": f"Lq=1 Lmax={lmax} offset={lmax - 1}", **t})
         log(f"K3 Lq=1 Lmax={lmax} offsets {lmax // 2},{lmax - 1} H={h} D={d}: max_abs={max(errs):.3e} "
-            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}); at offset {lmax - 1}: {t.pop('text')}")
+            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}); at offset {lmax - 1}: {t.pop('text')} "
+            f"({K3.dense_kv_split_plan(lmax)[0]} splits)")
         if lmax == 4224:
             mask = causal_valid_mask(valid, torch.tensor([lmax - 1], device=dev))
 
@@ -544,10 +570,35 @@ def phase_kernels(torch, report):
                                                       scale=scale)
 
             lib = cuda_ms(torch, library, 20)
-            nbytes = 2 * 2 * kvh * lmax * d + lmax + 2 * 2 * h * d
             report["K3"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96", library_ms=lib,
                                 **bound(nbytes, 4 * h * d * int(mask.sum())))
         del ks, vs
+
+    # K3's plan takes the window only: at a short offset in a 4352-key window
+    # (a long prompt's first decode steps read few keys) all but the first
+    # splits find no key and write their empty partials at once.
+    lmax, off = 4352, 100
+    ks = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+    vs = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b_, 1, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    valid = torch.rand((b_, lmax), generator=g, device=dev) > 0.05
+    out = K3.dense_kv_attention(q, ks, vs, valid, dev_offset(torch, off), 1, scale)
+    ref = K3.dense_kv_attention_plain(q, ks, vs, valid, off, 1, scale)
+    torch.cuda.synchronize()
+    ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+    errs.append(ea)
+    if not ok:
+        fail(f"K3 disagrees with its plain version at Lmax={lmax} offset={off}")
+    nxt, off_t = rotating(nl), dev_offset(torch, off)
+    t = timed(torch, lambda: K3.dense_kv_attention(q, ks, vs, valid, off_t, nxt(), scale),
+              lambda: K3.dense_kv_attention_plain(q, ks, vs, valid, off_t, nxt(), scale), 20)
+    keys = off + 1  # the keys the query can see, read once
+    t.update(bound(2 * 2 * kvh * keys * d + lmax + 2 * 2 * h * d, 4 * h * d * keys), library_ms=None)
+    report["K3"]["timings"].append({"shape": f"Lq=1 Lmax={lmax} offset={off}", **t})
+    log(f"K3 Lq=1 Lmax={lmax} offset={off} ({K3.dense_kv_split_plan(lmax)[0]} splits, "
+        f"{-(-(off + 1) // K3.K3_SPLIT_KEYS)} with keys): max_abs={ea:.3e}; {t.pop('text')} bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    del ks, vs
 
     # K3 at the edges of its split plan (runs of K3_SPLIT_KEYS keys), Lq 1
     # and 4, 32 and 16 kv heads, over three runs and a part: the last row's
@@ -572,7 +623,7 @@ def phase_kernels(torch, report):
                 valid = torch.rand((b_, lmax), generator=g, device=dev) > 0.05
                 for lo, hi in holes:
                     valid[:, lo:hi] = False
-                out = K3.dense_kv_attention(q, ks, vs, valid, offset, 1, scale)
+                out = K3.dense_kv_attention(q, ks, vs, valid, dev_offset(torch, offset), 1, scale)
                 ref = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, 1, scale)
                 torch.cuda.synchronize()
                 ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
@@ -580,7 +631,7 @@ def phase_kernels(torch, report):
                     ok = ok and close(torch, out, mean_v[:, :, None].expand_as(out), ATTN_ATOL,
                                       ATTN_RTOL)[2]
                 errs.append(ea)
-                n_split, _ = K3.dense_kv_split_plan(lmax, offset, lq)
+                n_split, _ = K3.dense_kv_split_plan(lmax)
                 log(f"K3 edge Lmax={lmax} Lq={lq} KV={kvh_} offset={offset} ({what}, {n_split} "
                     f"splits of {sk}): max_abs={ea:.3e} (atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f})")
                 if not ok:
@@ -623,7 +674,8 @@ def phase_quantized_kernels(torch, report):
         for lq, q in qs.items():
             for offset in (lmax // 2, lmax - lq):
                 for layer in (0, nl - 1):
-                    out = KV.quantized_kv_attention(q, payload, scales, valid, offset, layer, scale)
+                    out = KV.quantized_kv_attention(q, payload, scales, valid, dev_offset(torch, offset),
+                                                    layer, scale)
                     ref = KV.quantized_kv_attention_plain(q, payload, scales, valid, offset, layer, scale)
                     torch.cuda.synchronize()
                     ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
@@ -636,7 +688,8 @@ def phase_quantized_kernels(torch, report):
         none = torch.zeros_like(valid)
         mean_v = dequantize_kv(payload[nl - 1], scales[nl - 1], torch.bfloat16)[1].float().mean(dim=2)
         for lq in (1, K4_ROWS[-1]):
-            out = KV.quantized_kv_attention(qs[lq], payload, scales, none, lmax // 2, nl - 1, scale)
+            out = KV.quantized_kv_attention(qs[lq], payload, scales, none, dev_offset(torch, lmax // 2),
+                                            nl - 1, scale)
             ref = KV.quantized_kv_attention_plain(qs[lq], payload, scales, none, lmax // 2, nl - 1, scale)
             torch.cuda.synchronize()
             ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
@@ -657,7 +710,7 @@ def phase_quantized_kernels(torch, report):
         payload[layer, :, :, off : off + 2], scales[layer, :, :, off : off + 2] = p2, s2
         edge_valid = valid.clone()
         edge_valid[:, off : off + 2] = True
-        out = KV.quantized_kv_attention(q, payload, scales, edge_valid, off, layer, scale)
+        out = KV.quantized_kv_attention(q, payload, scales, edge_valid, dev_offset(torch, off), layer, scale)
         ref = KV.quantized_kv_attention_plain(q, payload, scales, edge_valid, off, layer, scale)
         torch.cuda.synchronize()
         ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
@@ -668,9 +721,9 @@ def phase_quantized_kernels(torch, report):
         errs.append(ea)
         n_split, block_keys = KV.quantized_split_plan(lmax)
         for lq, q in qs.items():
-            nxt = rotating(nl)
-            t = timed(torch, lambda: KV.quantized_kv_attention(q, payload, scales, valid, lmax - lq, nxt(), scale),
-                      lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, lmax - lq, nxt(), scale),
+            nxt, end = rotating(nl), dev_offset(torch, lmax - lq)
+            t = timed(torch, lambda: KV.quantized_kv_attention(q, payload, scales, valid, end, nxt(), scale),
+                      lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, end, nxt(), scale),
                       20)
             pairs = int(causal_valid_mask(valid, lmax - lq + torch.arange(lq, device=dev)).sum())
             nbytes = kvh * lmax * (d + 8 * (d // 32)) + lmax + 2 * 2 * h * lq * d
@@ -919,7 +972,8 @@ def phase_experiment_kernels(torch, report):
                     atol = ATTN_ATOL + (1e-5 * ref.float().abs().max().item() if mode == "nosoftmax" else 0)
                     # K4's plan, and E3's sweep of keys per block.
                     for split in (None, *qdecode_sweep.SPLITS):
-                        out = KV.quantized_kv_attention_variant(q, payload, scales, valid, offset, layer,
+                        out = KV.quantized_kv_attention_variant(q, payload, scales, valid,
+                                                                dev_offset(torch, offset), layer,
                                                                 scale, mode=mode, split_keys=split)
                         torch.cuda.synchronize()
                         ea, er, ok = close(torch, out, ref, atol, ATTN_RTOL)
@@ -927,11 +981,11 @@ def phase_experiment_kernels(torch, report):
                         if not ok:
                             fail(f"E2/E3 mode {mode} disagrees with its plain version at Lq={lq} "
                                  f"offset={offset} layer={layer} split_keys={split}")
-        nxt = rotating(nl)
+        nxt, end = rotating(nl), dev_offset(torch, lmax - 1)
         q1 = qs[1]
-        t = timed(torch, lambda: KV.quantized_kv_attention_variant(q1, payload, scales, valid, lmax - 1,
+        t = timed(torch, lambda: KV.quantized_kv_attention_variant(q1, payload, scales, valid, end,
                                                                    nxt(), scale, mode=mode),
-                  lambda: KV.quantized_kv_attention_variant_plain(q1, payload, scales, valid, lmax - 1,
+                  lambda: KV.quantized_kv_attention_variant_plain(q1, payload, scales, valid, end,
                                                                   nxt(), scale, mode), 20)
         per_key = d + (0 if mode in ("convert", "nosoftmax") else 8 * (d // 32))
         keys = lmax if mode == "nosoftmax" else int(valid.sum())
@@ -978,7 +1032,7 @@ def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
 
     from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
     from phi_3_vision_mlx_tpu_torch.engine import state as S
-    from phi_3_vision_mlx_tpu_torch.engine.engine import LM, decode_chunk, run_prefill
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM, Decoder, run_prefill
     from phi_3_vision_mlx_tpu_torch.models import phi3
 
     def first_layers(node):
@@ -991,18 +1045,14 @@ def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
         "lm_head": params["lm_head"],
     }
     dict_input = proc(_apply_chat_template(PROMPT_A))
-    written = {}  # (layer, offset) -> the card's quantized entries
+    written = {}  # (layer, first position) -> the card's quantized entries
 
-    def record(state, layer, offset, k_new, v_new):
-        S.update_layer_chunk(state, layer, offset, k_new, v_new)
-        n = k_new.shape[2]
-        written[layer, offset] = (state.k[layer, :, :, offset : offset + n].cpu(),
-                                  state.k_scales[layer, :, :, offset : offset + n].cpu())
+    def record(state, layer, pos, k_new, v_new):
+        S.update_layer_chunk(state, layer, pos, k_new, v_new)
+        written[layer, int(pos[0])] = (state.k[layer, :, :, pos].cpu(), state.k_scales[layer, :, :, pos].cpu())
 
-    def replay(state, layer, offset, k_new, v_new):
-        payload, scales = written[layer, offset]
-        state.k[layer, :, :, offset : offset + k_new.shape[2]] = payload
-        state.k_scales[layer, :, :, offset : offset + k_new.shape[2]] = scales
+    def replay(state, layer, pos, k_new, v_new):
+        state.k[layer, :, :, pos], state.k_scales[layer, :, :, pos] = written[layer, int(pos[0])]
 
     def run(cfg, device, token, write=S.update_layer_chunk):
         """(prefill logits, decode logits, decode max log-prob, token)."""
@@ -1016,11 +1066,13 @@ def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
 
         phi3.update_layer_chunk = write
         try:
-            lm = LM(cfg, small, device=device)
+            lm = LM(cfg, small, device=device, graphs=False)  # eager: the host reads every write
             logits, state, _, _ = run_prefill(lm, dict_input, 8)
             token = int(logits[0].argmax()) if token is None else token
             phi3.decode_forward = captured
-            _, _, _, maxlp, _ = decode_chunk(lm, torch.tensor([[token]], device=device), state, 1)
+            dec = Decoder(lm, state)
+            dec.start(state, torch.tensor([[token]], device=device))
+            _, maxlp, _ = dec.chunk(1)
         finally:
             phi3.update_layer_chunk = S.update_layer_chunk
             phi3.decode_forward = forward
@@ -1094,19 +1146,22 @@ def phase_serving(torch, lm, proc, report):
     from http.server import HTTPServer
 
     from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.engine import GRAPH_ENTRIES
     from phi_3_vision_mlx_tpu_torch.serve.server import make_handler
 
     from phi_3_vision_mlx_tpu_torch.models import phi3
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import _build
 
     counters = kernel_counters()
     cache = cache_of(lm)
     expected = matmul_kernels(lm) + (("K4", "K5") if cache == "int4" else ("K2", "K3"))
     label = f"{weights_of(lm)} weights, {cache} cache"
-    passes = [0]  # forward passes: each runs lm_head once
     forward = phi3.decode_forward
 
     def counted(*a, **kw):
-        passes[0] += 1
+        """A forward pass (each runs lm_head once), counted as a launch is:
+        a graph's capture records it and each replay adds it."""
+        _build.count_launch(counted)
         return forward(*a, **kw)
     requests = [
         ("a", PROMPT_A, 64),
@@ -1118,7 +1173,7 @@ def phase_serving(torch, lm, proc, report):
     thread.start()
     phi3.decode_forward = counted
     try:
-        for fn in counters.values():
+        for fn in (*counters.values(), counted):
             fn.launches = 0
         for tag, prompt, max_tokens in requests:
             t0 = time.perf_counter()
@@ -1137,9 +1192,9 @@ def phase_serving(torch, lm, proc, report):
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    log(f"launch counts over the three requests ({label}): {launches}; {passes[0]} forward passes")
-    if "K9" in expected and launches["K1"] != passes[0]:
-        fail(f"K1 ran {launches['K1']} times in {passes[0]} forward passes of {label}: "
+    log(f"launch counts over the three requests ({label}): {launches}; {counted.launches} forward passes")
+    if "K9" in expected and launches["K1"] != counted.launches:
+        fail(f"K1 ran {launches['K1']} times in {counted.launches} forward passes of {label}: "
              "packed weights leave it lm_head only")
     for name, n in launches.items():
         if name not in expected:
@@ -1152,7 +1207,15 @@ def phase_serving(torch, lm, proc, report):
     _, tps = api.generate(PROMPT_A, preload=(lm, proc), max_tokens=64, verbose=False,
                           stream=False, mute=True, return_tps=True)
     report[f"single_stream_tps_{weights_of(lm)}_{cache}"] = tps
-    log(f"decode tok/s, request (a) through api.generate (64 tokens, eager, {label}): "
+    # The graph entries over this phase's requests (a, b, c, then a again
+    # through api.generate): a request that made its entry paid a capture.
+    entries = list(lm.decoders.values())
+    captures = ", ".join(f"{d.graph.capture_ms or 0.0:.1f}" for d in entries)
+    held = sum(state_bytes(d.state, d.token, d.ring) + d.graph.pool_bytes for d in entries)
+    log(f"graph entries over the 4 requests ({label}): {lm.entry_uses['made']} made (each captured in its "
+        f"first chunk: {captures} ms), {lm.entry_uses['reused']} reused; {len(entries)} kept of "
+        f"GRAPH_ENTRIES {GRAPH_ENTRIES}, holding {held / 2**30:.3f} GiB")
+    log(f"decode tok/s, request (a) through api.generate (64 tokens, CUDA graphs, {label}): "
         f"{tps:.2f} on {report['card']}")
 
 
@@ -1397,47 +1460,147 @@ def phase_continuous(torch, lm, proc, report, run: str, pool_pages: int = 0):
         fail(f"{tag}: the pool never preempted")
 
 
+def eager_twin(lm):
+    """The same model with CUDA graphs off: every decode step eager, one
+    launch at a time (the reference the graph runs are held to)."""
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+
+    return LM(lm.cfg, lm.params, model_path=lm.model_path, device="cuda", graphs=False)
+
+
+def plus_warm_up(launches: dict, graph) -> dict:
+    """Launch totals of an eager run plus one step of ``graph`` (the
+    launches its capture recorded): a run that captures first runs its step
+    once, eagerly, as the warm-up, and those launches are real."""
+    names = {fn: name for name, fn in kernel_counters().items()}
+    out = dict(launches)
+    for fn, n in graph.launches.items():
+        if fn in names:
+            out[names[fn]] += n
+    return out
+
+
+def zero_counters() -> dict:
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
 def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int = 4):
-    """Steady decode of 4 busy slots over the paged pool: aggregate tok/s
-    over timed chunks, then one profiled chunk (device busy, idle share,
-    launches per step), beside the single-stream figure of this run."""
+    """Steady decode of 4 busy slots over the paged pool, eager and through
+    the step's CUDA graph: aggregate tok/s over timed chunks, then one
+    profiled chunk (device busy, idle share, kernels per step), beside the
+    single-stream figure of this run; the graph's capture ms and bytes."""
     from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine
 
     cache = cache_of(lm)
-    eng = PagedBatchEngine(lm, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW)
     prompts = [(FILLER * 6)[: 150 + 150 * i] for i in range(SERVE_SLOTS)]
-    for p in eng.prepare_many(prompts, [dict(max_tokens=400)] * SERVE_SLOTS):
-        eng.admit(p)
-    for _ in range(2):
-        eng.step(chunk)  # warm-up
-    torch.cuda.synchronize()
-    n_chunks = 6
-    t0 = time.perf_counter()
-    for _ in range(n_chunks):
-        eng.step_pipelined(chunk)
-    eng.flush()
-    wall = time.perf_counter() - t0
-    if len(eng.by_slot) != SERVE_SLOTS:
-        fail(f"paged profile ({cache}): a slot finished early")
-    t0 = time.perf_counter()
-    eng.step(chunk)
-    step_ms = (time.perf_counter() - t0) * 1e3 / chunk
-    # A short profiled chunk: the profiler's events cost host seconds to read.
-    per_name, launches = kernel_times(torch, lambda: eng.step(profiled), profiled)
-    busy = sum(per_name.values())
-    if busy <= 0:
-        fail(f"paged profile ({cache}): the profiler saw no device time")
-    rate = SERVE_SLOTS * chunk * n_chunks / wall
     single = report.get(f"single_stream_tps_{weights_of(lm)}_{cache}", float("nan"))
-    top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
-    paged_by = {name: ms for name, ms in per_name.items() if name in SPLIT_RUN_KERNELS}
-    attn = sum(paged_by.values())
-    log(f"paged decode ({cache} pool, {SERVE_SLOTS} busy slots, window {SERVE_WINDOW}, chunks of "
-        f"{chunk}): {rate:.2f} tok/s aggregate ({rate / SERVE_SLOTS:.2f} per slot) against "
-        f"{single:.2f} tok/s single-stream in this run; step wall {step_ms:.2f} ms, device busy "
-        f"{busy:.3f} ms, idle share {1 - busy / step_ms:.3f}, {launches / profiled:.0f} launches per "
-        f"step; paged attention {attn:.3f} ms per step ({by_text(paged_by)}); largest (ms/step): {top} "
-        f"on {report['card']}")
+    for mode, model in (("eager", eager_twin(lm)), ("graph", lm)):
+        eng = PagedBatchEngine(model, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW)
+        t0 = time.perf_counter()
+        eng.capture()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        for p in eng.prepare_many(prompts, [dict(max_tokens=400)] * SERVE_SLOTS):
+            eng.admit(p)
+        for _ in range(2):
+            eng.step(chunk)  # warm-up
+        torch.cuda.synchronize()
+        n_chunks = 6
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            eng.step_pipelined(chunk)
+        eng.flush()
+        wall = time.perf_counter() - t0
+        if len(eng.by_slot) != SERVE_SLOTS:
+            fail(f"paged profile ({cache}, {mode}): a slot finished early")
+        t0 = time.perf_counter()
+        eng.step(chunk)
+        step_ms = (time.perf_counter() - t0) * 1e3 / chunk
+        # A short profiled chunk: the profiler's events cost host seconds to read.
+        per_name, launches = kernel_times(torch, lambda: eng.step(profiled), profiled)
+        busy = sum(per_name.values())
+        if busy <= 0:
+            fail(f"paged profile ({cache}, {mode}): the profiler saw no device time")
+        rate = SERVE_SLOTS * chunk * n_chunks / wall
+        top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
+        paged_by = {name: ms for name, ms in per_name.items() if name in SPLIT_RUN_KERNELS}
+        g = eng.decoder.graph
+        captured = (f"; capture {g.capture_ms:.1f} ms ({capture_ms:.1f} ms with the warm-up), graph pool "
+                    f"{g.pool_bytes / 2**20:.1f} MiB beside the {state_bytes(eng.state) / 2**30:.3f} GiB "
+                    f"state, {sum(g.launches.values())} wrapper launches a replay" if g.graphs else "")
+        log(f"paged decode ({cache} pool, {mode}, {SERVE_SLOTS} busy slots, window {SERVE_WINDOW}, chunks "
+            f"of {chunk}): {rate:.2f} tok/s aggregate ({rate / SERVE_SLOTS:.2f} per slot) against "
+            f"{single:.2f} tok/s single-stream (graphs) in this run; step wall {step_ms:.2f} ms, device "
+            f"busy {busy:.3f} ms, idle share {1 - busy / step_ms:.3f}, {launches / profiled:.0f} kernels "
+            f"per step; paged attention {sum(paged_by.values()):.3f} ms per step ({by_text(paged_by)}); "
+            f"largest (ms/step): {top}{captured} on {report['card']}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def state_bytes(*objs) -> int:
+    """Device bytes of the tensors that ``objs`` (decode states, rings)
+    hold as fields or attributes, or are."""
+    import torch
+
+    def tensors(o):
+        return [o] if isinstance(o, torch.Tensor) else [v for v in vars(o).values()
+                                                        if isinstance(v, torch.Tensor)]
+
+    return sum(t.numel() * t.element_size() for o in objs for t in tensors(o))
+
+
+def phase_paged_parity(torch, lm, proc):
+    """Six requests (prompts of 100-700 tokens) through the paged engine (4
+    slots, window 1024, page 64) on one fixed schedule, eager and through
+    the step's graph, pipelined two chunks deep: once with the graph
+    captured inside the run, by its first chunk (an engine used without
+    ``capture()``), and once captured before it (as the server does).  The
+    token streams must equal the eager run's, and so must every kernel's
+    launch total (the first graph run's plus its warm-up step)."""
+    from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine
+
+    plan = [(0, 0), (0, 1), (0, 2), (2, 3), (2, 4), (5, 5)]  # (tick, request)
+    budgets = (24, 64, 40, 32, 48, 24)
+    cache = cache_of(lm)
+    runs = {}
+    for mode, model in (("eager", eager_twin(lm)), ("graph captured in the run", lm),
+                        ("graph captured before", lm)):
+        eng = PagedBatchEngine(model, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW, pipeline_depth=2)
+        if mode == "graph captured before":
+            eng.capture()
+        counters = zero_counters()
+        queue, rids, tick = list(plan), [], 0
+        while queue or eng.pending():
+            while queue and queue[0][0] <= tick:
+                i = queue[0][1]
+                prepared = eng.prepare((FILLER * 6)[: 100 + 120 * i], max_tokens=budgets[i])
+                if not eng.can_admit(prepared):
+                    break
+                queue.pop(0)
+                rids.append(eng.admit(prepared))
+            eng.step_pipelined(8)
+            tick += 1
+        eng.flush()
+        torch.cuda.synchronize()
+        if mode != "eager" and eng.decoder.graph.graph is None:
+            fail(f"paged parity ({cache}, {mode}): no graph was captured")
+        runs[mode] = ([eng.tokens(r) for r in rids], {n: fn.launches for n, fn in counters.items()},
+                      eng.decoder.graph)
+        del eng
+    e_toks, e_launch, _ = runs.pop("eager")
+    for mode, (g_toks, g_launch, graph) in runs.items():
+        n_tokens = sum(map(len, g_toks))
+        want = plus_warm_up(e_launch, graph) if mode == "graph captured in the run" else e_launch
+        log(f"paged parity ({weights_of(lm)} weights, {cache} pool, {mode}): {len(g_toks)} requests, "
+            f"{n_tokens} tokens; streams graph == eager: {g_toks == e_toks}; launch totals eager "
+            f"{e_launch}, graph {g_launch}, expected {want}")
+        if g_toks != e_toks or n_tokens < len(plan):
+            fail(f"paged parity ({cache}, {mode}): the graph's streams differ from the eager ones")
+        if g_launch != want:
+            fail(f"paged parity ({cache}, {mode}): launch totals differ from the eager run's")
 
 
 # The quantized matmuls' kernels (K1, K8: route A or B and the split sum; K9: route B).
@@ -1457,45 +1620,116 @@ def short_name(kernel: str) -> str:
     return name.split("<")[0].split("(")[0].split("::")[-1]
 
 
+# Phase 6's single-stream requests: (prompt, max_tokens): windows 768 and 4352.
+PROFILE_PROMPTS = {"a": (PROMPT_A, 512), "c": ((FILLER * 60)[:4200], 16)}
+# Chunks of the eager-against-graph parity run per request: the ramp's
+# first chunks and a ragged tail.
+PARITY_CHUNKS = {"a": (8, 32, 23), "c": (8, 7)}
+
+
+def decode_run(torch, lm, dict_input, budget: int, chunks):
+    """Prefill, then ``chunks`` through the model's Decoder, the counters
+    zeroed first.  Returns the first token and the chunks' tokens, max and
+    EOS log-probs as host arrays, the launch counts, the decoder and the
+    prefill's ms (host clock, synchronized)."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_decoder
+
+    counters = zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec, first = prefill_decoder(lm, dict_input, budget)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    rows = [tuple(t.cpu().numpy() for t in dec.chunk(n)) for n in chunks]
+    torch.cuda.synchronize()
+    out = [first.cpu().numpy()] + [np.concatenate(parts) for parts in zip(*rows)]
+    return out, {name: fn.launches for name, fn in counters.items()}, dec, prefill_ms
+
+
+def step_profile(torch, dec, steps: int, profiled: int):
+    """(wall ms per step over ``steps`` steps ending in the engine's one
+    device-to-host copy, device ms per step by kernel, kernels per step)."""
+    dec.chunk(2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, *_ = dec.chunk(steps)
+    toks.cpu()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    per_name, launches = kernel_times(torch, lambda: dec.chunk(profiled), profiled)
+    return wall, per_name, launches / profiled
+
+
 def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a", "c")):
-    """Wall and device time of a decode token at a short (tag a) and a long
-    (tag c) window."""
+    """Each single-stream request of ``tags`` (windows 768 and 4352) eager
+    and twice through the decode step's CUDA graph, on a model with no
+    graph entry yet: the first graph request captures the graph inside its
+    own first chunk (capture ms, the entry's bytes), as a user's first
+    request of a key does, and the second replays the entry it left.  Each
+    run of ``PARITY_CHUNKS`` must give the eager run's tokens and max and
+    EOS log-probs bit for bit, and its launch totals, kernel for kernel
+    (the capturing run's plus its warm-up step); then wall and device time
+    of a decode token, each way."""
+    import numpy as np
+
     from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
-    from phi_3_vision_mlx_tpu_torch.engine.engine import decode_chunk, run_prefill
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM, release_decoder
 
     cache = cache_of(lm)
-    prompts = {"a": (PROMPT_A, 512), "c": ((FILLER * 60)[:4200], 16)}
+    eager = eager_twin(lm)
+    label = f"{weights_of(lm)} weights, {cache} cache"
     for tag in tags:
-        prompt, budget = prompts[tag]
+        prompt, budget = PROFILE_PROMPTS[tag]
         dict_input = proc(_apply_chat_template(prompt))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, state, _, window = run_prefill(lm, dict_input, budget)
-        token = logits.argmax(dim=-1)[:, None]
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        token, state, *_ = decode_chunk(lm, token, state, 2)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        token, state, toks, *_ = decode_chunk(lm, token, state, steps)
-        toks.cpu()  # the engine's one device-to-host copy per chunk
-        wall = (time.perf_counter() - t0) * 1e3 / steps
-        # A window the profiler missed decodes the same tokens again (room is left).
-        per_name, launches = kernel_times(torch, lambda: decode_chunk(lm, token, state, profiled), profiled)
-        busy = sum(per_name.values())
-        if busy <= 0:
-            fail(f"profile ({tag}): the profiler saw no device time")
+        e_out, e_launch, e_dec, prefill_ms = decode_run(torch, eager, dict_input, budget, PARITY_CHUNKS[tag])
+        fresh = LM(lm.cfg, lm.params, model_path=lm.model_path, device="cuda")  # no entries
+        runs = {}
+        for run in ("capturing", "replaying"):
+            g_out, g_launch, g_dec, _ = decode_run(torch, fresh, dict_input, budget, PARITY_CHUNKS[tag])
+            release_decoder(fresh, g_dec)
+            same = [np.array_equal(a, b) for a, b in zip(e_out, g_out)]
+            runs[run] = g_dec
+            want = plus_warm_up(e_launch, g_dec.graph) if run == "capturing" else e_launch
+            log(f"graph parity ({tag}, {label}, window {g_dec.state.window}, {run} request): "
+                f"{len(g_out[1])} steps; tokens, max log-prob, EOS log-prob bitwise equal to eager: "
+                f"{same[1:]} (first token {same[0]}); launch totals as expected: {g_launch == want} "
+                f"{g_launch}")
+            if not all(same):
+                fail(f"graph parity ({tag}, {label}, {run} request): the graph run differs from the eager run")
+            if g_launch != want:
+                fail(f"graph parity ({tag}, {label}, {run} request): launch totals {g_launch}, expected "
+                     f"{want} (eager {e_launch})")
+        if runs["replaying"] is not runs["capturing"] or fresh.entry_uses != {"made": 1, "reused": 1}:
+            fail(f"graph parity ({tag}, {label}): the second request did not reuse the first one's entry")
+        g_dec = runs["replaying"]
+        g = g_dec.graph
+        entry_bytes = state_bytes(g_dec.state, g_dec.token, g_dec.ring) + g.pool_bytes
+        window = g_dec.state.window
+        cols = {}
+        for mode, dec in (("eager", e_dec), ("graph", g_dec)):
+            wall, per_name, kernels = step_profile(torch, dec, steps, profiled)
+            busy = sum(per_name.values())
+            if busy <= 0:
+                fail(f"profile ({tag}, {mode}): the profiler saw no device time")
+            cols[mode] = (wall, busy, kernels, per_name)
+        e_wall, e_busy, e_kernels, _ = cols["eager"]
+        wall, busy, kernels, per_name = cols["graph"]
         top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
         attn = sum(ms for name, ms in per_name.items()
                    if "kv_" in name or "flash" in name or name in SPLIT_RUN_KERNELS)
         matmul_by = {k: per_name[k] for k in MATMUL_KERNELS if per_name[k] > 0}
-        matmul = sum(matmul_by.values())
-        log(f"profile ({tag}, {weights_of(lm)} weights, {cache} cache): "
-            f"{len(dict_input['input_ids'][0])} prompt tokens, "
-            f"window {window}: prefill {prefill_ms:.1f} ms; decode wall {wall:.2f} ms/token "
-            f"({1e3 / wall:.2f} tok/s), device busy {busy:.3f} ms/token, idle share "
-            f"{1 - busy / wall:.3f}, {launches / profiled:.0f} launches/token; attention kernels "
-            f"{attn:.3f} ms/token; {matmul_kernel(lm)} {matmul:.3f} ms/token; largest (ms/token): {top}")
+        log(f"profile ({tag}, {label}): {len(dict_input['input_ids'][0])} prompt tokens, window {window}: "
+            f"prefill {prefill_ms:.1f} ms; eager: decode wall {e_wall:.2f} ms/token ({1e3 / e_wall:.2f} "
+            f"tok/s), device busy {e_busy:.3f} ms/token, idle share {1 - e_busy / e_wall:.3f}, "
+            f"{e_kernels:.0f} kernels/token; graph: decode wall {wall:.2f} ms/token ({1e3 / wall:.2f} "
+            f"tok/s), device busy {busy:.3f} ms/token, idle share {1 - busy / wall:.3f}, {kernels:.0f} "
+            f"graph nodes/token ({sum(g.launches.values())} through the port's wrappers); capture "
+            f"{g.capture_ms or 0:.1f} ms, entry {entry_bytes / 2**30:.3f} GiB (graph pool "
+            f"{g.pool_bytes / 2**20:.1f} MiB); attention kernels {attn:.3f} ms/token; {matmul_kernel(lm)} "
+            f"{sum(matmul_by.values()):.3f} ms/token; largest (ms/token): {top}")
+        del fresh, runs, e_dec, g_dec, g
+        torch.cuda.empty_cache()
 
 
 def phase_experiments(torch, report):
@@ -1641,6 +1875,8 @@ def main() -> None:
     phase_continuous(torch, lm, proc, report, "a")
     phase_continuous(torch, lm_int4, proc, report, "b")
     phase_continuous(torch, lm, proc, report, "c", pool_pages=20)
+    phase_paged_parity(torch, lm, proc)
+    phase_paged_parity(torch, lm_int4, proc)
     phase_paged_profile(torch, lm, proc, report)
     phase_paged_profile(torch, lm_int4, proc, report)
     stamp("phase 5")

@@ -16,9 +16,13 @@
 //   runs the same body with the int4 loader).
 // * K3 (decode, Lq <= 16) is bound by bytes: the layer's K and V for the
 //   keys any row can see, 2 * Lk * D * 2 B per (batch, kv head).  The window
-//   is split into runs of `split_keys` keys (the wrapper's plan), one block
-//   per (run, head, batch), so the grid fills the card at B = 1 (68 x 32
-//   blocks at a 4352-key window, 12 x 32 at 768, with 64-key runs).  A block
+//   is split into runs of `split_keys` keys (the wrapper's plan, which takes
+//   the window only: the offset is read from device memory, once a block,
+//   so a captured launch replays at any offset), one block per (run, head,
+//   batch), so the grid fills the card at B = 1 (68 x 32 blocks at a
+//   4352-key window, 12 x 32 at 768, with 64-key runs).  A block whose run
+//   starts at or past the last visible key writes an empty partial and
+//   returns.  A block
 //   requests its run's K and V rows at once into shared memory (16-byte
 //   cp.async; 24 KB at 64 keys, eight blocks an SM), scores all its keys for
 //   all the head's query rows, then takes one max and one sum per row over
@@ -138,9 +142,11 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
-// Grid (n_split, H, B).  Block s reads keys [s * split_keys, min((s + 1) *
-// split_keys, kend)), kend = min(Lmax, offset + Lq): the keys some row can
-// see.  Query row i sees key j iff j <= offset + i and valid[b, j].  The
+// Grid (n_split, H, B), n_split = ceil(Lmax / split_keys).  Block s reads
+// keys [s * split_keys, min((s + 1) * split_keys, kend)), kend = min(Lmax,
+// *offset + Lq): the keys some row can see; a block with none writes every
+// row's empty partial (max NEG_INF, sum 0, output 0).  Query row i sees key
+// j iff j <= offset + i and valid[b, j].  The
 // block's K and V rows are all requested at once (16-byte cp.async), so
 // every block resident on an SM has its whole run in flight.  It writes
 // each row's (max, sum, unnormalized output) to partial[s, row], row = (b *
@@ -150,8 +156,8 @@ __global__ void __launch_bounds__(kSplitThreads)
     dense_kv_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
                           float* __restrict__ partial, int H, int KV, int Lq, int Lmax,
-                          long long qsb, long long qsh, long long qsl, int offset, float scale,
-                          int split_keys) {
+                          long long qsb, long long qsh, long long qsl,
+                          const int* __restrict__ offset_ptr, float scale, int split_keys) {
   constexpr int S = D + 8;        // K row stride in shared memory: conflict-free 16-byte reads
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   constexpr int kWarps = kSplitThreads / 32;
@@ -166,7 +172,20 @@ __global__ void __launch_bounds__(kSplitThreads)
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j0 = split * split_keys;
+  const int offset = *offset_ptr;
   const int n = min(split_keys, min(Lmax, offset + Lq) - j0);
+  const size_t rows = (size_t)gridDim.y * gridDim.z * Lq;
+  if (n <= 0) {  // past every row's last visible key: an empty partial
+    for (int r = 0; r < Lq; ++r) {
+      float* dst = partial + ((size_t)split * rows + ((size_t)b * H + h) * Lq + r) * (D + 2);
+      if (tid < D) dst[2 + tid] = 0.f;
+      if (tid == 0) {
+        dst[0] = kNegInf;
+        dst[1] = 0.f;
+      }
+    }
+    return;
+  }
   const size_t kv0 = ((size_t)b * KV + kvh) * (size_t)Lmax * D;
   for (int idx = tid; idx < n * kChunks; idx += kSplitThreads) {
     const int r = idx / kChunks, c = idx % kChunks;
@@ -263,7 +282,6 @@ __global__ void __launch_bounds__(kSplitThreads)
       acc[r] = fmaf(ps[r * split_keys + c], vv, acc[r]);
     }
   }
-  const size_t rows = (size_t)gridDim.y * gridDim.z * Lq;
   for (int r = 0; r < Lq; ++r) {
     float* dst = partial + ((size_t)split * rows + ((size_t)b * H + h) * Lq + r) * (D + 2);
     dst[2 + tid] = acc[r];
@@ -277,11 +295,10 @@ __global__ void __launch_bounds__(kSplitThreads)
 template <int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* valid,
                           void* out, void* partial, int B, int H, int KV, int Lq, int Lmax,
-                          const long long* st, int layer, int offset, float scale, int n_split,
-                          int split_keys, cudaStream_t stream) {
-  const int kend = min(Lmax, offset + Lq);
-  if (Lq < 1 || Lq > kSplitMaxRows || KV < 1 || H % KV || offset < 0 || kend < 1 ||
-      split_keys < 1 || partial == nullptr || n_split != (kend + split_keys - 1) / split_keys)
+                          const long long* st, int layer, const int* offset, float scale,
+                          int n_split, int split_keys, cudaStream_t stream) {
+  if (Lq < 1 || Lq > kSplitMaxRows || KV < 1 || H % KV || Lmax < 1 || offset == nullptr ||
+      split_keys < 1 || partial == nullptr || n_split != (Lmax + split_keys - 1) / split_keys)
     return cudaErrorInvalidValue;
   const size_t bytes = split_smem_bytes<D>(split_keys, Lq);
   cudaError_t err = cudaFuncSetAttribute(dense_kv_split_kernel<D>,
@@ -325,18 +342,19 @@ extern "C" int k2_flash_attention(const void* q, const void* k, const void* v, c
 // K3.  q (B, H, Lq, D) as in K2, Lq <= 16; k, v the stacked cache (layers,
 // B, KV, Lmax, D) bf16 contiguous, 16-byte aligned, read at `layer` in
 // place; valid (B, Lmax) uint8; partial f32 scratch of n_split * B * H * Lq
-// * (D + 2) floats, n_split = ceil(min(Lmax, offset + Lq) / split_keys).
-// Query i sits at position offset + i.  Returns a cudaError_t.
+// * (D + 2) floats, n_split = ceil(Lmax / split_keys); offset a device
+// pointer to one int32 >= 0, read by the kernels (the caller checks it).
+// Query i sits at position *offset + i.  Returns a cudaError_t.
 extern "C" int k3_dense_kv_attention(const void* q, const void* k, const void* v,
                                      const void* valid, void* out, void* partial, int B, int H,
                                      int KV, int Lq, int Lmax, int D, long long qsb, long long qsh,
                                      long long qsl, long long osb, long long osh, long long osl,
-                                     int layer, int offset, float scale, int n_split,
+                                     int layer, const void* offset, float scale, int n_split,
                                      int split_keys, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   switch (D) {
-    case 96: return (int)launch_decode<96>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, offset, scale, n_split, split_keys, stream);
+    case 96: return (int)launch_decode<96>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, static_cast<const int*>(offset), scale, n_split, split_keys, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

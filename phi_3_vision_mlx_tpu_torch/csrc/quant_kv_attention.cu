@@ -95,12 +95,15 @@ struct Int4Tiles {
 // Lmax, ...): batch row s's key j of kv head kvh at row (s * KV + kvh) *
 // Lmax + j; query i sits at offset + i for every row and sees key j iff j
 // <= offset + i and valid[s, j] (no fresh region: the step's keys are
-// written and listed before the kernel runs).
+// written and listed before the kernel runs).  The offset is one int32 in
+// device memory, which each block loads once (a captured launch replays at
+// any offset).
 struct Stacked {
   const uint8_t* valid;  // (B, Lmax)
-  int KV, L, off;
+  const int* off;        // (1,) int32, on the device
+  int KV, L;
   __host__ __device__ __forceinline__ int width() const { return L; }
-  __device__ __forceinline__ int offset(int) const { return off; }
+  __device__ __forceinline__ int offset(int) const { return *off; }
   __device__ __forceinline__ size_t row(int s, int kvh, int j) const { return ((size_t)s * KV + kvh) * L + j; }
   __device__ __forceinline__ bool listed(int s, int j, int) const { return valid[(size_t)s * L + j] != 0; }
 };
@@ -109,14 +112,14 @@ template <int D, int MODE>
 cudaError_t launch_quantized_decode(const void* q, const void* payload, const void* scales,
                                     const void* valid, void* out, void* partial, int B, int H,
                                     int KV, int Lq, int Lmax, const long long* st, int layer,
-                                    int offset, float scale, int n_split, int block_keys,
+                                    const void* offset, float scale, int n_split, int block_keys,
                                     cudaStream_t stream) {
   constexpr int G = D / kGroup;
-  if (offset < 0) return cudaErrorInvalidValue;
+  if (offset == nullptr) return cudaErrorInvalidValue;
   const size_t layer_keys = (size_t)B * KV * Lmax;
   const uint8_t* p = static_cast<const uint8_t*>(payload) + (size_t)layer * layer_keys * D;
   const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(scales) + (size_t)layer * layer_keys * 4 * G;
-  const Stacked win{static_cast<const uint8_t*>(valid), KV, Lmax, offset};
+  const Stacked win{static_cast<const uint8_t*>(valid), static_cast<const int*>(offset), KV, Lmax};
   return launch_split_runs<D, Int4Run<D, MODE>>(q, p, s, win, out, partial, B, H, Lq, st, scale,
                                                  n_split, block_keys, stream);
 }
@@ -130,14 +133,15 @@ cudaError_t launch_quantized_decode(const void* q, const void* payload, const vo
 // f32 scratch of n_split * B * H * Lq * (D + 2) floats; Lq <= 16;
 // split_keys (keys per block) a multiple of 64 and n_split = ceil(Lmax /
 // split_keys) (the wrapper's quantized_split_plan); payload 16-byte and
-// scales 8-byte aligned.  Query i sits at position offset + i.  Returns a
+// scales 8-byte aligned; offset a device pointer to one int32 >= 0 (the
+// caller checks it).  Query i sits at position *offset + i.  Returns a
 // cudaError_t.
 extern "C" int k4_quantized_kv_attention(const void* q, const void* payload, const void* scales,
                                          const void* valid, void* out, void* partial, int B,
                                          int H, int KV, int Lq, int Lmax, int D, long long qsb,
                                          long long qsh, long long qsl, long long osb,
-                                         long long osh, long long osl, int layer, int offset,
-                                         float scale, int n_split, int split_keys,
+                                         long long osh, long long osl, int layer,
+                                         const void* offset, float scale, int n_split, int split_keys,
                                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
@@ -178,7 +182,7 @@ extern "C" int e23_quantized_kv_attention_variant(const void* q, const void* pay
                                                   void* partial, int B, int H, int KV, int Lq,
                                                   int Lmax, int D, long long qsb, long long qsh,
                                                   long long qsl, long long osb, long long osh,
-                                                  long long osl, int layer, int offset,
+                                                  long long osl, int layer, const void* offset,
                                                   float scale, int n_split, int split_keys,
                                                   int mode, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);

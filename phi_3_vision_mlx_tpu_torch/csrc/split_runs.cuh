@@ -48,8 +48,8 @@
 // * Pages (K6, K7): the page table, per-slot offsets on the device and the
 //   fresh-region rule, listed iff valid[s, j] or j >= offsets[s];
 // * Stacked (K4): row (s * KV + kvh) * Lmax + j of the layer's stacked
-//   cache, one offset for every row, listed iff valid[s, j] (no fresh
-//   region).
+//   cache, one offset on the device for every row, listed iff valid[s, j]
+//   (no fresh region).
 //
 // E2/E3's modes (attention.cuh: Mode) are compile-time variants of the
 // int4 loader's tiles and of this body: the tiles hold the mode's values

@@ -28,6 +28,13 @@ What differs from the JAX package, and why:
 * The slot engine's attention is the plain masked attention (the JAX
   package leaves it to XLA too); the paged engine (``engine/paging.py``)
   runs kernels K6 and K7.
+* Each decode step is one replay of a CUDA graph on the card (the JAX
+  engine compiles its chunk): :class:`SlotStep` runs it on static tensors,
+  the ``active`` mask copied in before a chunk and a ring of outputs that
+  the chunk's device-to-host copies read before the next chunk's replays
+  overwrite it (stream order).  The graph holds the state's addresses, so
+  the state is reset in place, never replaced; ``capture()`` captures it
+  ahead of serving.
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from ..ops.attention import masked_attention
 from ..ops.linear import dense, embedding
 from ..ops.norms import rms_norm
 from ..ops.rope import su_rope_tables
-from .engine import round_up, run_prefill
+from .engine import DECODE_CHUNK_MAX, round_up, run_prefill
+from .graphs import StepGraph, StepRing
 from .state import alloc_cache, dequantize_kv, quantize_chunk
 from .stream import LogitStopper, stop_tail_window, validate_stops
 
@@ -147,42 +155,55 @@ def _slot_attention(st: SlotState, active: torch.Tensor):
     return attend
 
 
-@torch.no_grad()
-def decode_chunk(lm, st, active: torch.Tensor, n_steps: int, attention=_slot_attention):
-    """``n_steps`` greedy steps of every slot, the argmax fed back on the
-    device; inactive slots compute but neither commit nor advance.
-
+class SlotStep:
+    """The slot engines' greedy decode step over a state ``st``, on static
+    tensors (a :class:`~.graphs.StepGraph`): every slot computes, the
+    ``active`` ones commit their column and advance, the argmax feeds back
+    through ``st.tokens``, and the ring takes each step's tokens, max
+    log-prob and EOS log-prob, the statistics the host's stoppers replay.
     ``attention(st, active)`` makes one step's ``attend(i, q, k, v)`` (the
-    slot or the paged cache).  Returns device tensors (n_steps, S) of
-    tokens, max log-prob and EOS log-prob, the statistics the host's
-    stoppers replay."""
-    cfg, mdl = lm.cfg, lm.params["model"]
-    s, w = st.valid.shape
-    dev = st.valid.device
-    rows = torch.arange(s, device=dev)
-    step_inc = active.to(torch.int32)
-    toks = torch.empty((n_steps, s), dtype=torch.long, device=dev)
-    maxlp = torch.empty((n_steps, s), dtype=torch.float32, device=dev)
-    eoslp = torch.empty((n_steps, s), dtype=torch.float32, device=dev)
-    for step in range(n_steps):
+    slot or the paged cache)."""
+
+    def __init__(self, lm, st, attention):
+        self.lm, self.st, self.attention = lm, st, attention
+        s = st.valid.shape[0]
+        dev = st.valid.device
+        self.active = torch.zeros((s,), dtype=torch.bool, device=dev)
+        self.rows = torch.arange(s, device=dev)
+        self.ring = StepRing(DECODE_CHUNK_MAX, s, dev)
+        self.graph = StepGraph(self._step, dev, lm.graphs,
+                               save=(st.offsets, st.tokens, st.valid, self.ring.index))
+
+    @torch.no_grad()
+    def _step(self) -> None:
+        cfg, mdl, st, active = self.lm.cfg, self.lm.params["model"], self.st, self.active
+        w = st.valid.shape[1]
         x = embedding(mdl["embed_tokens"], st.tokens[:, None], dtype=torch_dtype(cfg.dtype))
         # Per-slot RoPE at the slot's logical position: a left-padded prompt
         # continues from its true length, not from the cache column.
         pos = (st.offsets - st.pads).long().clamp(0, w - 1)
         cos, sin = st.cos[0, pos][:, None], st.sin[0, pos][:, None]
-        attend = attention(st, active)
+        attend = self.attention(st, active)
         for i in range(cfg.num_hidden_layers):
             x = phi3.block(cfg, x, mdl["layers"], i, cos, sin, functools.partial(attend, i))
         x = rms_norm(x, mdl["norm"]["weight"], cfg.rms_norm_eps)
-        lg = dense(lm.params["lm_head"], x)[:, -1, : cfg.vocab_size].float()
-        lp = torch.log_softmax(lg, dim=-1)
-        nxt = lg.argmax(dim=-1)
-        toks[step], maxlp[step], eoslp[step] = nxt, lp.amax(dim=-1), lp[:, lm.eos_id]
+        nxt = self.ring.write(dense(self.lm.params["lm_head"], x)[:, -1, : cfg.vocab_size].float(),
+                              self.lm.eos_id)
         col = st.offsets.long().clamp(max=w - 1)
-        st.valid[rows, col] = st.valid[rows, col] | active
-        st.offsets += step_inc
+        st.valid[self.rows, col] = st.valid[self.rows, col] | active
+        st.offsets += active.to(torch.int32)
         st.tokens.copy_(torch.where(active, nxt, st.tokens))
-    return toks, maxlp, eoslp
+
+    @torch.no_grad()
+    def chunk(self, active, n_steps: int):
+        """``n_steps`` steps with the host mask ``active`` (S,) bool.
+        Returns device views (n_steps, S) of the ring, valid until the next
+        chunk's steps run."""
+        self.active.copy_(to_device(active, self.active.device))
+        self.ring.start(n_steps)
+        for _ in range(n_steps):
+            self.graph()
+        return self.ring.rows(n_steps)
 
 
 def adopt_row(st, slot: int, p: "_Prepared") -> None:
@@ -237,7 +258,7 @@ class _Fetch:
     def __init__(self, tensors):
         self.event = None
         if tensors[0].device.type != "cuda":
-            self.host = tensors
+            self.host = [None if t is None else t.clone() for t in tensors]  # the ring is reused
             return
         self.host = [None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in tensors]
@@ -307,6 +328,7 @@ class BatchEngine:
         self.slots = slots
         self.window = window
         self.state = self._init_state()
+        self.decoder = SlotStep(lm, self.state, self._attention())
         self.free: List[int] = list(range(slots))
         self.requests: Dict[int, _Request] = {}
         self.by_slot: Dict[int, _Request] = {}
@@ -323,6 +345,19 @@ class BatchEngine:
 
     def _attention(self):
         return _slot_attention
+
+    def capture(self) -> None:
+        """Capture the decode step's graph now (a no-op without graphs): a
+        server does so before its threads start launching."""
+        self.decoder.graph.capture()
+
+    def _reset_state(self) -> None:
+        """Zero the state in place (its graph keeps its addresses): every
+        slot empty, as a fresh state."""
+        st = self.state
+        for t in (st.k, st.v, st.k_scales, st.offsets, st.pads, st.valid, st.tokens):
+            if t is not None:
+                t.zero_()
 
     # -- admission ----------------------------------------------------------
 
@@ -483,8 +518,7 @@ class BatchEngine:
         # a copy of the tokens before the chunk overwrites them in place.
         seed = (self.state.tokens.clone()
                 if any(r.first_dev is not None for r in self.by_slot.values()) else None)
-        toks, maxlp, eoslp = decode_chunk(self.lm, self.state, to_device(active, self.lm.device),
-                                          n_steps, self._attention())
+        toks, maxlp, eoslp = self.decoder.chunk(active, n_steps)
         return _ChunkHandle(_Fetch([toks, maxlp, eoslp, seed]),
                             {s: r.rid for s, r in self.by_slot.items()}, n_steps, growth=n_steps)
 
@@ -605,7 +639,7 @@ class BatchEngine:
             self._on_slot_freed(slot)
         self._inflight = []
         self._orphan_out = {}
-        self.state = self._init_state()
+        self._reset_state()
 
     # -- results ------------------------------------------------------------
 

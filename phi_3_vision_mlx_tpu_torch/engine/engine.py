@@ -7,15 +7,28 @@ The contract of the JAX engine carries over: prompts are left-padded to a
 in chunks whose argmax feeds back on the device, and the host fetches the
 tokens and the two logit statistics the stoppers need once per chunk, then
 replays the stoppers in the reference order.  Chunk sizes ramp from
-``DECODE_CHUNK_MIN`` by 4x up to ``DECODE_CHUNK_MAX``.  Decode runs eagerly
-(one kernel launch at a time); CUDA graphs are later work.  Sampling,
-speculation and vision prompts are not ported yet; the continuous-batching
-engines are ``engine/batching.py`` and ``engine/paging.py``.
+``DECODE_CHUNK_MIN`` by 4x up to ``DECODE_CHUNK_MAX``.
+
+A :class:`Decoder` runs the decode steps (the JAX engine's ``chunk_fn``):
+on the card each step is one replay of a CUDA graph (``engine/graphs.py``),
+keyed by (rows, window) on the model's cache kind, with no key per chunk
+length.  A graph holds the addresses it captured, so its entry owns its
+decode state, and the next request of the same key prefills into those
+buffers (``init_state(into=...)``); ``LM.decoders`` keeps the
+``GRAPH_ENTRIES`` most recently finished entries, and an entry leaves it
+while a request decodes with it (one request at a time).  ``LM(graphs=False)`` runs the same
+steps eagerly on the card (the reference); the CPU always does.  Prefill and
+extend chunks run eagerly.  Sampling, speculation and vision prompts are not
+ported yet; the continuous-batching engines are ``engine/batching.py`` and
+``engine/paging.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 import time
+from collections import Counter, OrderedDict
 
 import numpy as np
 import torch
@@ -23,6 +36,7 @@ import torch
 from ..core.config import ID_EOS, ModelConfig
 from ..core.weights import params_to, torch_dtype
 from ..models import phi3
+from .graphs import StepGraph, StepRing
 from .state import init_state
 from .stream import LogitStopper, StopSequences, Streamer, TokenStopper
 
@@ -31,6 +45,15 @@ WINDOW_BUCKET = 128
 PREFILL_CHUNK = 16384
 DECODE_CHUNK_MIN = 8
 DECODE_CHUNK_MAX = 256
+# Decoders (graph entries) a model keeps, least recently used dropped first.
+# An entry holds its window's cache: at the 4352-position window of a
+# 4207-token prompt the dense cache is 32 x 2 x 32 x 4352 x 96 x 2 B = 1.59
+# GiB, so four such entries take 8% of an 80 GB card.  The count is an
+# assumption, not chosen from traffic: the key is (B, window), the window
+# rounds prompt bucket + max_tokens up to 128, and no request mix has been
+# measured yet.  ``LM.entry_uses`` counts the requests that reused an entry
+# and those that made one (and so capture), for a mix to be judged by.
+GRAPH_ENTRIES = 4
 
 
 def round_up(x: int, m: int) -> int:
@@ -42,19 +65,27 @@ class LM:
 
     On CUDA the kernels take bf16 activations, so ``cfg.dtype`` must be
     ``"bfloat16"`` there; the CPU runs the plain paths in either dtype.
+    ``graphs`` (default: on for CUDA) replays each decode step of this
+    model's engines as a CUDA graph; ``graphs=False`` runs them eagerly.
     """
 
-    def __init__(self, cfg: ModelConfig, params: dict, model_path=None, *, device):
+    def __init__(self, cfg: ModelConfig, params: dict, model_path=None, *, device, graphs=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the kernels need one; pass device='cpu' "
                                "to run the plain PyTorch path instead")
         if self.device.type == "cuda" and cfg.dtype != "bfloat16":
             raise ValueError(f"the CUDA kernels run bf16 models, not {cfg.dtype}")
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}; pass graphs=False")
         self.cfg = cfg
         self.params = params_to(params, self.device)
         self.model_path = model_path
         self.eos_id = ID_EOS if cfg.vocab_size > ID_EOS else cfg.vocab_size - 1
+        self.decoders: OrderedDict = OrderedDict()  # (B, window) -> Decoder, newest last
+        self.lock = threading.Lock()  # guards decoders
+        self.entry_uses = Counter()  # requests that "reused" an entry or "made" one
 
 
 def pad_prompt_inputs(dict_input: dict, target_l: int):
@@ -74,17 +105,23 @@ def pad_prompt_inputs(dict_input: dict, target_l: int):
     return ids, pids, mask.astype(bool)
 
 
+def prefill_shape(dict_input: dict, max_tokens: int):
+    """(B, l_pad, window) of a prompt's bucketed prefill."""
+    b, l = np.asarray(dict_input["input_ids"]).shape
+    l_pad = max(round_up(l, PROMPT_BUCKET), PROMPT_BUCKET)
+    return b, l_pad, round_up(l_pad + max(int(max_tokens), 1), WINDOW_BUCKET)
+
+
 @torch.no_grad()
-def run_prefill(lm: LM, dict_input: dict, max_tokens: int):
-    """Bucketed (and above ``PREFILL_CHUNK``, chunked) text prefill.
+def run_prefill(lm: LM, dict_input: dict, max_tokens: int, into=None):
+    """Bucketed (and above ``PREFILL_CHUNK``, chunked) text prefill, into a
+    fresh state or reusing ``into``'s tensors (``init_state``).
 
     Returns (last_logits (B, V) float32 on the device, state, l_pad, window).
     """
     if any(dict_input.get(key) is not None for key in ("pixel_values", "hd_images", "raw_images")):
         raise NotImplementedError("vision prompts are not ported yet")
-    b, l = np.asarray(dict_input["input_ids"]).shape
-    l_pad = max(round_up(l, PROMPT_BUCKET), PROMPT_BUCKET)
-    window = round_up(l_pad + max(int(max_tokens), 1), WINDOW_BUCKET)
+    b, l_pad, window = prefill_shape(dict_input, max_tokens)
     ids_p, pids_p, valid_p = pad_prompt_inputs(dict_input, l_pad)
     ids = torch.as_tensor(ids_p, dtype=torch.long, device=lm.device)
     pids = torch.as_tensor(pids_p, device=lm.device)
@@ -92,12 +129,12 @@ def run_prefill(lm: LM, dict_input: dict, max_tokens: int):
     if l_pad <= PREFILL_CHUNK:
         res = phi3.prefill(
             lm.params, lm.cfg, ids, max_tokens=window - l_pad, pids=pids,
-            prompt_valid=valid, last_logit_only=True,
+            prompt_valid=valid, last_logit_only=True, into=into,
         )
         return res.logits[:, -1, :].float(), res.state, l_pad, window
     state = init_state(
         lm.cfg, b, l_pad, window, pids=pids, prompt_valid=valid,
-        compute_dtype=torch_dtype(lm.cfg.dtype), device=lm.device,
+        compute_dtype=torch_dtype(lm.cfg.dtype), device=lm.device, into=into,
     )
     for pos in range(0, l_pad, PREFILL_CHUNK):
         res = phi3.decode_forward(
@@ -107,28 +144,80 @@ def run_prefill(lm: LM, dict_input: dict, max_tokens: int):
     return res.logits[:, -1, :].float(), state, l_pad, window
 
 
-@torch.no_grad()
-def decode_chunk(lm: LM, token: torch.Tensor, state, n_steps: int):
-    """``n_steps`` greedy steps with the argmax fed back on the device.
+class Decoder:
+    """Greedy decode of one state's rows, a step at a time through a
+    :class:`~.graphs.StepGraph`: the static token ``(B, 1)`` feeds each step
+    and takes its argmax; the ring takes the statistics the stoppers need.
 
-    token (B, 1) int64 on the device.  Returns the last token, the state and
-    device tensors (n_steps, B) of tokens, max log-prob and EOS log-prob.
-    """
-    b = token.shape[0]
-    toks = torch.empty((n_steps, b), dtype=torch.long, device=lm.device)
-    maxlp = torch.empty((n_steps, b), dtype=torch.float32, device=lm.device)
-    eoslp = torch.empty((n_steps, b), dtype=torch.float32, device=lm.device)
-    for step in range(n_steps):
-        res = phi3.decode_forward(lm.params, lm.cfg, state, token)
-        state = res.state
-        logits = res.logits[:, -1, :].float()
-        lp = torch.log_softmax(logits, dim=-1)
-        nxt = logits.argmax(dim=-1)
-        toks[step] = nxt
-        maxlp[step] = lp.amax(dim=-1)
-        eoslp[step] = lp[:, lm.eos_id]
-        token = nxt[:, None]
-    return token, state, toks, maxlp, eoslp
+    Usage: ``start(state, token)`` after a prefill into this decoder's state
+    (the first request's own), then ``chunk(n)`` per chunk."""
+
+    def __init__(self, lm: LM, state):
+        self.lm, self.state = lm, state
+        b = state.valid.shape[0]
+        self.token = torch.zeros((b, 1), dtype=torch.long, device=lm.device)
+        self.ring = StepRing(DECODE_CHUNK_MAX, b, lm.device)
+        self.graph = StepGraph(self._step, lm.device, lm.graphs,
+                               save=(state.pos, self.token, self.ring.index))
+
+    @torch.no_grad()
+    def _step(self) -> None:
+        res = phi3.decode_forward(self.lm.params, self.lm.cfg, self.state, self.token)
+        nxt = self.ring.write(res.logits[:, -1, :].float(), self.lm.eos_id)
+        self.token.copy_(nxt[:, None])
+
+    def start(self, state, token: torch.Tensor) -> None:
+        """Decode from ``state`` (this decoder's buffers) after ``token``
+        (B, 1) on the device."""
+        if state.pos is not self.state.pos:
+            raise ValueError("a decoder decodes the state it was made for (prefill into it)")
+        self.state = state
+        self.token.copy_(token)
+
+    @torch.no_grad()
+    def chunk(self, n_steps: int):
+        """``n_steps`` greedy steps.  Returns device views (n_steps, B) of the
+        tokens, max log-probs and EOS log-probs, valid until the next chunk."""
+        st = self.state
+        if st.offset + n_steps > st.window:
+            raise ValueError(f"{n_steps} steps at offset {st.offset} overflow window {st.window}")
+        self.ring.start(n_steps)
+        for _ in range(n_steps):
+            self.graph()
+        self.state = dataclasses.replace(st, offset=st.offset + n_steps)
+        return self.ring.rows(n_steps)
+
+
+def prefill_decoder(lm: LM, dict_input: dict, max_tokens: int):
+    """Prefill a request and return (its Decoder, started on the prefill's
+    argmax, and that first token (B, 1) on the device).  With graphs the
+    decoder is the (B, window) entry of ``lm.decoders``, taken out of it
+    (reused) or made: an entry serves one request at a time, so a second
+    request of the key meanwhile makes its own.  Give it back with
+    :func:`release_decoder` when the request ends."""
+    b, _, window = prefill_shape(dict_input, max_tokens)
+    with lm.lock:
+        entry = lm.decoders.pop((b, window), None)
+        lm.entry_uses["reused" if entry is not None else "made"] += 1
+    last_logits, state, _, _ = run_prefill(lm, dict_input, max_tokens,
+                                           into=None if entry is None else entry.state)
+    dec = entry or Decoder(lm, state)
+    token = last_logits.argmax(dim=-1)[:, None]
+    dec.start(state, token)
+    return dec, token
+
+
+def release_decoder(lm: LM, dec: Decoder) -> None:
+    """Keep a finished request's decoder as its key's newest entry (with
+    graphs), dropping the least recently used beyond ``GRAPH_ENTRIES``."""
+    if not lm.graphs:
+        return
+    key = (dec.state.valid.shape[0], dec.state.window)
+    with lm.lock:
+        lm.decoders.pop(key, None)  # another request's entry of the key, made meanwhile
+        lm.decoders[key] = dec
+        while len(lm.decoders) > GRAPH_ENTRIES:
+            lm.decoders.popitem(last=False)
 
 
 def generate_text(
@@ -158,8 +247,7 @@ def generate_text(
     streamer = Streamer(processor.tokenizer, stream, mute, stops=stop_seqs.stops)
 
     t0 = time.perf_counter()
-    last_logits, state, _, _ = run_prefill(lm, dict_input, max_tokens)
-    tok_dev = last_logits.argmax(dim=-1)[:, None]
+    dec, tok_dev = prefill_decoder(lm, dict_input, max_tokens)
     token = tok_dev.cpu().numpy().astype(np.int32)
     streamer(token)
     t1 = time.perf_counter()
@@ -171,7 +259,7 @@ def generate_text(
     while n_emitted < max_tokens and not stopped:
         n_steps = min(chunk, max_tokens - n_emitted)
         chunk = min(chunk * 4, DECODE_CHUNK_MAX)
-        tok_dev, state, toks, maxlp, eoslp = decode_chunk(lm, tok_dev, state, n_steps)
+        toks, maxlp, eoslp = dec.chunk(n_steps)
         toks = toks.cpu().numpy().astype(np.int32)  # one host transfer per chunk
         maxlp, eoslp = maxlp.cpu().numpy(), eoslp.cpu().numpy()
         for i in range(n_steps):
@@ -190,6 +278,7 @@ def generate_text(
                 break
             if n_emitted >= max_tokens:
                 break
+    release_decoder(lm, dec)  # not after a failure: that entry is dropped
 
     result, gen_len = streamer.end()
     result = stop_seqs.trim(result)

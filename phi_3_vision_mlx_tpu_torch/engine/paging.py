@@ -23,7 +23,7 @@ so here the sentinel names the spare page: inactive slots write into it,
 with no host-side mask and no device sync, and nothing visible ever reads
 it (keys past a slot's offset are masked).
 
-Each decode step routes attention by cache (``decode_chunk``'s
+Each decode step routes attention by cache (``batching.SlotStep``'s
 ``attention`` hook): dense -> kernel K6 (``paged_kv_attention``), int4 ->
 K7 (``paged_quantized_kv_attention``), int8 -> the layer's pool dequantized
 (plain, as ``read_kv`` does), then K6 on it.  On the CPU the wrappers run
@@ -160,6 +160,10 @@ class PagedBatchEngine(BatchEngine):
 
     def _attention(self):
         return _paged_attention
+
+    def _reset_state(self) -> None:
+        super()._reset_state()
+        self.state.page_tables.fill_(self.pool_pages)
 
     # -- page accounting ----------------------------------------------------
 

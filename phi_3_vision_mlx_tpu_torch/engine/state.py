@@ -4,8 +4,12 @@
 The cache is preallocated for the whole window.  The JAX package threads an
 immutable state through jitted steps and relies on buffer donation to update
 it in place; the port writes the chunk's positions into the same tensors in
-place instead.  ``offset`` is a host int: decode runs eagerly, so it never
-has to live on the device.
+place instead.  The offset lives on the device, as the JAX package's does
+(``pos``, a ``(1,)`` int32 tensor): a decode step reads it there and
+advances it in place, so a CUDA graph of the step replays at any offset
+(``engine/graphs.py``).  ``offset`` is its host mirror, which the host
+advances by the steps it ran: prefill and extend chunks (K2, K5), the
+window-overflow check and the stoppers read the mirror, never the device.
 
 Dense mode: ``k``/``v`` are ``(layers, B, KV, Lmax, D)`` in the compute
 dtype.
@@ -45,14 +49,16 @@ from ..ops.rope import su_rope_tables
 class DecodeState:
     """k, v: the cache (see the module docstring; v is None when quantized);
     offset: committed positions (shared by rows: left padding keeps them
-    aligned); valid (B, Lmax) bool: False at left-pad positions; cos/sin
-    (B|1, Lmax, D) float32 SuRoPE tables for the whole window; k_scales and
-    kv_quant: the quantized cache's scale planes and its config, None for
-    the dense cache."""
+    aligned), the host mirror of ``pos``, the (1,) int32 device offset;
+    valid (B, Lmax) bool: False at left-pad positions; cos/sin (B|1, Lmax,
+    D) float32 SuRoPE tables for the whole window; k_scales and kv_quant:
+    the quantized cache's scale planes and its config, None for the dense
+    cache."""
 
     k: torch.Tensor
     v: Optional[torch.Tensor]
     offset: int
+    pos: torch.Tensor
     valid: torch.Tensor
     cos: torch.Tensor
     sin: torch.Tensor
@@ -77,16 +83,33 @@ def init_state(
     prompt_valid=None,
     compute_dtype=torch.bfloat16,
     device=None,
+    into: Optional[DecodeState] = None,
 ) -> DecodeState:
     """Allocate a fresh decode window of ``l_all`` positions.  Positions at
-    or past ``prompt_len`` start valid (they will hold decoded tokens)."""
+    or past ``prompt_len`` start valid (they will hold decoded tokens).
+
+    ``into``: a state of the same shape whose tensors are reused instead (a
+    CUDA graph holds their addresses): it is reset in place to what a fresh
+    window holds.  The cache is zeroed too, not only past the offset: a row
+    that sees no key averages the whole window."""
     valid = torch.ones((batch, l_all), dtype=torch.bool, device=device)
     if prompt_valid is not None:
         valid[:, :prompt_len] = torch.as_tensor(prompt_valid, device=device).bool()
     cos, sin = su_rope_tables(cfg, l_all, pids, device=device)
-    lead = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, l_all)
-    return DecodeState(offset=0, valid=valid, cos=cos, sin=sin,
-                       **alloc_cache(cfg, lead, compute_dtype, device))
+    if into is None:
+        lead = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, l_all)
+        return DecodeState(offset=0, pos=torch.zeros((1,), dtype=torch.int32, device=device),
+                           valid=valid, cos=cos, sin=sin,
+                           **alloc_cache(cfg, lead, compute_dtype, device))
+    if into.valid.shape != valid.shape or into.cos.shape != cos.shape:
+        raise ValueError(f"state of window {tuple(into.valid.shape)} reused for {tuple(valid.shape)}")
+    for t in (into.k, into.v, into.k_scales, into.pos):
+        if t is not None:
+            t.zero_()
+    into.valid.copy_(valid)
+    into.cos.copy_(cos)
+    into.sin.copy_(sin)
+    return dataclasses.replace(into, offset=0)
 
 
 def alloc_cache(cfg: ModelConfig, lead: tuple, compute_dtype, device) -> dict:
@@ -162,15 +185,17 @@ def read_kv(state: DecodeState, layer: int, dtype):
     return state.k[layer].to(dtype), state.v[layer].to(dtype)
 
 
-def update_layer_chunk(state: DecodeState, layer: int, offset: int, k_new, v_new) -> None:
-    """Write a fresh (B, KV, L, D) chunk into layer ``layer`` at ``offset``,
-    in place (quantized first for a quantized cache): O(tokens), not
-    O(window)."""
-    n = k_new.shape[2]
+def update_layer_chunk(state: DecodeState, layer: int, pos, k_new, v_new) -> None:
+    """Write a fresh (B, KV, L, D) chunk into layer ``layer`` in place
+    (quantized first for a quantized cache): O(tokens), not O(window).
+    ``pos``: the chunk's (L,) int64 positions on the device, or a host int,
+    the first of L consecutive ones."""
+    if isinstance(pos, int):
+        pos = torch.arange(pos, pos + k_new.shape[2], device=k_new.device)
     if state.quantized:
         payload, scales = quantize_chunk(k_new, v_new, state.kv_quant)
-        state.k[layer, :, :, offset : offset + n] = payload
-        state.k_scales[layer, :, :, offset : offset + n] = scales
+        state.k[layer].index_copy_(2, pos, payload)
+        state.k_scales[layer].index_copy_(2, pos, scales)
         return
-    state.k[layer, :, :, offset : offset + n] = k_new
-    state.v[layer, :, :, offset : offset + n] = v_new
+    state.k[layer].index_copy_(2, pos, k_new.to(state.k.dtype))
+    state.v[layer].index_copy_(2, pos, v_new.to(state.v.dtype))

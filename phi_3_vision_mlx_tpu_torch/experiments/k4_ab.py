@@ -15,7 +15,8 @@ kernels (K1-K9 by default) at chip_smoke.py's shapes:
 * K2 (flash attention, dense): lq = 1024 over 1152 keys (24 left-pad rows)
   and lq = 4224 over 4352 keys (the 4207-token prompt's bucket);
 * K3 (decode, dense cache): Lq = 1 at the end of a 640- and a 4224-key
-  window, 8 stacked layers rotated past the L2; K4 (decode, int4 cache)
+  window and at offset 100 of a 4352-key window, 8 stacked layers rotated
+  past the L2; K4 (decode, int4 cache)
   the same at Lq = 1, 4 and 16;
 * E1 (W4A8) and K1 (symmetric, bf16 out, as ``w4a8_bench`` calls it) on
   the same words and scales at w4a8_bench's shape (K = 3072, N = 9216) with
@@ -134,10 +135,18 @@ def int4_stack(lmax):
     return quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
 
 
+def device_offset(offset):
+    """The decode kernels read the offset on the device, as the engine keeps
+    it; a tree from before that takes a host int."""
+    if not hasattr(KV, "check_device_offset"):
+        return offset
+    return torch.tensor([offset], dtype=torch.int32, device="cuda")
+
+
 def variant_case(name, q, cache, valid, offset, mode, split):
-    turn = iter(range(10**9))
+    turn, off = iter(range(10**9)), device_offset(offset)
     cases[name] = (lambda: KV.quantized_kv_attention_variant(
-        q, *cache, valid, offset, next(turn) % nl, scale, mode=mode, split_keys=split), 200)
+        q, *cache, valid, off, next(turn) % nl, scale, mode=mode, split_keys=split), 200)
 
 
 for lmax in (640, 4224):
@@ -145,9 +154,9 @@ for lmax in (640, 4224):
     if "K3" in kernels:
         ks, vs = (bf16(torch.randn((nl, b, h, lmax, d), generator=g, device="cuda")) for _ in range(2))
         turn = iter(range(10**9))
-        cases[f"K3 Lq=1 Lmax={lmax}"] = (lambda q=q, ks=ks, vs=vs, valid=valid, lmax=lmax, turn=turn:
-                                        KV.dense_kv_attention(q, ks, vs, valid, lmax - 1,
-                                                              next(turn) % nl, scale), 200)
+        cases[f"K3 Lq=1 Lmax={lmax}"] = (lambda q=q, ks=ks, vs=vs, valid=valid, off=device_offset(lmax - 1),
+                                        turn=turn: KV.dense_kv_attention(q, ks, vs, valid, off,
+                                                                         next(turn) % nl, scale), 200)
     if not {"K4", "E3", "K4S"} & set(kernels):
         continue
     payload, scales = int4_stack(lmax)
@@ -156,7 +165,7 @@ for lmax in (640, 4224):
         for lq, ql in qs.items():
             turn = iter(range(10**9))
             cases[f"K4 Lq={lq} Lmax={lmax}"] = (
-                lambda q=ql, p=payload, s=scales, valid=valid, off=lmax - lq, turn=turn:
+                lambda q=ql, p=payload, s=scales, valid=valid, off=device_offset(lmax - lq), turn=turn:
                 KV.quantized_kv_attention(q, p, s, valid, off, next(turn) % nl, scale), 200)
     if "E3" in kernels and lmax == 4224:
         for mode in ("fp32", "mxu"):
@@ -169,6 +178,14 @@ for lmax in (640, 4224):
                 variant_case(f"K4S Lq={lq} Lmax={lmax} offset={lmax - lq} keys={split}", qs[lq],
                              (payload, scales), valid, lmax - lq, "fp32", split)
     del payload, scales
+if "K3" in kernels:  # a long prompt's first decode steps: few keys seen in a long window
+    q, valid = qrow(1), decode_window(4352)
+    ks, vs = (bf16(torch.randn((nl, b, h, 4352, d), generator=g, device="cuda")) for _ in range(2))
+    turn = iter(range(10**9))
+    cases["K3 Lq=1 Lmax=4352 offset=100"] = (lambda q=q, ks=ks, vs=vs, valid=valid, off=device_offset(100),
+                                             turn=turn: KV.dense_kv_attention(q, ks, vs, valid, off,
+                                                                              next(turn) % nl, scale), 200)
+    del ks, vs
 if "K4S" in kernels:  # chip_smoke.py phase 6's decode windows, short and long, and one between
     for lmax, offset in ((768, 200), (2048, 2047), (4352, 4220)):
         q, valid = qrow(1), decode_window(lmax)

@@ -56,10 +56,11 @@ def main(argv=None) -> dict:
     q = torch.randn((b, h, 1, d), generator=g, device=device).to(torch.bfloat16)
     valid = torch.ones((b, lmax), dtype=torch.bool, device=device)
     scale = d**-0.5
+    offset = torch.tensor([lmax - 1], dtype=torch.int32, device=device)  # the device offset
 
     def step(mode, split):
         return layer_sum(lambda layer: quantized_kv_attention_variant(
-            q, payload, scales, valid, lmax - 1, layer, scale, mode=mode, split_keys=split), nl, q)
+            q, payload, scales, valid, offset, layer, scale, mode=mode, split_keys=split), nl, q)
 
     print(f"# int4-cache decode dequantization sweep (E3): {nl} layers, {kvh} heads, D={d}, "
           f"window {lmax}, on {card(device)}")

@@ -44,7 +44,7 @@ def main(argv=None) -> dict:
     scales = (torch.rand((NL, B, KVH, lmax, 4 * G), generator=g, device=device) * 0.02).to(torch.bfloat16)
     q = (torch.randn((B, KVH, 1, D), generator=g, device=device) * 0.3).to(torch.bfloat16)
     valid = torch.ones((B, lmax), dtype=torch.bool, device=device)
-    offset = lmax - 1
+    offset = torch.tensor([lmax - 1], dtype=torch.int32, device=device)  # the device offset
     variants = {
         "full": (lambda layer: quantized_kv_attention(q, payload, scales, valid, offset, layer, SCALE),
                  payload.numel() + 2 * scales.numel()),

@@ -68,21 +68,24 @@ def _qkv_split(cfg: ModelConfig, qkv: torch.Tensor):
     return q, k, v
 
 
-def _attend(q, state: DecodeState, i: int, offset: int, scale: float):
+def _attend(q, state: DecodeState, i: int, scale: float):
     """Attention of the chunk's queries to layer ``i`` of the cache, routed
-    by the table of the module docstring."""
+    by the table of the module docstring.  Decode (K3, K4) reads the device
+    offset ``state.pos``; prefill and extend (K2, K5) take the host mirror."""
     decode = q.shape[2] <= MAX_DECODE_ROWS
     if state.quantized and state.kv_quant.bits == 4:
-        attend = quantized_kv_attention if decode else quantized_flash_attention
-        return attend(q, state.k, state.k_scales, state.valid, offset, i, scale)
+        if decode:
+            return quantized_kv_attention(q, state.k, state.k_scales, state.valid, state.pos, i, scale)
+        return quantized_flash_attention(q, state.k, state.k_scales, state.valid, state.offset, i,
+                                         scale)
     if state.quantized:
         k, v = read_kv(state, i, q.dtype)
         k_stack, v_stack, layer = k[None], v[None], 0
     else:
         k_stack, v_stack, layer = state.k, state.v, i
     if decode:
-        return dense_kv_attention(q, k_stack, v_stack, state.valid, offset, layer, scale)
-    return flash_attention(q, k_stack[layer], v_stack[layer], state.valid, offset, scale)
+        return dense_kv_attention(q, k_stack, v_stack, state.valid, state.pos, layer, scale)
+    return flash_attention(q, k_stack[layer], v_stack[layer], state.valid, state.offset, scale)
 
 
 def block(cfg: ModelConfig, x, layers: dict, i: int, cos, sin, attend):
@@ -117,26 +120,32 @@ def decode_forward(
 ) -> ForwardResult:
     """Run a (B, L) chunk through the decoder against the cache window.
 
-    The chunk's k/v are written at ``state.offset``; the returned state
-    shares the cache tensors and advances the offset by ``L`` (or by
-    ``advance``: 0 scores without committing, 1 commits one position).
-    ``last_logit_only`` runs the lm_head for the last position only.
+    The chunk's k/v are written at the device offset ``state.pos``, whose
+    host mirror ``state.offset`` is checked against the window; the returned
+    state shares the cache tensors and ``pos``, advanced in place by ``L``
+    (or by ``advance``: 0 scores without committing, 1 commits one
+    position), and carries the advanced mirror.  The state passed in keeps
+    its mirror, so it no longer describes the device: use the returned one.
+    ``last_logit_only`` runs the lm_head for the last position only.  With L
+    <= ``MAX_DECODE_ROWS`` nothing reads the mirror on the device path, so
+    a CUDA graph of a decode step replays at any offset.
     """
     mdl = params["model"]
     x = embedding(mdl["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
     b, l, _ = x.shape
     offset = state.offset
-    if offset + l > state.window:
+    if offset < 0 or offset + l > state.window:
         raise ValueError(f"chunk of {l} at offset {offset} overflows window {state.window}")
-    cos = state.cos[:, offset : offset + l]
-    sin = state.sin[:, offset : offset + l]
+    pos = (state.pos + torch.arange(l, dtype=torch.int32, device=x.device)).long()
+    cos = state.cos.index_select(1, pos)
+    sin = state.sin.index_select(1, pos)
     if cos.shape[0] == 1 and b > 1:
         cos, sin = cos.expand(b, -1, -1), sin.expand(b, -1, -1)
     scale = cfg.head_dim**-0.5
 
     def attend(q, k, v, i):
-        update_layer_chunk(state, i, offset, k, v)
-        return _attend(q, state, i, offset, scale)
+        update_layer_chunk(state, i, pos, k, v)
+        return _attend(q, state, i, scale)
 
     for i in range(cfg.num_hidden_layers):
         x = block(cfg, x, mdl["layers"], i, cos, sin, functools.partial(attend, i=i))
@@ -144,8 +153,10 @@ def decode_forward(
     if last_logit_only:
         x = x[:, -1:]
     logits = dense(params["lm_head"], x)[..., : cfg.vocab_size]
-    new_offset = offset + (l if advance is None else advance)
-    return ForwardResult(logits, dataclasses.replace(state, offset=new_offset))
+    step = l if advance is None else advance
+    if step:
+        state.pos.add_(step)
+    return ForwardResult(logits, dataclasses.replace(state, offset=offset + step))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None) -> dict:
@@ -200,11 +211,13 @@ def prefill(
     pids=None,
     prompt_valid=None,
     last_logit_only: bool = False,
+    into: Optional[DecodeState] = None,
 ) -> ForwardResult:
-    """Allocate a window of ``L + max_tokens`` positions and run the prompt."""
+    """Allocate a window of ``L + max_tokens`` positions (or reset ``into``,
+    ``engine/state.py:init_state``) and run the prompt."""
     b, l = input_ids.shape
     state = init_state(
         cfg, b, l, l + max_tokens, pids=pids, prompt_valid=prompt_valid,
-        compute_dtype=torch_dtype(cfg.dtype), device=input_ids.device,
+        compute_dtype=torch_dtype(cfg.dtype), device=input_ids.device, into=into,
     )
     return decode_forward(params, cfg, state, input_ids, last_logit_only=last_logit_only)

@@ -11,6 +11,7 @@ tests import every module on hosts without ``nvcc`` or a card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -42,11 +43,11 @@ SIGNATURES = {
     "k2_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _F, _P],
     "k3_dense_kv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
+                              _L, _L, _L, _L, _L, _L, _I, _P, _F, _I, _I, _P],
     "k4_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
+                                  _L, _L, _L, _L, _L, _L, _I, _P, _F, _I, _I, _P],
     "e23_quantized_kv_attention_variant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                           _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _I, _P],
+                                           _L, _L, _L, _L, _L, _L, _I, _P, _F, _I, _I, _I, _P],
     "k5_quantized_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
     "k6_paged_kv_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -58,6 +59,7 @@ SIGNATURES = {
 # thread decodes: the first build and every launch count are shared.
 _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+_CAPTURE = threading.local()  # .tally: the launches of a graph this thread captures
 
 
 def _nvcc() -> str:
@@ -121,9 +123,35 @@ def _library():
 
 
 def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (from any thread)."""
+    """Add one to ``wrapper.launches`` (from any thread).  While this thread
+    captures a CUDA graph (:func:`recording`) nothing runs: the launch is
+    recorded into the graph's tally instead, and each replay adds it."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Within: this thread's :func:`count_launch` calls go to the yielded
+    ``{wrapper: launches}`` tally of a graph being captured (a capture in
+    ``thread_local`` mode is this thread's alone)."""
+    outer = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = {}
+    try:
+        yield _CAPTURE.tally
+    finally:
+        _CAPTURE.tally = outer
+
+
+def add_launches(tally: dict, times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture recorded ``tally``."""
+    with _COUNT_LOCK:
+        for wrapper, n in tally.items():
+            wrapper.launches += n * times
 
 
 def check(err: int, name: str) -> None:

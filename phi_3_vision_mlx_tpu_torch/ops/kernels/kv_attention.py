@@ -7,8 +7,8 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
 
 * K3 :func:`dense_kv_attention` — decode (Lq <= 16) over the dense bf16
   cache ``(layers, B, KV, Lmax, D)``, the window split into runs of
-  ``K3_SPLIT_KEYS`` keys (:func:`dense_kv_split_plan`), one block each,
-  merged by a second kernel.  Replaces
+  ``K3_SPLIT_KEYS`` keys (:func:`dense_kv_split_plan`, the window only), one
+  block each, merged by a second kernel.  Replaces
   ``phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:dense_kv_attention``;
   CUDA source ``csrc/attention.cu`` (``k3_dense_kv_attention``).
 * K4 :func:`quantized_kv_attention` — decode (Lq <= 16) over the int4 cache
@@ -47,7 +47,11 @@ read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
   ``kv_attention.py:paged_quantized_kv_attention``; same source
   (``k7_paged_quantized_kv_attention``).
 
-K6 and K7 take per-slot offsets ``(S,)`` on the device and apply the
+K3 and K4 take the offset on the device, a ``(1,)`` int32 tensor (the
+decode state's ``pos``; on the CPU their plain versions also take a host
+int); their plans depend on the window only, so a captured launch replays at any offset
+(``engine/graphs.py``), and the host checks the offset on its mirror.  K6
+and K7 take per-slot offsets ``(S,)`` on the device and apply the
 fresh-region rule: query ``i`` of slot ``s`` sees key ``j`` iff ``j <=
 offsets[s] + i`` and (``valid[s, j]`` or ``j >= offsets[s]``) — the keys
 from the offset on are the step's own, whose validity bits commit after it.
@@ -93,23 +97,43 @@ PAGED_RUN_KEYS = RUN_KEYS  # K6/K7: one run a block
 MAX_PAGED_ROWS = 16  # K4, K6, K7: query rows per block (decode and, later, speculation)
 
 
-def dense_kv_attention_plain(q, k_stack, v_stack, valid, offset: int, layer_idx: int, scale: float):
-    q_pos = offset + torch.arange(q.shape[2], device=q.device)
+def query_positions(offset, lq: int, device) -> torch.Tensor:
+    """(Lq,) positions ``offset + i`` of a chunk's query rows; ``offset`` a
+    host int or the (1,) device offset (no host sync)."""
+    return offset + torch.arange(lq, device=device)
+
+
+def check_device_offset(offset, device, name: str) -> None:
+    """K3 and K4 read the offset on the device: a (1,) int32 tensor on
+    ``device`` (its caller checks the host mirror).  Only the plain versions
+    also take a host int."""
+    if (not isinstance(offset, torch.Tensor) or offset.shape != (1,)
+            or offset.dtype != torch.int32 or offset.device != device):
+        got = (f"{tuple(offset.shape)} {offset.dtype} on {offset.device}"
+               if isinstance(offset, torch.Tensor) else type(offset).__name__)
+        raise ValueError(f"{name}: the offset must be a (1,) int32 tensor on {device}, got {got}")
+
+
+def dense_kv_attention_plain(q, k_stack, v_stack, valid, offset, layer_idx: int, scale: float):
+    q_pos = query_positions(offset, q.shape[2], q.device)
     return decode_attention(q, k_stack[layer_idx], v_stack[layer_idx], valid, q_pos, scale)
 
 
-def dense_kv_split_plan(lmax: int, offset: int, lq: int) -> tuple[int, int]:
+def dense_kv_split_plan(lmax: int) -> tuple[int, int]:
     """K3's split of the window: ``(n_split, split_keys)``.  Split ``s``
-    covers keys ``[s * split_keys, min((s + 1) * split_keys, kend))``, with
+    reads keys ``[s * split_keys, min((s + 1) * split_keys, kend))``, with
     ``kend = min(lmax, offset + lq)``: every key some query row can see, in
-    exactly one split."""
-    kend = min(lmax, offset + lq)
-    return -(-kend // K3_SPLIT_KEYS), K3_SPLIT_KEYS
+    exactly one split.  The plan depends on the window only, never on the
+    offset (a captured launch replays for any offset); a split at or past
+    ``kend`` reads nothing and writes an empty partial (max NEG_INF, sum
+    0), which the merge weighs 0."""
+    return -(-lmax // K3_SPLIT_KEYS), K3_SPLIT_KEYS
 
 
-def dense_kv_attention(q, k_stack, v_stack, valid, offset: int, layer_idx: int, scale: float):
+def dense_kv_attention(q, k_stack, v_stack, valid, offset, layer_idx: int, scale: float):
     """q (B, H, Lq, D); k_stack/v_stack (layers, B, KV, Lmax, D); valid
-    (B, Lmax) bool.  Returns (B, H, Lq, D)."""
+    (B, Lmax) bool; offset: the (1,) int32 device offset (on the CPU, where
+    the plain version runs, a host int too).  Returns (B, H, Lq, D)."""
     if q.device.type == "cpu":
         return dense_kv_attention_plain(q, k_stack, v_stack, valid, offset, layer_idx, scale)
     if q.device.type != "cuda":
@@ -118,11 +142,11 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset: int, layer_idx: int, 
         raise ValueError(f"dense_kv_attention: cache {tuple(k_stack.shape)}, layer {layer_idx}")
     check_attention_inputs(q, k_stack, v_stack, valid, "dense_kv_attention")
     b, h, lq, d = q.shape
-    if not 1 <= lq <= K3_MAX_ROWS or offset < 0:
-        raise ValueError(f"dense_kv_attention: {lq} query rows at offset {offset} "
-                         f"(the kernel takes 1-{K3_MAX_ROWS})")
+    if not 1 <= lq <= K3_MAX_ROWS:
+        raise ValueError(f"dense_kv_attention: {lq} query rows (the kernel takes 1-{K3_MAX_ROWS})")
+    check_device_offset(offset, q.device, "dense_kv_attention")
     kvh, lmax = k_stack.shape[2], k_stack.shape[3]
-    n_split, split_keys = dense_kv_split_plan(lmax, offset, lq)
+    n_split, split_keys = dense_kv_split_plan(lmax)
     out = head_major_empty(q)
     # Per split: (max score, sum of exp, unnormalized output) of each query row.
     partial = torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
@@ -130,7 +154,7 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset: int, layer_idx: int, 
     err = lib.k3_dense_kv_attention(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
         valid.view(torch.uint8).data_ptr(), out.data_ptr(), partial.data_ptr(), b, h, kvh, lq,
-        lmax, d, *q.stride()[:3], *out.stride()[:3], int(layer_idx), int(offset), float(scale),
+        lmax, d, *q.stride()[:3], *out.stride()[:3], int(layer_idx), offset.data_ptr(), float(scale),
         n_split, split_keys, _build.stream_ptr(q.device),
     )
     _build.check(err, "k3_dense_kv_attention")
@@ -141,9 +165,9 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset: int, layer_idx: int, 
 dense_kv_attention.launches = 0
 
 
-def quantized_kv_attention_plain(q, payload, scales, valid, offset: int, layer_idx: int, scale: float):
+def quantized_kv_attention_plain(q, payload, scales, valid, offset, layer_idx: int, scale: float):
     k, v = dequantize_kv(payload[layer_idx], scales[layer_idx], q.dtype, bits=4)
-    q_pos = offset + torch.arange(q.shape[2], device=q.device)
+    q_pos = query_positions(offset, q.shape[2], q.device)
     return decode_attention(q, k, v, valid, q_pos, scale)
 
 
@@ -188,14 +212,14 @@ def quantized_split_plan(lmax: int) -> tuple[int, int]:
     return -(-lmax // keys), keys
 
 
-def _quantized_decode_launch(entry: str, q, payload, scales, valid, offset: int, layer_idx: int,
+def _quantized_decode_launch(entry: str, q, payload, scales, valid, offset, layer_idx: int,
                              scale: float, block_keys: int, *mode):
     """Launch K4 or E2/E3 (``entry``) with ``block_keys`` keys per block."""
     b, h, lq, d = q.shape
     kvh, lmax = payload.shape[2], payload.shape[3]
-    if not 1 <= lq <= MAX_PAGED_ROWS or offset < 0:
-        raise ValueError(f"{entry}: {lq} query rows at offset {offset} (the kernel takes "
-                         f"1-{MAX_PAGED_ROWS})")
+    if not 1 <= lq <= MAX_PAGED_ROWS:
+        raise ValueError(f"{entry}: {lq} query rows (the kernel takes 1-{MAX_PAGED_ROWS})")
+    check_device_offset(offset, q.device, entry)
     if payload.data_ptr() % 16:
         raise ValueError(f"{entry}: the payload must be 16-byte aligned")
     n_split = -(-lmax // block_keys)
@@ -206,17 +230,18 @@ def _quantized_decode_launch(entry: str, q, payload, scales, valid, offset: int,
     err = getattr(lib, entry)(
         q.data_ptr(), payload.data_ptr(), scales.data_ptr(), valid.view(torch.uint8).data_ptr(),
         out.data_ptr(), partial.data_ptr(), b, h, kvh, lq, lmax, d, *q.stride()[:3],
-        *out.stride()[:3], int(layer_idx), int(offset), float(scale), n_split, int(block_keys),
+        *out.stride()[:3], int(layer_idx), offset.data_ptr(), float(scale), n_split, int(block_keys),
         *mode, _build.stream_ptr(q.device),
     )
     _build.check(err, entry)
     return out
 
 
-def quantized_kv_attention(q, payload, scales, valid, offset: int, layer_idx: int, scale: float):
+def quantized_kv_attention(q, payload, scales, valid, offset, layer_idx: int, scale: float):
     """Decode attention over layer ``layer_idx`` of the int4 cache.  q (B, H,
     Lq, D), Lq <= 16; payload (layers, B, KV, Lmax, D) uint8; scales (layers,
-    B, KV, Lmax, 4G) bf16; valid (B, Lmax) bool.  Returns (B, H, Lq, D)."""
+    B, KV, Lmax, 4G) bf16; valid (B, Lmax) bool; offset as in
+    :func:`dense_kv_attention`.  Returns (B, H, Lq, D)."""
     if q.device.type == "cpu":
         return quantized_kv_attention_plain(q, payload, scales, valid, offset, layer_idx, scale)
     if q.device.type != "cuda":
@@ -264,14 +289,13 @@ def _variant_kv(payload, scales, mode: str, dtype):
     return tuple(out)
 
 
-def quantized_kv_attention_variant_plain(q, payload, scales, valid, offset: int, layer_idx: int,
+def quantized_kv_attention_variant_plain(q, payload, scales, valid, offset, layer_idx: int,
                                          scale: float, mode: str = "fp32"):
     """The plain version of every mode: attention over the mode's keys and
     values; "nosoftmax" sums ``score * value`` over the whole window."""
     k, v = _variant_kv(payload[layer_idx], scales[layer_idx], mode, q.dtype)
     if mode != "nosoftmax":
-        q_pos = offset + torch.arange(q.shape[2], device=q.device)
-        return decode_attention(q, k, v, valid, q_pos, scale)
+        return decode_attention(q, k, v, valid, query_positions(offset, q.shape[2], q.device), scale)
     b, h, lq, d = q.shape
     kvh = k.shape[1]
     qg = (q * scale).reshape(b, kvh, h // kvh, lq, d).float()
@@ -279,7 +303,7 @@ def quantized_kv_attention_variant_plain(q, payload, scales, valid, offset: int,
     return torch.matmul(s, v[:, :, None]).reshape(b, h, lq, d).to(q.dtype)
 
 
-def quantized_kv_attention_variant(q, payload, scales, valid, offset: int, layer_idx: int,
+def quantized_kv_attention_variant(q, payload, scales, valid, offset, layer_idx: int,
                                    scale: float, mode: str = "fp32", split_keys: int | None = None):
     """E2/E3: K4 with the dequantization of ``mode`` (``VARIANT_MODES``);
     ``split_keys`` is the keys per block of the split window, a multiple of

@@ -96,8 +96,12 @@ class ContinuousScheduler:
     under it; a pump thread steps the engine by chunks of ``chunk`` tokens,
     pipelined (``step_pipelined``) unless ``pipelined=False``, and runs the
     preempted requests' recompute prefills outside the lock.  Both threads
-    launch on the default stream, so launch order orders their work.  An
-    engine error fails the requests it owns, not the pump.
+    launch on the default stream, so launch order orders their work.  The
+    engine's decode-step graph is captured here, before either thread
+    starts: no admission prefill (its allocations, its launches on the
+    default stream) can overlap a capture, and every decode step is a
+    replay on the default stream.  An engine error fails the requests it
+    owns, not the pump.
     """
 
     def __init__(self, lm, processor, slots: int = 4, window: int = 1024, paged: bool = False,
@@ -111,6 +115,7 @@ class ContinuousScheduler:
 
             _build.library()  # build once, before two threads launch kernels
         self.engine = Engine(lm, processor, slots=slots, window=window, **engine_kw)
+        self.engine.capture()
         # Resumes are prefilled here, outside the lock, not inside step().
         self.engine.resume_in_step = False
         self.admit_batch = admit_batch or min(8, max(2, slots))

@@ -151,6 +151,17 @@ def test_causal_valid_mask():
     assert m[0, 0].tolist() == [[False, True, False, False, False], [False, True, True, True, False]]
 
 
+@pytest.mark.parametrize("offset", [5, torch.tensor([5]), torch.tensor([[5]], dtype=torch.int32),
+                                    torch.tensor([5], dtype=torch.int32, device="meta")],
+                         ids=["host-int", "int64", "2-d", "other-device"])
+def test_k3_k4_take_only_the_device_offset(offset):
+    """The kernels read the offset on the device: a host int, or a tensor of
+    another dtype, shape or device, is refused, not copied over."""
+    K3.check_device_offset(torch.tensor([5], dtype=torch.int32), torch.device("cpu"), "K3")
+    with pytest.raises(ValueError, match=r"\(1,\) int32 tensor on cpu"):
+        K3.check_device_offset(offset, torch.device("cpu"), "K3")
+
+
 def test_attention_wrappers_have_no_silent_fallback():
     q = torch.empty((1, 2, 1, D), dtype=torch.bfloat16, device="meta")
     k = torch.empty((1, 1, 2, 8, D), dtype=torch.bfloat16, device="meta")
@@ -174,22 +185,29 @@ def test_attention_wrappers_have_no_silent_fallback():
 
 
 def _k3_split_model(q, k_stack, v_stack, valid, offset, layer, scale):
-    """K3 as the card computes it: each split of the plan gives every query
-    row its (max, sum, unnormalized output) over the keys the row sees in
-    it — max NEG_INF and sum 0 where it sees none — and the merge weighs the
-    splits by exp(max - overall max); a row that sees no key anywhere gets
-    the uniform average of all Lmax values.  Returns (out, per-split max)."""
+    """K3 as the card computes it: each split of the window-only plan gives
+    every query row its (max, sum, unnormalized output) over the keys the
+    row sees in it — max NEG_INF and sum 0 where it sees none, and a split
+    that starts at or past the last row's key reads nothing and writes
+    (NEG_INF, 0, 0) — and the merge weighs the splits by exp(max - overall
+    max); a row that sees no key anywhere gets the uniform average of all
+    Lmax values.  Returns (out, per-split max)."""
     k, v = k_stack[layer].float(), v_stack[layer].float()
     b, h, lq, d = q.shape
     kvh, lmax = k.shape[1], k.shape[2]
     g = h // kvh
-    n_split, split = K3.dense_kv_split_plan(lmax, offset, lq)
+    n_split, split = K3.dense_kv_split_plan(lmax)
     kend = min(lmax, offset + lq)
     qs = (q * scale).float()
     rows = offset + torch.arange(lq)[:, None]
     ms, ls, accs = [], [], []
     for s in range(n_split):
-        j = torch.arange(s * split, min((s + 1) * split, kend))
+        j = torch.arange(s * split, max(s * split, min((s + 1) * split, kend)))
+        if not len(j):  # the empty partial
+            ms.append(torch.full((b, h, lq, 1), TA.NEG_INF))
+            ls.append(torch.zeros((b, h, lq, 1)))
+            accs.append(torch.zeros((b, h, lq, d)))
+            continue
         kk, vv = (t[:, :, j].repeat_interleave(g, dim=1) for t in (k, v))
         seen = valid[:, None, None, j] & (j[None, :] <= rows)[None, None]
         sc = torch.where(seen, qs @ kk.transpose(-1, -2), -torch.inf)
@@ -243,6 +261,11 @@ def test_k3_split_model_matches_plain(edge, lq, g):
     out, ms = _k3_split_model(q, ks, vs, valid, offset, layer, SCALE)
     ref = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, layer, SCALE)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    n_split, split = K3.dense_kv_split_plan(lmax)
+    assert len(ms) == n_split
+    for s in range(n_split):  # a split at or past the last row's key is empty
+        if s * split >= offset + lq:
+            assert (ms[s] == TA.NEG_INF).all()
     if edge == "masked-split":
         assert (ms[1] == TA.NEG_INF).all()
         assert (ms[0] > TA.NEG_INF).all() and (ms[2] > TA.NEG_INF).all()
@@ -255,19 +278,53 @@ def test_k3_split_model_matches_plain(edge, lq, g):
 
 @pytest.mark.parametrize("lmax", [64, 640, 768, 4352])
 def test_k3_split_plan_covers_each_key_once(lmax):
-    """Every key up to the last row's position falls in exactly one split,
-    each split is non-empty, and no split reaches past the window."""
+    """The plan depends on the window only (a captured launch replays at any
+    offset): its splits tile the window, every key up to the last row's
+    position falls in exactly one split's read range, the splits past it
+    read nothing (their empty partials), and no split reaches past the
+    window."""
+    n_split, split = K3.dense_kv_split_plan(lmax)
+    assert split == SK and n_split == -(-lmax // SK) and (n_split - 1) * split < lmax
     for lq in (1, 4, 16):
         for offset in sorted({0, 1, SK - 1, SK, SK + 1, lmax // 2, lmax - lq, lmax - 1, lmax + 5}):
-            n_split, split = K3.dense_kv_split_plan(lmax, offset, lq)
             kend = min(lmax, offset + lq)
             covered = np.zeros(lmax, int)
             for s in range(n_split):
                 lo, hi = s * split, min((s + 1) * split, kend)
+                if lo >= kend:
+                    assert hi <= lo  # an empty split
+                    continue
                 assert lo < hi <= lmax
                 covered[lo:hi] += 1
             assert (covered[:kend] == 1).all() and (covered[kend:] == 0).all()
             assert kend - 1 == min(lmax - 1, offset + lq - 1)
+
+
+@pytest.mark.parametrize("lq", [1, 4])
+@pytest.mark.parametrize("offset", [0, 5, SK + 3])
+def test_k3_split_model_short_offset_long_window(offset, lq):
+    """A short offset in a 4352-key window: the window-only plan's 68 splits,
+    all but the first one or two empty, still give the plain version (f32);
+    batch row 1 has no valid key and keeps the uniform average of all 4352
+    values; the device offset (a (1,) int32 tensor) gives what the host int
+    gives."""
+    nl, b, kvh, lmax, layer = 1, 2, 2, 4352, 0
+    rng = np.random.default_rng(1000 + 10 * offset + lq)
+    ks = torch.from_numpy(rng.standard_normal((nl, b, kvh, lmax, D)).astype(np.float32))
+    vs = torch.from_numpy(rng.standard_normal((nl, b, kvh, lmax, D)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, 2 * kvh, lq, D)).astype(np.float32))
+    valid = torch.from_numpy(rng.random((b, lmax)) > 0.05)
+    valid[1] = False
+    out, ms = _k3_split_model(q, ks, vs, valid, offset, layer, SCALE)
+    ref = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, layer, SCALE)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    live = -(-(offset + lq) // SK)
+    assert len(ms) == 68 and (ms[live:] == TA.NEG_INF).all() and (ms[:live, 1] == TA.NEG_INF).all()
+    mean_v = vs[layer, 1].mean(dim=1).repeat_interleave(2, dim=0)
+    for i in range(lq):
+        np.testing.assert_allclose(ref[1, :, i].numpy(), mean_v.numpy(), **F32_TOL)
+    dev_off = torch.tensor([offset], dtype=torch.int32)
+    assert torch.equal(K3.dense_kv_attention(q, ks, vs, valid, dev_off, layer, SCALE), ref)
 
 
 def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p):

@@ -260,8 +260,7 @@ class ReplayJaxCache:
     def _levels(self, payload):
         return torch.stack([payload & 15, payload >> 4]) if self.bits == 4 else payload
 
-    def __call__(self, state, layer, offset, k_new, v_new):
-        pos = slice(offset, offset + k_new.shape[2])
+    def __call__(self, state, layer, pos, k_new, v_new):
         want_p, want_s = self.payload[layer, :, :, pos], self.scales[layer, :, :, pos]
         own_p, own_s = TS.quantize_chunk(k_new, v_new, state.kv_quant)
         step = (self._levels(own_p).int() - self._levels(want_p).int()).abs()
