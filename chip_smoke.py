@@ -77,8 +77,34 @@ caught and carried on):
                run once each at their scripts' shapes (E1 against K1 at
                K = 3072, N = 9216; E2 and E3 over a 32-layer int4 cache of
                32768 positions), printing their tables.
+10. vision  — full-size random 4-bit Phi-3.5-vision (CLIP ViT-L/14-336,
+               24 x 1024, and the 32 x 3072 decoder) built on the card from
+               a seed; the images are seeded uint8 arrays behind a small
+               class with ``.size`` and ``.convert`` (the path needs no
+               Pillow).  (a) A depth-cut copy (3 CLIP layers, so 2 run; 2
+               decoder layers; 4 crops) against the plain path on the CPU on
+               a landscape and a portrait image: the image features, then
+               the prefill and one decode step's logits and max log-prob,
+               with the dense and the int4 cache.  (b) Three image requests
+               through ``api.generate`` (a square image, a portrait one, a
+               prompt with two), with each cache, every decode step a graph
+               replay: the counters must show K2 (dense) or K5 (int4) once a
+               layer per prefill, K1 on every linear of a decode step and
+               on lm_head of a prefill, K3 or K4 once a layer per step, and
+               nothing else; then the square image's prefill timed (image
+               pipeline and decoder apart), its decode tok/s, and a text
+               prompt's of the same window.  (c) The continuous scheduler
+               at 4 slots and window 4096, slot cache and page pool, with
+               two image and two text requests at once (K6 on the paged
+               decode), and the HTTP handler's 400 for several prompts
+               with images; an image sent by file path runs only where
+               Pillow imports (the script says whether it ran).
 
-Phase 2 also checks K6 and K7 (paged decode attention over the dense and
+Phase 2 also holds K2 and K5 at phase 10's square-image prefill (its
+prompt bucket over its window, one left pad; K2 beside SDPA and its bound),
+SDPA against the CLIP tower's plain attention at the tower's shape, and
+times SDPA over the visible keys beside K3 at offset 100 of 4352 keys.
+It also checks K6 and K7 (paged decode attention over the dense and
 the int4 page pool), K9 (the packed layout), E1 (W4A8: its dp4a GEMV at
 M = 1 and its int8 tensor-core route at M = 2-256, timed at M = 1, 16, 192
 and 256) and every mode of
@@ -109,6 +135,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -469,11 +496,12 @@ def phase_kernels(torch, report):
         del ws
     report["K1"]["max_abs_err"] = max(errs)
 
-    # --- K2 at FLASH_CASES.
+    # --- K2 at FLASH_CASES and at phase 10's square-image prefill.
     b_, h, kvh, d = 1, 32, 32, 96
     scale = d**-0.5
     errs = []
-    for lq, lk, q_pos0, pads, kvh_, is_timed in FLASH_CASES:
+    vision_case = vision_flash_case()
+    for lq, lk, q_pos0, pads, kvh_, is_timed in FLASH_CASES + (vision_case,):
         nb = len(pads)
         q = torch.randn((nb, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
         kk = torch.randn((nb, kvh_, lk, d), generator=g, device=dev).to(torch.bfloat16)
@@ -494,7 +522,7 @@ def phase_kernels(torch, report):
                       lambda: K2.flash_attention_plain(q, kk, vv, valid, q_pos0, scale),
                       12 if lq < 4096 else 4)
             line += " " + t.pop("text")
-        if lq in (1024, 4224):
+        if lq in (1024, 4224, vision_case[0]):
             mask = causal_valid_mask(valid, q_pos0 + torch.arange(lq, device=dev))
             keys = min(lk, q_pos0 + lq)  # keys past the last query are never needed
             nbytes = 2 * (2 * q.numel() + 2 * nb * kvh_ * keys * d) + nb * lk
@@ -505,6 +533,11 @@ def phase_kernels(torch, report):
                      f"{lib:.4f} ms")
             if lq == 1024:
                 report["K2"].update(t, shape=f"lq=1024 lk={lk} H=32 D=96", library_ms=lib, **b2)
+            if lq == vision_case[0]:
+                line = "vision prefill: " + line
+                report["K2"].setdefault("timings", []).append(
+                    {"shape": f"vision prefill lq={lq} lk={lk} pad={pads[0]} H=32 D=96", **t, "library_ms": lib,
+                     **b2})
             del mask
         log(line)
         if not ok:
@@ -512,6 +545,27 @@ def phase_kernels(torch, report):
                  f"KV={kvh_}")
         del q, kk, vv, out, ref
     report["K2"]["max_abs_err"] = max(errs)
+
+    # --- The CLIP tower's attention on the card: F.scaled_dot_product_attention
+    # (the JAX package runs no Pallas kernel there) against the tower's plain
+    # version (float32 scores, softmax and P V), at the tower's shape: 17
+    # crops, 16 heads of 64, 577 tokens.  SDPA rounds P to bf16 before P V,
+    # as K2 does, so it is held to K2's limits.
+    from phi_3_vision_mlx_tpu_torch.models.vision import clip_attention_plain
+
+    q, kk, vv = (torch.randn((17, 16, 577, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = F.scaled_dot_product_attention(q, kk, vv, scale=64**-0.5)
+    ref = clip_attention_plain(q, kk, vv, 64**-0.5)
+    torch.cuda.synchronize()
+    ea, er, ok = close(torch, out, ref, K2_ATOL, ATTN_RTOL)
+    sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv, scale=64**-0.5), 12)
+    plain_ms = cuda_ms(torch, lambda: clip_attention_plain(q, kk, vv, 64**-0.5), 4)
+    log(f"CLIP attention (17 x 16 heads x 577 tokens, D=64): SDPA against the plain version max_abs={ea:.3e} "
+        f"max_rel={er:.3e} (atol {K2_ATOL} + rtol {ATTN_RTOL:.4f}); SDPA {sdpa_ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"a layer")
+    if not ok:
+        fail("SDPA disagrees with the CLIP tower's plain attention")
+    del q, kk, vv, out, ref
 
     # --- K3: one query against windows 640 and 4224; checked with the offset
     # mid-window, timed at the window's end (a decode step reads it all).
@@ -593,11 +647,20 @@ def phase_kernels(torch, report):
     t = timed(torch, lambda: K3.dense_kv_attention(q, ks, vs, valid, off_t, nxt(), scale),
               lambda: K3.dense_kv_attention_plain(q, ks, vs, valid, off_t, nxt(), scale), 20)
     keys = off + 1  # the keys the query can see, read once
-    t.update(bound(2 * 2 * kvh * keys * d + lmax + 2 * 2 * h * d, 4 * h * d * keys), library_ms=None)
+    seen = valid[:, None, None, :keys]
+
+    def library():  # SDPA over the visible keys computes the same function
+        layer = nxt()
+        return F.scaled_dot_product_attention(q, ks[layer][:, :, :keys], vs[layer][:, :, :keys],
+                                              attn_mask=seen, scale=scale)
+
+    t.update(bound(2 * 2 * kvh * keys * d + lmax + 2 * 2 * h * d, 4 * h * d * keys),
+             library_ms=cuda_ms(torch, library, 20))
     report["K3"]["timings"].append({"shape": f"Lq=1 Lmax={lmax} offset={off}", **t})
     log(f"K3 Lq=1 Lmax={lmax} offset={off} ({K3.dense_kv_split_plan(lmax)[0]} splits, "
         f"{-(-(off + 1) // K3.K3_SPLIT_KEYS)} with keys): max_abs={ea:.3e}; {t.pop('text')} bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}) library (SDPA over the {keys} visible keys) "
+        f"{t['library_ms']:.4f} ms")
     del ks, vs
 
     # K3 at the edges of its split plan (runs of K3_SPLIT_KEYS keys), Lq 1
@@ -746,7 +809,8 @@ def phase_quantized_kernels(torch, report):
     # p.astype(v_t.dtype)); its plain version keeps them in f32.  So K5 is
     # held to K2's limits, K2_ATOL + ATTN_RTOL.
     errs = []
-    for lq, lk, q_pos0, pads, kvh_, is_timed in FLASH_CASES:
+    vision_case = vision_flash_case()
+    for lq, lk, q_pos0, pads, kvh_, is_timed in FLASH_CASES + (vision_case,):
         nb = len(pads)
         payload, scales = int4_cache(2, lk, nb, kvh_)
         q = torch.randn((nb, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
@@ -772,6 +836,8 @@ def phase_quantized_kernels(torch, report):
             t.update(bound(nbytes, 4 * h * d * pairs), library_ms=None)
             line += f" {t.pop('text')} bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
             shape = f"lq={lq} lk={lk} H=32 D=96 int4"
+            if (lq, lk) == vision_case[:2]:
+                shape, line = f"vision prefill {shape} pad={pads[0]}", "vision prefill: " + line
             report["K5"].setdefault("timings", []).append({"shape": shape, **t})
             if lq == 1024:
                 report["K5"].update(t, shape=shape)
@@ -1020,31 +1086,27 @@ def weights_of(lm) -> str:
     return f"{lm.cfg.quantized.bits}-bit" + (" packed" if is_packed(lm.params) else "")
 
 
-def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
-    """2-layer full-width slice with ``bits``-bit weights (in the packed
-    layout if ``params`` holds it): kernels on the card vs the plain path
-    on the CPU, with the dense and (``caches``) with the int4 KV cache.  The
-    int4 cache is compared twice: with the CPU run writing the card's
-    quantized entries (the kernels against the plain path on the same
+def first_layers(node, n: int = 2):
+    """The first ``n`` layers of a stacked params subtree."""
+    if isinstance(node, dict):
+        return {k: first_layers(v, n) for k, v in node.items()}
+    return node[:n]
+
+
+def compare_with_cpu(torch, cfg, params, dict_input, label: str) -> None:
+    """The model ``cfg`` over ``params`` on the card against the plain path
+    on the CPU, same weights and prompt: the prefill logits, one decode
+    step's logits and its max log-prob.  The int4 cache (``cfg.
+    use_quantized_cache``) is compared twice: with the CPU run writing the
+    card's quantized entries (the kernels against the plain path on the same
     cache, at the dense limits), and with each device quantizing its own
     keys."""
     import numpy as np
 
-    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
     from phi_3_vision_mlx_tpu_torch.engine import state as S
     from phi_3_vision_mlx_tpu_torch.engine.engine import LM, Decoder, run_prefill
     from phi_3_vision_mlx_tpu_torch.models import phi3
 
-    def first_layers(node):
-        if isinstance(node, dict):
-            return {k: first_layers(v) for k, v in node.items()}
-        return node[:2]
-
-    small = {
-        "model": {**params["model"], "layers": first_layers(params["model"]["layers"])},
-        "lm_head": params["lm_head"],
-    }
-    dict_input = proc(_apply_chat_template(PROMPT_A))
     written = {}  # (layer, first position) -> the card's quantized entries
 
     def record(state, layer, pos, k_new, v_new):
@@ -1054,7 +1116,7 @@ def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
     def replay(state, layer, pos, k_new, v_new):
         state.k[layer, :, :, pos], state.k_scales[layer, :, :, pos] = written[layer, int(pos[0])]
 
-    def run(cfg, device, token, write=S.update_layer_chunk):
+    def run(device, token, write=S.update_layer_chunk):
         """(prefill logits, decode logits, decode max log-prob, token)."""
         decode_logits = []
         forward = phi3.decode_forward
@@ -1066,7 +1128,7 @@ def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
 
         phi3.update_layer_chunk = write
         try:
-            lm = LM(cfg, small, device=device, graphs=False)  # eager: the host reads every write
+            lm = LM(cfg, params, device=device, graphs=False)  # eager: the host reads every write
             logits, state, _, _ = run_prefill(lm, dict_input, 8)
             token = int(logits[0].argmax()) if token is None else token
             phi3.decode_forward = captured
@@ -1078,29 +1140,45 @@ def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
             phi3.decode_forward = forward
         return logits[0].float().cpu().numpy(), decode_logits[-1], float(maxlp[0, 0]), token
 
+    quantized = cfg.use_quantized_cache
+    a, a_dec, lp_a, token = run("cuda", None, record if quantized else S.update_layer_chunk)
+    if a.shape != (cfg.vocab_size,) or not np.isfinite(a).all() or not np.isfinite(a_dec).all():
+        fail(f"reference: bad logits shape {a.shape} or non-finite values")
+    checks = [("dense KV cache", S.update_layer_chunk, REF_REL_L2, REF_LOGPROB)]
+    if quantized:
+        checks = [("int4 KV cache, the card's entries replayed", replay, REF_REL_L2, REF_LOGPROB),
+                  ("int4 KV cache, each device quantizing", S.update_layer_chunk,
+                   REF_INT4_OWN_REL_L2, REF_INT4_OWN_LOGPROB)]
+    for what, write, limit, lp_limit in checks:
+        b, b_dec, lp_b, _ = run("cpu", token, write)
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        rel_dec = float(np.linalg.norm(a_dec - b_dec) / np.linalg.norm(b_dec))
+        dlp = abs(lp_a - lp_b)
+        top_a, top_b = float(a_dec.max()), float(b_dec.max())
+        lp_bound = max(lp_limit, REF_LOGPROB + abs(top_a - top_b))
+        log(f"reference ({label}, {what}): prefill logits "
+            f"rel L2 cuda-vs-cpu {rel:.3e}, decode logits {rel_dec:.3e} (limit {limit:.3g}); decode "
+            f"max log-prob diff {dlp:.3e} (limit {lp_bound:.4g}; top logit {top_a} / {top_b})")
+        if rel > limit or not rel_dec <= limit or not dlp <= lp_bound:
+            fail(f"reference: the kernel path disagrees with the plain path ({label}, {what})")
+
+
+def phase_reference(torch, params, proc, bits: int = 4, caches=(False, True)):
+    """2-layer full-width slice with ``bits``-bit weights (in the packed
+    layout if ``params`` holds it) against the plain path on the CPU
+    (``compare_with_cpu``), with the dense and (``caches``) with the int4 KV
+    cache."""
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+
+    small = {
+        "model": {**params["model"], "layers": first_layers(params["model"]["layers"])},
+        "lm_head": params["lm_head"],
+    }
+    dict_input = proc(_apply_chat_template(PROMPT_A)[0])
     label = f"{bits}-bit" + (" packed" if is_packed(params) else "")
     for quantized in caches:
         cfg = full_config(bits).replace(num_hidden_layers=2, use_quantized_cache=quantized)
-        a, a_dec, lp_a, token = run(cfg, "cuda", None, record if quantized else S.update_layer_chunk)
-        if a.shape != (cfg.vocab_size,) or not np.isfinite(a).all() or not np.isfinite(a_dec).all():
-            fail(f"reference: bad logits shape {a.shape} or non-finite values")
-        checks = [("dense KV cache", S.update_layer_chunk, REF_REL_L2, REF_LOGPROB)]
-        if quantized:
-            checks = [("int4 KV cache, the card's entries replayed", replay, REF_REL_L2, REF_LOGPROB),
-                      ("int4 KV cache, each device quantizing", S.update_layer_chunk,
-                       REF_INT4_OWN_REL_L2, REF_INT4_OWN_LOGPROB)]
-        for what, write, limit, lp_limit in checks:
-            b, b_dec, lp_b, _ = run(cfg, "cpu", token, write)
-            rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
-            rel_dec = float(np.linalg.norm(a_dec - b_dec) / np.linalg.norm(b_dec))
-            dlp = abs(lp_a - lp_b)
-            top_a, top_b = float(a_dec.max()), float(b_dec.max())
-            lp_bound = max(lp_limit, REF_LOGPROB + abs(top_a - top_b))
-            log(f"reference (2 layers, width 3072, {label} weights, {what}): prefill logits "
-                f"rel L2 cuda-vs-cpu {rel:.3e}, decode logits {rel_dec:.3e} (limit {limit:.3g}); decode "
-                f"max log-prob diff {dlp:.3e} (limit {lp_bound:.4g}; top logit {top_a} / {top_b})")
-            if rel > limit or not rel_dec <= limit or not dlp <= lp_bound:
-                fail(f"reference: the kernel path disagrees with the plain path ({label}, {what})")
+        compare_with_cpu(torch, cfg, small, dict_input, f"2 layers, width 3072, {label} weights")
 
 
 def post(port: int, body: dict, timeout: float = 600):
@@ -1183,7 +1261,7 @@ def phase_serving(torch, lm, proc, report):
             resp = payload.get("responses")
             if status != 200 or not isinstance(resp, list) or not resp or not resp[0]:
                 fail(f"request ({tag}, {label}): status {status}, payload {str(payload)[:200]}")
-            n_prompt = len(proc(api._apply_chat_template(prompt))["input_ids"][0])
+            n_prompt = len(proc(api._apply_chat_template(prompt)[0])["input_ids"][0])
             log(f"request ({tag}, {label}): {n_prompt} prompt tokens, max_tokens {max_tokens}: "
                 f"HTTP {status}, {len(resp[0])} chars in {dt:.2f} s")
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -1681,7 +1759,7 @@ def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a"
     label = f"{weights_of(lm)} weights, {cache} cache"
     for tag in tags:
         prompt, budget = PROFILE_PROMPTS[tag]
-        dict_input = proc(_apply_chat_template(prompt))
+        dict_input = proc(_apply_chat_template(prompt)[0])
         e_out, e_launch, e_dec, prefill_ms = decode_run(torch, eager, dict_input, budget, PARITY_CHUNKS[tag])
         fresh = LM(lm.cfg, lm.params, model_path=lm.model_path, device="cuda")  # no entries
         runs = {}
@@ -1756,6 +1834,344 @@ def phase_experiments(torch, report):
         if wrapper.launches <= 0:
             fail(f"{name} was never launched by its experiment")
         torch.cuda.empty_cache()
+
+
+# Phase 10, vision.  The images are uint8 arrays from a seed (the path needs
+# no Pillow), (height, width): a square one (a 4 x 4 crop
+# grid, 2509 image tokens), a landscape one (3 x 4) and a portrait one (4 x
+# 3, transposed before and after the resize).
+VISION_IMAGES = {"square": (900, 900), "landscape": (700, 1000), "portrait": (900, 600)}
+# Phase 10 (b)'s requests through api.generate: (text, images).
+VISION_REQUESTS = {"square": ("Describe this image in detail.", ("square",)),
+                   "portrait": ("What stands in the middle of this picture?", ("portrait",)),
+                   "two images": ("Compare the two images.", ("landscape", "portrait"))}
+VISION_MAX_TOKENS = 64
+# Phase 10 (a)'s model: 3 CLIP encoder layers (the penultimate rule runs 2)
+# and 2 decoder layers at full width; its processor cuts an image to at most
+# 2 x 2 crops (num_crops 4), so the CPU's plain run stays short.
+REF_CLIP_LAYERS, REF_DECODER_LAYERS, REF_NUM_CROPS = 3, 2, 4
+# Phase 10 (c): the continuous server's slots and window.
+VISION_SLOTS, VISION_WINDOW = 4, 4096
+
+
+class ArrayImage:
+    """A decoded image made from a uint8 (H, W, 3) array: ``.size`` is
+    (width, height) and ``.convert("RGB")`` returns an object numpy reads
+    as the array, the duck type ``fetch_image`` and ``Phi3VImageProcessor``
+    accept."""
+
+    def __init__(self, pixels, name):
+        self.pixels, self.name = pixels, name
+        self.size = (pixels.shape[1], pixels.shape[0])
+
+    def convert(self, mode):
+        if mode != "RGB":
+            raise ValueError(mode)
+        return self
+
+    def __array__(self, dtype=None, copy=None):
+        return self.pixels if dtype is None else self.pixels.astype(dtype)
+
+    def __str__(self):
+        return f"{self.name} ({self.size[0]} x {self.size[1]}, seeded uint8)"
+
+
+def seeded_image(name: str) -> ArrayImage:
+    import numpy as np
+
+    h, w = VISION_IMAGES[name]
+    rng = np.random.default_rng(list(VISION_IMAGES).index(name))
+    return ArrayImage(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), name)
+
+
+def vision_config():
+    from phi_3_vision_mlx_tpu_torch.core.config import QuantConfig, preset
+
+    return preset("phi35_vision").replace(quantized=QuantConfig(group_size=64, bits=4, mode="affine"))
+
+
+def vision_processor(num_crops: int = 16):
+    from phi_3_vision_mlx_tpu_torch.models.image_processor import Phi3VImageProcessor
+    from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3VProcessor
+    from phi_3_vision_mlx_tpu_torch.models.tokenizer import ByteTokenizer
+
+    proc = Phi3VProcessor(tokenizer=ByteTokenizer())
+    proc.img_processor = Phi3VImageProcessor(num_crops)
+    return proc
+
+
+def vision_request(tag: str):
+    """(chat-templated prompt, images) of ``VISION_REQUESTS[tag]``."""
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+
+    text, names = VISION_REQUESTS[tag]
+    return _apply_chat_template(text, [seeded_image(n) for n in names])
+
+
+def vision_flash_case():
+    """K2's and K5's case at phase 10's square-image prefill: (lq, lk,
+    q_pos0, (left pad,), kv heads, timed) with lq its prompt bucket and lk
+    its window."""
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_shape
+
+    d = vision_processor()(*vision_request("square"))
+    _, l_pad, window = prefill_shape(d, VISION_MAX_TOKENS)
+    return (l_pad, window, 0, (l_pad - d["input_ids"].shape[1],), 32, True)
+
+
+def phase_vision_reference(torch, params):
+    """(a) A full-width 4-bit bf16 Phi-3.5-vision cut to ``REF_CLIP_LAYERS``
+    CLIP layers and ``REF_DECODER_LAYERS`` decoder layers, on the card
+    against the plain path on the CPU with the same weights and image: the
+    image features, then ``compare_with_cpu`` with the dense and the int4
+    cache, for a landscape and a portrait image."""
+    import dataclasses
+
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+    from phi_3_vision_mlx_tpu_torch.core.weights import params_to
+    from phi_3_vision_mlx_tpu_torch.models.vision import image_features, image_token_count
+
+    v = params["model"]["vision_embed_tokens"]
+    vm = v["img_processor"]["vision_model"]
+    small_v = {**v, "img_processor": {"vision_model": {
+        **vm, "encoder": {"layers": first_layers(vm["encoder"]["layers"], REF_CLIP_LAYERS)}}}}
+    small = {"model": {**params["model"], "layers": first_layers(params["model"]["layers"], REF_DECODER_LAYERS),
+                       "vision_embed_tokens": small_v},
+             "lm_head": params["lm_head"]}
+    base = vision_config()
+    cfg = base.replace(num_hidden_layers=REF_DECODER_LAYERS,
+                       vision=dataclasses.replace(base.vision, num_hidden_layers=REF_CLIP_LAYERS))
+    on_cpu = params_to(small, "cpu")
+    proc = vision_processor(REF_NUM_CROPS)
+    label = (f"vision, CLIP {REF_CLIP_LAYERS} layers x {cfg.vision.hidden_size}, decoder "
+             f"{REF_DECODER_LAYERS} layers x {cfg.hidden_size}, 4-bit weights")
+    for name in ("landscape", "portrait"):
+        d = proc(*_apply_chat_template("Describe this image.", [seeded_image(name)]))
+        with torch.no_grad():
+            (card,), (cpu,) = image_features(small, cfg, d), image_features(on_cpu, cfg, d)
+        a, b = card.float().cpu().numpy(), cpu.float().numpy()
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        log(f"reference ({label}, {name} image {seeded_image(name).size}, {image_token_count(d)} image "
+            f"tokens of {d['input_ids'].shape[1]}, transposed {d['resize_plans'][0]['trans']}): image features "
+            f"rel L2 cuda-vs-cpu {rel:.3e} (limit {REF_REL_L2:.3g})")
+        if a.shape != b.shape or not np.isfinite(a).all() or not rel <= REF_REL_L2:
+            fail(f"reference: the card's image features disagree with the CPU's ({name})")
+        for quantized in (False, True):
+            compare_with_cpu(torch, cfg.replace(use_quantized_cache=quantized), small, d, f"{label}, {name} image")
+
+
+def timed_prefill(torch, lm, dict_input, reps: int = 3) -> dict:
+    """Host wall ms (synchronized) of the image prefill, median of ``reps``:
+    the image pipeline (resize, CLIP tower, pooling, projection) alone, the
+    decoder prefill from the prompt's embeddings alone, and ``run_prefill``
+    whole."""
+    import statistics
+
+    from phi_3_vision_mlx_tpu_torch.engine.engine import pad_prompt_inputs, prefill_shape, run_prefill
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+    from phi_3_vision_mlx_tpu_torch.models.vision import compute_inputs_embeds, image_features
+
+    _, l_pad, window = prefill_shape(dict_input, VISION_MAX_TOKENS)
+    ids_p, pids_p, valid_p = pad_prompt_inputs(dict_input, l_pad)
+    pids, valid = torch.as_tensor(pids_p, device="cuda"), torch.as_tensor(valid_p, device="cuda")
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def pipeline():
+        return image_features(lm.params, lm.cfg, dict_input)
+
+    def decoder():
+        return phi3.prefill(lm.params, lm.cfg, None, max_tokens=window - l_pad, pids=pids, prompt_valid=valid,
+                            inputs_embeds=emb, last_logit_only=True)
+
+    times = {"pipeline": [], "decoder": [], "total": []}
+    with torch.no_grad():
+        emb = compute_inputs_embeds(lm.params, lm.cfg, dict_input, ids_p)
+        for _ in range(reps):
+            times["pipeline"].append(wall(pipeline)[0])
+            times["decoder"].append(wall(decoder)[0])
+            times["total"].append(wall(lambda: run_prefill(lm, dict_input, VISION_MAX_TOKENS))[0])
+        out = {k: statistics.median(v) for k, v in times.items()}
+        for name, fn in (("pipeline", pipeline), ("decoder", decoder)):
+            per_name, launches = kernel_times(torch, fn, 1)
+            out[f"{name}_busy"], out[f"{name}_kernels"] = sum(per_name.values()), launches
+            out[f"{name}_top"] = by_text(dict(per_name.most_common(6)))
+    return out
+
+
+def phase_vision_generate(torch, lm, report):
+    """(b) Full-size 4-bit Phi-3.5-vision: each request of
+    ``VISION_REQUESTS`` through ``api.generate``, every decode step a graph
+    replay.  The counters must show, per forward pass (a prefill or a decode
+    step), the cache's flash kernel (K2 dense, K5 int4) once per layer of a
+    prefill, its decode kernel (K3, K4) once per layer of a step, K1 on every
+    linear of a step and on lm_head (M = 1) of a prefill, and no other
+    kernel.  Then the square image's prefill timed (after those requests
+    warmed up), its decode tok/s, and a text prompt's of the same window."""
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_shape
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+    from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3Processor
+    from phi_3_vision_mlx_tpu_torch.models.tokenizer import ByteTokenizer
+    from phi_3_vision_mlx_tpu_torch.models.vision import image_token_count
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import _build
+
+    proc = vision_processor()
+    cache = cache_of(lm)
+    flash, decode = ("K5", "K4") if cache == "int4" else ("K2", "K3")
+    label = f"full-size 4-bit Phi-3.5-vision, {cache} cache"
+    counters = kernel_counters()
+    forward = phi3.decode_forward
+
+    def counted(*a, **kw):
+        _build.count_launch(counted)
+        return forward(*a, **kw)
+
+    phi3.decode_forward = counted
+    try:
+        for fn in (*counters.values(), counted):
+            fn.launches = 0
+        for tag, (text, names) in VISION_REQUESTS.items():
+            images = [seeded_image(n) for n in names]
+            t0 = time.perf_counter()
+            out = api.generate(text, images=images, preload=(lm, proc), max_tokens=VISION_MAX_TOKENS,
+                               verbose=False, stream=False, mute=True)
+            torch.cuda.synchronize()
+            d = proc(*vision_request(tag))
+            if not isinstance(out, list) or len(out) != 1 or not out[0]:
+                fail(f"vision request ({tag}, {label}) gave {out!r}")
+            log(f"vision request ({tag}, {label}): {image_token_count(d)} image tokens of "
+                f"{d['input_ids'].shape[1]}, window {prefill_shape(d, VISION_MAX_TOKENS)[2]}, "
+                f"{len(out[0])} chars in {time.perf_counter() - t0:.2f} s")
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        phi3.decode_forward = forward
+    prefills = len(VISION_REQUESTS)
+    steps = counted.launches - prefills
+    layers = lm.cfg.num_hidden_layers
+    want = {name: 0 for name in counters}
+    want.update({"K1": steps * (4 * layers + 1) + prefills, flash: layers * prefills, decode: layers * steps})
+    log(f"launch counts over the {prefills} vision requests ({label}): {launches}; {prefills} prefills, "
+        f"{steps} decode steps; expected {want}")
+    if launches != want or steps <= 0:
+        fail(f"vision requests ({label}): launches {launches}, expected {want}")
+
+    d = proc(*vision_request("square"))
+    t = timed_prefill(torch, lm, d)
+    n_img = image_token_count(d)
+    report.setdefault("vision", {})[cache] = {"image_tokens": n_img, "prompt_tokens": d["input_ids"].shape[1], **t}
+    log(f"image prefill (square image, {label}): {n_img} image tokens of {d['input_ids'].shape[1]}, "
+        f"host wall after warm-up, median of 3: run_prefill {t['total']:.1f} ms = image pipeline (resize, "
+        f"CLIP tower, pooling, projection) {t['pipeline']:.1f} ms + decoder prefill {t['decoder']:.1f} ms "
+        f"(+ embed and scatter); on {report['card']}")
+    for name in ("pipeline", "decoder"):
+        log(f"image prefill profile ({name}, {label}): device busy {t[f'{name}_busy']:.2f} ms in "
+            f"{t[f'{name}_kernels']} kernels; largest (ms): {t[f'{name}_top']}")
+    text, names = VISION_REQUESTS["square"]
+    _, tps = api.generate(text, images=[seeded_image(n) for n in names], preload=(lm, proc),
+                          max_tokens=VISION_MAX_TOKENS, verbose=False, stream=False, mute=True, return_tps=True)
+    # A text prompt of the same bucket, so the same window and graph key.
+    tproc = Phi3Processor(tokenizer=ByteTokenizer())
+    base = len(tproc(api._apply_chat_template("")[0])["input_ids"][0])
+    filler = (FILLER * 40)[: d["input_ids"].shape[1] - base]
+    if prefill_shape(tproc(api._apply_chat_template(filler)[0]), VISION_MAX_TOKENS) != prefill_shape(
+            d, VISION_MAX_TOKENS):
+        fail("the text prompt of phase 10 does not share the image prompt's window")
+    _, text_tps = api.generate(filler, preload=(lm, tproc), max_tokens=VISION_MAX_TOKENS, verbose=False,
+                               stream=False, mute=True, return_tps=True)
+    report["vision"][cache].update(decode_tps=tps, text_decode_tps=text_tps)
+    log(f"decode tok/s ({label}, {VISION_MAX_TOKENS} tokens through api.generate, CUDA graphs, window "
+        f"{prefill_shape(d, VISION_MAX_TOKENS)[2]}): square image {tps:.2f}, text prompt of the same window "
+        f"{text_tps:.2f}; on {report['card']}")
+
+
+def phase_vision_server(torch, lm, paged: bool):
+    """(c) The continuous scheduler at ``VISION_SLOTS`` slots and
+    ``VISION_WINDOW``, slot cache or page pool: two image requests and two
+    text requests submitted at once to ``ContinuousScheduler.complete`` (as
+    the HTTP handler does after decoding the images).  All must answer; the
+    counters show K1 and K2 (admission prefills) and, paged, K6 on decode.
+    Paged, also the HTTP handler: 400 for several prompts with images, and
+    an image sent as a file path when Pillow imports here."""
+    import tempfile
+    from http.server import ThreadingHTTPServer
+
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+    from phi_3_vision_mlx_tpu_torch.serve.server import ContinuousScheduler, make_continuous_handler
+
+    proc = vision_processor()
+    engine = "paged" if paged else "slots"
+    requests = [vision_request("square"), vision_request("portrait"),
+                (_apply_chat_template(PROMPT_A)[0], None), (_apply_chat_template((FILLER * 8)[:900])[0], None)]
+    counters = kernel_counters()
+    sched = ContinuousScheduler(lm, proc, slots=VISION_SLOTS, window=VISION_WINDOW, paged=paged)
+    for fn in counters.values():
+        fn.launches = 0
+    results = [None] * len(requests)
+
+    def worker(i, prompt, images):
+        try:
+            results[i] = sched.complete(prompt, 32, images=images)
+        except Exception as e:  # reported below, and the phase fails
+            results[i] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i, *r)) for i, r in enumerate(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"continuous {engine} ({VISION_SLOTS} slots, window {VISION_WINDOW}, full-size 4-bit Phi-3.5-vision): "
+        f"2 image + 2 text requests at once answered in {time.perf_counter() - t0:.2f} s: "
+        f"{[type(r).__name__ if not isinstance(r, str) else len(r) for r in results]} (chars); launches {launches}")
+    if not all(isinstance(r, str) and r for r in results):
+        fail(f"continuous {engine}: a request failed or gave nothing: {results}")
+    expected = {"K1", "K2"} | ({"K6"} if paged else set())
+    for name, n in launches.items():
+        if (n > 0) != (name in expected):
+            fail(f"continuous {engine} with image requests: {name} launched {n} times")
+    if not paged:
+        return
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_continuous_handler(sched))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = httpd.server_address[1]
+        try:
+            post(port, {"prompt": ["a", "b"], "images": ["x.png"]})
+            fail("several prompts with images were not refused")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                fail(f"several prompts with images: HTTP {e.code}, expected 400")
+        try:
+            import PIL
+            from PIL import Image
+        except ImportError:
+            log("HTTP image request by file path: not run, Pillow is not installed on this machine "
+                "(the image requests above went to ContinuousScheduler.complete as decoded images)")
+            return
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/square.png"
+            Image.fromarray(seeded_image("square").pixels).save(path)
+            status, payload = post(port, {"prompt": VISION_REQUESTS["square"][0], "images": [path],
+                                          "max_tokens": 16})
+        if status != 200 or not payload.get("responses") or not payload["responses"][0]:
+            fail(f"HTTP image request: status {status}, payload {str(payload)[:200]}")
+        log(f"HTTP image request by file path (Pillow {PIL.__version__}): ran, HTTP {status}, "
+            f"{len(payload['responses'][0])} chars")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
 
 
 def phase_checkpoint(torch):
@@ -1928,6 +2344,25 @@ def main() -> None:
     # over its own run.
     phase_experiments(torch, report)
     stamp("phase 9")
+
+    # Phase 10: vision, full-size random 4-bit Phi-3.5-vision built on the card.
+    vcfg = vision_config()
+    t0 = time.perf_counter()
+    vparams = synth_quantized_params(vcfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"full-size vision weights: CLIP {vcfg.vision.num_hidden_layers} layers x {vcfg.vision.hidden_size}, "
+        f"decoder {vcfg.num_hidden_layers} layers x {vcfg.hidden_size}, built in {time.perf_counter() - t0:.1f} s")
+    phase_vision_reference(torch, vparams)
+    stamp("phase 10 reference")
+    lmv = LM(vcfg, vparams, device="cuda")
+    lmv_int4 = LM(vcfg.replace(use_quantized_cache=True), vparams, device="cuda")
+    phase_vision_generate(torch, lmv, report)
+    phase_vision_generate(torch, lmv_int4, report)
+    del lmv_int4
+    torch.cuda.empty_cache()
+    phase_vision_server(torch, lmv, paged=False)
+    phase_vision_server(torch, lmv, paged=True)
+    stamp("phase 10")
     for pkg in ("jax", "phi_3_vision_mlx_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             fail(f"{pkg} was imported")

@@ -31,7 +31,16 @@ Counterpart of ``phi_3_vision_mlx_tpu/core/weights.py``:
   K9 reads it in place.  :func:`prepare_params` keeps such a leaf as it is.
 * :func:`synth_quantized_params` builds full-size random quantized weights
   directly on the device from a seeded ``torch.Generator`` (the torch
-  counterpart of ``bench.py:synth_quantized_params``).
+  counterpart of ``bench.py:synth_quantized_params``), with the CLIP tower
+  of a vision config.
+
+Vision checkpoints load through the same path: the tower's per-layer keys
+(``model.vision_embed_tokens.img_processor.vision_model.encoder.layers.N``)
+stack like the decoder's, its linears (q/k/v/out_proj, fc1, fc2,
+``img_projection.{0,2}``) quantize like the decoder's, and the patch
+embedding's weight stays as stored, OHWI (E, P, P, 3).  A raw HF
+directory's NCHW patch weight is the JAX ``sanitize_checkpoint``'s to
+convert, which is not ported.
 """
 
 from __future__ import annotations
@@ -437,7 +446,7 @@ def synth_quantized_params(cfg: ModelConfig, device, seed: int = 0) -> dict:
         **scale_bias((v, e // gs)),
     }
     ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)  # noqa: E731
-    return {
+    params = {
         "model": {
             "embed_tokens": embed,
             "layers": {
@@ -455,6 +464,50 @@ def synth_quantized_params(cfg: ModelConfig, device, seed: int = 0) -> dict:
             "norm": {"weight": ones(e)},
         },
         "lm_head": linear(k=e, n=v),
+    }
+    if cfg.has_vision:
+        params["model"]["vision_embed_tokens"] = _synth_vision(cfg, linear, g, device, dt)
+    return params
+
+
+def _synth_vision(cfg: ModelConfig, linear, g: torch.Generator, device, dt) -> dict:
+    """The CLIP tower and projection of :func:`synth_quantized_params`:
+    quantized linears (``linear``'s law) with zero float biases, the patch and
+    position embeddings normal with scale 0.02 in ``dt``, unit LayerNorms,
+    zero CLS and separators."""
+    vc = cfg.vision
+    e, nl, inter, hidden = vc.hidden_size, vc.num_hidden_layers, vc.intermediate_size, cfg.hidden_size
+    c4 = 4 * cfg.image_dim_out
+
+    def lin(*lead, k, n):
+        return {**linear(*lead, k=k, n=n), "bias": torch.zeros((*lead, n), dtype=dt, device=device)}
+
+    def nrm(*shape):
+        return (0.02 * torch.randn(shape, generator=g, device=device)).to(dt)
+
+    def ln(*lead):
+        return {"weight": torch.ones((*lead, e), dtype=dt, device=device),
+                "bias": torch.zeros((*lead, e), dtype=dt, device=device)}
+
+    return {
+        "img_processor": {"vision_model": {
+            "embeddings": {
+                "class_embedding": torch.zeros((e,), dtype=dt, device=device),
+                "patch_embedding": {"weight": nrm(e, vc.patch_size, vc.patch_size, 3)},
+                "position_embedding": {"weight": nrm(vc.num_positions, e)},
+            },
+            "pre_layrnorm": ln(),
+            "encoder": {"layers": {
+                "self_attn": {name: lin(nl, k=e, n=e) for name in ("q_proj", "k_proj", "v_proj", "out_proj")},
+                "layer_norm1": ln(nl),
+                "layer_norm2": ln(nl),
+                "mlp": {"fc1": lin(nl, k=e, n=inter), "fc2": lin(nl, k=inter, n=e)},
+            }},
+            "post_layernorm": ln(),
+        }},
+        "glb_GN": torch.zeros((1, 1, c4), dtype=dt, device=device),
+        "sub_GN": torch.zeros((1, 1, 1, c4), dtype=dt, device=device),
+        "img_projection": {"0": lin(k=c4, n=hidden), "2": lin(k=hidden, n=hidden)},
     }
 
 
@@ -564,12 +617,11 @@ def quantize_checkpoint(from_path: str, to_path: str, q_group_size: int = 64, q_
 
 def create_random_checkpoint(path: str, preset_name: str, seed: int = 0, **overrides) -> ModelConfig:
     """Write a random-weight checkpoint of a preset (``models/phi3.py:
-    init_params`` from a CPU ``torch.Generator`` seeded with ``seed``).  Text
-    models only."""
+    init_params`` from a CPU ``torch.Generator`` seeded with ``seed``); a
+    vision preset (``phi35_vision``, ``tiny_vision``) carries the CLIP tower
+    and projection under ``model.vision_embed_tokens``."""
     from ..models.phi3 import init_params
 
     cfg = preset(preset_name, **overrides)
-    if cfg.has_vision:
-        raise NotImplementedError("vision models are not ported yet")
     save_checkpoint(path, cfg, init_params(cfg, torch.Generator().manual_seed(seed)))
     return cfg

@@ -22,9 +22,15 @@ What differs from the JAX package, and why:
 * Host arrays go to the card through pinned memory without waiting
   (:func:`to_device`); a pageable copy would drain the queued chunks.
 * Greedy decoding only: ``temperature > 0`` raises NotImplementedError, as
-  does ``spec_k > 0`` (speculation) and an image request.  Admission is
-  always asynchronous: the first token stays on the device until a chunk
-  fetch or a host path needs it.
+  does ``spec_k > 0`` (speculation).  Admission is always asynchronous: the
+  first token stays on the device until a chunk fetch or a host path needs
+  it.
+* An image request (``prepare(..., images=)``) prefills alone through
+  ``run_prefill``'s vision path at the serving window and adopts into a
+  slot like a text prefill: its image tokens are cache columns by then.  It
+  is never batched (``prepare_many`` refuses it), and it carries
+  ``has_images``, which the paged engine reads to exempt it from
+  preemption.
 * The slot engine's attention is the plain masked attention (the JAX
   package leaves it to XLA too); the paged engine (``engine/paging.py``)
   runs kernels K6 and K7.
@@ -63,12 +69,10 @@ from .stream import LogitStopper, stop_tail_window, validate_stops
 _FIRST_PENDING = -1
 
 
-def refuse_unported(temperature: float = 0.0, images=None) -> None:
+def refuse_unported(temperature: float = 0.0) -> None:
     """Raise for a request that needs what the port has not got yet."""
     if temperature > 0:
         raise NotImplementedError("sampling is not ported yet; the port decodes greedily")
-    if images:
-        raise NotImplementedError("vision prompts are not ported yet")
 
 
 def to_device(array, device) -> torch.Tensor:
@@ -249,6 +253,7 @@ class _Request:
     # device, and tokens[0] holds _FIRST_PENDING until it is fetched.
     first_dev: Optional[torch.Tensor] = None
     first_row: int = 0
+    has_images: bool = False  # its cache cannot be rebuilt by a text recompute
 
 
 class _Fetch:
@@ -303,6 +308,7 @@ class _Prepared:
     rid: int = -1  # set by a resume: the request keeps its id
     first_dev: Optional[torch.Tensor] = None  # (B,) device argmax of the prefill
     src_row: int = 0  # this request's row of src_state
+    has_images: bool = False
 
 
 class BatchEngine:
@@ -376,15 +382,18 @@ class BatchEngine:
 
     def prepare(self, prompt: str, max_tokens: int = 512, temperature: float = 0.0, stop=None,
                 early_stop=False, images=None) -> _Prepared:
-        """Tokenize and prefill a request without touching engine state."""
-        refuse_unported(temperature, images)
-        dict_input = self.processor(prompt)
+        """Tokenize and prefill a request without touching engine state.
+        ``images``: decoded images for the prompt's ``<|image_i|>`` tags (a
+        vision model's processor), prefilled alone."""
+        refuse_unported(temperature)
+        dict_input = self.processor(prompt, images)
         ids = np.asarray(dict_input["input_ids"])
         first_dev, src_state, l_pad = self._prefill(dict_input, "prompt")
         return _Prepared(
             src_state=src_state, first=_FIRST_PENDING, first_dev=first_dev, l_pad=l_pad,
             n_pads=l_pad - ids.shape[1], prompt_ids=[int(t) for t in ids[0]],
             max_tokens=max_tokens, stop=validate_stops(stop), early_stop=early_stop,
+            has_images=images is not None,
         )
 
     def prepare_many(self, prompts: List[str], opts: List[dict]) -> List[_Prepared]:
@@ -397,7 +406,9 @@ class BatchEngine:
         if len(prompts) == 1:
             return [self.prepare(prompts[0], **opts[0])]
         for o in opts:
-            refuse_unported(o.get("temperature", 0.0), o.get("images"))
+            refuse_unported(o.get("temperature", 0.0))
+            if o.get("images") is not None:
+                raise ValueError("an image request is never batched: prefill it with prepare()")
         dict_input = self.processor(list(prompts))
         ids = np.asarray(dict_input["input_ids"])
         mask = np.asarray(dict_input["mask"]).astype(bool)
@@ -441,7 +452,7 @@ class BatchEngine:
         else:
             req = _Request(rid=self._next_rid, slot=slot, tokens=[p.first],
                            max_tokens=p.max_tokens, l_pad=p.l_pad, stop=p.stop,
-                           prompt_ids=p.prompt_ids)
+                           prompt_ids=p.prompt_ids, has_images=p.has_images)
             self._next_rid += 1
             if p.first_dev is not None:
                 req.first_dev, req.first_row = p.first_dev, p.src_row

@@ -18,9 +18,14 @@ buffers (``init_state(into=...)``); ``LM.decoders`` keeps the
 ``GRAPH_ENTRIES`` most recently finished entries, and an entry leaves it
 while a request decodes with it (one request at a time).  ``LM(graphs=False)`` runs the same
 steps eagerly on the card (the reference); the CPU always does.  Prefill and
-extend chunks run eagerly.  Sampling, speculation and vision prompts are not
-ported yet; the continuous-batching engines are ``engine/batching.py`` and
-``engine/paging.py``.
+extend chunks run eagerly.  A vision prompt (the vision processor's
+``raw_images``, ``hd_images`` or ``pixel_values``) runs its image pipeline
+(``models/vision.py``), writes each image's features over its placeholders
+and prefills the whole prompt from those embeddings in one pass, never
+chunked, as the JAX engine does; by decode time its image tokens are cache
+columns like any other, so it decodes through the same :class:`Decoder`.
+Sampling and speculation are not ported yet; the continuous-batching
+engines are ``engine/batching.py`` and ``engine/paging.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from ..core.config import ID_EOS, ModelConfig
 from ..core.weights import params_to, torch_dtype
 from ..models import phi3
+from ..models.vision import compute_inputs_embeds
 from .graphs import StepGraph, StepRing
 from .state import init_state
 from .stream import LogitStopper, StopSequences, Streamer, TokenStopper
@@ -112,20 +118,34 @@ def prefill_shape(dict_input: dict, max_tokens: int):
     return b, l_pad, round_up(l_pad + max(int(max_tokens), 1), WINDOW_BUCKET)
 
 
+def has_images(dict_input: dict) -> bool:
+    """Whether a processor's output holds images (any of the vision
+    processor's three modes)."""
+    return any(dict_input.get(key) is not None for key in ("raw_images", "hd_images", "pixel_values"))
+
+
 @torch.no_grad()
 def run_prefill(lm: LM, dict_input: dict, max_tokens: int, into=None):
-    """Bucketed (and above ``PREFILL_CHUNK``, chunked) text prefill, into a
-    fresh state or reusing ``into``'s tensors (``init_state``).
+    """Bucketed (and above ``PREFILL_CHUNK``, chunked) prefill, into a fresh
+    state or reusing ``into``'s tensors (``init_state``).  A vision prompt
+    prefills in one pass from its embeddings with the image features
+    written in (``models/vision.py:compute_inputs_embeds``; JAX
+    ``engine.py:479-549``).
 
     Returns (last_logits (B, V) float32 on the device, state, l_pad, window).
     """
-    if any(dict_input.get(key) is not None for key in ("pixel_values", "hd_images", "raw_images")):
-        raise NotImplementedError("vision prompts are not ported yet")
     b, l_pad, window = prefill_shape(dict_input, max_tokens)
     ids_p, pids_p, valid_p = pad_prompt_inputs(dict_input, l_pad)
     ids = torch.as_tensor(ids_p, dtype=torch.long, device=lm.device)
     pids = torch.as_tensor(pids_p, device=lm.device)
     valid = torch.as_tensor(valid_p, device=lm.device)
+    if has_images(dict_input):
+        res = phi3.prefill(
+            lm.params, lm.cfg, None, max_tokens=window - l_pad, pids=pids, prompt_valid=valid,
+            inputs_embeds=compute_inputs_embeds(lm.params, lm.cfg, dict_input, ids_p), last_logit_only=True,
+            into=into,
+        )
+        return res.logits[:, -1, :].float(), res.state, l_pad, window
     if l_pad <= PREFILL_CHUNK:
         res = phi3.prefill(
             lm.params, lm.cfg, ids, max_tokens=window - l_pad, pids=pids,
@@ -234,12 +254,14 @@ def generate_text(
     sample: bool = False,
     stop=None,
 ):
-    """Greedy generation for text prompts (JAX ``generate_text``)."""
-    if images is not None:
-        raise NotImplementedError("vision prompts are not ported yet")
+    """Greedy generation (JAX ``generate_text``): text prompts, or one
+    prompt with ``images`` (decoded images, or any object with ``.size`` and
+    ``.convert``) for a vision model."""
+    if images is not None and isinstance(prompt, list):
+        raise ValueError("Images cannot be provided when prompt is a list")
     if sample:
         raise NotImplementedError("sampling is not ported yet; the port decodes greedily")
-    dict_input = processor(prompt, None)
+    dict_input = processor(prompt, images)
     b = int(np.asarray(dict_input["input_ids"]).shape[0])
     logit_stopper = LogitStopper(max_tokens, early_stop)
     token_stopper = TokenStopper(b, lm.eos_id)

@@ -6,7 +6,9 @@ demand (the prompt's pages at admission, then one at a time as decode
 crosses page boundaries) and return to the free list when a request
 finishes, so the pool size, not ``slots x window``, sets the cache memory.
 Pool saturation preempts the youngest request, which resumes later by
-recomputing its prefill.
+recomputing its prefill.  That recompute is text only, so an image request
+is never preempted: the youngest text request is, and with only image
+requests left the youngest of them fails (JAX ``paging.py:935``).
 
 Layouts (the token-major layouts of ``engine/state.py`` with pages in place
 of the batch and window axes; page ``P`` is a spare):
@@ -302,8 +304,9 @@ class PagedBatchEngine(BatchEngine):
         """Allocate every page this chunk can touch.  Uncollected chunks'
         growth counts too (their tokens are not in ``req.tokens`` yet).  On
         pool pressure: collect the in-flight chunks first (completions free
-        pages), then preempt the youngest request; a lone request that
-        cannot fit fails."""
+        pages), then preempt the youngest text request (with only image
+        requests active, fail the youngest); a lone request that cannot fit
+        fails."""
         while True:
             pending = self._pending_growth()
             shortfall = sum(
@@ -326,7 +329,17 @@ class PagedBatchEngine(BatchEngine):
                 self._fail_request(req, f"page pool too small ({self.pool_pages} pages) for a "
                                         "lone request's next chunk")
                 return False
-            self._preempt(max(self.by_slot.values(), key=lambda r: r.rid))
+            text = [r for r in self.by_slot.values() if not r.has_images]
+            if text:
+                self._preempt(max(text, key=lambda r: r.rid))
+                continue
+            victim = max(self.by_slot.values(), key=lambda r: r.rid)
+            del self.by_slot[victim.slot]
+            self.free.append(victim.slot)
+            self._release_slot(victim.slot)
+            self._fail_request(victim, "page pool exhausted with only image requests active: an "
+                                       "image request cannot be recompute-resumed; raise pool_pages "
+                                       "or admit fewer image requests at once")
         pending = self._pending_growth()
         for slot, req in self.by_slot.items():
             pages = self._slot_pages[slot]

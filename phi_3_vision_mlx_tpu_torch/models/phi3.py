@@ -28,8 +28,10 @@ kernel without checking the bits).  On the CPU every wrapper runs its plain
 ``ops/attention.py`` path.  The beam read path (``n_beam``) waits for
 constrained decoding.  The continuous-batching engines run the same
 :func:`block` with their own ``attend`` (per-slot offsets; the paged pool's
-K6/K7, ``engine/paging.py``).  :func:`init_params` draws random weights
-for ``core/weights.py:create_random_checkpoint``.
+K6/K7, ``engine/paging.py``).  A vision prompt enters as
+``inputs_embeds`` (``models/vision.py``).  :func:`init_params` draws random
+weights, the vision tower's too, for ``core/weights.py:
+create_random_checkpoint``.
 """
 
 from __future__ import annotations
@@ -113,12 +115,15 @@ def decode_forward(
     params: dict,
     cfg: ModelConfig,
     state: DecodeState,
-    input_ids: torch.Tensor,
+    input_ids: Optional[torch.Tensor] = None,
     *,
+    inputs_embeds: Optional[torch.Tensor] = None,
     advance: Optional[int] = None,
     last_logit_only: bool = False,
 ) -> ForwardResult:
-    """Run a (B, L) chunk through the decoder against the cache window.
+    """Run a (B, L) chunk through the decoder against the cache window:
+    ``input_ids``, or ``inputs_embeds`` (B, L, E) in their place (a vision
+    prompt's embeddings with the image features written in).
 
     The chunk's k/v are written at the device offset ``state.pos``, whose
     host mirror ``state.offset`` is checked against the window; the returned
@@ -131,7 +136,10 @@ def decode_forward(
     a CUDA graph of a decode step replays at any offset.
     """
     mdl = params["model"]
-    x = embedding(mdl["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
+    if inputs_embeds is None:
+        x = embedding(mdl["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
+    else:
+        x = inputs_embeds.to(torch_dtype(cfg.dtype))
     b, l, _ = x.shape
     offset = state.offset
     if offset < 0 or offset + l > state.window:
@@ -167,8 +175,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None) -> dic
     the linears (stored ``(in, out)``) and 0.02 for the embedding, unit
     norms; ``torch.Generator`` gives other numbers than ``jax.random``.
     """
-    if cfg.has_vision:
-        raise NotImplementedError("vision models are not ported yet")
     dt = dtype or torch_dtype(cfg.dtype)
     e, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     h, kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -181,7 +187,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None) -> dic
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=generator.device)
 
-    return {
+    params = {
         "model": {
             "embed_tokens": {"weight": nrm((v, e), 0.02)},
             "layers": {
@@ -200,24 +206,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None) -> dic
         },
         "lm_head": {"weight": nrm((e, v))},
     }
+    if cfg.has_vision:
+        from .vision import init_vision_params
+
+        params["model"]["vision_embed_tokens"] = init_vision_params(cfg, generator, dt)
+    return params
 
 
 def prefill(
     params: dict,
     cfg: ModelConfig,
-    input_ids: torch.Tensor,
+    input_ids: Optional[torch.Tensor],
     *,
     max_tokens: int,
     pids=None,
     prompt_valid=None,
+    inputs_embeds: Optional[torch.Tensor] = None,
     last_logit_only: bool = False,
     into: Optional[DecodeState] = None,
 ) -> ForwardResult:
     """Allocate a window of ``L + max_tokens`` positions (or reset ``into``,
-    ``engine/state.py:init_state``) and run the prompt."""
-    b, l = input_ids.shape
+    ``engine/state.py:init_state``) and run the prompt, given as ids or as
+    ``inputs_embeds``."""
+    lead = inputs_embeds if inputs_embeds is not None else input_ids
+    b, l = lead.shape[:2]
     state = init_state(
         cfg, b, l, l + max_tokens, pids=pids, prompt_valid=prompt_valid,
-        compute_dtype=torch_dtype(cfg.dtype), device=input_ids.device, into=into,
+        compute_dtype=torch_dtype(cfg.dtype), device=lead.device, into=into,
     )
-    return decode_forward(params, cfg, state, input_ids, last_logit_only=last_logit_only)
+    return decode_forward(params, cfg, state, input_ids, inputs_embeds=inputs_embeds,
+                          last_logit_only=last_logit_only)

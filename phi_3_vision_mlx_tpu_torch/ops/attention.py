@@ -28,7 +28,7 @@ def masked_attention(q, k, v, allowed, scale: float):
     qg = (q * scale).reshape(b, kvh, g, lq, d).float()
     s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2))  # (B, KV, g, Lq, Lk)
     s = s.reshape(b, h, lq, lk)
-    s = torch.where(allowed, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    s = s.masked_fill(~allowed, NEG_INF)  # a scalar: no host-to-device copy in a captured step
     s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp(s)
     p = p / p.sum(dim=-1, keepdim=True)

@@ -11,19 +11,24 @@ the model with the 4-bit KV cache (keyword arguments of ``serve`` go to
 ``serve(continuous=True)`` (``--continuous``) serves through
 :class:`ContinuousScheduler`: requests join a running decode batch of
 ``slots`` lanes (``engine/batching.py``), over a shared page pool with
-``paged=True`` (``engine/paging.py``, kernels K6/K7 on the card).  Image
-requests get a 500 JSON error until vision is ported.
+``paged=True`` (``engine/paging.py``, kernels K6/K7 on the card).  There a
+body may carry ``"images"`` (paths or URLs, decoded with ``fetch_image``)
+for a single prompt, which is chat-templated with its ``<|image_i|>`` tags
+as ``api.generate`` does; several prompts with images get a 400.  Image
+requests prefill one at a time and are never batched.  The single-stream
+handler takes no images, as the JAX one does not either.
 
-``--blind`` and ``--quantize`` are the JAX server's flags: without
-``--quantize`` it loads the unquantized checkpoint ``models/phi3_mini_128k``,
-with it the 4-bit ``models/phi3_mini_128k_Q``.
+``--blind`` and ``--quantize`` are the JAX server's flags: ``--blind``
+selects the text model (``models/phi3_mini_128k``), its absence the vision
+model (``models/phi3_v``), and ``--quantize`` the 4-bit checkpoint of
+either (``..._Q``).
 
 Example:
     python -m phi_3_vision_mlx_tpu_torch.serve.server --blind --quantize --port 8000
-    python -m phi_3_vision_mlx_tpu_torch.serve.server --continuous --paged --slots 4 --window 1024
+    python -m phi_3_vision_mlx_tpu_torch.serve.server --continuous --paged --slots 4 --window 4096
     curl -X POST http://localhost:8000/v1/completions \\
       -H "Content-Type: application/json" \\
-      -d '{"prompt": "Hello", "max_tokens": 64}'
+      -d '{"prompt": "What is shown?", "images": ["cat.png"], "max_tokens": 64}'
 """
 
 from __future__ import annotations
@@ -93,7 +98,8 @@ class ContinuousScheduler:
     HTTP handler threads call :meth:`complete`.  An admission thread drains
     queued requests, up to ``admit_batch`` at a time, into one batched
     prefill (``engine.prepare_many``) outside the lock, then adopts them
-    under it; a pump thread steps the engine by chunks of ``chunk`` tokens,
+    under it (image requests prefill one at a time, each with its own
+    error); a pump thread steps the engine by chunks of ``chunk`` tokens,
     pipelined (``step_pipelined``) unless ``pipelined=False``, and runs the
     preempted requests' recompute prefills outside the lock.  Both threads
     launch on the default stream, so launch order orders their work.  The
@@ -127,8 +133,10 @@ class ContinuousScheduler:
 
     def complete(self, prompt: str, max_tokens: int, temperature: float = 0.0, stop=None,
                  images=None) -> str:
-        refuse_unported(temperature, images)
-        ticket = {"prompt": prompt, "opts": dict(max_tokens=max_tokens, stop=stop),
+        """Serve one request and return its text.  ``images``: decoded
+        images for the prompt's ``<|image_i|>`` tags (vision model)."""
+        refuse_unported(temperature)
+        ticket = {"prompt": prompt, "images": images, "opts": dict(max_tokens=max_tokens, stop=stop),
                   "rid": None, "error": None}
         with self._cv:
             self._tickets.append(ticket)
@@ -149,16 +157,29 @@ class ContinuousScheduler:
                     self._cv.wait()
                 n = min(len(self._tickets), self.admit_batch)
                 batch = [self._tickets.popleft() for _ in range(n)]
-            try:
-                prepared = self.engine.prepare_many([t["prompt"] for t in batch],
-                                                    [t["opts"] for t in batch])
-            except Exception as e:
+            # Text tickets share one batched prefill; image tickets prefill
+            # one at a time.  Errors stay per ticket: a bad image does not
+            # fail the text requests of its batch.
+            text = [t for t in batch if not t["images"]]
+            pairs, failed = [], []
+            if text:
+                try:
+                    pairs += zip(text, self.engine.prepare_many([t["prompt"] for t in text],
+                                                                [t["opts"] for t in text]))
+                except Exception as e:
+                    failed += [(t, f"{type(e).__name__}: {e}") for t in text]
+            for t in batch:
+                if t["images"]:
+                    try:
+                        pairs.append((t, self.engine.prepare(t["prompt"], images=t["images"], **t["opts"])))
+                    except Exception as e:
+                        failed.append((t, f"{type(e).__name__}: {e}"))
+            if failed:
                 with self._cv:
-                    for t in batch:
-                        t["error"] = f"{type(e).__name__}: {e}"
+                    for t, msg in failed:
+                        t["error"] = msg
                     self._cv.notify_all()
-                continue
-            for t, p in zip(batch, prepared):
+            for t, p in pairs:
                 with self._cv:
                     try:
                         while not self.engine.can_admit(p):
@@ -218,11 +239,19 @@ def make_continuous_handler(scheduler: ContinuousScheduler):
                     return
                 temperature = float(body.get("temperature", 0.0))
                 max_tokens = int(body.get("max_tokens", 128))
-                responses = [
-                    scheduler.complete(p, max_tokens, temperature=temperature, stop=stop,
-                                       images=body.get("images"))
-                    for p in prompts
-                ]
+                images = body.get("images")
+                if images:
+                    if len(prompts) != 1:
+                        _send_json(self, 400, {"error": "images require a single prompt"})
+                        return
+                    from ..api import _apply_chat_template
+
+                    prompt, loaded = _apply_chat_template(prompts[0], list(images), verbose=False)
+                    responses = [scheduler.complete(prompt, max_tokens, temperature=temperature,
+                                                    stop=stop, images=loaded)]
+                else:
+                    responses = [scheduler.complete(p, max_tokens, temperature=temperature, stop=stop)
+                                 for p in prompts]
                 _send_json(self, 200, {"model": MODEL_NAME, "responses": responses})
             except Exception as e:
                 _send_json(self, 500, {"error": str(e)})
@@ -253,15 +282,14 @@ def serve(host: str = "127.0.0.1", port: int = 8000, preload=None, continuous: b
 
 def build_parser():
     """The command line of the JAX server (``--spec-k`` waits for
-    speculative serving).  ``--blind`` selects the text model, which is the
-    port's only one until vision is ported, so the text model is served
-    with or without it; ``--quantize`` picks the 4-bit checkpoint."""
+    speculative serving).  ``--blind`` selects the text model, the vision
+    model without it; ``--quantize`` picks the 4-bit checkpoint."""
     import argparse
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
-    ap.add_argument("--blind", action="store_true", help="the text model (the port's only one)")
+    ap.add_argument("--blind", action="store_true", help="the text model (default: the vision model)")
     ap.add_argument("--quantize", action="store_true", help="the 4-bit checkpoint")
     ap.add_argument("--continuous", action="store_true", help="continuous batching over a slot pool")
     ap.add_argument("--slots", type=int, default=4)
@@ -274,7 +302,7 @@ def build_parser():
 
 def main(argv=None) -> None:
     a = build_parser().parse_args(argv)
-    serve(a.host, a.port, blind_model=True, quantize_model=a.quantize, continuous=a.continuous,
+    serve(a.host, a.port, blind_model=a.blind, quantize_model=a.quantize, continuous=a.continuous,
           slots=a.slots, window=a.window, paged=a.paged, pipeline_depth=a.pipeline_depth)
 
 

@@ -268,7 +268,7 @@ def test_unported_options_raise(pair):
     eng = TPaged(tlm, tproc, slots=1, window=128)
     with pytest.raises(NotImplementedError, match="sampling"):
         eng.prepare("x", temperature=0.5)
-    with pytest.raises(NotImplementedError, match="vision"):
+    with pytest.raises(ValueError, match="never batched"):
         eng.prepare_many(["x", "y"], [dict(images=["a.png"]), {}])
     with pytest.raises(NotImplementedError, match="spec_k"):
         TBatch(tlm, tproc, spec_k=2)

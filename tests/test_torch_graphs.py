@@ -41,9 +41,10 @@ from phi_3_vision_mlx_tpu_torch.ops.kernels import _build  # noqa: E402
 
 CHUNKS = (8, 32, 5)  # the ramp's first two chunks and a ragged tail
 CACHES = {"dense": None, "int4": 4, "int8": 8}
-# A host sync or an output shape that depends on the data: neither can be
-# captured in a CUDA graph.
-SYNCS = {"_local_scalar_dense", "nonzero", "masked_select", "item"}
+# A host sync, an output shape that depends on the data, or a tensor made
+# from host data (``lift_fresh``: on the card a host-to-device copy, which a
+# capture refuses): none can be captured in a CUDA graph.
+SYNCS = {"_local_scalar_dense", "nonzero", "masked_select", "item", "lift_fresh"}
 
 
 @pytest.fixture(scope="module")

@@ -83,8 +83,10 @@ def test_registry_matches():
         assert TR.processor_for(arch).__name__ == JR.processor_for(arch).__name__
     with pytest.raises(KeyError):
         TR.processor_for("LlamaForCausalLM")
-    with pytest.raises(NotImplementedError, match="vision"):
-        TP.Phi3VProcessor()
+    vproc = TP.Phi3VProcessor(tokenizer=TT.ByteTokenizer())
+    assert vproc.img_processor.num_crops == 16
+    assert vproc("text only")["input_ids"].tolist() == TP.Phi3Processor(tokenizer=TT.ByteTokenizer())(
+        "text only")["input_ids"].tolist()
 
 
 def test_tokenizer_round_trips_match(tmp_path):

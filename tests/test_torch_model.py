@@ -339,12 +339,12 @@ def test_load_quantize_cache_generates_the_jax_text(fp32_path, tmp_path, monkeyp
     os.makedirs("models")
     for path in (api.PATH_ORIGINAL_PHI3_BLIND, api.PATH_QUANTIZED_PHI3_BLIND):
         os.symlink(fp32_path, path)
-    for lm, proc in (api.load(quantize_cache=True, device="cpu"),
+    for lm, proc in (api.load(blind_model=True, quantize_cache=True, device="cpu"),
                      api._load(fp32_path, device="cpu", use_quantized_cache=True)):
         assert lm.cfg.use_quantized_cache
         got = api.generate(PROMPT, preload=(lm, proc), max_tokens=12, verbose=False, stream=False,
                            mute=True, apply_chat_template=False)
         assert got == want
-    assert not api.load(device="cpu")[0].cfg.use_quantized_cache
+    assert not api.load(blind_model=True, device="cpu")[0].cfg.use_quantized_cache
     with pytest.raises(NotImplementedError, match="adapters"):
         api.load(quantize_cache=True, use_adapter=True, device="cpu")

@@ -311,8 +311,12 @@ def test_create_random_checkpoint_matches_jax_tree(jax_raw, tmp_path):
     ttree = TW.load_params(path)[1]
     assert jtree == jax.tree_util.tree_map(lambda a: (tuple(a.shape), str(a.dtype).split(".")[1]),
                                            ttree)
-    with pytest.raises(NotImplementedError, match="vision"):
-        TW.create_random_checkpoint(str(tmp_path / "v"), "tiny_vision")
+    vdir = str(tmp_path / "v")
+    vcfg = TW.create_random_checkpoint(vdir, "tiny_vision", vocab_size=VOCAB)
+    assert vcfg.has_vision
+    vtree = JW.load_params(vdir)[1]["model"]["vision_embed_tokens"]
+    assert jax.tree_util.tree_map(lambda a: (a.shape, str(a.dtype)), vtree) == jax.tree_util.tree_map(
+        lambda a: (tuple(a.shape), str(a.dtype).split(".")[1]), TW.load_params(vdir)[1]["model"]["vision_embed_tokens"])
 
 
 def test_init_params_tree_matches_jax():
@@ -419,12 +423,12 @@ def test_generate_quantize_cache_reaches_the_int4_cache(w8_path, tmp_path, monke
     for path in (api.PATH_ORIGINAL_PHI3_BLIND, api.PATH_QUANTIZED_PHI3_BLIND):
         os.symlink(w8_path, path)
     kw = dict(max_tokens=8, verbose=False, stream=False, mute=True)
-    got = api.generate("Hi", quantize_cache=True, **kw)
+    got = api.generate("Hi", blind_model=True, quantize_cache=True, **kw)
     assert loaded[-1][0].cfg.use_quantized_cache and loaded[-1][0].cfg.kv_quant.bits == 4
     assert calls["K4"] > 0 and calls["K5"] > 0
     assert got == api.generate("Hi", preload=torch_load(w8_path, device="cpu", use_quantized_cache=True),
                                **kw)
-    api.generate("Hi", **kw)
+    api.generate("Hi", blind_model=True, **kw)
     assert not loaded[-1][0].cfg.use_quantized_cache
 
 
