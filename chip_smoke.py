@@ -100,6 +100,30 @@ caught and carried on):
                with images; an image sent by file path runs only where
                Pillow imports (the script says whether it ran).
 
+11. sampling and speculation — on phases 3-6's full-size 4-bit weights.
+               (a) Sampled decoding (temperature 0.8, top-p 0.9, top-k 50,
+               min-p 0.05): the sampled step's graph against eager bitwise
+               (tokens, max and EOS log-probs), the same seed twice, another
+               seed another stream, ``api.generate(sample=True, top_k=1)``
+               against greedy; the sampling functions on the card against
+               the CPU on the same logits and noise; the sampled step's wall,
+               device busy and nodes beside the greedy step's.  (b) Single-
+               stream speculation at K = 7 on a looping and a plain prompt,
+               dense and int4 cache: the stream against its forced-reject
+               baseline through the same graph (bitwise) and against vanilla
+               greedy (to the first token where they part, which must be a
+               near tie); K1 and K3 (dense) or K4 (int4) launched, at Lq = 8;
+               a verify pass's wall, busy and nodes; tok/s speculative and
+               vanilla, greedy and sampled.  (c) The continuous server with
+               ``--spec-k 7`` (4 slots, window 1024) over the slot cache, the
+               dense and the int4 page pool and a 20-page pool that must
+               preempt, six concurrent requests, three greedy and three
+               sampled; K6 or K7 launched at Lq = 8; aggregate tok/s of 4
+               busy slots with and without speculation.  (d) K1 (route B) at
+               M = 8 and 32, K3 and K4 at Lq = 8 at the windows 768 and
+               4352, K6 and K7 at Lq = 8, each against its plain version and
+               timed beside its bound and a library call.
+
 Phase 2 also holds K2 and K5 at phase 10's square-image prefill (its
 prompt bucket over its window, one left pad; K2 beside SDPA and its bound),
 SDPA against the CLIP tower's plain attention at the tower's shape, and
@@ -2174,6 +2198,673 @@ def phase_vision_server(torch, lm, paged: bool):
         thread.join(timeout=30)
 
 
+# --- Phase 11: sampling and speculation --------------------------------------
+
+SPEC_K = 7  # drafts a verify pass: Lq = 8 query rows in K3/K4/K6/K7
+# The sampler of phase 11 (a) and (c): temperature, top_p, top_k, min_p.
+SAMPLER = (0.8, 0.9, 50, 0.05)
+SAMPLE_KW = dict(sample=True, temperature=0.8, top_p=0.9, top_k=50, min_p=0.05)
+# Random weights settle into loops, and a repetitive prompt gives the n-gram
+# lookup drafts that match them; PROMPT_A is the non-repetitive one.
+LOOP_PROMPT = "Count with me: " + "one two three four five six seven eight nine ten. " * 8
+SPEC_PROMPTS = {"loop": LOOP_PROMPT, "plain": PROMPT_A}
+SPEC_BUDGET = 96
+# Phase 11 (b) at the first token where speculation and vanilla greedy part
+# (a near tie: the vanilla step's route A at one row and the pass's route B
+# at K + 1 rows round bf16 apart; on the TPU the JAX package pads both to
+# one 8-row tile).  Both paths' logits over the vanilla prefix must agree
+# within SPEC_ROUTE_REL_L2: phase 3 measured 8.4e-3 relative L2 between two
+# devices through 2 layers of bf16, and the difference grows with depth (an
+# H100 run of this phase measured 2.6e-2 at 32 layers); a pass that reads a
+# wrong key or position moves the logits by O(1).  The vanilla step's
+# top-two gap must be at most NEAR_TIE_ULPS bf16 ulps of its top logit (the
+# lm_head's output is bf16) and within twice the change of those two
+# tokens' log-probs between the paths.
+SPEC_ROUTE_REL_L2 = 0.1
+NEAR_TIE_ULPS = 4
+SPEC_ITERS = 16  # verify passes a chunk of phase 11 (b)'s own runs
+
+
+class RowsSeen:
+    """Wrap kernel wrappers of a module so that every call (eager, a
+    graph's warm-up or its capture: a replay calls no Python) records the
+    query rows it was given; the wrapped functions still count their own
+    launches."""
+
+    def __init__(self, module, names):
+        self.module, self.saved, self.rows = module, {}, {n: set() for n in names}
+        for name in names:
+            fn = getattr(module, name)
+            self.saved[name] = fn
+
+            def wrapper(q, *a, _fn=fn, _name=name, **kw):
+                self.rows[_name].add(int(q.shape[2]))
+                return _fn(q, *a, **kw)
+
+            setattr(module, name, wrapper)
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def sampling_functions_check(torch):
+    """The sampling functions on the card against themselves on the CPU,
+    given the same logits and noise: the filters' kept sets, the per-row
+    draws and the verification's tokens and acceptance counts.  Rows with a
+    token whose preceding mass lies within 1e-6 of ``top_p`` (the two
+    devices' sums may round across it) are left out and counted."""
+    from phi_3_vision_mlx_tpu_torch.engine.engine import filter_sample_logits_rows, sample_token_rows
+    from phi_3_vision_mlx_tpu_torch.engine.rng import SAMPLE, NoiseGen
+    from phi_3_vision_mlx_tpu_torch.engine.speculative import verify_mixed_rows, verify_noise
+
+    v, k = 32064, SPEC_K
+    g = torch.Generator().manual_seed(11)
+    logits = 3 * torch.randn((8, k + 1, v), generator=g)
+    draft = torch.randint(0, v, (8, k), generator=g)
+    draft[:, 0] = logits[:, 0].argmax(-1)  # some drafts the target likes
+    knobs = (torch.tensor([0.0, 0.8, 1.0, 1.3, 0.8, 0.5, 2.0, 0.8]),
+             torch.tensor([1.0, 0.9, 0.5, 0.95, 1.0, 0.3, 0.99, 0.9]),
+             torch.tensor([0, 50, 0, 5, 0, 0, 1000, 50]),
+             torch.tensor([0.0, 0.05, 0.0, 0.1, 0.2, 0.0, 0.0, 0.05]))
+    gens = {dev: NoiseGen(8, dev) for dev in ("cpu", "cuda")}
+    for gen in gens.values():
+        gen.reset(range(100, 108))
+    bits = {dev: gen.bits(SAMPLE, (v,)) for dev, gen in gens.items()}
+    if not torch.equal(bits["cpu"], bits["cuda"].cpu()):
+        fail("the noise generator's bits differ between the card and the CPU")
+    noise = (gens["cpu"].gumbel(SAMPLE, (v,)), *verify_noise(gens["cpu"], k, v))
+    gum_err = (gens["cuda"].gumbel(SAMPLE, (v,)).cpu() - noise[0]).abs().max().item()
+    res = {}
+    for dev in ("cpu", "cuda"):
+        to = lambda t: t.to(dev)  # noqa: E731
+        kn = tuple(map(to, knobs))
+        kept = torch.isfinite(filter_sample_logits_rows(to(logits), *kn)).cpu()
+        tok = sample_token_rows(to(logits[:, 0]), to(noise[0]), *kn).cpu()
+        out, acc = verify_mixed_rows(to(logits), to(draft), tuple(map(to, noise[1:])), *kn)
+        res[dev] = (kept, tok, out.cpu(), acc.cpu())
+    scaled = logits / knobs[0].clamp(min=1e-6)[:, None, None]
+    probs = torch.softmax(torch.sort(scaled, dim=-1, descending=True).values, dim=-1)
+    margin = ((probs.cumsum(-1) - probs) - knobs[1][:, None, None]).abs().amin(-1).amin(-1)
+    near = margin < 1e-6
+    same = [all(torch.equal(a[r], b[r]) for a, b in zip(res["cpu"], res["cuda"])) for r in range(8)]
+    log(f"phase 11 (a) sampling functions, card vs CPU (8 rows x {k + 1} positions x {v}, the same "
+        f"logits and noise): bits of the generator bitwise equal; Gumbel noise within {gum_err:.2e}; "
+        f"kept sets, draws, verified tokens and acceptance equal in {sum(same)} of 8 rows, "
+        f"{int(near.sum())} rows left out at a top-p near tie")
+    if not all(s or n for s, n in zip(same, near.tolist())):
+        fail("the sampling functions on the card differ from the CPU's on the same logits and noise")
+
+
+def sampled_run(torch, lm, dict_input, budget: int, chunks, sampler, seed: int):
+    """Prefill and ``chunks`` of steps, sampled under ``sampler`` (None:
+    greedy): the first token and the chunks' tokens, max and EOS log-probs
+    as host arrays."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_decoder, release_decoder
+
+    dec, first = prefill_decoder(lm, dict_input, budget, sampler=sampler, seed=seed)
+    rows = [tuple(t.cpu().numpy().copy() for t in dec.chunk(n)) for n in chunks]  # the ring is reused
+    release_decoder(lm, dec)
+    return [first.cpu().numpy()] + [np.concatenate(parts) for parts in zip(*rows)]
+
+
+def top_k_one(torch, lm, dict_input, label: str, budget: int = 64) -> None:
+    """``top_k = 1`` keeps every token whose logit equals the largest (the
+    JAX filter's ``>=``), so it draws the greedy stream up to the first
+    step whose top logit is tied in bf16, where it may take another of the
+    tied tokens; that step's logits must show the tie."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_decoder, release_decoder, run_prefill
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    chunks = (8, 32, budget - 41)
+    greedy = np.concatenate([a.reshape(-1) for a in sampled_run(torch, lm, dict_input, budget, chunks,
+                                                                None, 0)[:2]])
+    drawn = np.concatenate([a.reshape(-1) for a in sampled_run(torch, lm, dict_input, budget, chunks,
+                                                               (1.0, 1.0, 1, 0.0), 3)[:2]])
+    diff = np.flatnonzero(greedy != drawn)
+    tie = "none"
+    if len(diff):
+        d = int(diff[0])
+        if d == 0:
+            logits = run_prefill(lm, dict_input, budget)[0][0]
+        else:
+            dec, _ = prefill_decoder(lm, dict_input, budget)
+            if d > 1:
+                dec.chunk(d - 1)
+            with torch.no_grad():
+                logits = phi3.decode_forward(lm.params, lm.cfg, dec.state, dec.token,
+                                             advance=0).logits[0, -1].float()
+            release_decoder(lm, dec)
+        top = logits.max()
+        tie = (f"at token {d}: logits of the greedy token {logits[greedy[d]].item():.6f} and the drawn "
+               f"{logits[drawn[d]].item():.6f}, top {top.item():.6f}")
+        if logits[greedy[d]] != top or logits[drawn[d]] != top:
+            fail(f"phase 11 (a) ({label}): top_k=1 parts from greedy at token {d} without a tie")
+    log(f"phase 11 (a) top_k=1 against greedy ({label}, {budget} tokens): equal up to "
+        f"{int(diff[0]) if len(diff) else budget}; first tie {tie}")
+
+
+def graph_step_profile(torch, chunk, steps: int, profiled: int):
+    """(wall ms per step over ``steps`` ending in one device-to-host copy,
+    device busy ms per step, kernels per step) of ``chunk(n)``, which runs
+    n steps (or verify passes) and returns the ring's views."""
+    chunk(2)  # warm-up (and capture)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = chunk(steps)
+    rows[0].cpu()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    per_name, launches = kernel_times(torch, lambda: chunk(profiled), profiled)
+    busy = sum(per_name.values())
+    if busy <= 0:
+        fail("phase 11: the profiler saw no device time")
+    return wall, busy, launches / profiled
+
+
+def phase_sampling(torch, lm, proc, report):
+    """Phase 11 (a): sampled single-stream decoding, graph against eager
+    bitwise, the same seed twice, top_k = 1 against greedy, and the sampled
+    step's device time and nodes beside the greedy step's."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_decoder, release_decoder
+
+    cache = cache_of(lm)
+    label = f"{weights_of(lm)} weights, {cache} cache"
+    dict_input = proc(api._apply_chat_template(PROMPT_A)[0])
+    runs = {}
+    for mode, model, seed in (("eager", eager_twin(lm), 5), ("graph", lm, 5), ("graph again", lm, 5),
+                              ("graph, seed 6", lm, 6)):
+        runs[mode] = sampled_run(torch, model, dict_input, 64, (8, 32, 23), SAMPLER, seed)
+    same = lambda a, b: all(np.array_equal(x, y) for x, y in zip(runs[a], runs[b]))  # noqa: E731
+    other = not np.array_equal(runs["graph"][1], runs["graph, seed 6"][1])
+    log(f"phase 11 (a) sampled decoding ({label}, sampler {SAMPLER}, 64 tokens): graph == eager bitwise "
+        f"(tokens, max and EOS log-probs) {same('graph', 'eager')}; the same seed again "
+        f"{same('graph', 'graph again')}; seed 6 gives another stream {other}")
+    if not same("graph", "eager") or not same("graph", "graph again") or not other:
+        fail(f"phase 11 (a) ({label}): sampled graph and eager streams, or the same seed twice, differ")
+    kw = dict(preload=(lm, proc), max_tokens=48, verbose=False, stream=False, mute=True)
+    texts = {mode: api.generate(PROMPT_A, **kw, **extra) for mode, extra in (
+        ("greedy", {}), ("sampled", dict(SAMPLE_KW, seed=5)), ("sampled again", dict(SAMPLE_KW, seed=5)))}
+    eager_text = api.generate(PROMPT_A, **dict(kw, preload=(eager_twin(lm), proc)), **SAMPLE_KW, seed=5)
+    log(f"phase 11 (a) api.generate ({label}): sampled graph == eager {texts['sampled'] == eager_text}; "
+        f"same seed twice {texts['sampled'] == texts['sampled again']}; sampled != greedy "
+        f"{texts['sampled'] != texts['greedy']}")
+    if texts["sampled"] != eager_text or texts["sampled"] != texts["sampled again"]:
+        fail(f"phase 11 (a) ({label}): api.generate's sampled text is not reproducible")
+    top_k_one(torch, lm, dict_input, label)
+    cols = {}
+    for mode, sampler in (("greedy", None), ("sampled", SAMPLER)):
+        dec, _ = prefill_decoder(lm, dict_input, 512, sampler=sampler, seed=5)
+        cols[mode] = graph_step_profile(torch, dec.chunk, 16, 4)
+        release_decoder(lm, dec)
+    (gw, gb, gn), (sw, sb, sn) = cols["greedy"], cols["sampled"]
+    log(f"phase 11 (a) decode step ({label}, window 768, graphs): greedy wall {gw:.3f} ms, busy {gb:.3f} "
+        f"ms, idle share {1 - gb / gw:.3f}, {gn:.0f} nodes; sampled wall {sw:.3f} ms, busy {sb:.3f} ms, "
+        f"idle share {1 - sb / sw:.3f}, {sn:.0f} nodes (+{sn - gn:.0f}) on {report['card']}")
+
+
+def spec_run(torch, lm, dict_input, budget: int, accept: bool, oracle=None):
+    """Single-stream speculation as ``generate_text`` runs it (passes while
+    the window holds one, then vanilla steps), without stoppers: the
+    emitted tokens with their max and EOS log-probs, passes that emitted,
+    dead passes, and tok/s after the prefill (host clock, synchronized).
+    ``oracle``: tokens written into the token history over the prompt's
+    last columns, where the n-gram lookup finds them (the history only
+    proposes drafts; verification decides what is emitted)."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.engine.engine import (pad_prompt_inputs, prefill_decoder,
+                                                          release_decoder)
+
+    dec, first = prefill_decoder(lm, dict_input, budget)
+    spec = dec.spec_pass(SPEC_K)
+    ids = pad_prompt_inputs(dict_input, dec.state.offset)[0]
+    if oracle is not None:
+        ids = ids.copy()
+        ids[0, -1 - len(oracle):-1] = oracle
+    spec.start(ids, accept=accept)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, maxlp, eoslp = [int(first[0, 0])], [], []
+    passes = dead = 0
+    while len(toks) < budget:
+        st = dec.state
+        if st.window - st.offset >= SPEC_K + 1:
+            left = budget - len(toks)
+            n = spec.passes_for(left, SPEC_ITERS)
+            t, m, e, n_emit = (x.cpu().numpy() for x in spec.chunk(n, left))
+            dec.advance_mirror(int(n_emit.sum()))
+            for i in range(n):
+                c = int(n_emit[i, 0])
+                passes, dead = passes + (c > 0), dead + (c == 0)
+                toks += t[i, 0, :c].tolist()
+                maxlp += m[i, 0, :c].tolist()
+                eoslp += e[i, 0, :c].tolist()
+            continue
+        t, m, e = (x.cpu().numpy() for x in dec.chunk(min(8, budget - len(toks))))
+        toks += t[:, 0].tolist()
+        maxlp += m[:, 0].tolist()
+        eoslp += e[:, 0].tolist()
+    rate = (len(toks) - 1) / (time.perf_counter() - t0)
+    release_decoder(lm, dec)
+    n = budget
+    return (np.array(toks[:n]), np.array(maxlp[: n - 1]), np.array(eoslp[: n - 1]), passes, dead,
+            rate)
+
+
+def near_tie(torch, lm, dict_input, budget: int, vanilla, spec, d: int):
+    """At the first token ``d`` where speculation and vanilla greedy part:
+    over the vanilla prefix, the log-probs of the vanilla step (route A,
+    one row) and of a verify pass's row 0 (route B, K + 1 rows).  Returns
+    (relative L2 of the two logit rows, the vanilla step's top-two gap,
+    twice the larger change of the two tokens' log-probs, one bf16 ulp of
+    the top logit)."""
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_decoder, release_decoder
+    from phi_3_vision_mlx_tpu_torch.engine.speculative import verify_columns
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    dec, _ = prefill_decoder(lm, dict_input, budget)
+    if d > 1:
+        dec.chunk(d - 1)
+    st = dec.state
+    with torch.no_grad():
+        one = phi3.decode_forward(lm.params, lm.cfg, st, dec.token, advance=0).logits[0, -1].float()
+        ids = torch.cat([dec.token, dec.token.new_zeros((1, SPEC_K))], dim=1)
+        _, cols, _ = verify_columns(st.pos.long(), SPEC_K + 1, st.window)
+        many = phi3.decode_forward(lm.params, lm.cfg, st, ids, advance=0,
+                                   positions=cols[0]).logits[0, 0].float()
+    release_decoder(lm, dec)
+    lp1, lp8 = torch.log_softmax(one, -1), torch.log_softmax(many, -1)
+    a, b = int(lp1.argmax()), int(spec[d])
+    rel = ((one - many).norm() / one.norm()).item()
+    gap = (lp1[a] - lp1[b]).item()
+    moved = 2 * max(abs((lp1[a] - lp8[a]).item()), abs((lp1[b] - lp8[b]).item()))
+    ulp = 2.0 ** (math.floor(math.log2(abs(one.max().item()))) - 7)
+    if a != int(vanilla[d]):
+        fail(f"phase 11 (b): the replayed vanilla step gives token {a}, the stream {int(vanilla[d])}")
+    return rel, gap, moved, ulp
+
+
+def phase_spec_single(torch, lm, proc, report):
+    """Phase 11 (b): single-stream speculation at K = 7 on a looping and a
+    plain prompt: the stream against its forced-reject baseline through the
+    same graph (bitwise) and against vanilla greedy (to the first token
+    where they part, a near tie: there both paths' logits over the vanilla
+    prefix agree to REF_REL_L2, and the vanilla step's top-two gap is within
+    twice the change of the two tokens' log-probs); the launches of the
+    passes (K3 or K4 at Lq = 8); tok/s against vanilla."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    cache = cache_of(lm)
+    label = f"{weights_of(lm)} weights, {cache} cache"
+    attn = "K4" if cache == "int4" else "K3"
+    seen = RowsSeen(phi3, ("dense_kv_attention", "quantized_kv_attention"))
+    try:
+        for tag, prompt in SPEC_PROMPTS.items():
+            dict_input = proc(api._apply_chat_template(prompt)[0])
+            out = sampled_run(torch, lm, dict_input, SPEC_BUDGET, (8, 32, SPEC_BUDGET - 41), None, 0)
+            vanilla = np.concatenate([out[0][:, 0], out[1][:, 0]])
+            spec_run(torch, lm, dict_input, 16, False)  # a new key's first pass captures its graph
+            counters = zero_counters()
+            acc = spec_run(torch, lm, dict_input, SPEC_BUDGET, True)
+            launches = {n: fn.launches for n, fn in counters.items()}
+            forced = spec_run(torch, lm, dict_input, SPEC_BUDGET, False)
+            # Drafts that verification accepts: the forced-reject stream
+            # itself, seeded into the history.
+            oracle = spec_run(torch, lm, dict_input, SPEC_BUDGET, True, oracle=forced[0])
+            oracle_forced = spec_run(torch, lm, dict_input, SPEC_BUDGET, False, oracle=forced[0])
+            same = all(np.array_equal(x, y) for x, y in zip(acc[:3], forced[:3]))
+            same_oracle = all(np.array_equal(x, y) for r in (oracle, oracle_forced)
+                              for x, y in zip(r[:3], forced[:3]))
+            diff = np.flatnonzero(acc[0] != vanilla)
+            per = lambda r: (f"{r[3]} passes ({(SPEC_BUDGET - 1) / r[3]:.2f} tokens a pass, "  # noqa: E731
+                             f"{r[4]} dead, {r[5]:.2f} tok/s)")
+            log(f"phase 11 (b) speculation ({label}, {tag} prompt, K={SPEC_K}, {SPEC_BUDGET} tokens): "
+                f"{per(acc)}; forced-reject baseline {per(forced)}; stream == forced-reject bitwise "
+                f"(tokens, max and EOS log-probs) {same}; with the forced-reject stream seeded as drafts "
+                f"{per(oracle)}, its forced-reject run {per(oracle_forced)}, both == forced-reject bitwise "
+                f"{same_oracle}; tokens equal to vanilla greedy up to {diff[0] if len(diff) else SPEC_BUDGET} "
+                f"of {SPEC_BUDGET}; launches of the accepting run {launches} on {report['card']}")
+            if not same or not same_oracle or oracle[3] >= forced[3]:
+                fail(f"phase 11 (b) ({label}, {tag}): speculation differs from its forced-reject baseline "
+                     "(or seeded drafts were never accepted)")
+            if launches[attn] <= 0 or launches["K1"] <= 0:
+                fail(f"phase 11 (b) ({label}, {tag}): K1 or {attn} never launched in the passes")
+            log(f"phase 11 (b) ({label}, {tag}): vanilla greedy {len(set(vanilla.tolist()))} distinct "
+                f"tokens of {SPEC_BUDGET}: {vanilla.tolist()}")
+            if len(diff):
+                rel, gap, moved, ulp = near_tie(torch, lm, dict_input, SPEC_BUDGET, vanilla, acc[0],
+                                                int(diff[0]))
+                log(f"phase 11 (b) ({label}, {tag}): at token {diff[0]} the two paths' logits over the "
+                    f"vanilla prefix differ by {rel:.2e} relative L2 (limit {SPEC_ROUTE_REL_L2}); the "
+                    f"vanilla step's gap between its token and speculation's {gap:.4f} (limit "
+                    f"{NEAR_TIE_ULPS} bf16 ulps of its top logit, {NEAR_TIE_ULPS * ulp:.4f}), twice the "
+                    f"change of those log-probs {moved:.4f}")
+                if rel > SPEC_ROUTE_REL_L2 or gap > min(moved, NEAR_TIE_ULPS * ulp):
+                    fail(f"phase 11 (b) ({label}, {tag}): speculation parts from vanilla greedy at token "
+                         f"{diff[0]} beyond a near tie")
+        if SPEC_K + 1 not in seen.rows[{"K3": "dense_kv_attention", "K4": "quantized_kv_attention"}[attn]]:
+            fail(f"phase 11 (b) ({label}): {attn} never saw Lq = {SPEC_K + 1}: {seen.rows}")
+        log(f"phase 11 (b) ({label}): query rows given to K3 / K4: {seen.rows}")
+    finally:
+        seen.restore()
+
+    def tps(**extra):
+        """Decode tok/s of api.generate on the looping prompt (128 tokens,
+        graphs; the second of two runs: the first may capture) and the
+        speculation's counts."""
+        for _ in range(2):
+            _, rate = api.generate(LOOP_PROMPT, preload=(lm, proc), max_tokens=128, verbose=False,
+                                   stream=False, mute=True, return_tps=True, **extra)
+        return rate, dict(lm._spec_stats) if extra.get("speculative") else ""
+
+    rates = {what: tps(**extra) for what, extra in (
+        ("speculative", dict(speculative=True)), ("vanilla", dict(speculative=False)),
+        ("sampled speculative", dict(SAMPLE_KW, seed=5, speculative=True)),
+        ("sampled", dict(SAMPLE_KW, seed=5, speculative=False)))}
+    log(f"phase 11 (b) tok/s ({label}, looping prompt, 128 tokens, graphs): "
+        + "; ".join(f"{what} {rate:.2f} {stats}" for what, (rate, stats) in rates.items())
+        + f" on {report['card']}")
+
+
+def phase_spec_profile(torch, lm, proc, report):
+    """Phase 11 (b): one verify pass's wall, device busy and nodes at the
+    window of 768 (graphs), beside the decode step of (a)."""
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.engine import (pad_prompt_inputs, prefill_decoder,
+                                                          release_decoder)
+
+    cache = cache_of(lm)
+    dict_input = proc(api._apply_chat_template(PROMPT_A)[0])
+    dec, _ = prefill_decoder(lm, dict_input, 512)
+    spec = dec.spec_pass(SPEC_K)
+    spec.start(pad_prompt_inputs(dict_input, dec.state.offset)[0])
+    wall, busy, nodes = graph_step_profile(torch, lambda n: spec.chunk(n, 1 << 20), 16, 4)
+    release_decoder(lm, dec)
+    log(f"phase 11 (b) verify pass ({weights_of(lm)} weights, {cache} cache, K={SPEC_K}, window 768, "
+        f"graphs): wall {wall:.3f} ms, busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, {nodes:.0f} "
+        f"nodes a pass on {report['card']}")
+
+
+def phase_spec_server(torch, lm, proc, report, paged: bool, pool_pages: int = 0):
+    """Phase 11 (c): the continuous server with ``--spec-k 7`` (4 slots,
+    window 1024), six concurrent requests, three greedy and three sampled;
+    with ``pool_pages`` a pool that must preempt.  The counters show K6
+    (dense pool) or K7 (int4 pool) launched, at Lq = 8."""
+    from http.server import ThreadingHTTPServer
+
+    from phi_3_vision_mlx_tpu_torch.engine import paging
+    from phi_3_vision_mlx_tpu_torch.serve.server import ContinuousScheduler, make_continuous_handler
+
+    cache = cache_of(lm)
+    where = (f"{cache} pool of {pool_pages or 'all'} pages" if paged else f"{cache} slot cache")
+    tag = f"phase 11 (c) continuous, --spec-k {SPEC_K} ({weights_of(lm)} weights, {where})"
+    paged_attn = "K7" if cache == "int4" else "K6"
+    if pool_pages:
+        requests = [((FILLER * 3)[: 260 + 10 * i], 192 + 16 * (i % 5)) for i in range(6)]
+    else:
+        requests = [((FILLER * 6)[: 100 + 120 * i], (64, 200, 120, 90, 160, 100)[i]) for i in range(6)]
+    bodies = [dict({"prompt": p, "max_tokens": n},
+                   **({} if i % 2 == 0 else {"temperature": 0.8, "top_p": 0.9, "top_k": 50, "min_p": 0.05,
+                                             "seed": i}))
+              for i, (p, n) in enumerate(requests)]
+    seen = RowsSeen(paging, ("paged_kv_attention", "paged_quantized_kv_attention"))
+    counters = zero_counters()
+    try:
+        kw = dict(pool_pages=pool_pages) if paged else {}
+        sched = ContinuousScheduler(lm, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW, paged=paged,
+                                    spec_k=SPEC_K, **kw)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_continuous_handler(sched))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        results = {}
+
+        def worker(i, body):
+            results[i] = post(httpd.server_address[1], body)
+
+        try:
+            t0 = time.perf_counter()
+            posts = [threading.Thread(target=worker, args=(i, b)) for i, b in enumerate(bodies)]
+            for t in posts:
+                t.start()
+            for t in posts:
+                t.join(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+    finally:
+        seen.restore()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    eng = sched.engine
+    for i in range(len(bodies)):
+        status, payload = results.get(i, (None, {}))
+        resp = payload.get("responses")
+        if status != 200 or not isinstance(resp, list) or not resp or not resp[0]:
+            fail(f"{tag}: request {i}: status {status}, payload {str(payload)[:200]}")
+    tokens = sum(len(r.tokens) for r in eng.requests.values())
+    st = eng.spec_stats
+    log(f"{tag}: 6 requests (3 greedy, 3 sampled) all HTTP 200; {tokens} tokens in {wall:.2f} s; "
+        f"{st['passes']} slot passes emitted {st['emitted']} ({st['emitted'] / max(st['passes'], 1):.2f} a "
+        f"pass); preemptions {getattr(eng, 'preemptions', 0)}; launches {launches}; query rows given to "
+        f"K6 / K7: {seen.rows}")
+    if paged:
+        name = {"K6": "paged_kv_attention", "K7": "paged_quantized_kv_attention"}[paged_attn]
+        if launches[paged_attn] <= 0 or SPEC_K + 1 not in seen.rows[name]:
+            fail(f"{tag}: {paged_attn} was not launched at Lq = {SPEC_K + 1}")
+    if pool_pages and eng.preemptions <= 0:
+        fail(f"{tag}: the pool never preempted")
+    if st["passes"] <= 0:
+        fail(f"{tag}: no verify pass emitted")
+
+
+def phase_spec_busy(torch, lm, proc, report, chunk: int = 8):
+    """Phase 11 (c): aggregate tok/s of 4 busy slots over the paged pool,
+    greedy, with and without speculation, and one profiled chunk each."""
+    from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine
+
+    cache = cache_of(lm)
+    prompts = [(LOOP_PROMPT + FILLER)[: 100 + 100 * i] for i in range(SERVE_SLOTS)]
+    for spec_k in (0, SPEC_K):
+        eng = PagedBatchEngine(lm, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW, spec_k=spec_k)
+        eng.capture()
+        for p in eng.prepare_many(prompts, [dict(max_tokens=400)] * SERVE_SLOTS):
+            eng.admit(p)
+        eng.step(2)  # warm-up
+        torch.cuda.synchronize()
+        before = sum(len(r.tokens) for r in eng.requests.values())
+        t0 = time.perf_counter()
+        for _ in range(4):
+            eng.step_pipelined(chunk)
+        eng.flush()
+        wall = time.perf_counter() - t0
+        made = sum(len(r.tokens) for r in eng.requests.values()) - before
+        busy_slots = len(eng.by_slot)
+        per_name, launches = kernel_times(torch, lambda: eng.step(2), 2)
+        busy = sum(per_name.values())
+        what = f"verify passes of K={spec_k}" if spec_k else "greedy steps"
+        log(f"phase 11 (c) 4 busy slots ({weights_of(lm)} weights, {cache} pool, window {SERVE_WINDOW}, "
+            f"{what}, chunks of {chunk}): {made / wall:.2f} tok/s aggregate ({made} tokens in {wall:.3f} s, "
+            f"{busy_slots} slots still busy); device busy {busy:.3f} ms and {launches / 2:.0f} kernels a "
+            f"step or pass on {report['card']}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def phase_spec_kernels(torch, report):
+    """Phase 11 (d): each verify shape of the slice against its plain
+    version, timed beside its bound and a library call: K1 (route B) at M =
+    8 and 32 on qkv and lm_head, K3 and K4 at Lq = 8 at the windows 768 and
+    4352 (the pass at the window's end), K6 and K7 at Lq = 8 at the
+    continuous server's shapes."""
+    import random
+
+    import torch.nn.functional as F
+
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
+    from phi_3_vision_mlx_tpu_torch.core.weights import WORD
+    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as K1
+
+    dev, lq = "cuda", SPEC_K + 1
+    g = torch.Generator(device=dev).manual_seed(14)
+    for k, n in ((3072, 9216), (3072, 32064)):
+        nbytes = k * n // 2 + 4 * (k // 64) * n
+        ws = []
+        for _ in range(max(1, math.ceil(150e6 / nbytes))):
+            qw = torch.randint(-(2**31), 2**31, (k // WORD, n), dtype=torch.int32, generator=g, device=dev)
+            ws.append((qw, *w4_planes(torch, k, n, g)))
+        for m in (lq, SERVE_SLOTS * lq):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            ref = K1.quant_matmul_plain(x, *ws[0], out_dtype=torch.float32)
+            ea, er, ok, same = w4_check(torch, lambda **kw: K1.quant_matmul(x, *ws[0], **kw), ref, None)
+            log(f"phase 11 (d) K1 K={k} N={n} M={m} route {K1.route(m, 'k1')}: max_abs={ea:.3e} "
+                f"max_rel={er:.3e}; repeat bit-identical {same}")
+            if not ok or not same:
+                fail(f"K1 disagrees with its plain version at the verify shape K={k} N={n} M={m}")
+            report["K1"]["max_abs_err"] = max(report["K1"]["max_abs_err"], ea)
+            w4_timing(torch, "K1", lambda w: K1.quant_matmul(x, *w), lambda w: K1.quant_matmul_plain(x, *w),
+                      ws, x, k, n, m, g, report)
+        del ws
+
+    b_, h, kvh, d, nl = 1, 32, 32, 96, 4
+    scale = d**-0.5
+    kvq = KVQuantConfig(group_size=32, bits=4)
+    for lmax in (768, 4352):
+        off = lmax - lq  # the window's last pass
+        q = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        valid = torch.ones((b_, lmax), dtype=torch.bool, device=dev)
+        valid[:, :17] = False
+        mask = causal_valid_mask(valid, off + torch.arange(lq, device=dev))
+        pairs = int(mask.sum())
+        ks = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+        vs = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+        off_t, nxt = dev_offset(torch, off), rotating(nl)
+        out = KV.dense_kv_attention(q, ks, vs, valid, off_t, 1, scale)
+        ref = KV.dense_kv_attention_plain(q, ks, vs, valid, off, 1, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        if not ok:
+            fail(f"K3 disagrees with its plain version at Lq={lq} Lmax={lmax} offset={off}")
+        report["K3"]["max_abs_err"] = max(report["K3"]["max_abs_err"], ea)
+        t = timed(torch, lambda: KV.dense_kv_attention(q, ks, vs, valid, off_t, nxt(), scale),
+                  lambda: KV.dense_kv_attention_plain(q, ks, vs, valid, off_t, nxt(), scale), 20)
+
+        def library():  # SDPA with the causal-offset mask computes the same function
+            layer = nxt()
+            return F.scaled_dot_product_attention(q, ks[layer], vs[layer], attn_mask=mask, scale=scale)
+
+        t.update(bound(2 * 2 * kvh * lmax * d + lmax + 2 * 2 * h * lq * d, 4 * h * d * pairs),
+                 library_ms=cuda_ms(torch, library, 20))
+        shape = f"Lq={lq} Lmax={lmax} offset={off} H=32 D=96 (verify pass)"
+        log(f"phase 11 (d) K3 {shape}: max_abs={ea:.3e}; bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+            f"{t.pop('text')}; library (SDPA, causal-offset mask) {t['library_ms']:.4f} ms")
+        report["K3"]["timings"].append({"shape": shape, **t})
+        del ks, vs
+        k_ = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[0]
+        v_ = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[1]
+        payload, scales = quantize_chunk(k_.to(torch.bfloat16), v_.to(torch.bfloat16), kvq)
+        del k_, v_
+        out = KV.quantized_kv_attention(q, payload, scales, valid, off_t, 1, scale)
+        ref = KV.quantized_kv_attention_plain(q, payload, scales, valid, off, 1, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        if not ok:
+            fail(f"K4 disagrees with its plain version at Lq={lq} Lmax={lmax} offset={off}")
+        report["K4"]["max_abs_err"] = max(report["K4"]["max_abs_err"], ea)
+        t = timed(torch, lambda: KV.quantized_kv_attention(q, payload, scales, valid, off_t, nxt(), scale),
+                  lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, off_t, nxt(), scale), 20)
+        t.update(bound(kvh * lmax * (d + 8 * (d // 32)) + lmax + 2 * 2 * h * lq * d, 4 * h * d * pairs),
+                 library_ms=None)
+        shape = f"Lq={lq} Lmax={lmax} offset={off} H=32 D=96 int4 (verify pass)"
+        log(f"phase 11 (d) K4 {shape}: max_abs={ea:.3e}; bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+            f"{t.pop('text')}")
+        report["K4"]["timings"].append({"shape": shape, **t})
+        del payload, scales
+
+    # K6 / K7 at the continuous server's shapes (phase 2's), Lq = 8.
+    s_, page, window, pool = SERVE_SLOTS, 64, SERVE_WINDOW, 64
+    offsets_l = (100, 400, 700, 1000)
+    rng = random.Random(14)
+    ids = rng.sample(range(pool), pool)
+    tables = torch.full((s_, window // page), pool, dtype=torch.int32)
+    for i, o in enumerate(offsets_l):
+        cnt = min(-(-(o + lq) // page), window // page)
+        tables[i, :cnt] = torch.tensor([ids.pop() for _ in range(cnt)])
+    tables, offsets = tables.to(dev), torch.tensor(offsets_l, dtype=torch.int32, device=dev)
+    valid = torch.rand((s_, window), generator=g, device=dev) > 0.05
+    valid[:, :10] = False
+    vis = KV.paged_visible(valid, offsets, lq)
+    q = torch.randn((s_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    keys = sum(min(o + lq, window) for o in offsets_l)
+    shape = f"S=4 offsets {','.join(map(str, offsets_l))} window 1024 page 64 Lq={lq} (verify pass)"
+    pk = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev).to(torch.bfloat16)
+    pv = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev).to(torch.bfloat16)
+    k_ = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev) + KV_MEAN[0]
+    v_ = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev) + KV_MEAN[1]
+    qpools = quantize_chunk(k_.to(torch.bfloat16), v_.to(torch.bfloat16), kvq)
+    del k_, v_
+    wins = [(KV.gather_pages(pk[i], tables), KV.gather_pages(pv[i], tables)) for i in range(nl)]
+    for name, kernel, plain, pools, per_key in (
+            ("K6", KV.paged_kv_attention, KV.paged_kv_attention_plain, (pk, pv), 2 * 2 * d),
+            ("K7", KV.paged_quantized_kv_attention, KV.paged_quantized_kv_attention_plain, qpools,
+             d + 8 * (d // 32))):
+        out = kernel(q, *pools, tables, valid, offsets, nl - 1, scale)
+        ref = plain(q, *pools, tables, valid, offsets, nl - 1, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        if not ok:
+            fail(f"{name} disagrees with its plain version at Lq={lq}")
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], ea)
+        nxt = rotating(nl)
+        t = timed(torch, lambda: kernel(q, *pools, tables, valid, offsets, nxt(), scale),
+                  lambda: plain(q, *pools, tables, valid, offsets, nxt(), scale), 20)
+        lib = None
+        if name == "K6":
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, *wins[nxt()], attn_mask=vis, scale=scale), 20)
+        nbytes = kvh * keys * per_key + s_ * window + 4 * tables.numel() + 2 * 2 * s_ * h * lq * d
+        t.update(bound(nbytes, 4 * h * d * int(vis.sum())), library_ms=lib)
+        log(f"phase 11 (d) {name} {shape}: max_abs={ea:.3e}; bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+            f"{t.pop('text')}" + ("" if lib is None else f"; library (SDPA on the gathered windows) {lib:.4f} ms"))
+        report[name]["timings"].append({"shape": shape, **t})
+    del pk, pv, qpools, wins
+
+
+def phase_spec(torch, lm, lm_int4, proc, report):
+    """Phase 11: sampling and speculation on the card."""
+    sampling_functions_check(torch)
+    for model in (lm, lm_int4):
+        phase_sampling(torch, model, proc, report)
+    stamp("phase 11 (a)")
+    for model in (lm, lm_int4):
+        phase_spec_single(torch, model, proc, report)
+        phase_spec_profile(torch, model, proc, report)
+    stamp("phase 11 (b)")
+    phase_spec_server(torch, lm, proc, report, paged=False)
+    phase_spec_server(torch, lm, proc, report, paged=True)
+    phase_spec_server(torch, lm_int4, proc, report, paged=True)
+    phase_spec_server(torch, lm, proc, report, paged=True, pool_pages=20)
+    for model in (lm, lm_int4):
+        phase_spec_busy(torch, model, proc, report)
+    stamp("phase 11 (c)")
+    phase_spec_kernels(torch, report)
+    stamp("phase 11")
+
+
 def phase_checkpoint(torch):
     """The port alone makes an 8-bit model: a 2-layer full-width random
     checkpoint (``create_random_checkpoint``), quantized to 8 bits
@@ -2336,7 +3027,7 @@ def main() -> None:
     lm_packed = LM(cfg, params_packed, device="cuda")
     phase_serving(torch, lm_packed, proc, report)
     phase_profile(torch, lm_packed, proc, tags=("a",))
-    del lm, lm_int4, lm_packed, params, params_packed
+    del lm_packed, params_packed
     torch.cuda.empty_cache()
     stamp("phase 8")
 
@@ -2362,7 +3053,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_vision_server(torch, lmv, paged=False)
     phase_vision_server(torch, lmv, paged=True)
+    del lmv, vparams
+    torch.cuda.empty_cache()
     stamp("phase 10")
+
+    # Phase 11: sampling and speculation on phases 3-6's 4-bit weights.
+    phase_spec(torch, lm, lm_int4, proc, report)
+    del lm, lm_int4, params
+    torch.cuda.empty_cache()
     for pkg in ("jax", "phi_3_vision_mlx_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             fail(f"{pkg} was imported")

@@ -14,8 +14,11 @@ device with ``core.weights.synth_quantized_params``.  Models load onto
 ``device="cuda"`` unless a caller names another device; with no CUDA card
 that raises instead of running on the CPU.  ``load(quantize_cache=True)``
 (``_load(..., use_quantized_cache=True)``) serves from the 4-bit group-32
-KV cache (kernels K4/K5 on the card).  ``choose``, ``constrain``,
-sampling and adapters are not ported yet.
+KV cache (kernels K4/K5 on the card).  ``generate`` samples with
+``sample=True`` (``temperature``, ``top_p``, ``top_k``, ``min_p``,
+``seed``) and speculates with ``speculative=True``
+(``engine/speculative.py``).  ``choose``, ``constrain`` and adapters are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -150,12 +153,21 @@ def generate(
     apply_chat_template=True,
     mute=False,
     sample=False,
+    temperature=1.0,
+    top_p=1.0,
+    top_k=0,
+    min_p=0.0,
+    seed=0,
+    speculative=None,
     stop=None,
 ):
-    """Greedy generation with streaming (JAX ``generate``): text prompts, or
-    one prompt with ``images`` (paths, URLs, decoded images, or any object
-    with ``.size`` and ``.convert``).  Without ``preload`` it loads the model
-    as :func:`load` does, with the same flags."""
+    """Generation with streaming (JAX ``generate``): text prompts, or one
+    prompt with ``images`` (paths, URLs, decoded images, or any object with
+    ``.size`` and ``.convert``).  Greedy by default; ``sample=True`` draws
+    under ``temperature``, ``top_p``, ``top_k`` and ``min_p`` from ``seed``;
+    ``speculative=True`` (default: ``PHI3V_TPU_SPEC=1``) runs prompt-lookup
+    speculation for a single prompt.  Without ``preload`` it loads the
+    model as :func:`load` does, with the same flags."""
     if preload is None:
         preload = load(blind_model=blind_model, quantize_model=quantize_model,
                        quantize_cache=quantize_cache)
@@ -163,5 +175,6 @@ def generate(
     return generate_text(
         *preload, prompt, images=images, max_tokens=max_tokens, verbose=verbose,
         return_tps=return_tps, early_stop=early_stop, stream=stream, mute=mute, sample=sample,
-        stop=stop,
+        temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
+        speculative=speculative, stop=stop,
     )

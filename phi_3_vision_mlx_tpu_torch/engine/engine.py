@@ -1,10 +1,11 @@
-"""Generation engine: bucketed prefill and greedy chunked decode
-(counterpart of ``phi_3_vision_mlx_tpu/engine/engine.py``).
+"""Generation engine: bucketed prefill, chunked decode, sampling and
+prompt-lookup speculation (counterpart of
+``phi_3_vision_mlx_tpu/engine/engine.py``).
 
 The contract of the JAX engine carries over: prompts are left-padded to a
 64-token bucket and the window rounded to 128; prompts longer than
 ``PREFILL_CHUNK`` prefill in chunks through ``decode_forward``; decode runs
-in chunks whose argmax feeds back on the device, and the host fetches the
+in chunks whose token feeds back on the device, and the host fetches the
 tokens and the two logit statistics the stoppers need once per chunk, then
 replays the stoppers in the reference order.  Chunk sizes ramp from
 ``DECODE_CHUNK_MIN`` by 4x up to ``DECODE_CHUNK_MAX``.
@@ -24,13 +25,25 @@ extend chunks run eagerly.  A vision prompt (the vision processor's
 and prefills the whole prompt from those embeddings in one pass, never
 chunked, as the JAX engine does; by decode time its image tokens are cache
 columns like any other, so it decodes through the same :class:`Decoder`.
-Sampling and speculation are not ported yet; the continuous-batching
-engines are ``engine/batching.py`` and ``engine/paging.py``.
+
+Sampling (``generate_text(sample=True, ...)``) runs its own graph of the
+entry, beside the greedy one, as the JAX engine compiles a chunk per
+sampler: the knobs are device tensors (:class:`Knobs`) and the noise comes
+from the entry's counter-based generator (``engine/rng.py``), so one
+capture serves every request's knobs and seed; the greedy graph keeps its
+nodes.  The first token is sampled from the prefill logits, as in the JAX
+engine.  ``speculative=True`` (or ``PHI3V_TPU_SPEC=1``) verifies K
+prompt-lookup drafts a pass (``engine/speculative.py``), a third and fourth
+graph of the entry over the same state, then finishes the window's tail
+through the vanilla graph.  The continuous-batching engines are
+``engine/batching.py`` and ``engine/paging.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 import threading
 import time
 from collections import Counter, OrderedDict
@@ -43,6 +56,7 @@ from ..core.weights import params_to, torch_dtype
 from ..models import phi3
 from ..models.vision import compute_inputs_embeds
 from .graphs import StepGraph, StepRing
+from .rng import SAMPLE, NoiseGen, to_device
 from .state import init_state
 from .stream import LogitStopper, StopSequences, Streamer, TokenStopper
 
@@ -64,6 +78,107 @@ GRAPH_ENTRIES = 4
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+# -- sampling (JAX engine.py:61-164) ------------------------------------------
+# The filters keep the JAX semantics: each enabled threshold is computed over
+# the temperature-scaled distribution and the thresholds are intersected (the
+# top-1 token passes every one, so extreme settings degrade to greedy).  A
+# categorical draw is ``argmax(filtered + gumbel)``, as ``jax.random.
+# categorical`` computes it, with the Gumbel noise an argument.  Plain tensor
+# ops, no host sync: the engines run them inside captured steps.
+
+
+def _keep_threshold(sorted_desc, top_p):
+    """Threshold of the nucleus: the smallest kept logit, where a token is
+    kept while the mass before it is below ``top_p`` (top-1 always kept)."""
+    probs = torch.softmax(sorted_desc, dim=-1)
+    keep = ((torch.cumsum(probs, dim=-1) - probs) < top_p).sum(dim=-1, keepdim=True)
+    return sorted_desc.gather(-1, (keep - 1).clamp(min=0))
+
+
+def filter_sample_logits(logits, temperature: float, top_p: float, top_k: int = 0,
+                         min_p: float = 0.0):
+    """Temperature-scaled, filtered logits (..., V) f32 for static knobs:
+    ``top_p >= 1``, ``top_k <= 0`` and ``min_p <= 0`` each disable their
+    filter (JAX ``filter_sample_logits``)."""
+    logits = logits / max(temperature, 1e-6)
+    thresh = None
+    if top_p < 1.0 or top_k > 0:
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        if top_p < 1.0:
+            thresh = _keep_threshold(sorted_desc, top_p)
+        if top_k > 0:
+            k = min(int(top_k), logits.shape[-1])
+            tk = sorted_desc[..., k - 1 : k]
+            thresh = tk if thresh is None else torch.maximum(thresh, tk)
+    if min_p > 0.0:
+        log_min_p = torch.log(torch.tensor(float(min_p))).to(logits.device)
+        tm = logits.amax(dim=-1, keepdim=True) + log_min_p
+        thresh = tm if thresh is None else torch.maximum(thresh, tm)
+    if thresh is not None:
+        logits = logits.masked_fill(logits < thresh, float("-inf"))
+    return logits
+
+
+def sample_token(logits, gumbel, temperature: float, top_p: float, top_k: int = 0,
+                 min_p: float = 0.0):
+    """Temperature + top-p / top-k / min-p sampling of (B, V) f32 logits
+    with Gumbel noise ``gumbel`` (B, V): (B,) int64 (JAX ``sample_token``)."""
+    return (filter_sample_logits(logits, temperature, top_p, top_k, min_p) + gumbel).argmax(dim=-1)
+
+
+def filter_sample_logits_rows(logits, temps, top_ps, top_ks=None, min_ps=None):
+    """:func:`filter_sample_logits` with (B,) device knob vectors over
+    logits (B, V) or (B, L, V) (JAX ``filter_sample_logits_rows``): top-p
+    always applies (``top_ps`` of ``inf`` disables it), ``top_ks`` (0 = off)
+    and ``min_ps`` (0 = off) may be None."""
+    expand = lambda v: v.reshape(v.shape[0], *([1] * (logits.dim() - 1)))  # noqa: E731
+    scaled = logits / expand(temps).clamp(min=1e-6)
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    thresh = _keep_threshold(sorted_desc, expand(top_ps))
+    if top_ks is not None:
+        k = expand(top_ks)
+        tk = sorted_desc.gather(-1, (k.clamp(1, scaled.shape[-1]) - 1).expand_as(thresh))
+        thresh = torch.maximum(thresh, tk.masked_fill(k <= 0, float("-inf")))
+    if min_ps is not None:
+        p = expand(min_ps)
+        tm = scaled.amax(dim=-1, keepdim=True) + torch.log(p.clamp(min=1e-38))
+        thresh = torch.maximum(thresh, tm.masked_fill(p <= 0, float("-inf")))
+    return scaled.masked_fill(scaled < thresh, float("-inf"))
+
+
+def sample_token_rows(logits, gumbel, temps, top_ps, top_ks=None, min_ps=None):
+    """Per-row sampling of (B, V) logits with Gumbel noise (B, V); rows with
+    ``temps <= 0`` take the exact argmax (JAX ``sample_token_rows``)."""
+    filtered = filter_sample_logits_rows(logits, temps, top_ps, top_ks, min_ps)
+    return torch.where(temps > 0, (filtered + gumbel).argmax(dim=-1), logits.argmax(dim=-1))
+
+
+class Knobs:
+    """Per-row sampling knobs on the device, the static tensors a captured
+    sampling step reads (temperature, top-p, top-k, min-p; JAX's rows
+    semantics), and the rows' noise generator."""
+
+    def __init__(self, rows: int, device):
+        self.temps = torch.zeros((rows,), dtype=torch.float32, device=device)
+        self.top_ps = torch.ones((rows,), dtype=torch.float32, device=device)
+        self.top_ks = torch.zeros((rows,), dtype=torch.long, device=device)
+        self.min_ps = torch.zeros((rows,), dtype=torch.float32, device=device)
+        self.gen = NoiseGen(rows, device)
+
+    def set(self, temps, top_ps, top_ks, min_ps) -> None:
+        """Copy host vectors (one value a row) in, without waiting."""
+        for t, v in zip((self.temps, self.top_ps, self.top_ks, self.min_ps),
+                        (temps, top_ps, top_ks, min_ps)):
+            t.copy_(to_device(v, t.device))
+
+    def filtered(self, logits):
+        return filter_sample_logits_rows(logits, self.temps, self.top_ps, self.top_ks, self.min_ps)
+
+    def sample(self, logits):
+        """Draw every row from its filtered ``logits`` (B, V)."""
+        return (self.filtered(logits) + self.gen.gumbel(SAMPLE, logits.shape[1:])).argmax(dim=-1)
 
 
 class LM:
@@ -165,26 +280,67 @@ def run_prefill(lm: LM, dict_input: dict, max_tokens: int, into=None):
 
 
 class Decoder:
-    """Greedy decode of one state's rows, a step at a time through a
+    """Decode of one state's rows, a step at a time through a
     :class:`~.graphs.StepGraph`: the static token ``(B, 1)`` feeds each step
-    and takes its argmax; the ring takes the statistics the stoppers need.
+    and takes its argmax (``graph``), or a draw under the sampling knobs
+    (``sampled_graph``, made at the entry's first sampled request); the ring
+    takes the statistics the stoppers need.  :meth:`spec_pass` gives the
+    entry's speculative verify pass over the same state and token.
 
-    Usage: ``start(state, token)`` after a prefill into this decoder's state
-    (the first request's own), then ``chunk(n)`` per chunk."""
+    Usage: ``set_sampler(...)`` and ``first_token(logits)`` after a prefill
+    into this decoder's state (the first request's own), ``start(state,
+    token)``, then ``chunk(n)`` per chunk."""
 
     def __init__(self, lm: LM, state):
         self.lm, self.state = lm, state
         b = state.valid.shape[0]
         self.token = torch.zeros((b, 1), dtype=torch.long, device=lm.device)
         self.ring = StepRing(DECODE_CHUNK_MAX, b, lm.device)
-        self.graph = StepGraph(self._step, lm.device, lm.graphs,
+        self.graph = StepGraph(functools.partial(self._step, False), lm.device, lm.graphs,
                                save=(state.pos, self.token, self.ring.index))
+        self.sampling = False
+        self.knobs = self.sampled_graph = None
+        self.specs = {}  # (K, sampling) -> speculative.SpecPass
 
     @torch.no_grad()
-    def _step(self) -> None:
+    def _step(self, sampled: bool) -> None:
         res = phi3.decode_forward(self.lm.params, self.lm.cfg, self.state, self.token)
-        nxt = self.ring.write(res.logits[:, -1, :].float(), self.lm.eos_id)
-        self.token.copy_(nxt[:, None])
+        logits = res.logits[:, -1, :].float()
+        nxt = None
+        if sampled:
+            nxt = self.knobs.sample(logits)
+            self.knobs.gen.advance()
+        self.token.copy_(self.ring.write(logits, self.lm.eos_id, nxt)[:, None])
+
+    def set_sampler(self, sampler=None, seed: int = 0) -> None:
+        """Decode greedily (``sampler`` None) or draw under ``sampler`` =
+        (temperature, top_p, top_k, min_p) with the JAX ``sample_token``
+        semantics, seeded: row ``r`` of the batch draws from ``seed ^ (r <<
+        32)``."""
+        self.sampling = sampler is not None
+        if not self.sampling:
+            return
+        b, dev = self.token.shape[0], self.token.device
+        if self.knobs is None:
+            self.knobs = Knobs(b, dev)
+            self.sampled_graph = StepGraph(
+                functools.partial(self._step, True), dev, self.lm.graphs,
+                save=(self.state.pos, self.token, self.ring.index, self.knobs.gen.counters))
+        temperature, top_p, top_k, min_p = sampler
+        # Top-p at 1 or above is off; the rows' filter disables it at inf.
+        self.knobs.set([temperature] * b, [top_p if top_p < 1 else float("inf")] * b,
+                       [top_k] * b, [min_p] * b)
+        self.knobs.gen.reset([seed ^ (r << 32) for r in range(b)])
+
+    @torch.no_grad()
+    def first_token(self, logits) -> torch.Tensor:
+        """The first token (B, 1) from the prefill's last logits (B, V): the
+        argmax, or a draw under the sampler (JAX ``engine.py:646-655``)."""
+        if not self.sampling:
+            return logits.argmax(dim=-1)[:, None]
+        token = self.knobs.sample(logits)[:, None]
+        self.knobs.gen.advance()
+        return token
 
     def start(self, state, token: torch.Tensor) -> None:
         """Decode from ``state`` (this decoder's buffers) after ``token``
@@ -194,27 +350,45 @@ class Decoder:
         self.state = state
         self.token.copy_(token)
 
+    def spec_pass(self, k_draft: int):
+        """This entry's verify pass of ``k_draft`` drafts in the current
+        sampling mode (made at first use)."""
+        from .speculative import SpecPass
+
+        key = (k_draft, self.sampling)
+        if key not in self.specs:
+            self.specs[key] = SpecPass(self, k_draft)
+        return self.specs[key]
+
+    def advance_mirror(self, n: int) -> None:
+        """Move the host mirror of the offset by ``n`` positions the device
+        committed (a speculative chunk's emitted tokens)."""
+        self.state = dataclasses.replace(self.state, offset=self.state.offset + n)
+
     @torch.no_grad()
     def chunk(self, n_steps: int):
-        """``n_steps`` greedy steps.  Returns device views (n_steps, B) of the
-        tokens, max log-probs and EOS log-probs, valid until the next chunk."""
+        """``n_steps`` steps, greedy or sampled.  Returns device views
+        (n_steps, B) of the tokens, max log-probs and EOS log-probs, valid
+        until the next chunk."""
         st = self.state
         if st.offset + n_steps > st.window:
             raise ValueError(f"{n_steps} steps at offset {st.offset} overflow window {st.window}")
+        graph = self.sampled_graph if self.sampling else self.graph
         self.ring.start(n_steps)
         for _ in range(n_steps):
-            self.graph()
+            graph()
         self.state = dataclasses.replace(st, offset=st.offset + n_steps)
         return self.ring.rows(n_steps)
 
 
-def prefill_decoder(lm: LM, dict_input: dict, max_tokens: int):
-    """Prefill a request and return (its Decoder, started on the prefill's
-    argmax, and that first token (B, 1) on the device).  With graphs the
-    decoder is the (B, window) entry of ``lm.decoders``, taken out of it
-    (reused) or made: an entry serves one request at a time, so a second
-    request of the key meanwhile makes its own.  Give it back with
-    :func:`release_decoder` when the request ends."""
+def prefill_decoder(lm: LM, dict_input: dict, max_tokens: int, sampler=None, seed: int = 0):
+    """Prefill a request and return (its Decoder, started on the first
+    token, and that token (B, 1) on the device): the prefill's argmax, or
+    with ``sampler`` a draw seeded by ``seed`` (:meth:`Decoder.set_sampler`).
+    With graphs the decoder is the (B, window) entry of ``lm.decoders``,
+    taken out of it (reused) or made: an entry serves one request at a time,
+    so a second request of the key meanwhile makes its own.  Give it back
+    with :func:`release_decoder` when the request ends."""
     b, _, window = prefill_shape(dict_input, max_tokens)
     with lm.lock:
         entry = lm.decoders.pop((b, window), None)
@@ -222,7 +396,8 @@ def prefill_decoder(lm: LM, dict_input: dict, max_tokens: int):
     last_logits, state, _, _ = run_prefill(lm, dict_input, max_tokens,
                                            into=None if entry is None else entry.state)
     dec = entry or Decoder(lm, state)
-    token = last_logits.argmax(dim=-1)[:, None]
+    dec.set_sampler(sampler, seed)
+    token = dec.first_token(last_logits)
     dec.start(state, token)
     return dec, token
 
@@ -240,6 +415,21 @@ def release_decoder(lm: LM, dec: Decoder) -> None:
             lm.decoders.popitem(last=False)
 
 
+def spec_settings(lm: LM):
+    """(K, passes a chunk at most) of single-stream speculation, from
+    ``PHI3V_TPU_SPEC_K`` (7) and ``PHI3V_TPU_SPEC_ITERS`` (64) as the JAX
+    engine reads them, checked against what the model's path takes."""
+    from .speculative import check_spec_k
+
+    k = int(os.environ.get("PHI3V_TPU_SPEC_K", "7"))
+    iters = int(os.environ.get("PHI3V_TPU_SPEC_ITERS", "64"))
+    check_spec_k(k, lm.device, kernel_rows=True)
+    if not 1 <= k or not 1 <= iters <= DECODE_CHUNK_MAX:
+        raise ValueError(f"PHI3V_TPU_SPEC_K={k} and PHI3V_TPU_SPEC_ITERS={iters}: K must be "
+                         f">= 1 and the passes a chunk in [1, {DECODE_CHUNK_MAX}]")
+    return k, iters
+
+
 def generate_text(
     lm: LM,
     processor,
@@ -252,24 +442,40 @@ def generate_text(
     stream: bool = True,
     mute: bool = False,
     sample: bool = False,
+    temperature: float = 1.0,
+    top_p: float = 1.0,
+    top_k: int = 0,
+    min_p: float = 0.0,
+    seed: int = 0,
+    speculative=None,
     stop=None,
 ):
-    """Greedy generation (JAX ``generate_text``): text prompts, or one
-    prompt with ``images`` (decoded images, or any object with ``.size`` and
-    ``.convert``) for a vision model."""
+    """Generation (JAX ``generate_text``): text prompts, or one prompt with
+    ``images`` (decoded images, or any object with ``.size`` and
+    ``.convert``) for a vision model.  Greedy by default; ``sample=True``
+    draws under ``temperature``, ``top_p``, ``top_k`` and ``min_p`` from
+    ``seed``.  ``speculative=True`` (default: ``PHI3V_TPU_SPEC=1``) runs
+    prompt-lookup verify passes for a single prompt (greedy: the vanilla
+    stream; sampled: rejection-sampled verification) while the window has
+    room for a pass, then the vanilla steps; ``lm._spec_stats`` counts the
+    passes that emitted (``iters``), their tokens and the dead passes."""
     if images is not None and isinstance(prompt, list):
         raise ValueError("Images cannot be provided when prompt is a list")
-    if sample:
-        raise NotImplementedError("sampling is not ported yet; the port decodes greedily")
+    sampler = (float(temperature), float(top_p), int(top_k), float(min_p)) if sample else None
+    if speculative is None:
+        speculative = os.environ.get("PHI3V_TPU_SPEC", "0") == "1"
     dict_input = processor(prompt, images)
     b = int(np.asarray(dict_input["input_ids"]).shape[0])
+    use_spec = bool(speculative) and b == 1
+    if use_spec:
+        spec_k, spec_iters = spec_settings(lm)
     logit_stopper = LogitStopper(max_tokens, early_stop)
     token_stopper = TokenStopper(b, lm.eos_id)
     stop_seqs = StopSequences(processor.tokenizer, stop, b)
     streamer = Streamer(processor.tokenizer, stream, mute, stops=stop_seqs.stops)
 
     t0 = time.perf_counter()
-    dec, tok_dev = prefill_decoder(lm, dict_input, max_tokens)
+    dec, tok_dev = prefill_decoder(lm, dict_input, max_tokens, sampler=sampler, seed=seed)
     token = tok_dev.cpu().numpy().astype(np.int32)
     streamer(token)
     t1 = time.perf_counter()
@@ -277,28 +483,51 @@ def generate_text(
 
     n_emitted = 1
     stopped = bool(stop_seqs) and stop_seqs.update(token)
+
+    def consume(tok, maxlp: float, eoslp: float) -> bool:
+        """One emitted token (B,), in the reference order: stream it, the
+        logit stopper takes the logits that produced it, then EOS, then
+        stop strings.  True when the generation ends."""
+        nonlocal n_emitted
+        streamer(tok[:, None])
+        n_emitted += 1
+        return (logit_stopper.update(maxlp, eoslp, b) or token_stopper.update(tok)
+                or bool(stop_seqs and stop_seqs.update(tok)) or n_emitted >= max_tokens)
+
+    if use_spec:
+        spec = dec.spec_pass(spec_k)
+        spec.start(pad_prompt_inputs(dict_input, dec.state.offset)[0])
+        stats = lm._spec_stats = {"iters": 0, "emitted": 0, "dead": 0}
     chunk = DECODE_CHUNK_MIN
     while n_emitted < max_tokens and not stopped:
+        if use_spec and dec.state.window - dec.state.offset >= spec_k + 1:
+            left = max_tokens - n_emitted
+            n_passes = spec.passes_for(left, spec_iters)
+            toks, maxlp, eoslp, n_emits = (t.cpu().numpy() for t in spec.chunk(n_passes, left))
+            dec.advance_mirror(int(n_emits.sum()))
+            stats["dead"] += int((n_emits == 0).sum())  # budget or window used up on the device
+            for it in range(n_passes):
+                m = int(n_emits[it, 0])
+                if stopped or m == 0:
+                    continue
+                stats["iters"] += 1
+                stats["emitted"] += m
+                for p in range(m):
+                    if consume(toks[it, :, p].astype(np.int32), float(maxlp[it, 0, p]),
+                               float(eoslp[it, 0, p])):
+                        stopped = True
+                        break
+            continue
+        # The window's tail (too short for a pass) decodes through the
+        # vanilla steps of the same entry.
         n_steps = min(chunk, max_tokens - n_emitted)
         chunk = min(chunk * 4, DECODE_CHUNK_MAX)
         toks, maxlp, eoslp = dec.chunk(n_steps)
         toks = toks.cpu().numpy().astype(np.int32)  # one host transfer per chunk
         maxlp, eoslp = maxlp.cpu().numpy(), eoslp.cpu().numpy()
         for i in range(n_steps):
-            # Reference order: stream the token, the logit stopper consumes
-            # the logits that produced it, then EOS, then stop strings.
-            streamer(toks[i][:, None])
-            n_emitted += 1
-            if logit_stopper.update(float(maxlp[i, 0]), float(eoslp[i, 0]), b):
+            if consume(toks[i], float(maxlp[i, 0]), float(eoslp[i, 0])):
                 stopped = True
-                break
-            if token_stopper.update(toks[i]):
-                stopped = True
-                break
-            if stop_seqs and stop_seqs.update(toks[i]):
-                stopped = True
-                break
-            if n_emitted >= max_tokens:
                 break
     release_decoder(lm, dec)  # not after a failure: that entry is dropped
 

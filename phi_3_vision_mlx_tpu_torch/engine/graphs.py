@@ -34,24 +34,41 @@ from ..ops.kernels import _build
 class StepRing:
     """A chunk's outputs on the device: rows ``(rows, B)`` of token (int64),
     max log-prob and EOS log-prob (f32), written by each step at the device
-    step index ``index``, which the step advances."""
+    step index ``index``, which the step advances.  With ``width`` (a
+    speculative chunk: ``width`` = K + 1 tokens a pass) each row is ``(B,
+    width)`` and ``n_emit`` (rows, B) int64 holds how many of them a pass
+    committed."""
 
-    def __init__(self, rows: int, b: int, device):
+    def __init__(self, rows: int, b: int, device, width=None):
+        shape = (rows, b) if width is None else (rows, b, width)
         self.index = torch.zeros((1,), dtype=torch.long, device=device)
-        self.toks = torch.zeros((rows, b), dtype=torch.long, device=device)
-        self.maxlp = torch.zeros((rows, b), dtype=torch.float32, device=device)
-        self.eoslp = torch.zeros((rows, b), dtype=torch.float32, device=device)
+        self.toks = torch.zeros(shape, dtype=torch.long, device=device)
+        self.maxlp = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.eoslp = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.n_emit = None if width is None else torch.zeros((rows, b), dtype=torch.long,
+                                                             device=device)
 
-    def write(self, logits: torch.Tensor, eos_id: int) -> torch.Tensor:
-        """One step's logits (B, V) f32 -> the greedy tokens (B,); their row
-        of the ring is written at ``index``, which advances by one."""
+    def write(self, logits: torch.Tensor, eos_id: int, nxt=None) -> torch.Tensor:
+        """One step's logits (B, V) f32 and its tokens (B,) (default: the
+        argmax) -> the tokens; their row of the ring is written at
+        ``index``, which advances by one."""
         lp = torch.log_softmax(logits, dim=-1)
-        nxt = logits.argmax(dim=-1)
+        if nxt is None:
+            nxt = logits.argmax(dim=-1)
         self.toks.index_copy_(0, self.index, nxt[None])
         self.maxlp.index_copy_(0, self.index, lp.amax(dim=-1)[None])
         self.eoslp.index_copy_(0, self.index, lp[:, eos_id][None])
         self.index += 1
         return nxt
+
+    def write_pass(self, logits: torch.Tensor, eos_id: int, out, n_emit) -> None:
+        """One verify pass: its logits (B, K + 1, V) f32, tokens (B, K + 1)
+        and committed counts (B,)."""
+        lp = torch.log_softmax(logits, dim=-1)
+        for ring, row in ((self.toks, out), (self.maxlp, lp.amax(dim=-1)),
+                          (self.eoslp, lp[..., eos_id]), (self.n_emit, n_emit)):
+            ring.index_copy_(0, self.index, row[None])
+        self.index += 1
 
     def start(self, n_steps: int) -> None:
         """Make room for a chunk of ``n_steps`` steps (from row 0)."""
@@ -61,9 +78,11 @@ class StepRing:
         self.index.zero_()
 
     def rows(self, n_steps: int):
-        """Views of the chunk's (n_steps, B) tokens, max and EOS log-probs;
-        the next chunk overwrites them (copy them out first)."""
-        return self.toks[:n_steps], self.maxlp[:n_steps], self.eoslp[:n_steps]
+        """Views of the chunk's (n_steps, B[, K + 1]) tokens, max and EOS
+        log-probs (and with a width, the (n_steps, B) committed counts); the
+        next chunk overwrites them (copy them out first)."""
+        views = (self.toks, self.maxlp, self.eoslp) + (() if self.n_emit is None else (self.n_emit,))
+        return tuple(v[:n_steps] for v in views)
 
 
 class StepGraph:

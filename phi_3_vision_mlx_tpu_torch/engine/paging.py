@@ -29,7 +29,13 @@ Each decode step routes attention by cache (``batching.SlotStep``'s
 ``attention`` hook): dense -> kernel K6 (``paged_kv_attention``), int4 ->
 K7 (``paged_quantized_kv_attention``), int8 -> the layer's pool dequantized
 (plain, as ``read_kv`` does), then K6 on it.  On the CPU the wrappers run
-their plain versions.  Greedy decoding only, as in ``engine/batching.py``.
+their plain versions.  Sampling and speculation are the slot engine's
+(``engine/batching.py``).  A verify pass writes K + 1 columns a slot
+through the page tables and runs K6/K7 at Lq = K + 1, their fresh-region
+rule showing each query the pass's own columns up to it; the host maps
+every page a worst-case chunk can touch first (n passes x (K + 1) columns
+a slot, JAX ``paging.py:893``).  K6/K7 take at most 16 query rows, so on
+the card ``spec_k`` is at most 15.
 """
 
 from __future__ import annotations
@@ -66,15 +72,37 @@ def _init_paged(cfg, slots: int, window: int, page: int, pool_pages: int, device
 
 
 def write_fresh(st: PagedState, layer: int, pid, row, k, v) -> None:
-    """Write one step's fresh k/v (S, KV, 1, D) of ``layer`` at page
-    ``pid[s]``, row ``row[s]`` (quantized first for a quantized pool)."""
+    """Write fresh k/v (S, KV, L, D) of ``layer`` at page ``pid``, row
+    ``row``: (S,) for a decode step's column (L = 1), (S, L) for a verify
+    pass's columns (quantized first for a quantized pool)."""
+    if pid.dim() == 1:
+        if st.quantized:
+            payload, scales = quantize_chunk(k, v, st.kv_quant)
+            st.k[layer, pid, :, row] = payload[:, :, 0]
+            st.k_scales[layer, pid, :, row] = scales[:, :, 0]
+        else:
+            st.k[layer, pid, :, row] = k[:, :, 0].to(st.k.dtype)
+            st.v[layer, pid, :, row] = v[:, :, 0].to(st.v.dtype)
+        return
     if st.quantized:
         payload, scales = quantize_chunk(k, v, st.kv_quant)
-        st.k[layer, pid, :, row] = payload[:, :, 0]
-        st.k_scales[layer, pid, :, row] = scales[:, :, 0]
+        st.k[layer, pid, :, row] = payload.transpose(1, 2)
+        st.k_scales[layer, pid, :, row] = scales.transpose(1, 2)
     else:
-        st.k[layer, pid, :, row] = k[:, :, 0].to(st.k.dtype)
-        st.v[layer, pid, :, row] = v[:, :, 0].to(st.v.dtype)
+        st.k[layer, pid, :, row] = k.transpose(1, 2).to(st.k.dtype)
+        st.v[layer, pid, :, row] = v.transpose(1, 2).to(st.v.dtype)
+
+
+def _paged_read(st: PagedState, i: int, q, scale: float):
+    """Attention of ``q`` (S, H, Lq, D) over layer ``i`` of the pool (the
+    cache's kernel, module docstring)."""
+    tables, valid, offsets = st.page_tables, st.valid, st.offsets
+    if not st.quantized:
+        return paged_kv_attention(q, st.k, st.v, tables, valid, offsets, i, scale)
+    if st.kv_quant.bits == 4:
+        return paged_quantized_kv_attention(q, st.k, st.k_scales, tables, valid, offsets, i, scale)
+    kl, vl = dequantize_kv(st.k[i], st.k_scales[i], q.dtype, st.kv_quant.bits)
+    return paged_kv_attention(q, kl[None], vl[None], tables, valid, offsets, 0, scale)
 
 
 def _paged_attention(st: PagedState, active: torch.Tensor):
@@ -91,16 +119,26 @@ def _paged_attention(st: PagedState, active: torch.Tensor):
     row = off % page
 
     def attend(i, q, k, v):
-        scale = q.shape[-1] ** -0.5
-        tables, valid, offsets = st.page_tables, st.valid, st.offsets
         write_fresh(st, i, pid, row, k, v)
-        if not st.quantized:
-            return paged_kv_attention(q, st.k, st.v, tables, valid, offsets, i, scale)
-        if st.kv_quant.bits == 4:
-            return paged_quantized_kv_attention(q, st.k, st.k_scales, tables, valid, offsets, i,
-                                                scale)
-        kl, vl = dequantize_kv(st.k[i], st.k_scales[i], q.dtype, st.kv_quant.bits)
-        return paged_kv_attention(q, kl[None], vl[None], tables, valid, offsets, 0, scale)
+        return _paged_read(st, i, q, q.shape[-1] ** -0.5)
+
+    return attend
+
+
+def _paged_spec_attention(st: PagedState, active, wpos, cols, src):
+    """A verify pass's ``attend`` over the pool: the K + 1 columns ``wpos``
+    (S, K + 1) of each active slot go through its page table (the spare
+    page past the window and for inactive slots), then K6/K7 at Lq = K + 1
+    (JAX ``_paged_spec_decode_chunk``)."""
+    w = st.valid.shape[1]
+    spare, page = st.k.shape[1] - 1, st.k.shape[3]
+    idx = (wpos // page).clamp(max=st.page_tables.shape[1] - 1)
+    pid = torch.where(active[:, None] & (wpos < w), st.page_tables.gather(1, idx).long(), spare)
+    row = wpos % page
+
+    def attend(i, q, k, v):
+        write_fresh(st, i, pid, row, k, v)
+        return _paged_read(st, i, q, q.shape[-1] ** -0.5)
 
     return attend
 
@@ -139,8 +177,11 @@ class PagedBatchEngine(BatchEngine):
     are released) and resumes it by recompute when pages free up.
     """
 
+    spec_kernel_rows = True  # K6/K7 take at most 16 query rows
+
     def __init__(self, lm, processor, slots: int = 4, window: int = 1024, page_size: int = 64,
-                 pool_pages: int = 0, pipeline_depth: int = 1, spec_k: int = 0):
+                 pool_pages: int = 0, pipeline_depth: int = 1, spec_k: int = 0,
+                 spec_accept: bool = True, seed: int = 0):
         if 64 % page_size and page_size % 64:
             raise ValueError("page_size must divide or be a multiple of 64")
         if window % page_size:
@@ -154,7 +195,8 @@ class PagedBatchEngine(BatchEngine):
         # A scheduler that resumes outside its lock sets this False.
         self.resume_in_step = True
         super().__init__(lm, processor, slots=slots, window=window,
-                         pipeline_depth=pipeline_depth, spec_k=spec_k)
+                         pipeline_depth=pipeline_depth, spec_k=spec_k, spec_accept=spec_accept,
+                         seed=seed)
 
     def _init_state(self):
         return _init_paged(self.lm.cfg, self.slots, self.window, self.page_size,
@@ -162,6 +204,9 @@ class PagedBatchEngine(BatchEngine):
 
     def _attention(self):
         return _paged_attention
+
+    def _spec_attention(self):
+        return _paged_spec_attention
 
     def _reset_state(self) -> None:
         super()._reset_state()
@@ -260,7 +305,7 @@ class PagedBatchEngine(BatchEngine):
             raise RuntimeError(f"resume prefill bucketed to {l_pad2}, expected {l_pad}")
         return _Prepared(src_state=src_state, first=req.tokens[-1], l_pad=l_pad, n_pads=l_pad - l,
                          prompt_ids=req.prompt_ids, max_tokens=req.max_tokens, stop=req.stop,
-                         rid=rid)
+                         rid=rid, ids=ids)
 
     def admit_resume(self, prepared: _Prepared) -> bool:
         """Admit a prepared resume if it is still the queue head and still
@@ -301,16 +346,18 @@ class PagedBatchEngine(BatchEngine):
         return last // self.page_size + 1
 
     def _reserve(self, n_steps: int) -> bool:
-        """Allocate every page this chunk can touch.  Uncollected chunks'
-        growth counts too (their tokens are not in ``req.tokens`` yet).  On
+        """Allocate every page this chunk can touch (``_growth``: K + 1
+        columns a verify pass).  Uncollected chunks' growth counts too
+        (their tokens are not in ``req.tokens`` yet).  On
         pool pressure: collect the in-flight chunks first (completions free
         pages), then preempt the youngest text request (with only image
         requests active, fail the youngest); a lone request that cannot fit
         fails."""
+        growth = self._growth(n_steps)
         while True:
             pending = self._pending_growth()
             shortfall = sum(
-                max(0, self._pages_needed(r, pending + n_steps) - len(self._slot_pages[r.slot]))
+                max(0, self._pages_needed(r, pending + growth) - len(self._slot_pages[r.slot]))
                 for r in self.by_slot.values()
             ) - len(self._free_pages)
             if shortfall <= 0:
@@ -343,7 +390,7 @@ class PagedBatchEngine(BatchEngine):
         pending = self._pending_growth()
         for slot, req in self.by_slot.items():
             pages = self._slot_pages[slot]
-            while self._pages_needed(req, pending + n_steps) > len(pages):
+            while self._pages_needed(req, pending + growth) > len(pages):
                 (pid,) = self._alloc_pages(1)
                 self.state.page_tables[slot, len(pages)] = pid
                 pages.append(pid)

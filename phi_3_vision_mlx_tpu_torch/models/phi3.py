@@ -70,11 +70,13 @@ def _qkv_split(cfg: ModelConfig, qkv: torch.Tensor):
     return q, k, v
 
 
-def _attend(q, state: DecodeState, i: int, scale: float):
+def _attend(q, state: DecodeState, i: int, scale: float, decode=None):
     """Attention of the chunk's queries to layer ``i`` of the cache, routed
-    by the table of the module docstring.  Decode (K3, K4) reads the device
-    offset ``state.pos``; prefill and extend (K2, K5) take the host mirror."""
-    decode = q.shape[2] <= MAX_DECODE_ROWS
+    by the table of the module docstring (``decode`` True takes the decode
+    route at any length).  Decode (K3, K4) reads the device offset
+    ``state.pos``; prefill and extend (K2, K5) take the host mirror."""
+    if decode is None:
+        decode = q.shape[2] <= MAX_DECODE_ROWS
     if state.quantized and state.kv_quant.bits == 4:
         if decode:
             return quantized_kv_attention(q, state.k, state.k_scales, state.valid, state.pos, i, scale)
@@ -120,6 +122,7 @@ def decode_forward(
     inputs_embeds: Optional[torch.Tensor] = None,
     advance: Optional[int] = None,
     last_logit_only: bool = False,
+    positions: Optional[torch.Tensor] = None,
 ) -> ForwardResult:
     """Run a (B, L) chunk through the decoder against the cache window:
     ``input_ids``, or ``inputs_embeds`` (B, L, E) in their place (a vision
@@ -134,6 +137,12 @@ def decode_forward(
     ``last_logit_only`` runs the lm_head for the last position only.  With L
     <= ``MAX_DECODE_ROWS`` nothing reads the mirror on the device path, so
     a CUDA graph of a decode step replays at any offset.
+
+    ``positions`` (L,) int64 on the device, in the window: a speculative
+    verify pass, whose offset the host learns only later.  The chunk's k/v
+    and RoPE take these columns, the queries sit at ``pos + i`` as always,
+    attention takes the decode route (K3/K4) at any length, and the mirror
+    is not checked: the caller keeps the columns in the window.
     """
     mdl = params["model"]
     if inputs_embeds is None:
@@ -142,9 +151,12 @@ def decode_forward(
         x = inputs_embeds.to(torch_dtype(cfg.dtype))
     b, l, _ = x.shape
     offset = state.offset
-    if offset < 0 or offset + l > state.window:
+    if positions is not None:
+        pos = positions
+    elif offset < 0 or offset + l > state.window:
         raise ValueError(f"chunk of {l} at offset {offset} overflows window {state.window}")
-    pos = (state.pos + torch.arange(l, dtype=torch.int32, device=x.device)).long()
+    else:
+        pos = (state.pos + torch.arange(l, dtype=torch.int32, device=x.device)).long()
     cos = state.cos.index_select(1, pos)
     sin = state.sin.index_select(1, pos)
     if cos.shape[0] == 1 and b > 1:
@@ -153,7 +165,7 @@ def decode_forward(
 
     def attend(q, k, v, i):
         update_layer_chunk(state, i, pos, k, v)
-        return _attend(q, state, i, scale)
+        return _attend(q, state, i, scale, decode=True if positions is not None else None)
 
     for i in range(cfg.num_hidden_layers):
         x = block(cfg, x, mdl["layers"], i, cos, sin, functools.partial(attend, i=i))

@@ -2,9 +2,11 @@
 (counterpart of ``phi_3_vision_mlx_tpu/serve/server.py``).
 
 POST /v1/completions with {"prompt": str | [str], "max_tokens": int,
-optional "stop"} -> {"model", "responses": [...]}, the same JSON as the JAX
-server.  Decoding is greedy; a request with "temperature" > 0 gets a 500
-JSON error until sampling is ported.  ``serve(quantize_cache=True)`` loads
+optional "stop", "temperature", "top_p", "top_k", "min_p", "seed"} ->
+{"model", "responses": [...]}, the same JSON as the JAX server.  Decoding
+is greedy unless "temperature" > 0, which samples under the other knobs
+from "seed" (on the continuous server a request without one draws from the
+engine's seed and its id).  ``serve(quantize_cache=True)`` loads
 the model with the 4-bit KV cache (keyword arguments of ``serve`` go to
 ``api.load``; as in the JAX server there is no command-line flag for it).
 
@@ -16,7 +18,10 @@ body may carry ``"images"`` (paths or URLs, decoded with ``fetch_image``)
 for a single prompt, which is chat-templated with its ``<|image_i|>`` tags
 as ``api.generate`` does; several prompts with images get a 400.  Image
 requests prefill one at a time and are never batched.  The single-stream
-handler takes no images, as the JAX one does not either.
+handler takes no images, as the JAX one does not either.  ``--spec-k K``
+(``serve(spec_k=K)``) makes every decode chunk of the continuous server
+verify passes of K prompt-lookup drafts a slot (``engine/speculative.py``;
+on the card K is at most 15 with ``--paged``).
 
 ``--blind`` and ``--quantize`` are the JAX server's flags: ``--blind``
 selects the text model (``models/phi3_mini_128k``), its absence the vision
@@ -26,6 +31,7 @@ either (``..._Q``).
 Example:
     python -m phi_3_vision_mlx_tpu_torch.serve.server --blind --quantize --port 8000
     python -m phi_3_vision_mlx_tpu_torch.serve.server --continuous --paged --slots 4 --window 4096
+    python -m phi_3_vision_mlx_tpu_torch.serve.server --blind --continuous --paged --spec-k 7
     curl -X POST http://localhost:8000/v1/completions \\
       -H "Content-Type: application/json" \\
       -d '{"prompt": "What is shown?", "images": ["cat.png"], "max_tokens": 64}'
@@ -38,7 +44,6 @@ import threading
 from collections import deque
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
-from ..engine.batching import refuse_unported
 from ..engine.stream import validate_stops
 
 MODEL_NAME = "phi-3-vision-tpu"
@@ -69,6 +74,7 @@ def make_handler(preload):
                 except ValueError as e:
                     _send_json(self, 400, {"error": str(e)})
                     return
+                temperature = float(body.get("temperature", 0.0))
                 responses = generate(
                     body.get("prompt", ""),
                     preload=preload,
@@ -76,7 +82,12 @@ def make_handler(preload):
                     verbose=False,
                     stream=False,
                     mute=True,
-                    sample=float(body.get("temperature", 0.0)) > 0,
+                    sample=temperature > 0,
+                    temperature=temperature,
+                    top_p=float(body.get("top_p", 1.0)),
+                    top_k=int(body.get("top_k", 0)),
+                    min_p=float(body.get("min_p", 0.0)),
+                    seed=int(body.get("seed", 0)),
                     stop=stop,
                 )
                 if isinstance(responses, str):
@@ -103,9 +114,10 @@ class ContinuousScheduler:
     pipelined (``step_pipelined``) unless ``pipelined=False``, and runs the
     preempted requests' recompute prefills outside the lock.  Both threads
     launch on the default stream, so launch order orders their work.  The
-    engine's decode-step graph is captured here, before either thread
-    starts: no admission prefill (its allocations, its launches on the
-    default stream) can overlap a capture, and every decode step is a
+    engine's decode graphs (greedy and sampled, of the step or of the
+    verify pass) are captured here, before either thread starts: no
+    admission prefill (its allocations, its launches on the default
+    stream) can overlap a capture, and every decode step is a
     replay on the default stream.  An engine error fails the requests it
     owns, not the pump.
     """
@@ -131,13 +143,13 @@ class ContinuousScheduler:
         threading.Thread(target=self._admission_worker, daemon=True).start()
         threading.Thread(target=self._pump, daemon=True).start()
 
-    def complete(self, prompt: str, max_tokens: int, temperature: float = 0.0, stop=None,
-                 images=None) -> str:
+    def complete(self, prompt: str, max_tokens: int, temperature: float = 0.0, top_p: float = 1.0,
+                 top_k: int = 0, min_p: float = 0.0, stop=None, images=None, seed=None) -> str:
         """Serve one request and return its text.  ``images``: decoded
         images for the prompt's ``<|image_i|>`` tags (vision model)."""
-        refuse_unported(temperature)
-        ticket = {"prompt": prompt, "images": images, "opts": dict(max_tokens=max_tokens, stop=stop),
-                  "rid": None, "error": None}
+        opts = dict(max_tokens=max_tokens, temperature=temperature, top_p=top_p, top_k=top_k,
+                    min_p=min_p, stop=stop, seed=seed)
+        ticket = {"prompt": prompt, "images": images, "opts": opts, "rid": None, "error": None}
         with self._cv:
             self._tickets.append(ticket)
             self._cv.notify_all()
@@ -237,8 +249,12 @@ def make_continuous_handler(scheduler: ContinuousScheduler):
                 except ValueError as e:
                     _send_json(self, 400, {"error": str(e)})
                     return
-                temperature = float(body.get("temperature", 0.0))
                 max_tokens = int(body.get("max_tokens", 128))
+                seed = body.get("seed")
+                knobs = dict(temperature=float(body.get("temperature", 0.0)),
+                             top_p=float(body.get("top_p", 1.0)), top_k=int(body.get("top_k", 0)),
+                             min_p=float(body.get("min_p", 0.0)),
+                             seed=None if seed is None else int(seed))
                 images = body.get("images")
                 if images:
                     if len(prompts) != 1:
@@ -247,11 +263,10 @@ def make_continuous_handler(scheduler: ContinuousScheduler):
                     from ..api import _apply_chat_template
 
                     prompt, loaded = _apply_chat_template(prompts[0], list(images), verbose=False)
-                    responses = [scheduler.complete(prompt, max_tokens, temperature=temperature,
-                                                    stop=stop, images=loaded)]
+                    responses = [scheduler.complete(prompt, max_tokens, stop=stop, images=loaded,
+                                                    **knobs)]
                 else:
-                    responses = [scheduler.complete(p, max_tokens, temperature=temperature, stop=stop)
-                                 for p in prompts]
+                    responses = [scheduler.complete(p, max_tokens, stop=stop, **knobs) for p in prompts]
                 _send_json(self, 200, {"model": MODEL_NAME, "responses": responses})
             except Exception as e:
                 _send_json(self, 500, {"error": str(e)})
@@ -263,14 +278,14 @@ def make_continuous_handler(scheduler: ContinuousScheduler):
 
 
 def serve(host: str = "127.0.0.1", port: int = 8000, preload=None, continuous: bool = False,
-          slots: int = 4, window: int = 1024, paged: bool = False, pipeline_depth: int = 1,
-          **load_kwargs):
+          slots: int = 4, window: int = 1024, paged: bool = False, spec_k: int = 0,
+          pipeline_depth: int = 1, **load_kwargs):
     from ..api import load
 
     preload = preload or load(**load_kwargs)
     if continuous:
         scheduler = ContinuousScheduler(*preload, slots=slots, window=window, paged=paged,
-                                        pipeline_depth=pipeline_depth)
+                                        spec_k=spec_k, pipeline_depth=pipeline_depth)
         httpd = ThreadingHTTPServer((host, port), make_continuous_handler(scheduler))
         print(f"Serving (continuous batching, {slots} slots x {window} window) "
               f"on http://{host}:{port}/v1/completions")
@@ -281,9 +296,9 @@ def serve(host: str = "127.0.0.1", port: int = 8000, preload=None, continuous: b
 
 
 def build_parser():
-    """The command line of the JAX server (``--spec-k`` waits for
-    speculative serving).  ``--blind`` selects the text model, the vision
-    model without it; ``--quantize`` picks the 4-bit checkpoint."""
+    """The command line of the JAX server.  ``--blind`` selects the text
+    model, the vision model without it; ``--quantize`` picks the 4-bit
+    checkpoint."""
     import argparse
 
     ap = argparse.ArgumentParser()
@@ -295,6 +310,8 @@ def build_parser():
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--window", type=int, default=1024)
     ap.add_argument("--paged", action="store_true", help="page-pool KV (engine/paging.py)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="per-slot speculative decoding: verify K prompt-lookup drafts a pass")
     ap.add_argument("--pipeline-depth", type=int, default=1,
                     help="decode chunks kept in flight by the pump")
     return ap
@@ -303,7 +320,8 @@ def build_parser():
 def main(argv=None) -> None:
     a = build_parser().parse_args(argv)
     serve(a.host, a.port, blind_model=a.blind, quantize_model=a.quantize, continuous=a.continuous,
-          slots=a.slots, window=a.window, paged=a.paged, pipeline_depth=a.pipeline_depth)
+          slots=a.slots, window=a.window, paged=a.paged, spec_k=a.spec_k,
+          pipeline_depth=a.pipeline_depth)
 
 
 if __name__ == "__main__":

@@ -264,14 +264,17 @@ def test_lone_request_on_a_small_pool_fails_cleanly(pair):
 
 
 def test_unported_options_raise(pair):
+    """Sampling and speculation are served; spec_k keeps the JAX engine's
+    range [0, 32]; an image request is still never batched."""
     _, (tlm, tproc) = pair
     eng = TPaged(tlm, tproc, slots=1, window=128)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.prepare("x", temperature=0.5)
+    prepared = eng.prepare("x", temperature=0.5)
+    assert prepared.temperature == 0.5 and eng.can_admit(prepared)
     with pytest.raises(ValueError, match="never batched"):
         eng.prepare_many(["x", "y"], [dict(images=["a.png"]), {}])
-    with pytest.raises(NotImplementedError, match="spec_k"):
-        TBatch(tlm, tproc, spec_k=2)
+    assert TBatch(tlm, tproc, spec_k=2).spec is not None
+    with pytest.raises(ValueError, match="spec_k"):
+        TBatch(tlm, tproc, spec_k=33)
 
 
 def _post(port, body):
@@ -323,8 +326,9 @@ def continuous_servers_agree(pair):
         for i in range(len(bodies)):
             assert results[i, tport] == results[i, jport]
             assert results[i, tport][0] == 200
-        code, payload = _post(tport, {"prompt": "x", "temperature": 0.7})
-        assert code == 500 and "sampling" in payload["error"]
+        for port in (jport, tport):
+            code, payload = _post(port, {"prompt": "x", "temperature": 0.7, "max_tokens": 4})
+            assert code == 200 and len(payload["responses"]) == 1
         code, payload = _post(tport, {"prompt": "x", "stop": ""})
         assert code == 400
     finally:

@@ -385,3 +385,122 @@ def test_static_buffers_keep_the_streams_when_pipelined(pair, jax_streams, paged
     eng.fail_all_active("test reset")
     assert eng.decoder is decoder and eng.state.k is k and not eng.state.valid.any()
     assert _drive(eng, PLAN, pipelined=True) == jax_streams[paged]
+
+
+# --- sampling and speculation: the sampled step and the verify pass -----------
+
+SAMPLER = (0.8, 0.9, 20, 0.05)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the sampled and speculative runs below: their
+    many small sorts and noise draws would otherwise keep every thread of
+    the suite's parallel workers spinning."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _no_sync(ops):
+    assert ops and not SYNCS & set(ops), sorted(SYNCS & set(ops))
+
+
+@pytest.mark.parametrize("cache", list(CACHES))
+def test_single_stream_sampled_step_and_verify_pass_have_no_host_sync(ckpt, cache, one_thread):
+    """The sampled decode step and the verify pass, greedy and sampled, of
+    the single-stream decoder (dense, int4, int8 caches)."""
+    _, (tlm, tproc) = _pair(ckpt, CACHES[cache])
+    dict_input = tproc(PROMPT)
+    dec, _ = TE.prefill_decoder(tlm, dict_input, 32, sampler=SAMPLER, seed=1)
+    dec.ring.start(1)
+    _no_sync(_recorded(dec.sampled_graph.step))
+    for sampler in (None, SAMPLER):
+        dec, _ = TE.prefill_decoder(tlm, dict_input, 32, sampler=sampler, seed=1)
+        spec = dec.spec_pass(3)
+        spec.start(TE.pad_prompt_inputs(dict_input, dec.state.offset)[0])
+        spec.left.fill_(10)
+        spec.ring.start(1)
+        ops = _recorded(spec.graph.step)
+        _no_sync(ops)
+        assert "index_copy_" in ops and "scatter_" in ops
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slots", "paged"])
+def test_slot_sampled_step_and_verify_pass_have_no_host_sync(pair, paged, one_thread):
+    """The slot and paged engines' sampled step, and their verify pass,
+    greedy and sampled, with a greedy and a sampled request active."""
+    _, (tlm, tproc) = pair
+    for spec_k in (0, 3):
+        eng = (TPaged(tlm, tproc, slots=3, window=256, page_size=32, spec_k=spec_k) if paged
+               else TBatch(tlm, tproc, slots=3, window=256, spec_k=spec_k))
+        eng.submit(PLAN[0][1][0], max_tokens=8)
+        eng.submit(PLAN[0][1][1], max_tokens=8, temperature=0.8, top_p=0.9, seed=2)
+        eng.step(1)
+        assert eng._sampling()
+        step = eng.spec or eng.decoder
+        step.active.copy_(torch.tensor([i in eng.by_slot for i in range(3)]))
+        for graph in (step.graph, step.sampled_graph):
+            step.ring.start(1)
+            _no_sync(_recorded(graph.step))
+
+
+def _stub(owner, name, *objs):
+    """Swap ``owner.<name>`` (an eager StepGraph) for a stub that captures at
+    its first call; ``objs`` hold every tensor the step may write."""
+    g = getattr(owner, name)
+    setattr(owner, name, StubStepGraph(g.step, "cpu", graphs=True, save=g.save,
+                                       touched=tensors_of(*objs)))
+    return getattr(owner, name)
+
+
+def test_capture_keeps_the_sampled_and_speculative_streams(pair, one_thread):
+    """The sampled step and the verify pass (greedy and sampled) captured
+    inside their first chunk (the warm-up undone through ``save``: the
+    offset, the token, the history, the budget, the generator's counters)
+    give the eager runs' rows chunk for chunk."""
+    _, (tlm, tproc) = pair
+    dict_input = tproc(PROMPT)
+
+    def run(stubbed, sampler, spec):
+        dec, first = TE.prefill_decoder(tlm, dict_input, 64, sampler=sampler, seed=7)
+        objs = (dec.state, dec, dec.ring) + ((dec.knobs, dec.knobs.gen) if sampler else ())
+        if spec:
+            owner = dec.spec_pass(3)
+            owner.start(TE.pad_prompt_inputs(dict_input, dec.state.offset)[0])
+            objs += (owner, owner.ring)
+            name, chunk = "graph", lambda n: owner.chunk(n, 40)
+        else:
+            owner, name, chunk = dec, "sampled_graph" if sampler else "graph", dec.chunk
+        g = _stub(owner, name, *objs) if stubbed else None
+        rows = [first.clone()] + [t.clone() for n in (5, 3) for t in chunk(n)]
+        assert g is None or g.graph is not None
+        return rows
+
+    for sampler, spec in ((SAMPLER, False), (None, True), (SAMPLER, True)):
+        want, got = run(False, sampler, spec), run(True, sampler, spec)
+        assert all(torch.equal(w, t) for w, t in zip(want, got)), (sampler, spec)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slots", "paged"])
+def test_capture_keeps_the_slot_engines_sampled_and_speculative_streams(pair, paged, one_thread):
+    """The slot and paged engines with spec_k = 3 and a sampled request,
+    their graphs captured inside the first chunk, pipelined two deep: the
+    eager engines' streams."""
+    _, (tlm, tproc) = pair
+
+    def run(stubbed):
+        eng = (TPaged(tlm, tproc, slots=3, window=256, page_size=32, spec_k=3, pipeline_depth=2)
+               if paged else TBatch(tlm, tproc, slots=3, window=256, spec_k=3, pipeline_depth=2))
+        if stubbed:
+            for name in ("graph", "sampled_graph"):
+                _stub(eng.spec, name, eng.state, eng.spec, eng.spec.ring, eng.knobs, eng.knobs.gen)
+        rids = [eng.submit(PLAN[0][1][0], max_tokens=20),
+                eng.submit(PLAN[0][1][1], max_tokens=20, temperature=0.9, seed=5)]
+        while eng.pending():
+            eng.step_pipelined(4)
+        eng.flush()
+        return [eng.tokens(r) for r in rids]
+
+    assert run(True) == run(False)

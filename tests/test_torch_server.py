@@ -103,9 +103,11 @@ def test_error_paths(ports):
         assert code == 500 and "error" in payload
         code, payload = post(ports[name], json.dumps({"prompt": "x", "stop": ""}).encode())
         assert code == 400 and "error" in payload
-    # Sampling is not ported: the port says so instead of decoding greedily.
-    code, payload = post(ports["torch"], json.dumps({"prompt": "x", "temperature": 0.7}).encode())
-    assert code == 500 and "sampling" in payload["error"]
+    # A sampled request answers from both packages.
+    for name in ("jax", "torch"):
+        body = {"prompt": "x", "temperature": 0.7, "top_p": 0.9, "seed": 3, "max_tokens": 4}
+        code, payload = post(ports[name], json.dumps(body).encode())
+        assert code == 200 and len(payload["responses"]) == 1
 
 
 def test_port_imports_no_jax():
