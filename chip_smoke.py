@@ -123,6 +123,31 @@ caught and carried on):
                M = 8 and 32, K3 and K4 at Lq = 8 at the windows 768 and
                4352, K6 and K7 at Lq = 8, each against its plain version and
                timed beside its bound and a library call.
+12. constrained decoding, choice selection, the agent and GTE — on the
+               same weights.  (a) The repair of verify passes of 17-33
+               rows: K3, K4, K6 and K7 at Lq = 16 from row0 = 16 and at Lq
+               = 1 from row0 = 32 against their plain versions (timed at
+               16 + 16); single-stream speculation at K = 31 (two launches
+               of 16 rows a layer), dense and int4 cache, and the paged
+               engine at spec_k = 20 (16 + 5 rows), dense and int4 pool,
+               each bitwise equal to its forced-reject baseline.  (b) A
+               2-layer full-width model: ``choose`` on three prompts of
+               unequal length and ``constrain`` greedy and with beams on
+               the card, each step repeated on the CPU's plain path
+               (fp32) on the same inputs: the steps' log-probs within a
+               stated limit, and the CPU's decisions (the run replayed on
+               the host with its numbers) the card's but at ties.  (c)
+               Full size, dense and int4 cache: ``api.choose`` on four
+               prompts, ``api.constrain`` with the JAX defaults and with
+               ``[(16, " A"), "ABCDE"]`` (the K3/K4 route), greedy and with
+               beams; the launches (K1, K2, K3 dense; K1, K2, K4, K5
+               int4), wall ms per step and per beam step, the choose time,
+               one profiled step of each kind.  (d) ``Agent()`` with its
+               default toolchain on a 2-layer model whose lm_head makes
+               its greedy output a python block, which the sandbox runs;
+               ``generate(enable_api=True)`` on a quoted prompt.  (e)
+               GTE-large (24 x 1024, random weights) on 8 texts, card
+               against CPU in f32.
 
 Phase 2 also holds K2 and K5 at phase 10's square-image prefill (its
 prompt bucket over its window, one left pad; K2 beside SDPA and its bound),
@@ -2233,12 +2258,14 @@ class RowsSeen:
 
     def __init__(self, module, names):
         self.module, self.saved, self.rows = module, {}, {n: set() for n in names}
+        self.row0s = {n: set() for n in names}  # the launches' first rows in their pass
         for name in names:
             fn = getattr(module, name)
             self.saved[name] = fn
 
             def wrapper(q, *a, _fn=fn, _name=name, **kw):
                 self.rows[_name].add(int(q.shape[2]))
+                self.row0s[_name].add(int(kw.get("row0", 0)))
                 return _fn(q, *a, **kw)
 
             setattr(module, name, wrapper)
@@ -2409,7 +2436,7 @@ def phase_sampling(torch, lm, proc, report):
         f"idle share {1 - sb / sw:.3f}, {sn:.0f} nodes (+{sn - gn:.0f}) on {report['card']}")
 
 
-def spec_run(torch, lm, dict_input, budget: int, accept: bool, oracle=None):
+def spec_run(torch, lm, dict_input, budget: int, accept: bool, oracle=None, k: int = SPEC_K):
     """Single-stream speculation as ``generate_text`` runs it (passes while
     the window holds one, then vanilla steps), without stoppers: the
     emitted tokens with their max and EOS log-probs, passes that emitted,
@@ -2423,7 +2450,7 @@ def spec_run(torch, lm, dict_input, budget: int, accept: bool, oracle=None):
                                                           release_decoder)
 
     dec, first = prefill_decoder(lm, dict_input, budget)
-    spec = dec.spec_pass(SPEC_K)
+    spec = dec.spec_pass(k)
     ids = pad_prompt_inputs(dict_input, dec.state.offset)[0]
     if oracle is not None:
         ids = ids.copy()
@@ -2435,7 +2462,7 @@ def spec_run(torch, lm, dict_input, budget: int, accept: bool, oracle=None):
     passes = dead = 0
     while len(toks) < budget:
         st = dec.state
-        if st.window - st.offset >= SPEC_K + 1:
+        if st.window - st.offset >= k + 1:
             left = budget - len(toks)
             n = spec.passes_for(left, SPEC_ITERS)
             t, m, e, n_emit = (x.cpu().numpy() for x in spec.chunk(n, left))
@@ -2865,6 +2892,763 @@ def phase_spec(torch, lm, lm_int4, proc, report):
     stamp("phase 11")
 
 
+# --- Phase 12: verify passes of 17-33 rows (row0), constrained decoding,
+# choice selection, the agent and GTE ------------------------------------------
+
+# (Lq, row0) of phase 12 (a)'s kernel checks: a pass's second group of 16
+# rows, and the last row of a 33-row pass.
+ROW0_CASES = ((16, 16), (1, 32))
+LONG_SPEC_K = 31  # single stream: a pass of 32 rows, two launches of 16
+PAGED_LONG_SPEC_K = 20  # paged: 21 rows, launches of 16 and 5
+# As phase 11 (b)'s budget, every token of the run comes from a pass: a
+# window with too little room for a pass ends in vanilla steps, whose single
+# row rounds bf16 apart from a pass's rows.
+LONG_SPEC_BUDGET = SPEC_BUDGET
+CHOOSE_PROMPTS = ["Is the sea salty? A: yes B: no", "Pick a colour: A red, B green, C blue",
+                  "Which is larger, 3 or 5? A: 3 B: 5", "Name the best answer."]
+# Phase 12 (b): three prompts of unequal length (left padding); the long
+# constraint's steps (1 + 22 rows) take K2, the short one's (1 + 2) K3.
+REF_PROMPTS = ["Is the sea salty?", "Which planet is the largest, Mars or Jupiter? Answer with a letter.",
+               "Pick one."]
+REF_CONSTRAINTS = [(2, " The correct answer is"), (2, " A"), "ABCDE"]
+SHORT_CONSTRAINTS = [(16, " A"), "ABCDE"]
+DEFAULT_CONSTRAINTS = [(0, "\nThe"), (100, " The correct answer is"), "ABCDE"]
+CONSTRAIN_PROMPT = "Which planet is the largest? A: Mars B: Jupiter C: Venus"
+# Phase 12 (b) holds each step's log-probs, card (bf16) against the CPU
+# (fp32) on the same inputs, to STEP_LP_ATOL absolute: phase 3 measured
+# 8.4e-3 relative L2 between the devices' logits through 2 layers of bf16,
+# and an H100 run of this phase measured at most 0.0907 over its 25 steps
+# (32064 log-probs a row).  Where the two devices' arrays are within it, a
+# decision (an argmax, a choice, a top-3 set, a mean-score comparison) can
+# part only where the CPU's margin between the two candidates is within
+# 2 * STEP_LP_ATOL: a tie, logged.
+STEP_LP_ATOL = 0.15
+# Phase 12 (e): the cosine of each pair of GTE embeddings, card against
+# CPU, both float32 (TF32 off): only the order of the f32 sums differs.
+GTE_COS_ATOL = 1e-4
+GTE_TEXTS = ["The lighthouse keeper logged the weather.", "Ships passed the island at dawn.",
+             "A coded journal was found in the lamp room.", "Transcribe youtube video",
+             "Text to speech", "Text to image", "The tide turned before the evening.",
+             "Random words: apple, river, seven, quiet."]
+# Phase 12 (d): the program the agent's generate must emit, and the prompt.
+AGENT_PROGRAM = "```python\nprint(6*7)\n```"
+AGENT_PROMPT = "Print six times seven with python."
+AGENT_MAX_TOKENS = 64
+
+
+def phase_row0_kernels(torch, report):
+    """Phase 12 (a): K3, K4, K6 and K7 on a later row group of a verify pass
+    (query i at offset + row0 + i) against their plain versions at
+    ROW0_CASES, each timed at Lq = 16, row0 = 16 beside its bound and, for
+    K3 and K6, SDPA with the same mask."""
+    import random
+
+    import torch.nn.functional as F
+
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
+    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(15)
+    b_, h, kvh, d, nl, lmax = 1, 32, 32, 96, 4, 768
+    scale = d**-0.5
+    kvq = KVQuantConfig(group_size=32, bits=4)
+    off = lmax - 64  # row0 + Lq <= 33 rows past it stay in the window
+    valid = torch.ones((b_, lmax), dtype=torch.bool, device=dev)
+    valid[:, :17] = False
+    ks = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+    vs = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev).to(torch.bfloat16)
+    k_ = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[0]
+    v_ = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[1]
+    payload, scales = quantize_chunk(k_.to(torch.bfloat16), v_.to(torch.bfloat16), kvq)
+    del k_, v_
+    off_t, nxt = dev_offset(torch, off), rotating(nl)
+    for lq, row0 in ROW0_CASES:
+        q = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        mask = causal_valid_mask(valid, off + row0 + torch.arange(lq, device=dev))
+        pairs = int(mask.sum())
+        shape = f"Lq={lq} row0={row0} Lmax={lmax} offset={off} H=32 D=96"
+        for name, kernel, plain, cache, per_key in (
+                ("K3", KV.dense_kv_attention, KV.dense_kv_attention_plain, (ks, vs), 2 * 2 * d),
+                ("K4", KV.quantized_kv_attention, KV.quantized_kv_attention_plain, (payload, scales),
+                 d + 8 * (d // 32))):
+            out = kernel(q, *cache, valid, off_t, 1, scale, row0=row0)
+            ref = plain(q, *cache, valid, off, 1, scale, row0=row0)
+            torch.cuda.synchronize()
+            ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+            log(f"phase 12 (a) {name} {shape}: max_abs={ea:.3e} max_rel={er:.3e}")
+            if not ok:
+                fail(f"{name} disagrees with its plain version at {shape}")
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], ea)
+            if (lq, row0) != (16, 16):
+                continue
+            t = timed(torch, lambda: kernel(q, *cache, valid, off_t, nxt(), scale, row0=row0),
+                      lambda: plain(q, *cache, valid, off_t, nxt(), scale, row0=row0), 20)
+            lib = None
+            if name == "K3":
+                def sdpa(layer):
+                    return F.scaled_dot_product_attention(q, ks[layer], vs[layer], attn_mask=mask, scale=scale)
+
+                lib = cuda_ms(torch, lambda: sdpa(nxt()), 20)
+            kend = min(lmax, off + row0 + lq)  # the keys a row of the launch can see
+            t.update(bound(kvh * kend * per_key + lmax + 2 * 2 * h * lq * d, 4 * h * d * pairs),
+                     library_ms=lib)
+            log(f"phase 12 (a) {name} {shape} timed: bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+                f"{t.pop('text')}" + ("" if lib is None else f"; library (SDPA) {lib:.4f} ms")
+                + f" on {report['card']}")
+            report[name]["timings"].append({"shape": shape + " (verify pass, second row group)", **t})
+    del ks, vs, payload, scales
+
+    s_, page, window, pool = SERVE_SLOTS, 64, SERVE_WINDOW, 64
+    offsets_l = (100, 400, 700, 960)
+    rng = random.Random(15)
+    ids = rng.sample(range(pool), pool)
+    tables = torch.full((s_, window // page), pool, dtype=torch.int32)
+    for i, o in enumerate(offsets_l):
+        cnt = min(-(-(o + 33) // page), window // page)
+        tables[i, :cnt] = torch.tensor([ids.pop() for _ in range(cnt)])
+    tables, offsets = tables.to(dev), torch.tensor(offsets_l, dtype=torch.int32, device=dev)
+    pvalid = torch.rand((s_, window), generator=g, device=dev) > 0.05
+    pvalid[:, :10] = False
+    pk = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev).to(torch.bfloat16)
+    pv = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev).to(torch.bfloat16)
+    k_ = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev) + KV_MEAN[0]
+    v_ = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev) + KV_MEAN[1]
+    qpools = quantize_chunk(k_.to(torch.bfloat16), v_.to(torch.bfloat16), kvq)
+    del k_, v_
+    wins = [(KV.gather_pages(pk[i], tables), KV.gather_pages(pv[i], tables)) for i in range(nl)]
+    for lq, row0 in ROW0_CASES:
+        q = torch.randn((s_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        vis = KV.paged_visible(pvalid, offsets, lq, row0)
+        keys = sum(min(o + row0 + lq, window) for o in offsets_l)
+        shape = f"S=4 offsets {','.join(map(str, offsets_l))} window 1024 page 64 Lq={lq} row0={row0}"
+        for name, kernel, plain, pools, per_key in (
+                ("K6", KV.paged_kv_attention, KV.paged_kv_attention_plain, (pk, pv), 2 * 2 * d),
+                ("K7", KV.paged_quantized_kv_attention, KV.paged_quantized_kv_attention_plain, qpools,
+                 d + 8 * (d // 32))):
+            out = kernel(q, *pools, tables, pvalid, offsets, nl - 1, scale, row0=row0)
+            ref = plain(q, *pools, tables, pvalid, offsets, nl - 1, scale, row0=row0)
+            torch.cuda.synchronize()
+            ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+            log(f"phase 12 (a) {name} {shape}: max_abs={ea:.3e} max_rel={er:.3e}")
+            if not ok:
+                fail(f"{name} disagrees with its plain version at {shape}")
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], ea)
+            if (lq, row0) != (16, 16):
+                continue
+            t = timed(torch, lambda: kernel(q, *pools, tables, pvalid, offsets, nxt(), scale, row0=row0),
+                      lambda: plain(q, *pools, tables, pvalid, offsets, nxt(), scale, row0=row0), 20)
+            lib = None
+            if name == "K6":
+                lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, *wins[nxt()], attn_mask=vis, scale=scale), 20)
+            nbytes = kvh * keys * per_key + s_ * window + 4 * tables.numel() + 2 * 2 * s_ * h * lq * d
+            t.update(bound(nbytes, 4 * h * d * int(vis.sum())), library_ms=lib)
+            log(f"phase 12 (a) {name} {shape} timed: bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+                f"{t.pop('text')}" + ("" if lib is None else f"; library (SDPA on the gathered windows) "
+                                                                f"{lib:.4f} ms") + f" on {report['card']}")
+            report[name]["timings"].append({"shape": shape + " (verify pass, second row group)", **t})
+    del pk, pv, qpools, wins
+
+
+def phase_long_verify(torch, lm, proc, report):
+    """Phase 12 (a): single-stream speculation at K = LONG_SPEC_K (a pass of
+    32 query rows: K3 or K4 launched on two groups of 16, the second at
+    row0 16): the stream bitwise equal to its forced-reject baseline, also
+    with that stream seeded as drafts (which verification then accepts)."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    cache = cache_of(lm)
+    label = f"{weights_of(lm)} weights, {cache} cache"
+    attn = {"int4": "quantized_kv_attention"}.get(cache, "dense_kv_attention")
+    dict_input = proc(api._apply_chat_template(LOOP_PROMPT)[0])
+    k, budget = LONG_SPEC_K, LONG_SPEC_BUDGET
+    seen = RowsSeen(phi3, (attn,))
+    try:
+        spec_run(torch, lm, dict_input, 16, False, k=k)  # the key's first pass captures its graph
+        counters = zero_counters()
+        acc = spec_run(torch, lm, dict_input, budget, True, k=k)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        forced = spec_run(torch, lm, dict_input, budget, False, k=k)
+        oracle = spec_run(torch, lm, dict_input, budget, True, oracle=forced[0], k=k)
+    finally:
+        seen.restore()
+    same = all(np.array_equal(x, y) for r in (acc, oracle) for x, y in zip(r[:3], forced[:3]))
+    log(f"phase 12 (a) speculation ({label}, K={k}: {k + 1} query rows a pass, {budget} tokens): "
+        f"{acc[3]} passes, forced-reject {forced[3]}, seeded drafts {oracle[3]}; each == forced-reject "
+        f"bitwise (tokens, max and EOS log-probs) {same}; query rows {sorted(seen.rows[attn])} from rows "
+        f"{sorted(seen.row0s[attn])}; launches {launches}")
+    if not same or oracle[3] >= forced[3]:
+        fail(f"phase 12 (a) ({label}): the {k + 1}-row passes differ from their forced-reject baseline "
+             "(or seeded drafts were never accepted)")
+    if 16 not in seen.rows[attn] or 16 not in seen.row0s[attn] or max(seen.rows[attn]) > 16:
+        fail(f"phase 12 (a) ({label}): a {k + 1}-row pass did not run as two groups of 16: "
+             f"{seen.rows[attn]} from {seen.row0s[attn]}")
+
+
+def phase_long_paged_verify(torch, lm, proc, report):
+    """Phase 12 (a): the paged engine with spec_k = PAGED_LONG_SPEC_K (21
+    query rows a pass: K6 or K7 launched at 16 rows and at 5 from row0 16),
+    four requests, against its forced-reject baseline token for token."""
+    from phi_3_vision_mlx_tpu_torch.engine import paging
+    from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine
+
+    cache = cache_of(lm)
+    name = {"int4": "paged_quantized_kv_attention"}.get(cache, "paged_kv_attention")
+    prompts = [(LOOP_PROMPT + FILLER)[: 100 + 100 * i] for i in range(SERVE_SLOTS)]
+
+    def run(accept: bool):
+        eng = PagedBatchEngine(lm, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW,
+                               spec_k=PAGED_LONG_SPEC_K, spec_accept=accept)
+        rids = [eng.submit(p, max_tokens=48) for p in prompts]
+        for _ in range(400):
+            if not eng.pending():
+                break
+            eng.step(2)
+        if eng.pending():
+            fail(f"phase 12 (a): the paged engine at spec_k={PAGED_LONG_SPEC_K} did not finish")
+        return [eng.tokens(r) for r in rids], dict(eng.spec_stats)
+
+    seen = RowsSeen(paging, (name,))
+    try:
+        counters = zero_counters()
+        acc, st_acc = run(True)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        forced, st_forced = run(False)
+    finally:
+        seen.restore()
+    log(f"phase 12 (a) paged speculation ({weights_of(lm)} weights, {cache} pool, spec_k="
+        f"{PAGED_LONG_SPEC_K}, 4 requests of 48 tokens): {st_acc}, forced-reject {st_forced}; tokens == "
+        f"forced-reject {acc == forced}; query rows {sorted(seen.rows[name])} from rows "
+        f"{sorted(seen.row0s[name])}; launches {launches}")
+    if acc != forced or any(len(t) != 48 for t in acc):
+        fail(f"phase 12 (a): paged speculation at spec_k={PAGED_LONG_SPEC_K} differs from its baseline")
+    if not {16, PAGED_LONG_SPEC_K + 1 - 16} <= seen.rows[name] or 16 not in seen.row0s[name]:
+        fail(f"phase 12 (a): the {PAGED_LONG_SPEC_K + 1}-row paged pass ran as {seen.rows[name]} "
+             f"from {seen.row0s[name]}")
+
+
+class StepMirror:
+    """Constrained decoding's device steps on the card, each call repeated
+    on a CPU twin with the same inputs (the twin's state follows the same
+    calls): ``records`` holds (kind, ids, card log-probs, CPU log-probs,
+    extra) per call, in order, where ``extra`` is the prefill's (l_pad,
+    window).  The card's host bookkeeping drives; the twin only mirrors."""
+
+    def __init__(self, torch, lm, twin, constrain):
+        self.torch, self.lm, self.twin, self.C = torch, lm, twin, constrain
+        self.records, self.cpu_state = [], None
+        self.run_prefill = constrain.run_prefill
+        constrain.run_prefill = self._prefill
+        for name in ("score_fn", "beam_fn", "nocache_fn"):
+            setattr(lm, name, getattr(self, "_" + name))
+
+    def restore(self):
+        self.C.run_prefill = self.run_prefill
+        for name in ("score_fn", "beam_fn", "nocache_fn"):
+            delattr(self.lm, name)
+
+    def _keep(self, kind, ids, card, cpu, extra=None):
+        self.records.append((kind, ids.cpu().numpy(), card.float().cpu().numpy(), cpu.float().numpy(), extra))
+
+    def _prefill(self, lm, dict_input, max_tokens):
+        out = self.run_prefill(lm, dict_input, max_tokens)
+        cpu = self.run_prefill(self.twin, dict_input, max_tokens)
+        self.cpu_state = cpu[1]
+        import numpy as np
+
+        self._keep("prefill", self.torch.as_tensor(np.asarray(dict_input["input_ids"])), out[0], cpu[0],
+                   (out[2], out[3]))
+        return out
+
+    def _score_fn(self, b, l, window, advance=None):
+        f, g = type(self.lm).score_fn(self.lm, b, l, window, advance), self.twin.score_fn(b, l, window, advance)
+
+        def call(params, ids, state):
+            lp, st = f(params, ids, state)
+            lp2, self.cpu_state = g(self.twin.params, ids.cpu(), self.cpu_state)
+            self._keep(f"score{advance}", ids, lp, lp2)
+            return lp, st
+
+        return call
+
+    def _beam_fn(self, b, l, window, n_beam):
+        f, g = type(self.lm).beam_fn(self.lm, b, l, window, n_beam), self.twin.beam_fn(b, l, window, n_beam)
+
+        def call(params, ids, state):
+            lp = f(params, ids, state)
+            self._keep("beam", ids, lp, g(self.twin.params, ids.cpu(), self.cpu_state))
+            return lp
+
+        return call
+
+    def _nocache_fn(self, b, l):
+        f, g = type(self.lm).nocache_fn(self.lm, b, l), self.twin.nocache_fn(b, l)
+
+        def call(params, ids, pids, valid):
+            lp = f(params, ids, pids, valid)
+            self._keep("nocache", ids, lp, g(self.twin.params, ids.cpu(), pids.cpu(), valid.cpu()))
+            return lp
+
+        return call
+
+
+class ReplayDiverged(Exception):
+    pass
+
+
+class ReplayLM:
+    """A stand-in LM whose steps return the CPU's recorded log-probs in
+    order, checking that each call's ids are the card run's: constrained
+    decoding replayed on the host with the CPU's numbers, so its decisions
+    are the CPU's.  A call whose ids differ raises ReplayDiverged: an
+    earlier decision parted.  Only the replay checks the decisions that sum
+    log-probs over several steps (``pre_beam_score > post_beam_score``, a
+    row's ``score > score_sofar``) and so the synthesized ids: ``step_ties``
+    sees one step's rows at a time.  Where a top-3 set parts at a tie, the
+    replay parts after it, and those later decisions go unchecked."""
+
+    def __init__(self, torch, records, constrain):
+        self.torch, self.records, self.C, self.n = torch, records, constrain, 0
+        self.device = torch.device("cpu")
+        self.params = None
+        self.run_prefill = constrain.run_prefill
+        constrain.run_prefill = lambda lm, dict_input, max_tokens: self._prefill(dict_input)
+
+    def restore(self):
+        self.C.run_prefill = self.run_prefill
+
+    def _next(self, kind, ids, n_beam: int = 1):
+        """The next record's CPU log-probs for ``ids``.  A beam call whose
+        candidates are the card's in another order (``argpartition`` does
+        not order its top n) gets the CPU's rows in that order."""
+        import numpy as np
+
+        if self.n >= len(self.records):
+            raise ReplayDiverged(f"call {self.n} past the card run's {len(self.records)}")
+        rec = self.records[self.n]
+        if rec[0] != kind or rec[1].shape != ids.shape:
+            raise ReplayDiverged(f"call {self.n} ({kind})")
+        order = np.arange(len(ids))
+        for r, row in enumerate(ids):  # each beam row among its cache row's n_beam
+            g = r - r % n_beam
+            hits = [g + j for j in range(n_beam) if np.array_equal(rec[1][g + j], row)]
+            if not hits:
+                raise ReplayDiverged(f"call {self.n} ({kind})")
+            order[r] = hits[0]
+        self.n += 1
+        return self.torch.from_numpy(np.ascontiguousarray(rec[3][order]))
+
+    def _prefill(self, dict_input):
+        import numpy as np
+
+        extra = self.records[min(self.n, len(self.records) - 1)][4]
+        return self._next("prefill", np.asarray(dict_input["input_ids"])), None, *(extra or (0, 0))
+
+    def score_fn(self, b, l, window, advance=None):
+        return lambda params, ids, state: (self._next(f"score{advance}", ids.numpy()), state)
+
+    def beam_fn(self, b, l, window, n_beam):
+        return lambda params, ids, state: self._next("beam", ids.numpy(), n_beam)
+
+    def nocache_fn(self, b, l):
+        return lambda params, ids, pids, valid: self._next("nocache", ids.numpy())
+
+
+def step_ties(records, option_ids, n_beam: int = 3):
+    """The decisions that part between the card and the CPU on the same
+    inputs: the free token (a prefill's or a step's first row), the beam's
+    top-``n_beam`` candidates there, and a choice among ``option_ids``;
+    each as (call, row, what, the CPU's margin between its own pick and
+    the card's)."""
+    import numpy as np
+
+    ties = []
+    for n, (kind, _, card, cpu, _) in enumerate(records):
+        if kind == "nocache":
+            card, cpu = card[:, option_ids], cpu[:, option_ids]
+        elif kind == "score1":
+            card, cpu = card[:, 0], cpu[:, 0]
+        elif kind != "prefill":
+            continue
+        a, b = card.argmax(-1), cpu.argmax(-1)
+        for r in np.flatnonzero(a != b):
+            ties.append((n, int(r), "argmax", float(cpu[r, b[r]] - cpu[r, a[r]])))
+        if kind == "nocache" or not n_beam:
+            continue
+        for r in range(len(card)):
+            top_card, top_cpu = (set(np.argpartition(-x[r], n_beam)[:n_beam].tolist()) for x in (card, cpu))
+            if top_card != top_cpu:
+                margin = min(cpu[r, list(top_cpu)]) - max(cpu[r, list(top_card - top_cpu)])
+                ties.append((n, r, f"top {n_beam}", float(margin)))
+    return ties
+
+
+def dequantized_linears(torch, node):
+    """``node`` on the CPU with each 4-bit linear leaf as a float32
+    ``weight``: the values K1's plain version dequantizes on every call
+    (``dequantize`` to the activations' f32, then an f32 matmul), made once."""
+    from phi_3_vision_mlx_tpu_torch.core.weights import unpack_int4
+    from phi_3_vision_mlx_tpu_torch.ops.quant import QTensor, dequantize
+
+    if not isinstance(node, dict):
+        return node.cpu()
+    if "qweight" not in node:
+        return {k: dequantized_linears(torch, v) for k, v in node.items()}
+    biases = node.get("biases")
+    out = {"weight": dequantize(QTensor(unpack_int4(node["qweight"].cpu()), node["scales"].cpu(),
+                                        None if biases is None else biases.cpu()), dtype=torch.float32)}
+    if "bias" in node:
+        out["bias"] = node["bias"].cpu()
+    return out
+
+
+def phase_constrain_reference(torch, params, proc):
+    """Phase 12 (b): a 2-layer full-width model, ``choose`` on three prompts
+    of unequal length and ``constrain`` (REF_CONSTRAINTS) greedy and with
+    beams, on the card (bf16), each step repeated on the CPU's plain path
+    (fp32, its 4-bit linears dequantized once: ``dequantized_linears``) on
+    the same inputs: every step's log-probs within STEP_LP_ATOL;
+    then the whole run replayed on the host with the CPU's numbers.  Every
+    decision of the run (an argmax, a choice, a top-3 set, a mean-score
+    comparison) compares sums of those log-probs, so where the steps agree
+    within STEP_LP_ATOL the CPU's decisions part from the card's only at a
+    margin within 2 * STEP_LP_ATOL: a tie.  The argmax ties and the call
+    where the replay parts (if it does) are logged; without a parting the
+    replay must give the card's choices and text."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine import constrain as C
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+
+    cfg = full_config().replace(num_hidden_layers=2)
+    small = {"model": {**params["model"], "layers": first_layers(params["model"]["layers"])},
+             "lm_head": params["lm_head"]}
+    lm = LM(cfg, small, device="cuda")
+    twin = LM(cfg.replace(dtype="float32"), dequantized_linears(torch, small), device="cpu")
+    prompts = api._apply_chat_template(REF_PROMPTS)[0]
+    option_ids = np.array([proc(f" {c}")["input_ids"][0, -1] for c in "ABCDE"])
+    runs = {"choose": lambda m: C.choose_from(m, proc, prompts, "ABCDE", mute=True)}
+    for beam in (False, True):
+        runs[f"constrain {'beam' if beam else 'greedy'}"] = (
+            lambda m, beam=beam: C.constrain_decode(m, proc, prompts, REF_CONSTRAINTS, mute=True,
+                                                    use_beam=beam, verbose=False))
+    for what, run in runs.items():
+        mirror = StepMirror(torch, lm, twin, C)
+        t0 = time.perf_counter()
+        try:
+            card_out = run(lm)
+        finally:
+            mirror.restore()
+        secs = time.perf_counter() - t0
+        worst = max(float(np.abs(r[2] - r[3]).max()) for r in mirror.records)
+        for kind, ids, card, cpu, _ in mirror.records:
+            if card.shape != cpu.shape or not np.isfinite(card).all():
+                fail(f"phase 12 (b) {what}: a {kind} step gave {card.shape} / {cpu.shape} or non-finite values")
+        ties = step_ties(mirror.records, option_ids, n_beam=3 if "beam" in what else 0)
+        replay = ReplayLM(torch, mirror.records, C)
+        try:
+            cpu_out, parted = run(replay), None
+        except ReplayDiverged as e:
+            cpu_out, parted = None, str(e)
+        finally:
+            replay.restore()
+        kinds = sorted({r[0] for r in mirror.records})
+        log(f"phase 12 (b) {what} (2 layers, width 3072, 3 prompts, card bf16 vs CPU fp32 on the same "
+            f"inputs, {secs:.1f} s with the CPU): {len(mirror.records)} steps ({', '.join(kinds)}), largest "
+            f"log-prob difference {worst:.4f} (limit {STEP_LP_ATOL}); ties {ties or 'none'}; card "
+            f"{card_out!r}; CPU's decisions {'the same' if cpu_out == card_out else cpu_out!r}"
+            + (f" (the replay parted at {parted}: a decision before it, an argmax or top-3 set above or "
+               f"else a mean-score comparison, had a margin within 2 x {worst:.4f})" if parted else ""))
+        if worst > STEP_LP_ATOL:
+            fail(f"phase 12 (b) {what}: a step's log-probs differ by {worst:.4f} between the card and the CPU")
+        if any(m > 2 * STEP_LP_ATOL for *_, m in ties):
+            fail(f"phase 12 (b) {what}: a decision parts beyond a tie: {ties}")
+        if parted is None and cpu_out != card_out:
+            fail(f"phase 12 (b) {what}: the CPU's decisions give {cpu_out!r}, the card's {card_out!r}")
+    del lm, twin
+
+
+class StepClock:
+    """Wall time of each ``score_fn`` step with ``advance`` 1 (``cfn``) and
+    each ``beam_fn`` call of an LM, synchronized (the caller reads the
+    log-probs back at once anyway)."""
+
+    def __init__(self, torch, lm):
+        self.torch, self.lm, self.ms = torch, lm, {"cfn": [], "beam": []}
+        lm.score_fn = self._wrap(type(lm).score_fn, "cfn", lambda advance: advance == 1)
+        lm.beam_fn = self._wrap(type(lm).beam_fn, "beam", lambda n_beam: True)
+
+    def _wrap(self, make, kind, timed_if):
+        def maker(b, l, window, *last, **kw):  # advance (score_fn) or n_beam (beam_fn)
+            last = last[0] if last else next(iter(kw.values()))
+            fn = make(self.lm, b, l, window, last)
+            if not timed_if(last):
+                return fn
+
+            def call(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                self.torch.cuda.synchronize()
+                self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            return call
+
+        return maker
+
+    def restore(self):
+        del self.lm.score_fn, self.lm.beam_fn
+
+
+def step_profile_idle(torch, fn, reps: int = 8):
+    """(host wall ms, device busy ms, idle share, kernels) of one call of
+    ``fn``, its log-probs read back as constrained decoding reads them."""
+    fn().cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn().cpu()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    per_name, launches = kernel_times(torch, lambda: fn().cpu(), 1)
+    busy = sum(per_name.values())
+    if busy <= 0:
+        fail("phase 12: the profiler saw no device time")
+    return wall, busy, 1 - busy / wall, launches
+
+
+def phase_constrain_full(torch, lm, proc, report):
+    """Phase 12 (c): full-size ``api.choose`` on four prompts and
+    ``api.constrain`` with the JAX defaults and with SHORT_CONSTRAINTS,
+    greedy and with beams, through the normal entry points: the launches of
+    the whole run (K1, K2 and K3 with the dense cache; K1, K2, K4 and K5
+    with the int4 cache), wall ms per step and per beam step, the choose
+    time, and one profiled step of each kind (idle share)."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.constrain import encode_suffix
+    from phi_3_vision_mlx_tpu_torch.engine.engine import run_prefill
+
+    cache = cache_of(lm)
+    label = f"{weights_of(lm)} weights, {cache} cache"
+    expected = ("K1", "K2") + (("K4", "K5") if cache == "int4" else ("K3",))
+    clock = StepClock(torch, lm)
+    counters = zero_counters()
+    outs = {}
+    try:
+        api.choose(CHOOSE_PROMPTS[:1], preload=(lm, proc), verbose=False)  # first use of the shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        letters = api.choose(CHOOSE_PROMPTS, preload=(lm, proc), verbose=False)
+        choose_ms = (time.perf_counter() - t0) * 1e3
+        for tag, constraints in (("defaults", DEFAULT_CONSTRAINTS), ("short", SHORT_CONSTRAINTS)):
+            for beam in (False, True):
+                t0 = time.perf_counter()
+                outs[tag, beam] = (api.constrain(CONSTRAIN_PROMPT, constraints=constraints,
+                                                 preload=(lm, proc), verbose=False, use_beam=beam),
+                                   time.perf_counter() - t0)
+        launches = {n: fn.launches for n, fn in counters.items()}
+    finally:
+        clock.restore()
+    log(f"phase 12 (c) api.choose ({label}, 4 prompts, one cache-free pass): {letters} in {choose_ms:.1f} ms "
+        f"on {report['card']}")
+    for (tag, beam), (text, secs) in outs.items():
+        log(f"phase 12 (c) api.constrain ({label}, {tag} constraints, {'beam' if beam else 'greedy'}): "
+            f"{secs:.2f} s, {text!r}")
+        want = "The correct answer is" if tag == "defaults" else " A"
+        if not isinstance(text, str) or want not in text or text.rstrip()[-1] not in "ABCDE":
+            fail(f"phase 12 (c) ({label}, {tag}, beam {beam}): {text!r}")
+    if len(letters) != 4 or any(c not in "ABCDE" for c in letters):
+        fail(f"phase 12 (c) ({label}): choose gave {letters}")
+    cfn, beam_ms = np.array(clock.ms["cfn"]), np.array(clock.ms["beam"])
+    log(f"phase 12 (c) steps ({label}): {len(cfn)} constrained steps, wall {cfn.mean():.3f} ms mean "
+        f"(median {np.median(cfn):.3f}); {len(beam_ms)} beam steps, wall {beam_ms.mean():.3f} ms mean "
+        f"(median {np.median(beam_ms):.3f}) on {report['card']}")
+    log(f"phase 12 (c) launches over choose and the four constrain runs ({label}): {launches}")
+    for name in expected:
+        if launches[name] <= 0:
+            fail(f"phase 12 (c) ({label}): {name} was never launched")
+    # One profiled step of each kind: the long constraint's (1 + 22 rows,
+    # K2/K5), the short one's (1 + 2 rows, K3/K4) and a beam step.
+    prompt = api._apply_chat_template(CONSTRAIN_PROMPT)[0]
+    for text in (" The correct answer is", " A"):
+        ids = encode_suffix(proc.tokenizer, text)
+        lcons = len(ids)
+        _, state, _, window = run_prefill(lm, proc(prompt), 100 + lcons + 10)
+        tiled = torch.as_tensor(np.tile(ids, (1, 1)), dtype=torch.long, device="cuda")
+        _, state = lm.score_fn(1, lcons, window, advance=0)(lm.params, tiled, state)
+        plus = torch.cat([tiled[:, :1], tiled], dim=1)
+        step = lm.score_fn(1, 1 + lcons, window, advance=0)
+        wall, busy, idle, n = step_profile_idle(torch, lambda: step(lm.params, plus, state)[0])
+        log(f"phase 12 (c) constrained step ({label}, {1 + lcons} rows): wall {wall:.3f} ms, busy {busy:.3f} "
+            f"ms, idle share {idle:.3f}, {n} kernels on {report['card']}")
+        beams = torch.cat([torch.tensor([[1005], [1006], [1007]], device="cuda"), tiled.expand(3, -1)], dim=1)
+        bfn = lm.beam_fn(3, 1 + lcons, window, 3)
+        wall, busy, idle, n = step_profile_idle(torch, lambda: bfn(lm.params, beams, state))
+        log(f"phase 12 (c) beam step ({label}, 3 x {1 + lcons} rows over the {state.window}-key window "
+            f"read with read_kv): wall {wall:.3f} ms, busy {busy:.3f} ms, idle share {idle:.3f}, {n} kernels "
+            f"on {report['card']}")
+        del state
+
+
+def agent_params(torch, lm, proc, program: str, prompt: str, max_tokens: int):
+    """Parameters of ``lm``'s model whose greedy ``api.generate`` of
+    ``prompt`` (chat template, ``max_tokens``) emits ``program`` then EOS:
+    the lm_head (dequantized to bf16) plus, for each position of the forced
+    stream, a column term alpha * pinv(H) that scores its target token
+    alpha above the rest, where H holds the final normed hidden states of
+    the engine's own path (the prefill's last position, then each forced
+    token's decode step), read with an identity lm_head."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.core.config import ID_EOS
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM, run_prefill
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+    from phi_3_vision_mlx_tpu_torch.ops.linear import dense
+
+    cfg, e, v = lm.cfg, lm.cfg.hidden_size, lm.cfg.vocab_size
+    targets = proc.tokenizer.encode(program, add_special_tokens=False) + [ID_EOS]
+    eye = torch.zeros((e, v), dtype=torch.bfloat16, device="cuda")
+    eye[:, :e] = torch.eye(e, dtype=torch.bfloat16, device="cuda")
+    probe = LM(cfg, {**lm.params, "lm_head": {"weight": eye}}, device="cuda", graphs=False)
+    dict_input = proc(api._apply_chat_template(prompt)[0])
+    with torch.no_grad():
+        last, state, _, _ = run_prefill(probe, dict_input, max_tokens)
+        hidden = [last[0, :e]]
+        for t in targets[:-1]:
+            res = phi3.decode_forward(probe.params, cfg, state, torch.tensor([[t]], device="cuda"))
+            state = res.state
+            hidden.append(res.logits[0, -1, :e].float())
+        h = torch.stack(hidden).double().cpu().numpy()  # (N, E)
+        w = dense(lm.params["lm_head"], torch.eye(e, dtype=torch.bfloat16, device="cuda")).float()
+    base = (torch.from_numpy(h).float().to("cuda") @ w).abs().max().item()
+    alpha = max(30.0, 4 * base)
+    cols = np.linalg.pinv(h) * alpha  # (E, N): h @ cols = alpha * I
+    add = np.zeros((e, v))
+    for k, t in enumerate(targets):
+        add[:, t] += cols[:, k]
+    head = (w.double() + torch.from_numpy(add).to("cuda")).to(torch.bfloat16)
+    log(f"phase 12 (d) agent weights: {len(targets)} forced tokens, largest base logit {base:.2f}, "
+        f"alpha {alpha:.1f}")
+    return {**lm.params, "lm_head": {"weight": head}}
+
+
+def phase_agent(torch, lm, proc, report):
+    """Phase 12 (d): ``Agent()`` with its default toolchain (add_code,
+    generate, execute) on a 2-layer full-width model whose greedy output
+    for AGENT_PROMPT is AGENT_PROGRAM (``agent_params``): the sandbox runs
+    the block and prints 42; then ``api.generate(enable_api=True)`` on a
+    quoted prompt returns its snippet, formatted."""
+    import contextlib
+    import io
+    import tempfile
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.agent.agent import Agent
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+
+    cfg = lm.cfg.replace(num_hidden_layers=2)
+    small = {"model": {**lm.params["model"], "layers": first_layers(lm.params["model"]["layers"])},
+             "lm_head": lm.params["lm_head"]}
+    lm2 = LM(cfg, small, device="cuda")
+    lm2 = LM(cfg, agent_params(torch, lm2, proc, AGENT_PROGRAM, AGENT_PROMPT, AGENT_MAX_TOKENS), device="cuda")
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            counters = zero_counters()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                agent = Agent(preload=(lm2, proc), max_tokens=AGENT_MAX_TOKENS)
+                out = agent(AGENT_PROMPT)
+            secs = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in counters.items()}
+            logged = json.load(open("agent_log.json"))
+        finally:
+            os.chdir(cwd)
+    printed = buf.getvalue()
+    codes = agent.ongoing.get("codes")
+    log(f"phase 12 (d) Agent (default toolchain, 2 layers, width 3072, {secs:.2f} s): responses "
+        f"{out['responses']!r}, files {out['files']}, codes {codes}, launches {launches}")
+    if (AGENT_PROGRAM not in str(out["responses"]) or codes != ["print(6*7)"]
+            or "*** Execution ***\nprint(6*7)\nNone\n42\nNone" not in printed or len(logged) != 1):
+        fail(f"phase 12 (d): the agent's generate or sandbox did not run the program: {printed[-400:]!r}")
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        fail(f"phase 12 (d): the agent's generate did not run on the kernels: {launches}")
+    quoted = 'Text to speech "good morning"'.replace('"', "<|api_input|>")
+    with contextlib.redirect_stdout(io.StringIO()):
+        snippet = api.generate(quoted, enable_api=True)
+    log(f"phase 12 (d) generate(enable_api=True) on a quoted prompt: {snippet!r}")
+    if len(snippet) != 1 or 'text="good morning"' not in snippet[0] or "{prompt}" in snippet[0]:
+        fail(f"phase 12 (d): generate(enable_api=True) gave {snippet!r}")
+
+
+def phase_gte(torch, report):
+    """Phase 12 (e): GTE-large (24 x 1024, random weights from a seed) on
+    GTE_TEXTS, on the card and on the CPU, both float32: the cosine of each
+    pair of embeddings within GTE_COS_ATOL; the card's time."""
+    import hashlib
+
+    from phi_3_vision_mlx_tpu_torch.core.weights import params_to
+    from phi_3_vision_mlx_tpu_torch.models import gte as G
+
+    cfg = G.GteConfig()
+    params = G.init_gte_params(cfg, torch.Generator(device="cuda").manual_seed(12))
+    rows = [[101] + [1000 + int(hashlib.md5(w.encode()).hexdigest(), 16) % (cfg.vocab_size - 1000)
+                     for w in t.lower().split()] + [102] for t in GTE_TEXTS]
+    n = max(len(r) for r in rows)
+    ids = torch.tensor([r + [0] * (n - len(r)) for r in rows])
+    mask = torch.tensor([[1] * len(r) + [0] * (n - len(r)) for r in rows])
+    types = torch.zeros_like(ids)
+
+    def embed(p, device):
+        x = G.average_pool(G.gte_forward(p, cfg, ids.to(device), types.to(device), mask.to(device)),
+                           mask.to(device))
+        x = x / torch.linalg.norm(x, dim=1, keepdim=True)
+        return x @ x.T
+
+    embed(params, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = embed(params, "cuda").cpu()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = embed(params_to(params, "cpu"), "cpu")
+    err = float((card - cpu).abs().max())
+    log(f"phase 12 (e) GTE-large (24 x 1024, {len(GTE_TEXTS)} texts of up to {n} tokens, f32): pairwise "
+        f"cosines card vs CPU max abs diff {err:.3e} (limit {GTE_COS_ATOL}); {ms:.1f} ms on the card "
+        f"({report['card']})")
+    if not torch.isfinite(card).all() or err > GTE_COS_ATOL:
+        fail(f"phase 12 (e): GTE embeddings differ between the card and the CPU by {err:.3e}")
+
+
+def phase_constrain(torch, params, lm, lm_int4, proc, report):
+    """Phase 12: verify passes of 17-33 rows, then constrained decoding,
+    choice selection, the agent and GTE."""
+    phase_row0_kernels(torch, report)
+    for model in (lm, lm_int4):
+        phase_long_verify(torch, model, proc, report)
+        phase_long_paged_verify(torch, model, proc, report)
+    stamp("phase 12 (a)")
+    phase_constrain_reference(torch, params, proc)
+    stamp("phase 12 (b)")
+    for model in (lm, lm_int4):
+        phase_constrain_full(torch, model, proc, report)
+    stamp("phase 12 (c)")
+    phase_agent(torch, lm, proc, report)
+    stamp("phase 12 (d)")
+    phase_gte(torch, report)
+    stamp("phase 12")
+
+
 def phase_checkpoint(torch):
     """The port alone makes an 8-bit model: a 2-layer full-width random
     checkpoint (``create_random_checkpoint``), quantized to 8 bits
@@ -2912,6 +3696,9 @@ def main() -> None:
         fail(f"the port is not importable from {ROOT}: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The agent's embedder (phase 12) downloads GTE weights only online;
+    # this script needs no network.
+    os.environ["HF_HUB_OFFLINE"] = "1"
 
     # Phase 1: device and build.
     card = nvidia_smi()
@@ -3059,6 +3846,8 @@ def main() -> None:
 
     # Phase 11: sampling and speculation on phases 3-6's 4-bit weights.
     phase_spec(torch, lm, lm_int4, proc, report)
+    # Phase 12: long verify passes, constrained decoding, the agent, GTE.
+    phase_constrain(torch, params, lm, lm_int4, proc, report)
     del lm, lm_int4, params
     torch.cuda.empty_cache()
     for pkg in ("jax", "phi_3_vision_mlx_tpu"):

@@ -17,8 +17,12 @@ that raises instead of running on the CPU.  ``load(quantize_cache=True)``
 KV cache (kernels K4/K5 on the card).  ``generate`` samples with
 ``sample=True`` (``temperature``, ``top_p``, ``top_k``, ``min_p``,
 ``seed``) and speculates with ``speculative=True``
-(``engine/speculative.py``).  ``choose``, ``constrain`` and adapters are
-not ported yet.
+(``engine/speculative.py``); with ``enable_api=True`` a prompt holding
+``<|api_input|>`` goes to ``agent/tools.get_api`` instead.  ``choose``
+selects an option in one cache-free pass and ``constrain`` runs
+constrained decoding, greedy or with ``use_beam`` (``engine/constrain.py``);
+``execute`` is the agent's code sandbox (``agent/sandbox.py``).  Adapters
+(``use_adapter=True``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ from __future__ import annotations
 import json
 import os
 
+from .agent.sandbox import execute as sandbox_execute
 from .core import weights as W
 from .core.registry import processor_for
+from .engine.constrain import choose_from, constrain_decode
 from .engine.engine import LM, generate_text
 from .utils.media import fetch_image, fetch_text
 
@@ -88,8 +94,7 @@ def load(blind_model: bool = False, quantize_model: bool = False, quantize_cache
     """Flag-based model selection (JAX ``load``): the vision model unless
     ``blind_model``, the 4-bit checkpoint with ``quantize_model`` (default
     ``False``), the 4-bit KV cache with ``quantize_cache``."""
-    if use_adapter:
-        raise NotImplementedError("adapters are not ported yet")
+    _no_adapter(use_adapter)
     if blind_model:
         model_path = PATH_QUANTIZED_PHI3_BLIND if quantize_model else PATH_ORIGINAL_PHI3_BLIND
     else:
@@ -97,6 +102,11 @@ def load(blind_model: bool = False, quantize_model: bool = False, quantize_cache
     if not os.path.exists(model_path):
         _setup()
     return _load(model_path=model_path, device=device, use_quantized_cache=quantize_cache, **kwargs)
+
+
+def _no_adapter(use_adapter: bool) -> None:
+    if use_adapter:
+        raise NotImplementedError("adapters are not ported yet")
 
 
 # The JAX package's names for the media fetchers.
@@ -145,12 +155,14 @@ def generate(
     blind_model=False,
     quantize_model=False,
     quantize_cache=False,
+    use_adapter=False,
     max_tokens=512,
     verbose=True,
     return_tps=False,
     early_stop=False,
     stream=True,
     apply_chat_template=True,
+    enable_api=False,
     mute=False,
     sample=False,
     temperature=1.0,
@@ -166,8 +178,15 @@ def generate(
     ``.size`` and ``.convert``).  Greedy by default; ``sample=True`` draws
     under ``temperature``, ``top_p``, ``top_k`` and ``min_p`` from ``seed``;
     ``speculative=True`` (default: ``PHI3V_TPU_SPEC=1``) runs prompt-lookup
-    speculation for a single prompt.  Without ``preload`` it loads the
-    model as :func:`load` does, with the same flags."""
+    speculation for a single prompt.  With ``enable_api`` a prompt string
+    holding ``<|api_input|>`` returns ``agent/tools.get_api``'s formatted
+    snippets, and no model runs.  Without ``preload`` it loads the model as
+    :func:`load` does, with the same flags."""
+    if isinstance(prompt, str) and "<|api_input|>" in prompt and enable_api:
+        from .agent.tools import get_api
+
+        return get_api(prompt)
+    _no_adapter(use_adapter)
     if preload is None:
         preload = load(blind_model=blind_model, quantize_model=quantize_model,
                        quantize_cache=quantize_cache)
@@ -178,3 +197,58 @@ def generate(
         temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
         speculative=speculative, stop=stop,
     )
+
+
+def choose(
+    prompt,
+    choices="ABCDE",
+    images=None,
+    preload=None,
+    blind_model=False,
+    quantize_model=False,
+    quantize_cache=False,
+    use_adapter=False,
+    verbose=True,
+    apply_chat_template=True,
+):
+    """Option selection in one cache-free pass (JAX ``choose``): the letter
+    of ``choices`` whose token the model ranks highest after the prompt
+    (one letter, or a list for a list of prompts).  ``images`` only reach
+    the banner, as in the JAX package."""
+    _no_adapter(use_adapter)
+    if preload is None:
+        preload = load(blind_model=blind_model, quantize_model=quantize_model,
+                       quantize_cache=quantize_cache)
+    if apply_chat_template:
+        prompt, _ = _apply_chat_template(prompt, images, verbose)
+    return choose_from(*preload, prompt=prompt, choices=choices)
+
+
+def constrain(
+    prompt,
+    constraints=[(0, "\nThe"), (100, " The correct answer is"), "ABCDE"],
+    images=None,
+    preload=None,
+    blind_model=False,
+    quantize_model=False,
+    quantize_cache=False,
+    use_adapter=False,
+    verbose=True,
+    apply_chat_template=True,
+    use_beam=False,
+):
+    """Constrained decoding (JAX ``constrain``): for each ``(n_free, text)``
+    up to ``n_free`` free tokens, then ``text`` forced where it scores best
+    by mean log-prob (``use_beam``: also trying the top 3 tokens before it);
+    a string of choices appends the chosen letter."""
+    _no_adapter(use_adapter)
+    if preload is None:
+        preload = load(blind_model=blind_model, quantize_model=quantize_model,
+                       quantize_cache=quantize_cache)
+    if apply_chat_template:
+        prompt = _apply_chat_template(prompt, None, verbose)[0]
+    return constrain_decode(*preload, prompt=prompt, constraints=constraints, use_beam=use_beam,
+                            verbose=verbose)
+
+
+execute = sandbox_execute

@@ -88,3 +88,12 @@ def from_jax_paged_pool(pool_k, pool_v, quantized: bool = False, bits: int = 4,
         return torch.cat([t, spare], dim=axis).contiguous()
 
     return with_spare(a), with_spare(b)
+
+
+def from_numpy_gte_params(tree: dict, device="cpu") -> dict:
+    """Nested dict of numpy arrays in the GTE layout (the JAX
+    ``init_gte_params`` / ``load_gte_npz`` tree) -> float32 tensors on
+    ``device`` (``models/gte.py``)."""
+    if isinstance(tree, dict):
+        return {k: from_numpy_gte_params(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree).astype(np.float32)).to(device)

@@ -144,9 +144,10 @@ __global__ void __launch_bounds__(kCombineThreads)
 
 // Grid (n_split, H, B), n_split = ceil(Lmax / split_keys).  Block s reads
 // keys [s * split_keys, min((s + 1) * split_keys, kend)), kend = min(Lmax,
-// *offset + Lq): the keys some row can see; a block with none writes every
-// row's empty partial (max NEG_INF, sum 0, output 0).  Query row i sees key
-// j iff j <= offset + i and valid[b, j].  The
+// *offset + row0 + Lq): the keys some row can see; a block with none writes
+// every row's empty partial (max NEG_INF, sum 0, output 0).  Query row i
+// sits at position offset + row0 + i (row0: the launch's first row of a
+// longer pass) and sees key j iff j <= offset + row0 + i and valid[b, j].  The
 // block's K and V rows are all requested at once (16-byte cp.async), so
 // every block resident on an SM has its whole run in flight.  It writes
 // each row's (max, sum, unnormalized output) to partial[s, row], row = (b *
@@ -157,7 +158,7 @@ __global__ void __launch_bounds__(kSplitThreads)
                           const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
                           float* __restrict__ partial, int H, int KV, int Lq, int Lmax,
                           long long qsb, long long qsh, long long qsl,
-                          const int* __restrict__ offset_ptr, float scale, int split_keys) {
+                          const int* __restrict__ offset_ptr, int row0, float scale, int split_keys) {
   constexpr int S = D + 8;        // K row stride in shared memory: conflict-free 16-byte reads
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   constexpr int kWarps = kSplitThreads / 32;
@@ -172,7 +173,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j0 = split * split_keys;
-  const int offset = *offset_ptr;
+  const int offset = *offset_ptr + row0;  // the position of query row 0
   const int n = min(split_keys, min(Lmax, offset + Lq) - j0);
   const size_t rows = (size_t)gridDim.y * gridDim.z * Lq;
   if (n <= 0) {  // past every row's last visible key: an empty partial
@@ -295,9 +296,9 @@ __global__ void __launch_bounds__(kSplitThreads)
 template <int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* valid,
                           void* out, void* partial, int B, int H, int KV, int Lq, int Lmax,
-                          const long long* st, int layer, const int* offset, float scale,
-                          int n_split, int split_keys, cudaStream_t stream) {
-  if (Lq < 1 || Lq > kSplitMaxRows || KV < 1 || H % KV || Lmax < 1 || offset == nullptr ||
+                          const long long* st, int layer, const int* offset, int row0,
+                          float scale, int n_split, int split_keys, cudaStream_t stream) {
+  if (Lq < 1 || Lq > kSplitMaxRows || KV < 1 || H % KV || Lmax < 1 || offset == nullptr || row0 < 0 ||
       split_keys < 1 || partial == nullptr || n_split != (Lmax + split_keys - 1) / split_keys)
     return cudaErrorInvalidValue;
   const size_t bytes = split_smem_bytes<D>(split_keys, Lq);
@@ -309,7 +310,7 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
   const __nv_bfloat16* vl = static_cast<const __nv_bfloat16*>(v) + (size_t)layer * layer_elems;
   dense_kv_split_kernel<D><<<dim3(n_split, H, B), kSplitThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), kl, vl, static_cast<const uint8_t*>(valid),
-      static_cast<float*>(partial), H, KV, Lq, Lmax, st[0], st[1], st[2], offset, scale,
+      static_cast<float*>(partial), H, KV, Lq, Lmax, st[0], st[1], st[2], offset, row0, scale,
       split_keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -344,17 +345,19 @@ extern "C" int k2_flash_attention(const void* q, const void* k, const void* v, c
 // place; valid (B, Lmax) uint8; partial f32 scratch of n_split * B * H * Lq
 // * (D + 2) floats, n_split = ceil(Lmax / split_keys); offset a device
 // pointer to one int32 >= 0, read by the kernels (the caller checks it).
-// Query i sits at position *offset + i.  Returns a cudaError_t.
+// Query i sits at position *offset + row0 + i: a pass of more than 16 rows
+// runs as launches on groups of 16, each with its own row0.  Returns a
+// cudaError_t.
 extern "C" int k3_dense_kv_attention(const void* q, const void* k, const void* v,
                                      const void* valid, void* out, void* partial, int B, int H,
                                      int KV, int Lq, int Lmax, int D, long long qsb, long long qsh,
                                      long long qsl, long long osb, long long osh, long long osl,
-                                     int layer, const void* offset, float scale, int n_split,
-                                     int split_keys, void* stream_ptr) {
+                                     int layer, const void* offset, int row0, float scale,
+                                     int n_split, int split_keys, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   switch (D) {
-    case 96: return (int)launch_decode<96>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, static_cast<const int*>(offset), scale, n_split, split_keys, stream);
+    case 96: return (int)launch_decode<96>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, static_cast<const int*>(offset), row0, scale, n_split, split_keys, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -51,12 +51,14 @@ namespace {
 
 // The paged window (split_runs.cuh): slot s's logical key j of kv head kvh
 // at page tables[s, j / page] (clamped into the pool), row j % page; query
-// i sees key j iff j <= offsets[s] + i and (valid[s, j] or j >= offsets[s]).
+// i sees key j iff j <= offsets[s] + row0 + i and (valid[s, j] or j >=
+// offsets[s]): the fresh region starts at the offset whatever row0 is.
 struct Pages {
   const int* tables;       // (S, mp) int32
   const uint8_t* valid;    // (S, mp * page)
   const int* offsets;      // (S,) int32, on the device
   int mp, page, KV, P1;    // P1 = P + 1 pages, the spare one included
+  int row0;                // the launch's first query row in the pass
   __host__ __device__ __forceinline__ int width() const { return mp * page; }
   __device__ __forceinline__ int offset(int s) const { return offsets[s]; }
   __device__ __forceinline__ size_t row(int s, int kvh, int j) const {
@@ -109,18 +111,20 @@ struct DenseRun {
 // bf16 with strides (osb, osh, osl); partial f32 scratch of n_split * S * H
 // * Lq * (D + 2) floats; split_keys (keys per block) a multiple of 64 and
 // n_split = ceil(mp * page / split_keys) (the wrapper's paged_split_plan).
-// Returns a cudaError_t.
+// Query i of slot s sits at position offsets[s] + row0 + i (row0 >= 0: a
+// pass of more than 16 rows runs as launches on groups of 16).  Returns a
+// cudaError_t.
 extern "C" int k6_paged_kv_attention(const void* q, const void* pool_k, const void* pool_v,
                                      const void* tables, const void* valid, const void* offsets,
                                      void* out, void* partial, int S, int H, int KV, int Lq,
                                      int P1, int page, int mp, int D, long long qsb, long long qsh,
                                      long long qsl, long long osb, long long osh, long long osl,
-                                     int layer, float scale, int n_split, int split_keys,
-                                     void* stream_ptr) {
+                                     int layer, int row0, float scale, int n_split,
+                                     int split_keys, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   const Pages pg{static_cast<const int*>(tables), static_cast<const uint8_t*>(valid),
-                 static_cast<const int*>(offsets), mp, page, KV, P1};
+                 static_cast<const int*>(offsets), mp, page, KV, P1, row0};
   const size_t layer_elems = (size_t)P1 * KV * page * D;
   switch (D) {
     case 96: return (int)launch_split_runs<96, DenseRun<96>>(
@@ -141,12 +145,12 @@ extern "C" int k7_paged_quantized_kv_attention(const void* q, const void* payloa
                                                int page, int mp, int D, long long qsb,
                                                long long qsh, long long qsl, long long osb,
                                                long long osh, long long osl, int layer,
-                                               float scale, int n_split, int split_keys,
-                                               void* stream_ptr) {
+                                               int row0, float scale, int n_split,
+                                               int split_keys, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   const Pages pg{static_cast<const int*>(tables), static_cast<const uint8_t*>(valid),
-                 static_cast<const int*>(offsets), mp, page, KV, P1};
+                 static_cast<const int*>(offsets), mp, page, KV, P1, row0};
   const size_t layer_rows = (size_t)P1 * KV * page;
   switch (D) {
     case 96: {

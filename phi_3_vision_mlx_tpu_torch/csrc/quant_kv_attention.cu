@@ -102,6 +102,7 @@ struct Stacked {
   const uint8_t* valid;  // (B, Lmax)
   const int* off;        // (1,) int32, on the device
   int KV, L;
+  int row0;              // the launch's first query row in the pass
   __host__ __device__ __forceinline__ int width() const { return L; }
   __device__ __forceinline__ int offset(int) const { return *off; }
   __device__ __forceinline__ size_t row(int s, int kvh, int j) const { return ((size_t)s * KV + kvh) * L + j; }
@@ -112,14 +113,14 @@ template <int D, int MODE>
 cudaError_t launch_quantized_decode(const void* q, const void* payload, const void* scales,
                                     const void* valid, void* out, void* partial, int B, int H,
                                     int KV, int Lq, int Lmax, const long long* st, int layer,
-                                    const void* offset, float scale, int n_split, int block_keys,
-                                    cudaStream_t stream) {
+                                    const void* offset, int row0, float scale, int n_split,
+                                    int block_keys, cudaStream_t stream) {
   constexpr int G = D / kGroup;
   if (offset == nullptr) return cudaErrorInvalidValue;
   const size_t layer_keys = (size_t)B * KV * Lmax;
   const uint8_t* p = static_cast<const uint8_t*>(payload) + (size_t)layer * layer_keys * D;
   const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(scales) + (size_t)layer * layer_keys * 4 * G;
-  const Stacked win{static_cast<const uint8_t*>(valid), static_cast<const int*>(offset), KV, Lmax};
+  const Stacked win{static_cast<const uint8_t*>(valid), static_cast<const int*>(offset), KV, Lmax, row0};
   return launch_split_runs<D, Int4Run<D, MODE>>(q, p, s, win, out, partial, B, H, Lq, st, scale,
                                                  n_split, block_keys, stream);
 }
@@ -134,19 +135,20 @@ cudaError_t launch_quantized_decode(const void* q, const void* payload, const vo
 // split_keys (keys per block) a multiple of 64 and n_split = ceil(Lmax /
 // split_keys) (the wrapper's quantized_split_plan); payload 16-byte and
 // scales 8-byte aligned; offset a device pointer to one int32 >= 0 (the
-// caller checks it).  Query i sits at position *offset + i.  Returns a
-// cudaError_t.
+// caller checks it).  Query i sits at position *offset + row0 + i (row0 >=
+// 0: a pass of more than 16 rows runs as launches on groups of 16).
+// Returns a cudaError_t.
 extern "C" int k4_quantized_kv_attention(const void* q, const void* payload, const void* scales,
                                          const void* valid, void* out, void* partial, int B,
                                          int H, int KV, int Lq, int Lmax, int D, long long qsb,
                                          long long qsh, long long qsl, long long osb,
                                          long long osh, long long osl, int layer,
-                                         const void* offset, float scale, int n_split, int split_keys,
-                                         void* stream_ptr) {
+                                         const void* offset, int row0, float scale, int n_split,
+                                         int split_keys, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   switch (D) {
-    case 96: return (int)launch_quantized_decode<96, kFp32>(q, payload, scales, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, offset, scale, n_split, split_keys, stream);
+    case 96: return (int)launch_quantized_decode<96, kFp32>(q, payload, scales, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, offset, row0, scale, n_split, split_keys, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -183,15 +185,15 @@ extern "C" int e23_quantized_kv_attention_variant(const void* q, const void* pay
                                                   int Lmax, int D, long long qsb, long long qsh,
                                                   long long qsl, long long osb, long long osh,
                                                   long long osl, int layer, const void* offset,
-                                                  float scale, int n_split, int split_keys,
-                                                  int mode, void* stream_ptr) {
+                                                  int row0, float scale, int n_split,
+                                                  int split_keys, int mode, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   if (D != 96) return (int)cudaErrorInvalidValue;
 #define E23_CASE(M)                                                                               \
   case M:                                                                                         \
     return (int)launch_quantized_decode<96, M>(q, payload, scales, valid, out, partial, B, H, KV, \
-                                               Lq, Lmax, st, layer, offset, scale, n_split,      \
+                                               Lq, Lmax, st, layer, offset, row0, scale, n_split, \
                                                split_keys, stream);
   switch (mode) {
     E23_CASE(kFp32)

@@ -40,11 +40,14 @@
 //
 // The window (the other seam) says where logical key j of cache row s and
 // kv head kvh lies, the row's offset, and whether a key is listed (may be
-// seen); key j is visible from query i iff listed and j <= offset + i.  A
+// seen); query i of a launch sits at position offset + row0 + i and sees key
+// j iff listed and j <= offset + row0 + i (row0: the launch's first row of a
+// pass of more than 16 rows, which runs as launches on groups of 16).  A
 // row that sees no key comes out as the uniform average of every value of
 // its window, as the plain versions' finite NEG_INF gives.  A window has
-// KV, width() (its keys), offset(s), row(s, kvh, j) (the key's row in the
-// loader's arrays) and listed(s, j, offset):
+// KV, row0, width() (its keys), offset(s), row(s, kvh, j) (the key's row in
+// the loader's arrays) and listed(s, j, offset), which takes the offset
+// without row0:
 // * Pages (K6, K7): the page table, per-slot offsets on the device and the
 //   fresh-region rule, listed iff valid[s, j] or j >= offsets[s];
 // * Stacked (K4): row (s * KV + kvh) * Lmax + j of the layer's stacked
@@ -134,7 +137,7 @@ struct Int4Run {
 
 // Grid (n_split, H, rows of the cache), kRunThreads threads.  Block `blk`
 // reads keys [blk * block_keys, min((blk + 1) * block_keys, kend)) of row s
-// in runs of kRunKeys, kend = min(W, offset + Lq) (kNoSoftmax: W): the keys
+// in runs of kRunKeys, kend = min(W, offset + row0 + Lq) (kNoSoftmax: W): the keys
 // some query row can see.  It writes each of the row's Lq query rows'
 // (max, sum, unnormalized output) to partial[blk, (s * H + h) * Lq + i]; a
 // query row that sees no key of the block carries max NEG_INF and sum 0.  A
@@ -172,9 +175,9 @@ __global__ void __launch_bounds__(kRunThreads)
   const int kvh = h / (H / win.KV);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int W = win.width(), off = win.offset(s);
+  const int W = win.width(), off = win.offset(s), q0 = off + win.row0;  // q0: query row 0's position
   const int jb = blk * block_keys;
-  const int je = min(kSoftmax ? min(W, off + Lq) : W, jb + block_keys);
+  const int je = min(kSoftmax ? min(W, q0 + Lq) : W, jb + block_keys);
   float* dst = partial + ((size_t)blk * gridDim.y * gridDim.z * Lq + ((size_t)s * H + h) * Lq) * (D + 2);
   if (je <= jb) {
     if (tid < Lq) {
@@ -269,7 +272,7 @@ __global__ void __launch_bounds__(kRunThreads)
 #pragma unroll
           for (int g = 0; g < G; ++g) v = fmaf(sm_qs[r][g], key_scale(c, 1, g), v);
         }
-        if constexpr (kSoftmax) ps[r * kPStride + c] = listed[c] && j0 + c <= off + r ? v : -INFINITY;  // -inf: not seen
+        if constexpr (kSoftmax) ps[r * kPStride + c] = listed[c] && j0 + c <= q0 + r ? v : -INFINITY;  // -inf: not seen
         else ps[r * kPStride + c] = listed[c] ? v : 0.f;  // P is the score; keys past n weigh nothing
       }
     }
@@ -392,7 +395,7 @@ __global__ void __launch_bounds__(kRunThreads)
 }
 
 // Grid (H, rows of the cache), 32 * Lq threads: warp i merges query row i's
-// blocks up to its last visible key, offset + i (the blocks after it are
+// blocks up to its last visible key, offset + row0 + i (the blocks after it are
 // empty for the row), in block order (deterministic), kDeep at a time with
 // all their loads in flight; lane l holds dims l + 32 r.  A row that sees no
 // key in any block gets the uniform average of every value of its window,
@@ -424,7 +427,7 @@ __global__ void __launch_bounds__(32 * kRunMaxRows)
     for (int r = 0; r < PER; ++r) o[lane + 32 * r] = __float2bfloat16(acc[r]);
     return;
   }
-  const int live = min(n_split, min(W - 1, win.offset(s) + i) / block_keys + 1);
+  const int live = min(n_split, min(W - 1, win.offset(s) + win.row0 + i) / block_keys + 1);
 
   float m = kNegInf, lsum = 0.f;
   for (int t0 = 0; t0 < live; t0 += kDeep) {
@@ -518,7 +521,7 @@ cudaError_t launch_split_runs(const void* q, const void* a, const void* b, const
                               const long long* st, float scale, int n_split, int block_keys,
                               cudaStream_t stream) {
   const int W = win.width();
-  if (Lq < 1 || Lq > kRunMaxRows || win.KV < 1 || H % win.KV || W < 1 || block_keys < kRunKeys ||
+  if (Lq < 1 || Lq > kRunMaxRows || win.KV < 1 || H % win.KV || W < 1 || win.row0 < 0 || block_keys < kRunKeys ||
       block_keys % kRunKeys || n_split != (W + block_keys - 1) / block_keys || partial == nullptr)
     return cudaErrorInvalidValue;
   return block_keys == kRunKeys

@@ -450,15 +450,12 @@ class BatchEngine:
         text = eng.result(rid)
     """
 
-    # The pass's attention runs a kernel with a row limit (the paged engine).
-    spec_kernel_rows = False
-
     def __init__(self, lm, processor, slots: int = 4, window: int = 1024,
                  pipeline_depth: int = 1, spec_k: int = 0, spec_accept: bool = True,
                  seed: int = 0):
         if window % 128:
             raise ValueError("window must be a multiple of 128 (engine bucketing)")
-        check_spec_k(spec_k, lm.device, self.spec_kernel_rows)
+        check_spec_k(spec_k)
         self.lm = lm
         self.processor = processor
         self.slots = slots

@@ -36,7 +36,9 @@ engine.  ``speculative=True`` (or ``PHI3V_TPU_SPEC=1``) verifies K
 prompt-lookup drafts a pass (``engine/speculative.py``), a third and fourth
 graph of the entry over the same state, then finishes the window's tail
 through the vanilla graph.  The continuous-batching engines are
-``engine/batching.py`` and ``engine/paging.py``.
+``engine/batching.py`` and ``engine/paging.py``.  Constrained decoding's
+device steps (:meth:`LM.score_fn`, :meth:`LM.beam_fn`,
+:meth:`LM.nocache_fn`; ``engine/constrain.py``) run eagerly.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import os
 import threading
 import time
 from collections import Counter, OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -207,6 +210,59 @@ class LM:
         self.decoders: OrderedDict = OrderedDict()  # (B, window) -> Decoder, newest last
         self.lock = threading.Lock()  # guards decoders
         self.entry_uses = Counter()  # requests that "reused" an entry or "made" one
+
+    # Constrained decoding's device steps (JAX ``LM.score_fn``, ``beam_fn``,
+    # ``nocache_fn``): each returns a callable giving f32 log-softmax, as the
+    # JAX ones do.  The JAX package compiles one per shape; these run
+    # eagerly and check the shape they were made for.
+
+    def score_fn(self, b: int, l: int, window: int, advance: Optional[int]):
+        """``f(params, ids (B, L), state) -> (log-probs (B, L, V), state)``:
+        score a chunk through ``decode_forward``, committing ``advance``
+        positions (0: written but not committed, the next call overwrites
+        it; 1: a constrained step; None: all)."""
+        cfg = self.cfg
+
+        @torch.no_grad()
+        def f(params, ids, state):
+            _check_step("score_fn", ids, (b, l), state, window)
+            res = phi3.decode_forward(params, cfg, state, ids, advance=advance)
+            return torch.log_softmax(res.logits.float(), dim=-1), res.state
+
+        return f
+
+    def beam_fn(self, b: int, l: int, window: int, n_beam: int):
+        """``f(params, beam_ids (B * n_beam, L), state) -> log-probs (B *
+        n_beam, L, V)``: the beam read path, which writes nothing."""
+        cfg = self.cfg
+
+        @torch.no_grad()
+        def f(params, beam_ids, state):
+            _check_step("beam_fn", beam_ids, (b, l), state, window)
+            res = phi3.decode_forward(params, cfg, state, beam_ids, n_beam=n_beam)
+            return torch.log_softmax(res.logits.float(), dim=-1)
+
+        return f
+
+    def nocache_fn(self, b: int, l: int):
+        """``f(params, ids, pids, valid) -> log-probs (B, V)`` of the last
+        position of a cache-free causal pass (``phi3.forward_nocache``)."""
+        cfg = self.cfg
+
+        @torch.no_grad()
+        def f(params, ids, pids, valid):
+            if tuple(ids.shape) != (b, l):
+                raise ValueError(f"nocache_fn made for {(b, l)}, called with {tuple(ids.shape)}")
+            logits = phi3.forward_nocache(params, cfg, ids, pids=pids, prompt_valid=valid)
+            return torch.log_softmax(logits[:, -1, :].float(), dim=-1)
+
+        return f
+
+
+def _check_step(name: str, ids, shape, state, window: int) -> None:
+    if tuple(ids.shape) != shape or state.window != window:
+        raise ValueError(f"{name} made for {shape} in a window of {window}, called with "
+                         f"{tuple(ids.shape)} in {state.window}")
 
 
 def pad_prompt_inputs(dict_input: dict, target_l: int):
@@ -418,12 +474,12 @@ def release_decoder(lm: LM, dec: Decoder) -> None:
 def spec_settings(lm: LM):
     """(K, passes a chunk at most) of single-stream speculation, from
     ``PHI3V_TPU_SPEC_K`` (7) and ``PHI3V_TPU_SPEC_ITERS`` (64) as the JAX
-    engine reads them, checked against what the model's path takes."""
+    engine reads them, K checked against the JAX range."""
     from .speculative import check_spec_k
 
     k = int(os.environ.get("PHI3V_TPU_SPEC_K", "7"))
     iters = int(os.environ.get("PHI3V_TPU_SPEC_ITERS", "64"))
-    check_spec_k(k, lm.device, kernel_rows=True)
+    check_spec_k(k)
     if not 1 <= k or not 1 <= iters <= DECODE_CHUNK_MAX:
         raise ValueError(f"PHI3V_TPU_SPEC_K={k} and PHI3V_TPU_SPEC_ITERS={iters}: K must be "
                          f">= 1 and the passes a chunk in [1, {DECODE_CHUNK_MAX}]")

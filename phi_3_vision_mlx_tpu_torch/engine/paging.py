@@ -34,8 +34,9 @@ their plain versions.  Sampling and speculation are the slot engine's
 through the page tables and runs K6/K7 at Lq = K + 1, their fresh-region
 rule showing each query the pass's own columns up to it; the host maps
 every page a worst-case chunk can touch first (n passes x (K + 1) columns
-a slot, JAX ``paging.py:893``).  K6/K7 take at most 16 query rows, so on
-the card ``spec_k`` is at most 15.
+a slot, JAX ``paging.py:893``).  K6/K7 take at most 16 query rows a
+launch, so a pass of more runs as launches on groups of 16, each with its
+``row0`` (``kv_attention.by_row_groups``): ``spec_k`` takes [0, 32].
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ import numpy as np
 import torch
 
 from ..core.weights import torch_dtype
-from ..ops.kernels.kv_attention import paged_kv_attention, paged_quantized_kv_attention
+from ..ops.kernels.kv_attention import by_row_groups, paged_kv_attention, paged_quantized_kv_attention
 from .batching import BatchEngine, SlotState, _Prepared, adopt_row, slot_fields, to_device
 from .engine import round_up, run_prefill
 from .state import alloc_cache, dequantize_kv, quantize_chunk
@@ -98,11 +99,12 @@ def _paged_read(st: PagedState, i: int, q, scale: float):
     cache's kernel, module docstring)."""
     tables, valid, offsets = st.page_tables, st.valid, st.offsets
     if not st.quantized:
-        return paged_kv_attention(q, st.k, st.v, tables, valid, offsets, i, scale)
+        return by_row_groups(paged_kv_attention, q, st.k, st.v, tables, valid, offsets, i, scale)
     if st.kv_quant.bits == 4:
-        return paged_quantized_kv_attention(q, st.k, st.k_scales, tables, valid, offsets, i, scale)
+        return by_row_groups(paged_quantized_kv_attention, q, st.k, st.k_scales, tables, valid,
+                             offsets, i, scale)
     kl, vl = dequantize_kv(st.k[i], st.k_scales[i], q.dtype, st.kv_quant.bits)
-    return paged_kv_attention(q, kl[None], vl[None], tables, valid, offsets, 0, scale)
+    return by_row_groups(paged_kv_attention, q, kl[None], vl[None], tables, valid, offsets, 0, scale)
 
 
 def _paged_attention(st: PagedState, active: torch.Tensor):
@@ -128,8 +130,8 @@ def _paged_attention(st: PagedState, active: torch.Tensor):
 def _paged_spec_attention(st: PagedState, active, wpos, cols, src):
     """A verify pass's ``attend`` over the pool: the K + 1 columns ``wpos``
     (S, K + 1) of each active slot go through its page table (the spare
-    page past the window and for inactive slots), then K6/K7 at Lq = K + 1
-    (JAX ``_paged_spec_decode_chunk``)."""
+    page past the window and for inactive slots), then K6/K7 at Lq = K + 1,
+    in groups of 16 rows (JAX ``_paged_spec_decode_chunk``)."""
     w = st.valid.shape[1]
     spare, page = st.k.shape[1] - 1, st.k.shape[3]
     idx = (wpos // page).clamp(max=st.page_tables.shape[1] - 1)
@@ -176,8 +178,6 @@ class PagedBatchEngine(BatchEngine):
     whole window.  Pool saturation preempts the youngest request (its pages
     are released) and resumes it by recompute when pages free up.
     """
-
-    spec_kernel_rows = True  # K6/K7 take at most 16 query rows
 
     def __init__(self, lm, processor, slots: int = 4, window: int = 1024, page_size: int = 64,
                  pool_pages: int = 0, pipeline_depth: int = 1, spec_k: int = 0,

@@ -20,10 +20,10 @@ host sizes each chunk's passes from the budget left (:meth:`SpecPass.
 passes_for`): no more than the budget can take at K + 1 tokens a pass.
 The pass advances the device offset by its device ``n_emit``; the host's
 mirror follows at the chunk's fetch.  Its attention takes the
-decode route (K3/K4) at L = K + 1, whose kernels take at most 16 query rows
-(``models/phi3.py:MAX_DECODE_ROWS``): on the card K is at most 15
-(:func:`check_spec_k`); the CPU's plain paths take K up to 32, as the JAX
-engines do.
+decode route (K3/K4) at L = K + 1; those kernels take at most 16 query rows
+a launch, so a pass of more rows runs as launches on groups of 16, each
+with its ``row0`` (``ops/kernels/kv_attention.py:by_row_groups``), and K
+takes the JAX engines' range [0, 32] on every device (:func:`check_spec_k`).
 
 The sampling functions take their noise as arguments (uniforms for the
 acceptance tests, Gumbel noise for the categorical draws:
@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from ..models import phi3
-from ..models.phi3 import MAX_DECODE_ROWS
 from .engine import filter_sample_logits, filter_sample_logits_rows
 from .graphs import StepGraph, StepRing
 from .rng import ACCEPT, BONUS, RESAMPLE, VANILLA, to_device
@@ -44,16 +43,12 @@ from .rng import ACCEPT, BONUS, RESAMPLE, VANILLA, to_device
 MAX_SPEC_K = 32  # the JAX engines' range of K
 
 
-def check_spec_k(k: int, device, kernel_rows: bool) -> None:
-    """K in [0, MAX_SPEC_K]; on the card, where the pass's attention runs a
-    kernel (``kernel_rows``: K3/K4 single-stream, K6/K7 paged), K + 1 query
-    rows within the kernels' 16."""
+def check_spec_k(k: int) -> None:
+    """K in [0, MAX_SPEC_K], the JAX engines' range, on every device and
+    path: the decode kernels (K3/K4 single-stream, K6/K7 paged) take the
+    K + 1 rows in groups of 16."""
     if not 0 <= k <= MAX_SPEC_K:
         raise ValueError(f"spec_k must be in [0, {MAX_SPEC_K}], got {k}")
-    if kernel_rows and torch.device(device).type == "cuda" and k + 1 > MAX_DECODE_ROWS:
-        raise ValueError(f"spec_k {k}: a verify pass of {k + 1} query rows exceeds the "
-                         f"{MAX_DECODE_ROWS}-row limit of the decode attention kernels "
-                         f"(K3/K4/K6/K7); use spec_k <= {MAX_DECODE_ROWS - 1} on the card")
 
 
 def propose_drafts(buf, valid, tok, off, k_draft: int):

@@ -24,9 +24,17 @@ int8           ``read_kv`` of the layer to the  ``read_kv``, then K2
 
 The int8 row is explicit routing, not a fallback: K4 and K5 read the
 nibble-packed int4 layout only (the JAX package dispatches its int4 decode
-kernel without checking the bits).  On the CPU every wrapper runs its plain
-``ops/attention.py`` path.  The beam read path (``n_beam``) waits for
-constrained decoding.  The continuous-batching engines run the same
+kernel without checking the bits).  A decode-route chunk of more than 16
+rows (a verify pass) runs K3/K4 on groups of 16 rows.  On the CPU every
+wrapper runs its plain ``ops/attention.py`` path.
+
+Two read paths write nothing (constrained decoding, ``engine/constrain.py``):
+the beam read (``decode_forward(n_beam=...)``) repeats each cache row's
+committed window ``n_beam`` times beside the chunk, and
+:func:`forward_nocache` runs a causal pass with no cache (K2 at offset 0 on
+the card).  The JAX package runs the beam read in XLA with no Pallas
+kernel; here it is plain PyTorch attention over the window that
+``read_kv`` dequantizes, every layer.  The continuous-batching engines run the same
 :func:`block` with their own ``attend`` (per-slot offsets; the paged pool's
 K6/K7, ``engine/paging.py``).  A vision prompt enters as
 ``inputs_embeds`` (``models/vision.py``).  :func:`init_params` draws random
@@ -46,11 +54,13 @@ import torch.nn.functional as F
 from ..core.config import ModelConfig
 from ..core.weights import torch_dtype
 from ..engine.state import DecodeState, init_state, read_kv, update_layer_chunk
+from ..ops.attention import causal_valid_mask, masked_attention
 from ..ops.kernels.flash_attention import flash_attention
-from ..ops.kernels.kv_attention import dense_kv_attention, quantized_flash_attention, quantized_kv_attention
+from ..ops.kernels.kv_attention import (by_row_groups, dense_kv_attention, quantized_flash_attention,
+                                        quantized_kv_attention)
 from ..ops.linear import dense, dense_stacked, embedding
 from ..ops.norms import rms_norm
-from ..ops.rope import apply_rotary
+from ..ops.rope import apply_rotary, su_rope_tables
 
 MAX_DECODE_ROWS = 16
 
@@ -73,13 +83,15 @@ def _qkv_split(cfg: ModelConfig, qkv: torch.Tensor):
 def _attend(q, state: DecodeState, i: int, scale: float, decode=None):
     """Attention of the chunk's queries to layer ``i`` of the cache, routed
     by the table of the module docstring (``decode`` True takes the decode
-    route at any length).  Decode (K3, K4) reads the device offset
-    ``state.pos``; prefill and extend (K2, K5) take the host mirror."""
+    route at any length, in launches of 16 query rows).  Decode (K3, K4)
+    reads the device offset ``state.pos``; prefill and extend (K2, K5) take
+    the host mirror."""
     if decode is None:
         decode = q.shape[2] <= MAX_DECODE_ROWS
     if state.quantized and state.kv_quant.bits == 4:
         if decode:
-            return quantized_kv_attention(q, state.k, state.k_scales, state.valid, state.pos, i, scale)
+            return by_row_groups(quantized_kv_attention, q, state.k, state.k_scales, state.valid,
+                                 state.pos, i, scale)
         return quantized_flash_attention(q, state.k, state.k_scales, state.valid, state.offset, i,
                                          scale)
     if state.quantized:
@@ -88,7 +100,8 @@ def _attend(q, state: DecodeState, i: int, scale: float, decode=None):
     else:
         k_stack, v_stack, layer = state.k, state.v, i
     if decode:
-        return dense_kv_attention(q, k_stack, v_stack, state.valid, state.pos, layer, scale)
+        return by_row_groups(dense_kv_attention, q, k_stack, v_stack, state.valid, state.pos, layer,
+                             scale)
     return flash_attention(q, k_stack[layer], v_stack[layer], state.valid, state.offset, scale)
 
 
@@ -121,6 +134,7 @@ def decode_forward(
     *,
     inputs_embeds: Optional[torch.Tensor] = None,
     advance: Optional[int] = None,
+    n_beam: int = 1,
     last_logit_only: bool = False,
     positions: Optional[torch.Tensor] = None,
 ) -> ForwardResult:
@@ -143,12 +157,18 @@ def decode_forward(
     and RoPE take these columns, the queries sit at ``pos + i`` as always,
     attention takes the decode route (K3/K4) at any length, and the mirror
     is not checked: the caller keeps the columns in the window.
+
+    ``n_beam`` > 1: a (B * n_beam, L) chunk, beam rows ``r * n_beam + j`` of
+    cache row ``r``, scored against the shared cache without writing it
+    (JAX ``decode_forward(n_beam=)``).  Each layer reads its window with
+    ``read_kv``, repeats it ``n_beam`` times along the rows and appends the
+    chunk's k/v: query ``i`` sees the committed keys (``key < pos`` and
+    valid) and the chunk's keys up to its own.  The state comes back as it
+    was.
     """
-    mdl = params["model"]
-    if inputs_embeds is None:
-        x = embedding(mdl["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
-    else:
-        x = inputs_embeds.to(torch_dtype(cfg.dtype))
+    if n_beam > 1:
+        return _beam_forward(params, cfg, state, input_ids, inputs_embeds, n_beam, last_logit_only)
+    x = _embed(params, cfg, input_ids, inputs_embeds)
     b, l, _ = x.shape
     offset = state.offset
     if positions is not None:
@@ -157,10 +177,8 @@ def decode_forward(
         raise ValueError(f"chunk of {l} at offset {offset} overflows window {state.window}")
     else:
         pos = (state.pos + torch.arange(l, dtype=torch.int32, device=x.device)).long()
-    cos = state.cos.index_select(1, pos)
-    sin = state.sin.index_select(1, pos)
-    if cos.shape[0] == 1 and b > 1:
-        cos, sin = cos.expand(b, -1, -1), sin.expand(b, -1, -1)
+    cos = _rows(state.cos.index_select(1, pos), b)
+    sin = _rows(state.sin.index_select(1, pos), b)
     scale = cfg.head_dim**-0.5
 
     def attend(q, k, v, i):
@@ -168,15 +186,112 @@ def decode_forward(
         return _attend(q, state, i, scale, decode=True if positions is not None else None)
 
     for i in range(cfg.num_hidden_layers):
-        x = block(cfg, x, mdl["layers"], i, cos, sin, functools.partial(attend, i=i))
-    x = rms_norm(x, mdl["norm"]["weight"], cfg.rms_norm_eps)
-    if last_logit_only:
-        x = x[:, -1:]
-    logits = dense(params["lm_head"], x)[..., : cfg.vocab_size]
+        x = block(cfg, x, params["model"]["layers"], i, cos, sin, functools.partial(attend, i=i))
+    logits = _head(params, cfg, x, last_logit_only)
     step = l if advance is None else advance
     if step:
         state.pos.add_(step)
     return ForwardResult(logits, dataclasses.replace(state, offset=offset + step))
+
+
+def _embed(params: dict, cfg: ModelConfig, input_ids, inputs_embeds):
+    if inputs_embeds is None:
+        return embedding(params["model"]["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
+    return inputs_embeds.to(torch_dtype(cfg.dtype))
+
+
+def _rows(t: torch.Tensor, b: int) -> torch.Tensor:
+    """RoPE tables (1 | B', L, D) aligned to ``b`` query rows: broadcast, or
+    each row repeated ``b // B'`` times (beam rows, JAX ``decode_forward``)."""
+    if t.shape[0] == b:
+        return t
+    if t.shape[0] == 1:
+        return t.expand(b, -1, -1)
+    return t.repeat_interleave(b // t.shape[0], dim=0)
+
+
+def _head(params: dict, cfg: ModelConfig, x, last_logit_only: bool = False):
+    x = rms_norm(x, params["model"]["norm"]["weight"], cfg.rms_norm_eps)
+    if last_logit_only:
+        x = x[:, -1:]
+    return dense(params["lm_head"], x)[..., : cfg.vocab_size]
+
+
+def _beam_forward(params, cfg, state: DecodeState, input_ids, inputs_embeds, n_beam: int,
+                  last_logit_only: bool) -> ForwardResult:
+    """The beam read path of :func:`decode_forward`."""
+    x = _embed(params, cfg, input_ids, inputs_embeds)
+    b, l, _ = x.shape
+    if b != state.valid.shape[0] * n_beam:
+        raise ValueError(f"{b} beam rows for {state.valid.shape[0]} cache rows x n_beam {n_beam}")
+    if state.offset + l > state.window:
+        raise ValueError(f"beam chunk of {l} at offset {state.offset} overflows window {state.window}")
+    dev = x.device
+    pos = (state.pos + torch.arange(l, dtype=torch.int32, device=dev)).long()
+    cos = _rows(state.cos.index_select(1, pos), b)
+    sin = _rows(state.sin.index_select(1, pos), b)
+    key = torch.arange(state.window, device=dev)
+    cache_ok = ((key[None] < state.pos.long()) & state.valid).repeat_interleave(n_beam, dim=0)
+    chunk_causal = torch.ones((l, l), dtype=torch.bool, device=dev).tril()
+    allowed = torch.cat([cache_ok[:, None, None, :].expand(b, 1, l, state.window),
+                         chunk_causal[None, None].expand(b, 1, l, l)], dim=-1)
+    scale = cfg.head_dim**-0.5
+
+    def attend(q, k, v, i):
+        kc, vc = read_kv(state, i, q.dtype)
+        kc = torch.cat([kc.repeat_interleave(n_beam, dim=0), k], dim=2)
+        vc = torch.cat([vc.repeat_interleave(n_beam, dim=0), v], dim=2)
+        return masked_attention(q, kc, vc, allowed, scale)
+
+    for i in range(cfg.num_hidden_layers):
+        x = block(cfg, x, params["model"]["layers"], i, cos, sin, functools.partial(attend, i=i))
+    return ForwardResult(_head(params, cfg, x, last_logit_only), state)
+
+
+def forward_nocache(
+    params: dict,
+    cfg: ModelConfig,
+    input_ids: Optional[torch.Tensor] = None,
+    *,
+    pids=None,
+    prompt_valid=None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    dropout_rng=None,
+    lora_dropout: float = 0.0,
+    allow_flash: bool = True,
+) -> torch.Tensor:
+    """One causal pass over a (B, L) chunk with no cache (JAX
+    ``forward_nocache``, the reference's ``max_tokens=0`` mode of
+    ``_choose_from``): su-RoPE tables for L positions and ``pids``, query
+    ``i`` seeing keys ``j <= i`` with ``prompt_valid[b, j]``.  Attention is
+    K2 at offset 0 over the chunk's own k/v (its plain version on the CPU);
+    ``allow_flash=False`` runs the plain masked attention instead.  Returns
+    the logits (B, L, V).  LoRA dropout (``dropout_rng``, ``lora_dropout``)
+    raises until LoRA is ported."""
+    if dropout_rng is not None or lora_dropout > 0.0:
+        raise NotImplementedError("LoRA dropout is not ported yet")
+    x = _embed(params, cfg, input_ids, inputs_embeds)
+    b, l, _ = x.shape
+    dev = x.device
+    if prompt_valid is None:
+        valid = torch.ones((b, l), dtype=torch.bool, device=dev)
+    else:
+        valid = torch.as_tensor(prompt_valid, device=dev).bool().contiguous()
+    cos, sin = su_rope_tables(cfg, l, pids, device=dev)
+    cos, sin = _rows(cos, b), _rows(sin, b)
+    scale = cfg.head_dim**-0.5
+    if allow_flash:
+        def attend(q, k, v):
+            return flash_attention(q, k.contiguous(), v.contiguous(), valid, 0, scale)
+    else:
+        allowed = causal_valid_mask(valid, torch.arange(l, device=dev))
+
+        def attend(q, k, v):
+            return masked_attention(q, k, v, allowed, scale)
+
+    for i in range(cfg.num_hidden_layers):
+        x = block(cfg, x, params["model"]["layers"], i, cos, sin, attend)
+    return _head(params, cfg, x)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None) -> dict:

@@ -43,17 +43,17 @@ SIGNATURES = {
     "k2_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _F, _P],
     "k3_dense_kv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _L, _L, _L, _L, _L, _L, _I, _P, _F, _I, _I, _P],
+                              _L, _L, _L, _L, _L, _L, _I, _P, _I, _F, _I, _I, _P],
     "k4_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _L, _L, _L, _L, _L, _L, _I, _P, _F, _I, _I, _P],
+                                  _L, _L, _L, _L, _L, _L, _I, _P, _I, _F, _I, _I, _P],
     "e23_quantized_kv_attention_variant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                           _L, _L, _L, _L, _L, _L, _I, _P, _F, _I, _I, _I, _P],
+                                           _L, _L, _L, _L, _L, _L, _I, _P, _I, _F, _I, _I, _I, _P],
     "k5_quantized_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
     "k6_paged_kv_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _L, _L, _L, _L, _L, _L, _I, _F, _I, _I, _P],
+                              _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
     "k7_paged_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                        _I, _I, _L, _L, _L, _L, _L, _L, _I, _F, _I, _I, _P],
+                                        _I, _I, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
 }
 # The continuous server prefills on its admission thread while its pump
 # thread decodes: the first build and every launch count are shared.

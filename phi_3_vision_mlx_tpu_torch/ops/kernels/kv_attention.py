@@ -3,7 +3,10 @@
 Each takes the whole ``(layers, ...)`` cache and a layer index, so a layer is
 read with no per-layer copy.  Query ``i`` sits at position ``offset + i``
 (``q_pos0 + i``) and sees key ``j`` iff ``j <= offset + i`` and
-``valid[b, j]``.  Queries and outputs are in the original D order.
+``valid[b, j]``.  The decode kernels (K3, K4, K6, K7) take at most 16 query
+rows and a ``row0``: query ``i`` of a launch then sits at ``offset + row0 +
+i``, so a verify pass of more rows runs as launches on groups of 16
+(:func:`by_row_groups`).  Queries and outputs are in the original D order.
 
 * K3 :func:`dense_kv_attention` — decode (Lq <= 16) over the dense bf16
   cache ``(layers, B, KV, Lmax, D)``, the window split into runs of
@@ -94,13 +97,28 @@ RUN_KEYS = 64
 # at 4224 and 4352, where fewer blocks mean fewer partials to merge.
 K4_BLOCK_KEYS = ((1024, 64), (2048, 128), (1 << 31, 256))
 PAGED_RUN_KEYS = RUN_KEYS  # K6/K7: one run a block
-MAX_PAGED_ROWS = 16  # K4, K6, K7: query rows per block (decode and, later, speculation)
+MAX_PAGED_ROWS = 16  # K4, K6, K7: query rows per block (decode and speculation)
+assert K3_MAX_ROWS == MAX_PAGED_ROWS  # by_row_groups groups rows for all four
 
 
-def query_positions(offset, lq: int, device) -> torch.Tensor:
-    """(Lq,) positions ``offset + i`` of a chunk's query rows; ``offset`` a
-    host int or the (1,) device offset (no host sync)."""
-    return offset + torch.arange(lq, device=device)
+def query_positions(offset, lq: int, device, row0: int = 0) -> torch.Tensor:
+    """(Lq,) positions ``offset + row0 + i`` of a launch's query rows;
+    ``offset`` a host int or the (1,) device offset (no host sync)."""
+    return offset + row0 + torch.arange(lq, device=device)
+
+
+def by_row_groups(attention, q, *args):
+    """``attention(q, *args)`` for a decode kernel (K3, K4, K6, K7) at any
+    number of query rows: more than the kernels' 16 run as launches on
+    groups of 16 rows, each with its ``row0``, the outputs concatenated.
+    Every ``row0`` is a host constant of the shape, so a captured pass stays
+    one graph with no branch and no host sync."""
+    rows = MAX_PAGED_ROWS  # == K3_MAX_ROWS
+    lq = q.shape[2]
+    if lq <= rows:
+        return attention(q, *args)
+    return torch.cat([attention(q[:, :, r : r + rows], *args, row0=r) for r in range(0, lq, rows)],
+                     dim=2)
 
 
 def check_device_offset(offset, device, name: str) -> None:
@@ -114,8 +132,9 @@ def check_device_offset(offset, device, name: str) -> None:
         raise ValueError(f"{name}: the offset must be a (1,) int32 tensor on {device}, got {got}")
 
 
-def dense_kv_attention_plain(q, k_stack, v_stack, valid, offset, layer_idx: int, scale: float):
-    q_pos = query_positions(offset, q.shape[2], q.device)
+def dense_kv_attention_plain(q, k_stack, v_stack, valid, offset, layer_idx: int, scale: float,
+                             row0: int = 0):
+    q_pos = query_positions(offset, q.shape[2], q.device, row0)
     return decode_attention(q, k_stack[layer_idx], v_stack[layer_idx], valid, q_pos, scale)
 
 
@@ -130,20 +149,23 @@ def dense_kv_split_plan(lmax: int) -> tuple[int, int]:
     return -(-lmax // K3_SPLIT_KEYS), K3_SPLIT_KEYS
 
 
-def dense_kv_attention(q, k_stack, v_stack, valid, offset, layer_idx: int, scale: float):
+def dense_kv_attention(q, k_stack, v_stack, valid, offset, layer_idx: int, scale: float,
+                       row0: int = 0):
     """q (B, H, Lq, D); k_stack/v_stack (layers, B, KV, Lmax, D); valid
     (B, Lmax) bool; offset: the (1,) int32 device offset (on the CPU, where
-    the plain version runs, a host int too).  Returns (B, H, Lq, D)."""
+    the plain version runs, a host int too); query ``i`` at ``offset + row0
+    + i``.  Returns (B, H, Lq, D)."""
     if q.device.type == "cpu":
-        return dense_kv_attention_plain(q, k_stack, v_stack, valid, offset, layer_idx, scale)
+        return dense_kv_attention_plain(q, k_stack, v_stack, valid, offset, layer_idx, scale, row0)
     if q.device.type != "cuda":
         raise RuntimeError(f"dense_kv_attention: no kernel for device {q.device}")
     if k_stack.dim() != 5 or not 0 <= layer_idx < k_stack.shape[0]:
         raise ValueError(f"dense_kv_attention: cache {tuple(k_stack.shape)}, layer {layer_idx}")
     check_attention_inputs(q, k_stack, v_stack, valid, "dense_kv_attention")
     b, h, lq, d = q.shape
-    if not 1 <= lq <= K3_MAX_ROWS:
-        raise ValueError(f"dense_kv_attention: {lq} query rows (the kernel takes 1-{K3_MAX_ROWS})")
+    if not 1 <= lq <= K3_MAX_ROWS or row0 < 0:
+        raise ValueError(f"dense_kv_attention: {lq} query rows from row {row0} (the kernel takes "
+                         f"1-{K3_MAX_ROWS} from a row >= 0)")
     check_device_offset(offset, q.device, "dense_kv_attention")
     kvh, lmax = k_stack.shape[2], k_stack.shape[3]
     n_split, split_keys = dense_kv_split_plan(lmax)
@@ -154,8 +176,8 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset, layer_idx: int, scale
     err = lib.k3_dense_kv_attention(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
         valid.view(torch.uint8).data_ptr(), out.data_ptr(), partial.data_ptr(), b, h, kvh, lq,
-        lmax, d, *q.stride()[:3], *out.stride()[:3], int(layer_idx), offset.data_ptr(), float(scale),
-        n_split, split_keys, _build.stream_ptr(q.device),
+        lmax, d, *q.stride()[:3], *out.stride()[:3], int(layer_idx), offset.data_ptr(), int(row0),
+        float(scale), n_split, split_keys, _build.stream_ptr(q.device),
     )
     _build.check(err, "k3_dense_kv_attention")
     _build.count_launch(dense_kv_attention)
@@ -165,9 +187,10 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset, layer_idx: int, scale
 dense_kv_attention.launches = 0
 
 
-def quantized_kv_attention_plain(q, payload, scales, valid, offset, layer_idx: int, scale: float):
+def quantized_kv_attention_plain(q, payload, scales, valid, offset, layer_idx: int, scale: float,
+                                 row0: int = 0):
     k, v = dequantize_kv(payload[layer_idx], scales[layer_idx], q.dtype, bits=4)
-    q_pos = query_positions(offset, q.shape[2], q.device)
+    q_pos = query_positions(offset, q.shape[2], q.device, row0)
     return decode_attention(q, k, v, valid, q_pos, scale)
 
 
@@ -213,12 +236,13 @@ def quantized_split_plan(lmax: int) -> tuple[int, int]:
 
 
 def _quantized_decode_launch(entry: str, q, payload, scales, valid, offset, layer_idx: int,
-                             scale: float, block_keys: int, *mode):
+                             scale: float, block_keys: int, *mode, row0: int = 0):
     """Launch K4 or E2/E3 (``entry``) with ``block_keys`` keys per block."""
     b, h, lq, d = q.shape
     kvh, lmax = payload.shape[2], payload.shape[3]
-    if not 1 <= lq <= MAX_PAGED_ROWS:
-        raise ValueError(f"{entry}: {lq} query rows (the kernel takes 1-{MAX_PAGED_ROWS})")
+    if not 1 <= lq <= MAX_PAGED_ROWS or row0 < 0:
+        raise ValueError(f"{entry}: {lq} query rows from row {row0} (the kernel takes "
+                         f"1-{MAX_PAGED_ROWS} from a row >= 0)")
     check_device_offset(offset, q.device, entry)
     if payload.data_ptr() % 16:
         raise ValueError(f"{entry}: the payload must be 16-byte aligned")
@@ -230,25 +254,27 @@ def _quantized_decode_launch(entry: str, q, payload, scales, valid, offset, laye
     err = getattr(lib, entry)(
         q.data_ptr(), payload.data_ptr(), scales.data_ptr(), valid.view(torch.uint8).data_ptr(),
         out.data_ptr(), partial.data_ptr(), b, h, kvh, lq, lmax, d, *q.stride()[:3],
-        *out.stride()[:3], int(layer_idx), offset.data_ptr(), float(scale), n_split, int(block_keys),
-        *mode, _build.stream_ptr(q.device),
+        *out.stride()[:3], int(layer_idx), offset.data_ptr(), int(row0), float(scale), n_split,
+        int(block_keys), *mode, _build.stream_ptr(q.device),
     )
     _build.check(err, entry)
     return out
 
 
-def quantized_kv_attention(q, payload, scales, valid, offset, layer_idx: int, scale: float):
+def quantized_kv_attention(q, payload, scales, valid, offset, layer_idx: int, scale: float,
+                           row0: int = 0):
     """Decode attention over layer ``layer_idx`` of the int4 cache.  q (B, H,
     Lq, D), Lq <= 16; payload (layers, B, KV, Lmax, D) uint8; scales (layers,
-    B, KV, Lmax, 4G) bf16; valid (B, Lmax) bool; offset as in
+    B, KV, Lmax, 4G) bf16; valid (B, Lmax) bool; offset and row0 as in
     :func:`dense_kv_attention`.  Returns (B, H, Lq, D)."""
     if q.device.type == "cpu":
-        return quantized_kv_attention_plain(q, payload, scales, valid, offset, layer_idx, scale)
+        return quantized_kv_attention_plain(q, payload, scales, valid, offset, layer_idx, scale, row0)
     if q.device.type != "cuda":
         raise RuntimeError(f"quantized_kv_attention: no kernel for device {q.device}")
     check_quantized_inputs(q, payload, scales, valid, layer_idx, "quantized_kv_attention")
     out = _quantized_decode_launch("k4_quantized_kv_attention", q, payload, scales, valid, offset,
-                                   layer_idx, scale, quantized_split_plan(payload.shape[3])[1])
+                                   layer_idx, scale, quantized_split_plan(payload.shape[3])[1],
+                                   row0=row0)
     _build.count_launch(quantized_kv_attention)
     return out
 
@@ -366,26 +392,28 @@ def gather_pages(pool_layer, page_tables):
     return g.transpose(1, 2).reshape(s, kvh, mp * page, x)
 
 
-def paged_visible(valid, offsets, lq: int):
-    """(S, 1, Lq, W) bool: the fresh-region rule of the module docstring."""
+def paged_visible(valid, offsets, lq: int, row0: int = 0):
+    """(S, 1, Lq, W) bool: the fresh-region rule of the module docstring,
+    query ``i`` at ``offsets[s] + row0 + i``; the fresh region starts at
+    ``offsets[s]`` whatever ``row0`` is."""
     key = torch.arange(valid.shape[1], device=valid.device)
     off = offsets.long()[:, None, None]
-    q_pos = off + torch.arange(lq, device=valid.device)[None, :, None]
+    q_pos = off + row0 + torch.arange(lq, device=valid.device)[None, :, None]
     return (((key < off) & valid[:, None, :]) | ((key >= off) & (key <= q_pos)))[:, None]
 
 
 def paged_kv_attention_plain(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx: int,
-                             scale: float):
+                             scale: float, row0: int = 0):
     k = gather_pages(pool_k[layer_idx], page_tables)
     v = gather_pages(pool_v[layer_idx], page_tables)
-    return masked_attention(q, k, v, paged_visible(valid, offsets, q.shape[2]), scale)
+    return masked_attention(q, k, v, paged_visible(valid, offsets, q.shape[2], row0), scale)
 
 
 def paged_quantized_kv_attention_plain(q, payload, scales, page_tables, valid, offsets,
-                                       layer_idx: int, scale: float):
+                                       layer_idx: int, scale: float, row0: int = 0):
     k, v = dequantize_kv(gather_pages(payload[layer_idx], page_tables),
                          gather_pages(scales[layer_idx], page_tables), q.dtype, bits=4)
-    return masked_attention(q, k, v, paged_visible(valid, offsets, q.shape[2]), scale)
+    return masked_attention(q, k, v, paged_visible(valid, offsets, q.shape[2], row0), scale)
 
 
 def check_paged_inputs(q, pool_a, pool_b, page_tables, valid, offsets, layer_idx: int,
@@ -430,7 +458,9 @@ def paged_split_plan(window: int) -> tuple[int, int]:
 
 
 def _paged_launch(entry: str, q, pool_a, pool_b, page_tables, valid, offsets, layer_idx: int,
-                  scale: float, n_split: int, split_keys: int):
+                  scale: float, n_split: int, split_keys: int, row0: int):
+    if row0 < 0:
+        raise ValueError(f"{entry}: row0 {row0} < 0")
     s, h, lq, d = q.shape
     _, p1, kvh, page, _ = pool_a.shape
     mp = page_tables.shape[1]
@@ -442,20 +472,22 @@ def _paged_launch(entry: str, q, pool_a, pool_b, page_tables, valid, offsets, la
         q.data_ptr(), pool_a.data_ptr(), pool_b.data_ptr(), page_tables.data_ptr(),
         valid.view(torch.uint8).data_ptr(), offsets.data_ptr(), out.data_ptr(),
         partial.data_ptr(), s, h, kvh, lq, p1, page, mp, d, *q.stride()[:3], *out.stride()[:3],
-        int(layer_idx), float(scale), n_split, split_keys, _build.stream_ptr(q.device),
+        int(layer_idx), int(row0), float(scale), n_split, split_keys, _build.stream_ptr(q.device),
     )
     _build.check(err, entry)
     return out
 
 
-def paged_kv_attention(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx: int, scale: float):
+def paged_kv_attention(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx: int, scale: float,
+                       row0: int = 0):
     """K6: decode attention of every slot over layer ``layer_idx`` of the
     dense page pool.  q (S, H, Lq, D); pool_k/pool_v (layers, P + 1, KV,
     page, D); page_tables (S, W / page) int32 with entries in [0, P];
-    valid (S, W) bool; offsets (S,) int32.  Returns (S, H, Lq, D)."""
+    valid (S, W) bool; offsets (S,) int32; query ``i`` of slot ``s`` at
+    ``offsets[s] + row0 + i``.  Returns (S, H, Lq, D)."""
     if q.device.type == "cpu":
         return paged_kv_attention_plain(q, pool_k, pool_v, page_tables, valid, offsets,
-                                        layer_idx, scale)
+                                        layer_idx, scale, row0)
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_kv_attention: no kernel for device {q.device}")
     check_paged_inputs(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx, q.shape[-1],
@@ -466,7 +498,7 @@ def paged_kv_attention(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx
         raise ValueError("paged_kv_attention: the pools must be 16-byte aligned")
     n_split, split_keys = paged_split_plan(page_tables.shape[1] * pool_k.shape[3])
     out = _paged_launch("k6_paged_kv_attention", q, pool_k, pool_v, page_tables, valid, offsets,
-                        layer_idx, scale, n_split, split_keys)
+                        layer_idx, scale, n_split, split_keys, row0)
     _build.count_launch(paged_kv_attention)
     return out
 
@@ -475,13 +507,13 @@ paged_kv_attention.launches = 0
 
 
 def paged_quantized_kv_attention(q, payload, scales, page_tables, valid, offsets, layer_idx: int,
-                                 scale: float):
+                                 scale: float, row0: int = 0):
     """K7: K6 over layer ``layer_idx`` of the int4 page pool; payload
     (layers, P + 1, KV, page, D) uint8 ``k | v << 4``, scales (..., 4G)
     bf16.  Returns (S, H, Lq, D)."""
     if q.device.type == "cpu":
         return paged_quantized_kv_attention_plain(q, payload, scales, page_tables, valid, offsets,
-                                                  layer_idx, scale)
+                                                  layer_idx, scale, row0)
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_quantized_kv_attention: no kernel for device {q.device}")
     d = q.shape[-1]
@@ -495,7 +527,7 @@ def paged_quantized_kv_attention(q, payload, scales, page_tables, valid, offsets
                          "scales 8-byte aligned")
     n_split, split_keys = paged_split_plan(page_tables.shape[1] * payload.shape[3])
     out = _paged_launch("k7_paged_quantized_kv_attention", q, payload, scales, page_tables, valid,
-                        offsets, layer_idx, scale, n_split, split_keys)
+                        offsets, layer_idx, scale, n_split, split_keys, row0)
     _build.count_launch(paged_quantized_kv_attention)
     return out
 

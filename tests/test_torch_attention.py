@@ -184,22 +184,23 @@ def test_attention_wrappers_have_no_silent_fallback():
 # only on the card; chip_smoke.py holds them to the plain versions there) ----
 
 
-def _k3_split_model(q, k_stack, v_stack, valid, offset, layer, scale):
+def _k3_split_model(q, k_stack, v_stack, valid, offset, layer, scale, row0=0):
     """K3 as the card computes it: each split of the window-only plan gives
     every query row its (max, sum, unnormalized output) over the keys the
     row sees in it — max NEG_INF and sum 0 where it sees none, and a split
     that starts at or past the last row's key reads nothing and writes
     (NEG_INF, 0, 0) — and the merge weighs the splits by exp(max - overall
     max); a row that sees no key anywhere gets the uniform average of all
-    Lmax values.  Returns (out, per-split max)."""
+    Lmax values.  Query row i sits at offset + row0 + i (a later row group
+    of a longer pass).  Returns (out, per-split max)."""
     k, v = k_stack[layer].float(), v_stack[layer].float()
     b, h, lq, d = q.shape
     kvh, lmax = k.shape[1], k.shape[2]
     g = h // kvh
     n_split, split = K3.dense_kv_split_plan(lmax)
-    kend = min(lmax, offset + lq)
+    kend = min(lmax, offset + row0 + lq)
     qs = (q * scale).float()
-    rows = offset + torch.arange(lq)[:, None]
+    rows = offset + row0 + torch.arange(lq)[:, None]
     ms, ls, accs = [], [], []
     for s in range(n_split):
         j = torch.arange(s * split, max(s * split, min((s + 1) * split, kend)))
@@ -325,6 +326,53 @@ def test_k3_split_model_short_offset_long_window(offset, lq):
         np.testing.assert_allclose(ref[1, :, i].numpy(), mean_v.numpy(), **F32_TOL)
     dev_off = torch.tensor([offset], dtype=torch.int32)
     assert torch.equal(K3.dense_kv_attention(q, ks, vs, valid, dev_off, layer, SCALE), ref)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("lq,row0", [(16, 16), (1, 32), (16, 0)])
+def test_k3_split_model_row0_matches_plain(lq, row0, g):
+    """A launch on a later row group of a verify pass (row0 > 0, the cases
+    chip_smoke.py checks on the card): query i at offset + row0 + i, in the
+    split model and the plain version alike; the keys up to offset + row0
+    are the earlier groups' and the committed ones."""
+    nl, b, kvh, lmax, layer, offset = 2, 2, 2, K3_LMAX, 1, SK + 5
+    rng = np.random.default_rng(7 + lq + row0 + 100 * g)
+    ks = torch.from_numpy(rng.standard_normal((nl, b, kvh, lmax, D)).astype(np.float32))
+    vs = torch.from_numpy(rng.standard_normal((nl, b, kvh, lmax, D)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, kvh * g, lq, D)).astype(np.float32))
+    valid = torch.from_numpy(rng.random((b, lmax)) > 0.05)
+    out, ms = _k3_split_model(q, ks, vs, valid, offset, layer, SCALE, row0)
+    ref = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, layer, SCALE, row0)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    live = -(-(offset + row0 + lq) // SK)
+    assert (ms[:live] > TA.NEG_INF).any() and (ms[live:] == TA.NEG_INF).all()
+    earlier = torch.from_numpy(rng.standard_normal((b, kvh * g, row0, D)).astype(np.float32))
+    whole = K3.dense_kv_attention_plain(torch.cat([earlier, q], dim=2), ks, vs, valid, offset, layer,
+                                        SCALE)
+    np.testing.assert_allclose(ref.numpy(), whole[:, :, row0:].numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("lq", [16, 17, 33])
+def test_row_groups_equal_one_pass(lq):
+    """``by_row_groups``: a pass of Lq rows as launches on groups of 16 rows,
+    each with its row0, equals the plain version over all Lq rows at once
+    (single-stream K3 and K4 alike)."""
+    nl, b, kvh, lmax, layer, offset = 1, 2, 2, 128, 0, 40
+    rng = np.random.default_rng(lq)
+    ks = torch.from_numpy(rng.standard_normal((nl, b, kvh, lmax, D)).astype(np.float32))
+    vs = torch.from_numpy(rng.standard_normal((nl, b, kvh, lmax, D)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, 2 * kvh, lq, D)).astype(np.float32))
+    valid = torch.from_numpy(rng.random((b, lmax)) > 0.1)
+    calls = []
+
+    def k3(q_, *args, row0=0):
+        calls.append((q_.shape[2], row0))
+        return K3.dense_kv_attention(q_, *args, row0=row0)
+
+    got = K3.by_row_groups(k3, q, ks, vs, valid, torch.tensor([offset], dtype=torch.int32), layer, SCALE)
+    assert calls == [(min(16, lq - r), r) for r in range(0, lq, 16)]
+    want = K3.dense_kv_attention_plain(q, ks, vs, valid, offset, layer, SCALE)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
 
 
 def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p):

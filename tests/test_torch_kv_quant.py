@@ -271,7 +271,8 @@ def test_k5_tile_model_matches_plain(edge, g):
 # there.
 
 
-def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys, mode="fp32"):
+def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys, mode="fp32",
+                    row0=0):
     """K4 (mode "fp32") and E2/E3's modes as the card computes them over one
     layer of the stacked int4 cache.  The window is cut into blocks of
     ``block_keys`` keys, each walked in 64-key runs: the tiles hold the
@@ -286,8 +287,8 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
     summed beside the softmax sum and added to the block's output.  A
     row's merge reads its blocks up to its last visible key; a row that
     sees no key gets the uniform average of the window's values.
-    kNoSoftmax: no mask, P is the score, every block is added.  Returns
-    (out, live blocks per query row)."""
+    kNoSoftmax: no mask, P is the score, every block is added.  Query row i
+    sits at offset + row0 + i.  Returns (out, live blocks per query row)."""
     from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
 
     b, h, lq, d = q.shape
@@ -312,8 +313,8 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
     qsum = qs.reshape(b, h, lq, g, d // g).sum(-1)  # (B, H, Lq, G)
     hl = lambda p: bf(p) + bf(p - bf(p))  # noqa: E731 - P as bf16 hi + lo
     n_split = -(-lmax // block_keys)
-    kend = min(lmax, offset + lq) if softmax else lmax
-    rows = offset + torch.arange(lq)
+    kend = min(lmax, offset + row0 + lq) if softmax else lmax
+    rows = offset + row0 + torch.arange(lq)
     parts = []
     for t in range(n_split):
         m = torch.full((b, h, lq), -torch.inf)
@@ -352,7 +353,8 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
     if not softmax:
         return sum(acc for _, _, acc in parts), torch.full((lq,), n_split)
     out = torch.empty((b, h, lq, d))
-    live = torch.tensor([min(n_split, min(lmax - 1, offset + i) // block_keys + 1) for i in range(lq)])
+    live = torch.tensor([min(n_split, min(lmax - 1, offset + row0 + i) // block_keys + 1)
+                         for i in range(lq)])
     for i in range(lq):
         ms = torch.stack([m[..., i] for m, _, _ in parts[: live[i]]])
         m_all = ms.amax(dim=0)
@@ -399,6 +401,23 @@ def test_k4_split_model_matches_plain(lq, block_keys):
     mean_v = TS.dequantize_kv(payload[1], scales[1], torch.float32)[1][1].mean(dim=1)  # (KV, D)
     np.testing.assert_allclose(ref[1].numpy(), mean_v.repeat_interleave(2, dim=0)[:, None].expand(-1, lq, -1),
                                **F32_TOL)
+
+
+@pytest.mark.parametrize("block_keys", [64, 128])
+@pytest.mark.parametrize("lq,row0", [(16, 16), (1, 32)])
+def test_k4_split_model_row0_matches_plain(lq, row0, block_keys):
+    """K4 on a later row group of a verify pass (row0 > 0): query i at
+    offset + row0 + i in the blocks, the merge's live blocks and the plain
+    version; it equals those rows of one plain call over the whole pass."""
+    q, payload, scales, valid, offset, scale = _k4_case(40 + lq, lq)
+    out, live = _k4_split_model(q, payload, scales, valid, offset, 1, scale, block_keys, row0=row0)
+    ref = TK.quantized_kv_attention_plain(q, payload, scales, valid, offset, 1, scale, row0)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    assert live.tolist() == [(offset + row0 + i) // block_keys + 1 for i in range(lq)]
+    earlier = torch.from_numpy(np.random.default_rng(row0).standard_normal((2, 4, row0, 96)).astype(np.float32))
+    whole = TK.quantized_kv_attention_plain(torch.cat([earlier, q], dim=2), payload, scales, valid,
+                                            offset, 1, scale)
+    np.testing.assert_allclose(ref.numpy(), whole[:, :, row0:].numpy(), **F32_TOL)
 
 
 @pytest.mark.parametrize("block_keys", [64, 256])

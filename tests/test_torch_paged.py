@@ -186,7 +186,7 @@ def test_wrappers_raise_without_a_kernel():
 # holds the kernels to their plain versions there.
 
 
-def _paged_split_model(q, k, v, tables, valid, offsets, scale):
+def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0):
     """K6 and K7 as the card computes them, over one layer's pool of keys
     and values ``(P1, KV, page, D)`` (K7's dequantized).  Each run of
     ``paged_split_plan`` gives every row of a slot its (max, sum,
@@ -197,7 +197,9 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale):
     to its last visible key ``offset + i`` and weighs them by exp(max - their
     max); a row that sees no key gets the uniform average of every value of
     its window.  Each key's row comes from the table, clamped into the pool.
-    Returns (out, live runs per (slot, row))."""
+    Query row i sits at offset + row0 + i (a later row group of a pass); the
+    fresh region still starts at the offset.  Returns (out, live runs per
+    (slot, row))."""
     from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
 
     s_, h, lq, d = q.shape
@@ -214,8 +216,8 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale):
         ks, vs = (t[pid, :, row].transpose(0, 1).float().repeat_interleave(h // kvh, dim=0) for t in (k, v))
         ms, ls, accs = [], [], []
         for r in range(n_split):
-            j = torch.arange(r * split, max(r * split, min((r + 1) * split, w, off + lq)))
-            seen = (valid[s, j] | (j >= off))[None, :] & (j[None, :] <= off + torch.arange(lq)[:, None])
+            j = torch.arange(r * split, max(r * split, min((r + 1) * split, w, off + row0 + lq)))
+            seen = (valid[s, j] | (j >= off))[None, :] & (j[None, :] <= off + row0 + torch.arange(lq)[:, None])
             sc = torch.where(seen, qs[s] @ ks[:, j].transpose(-1, -2), -torch.inf)  # (H, Lq, n)
             mx = sc.amax(dim=-1, keepdim=True) if len(j) else torch.full((h, lq, 1), -torch.inf)
             p = torch.where(seen, torch.exp(sc - mx), 0.0)
@@ -224,7 +226,7 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale):
             hi = p.to(torch.bfloat16).float()
             accs.append((hi + (p - hi).to(torch.bfloat16).float()) @ vs[:, j])
         for i in range(lq):
-            live[s, i] = n = min(n_split, min(w - 1, off + i) // split + 1)
+            live[s, i] = n = min(n_split, min(w - 1, off + row0 + i) // split + 1)
             m_all = torch.stack([m[:, i] for m in ms[:n]]).amax(dim=0)
             wt = [torch.exp(m[:, i] - m_all) for m in ms[:n]]
             o = sum(a * acc[:, i] for a, acc in zip(wt, accs)) / sum(a * l_[:, i] for a, l_ in zip(wt, ls))
@@ -232,13 +234,13 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale):
     return out, live
 
 
-def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale):
+def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale, row0=0):
     """K7: the int4 pool's layer dequantized once (``Int4Run``'s tiles),
     then the runs and merge of :func:`_paged_split_model`."""
     from phi_3_vision_mlx_tpu_torch.engine.state import dequantize_kv
 
     k, v = dequantize_kv(payload[layer], scales[layer], q.dtype)  # (P1, KV, page, D)
-    return _paged_split_model(q, k, v, tables, valid, offsets, scale)
+    return _paged_split_model(q, k, v, tables, valid, offsets, scale, row0)
 
 
 # (spare pages withheld from the table, offsets): slot 0 past its window
@@ -343,3 +345,45 @@ def test_k6_split_model_matches_plain(lq):
     assert not TK.paged_visible(valid, offsets, lq)[0, 0].any()  # slot 0 sees no key
     if lq == 16:
         assert live[2].tolist() == [1, 1] + [2] * 14
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["K6", "K7"])
+@pytest.mark.parametrize("lq,row0", [(16, 16), (1, 32)])
+def test_paged_split_model_row0_matches_plain(lq, row0, quantized):
+    """K6/K7 on a later row group of a verify pass (row0 > 0): query i of
+    slot s at offsets[s] + row0 + i, the fresh region from offsets[s]; the
+    model equals the plain version, which equals those rows of one plain
+    call over the whole pass; slot 1's offset 0 makes every key it sees
+    fresh."""
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig as TKVQ
+    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+
+    rng = np.random.default_rng(lq + row0 + 10 * quantized)
+    d, h, kvh, page, mp, n_pages = 96, 4, 2, 16, 10, 24
+    offsets_l = (100, 0, 62)
+    s_, w = len(offsets_l), mp * page
+    tables = torch.from_numpy(np.stack([rng.permutation(n_pages)[:mp] for _ in range(s_)]).astype(np.int32))
+    valid = torch.from_numpy(rng.random((s_, w)) > 0.15)
+    valid[:, :3] = False  # left padding
+    valid[1] = False
+    k = torch.from_numpy((rng.standard_normal((2, n_pages + 1, kvh, page, d)) * 1.5 + 0.7).astype(np.float32))
+    v = torch.from_numpy((rng.standard_normal((2, n_pages + 1, kvh, page, d)) - 0.4).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((s_, h, lq + row0, d)).astype(np.float32))
+    offsets = torch.tensor(offsets_l, dtype=torch.int32)
+    args = (tables, valid, offsets, 1, d**-0.5)
+    if quantized:
+        payload, scales = quantize_chunk(k, v, TKVQ(group_size=32, bits=4))
+        out, live = _k7_split_model(q[:, :, row0:], payload, scales, *args, row0=row0)
+        plain = lambda q_, r: TK.paged_quantized_kv_attention_plain(q_, payload, scales, *args, r)  # noqa: E731
+    else:
+        out, live = _paged_split_model(q[:, :, row0:], k[1], v[1], tables, valid, offsets, d**-0.5, row0)
+        plain = lambda q_, r: TK.paged_kv_attention_plain(q_, k, v, *args, r)  # noqa: E731
+    ref = plain(q[:, :, row0:], row0)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+    np.testing.assert_allclose(ref.numpy(), plain(q, 0)[:, :, row0:].numpy(), **F32_TOL)
+    n_split, split = TK.paged_split_plan(w)
+    for s in range(s_):
+        assert live[s].tolist() == [min(n_split, min(w - 1, offsets_l[s] + row0 + i) // split + 1)
+                                    for i in range(lq)]
+    vis = TK.paged_visible(valid, offsets, lq, row0)
+    assert vis[1, 0].sum(-1).tolist() == [row0 + i + 1 for i in range(lq)]  # fresh keys 0..row0 + i

@@ -213,6 +213,26 @@ def test_generate_speculative_matches_vanilla_and_jax(pair, monkeypatch, prompt,
     assert stats["emitted"] == jlm._spec_stats["emitted"]
 
 
+def test_generate_speculative_33_rows_matches_jax(pair, monkeypatch):
+    """K = 32: a verify pass of 33 query rows runs the decode route in
+    three row groups (16, 16, 1; ``kv_attention.by_row_groups``) and emits
+    the JAX package's stream token for token."""
+    spec_env(monkeypatch, k="32")
+    (jlm, jproc), (tlm, tproc) = pair
+    calls = []
+    by_row_groups = TM.by_row_groups
+
+    def spy(attention, q, *args, **kw):
+        calls.append(q.shape[2])
+        return by_row_groups(attention, q, *args, **kw)
+
+    monkeypatch.setattr(TM, "by_row_groups", spy)
+    want = generate(jlm, jproc, REPEAT, True, 80, module=JE)
+    assert generate(tlm, tproc, REPEAT, True, 80) == want == generate(tlm, tproc, REPEAT, False, 80)
+    assert 33 in calls
+    assert tlm._spec_stats["emitted"] == jlm._spec_stats["emitted"] > tlm._spec_stats["iters"] > 0
+
+
 def test_api_generate_speculative_by_environment(ckpt, monkeypatch):
     from phi_3_vision_mlx_tpu_torch import api
 
@@ -354,13 +374,13 @@ def test_sampled_speculation_is_seeded(pair, monkeypatch):
 
 
 def test_spec_k_limits():
-    with pytest.raises(ValueError, match=r"\[0, 32\]"):
-        TS.check_spec_k(33, "cpu", kernel_rows=False)
-    TS.check_spec_k(32, "cpu", kernel_rows=True)  # the CPU's plain paths take any row count
-    with pytest.raises(ValueError, match="16-row limit"):
-        TS.check_spec_k(16, "cuda", kernel_rows=True)
-    TS.check_spec_k(15, "cuda", kernel_rows=True)
-    TS.check_spec_k(32, "cuda", kernel_rows=False)  # the slot engine's plain attention
+    """K takes the JAX engines' [0, 32] on every device and path: on the
+    card the decode kernels take a pass of K + 1 rows in groups of 16."""
+    for bad in (33, -1):
+        with pytest.raises(ValueError, match=r"\[0, 32\]"):
+            TS.check_spec_k(bad)
+    for k in (0, 15, 16, 32):
+        TS.check_spec_k(k)
 
 
 # --- slot and paged engines (tests/test_spec_serving.py) -----------------------
@@ -396,7 +416,7 @@ def make(pair_, paged, **kw):
     return (JBatch if isinstance(lm, JE.LM) else TBatch)(lm, proc, **kw)
 
 
-@pytest.mark.parametrize("k", [2, 7])
+@pytest.mark.parametrize("k", [2, 7, 32])
 @pytest.mark.parametrize("paged", [False, True], ids=["slots", "paged"])
 def test_engine_speculation_matches_jax(engines, paged, k):
     jpair, tpair = engines
