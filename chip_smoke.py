@@ -50,8 +50,9 @@ caught and carried on):
                paged decode chunk, eager and graph, beside the
                single-stream figure of phase 4.
 6. profile  — each single-stream request at a short and a long window,
-               with the dense, the int4 and the int8 cache (the last
-               dequantizes the window, then runs K2/K3), eager and through
+               with the dense and the int4 cache, and at the long window
+               with the int8 cache (it dequantizes the window, then runs
+               K2/K3), eager and through
                the decode step's CUDA graph (a request whose first chunk
                captures it, then one that replays it): bitwise-equal tokens
                and max and EOS log-probs and equal launch totals (plus the
@@ -85,7 +86,7 @@ caught and carried on):
                decoder layers; 4 crops) against the plain path on the CPU on
                a landscape and a portrait image: the image features, then
                the prefill and one decode step's logits and max log-prob,
-               with the dense and the int4 cache.  (b) Three image requests
+               with the dense cache (and the int4 cache, landscape).  (b) Three image requests
                through ``api.generate`` (a square image, a portrait one, a
                prompt with two), with each cache, every decode step a graph
                replay: the counters must show K2 (dense) or K5 (int4) once a
@@ -148,6 +149,32 @@ caught and carried on):
                ``generate(enable_api=True)`` on a quoted prompt.  (e)
                GTE-large (24 x 1024, random weights) on 8 texts, card
                against CPU in f32.
+13. LoRA training and adapter serving — on the same weights.  (a) K1
+               (route A at M = 1, route B at M = 64 and 256), K8 and K9 at
+               M = 64 and the dequantize route at M = 384, on the qkv shape,
+               each behind its ``autograd.Function``: the forward and ``dx``
+               against the plain version's autograd, no gradient to the
+               payload, scales or biases, one counted launch a forward; the
+               backward timed beside its bound, its dequantization alone,
+               the plain backward and ``torch.matmul`` on a W dequantized
+               beforehand.  (b) A 2-layer full-width checkpoint written by
+               the port, 4-bit: ``train_lora`` (4 steps, ``mask_ratios=
+               [0.0]``) on the card and on a CPU fp32 twin from the same
+               initial A, each step's loss and each adapter tensor's cosine
+               held to the twin's; then ``_load(adapter_path=)``,
+               ``test_lora(take=2)`` and ``generate(use_adapter=True)``.  (c)
+               ``train_lora`` at full size through its entry point (its
+               ``_load`` pointed at an ``LM`` over the built weights): the
+               JAX defaults, then 5 layers of rank 16 over batches of 768
+               rows (the dequantize route); step wall, one more step's
+               forward and backward (wall, busy, idle share), the
+               backward's dequantization, tokens/s, peak memory, K1
+               launches; a non-finite loss, a ``lora_b`` left 0 or a zero
+               LoRA gradient below the top active layer fails.  (d) The wide
+               run's adapter through ``load_adapter``: 64 greedy tokens
+               through ``api.generate`` from graphs against the same model
+               eager, dense and int4 cache, the adapter's effect on the
+               logits, the graph step's wall, busy and idle share.
 
 Phase 2 also holds K2 and K5 at phase 10's square-image prefill (its
 prompt bucket over its window, one left pad; K2 beside SDPA and its bound),
@@ -186,6 +213,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1235,8 +1263,13 @@ def post(port: int, body: dict, timeout: float = 600):
         f"http://127.0.0.1:{port}/v1/completions",
         data=json.dumps(body).encode(), headers={"Content-Type": "application/json"},
     )
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return resp.status, json.loads(resp.read())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        if e.code >= 500:  # the handler's error, reported as JSON
+            fail(f"HTTP {e.code} from the server: {e.read().decode(errors='replace')[:2000]}")
+        raise
 
 
 def kernel_counters() -> dict:
@@ -1788,7 +1821,7 @@ def step_profile(torch, dec, steps: int, profiled: int):
     return wall, per_name, launches / profiled
 
 
-def phase_profile(torch, lm, proc, steps: int = 16, profiled: int = 4, tags=("a", "c")):
+def phase_profile(torch, lm, proc, steps: int = 8, profiled: int = 4, tags=("a", "c")):
     """Each single-stream request of ``tags`` (windows 768 and 4352) eager
     and twice through the decode step's CUDA graph, on a model with no
     graph entry yet: the first graph request captures the graph inside its
@@ -1972,8 +2005,9 @@ def phase_vision_reference(torch, params):
     """(a) A full-width 4-bit bf16 Phi-3.5-vision cut to ``REF_CLIP_LAYERS``
     CLIP layers and ``REF_DECODER_LAYERS`` decoder layers, on the card
     against the plain path on the CPU with the same weights and image: the
-    image features, then ``compare_with_cpu`` with the dense and the int4
-    cache, for a landscape and a portrait image."""
+    image features, then ``compare_with_cpu`` with the dense cache, for a
+    landscape and a portrait image, and with the int4 cache for the
+    landscape one."""
     import dataclasses
 
     import numpy as np
@@ -2007,7 +2041,7 @@ def phase_vision_reference(torch, params):
             f"rel L2 cuda-vs-cpu {rel:.3e} (limit {REF_REL_L2:.3g})")
         if a.shape != b.shape or not np.isfinite(a).all() or not rel <= REF_REL_L2:
             fail(f"reference: the card's image features disagree with the CPU's ({name})")
-        for quantized in (False, True):
+        for quantized in (False, True) if name == "landscape" else (False,):  # the int4 cache: one image
             compare_with_cpu(torch, cfg.replace(use_quantized_cache=quantized), small, d, f"{label}, {name} image")
 
 
@@ -3649,9 +3683,10 @@ def phase_constrain(torch, params, lm, lm_int4, proc, report):
     stamp("phase 12")
 
 
-def phase_checkpoint(torch):
+def phase_checkpoint(torch, raw: str):
     """The port alone makes an 8-bit model: a 2-layer full-width random
-    checkpoint (``create_random_checkpoint``), quantized to 8 bits
+    checkpoint (``create_random_checkpoint``) written at ``raw`` (phase 13
+    (b) trains on its 4-bit copy), quantized to 8 bits
     (``quantize_checkpoint``), loaded on the card (``api._load``) and
     generating through ``api.generate`` on K8 (K1 never launched)."""
     import tempfile
@@ -3661,9 +3696,9 @@ def phase_checkpoint(torch):
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        create_random_checkpoint(f"{tmp}/raw", "phi35_mini", seed=0, num_hidden_layers=2)
+        create_random_checkpoint(raw, "phi35_mini", seed=0, num_hidden_layers=2)
         t1 = time.perf_counter()
-        cfg = quantize_checkpoint(f"{tmp}/raw", f"{tmp}/q8", q_bits=8)
+        cfg = quantize_checkpoint(raw, f"{tmp}/q8", q_bits=8)
         t2 = time.perf_counter()
         lm, proc = api._load(f"{tmp}/q8", device="cuda")
         torch.cuda.synchronize()
@@ -3681,6 +3716,414 @@ def phase_checkpoint(torch):
         f"api.generate gave {len(text[0])} chars; launches {launches}")
     if launches["K8"] <= 0 or launches["K1"] != 0:
         fail(f"checkpoint flow: K8 {launches['K8']} launches, K1 {launches['K1']}")
+
+
+# Phase 13: LoRA training and adapter serving.
+# The seam's cases on the qkv shape: K1 at route A (M = 1) and route B (M =
+# 64, 256), K8 and K9 at M = 64, the dequantize route at M = 384.
+SEAM_SHAPE = (3072, 9216)
+SEAM_CASES = (("K1", 1), ("K1", 64), ("K1", 256), ("K8", 64), ("K9", 64), ("dequantize", 384))
+# dx through the seam (bf16 dy @ W^T on cuBLAS, W dequantized to bf16)
+# against the plain version's autograd (the same W in an f32 product, then
+# rounded to bf16): two bf16 ulps of |dx| (2-4 at these scales), plus an
+# absolute term for elements near zero, where the f32 sums' order and
+# cuBLAS's split reduction decide the last bits.
+SEAM_DX_ATOL, SEAM_DX_RTOL = 2e-2, 2 * 2.0**-7
+# Phase 13 (b): each step's loss on the card (bf16 base, f32 LoRA) against
+# the fp32 CPU twin from the same initial A, and the cosine of each trained
+# adapter tensor to the twin's.
+LORA_LOSS_ATOL = 5e-2
+LORA_COS_MIN = 0.9
+TRAIN_RUNS = {"defaults": {}, "wide": dict(lora_layers=5, lora_rank=16, batch_size=2, epochs=2, mask_ratios=[0.0])}
+ADAPTER_TOKENS = 64
+TM_PATHS = (("self_attn", "qkv_proj"), ("self_attn", "o_proj"), ("mlp", "gate_up_proj"), ("mlp", "down_proj"))
+KERNEL_ROWS = 256  # ops/linear.py:KERNEL_MAX_ROWS: above it a linear takes the dequantize route
+
+
+def phase_seam(torch, report):
+    """Phase 13 (a): K1, K8 and K9 and the dequantize route under autograd
+    (``ops/kernels/quant_matmul.py``'s Functions) at SEAM_CASES: the forward
+    and ``dx`` against the plain version's autograd on the same inputs, no
+    gradient to the payload, scales or biases, one counted launch a forward
+    (none for the dequantize route or a backward); then the backward's ms
+    beside its bound, the plain version's backward, the dequantization
+    alone and ``torch.matmul`` on a W dequantized beforehand."""
+    from phi_3_vision_mlx_tpu_torch.core.weights import (pack_int4, pack_int8, to_packed_layout, unpack_int4,
+                                                         unpack_int8)
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as QM
+    from phi_3_vision_mlx_tpu_torch.ops.quant import QTensor, dequantize
+
+    k, n = SEAM_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(13)
+    s4, b = w4_planes(torch, k, n, g)
+    q4 = torch.randint(0, 16, (k, n), dtype=torch.uint8, device="cuda", generator=g)
+    q8 = torch.randint(0, 256, (k, n), dtype=torch.uint8, device="cuda", generator=g)
+    w4, w8, wp = pack_int4(q4), pack_int8(q8), to_packed_layout(q4)
+    s8 = (s4.float() * 15 / 255).to(torch.bfloat16)  # 8-bit levels over the same range as 4-bit ones
+    layouts = {  # name -> (Function, wrapper, plain, payload, unpack, payload bytes)
+        "K1": (QM.QuantMatmulFn, QM.quant_matmul, QM.quant_matmul_plain, w4, unpack_int4, k * n // 2),
+        "K8": (QM.QuantMatmulW8Fn, QM.quant_matmul_w8, QM.quant_matmul_w8_plain, w8, unpack_int8, k * n),
+        "K9": (QM.QuantMatmulPackedFn, QM.quant_matmul_packed, QM.quant_matmul_packed_plain, wp,
+               QM.packed_unpack(wp, s4), k * n // 2),
+        "dequantize": (QM.DequantMatmulFn, None, None, w4, unpack_int4, k * n // 2),
+    }
+    for name, m in SEAM_CASES:
+        fn, wrapper, plain, payload, unpack, wbytes = layouts[name]
+        s = s8 if name == "K8" else s4
+        w16 = dequantize(QTensor(unpack(payload), s, b), dtype=torch.bfloat16)
+        if wrapper is None:
+            last = (unpack,)
+            plain = lambda x, *a, out_dtype=None: torch.matmul(x, w16)  # noqa: E731
+        else:
+            last = (torch.bfloat16,)
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
+        x2 = x.detach().clone().requires_grad_()
+        sr, br = s.clone().requires_grad_(), b.clone().requires_grad_()
+        dy = torch.randn((m, n), generator=g, device="cuda").to(torch.bfloat16)
+        before = wrapper.launches if wrapper is not None else 0
+        y = fn.apply(x, payload, sr, br, *last)
+        launched = (wrapper.launches - before) if wrapper is not None else 0
+        y_ref = plain(x2, payload, s, b, out_dtype=torch.bfloat16)
+        y.backward(dy, retain_graph=True)
+        y_ref.backward(dy, retain_graph=True)
+        torch.cuda.synchronize()
+        fwd_err, _, fwd_ok = close(torch, y, y_ref, K1_ATOL, 2.0**-7)
+        dx_err, _, dx_ok = close(torch, x.grad, x2.grad, SEAM_DX_ATOL, SEAM_DX_RTOL)
+        frozen = sr.grad is None and br.grad is None and payload.grad is None
+        names = set()
+        stack = [y.grad_fn]
+        while stack:
+            f = stack.pop()
+            if f is not None:
+                names.add(type(f).__name__)
+                stack.extend(nf for nf, _ in f.next_functions)
+        through = f"{fn.__name__}Backward" in names
+        bwd = cuda_ms(torch, lambda: torch.autograd.grad(y, x, dy, retain_graph=True), 10)
+        plain_bwd = cuda_ms(torch, lambda: torch.autograd.grad(y_ref, x2, dy, retain_graph=True), 10)
+        deq = cuda_ms(torch, lambda: dequantize(QTensor(unpack(payload), s, b), dtype=torch.bfloat16), 10)
+        lib = cuda_ms(torch, lambda: torch.matmul(dy, w16.t()), 10)
+        bd = bound(wbytes + 2 * 2 * (k // 64) * n + 2 * m * n + 2 * m * k, 2 * m * k * n)
+        log(f"phase 13 (a) seam {name} M={m} (qkv K={k} N={n}): forward max abs err {fwd_err:.3e} (limit "
+            f"{K1_ATOL} + 2^-7 rel); dx max abs err {dx_err:.3e} (limit {SEAM_DX_ATOL} + {SEAM_DX_RTOL:.4f} rel) "
+            f"against the plain version's autograd; through {fn.__name__}: {through}; no gradient to the "
+            f"payload, scales, biases: {frozen}; forward launches {launched}; backward {bwd:.4f} ms (dequantize "
+            f"alone {deq:.4f}, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}), plain backward "
+            f"{plain_bwd:.4f} ms, torch.matmul on the pre-dequantized W {lib:.4f} ms")
+        if not (fwd_ok and dx_ok and frozen and through):
+            fail(f"phase 13 (a) seam {name} M={m}: forward ok {fwd_ok}, dx ok {dx_ok}, frozen {frozen}, "
+                 f"through the Function {through}")
+        if launched != (0 if wrapper is None else 1):
+            fail(f"phase 13 (a) seam {name} M={m}: {launched} counted launches in one forward")
+        entry = {"shape": f"seam backward qkv M={m}", "ms": bwd, "plain_ms": plain_bwd, "library_ms": lib,
+                 "dequantize_ms": deq, "dx_max_abs_err": dx_err, **bd}
+        report.setdefault("seam", []).append({"name": name, **entry})
+        if wrapper is not None:
+            report[name].setdefault("timings", []).append(entry)
+        del y, y_ref, x, x2
+    torch.cuda.empty_cache()
+
+
+def lora_tensors(path: str) -> dict:
+    from phi_3_vision_mlx_tpu_torch.core.weights import load_safetensors
+
+    return load_safetensors(f"{path}/adapters.safetensors")
+
+
+def train_losses(path: str) -> list:
+    with open(f"{path}/adapter_train_log.json") as f:
+        return json.load(f)["step_loss"]
+
+
+def phase_lora_reference(torch, raw: str):
+    """Phase 13 (b): the 2-layer full-width checkpoint the port wrote in
+    phase 7 (``raw``), quantized to 4 bits, ``train_lora`` through its entry point on the card
+    (4 steps, 2 rows of 192 tokens: the dequantize route) and on the CPU in
+    fp32 with the linears dequantized once (the trainer's ``_load`` pointed
+    at that twin), both from the A the trainer draws on a CPU generator:
+    each step's loss within LORA_LOSS_ATOL, each adapter tensor's cosine to
+    the twin's at least LORA_COS_MIN.  Then the card's adapter through
+    ``_load(adapter_path=)``, ``test_lora`` and ``generate(use_adapter=
+    True)``."""
+    import tempfile
+
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.core import weights as W
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+    from phi_3_vision_mlx_tpu_torch.train import trainer as TT
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            q = api.PATH_QUANTIZED_PHI3_BLIND
+            W.quantize_checkpoint(raw, q)
+            kw = dict(model_path=q, dataset_path="synthetic", take=4, lora_layers=2, lora_rank=4, mask_ratios=[0.0])
+            t0 = time.perf_counter()
+            TT.train_lora(device="cuda", **kw)
+            t1 = time.perf_counter()
+            base, proc = api._load(q, device="cpu")
+            twin = LM(base.cfg.replace(dtype="float32"), dequantized_linears(torch, base.params), device="cpu")
+            with mock.patch.object(api, "_load", lambda *a, **k: (twin, proc)):
+                TT.train_lora(adapter_path="adapters/cpu", device="cpu", **kw)
+            t2 = time.perf_counter()
+            card_dir = api._get_adapter_path(q)
+            card, cpu = train_losses(card_dir), train_losses("adapters/cpu")
+            dl = max(abs(a - b) for a, b in zip(card, cpu))
+            ta, tb = lora_tensors(card_dir), lora_tensors("adapters/cpu")
+            cos = {k: float(torch.nn.functional.cosine_similarity(ta[k].flatten(), tb[k].flatten(), dim=0))
+                   for k in sorted(ta)}
+            worst = min(cos, key=cos.get)
+            log(f"phase 13 (b) train_lora, 2 layers, width 3072, 4 steps of 2 x 192 rows: card {t1 - t0:.1f} s, "
+                f"CPU fp32 twin {t2 - t1:.1f} s; losses card {[round(x, 5) for x in card]}, CPU "
+                f"{[round(x, 5) for x in cpu]}: largest difference {dl:.3e} (limit {LORA_LOSS_ATOL}); adapter "
+                f"cosine to the twin's: least {cos[worst]:.5f} ({worst}), lora_b "
+                f"{[round(v, 5) for k, v in cos.items() if k.endswith('lora_b')]} (limit {LORA_COS_MIN})")
+            if (len(card) != 4 or len(cpu) != 4 or not np.isfinite(card).all() or dl > LORA_LOSS_ATOL
+                    or cos[worst] < LORA_COS_MIN or sorted(ta) != sorted(tb)):
+                fail("phase 13 (b): the card's training run disagrees with the CPU twin's")
+            lm, proc = api._load(q, adapter_path=card_dir, device="cuda")
+            node = lm.params["model"]["layers"]["self_attn"]["qkv_proj"]
+            if node["lora_a"].dtype != torch.float32 or float(node["lora_b"].abs().max()) == 0:
+                fail("phase 13 (b): _load(adapter_path=) did not apply the trained adapter")
+            del lm
+            t3 = time.perf_counter()
+            scores = TT.test_lora(model_path=q, dataset_path="synthetic", take=2, device="cuda")
+            t4 = time.perf_counter()
+            text = api.generate(PROMPT_A, blind_model=True, quantize_model=True, use_adapter=True, max_tokens=16,
+                                verbose=False, stream=False, mute=True)
+            with open("test_result.csv", newline="") as f:
+                rows = len(f.read().splitlines())
+            log(f"phase 13 (b) test_lora(take=2) on the card in {t4 - t3:.1f} s: scores {scores}; CSV written "
+                f"({rows} lines); generate(use_adapter=True) gave {len(text[0])} chars")
+            if set(scores) != {"choose", "constrain", "beam"} or not text or not text[0]:
+                fail(f"phase 13 (b): test_lora gave {scores}, generate gave {text!r}")
+        finally:
+            os.chdir(cwd)
+
+
+def profile_window(torch, fn, tries: int = 3):
+    """(device busy ms, device ms under the ``seam.dequantize`` range,
+    kernels) of ``fn()`` under the profiler; a window with no kernel is
+    profiled again (``fn`` must run more than once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            busy = sum(e.device_time_total for e in kernels) / 1e3
+            dq = sum(e.device_time_total for e in prof.events() if e.name == "seam.dequantize") / 1e3
+            return busy, dq, len(kernels)
+    return None, None, 0
+
+
+def train_full(torch, cfg, params, proc, run: str, kw: dict, adapter_path: str):
+    """One ``train_lora`` run at full size through its entry point, the
+    trainer's ``_load`` pointed at an ``LM`` over the built weights; then
+    one more step of that model profiled (forward, backward) and its
+    gradients checked.  Returns the run's numbers."""
+    import random
+
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+    from phi_3_vision_mlx_tpu_torch.train import lora as L
+    from phi_3_vision_mlx_tpu_torch.train import trainer as TT
+    from phi_3_vision_mlx_tpu_torch.train.data import load_qa_dataset
+
+    lm = LM(cfg, params, device="cuda")
+    stamps = []
+
+    class Timed(TT.TrainingCallback):
+        def __call__(self, step_loss):
+            stamps.append(time.perf_counter())
+            super().__call__(step_loss)
+
+    kw = dict(dict(dataset_path="synthetic"), **kw)
+    counters = zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the weights and whatever earlier phases hold
+    t0 = time.perf_counter()
+    with (mock.patch.object(api, "_load", lambda *a, **k: (lm, proc)),
+          mock.patch.object(TT, "TrainingCallback", Timed)):
+        TT.train_lora(adapter_path=adapter_path, device="cuda", **kw)
+    total = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30  # above what was held before
+    losses = train_losses(adapter_path)
+    walls = np.diff([t0] + stamps) * 1e3
+    step_wall = float(np.median(walls[1:])) if len(walls) > 1 else float(walls[0])
+    trained = lora_tensors(adapter_path)
+    zero_b = [k for k, t in trained.items() if k.endswith("lora_b") and float(t.abs().max()) == 0]
+
+    # One more step of the trained model: forward and backward profiled
+    # apart, the LoRA gradients checked.
+    trainable, frozen = L.partition_lora(lm.params)
+    leaves = L.lora_leaves(trainable)
+    rows = TT._prompt_rows(load_qa_dataset("synthetic", kw.get("take", 10)))
+    bs = kw.get("batch_size", 1)
+    batch = TT.batch_to(TT._prepare_batch(proc, rows[:bs], kw.get("mask_ratios"), random.Random(0)), "cuda")
+    loss_fn = TT.make_loss_fn(cfg)
+    nl = cfg.num_hidden_layers
+    active = list(range(nl - kw.get("lora_layers", 1), nl))
+    mask = torch.zeros((nl,))
+    mask[active] = 1.0
+    out = {}
+
+    def forward():
+        out["loss"] = loss_fn(L.active_layers(trainable, mask), frozen, batch)
+
+    def backward():
+        out["loss"].backward(retain_graph=True)
+
+    walls = {}
+    for name, f in (("forward", forward), ("backward", backward)):  # host clock, synchronized
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        walls[name] = float(np.median(ts))
+    fwd_busy, _, fwd_kernels = profile_window(torch, forward)
+    for t in leaves:
+        t.grad = None
+    backward()
+    torch.cuda.synchronize()
+    node = lm.params["model"]["layers"]["self_attn"]["qkv_proj"]
+    no_grad = [(i, key) for i in active[:-1] for key in ("lora_a", "lora_b")
+               if float(node[key].grad[i].abs().max()) == 0]
+    top_grad = float(node["lora_b"].grad[active[-1]].abs().max())
+    bwd_busy, bwd_dq, bwd_kernels = profile_window(torch, backward)
+    # The backward dequantizes W again for every linear whose input takes a
+    # gradient: all four of each layer above the lowest active one, o,
+    # gate_up and down of that one, and lm_head.  Their dequantization alone,
+    # CUDA events, no profiler:
+    from phi_3_vision_mlx_tpu_torch.core.weights import LAYOUTS
+    from phi_3_vision_mlx_tpu_torch.ops.linear import layer_view
+    from phi_3_vision_mlx_tpu_torch.ops.quant import QTensor, dequantize
+
+    def deq_ms(leaf):
+        unpack = LAYOUTS[cfg.quantized.bits][2]
+        return cuda_ms(torch, lambda: dequantize(QTensor(unpack(leaf["qweight"]), leaf["scales"], leaf.get("biases")),
+                                                 dtype=torch.bfloat16), 5)
+
+    layers = lm.params["model"]["layers"]
+    top = {path: deq_ms(layer_view(layers[path[0]][path[1]], nl - 1)) for path in TM_PATHS}
+    bwd_deq = (sum(top.values()) * len(active) - top[("self_attn", "qkv_proj")]
+               + deq_ms(lm.params["lm_head"]))
+    tokens = int(batch["ids"].numel())
+
+    def idle(b, w):  # None where the profiler's busy time exceeds the unprofiled wall
+        return None if b is None or b > w else 1 - b / w
+
+    res = dict(steps=len(losses), losses=losses, total_s=total, step_wall_ms=step_wall, rows=tokens,
+               fwd_wall=walls["forward"], bwd_wall=walls["backward"], fwd_busy=fwd_busy, bwd_busy=bwd_busy,
+               bwd_dq_profiled=bwd_dq, bwd_dequantize_ms=bwd_deq, dq_share=bwd_deq / walls["backward"],
+               fwd_kernels=fwd_kernels, bwd_kernels=bwd_kernels, fwd_idle=idle(fwd_busy, walls["forward"]),
+               bwd_idle=idle(bwd_busy, walls["backward"]), tok_s=tokens / step_wall * 1e3, peak_gib=peak,
+               launches=launches)
+    dev = lambda v: "not measured" if v is None else f"{v:.2f}"  # noqa: E731
+    log(f"phase 13 (c) train_lora {run} {kw} at full size (32 layers, width 3072, 4-bit): {len(losses)} steps "
+        f"of {tokens} rows in {total:.1f} s; losses {[round(x, 4) for x in losses]}; step wall median "
+        f"{step_wall:.1f} ms; one more step: forward wall {walls['forward']:.2f} ms, busy {dev(fwd_busy)} ms "
+        f"({fwd_kernels} kernels), idle share {dev(res['fwd_idle'])}; backward wall {walls['backward']:.2f} ms, "
+        f"busy {dev(bwd_busy)} ms ({bwd_kernels} kernels; under seam.dequantize {dev(bwd_dq)} ms), idle share "
+        f"{dev(res['bwd_idle'])}; the backward's dequantizations alone (CUDA events) {bwd_deq:.2f} ms, "
+        f"{res['dq_share']:.3f} of its wall; {res['tok_s']:.1f} tokens/s; peak memory above the weights "
+        f"{peak:.2f} GiB; "
+        f"launches {launches}")
+    if not np.isfinite(losses).all() or zero_b or no_grad or top_grad == 0:
+        fail(f"phase 13 (c) {run}: non-finite loss {losses}, lora_b left 0 at {zero_b}, no LoRA gradient "
+             f"below the top layer at {no_grad}, top layer's lora_b gradient {top_grad}")
+    k1_expected = tokens <= KERNEL_ROWS  # else every linear takes the dequantize route
+    if (launches.get("K1", 0) > 0) != k1_expected or launches.get("K2", 0):
+        fail(f"phase 13 (c) {run}: launches {launches} at {tokens} rows (K1 expected: {k1_expected}; no K2: "
+             "training runs no flash)")
+    for t in leaves:
+        t.grad = None
+    del lm, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_adapter_serving(torch, cfg, params, proc, adapter_path: str, report):
+    """Phase 13 (d): the trained adapter applied with ``load_adapter`` to
+    the full-size weights; greedy ``api.generate`` of ADAPTER_TOKENS
+    tokens with the dense and with the int4 cache, every decode step a graph
+    replay over the LoRA leaves, against the same model with
+    ``graphs=False``: the same text, the launch totals of the eager run plus
+    the capture's warm-up step; the adapter moves the prefill's logits;
+    then the graph step's wall, busy and idle share."""
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.core.weights import load_adapter
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM, prefill_decoder, release_decoder, run_prefill
+
+    params_ad = load_adapter(params, cfg, adapter_path)
+    dict_input = proc(api._apply_chat_template(PROMPT_A)[0])
+    for quantized in (False, True):
+        c = cfg.replace(use_quantized_cache=quantized)
+        lm = LM(c, params_ad, device="cuda")
+        eager = eager_twin(lm)
+        texts, launches = {}, {}
+        for mode, m in (("eager", eager), ("graph", lm)):
+            counters = zero_counters()
+            texts[mode] = api.generate(PROMPT_A, preload=(m, proc), max_tokens=ADAPTER_TOKENS, verbose=False,
+                                       stream=False, mute=True)
+            launches[mode] = {name: fn.launches for name, fn in counters.items()}
+        entry = next(iter(lm.decoders.values()), None)  # the graph run's decoder, released
+        graph = None if entry is None else entry.graph
+        want = launches["eager"] if graph is None else plus_warm_up(launches["eager"], graph)
+        captured = graph is not None and graph.graph is not None
+        with torch.no_grad():
+            moved = float((run_prefill(eager, dict_input, 8)[0]
+                           - run_prefill(LM(c, params, device="cuda", graphs=False), dict_input, 8)[0]).abs().max())
+        dec, _ = prefill_decoder(lm, dict_input, ADAPTER_TOKENS)
+        wall, per_name, kernels = step_profile(torch, dec, 16, 4)
+        release_decoder(lm, dec)
+        busy = sum(per_name.values())
+        label = "int4" if quantized else "dense"
+        log(f"phase 13 (d) adapter serving ({label} cache, 5 LoRA layers of rank 16 on qkv): {ADAPTER_TOKENS} "
+            f"greedy tokens, graph text equal to eager: {texts['graph'] == texts['eager']}; graph captured: "
+            f"{captured}; launch totals as expected: {launches['graph'] == want} "
+            f"{launches['graph']}; the adapter moves the prefill logits by up to {moved:.4f}; graph step wall "
+            f"{wall:.2f} ms, busy {busy:.3f} ms, idle share {1 - busy / wall if busy > 0 else float('nan'):.3f}, "
+            f"{kernels:.0f} nodes")
+        if texts["graph"] != texts["eager"] or launches["graph"] != want or not captured or moved == 0:
+            fail(f"phase 13 (d) {label}: graph and eager adapter runs differ, or the adapter changed nothing")
+        report.setdefault("adapter_serving", {})[label] = dict(wall=wall, busy=busy, nodes=kernels)
+        del lm, eager
+        torch.cuda.empty_cache()
+
+
+def phase_train(torch, cfg, params, proc, report, raw: str):
+    """Phase 13: (a) the autograd seam, (b) 2 layers against the CPU
+    through the entry points (the checkpoint ``raw`` of phase 7), (c)
+    full-size ``train_lora`` with the JAX defaults and a wider run, (d) the
+    wider run's adapter served."""
+    import gc
+    import tempfile
+
+    gc.collect()  # earlier phases' dropped models: their graphs and caches
+    torch.cuda.empty_cache()
+    phase_seam(torch, report)
+    stamp("phase 13 (a)")
+    phase_lora_reference(torch, raw)
+    stamp("phase 13 (b)")
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, kw in TRAIN_RUNS.items():
+            report.setdefault("train", {})[run] = train_full(torch, cfg, params, proc, run, kw, f"{tmp}/{run}")
+        stamp("phase 13 (c)")
+        phase_adapter_serving(torch, cfg, params, proc, f"{tmp}/wide", report)
+    stamp("phase 13")
 
 
 def main() -> None:
@@ -3776,16 +4219,22 @@ def main() -> None:
     stamp("phase 5")
     phase_profile(torch, lm, proc)
     phase_profile(torch, lm_int4, proc)
-    # The int8 cache dequantizes each layer's window (read_kv), then runs K2/K3.
+    # The int8 cache dequantizes each layer's window (read_kv), then runs K2/K3;
+    # profiled at the long window only, where read_kv costs most.
     lm_int8 = LM(cfg.replace(use_quantized_cache=True, kv_quant=KVQuantConfig(group_size=32, bits=8)),
                  params, device="cuda")
-    phase_profile(torch, lm_int8, proc)
+    phase_profile(torch, lm_int8, proc, tags=("c",))
     del lm_int8
     stamp("phase 6")
 
     # Phase 7: 8-bit weights, from the port's own checkpoint writers, then
-    # at full size beside the 4-bit weights.
-    phase_checkpoint(torch)
+    # at full size beside the 4-bit weights.  Its 2-layer checkpoint is kept
+    # for phase 13 (b).
+    import tempfile
+
+    run_dir = tempfile.TemporaryDirectory()
+    raw = f"{run_dir.name}/phi3_mini_2_layers"
+    phase_checkpoint(torch, raw)
     stamp("phase 7 checkpoint flow")
     cfg8 = full_config(bits=8)
     t0 = time.perf_counter()
@@ -3848,7 +4297,12 @@ def main() -> None:
     phase_spec(torch, lm, lm_int4, proc, report)
     # Phase 12: long verify passes, constrained decoding, the agent, GTE.
     phase_constrain(torch, params, lm, lm_int4, proc, report)
-    del lm, lm_int4, params
+    del lm, lm_int4
+    torch.cuda.empty_cache()
+    # Phase 13: LoRA training and adapter serving on the same weights.
+    phase_train(torch, cfg, params, proc, report, raw)
+    del params
+    run_dir.cleanup()
     torch.cuda.empty_cache()
     for pkg in ("jax", "phi_3_vision_mlx_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):

@@ -21,14 +21,19 @@ KV cache (kernels K4/K5 on the card).  ``generate`` samples with
 ``<|api_input|>`` goes to ``agent/tools.get_api`` instead.  ``choose``
 selects an option in one cache-free pass and ``constrain`` runs
 constrained decoding, greedy or with ``use_beam`` (``engine/constrain.py``);
-``execute`` is the agent's code sandbox (``agent/sandbox.py``).  Adapters
-(``use_adapter=True``) are not ported yet and raise.
+``execute`` is the agent's code sandbox (``agent/sandbox.py``).
+``use_adapter=True`` in ``load``, ``generate``, ``choose`` and ``constrain``
+serves the LoRA adapter at ``adapters/<model name>``
+(:func:`_get_adapter_path`; ``train/trainer.py:train_lora`` writes it
+there), as in the JAX package; ``_load(..., adapter_path=)`` takes any
+adapter either package wrote.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from pathlib import Path
 
 from .agent.sandbox import execute as sandbox_execute
 from .core import weights as W
@@ -37,6 +42,7 @@ from .engine.constrain import choose_from, constrain_decode
 from .engine.engine import LM, generate_text
 from .utils.media import fetch_image, fetch_text
 
+PATH_ADAPTERS = "adapters"
 PATH_ORIGINAL_PHI3_VISION = "models/phi3_v"
 PATH_QUANTIZED_PHI3_VISION = "models/phi3_v_Q"
 PATH_ORIGINAL_PHI3_BLIND = "models/phi3_mini_128k"
@@ -79,12 +85,26 @@ def _setup(allow_random: bool = None):
         W.quantize_checkpoint(local, quant)
 
 
-def _load(model_path=PATH_ORIGINAL_PHI3_VISION, device="cuda", **kwargs):
+def _get_adapter_path(model_path: str) -> str:
+    return f"{PATH_ADAPTERS}/{Path(model_path).name}"
+
+
+def _load(model_path=PATH_ORIGINAL_PHI3_VISION, adapter_path=None, device="cuda", **kwargs):
     """Checkpoint dir in the (in, out) layout, unquantized or with 4-bit or
-    8-bit weights -> (LM, processor).  The default is the unquantized vision
-    checkpoint, as in the JAX package."""
+    8-bit weights -> (LM, processor), with the LoRA adapter at
+    ``adapter_path`` applied (``core/weights.py:load_adapter``).  The
+    default is the unquantized vision checkpoint, as in the JAX package."""
     cfg, params = W.load_params(model_path, **kwargs)
     params = W.prepare_params(params, cfg)
+    if adapter_path:
+        with open(f"{adapter_path}/adapter_config.json") as f:
+            lora_cfg = json.load(f)
+        if lora_cfg.get("model_path") and lora_cfg["model_path"] != model_path:
+            print(
+                f"WARNING: LoRA trained for {lora_cfg['model_path']} is being "
+                f"used with {model_path}"
+            )
+        params = W.load_adapter(params, cfg, adapter_path)
     processor = processor_for(cfg.architecture)(model_path)
     return LM(cfg, params, model_path=model_path, device=device), processor
 
@@ -93,20 +113,17 @@ def load(blind_model: bool = False, quantize_model: bool = False, quantize_cache
          use_adapter: bool = False, device="cuda", **kwargs):
     """Flag-based model selection (JAX ``load``): the vision model unless
     ``blind_model``, the 4-bit checkpoint with ``quantize_model`` (default
-    ``False``), the 4-bit KV cache with ``quantize_cache``."""
-    _no_adapter(use_adapter)
+    ``False``), the 4-bit KV cache with ``quantize_cache``, the model's
+    adapter (:func:`_get_adapter_path`) with ``use_adapter``."""
     if blind_model:
         model_path = PATH_QUANTIZED_PHI3_BLIND if quantize_model else PATH_ORIGINAL_PHI3_BLIND
     else:
         model_path = PATH_QUANTIZED_PHI3_VISION if quantize_model else PATH_ORIGINAL_PHI3_VISION
+    adapter_path = _get_adapter_path(model_path) if use_adapter else None
     if not os.path.exists(model_path):
         _setup()
-    return _load(model_path=model_path, device=device, use_quantized_cache=quantize_cache, **kwargs)
-
-
-def _no_adapter(use_adapter: bool) -> None:
-    if use_adapter:
-        raise NotImplementedError("adapters are not ported yet")
+    return _load(model_path=model_path, adapter_path=adapter_path, device=device,
+                 use_quantized_cache=quantize_cache, **kwargs)
 
 
 # The JAX package's names for the media fetchers.
@@ -181,15 +198,14 @@ def generate(
     speculation for a single prompt.  With ``enable_api`` a prompt string
     holding ``<|api_input|>`` returns ``agent/tools.get_api``'s formatted
     snippets, and no model runs.  Without ``preload`` it loads the model as
-    :func:`load` does, with the same flags."""
+    :func:`load` does, with the same flags (``use_adapter`` too)."""
     if isinstance(prompt, str) and "<|api_input|>" in prompt and enable_api:
         from .agent.tools import get_api
 
         return get_api(prompt)
-    _no_adapter(use_adapter)
     if preload is None:
         preload = load(blind_model=blind_model, quantize_model=quantize_model,
-                       quantize_cache=quantize_cache)
+                       quantize_cache=quantize_cache, use_adapter=use_adapter)
     prompt, images = _apply_chat_template(prompt, images, verbose, apply_chat_template)
     return generate_text(
         *preload, prompt, images=images, max_tokens=max_tokens, verbose=verbose,
@@ -215,10 +231,9 @@ def choose(
     of ``choices`` whose token the model ranks highest after the prompt
     (one letter, or a list for a list of prompts).  ``images`` only reach
     the banner, as in the JAX package."""
-    _no_adapter(use_adapter)
     if preload is None:
         preload = load(blind_model=blind_model, quantize_model=quantize_model,
-                       quantize_cache=quantize_cache)
+                       quantize_cache=quantize_cache, use_adapter=use_adapter)
     if apply_chat_template:
         prompt, _ = _apply_chat_template(prompt, images, verbose)
     return choose_from(*preload, prompt=prompt, choices=choices)
@@ -241,10 +256,9 @@ def constrain(
     up to ``n_free`` free tokens, then ``text`` forced where it scores best
     by mean log-prob (``use_beam``: also trying the top 3 tokens before it);
     a string of choices appends the chosen letter."""
-    _no_adapter(use_adapter)
     if preload is None:
         preload = load(blind_model=blind_model, quantize_model=quantize_model,
-                       quantize_cache=quantize_cache)
+                       quantize_cache=quantize_cache, use_adapter=use_adapter)
     if apply_chat_template:
         prompt = _apply_chat_template(prompt, None, verbose)[0]
     return constrain_decode(*preload, prompt=prompt, constraints=constraints, use_beam=use_beam,

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 # Token ids fixed by the Phi-3 tokenizer.
 ID_EOS = 32007  # <|end|>
+ID_ASS = 32001  # <|assistant|>: the LoRA loss counts the tokens after it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +48,8 @@ class KVQuantConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ClipVisionConfig:
-    """CLIP ViT-L/14-336 config (the vision tower is not ported yet; the
-    config still parses, so a vision checkpoint is refused by name)."""
+    """CLIP ViT-L/14-336 config of Phi-3.5-vision's image tower
+    (``models/vision.py``)."""
 
     hidden_size: int = 1024
     image_size: int = 336

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .weights import prepare_params, torch_dtype
+from .weights import LORA_KEYS, prepare_params, torch_dtype
 
 
 def _to_torch(a, dtype: torch.dtype) -> torch.Tensor:
@@ -27,13 +27,15 @@ def _to_torch(a, dtype: torch.dtype) -> torch.Tensor:
 def from_numpy_params(tree: dict, cfg: ModelConfig) -> dict:
     """Nested dict of numpy arrays (JAX ``build_params`` structure, plain
     ``(K, N)`` uint8 payloads, or linears already in the flat packed layout)
-    -> the port's CPU params (K1 layout; packed leaves kept for K9)."""
+    -> the port's CPU params (K1 layout; packed leaves kept for K9).  Float
+    leaves take ``cfg.dtype``, LoRA leaves (``lora_a``, ``lora_b``,
+    ``lora_scale``) stay float32, as in the JAX tree."""
     dt = torch_dtype(cfg.dtype)
 
-    def walk(node):
+    def walk(node, key=None):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return _to_torch(node, dt)
+            return {k: walk(v, k) for k, v in node.items()}
+        return _to_torch(node, torch.float32 if key in LORA_KEYS else dt)
 
     return prepare_params(walk(tree), cfg)
 

@@ -9,6 +9,9 @@ Counterpart of ``phi_3_vision_mlx_tpu/core/weights.py``:
 * :func:`build_params` / :func:`load_params` stack the per-layer tensors of a
   checkpoint in the (in, out) layout (linear weights stored ``(in, out)``,
   config ``"layout": "in_out"``), written by either package.
+  :func:`load_adapter` adds a LoRA adapter either package wrote
+  (``adapters.safetensors`` + ``adapter_config.json``); :func:`prepare_params`
+  and :func:`params_to` keep its float32 leaves as they are.
 * :func:`save_checkpoint`, :func:`quantize_checkpoint` and
   :func:`create_random_checkpoint` write that format: ``config.json``,
   per-layer keys, plain ``(K, N)`` uint8 payloads with their scales and
@@ -189,6 +192,57 @@ def load_params(model_path: str, **cfg_overrides):
         )
     cfg = config_from_dict(raw_cfg, **cfg_overrides)
     return cfg, build_params(cfg, load_safetensors_dir(model_path))
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters (JAX core/weights.py:load_adapter)
+# ---------------------------------------------------------------------------
+
+LORA_KEYS = ("lora_a", "lora_b", "lora_scale")  # float32 whatever the model's dtype
+_ADAPTER_RE = re.compile(r"^model\.layers\.(\d+)\.(.+)\.(lora_a|lora_b)$")
+
+
+def _copy_tree(node):
+    """New dicts at every level over the same tensors."""
+    return {k: _copy_tree(v) for k, v in node.items()} if isinstance(node, dict) else node
+
+
+def load_adapter(params: dict, cfg: ModelConfig, adapter_path: str) -> dict:
+    """``params`` with the LoRA adapter at ``adapter_path`` added (a new
+    tree over the same tensors).
+
+    ``adapters.safetensors`` holds per-layer ``model.layers.N.<target>.
+    lora_a`` (K, r) and ``.lora_b`` (r, N) in float32, the reference's key
+    format, which both packages write; ``adapter_config.json``'s
+    ``lora_parameters`` give the scale ``scale * alpha / rank``.  Each
+    target gets stacked float32 ``lora_a (nl, K, r)``, ``lora_b (nl, r,
+    N)`` and ``lora_scale (nl,)`` on its weights' device; layers without
+    adapter weights hold zeros (B = 0 is an exact no-op).
+    """
+    with open(f"{adapter_path}/adapter_config.json") as f:
+        lp = json.load(f).get("lora_parameters", {})
+    scale = float(lp.get("scale", 1.0) * (lp.get("alpha", 1.0) / max(lp.get("rank", 1), 1)))
+    per_target: dict = {}
+    for k, v in load_safetensors(f"{adapter_path}/adapters.safetensors").items():
+        m = _ADAPTER_RE.match(k)
+        if m:
+            per_target.setdefault(m.group(2), {}).setdefault(int(m.group(1)), {})[m.group(3)] = v
+    params = _copy_tree(params)
+    nl = cfg.num_hidden_layers
+    for target, by_layer in per_target.items():
+        node = params["model"]["layers"]
+        for part in target.split("."):
+            node = node[part]
+        first = next(iter(by_layer.values()))
+        (kdim, r), ndim = first["lora_a"].shape, first["lora_b"].shape[-1]
+        a = torch.zeros((nl, kdim, r), dtype=torch.float32)
+        b = torch.zeros((nl, r, ndim), dtype=torch.float32)
+        for i, fields in by_layer.items():
+            a[i], b[i] = fields["lora_a"], fields["lora_b"]
+        device = next(v.device for v in node.values() if torch.is_tensor(v))
+        node["lora_a"], node["lora_b"] = a.to(device), b.to(device)
+        node["lora_scale"] = torch.full((nl,), scale, dtype=torch.float32, device=device)
+    return params
 
 
 # ---------------------------------------------------------------------------

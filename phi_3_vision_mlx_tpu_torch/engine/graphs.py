@@ -24,6 +24,7 @@ capture records each wrapper's launches and every replay adds them.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -94,7 +95,8 @@ class StepGraph:
     ``cudaFuncSetAttribute``, cuBLAS's workspace and the caching allocator's
     blocks happen there, not during the capture), the tensors in ``save``
     are restored, and the step is captured with
-    ``capture_error_mode="thread_local"``.  The capture runs nothing, so
+    ``capture_error_mode="thread_local"``, with Python's garbage collector
+    off until the capture ends.  The capture runs nothing, so
     ``save`` must hold every tensor whose value a step advances and a later
     step reads (the offsets, the fed-back token, the ring's step index): the
     first replay then redoes the warm-up's step, overwriting its cache and
@@ -142,9 +144,19 @@ class StepGraph:
             torch.cuda.empty_cache()  # as the capture itself does first
             reserved = torch.cuda.memory_reserved(self.device)
         graph = self.new_graph()
-        with _build.recording() as tally:
-            with self.capturing(graph):
-                self.step()
+        # No garbage collection inside the capture: a collection could free
+        # a dead entry's graph (a Decoder and its StepGraph hold each other,
+        # so only the collector frees them), and destroying a graph while a
+        # stream captures breaks the capture.
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.recording() as tally:
+                with self.capturing(graph):
+                    self.step()
+        finally:
+            if enabled:
+                gc.enable()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved

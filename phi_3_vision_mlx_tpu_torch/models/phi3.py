@@ -40,6 +40,14 @@ K6/K7, ``engine/paging.py``).  A vision prompt enters as
 ``inputs_embeds`` (``models/vision.py``).  :func:`init_params` draws random
 weights, the vision tower's too, for ``core/weights.py:
 create_random_checkpoint``.
+
+LoRA: a linear leaf may carry adapter leaves (``ops/linear.py``), which
+every path here applies through ``dense_stacked`` and ``dense``.  Training
+(``train/trainer.py``) differentiates :func:`forward_nocache` with
+``allow_flash=False``: plain masked attention, or
+``ops/attention.py:blockwise_attention`` from ``BLOCKWISE_MIN_LEN`` keys on,
+and LoRA-branch dropout with one keep mask per (layer, linear)
+(:func:`lora_dropout_mask`, keyed as the JAX package folds its key).
 """
 
 from __future__ import annotations
@@ -48,13 +56,14 @@ import dataclasses
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.config import ModelConfig
 from ..core.weights import torch_dtype
 from ..engine.state import DecodeState, init_state, read_kv, update_layer_chunk
-from ..ops.attention import causal_valid_mask, masked_attention
+from ..ops.attention import blockwise_attention, causal_valid_mask, masked_attention
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.kv_attention import (by_row_groups, dense_kv_attention, quantized_flash_attention,
                                         quantized_kv_attention)
@@ -63,6 +72,14 @@ from ..ops.norms import rms_norm
 from ..ops.rope import apply_rotary, su_rope_tables
 
 MAX_DECODE_ROWS = 16
+BLOCKWISE_MIN_LEN = 2048  # forward_nocache without flash: blockwise attention from here on
+# Stable ids of the linears for LoRA dropout keys (JAX models/phi3.py:93-97).
+_PATH_IDS = {
+    ("self_attn", "qkv_proj"): 0,
+    ("self_attn", "o_proj"): 1,
+    ("mlp", "gate_up_proj"): 2,
+    ("mlp", "down_proj"): 3,
+}
 
 
 class ForwardResult(NamedTuple):
@@ -105,25 +122,44 @@ def _attend(q, state: DecodeState, i: int, scale: float, decode=None):
     return flash_attention(q, k_stack[layer], v_stack[layer], state.valid, state.offset, scale)
 
 
-def block(cfg: ModelConfig, x, layers: dict, i: int, cos, sin, attend):
+def block(cfg: ModelConfig, x, layers: dict, i: int, cos, sin, attend, dropout=None):
     """Decoder block ``i``.  ``attend(q, k, v)`` gets the rotated chunk
     (B, H|KV, L, D), writes its k/v into the cache and returns the attention
     output (B, H, L, D); the single-stream and the slot engines differ only
-    there."""
+    there.  ``dropout(layer, path, h)``, for training, gives the LoRA
+    branch's input mask of each linear that carries LoRA leaves."""
     eps = cfg.rms_norm_eps
-    attn, mlp = layers["self_attn"], layers["mlp"]
+
+    def linear(path, h):
+        node = layers[path[0]][path[1]]
+        mask = dropout(i, path, h) if dropout is not None and "lora_a" in node else None
+        return dense_stacked(node, h, i, dropout_mask=mask)
+
     h = rms_norm(x, layers["input_layernorm"]["weight"][i], eps)
-    q, k, v = _qkv_split(cfg, dense_stacked(attn["qkv_proj"], h, i))
+    q, k, v = _qkv_split(cfg, linear(("self_attn", "qkv_proj"), h))
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     o = attend(q, k, v)
     b, _, l, _ = q.shape
     o = o.transpose(1, 2).reshape(b, l, -1)
-    x = x + dense_stacked(attn["o_proj"], o, i).to(x.dtype)
+    x = x + linear(("self_attn", "o_proj"), o).to(x.dtype)
     h = rms_norm(x, layers["post_attention_layernorm"]["weight"][i], eps)
-    gate, up = dense_stacked(mlp["gate_up_proj"], h, i).chunk(2, dim=-1)
+    gate, up = linear(("mlp", "gate_up_proj"), h).chunk(2, dim=-1)
     ff = F.silu(gate.float()).to(up.dtype) * up
-    return x + dense_stacked(mlp["down_proj"], ff, i).to(x.dtype)
+    return x + linear(("mlp", "down_proj"), ff).to(x.dtype)
+
+
+def lora_dropout_mask(rng, layer: int, path_id: int, shape, keep: float, device) -> torch.Tensor:
+    """Keep decisions (bool, ``shape``) of the LoRA-branch dropout of linear
+    ``path_id`` (``_PATH_IDS``) in layer ``layer``: one stream per (``rng``,
+    layer, linear), as the JAX package folds its key
+    (``fold_in(fold_in(key, layer), path_id)``).  ``rng`` is an int or a
+    tuple of ints (the trainer's ``(seed + 1, step)``); the stream is a
+    ``torch.Generator`` seeded from them, so its numbers are not JAX's."""
+    entropy = [rng] if isinstance(rng, int) else list(rng)
+    seed = int(np.random.SeedSequence([*entropy, layer, path_id]).generate_state(1)[0])
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=g, device=device) < keep
 
 
 def decode_forward(
@@ -265,11 +301,13 @@ def forward_nocache(
     ``_choose_from``): su-RoPE tables for L positions and ``pids``, query
     ``i`` seeing keys ``j <= i`` with ``prompt_valid[b, j]``.  Attention is
     K2 at offset 0 over the chunk's own k/v (its plain version on the CPU);
-    ``allow_flash=False`` runs the plain masked attention instead.  Returns
-    the logits (B, L, V).  LoRA dropout (``dropout_rng``, ``lora_dropout``)
-    raises until LoRA is ported."""
-    if dropout_rng is not None or lora_dropout > 0.0:
-        raise NotImplementedError("LoRA dropout is not ported yet")
+    ``allow_flash=False`` (training: K2 is forward-only) runs the plain
+    masked attention instead, or :func:`blockwise_attention` from
+    ``BLOCKWISE_MIN_LEN`` positions on.  With ``dropout_rng`` and
+    ``lora_dropout`` > 0 each LoRA branch's input is dropped with rate
+    ``lora_dropout`` and the kept values scaled by ``1 / (1 -
+    lora_dropout)`` (:func:`lora_dropout_mask`).  Returns the logits (B, L,
+    V)."""
     x = _embed(params, cfg, input_ids, inputs_embeds)
     b, l, _ = x.shape
     dev = x.device
@@ -283,14 +321,25 @@ def forward_nocache(
     if allow_flash:
         def attend(q, k, v):
             return flash_attention(q, k.contiguous(), v.contiguous(), valid, 0, scale)
+    elif l >= BLOCKWISE_MIN_LEN:
+        def attend(q, k, v):
+            return blockwise_attention(q, k, v, valid, scale)
     else:
         allowed = causal_valid_mask(valid, torch.arange(l, device=dev))
 
         def attend(q, k, v):
             return masked_attention(q, k, v, allowed, scale)
 
+    dropout = None
+    if dropout_rng is not None and lora_dropout > 0.0:
+        keep = 1.0 - lora_dropout
+
+        def dropout(layer, path, h):
+            mask = lora_dropout_mask(dropout_rng, layer, _PATH_IDS.get(path, 7), h.shape, keep, h.device)
+            return mask.to(h.dtype) / keep
+
     for i in range(cfg.num_hidden_layers):
-        x = block(cfg, x, params["model"]["layers"], i, cos, sin, attend)
+        x = block(cfg, x, params["model"]["layers"], i, cos, sin, attend, dropout)
     return _head(params, cfg, x)
 
 

@@ -22,6 +22,20 @@ Each wrapper (:func:`quant_matmul`, :func:`quant_matmul_w8`,
 its plain PyTorch version (``*_plain``) only for CPU tensors; a CUDA tensor
 a kernel does not take raises.  ``<wrapper>.launches`` counts kernel
 launches.
+
+The autograd seam: a kernel hands raw pointers to the built library, so its
+output has no ``grad_fn``.  :class:`QuantMatmulFn` (K1),
+:class:`QuantMatmulW8Fn` (K8) and :class:`QuantMatmulPackedFn` (K9) run
+their wrapper as the forward (the kernel on the card, the plain version on
+the CPU) and give ``dx = dy @ dequantize(W)^T`` as the backward;
+:class:`DequantMatmulFn` is the same for ``ops/linear.py:dense``'s
+dequantize-then-matmul route above 256 rows, whose forward keeps no
+dequantized copy of W.  The frozen payload, scales and biases take no
+gradient.  The JAX package leaves this backward to XLA, so it is plain
+PyTorch: W dequantized again to the activation dtype and one
+``torch.matmul`` (float32 accumulation; cuBLAS accumulates bf16 products in
+float32), the dequantization under the profiler range
+``"seam.dequantize"``.  A kernel that fails under the seam raises.
 """
 
 from __future__ import annotations
@@ -244,3 +258,73 @@ def quant_matmul_packed(
 quant_matmul.launches = 0
 quant_matmul_w8.launches = 0
 quant_matmul_packed.launches = 0
+
+
+# -- the autograd seam --------------------------------------------------------
+
+
+def _save(ctx, x, payload, scales, biases, unpack) -> None:
+    ctx.save_for_backward(payload, scales, biases)
+    ctx.unpack, ctx.x_dtype = unpack, x.dtype
+
+
+def _seam_backward(ctx, dy):
+    """dx = dy @ W^T with W dequantized again to the activation dtype; no
+    gradient for the payload, scales, biases or the static arguments."""
+    payload, scales, biases = ctx.saved_tensors
+    with torch.profiler.record_function("seam.dequantize"):
+        w = dequantize(QTensor(ctx.unpack(payload), scales, biases), dtype=ctx.x_dtype)
+    return torch.matmul(dy.to(ctx.x_dtype), w.t()), None, None, None, None
+
+
+def packed_unpack(weight: torch.Tensor, scales: torch.Tensor):
+    """The packed layout's payload -> its (K, N) levels (group from the
+    scales' rows)."""
+    return functools.partial(from_packed_layout, group=weight.shape[-2] // scales.shape[-2])
+
+
+class QuantMatmulFn(torch.autograd.Function):
+    """K1 (:func:`quant_matmul`) under autograd: ``apply(x (M, K), qweight,
+    scales, biases, out_dtype)``."""
+
+    @staticmethod
+    def forward(ctx, x, qweight, scales, biases, out_dtype):
+        _save(ctx, x, qweight, scales, biases, unpack_int4)
+        return quant_matmul(x, qweight, scales, biases, out_dtype=out_dtype)
+
+    backward = staticmethod(_seam_backward)
+
+
+class QuantMatmulW8Fn(torch.autograd.Function):
+    """K8 (:func:`quant_matmul_w8`) under autograd."""
+
+    @staticmethod
+    def forward(ctx, x, qweight, scales, biases, out_dtype):
+        _save(ctx, x, qweight, scales, biases, unpack_int8)
+        return quant_matmul_w8(x, qweight, scales, biases, out_dtype=out_dtype)
+
+    backward = staticmethod(_seam_backward)
+
+
+class QuantMatmulPackedFn(torch.autograd.Function):
+    """K9 (:func:`quant_matmul_packed`) under autograd."""
+
+    @staticmethod
+    def forward(ctx, x, weight, scales, biases, out_dtype):
+        _save(ctx, x, weight, scales, biases, packed_unpack(weight, scales))
+        return quant_matmul_packed(x, weight, scales, biases, out_dtype=out_dtype)
+
+    backward = staticmethod(_seam_backward)
+
+
+class DequantMatmulFn(torch.autograd.Function):
+    """``x (..., K) @ dequantize(W)`` in ``x.dtype``, the route above 256
+    rows: ``apply(x, payload, scales, biases, unpack)``, ``unpack`` the
+    payload's (K, N) levels.  The backward dequantizes again."""
+
+    @staticmethod
+    def forward(ctx, x, payload, scales, biases, unpack):
+        _save(ctx, x, payload, scales, biases, unpack)
+        return torch.matmul(x, dequantize(QTensor(unpack(payload), scales, biases), dtype=x.dtype))
+
+    backward = staticmethod(_seam_backward)

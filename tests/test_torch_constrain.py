@@ -86,8 +86,13 @@ def test_forward_nocache_matches_jax_and_reference(ref_setup, allow_flash):
     theirs = ref.RefModel(cfg_d, weights)(ids, max_tokens=0, pids=pids, mask=mask)
     valid_rows = mask.astype(bool)  # a pad query's row is masked differently by the reference
     np.testing.assert_allclose(got[valid_rows], theirs[valid_rows], rtol=2e-4, atol=2e-4)
-    with pytest.raises(NotImplementedError):
-        TM.forward_nocache(tparams, tcfg, torch.as_tensor(ids).long(), lora_dropout=0.1)
+    # LoRA dropout (refused here until LoRA was ported) drops only LoRA
+    # branches' inputs: on a tree without LoRA leaves, with or without a
+    # key, the logits are the same, as in the JAX package.
+    for kw in (dict(lora_dropout=0.1), dict(lora_dropout=0.1, dropout_rng=(1, 0))):
+        again = TM.forward_nocache(tparams, tcfg, torch.as_tensor(ids).long(), pids=torch.as_tensor(pids),
+                                   prompt_valid=torch.as_tensor(mask.astype(bool)), allow_flash=allow_flash, **kw)
+        np.testing.assert_array_equal(again.numpy(), got)
 
 
 @pytest.mark.parametrize("rows", [1, 2])
@@ -311,11 +316,28 @@ def test_api_constrain_default_constraints_match_jax(pair, capsys):
     assert "*** Prompt ***" in printed and "Constrain:" in printed
 
 
-def test_entry_points_refuse_adapters(pair):
-    _, (tlm, tproc) = pair
-    for fn in (TAPI.choose, TAPI.constrain, TAPI.generate):
-        with pytest.raises(NotImplementedError):
-            fn("Hi", preload=(tlm, tproc), use_adapter=True, verbose=False)
+def test_entry_points_refuse_adapters(ckpt, tmp_path, monkeypatch):
+    """The name is kept from when the port refused adapters; it now pins
+    their use: with ``use_adapter=True`` and no preload, ``choose``,
+    ``constrain`` and ``generate`` load ``adapters/<model name>`` beside
+    the checkpoint, as the JAX entry points do, and give their output."""
+    import functools
+    import os
+
+    from test_torch_lora import write_adapter
+
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("models")
+    os.symlink(ckpt, TAPI.PATH_ORIGINAL_PHI3_BLIND)
+    write_adapter(TAPI._get_adapter_path(TAPI.PATH_ORIGINAL_PHI3_BLIND), torch_preset("tiny"), [1], seed=4,
+                  model_path=TAPI.PATH_ORIGINAL_PHI3_BLIND)
+    monkeypatch.setattr(TAPI, "load", functools.partial(TAPI.load, device="cpu"))
+    kw = dict(blind_model=True, use_adapter=True, verbose=False)
+    assert TAPI.choose("Hi", **kw) == JAPI.choose("Hi", **kw)
+    assert TAPI.constrain("Hi", constraints=[(2, " A"), "AB"], **kw) == JAPI.constrain(
+        "Hi", constraints=[(2, " A"), "AB"], **kw)
+    gen = dict(max_tokens=6, stream=False, mute=True, **kw)
+    assert TAPI.generate("Hi", **gen) == JAPI.generate("Hi", **gen)
 
 
 def test_step_functions_check_their_shape(pair):

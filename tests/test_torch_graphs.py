@@ -11,6 +11,7 @@ context), and the continuous engines' streams under pipelining.
 """
 
 import contextlib
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -295,6 +296,25 @@ def test_launch_counts_record_at_capture_and_add_per_replay():
         fake_kernel()
     assert outer == {fake_kernel: 2} and inner == {fake_kernel: 1}
     assert fake_kernel.launches == 12
+
+
+def test_no_garbage_collection_during_a_capture():
+    """The capture runs with Python's garbage collector off (a collection
+    there could destroy a dead entry's graph, which breaks a capture on the
+    card), and turns it back on after, also when the capture raises."""
+    seen = []
+    g = StubStepGraph(lambda: seen.append(gc.isenabled()), "cpu", graphs=True)
+    assert gc.isenabled()
+    g.capture()
+    assert seen == [True, False] and gc.isenabled()  # the warm-up's step, the capture's
+
+    def boom():
+        if not gc.isenabled():
+            raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        StubStepGraph(boom, "cpu", graphs=True).capture()
+    assert gc.isenabled()
 
 
 @pytest.mark.parametrize("chunks", [CHUNKS, (TE.DECODE_CHUNK_MAX,)], ids=["ramp", "full-ring"])

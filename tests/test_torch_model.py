@@ -346,5 +346,16 @@ def test_load_quantize_cache_generates_the_jax_text(fp32_path, tmp_path, monkeyp
                            mute=True, apply_chat_template=False)
         assert got == want
     assert not api.load(blind_model=True, device="cpu")[0].cfg.use_quantized_cache
-    with pytest.raises(NotImplementedError, match="adapters"):
-        api.load(quantize_cache=True, use_adapter=True, device="cpu")
+    # ``use_adapter=True`` beside ``quantize_cache``: the adapter at
+    # adapters/<model name> is loaded, the JAX package's leaves exactly.
+    from phi_3_vision_mlx_tpu import api as JAPI
+    from test_torch_lora import write_adapter
+
+    write_adapter(api._get_adapter_path(api.PATH_ORIGINAL_PHI3_BLIND), jlm.cfg, [0], seed=2)
+    lm, _ = api.load(blind_model=True, quantize_cache=True, use_adapter=True, device="cpu")
+    jlm2, _ = JAPI.load(blind_model=True, quantize_cache=True, use_adapter=True)
+    assert lm.cfg.use_quantized_cache and jlm2.cfg.use_quantized_cache
+    node = lm.params["model"]["layers"]["self_attn"]["qkv_proj"]
+    jnode = jlm2.params["model"]["layers"]["self_attn"]["qkv_proj"]
+    for key in ("lora_a", "lora_b", "lora_scale"):
+        np.testing.assert_array_equal(node[key].numpy(), np.asarray(jnode[key]))
