@@ -82,8 +82,8 @@ caught and carried on):
                24 x 1024, and the 32 x 3072 decoder) built on the card from
                a seed; the images are seeded uint8 arrays behind a small
                class with ``.size`` and ``.convert`` (the path needs no
-               Pillow).  (a) A depth-cut copy (3 CLIP layers, so 2 run; 2
-               decoder layers; 4 crops) against the plain path on the CPU on
+               Pillow).  (a) A depth-cut copy (2 CLIP layers, so 1 runs; 1
+               decoder layer; 4 crops) against the plain path on the CPU on
                a landscape and a portrait image: the image features, then
                the prefill and one decode step's logits and max log-prob,
                with the dense cache (and the int4 cache, landscape).  (b) Three image requests
@@ -138,7 +138,9 @@ caught and carried on):
                (fp32) on the same inputs: the steps' log-probs within a
                stated limit, and the CPU's decisions (the run replayed on
                the host with its numbers) the card's but at ties.  (c)
-               Full size, dense and int4 cache: ``api.choose`` on four
+               Full width, the first 4 layers (its eager steps are
+               host-bound, so its time goes with the depth), dense and
+               int4 cache: ``api.choose`` on four
                prompts, ``api.constrain`` with the JAX defaults and with
                ``[(16, " A"), "ABCDE"]`` (the K3/K4 route), greedy and with
                beams; the launches (K1, K2, K3 dense; K1, K2, K4, K5
@@ -175,6 +177,36 @@ caught and carried on):
                through ``api.generate`` from graphs against the same model
                eager, dense and int4 cache, the adapter's effect on the
                logits, the graph step's wall, busy and idle share.
+14. the runbook, the benchmark, the chat session and the step log — in a
+               temporary working directory (restored after), the port's
+               ``_setup`` writes both random pairs (Phi-3.5-mini and
+               Phi-3.5-vision, each unquantized and 4-bit) at full width and
+               6 decoder layers.  (a) ``verify record``, then ``verify
+               check``, of configs 1-5 (synthetic QA rows, config 5 at a
+               32768-token window over the int4 cache, two prefill chunks of
+               16384): each returns 0, each config's seconds and launches
+               (config 1, the fp32 model: K2 and K3 in fp32 only; configs 2
+               and 5: K4 and K5; 3 and 5: K1); then one flipped token in
+               config 1's golden must make ``check`` return 1.  (b)
+               ``benchmark(train_first=True, dataset_path="synthetic")`` on
+               the vision default, the Met Museum URL refused at once (no
+               socket opens): 4 configs x 3 tasks, every generation rate
+               above 0, the table printed.  (c) A ``ChatSession`` over the
+               port's ``Agent`` (text model): one turn, then reset.  (d)
+               Config 1's fp32 model through ``api.generate``, twice, the
+               second under ``PHI3V_TPU_STEP_LOG``: tok/s and the summary.
+
+Phase 2 also holds K2 and K3 in fp32 (an fp32 model's kernels) against
+their plain versions in fp32 (``F32_ATOL`` and ``F32_RTOL``): K2 at the
+runbook's config 1 prefill (lq 64 over 128 keys, left pad 34), at lq 1024
+over 1152 keys, an extend chunk and a batch of two pads; K3 at Lq 1 in
+config 1's 128-key window (its first decode step and the window's end), at
+Lq 1 and 8 over 640 and 4224 keys, at offset 100 of 4352 keys and from row0
+16; each timed beside fp32 SDPA over the same mask and a bound at 67
+TFLOP/s f32.  It holds K4 and K5 at the runbook's config 5 shapes in a
+32768-position int4 cache: K4 at Lq 1 from offsets 32639, 32640 and 32767,
+K5 on 256-row slices of the second 16384-row prefill chunk (q_pos0 16384,
+32384 and 32512), each under the limits of its shorter cases.
 
 Phase 2 also holds K2 and K5 at phase 10's square-image prefill (its
 prompt bucket over its window, one left pad; K2 beside SDPA and its bound),
@@ -190,7 +222,8 @@ checked at every main-path (K, N) for M = 1, 4, 8, 15, 16, 17, 192 and 256
 per column, each call repeated and required bit-identical, and timed at
 M = 1-256 beside ``_weight_int4pack_mm``.  Each kernel's line in the
 JSON carries its bound (its bytes at 3.35 TB/s or its operations at 989
-TFLOP/s bf16, 1979 TOP/s int8, whichever is longer, from this run's inputs)
+TFLOP/s bf16, 1979 TOP/s int8 or 67 TFLOP/s f32 on the CUDA cores,
+whichever is longer, from this run's inputs)
 and the time of one PyTorch call computing the same function where there is
 one (``library_ms``).  E1-E3's launches are counted over their experiment's
 run, the others' over the served path.
@@ -254,6 +287,17 @@ ATTN_ATOL, ATTN_RTOL = 2e-3, 2 * 2.0**-7
 # 3.0e-3 over 24 draws (lq 1024 and 256) and 3.15e-3 at lq = 4224.  So K2's
 # absolute term is 4e-3, its relative term ATTN_RTOL.
 K2_ATOL = 4e-3
+# K2 and K3 in fp32 (an fp32 model: the runbook's config 1) against their
+# plain versions in fp32, TF32 off: both sides sum in f32, each in its own
+# order, with no rounding below f32.  An H100 run measured at most 1.2e-6
+# over outputs of O(1) (K2 at lq 64-4224, K3 at Lq 1-16, 640 and 4224 keys).
+F32_ATOL, F32_RTOL = 1e-5, 1e-5
+# fp32 K2's cases, (lq, lk, q_pos0, left pad of each batch row, timed): the
+# runbook's config 1 prefill (its 30-token chat prompt in the 64-token bucket
+# of a 128-token window), K2's lq 1024 over 1152 keys, an extend chunk, a
+# batch of two pads.  32 query and 32 kv heads of 96.
+K2_F32_CASES = ((64, 128, 0, (34,), True), (1024, 1152, 0, (24,), True), (100, 1152, 1000, (24,), False),
+                (256, 384, 0, (0, 100), False))
 # The flash kernels' cases (K2 over the dense cache, K5 over the int4 cache):
 # (lq, lk, q_pos0, left pad of each batch row, kv heads, timed).  Left-padded
 # prompts (window = prompt bucket + decode budget), a batch of two prompts
@@ -265,6 +309,16 @@ FLASH_CASES = ((64, 128, 0, (14,), 32, True), (1024, 1152, 0, (24,), 32, True),
                (333, 397, 0, (5,), 32, False), (200, 264, 0, (9,), 16, False),
                (4224, 4352, 0, (17,), 32, True))
 KV_MEAN = (0.5, -0.3)  # k/v offsets: the int4 cache's bias planes carry signal
+# The runbook's config 5 (verify.py): a 32576-token prompt, bucketed to 32640
+# (left pad 64), in a 32768-position int4 cache; prefilled in two chunks of
+# PREFILL_CHUNK = 16384 rows, then decoded from offset 32640.  K4 at the last
+# prompt key, the first decode step and the window's end; K5 on slices of
+# LONG_SLICE rows of the second chunk: its first rows, the prompt's last rows
+# and the window's last rows.
+LONG_WINDOW, LONG_PAD = 32768, 64
+LONG_DECODE_OFFSETS = (32639, 32640, 32767)
+LONG_SLICE = 256
+LONG_CHUNK_ROWS = (16384, 32640 - LONG_SLICE, 32768 - LONG_SLICE)
 K4_ROWS = (1, 4, 16)  # K4's query rows: a decode step, a chunk, the kernel's limit
 # Phase 3: bf16 activations through 2 layers on two devices (an H100 run
 # measured 8.4e-3 relative L2 and 9.3e-5 in max log-prob).  The prefill and
@@ -304,6 +358,7 @@ REF_INT4_OWN_LOGPROB = 0.1
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+FP32_FLOPS = 67e12  # f32 on the CUDA cores: fp32 K2 and K3 use no tensor cores
 
 
 def bound(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> dict:
@@ -781,6 +836,109 @@ def phase_kernels(torch, report):
     report["K3"]["max_abs_err"] = max(errs)
 
 
+def phase_fp32_kernels(torch, report):
+    """K2 and K3 in fp32 (an fp32 model's prefill and decode) against their
+    plain versions in fp32, TF32 off: K2 at K2_F32_CASES, K3 at Lq 1 and 8
+    over 640 and 4224 keys (the window's end), at offset 100 of 4352 keys
+    and on a later row group (row0 16); each timed beside its bound (bytes at
+    3.35 TB/s or operations at 67 TFLOP/s f32, the longer) and fp32 SDPA
+    over the same mask, kept in K2's and K3's ``timings``."""
+    import torch.nn.functional as F
+
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as K2
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as K3
+
+    dev, f32 = "cuda", torch.float32
+    g = torch.Generator(device=dev).manual_seed(5)
+    h = kvh = 32
+    d = 96
+    scale = d**-0.5
+
+    def entry(name, shape, t, lib, bd, ea):
+        report[name].setdefault("timings", []).append(
+            {"shape": f"fp32 {shape}", **t, "library_ms": lib, **bd, "max_abs_err": ea})
+        log(f"{name} fp32 {shape}: max_abs={ea:.3e} (atol {F32_ATOL} + rtol {F32_RTOL}) {t.pop('text')} bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) library (fp32 SDPA, same mask) {lib:.4f} ms")
+
+    for lq, lk, q_pos0, pads, is_timed in K2_F32_CASES:
+        nb = len(pads)
+        q = torch.randn((nb, lq, h, d), generator=g, device=dev).transpose(1, 2)
+        kk = torch.randn((nb, kvh, lk, d), generator=g, device=dev)
+        vv = torch.randn((nb, kvh, lk, d), generator=g, device=dev)
+        valid = torch.ones((nb, lk), dtype=torch.bool, device=dev)
+        for i, pad in enumerate(pads):
+            valid[i, :pad] = False
+        out = K2.flash_attention(q, kk, vv, valid, q_pos0, scale)
+        ref = K2.flash_attention_plain(q, kk, vv, valid, q_pos0, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, F32_ATOL, F32_RTOL)
+        if out.dtype != f32 or not ok:
+            fail(f"K2 in fp32 disagrees with its plain version at B={nb} lq={lq} lk={lk} q_pos0={q_pos0}: "
+                 f"max_abs {ea:.3e}, {out.dtype}")
+        shape = f"B={nb} lq={lq} lk={lk} q_pos0={q_pos0} pads={pads} H=32 D=96"
+        if not is_timed:
+            log(f"K2 fp32 {shape}: max_abs={ea:.3e} (atol {F32_ATOL} + rtol {F32_RTOL})")
+            continue
+        iters = 12
+        t = timed(torch, lambda: K2.flash_attention(q, kk, vv, valid, q_pos0, scale),
+                  lambda: K2.flash_attention_plain(q, kk, vv, valid, q_pos0, scale), iters)
+        mask = causal_valid_mask(valid, q_pos0 + torch.arange(lq, device=dev))
+        keys = min(lk, q_pos0 + lq)
+        bd = bound(4 * (2 * q.numel() + 2 * nb * kvh * keys * d) + nb * lk, 4 * h * d * int(mask.sum()),
+                   rate=FP32_FLOPS)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask, scale=scale),
+                      iters)
+        entry("K2", shape, t, lib, bd, ea)
+        del mask
+    del q, kk, vv, out, ref
+
+    nl, b_ = 8, 1  # layers of the stacked cache, rotated so timing reads it cold
+    for lmax, lqs, offset_of, row0, label in (
+            (128, (1,), lambda lq: 64, 0, "config 1's first decode step"),
+            (128, (1,), lambda lq: 127, 0, "config 1's window end"),
+            (640, (1, 8), lambda lq: 640 - lq, 0, "window end"),
+            (4224, (1, 8), lambda lq: 4224 - lq, 0, "window end"),
+            (4352, (1,), lambda lq: 100, 0, "offset 100"),
+            (768, (16,), lambda lq: 704, 16, "row0 16")):
+        ks = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev)
+        vs = torch.randn((nl, b_, kvh, lmax, d), generator=g, device=dev)
+        valid = torch.rand((b_, lmax), generator=g, device=dev) > 0.05
+        valid[:, :10] = False  # left padding
+        for lq in lqs:
+            off = offset_of(lq)
+            q = torch.randn((b_, lq, h, d), generator=g, device=dev).transpose(1, 2)
+            off_t = dev_offset(torch, off)
+            out = K3.dense_kv_attention(q, ks, vs, valid, off_t, nl - 1, scale, row0=row0)
+            ref = K3.dense_kv_attention_plain(q, ks, vs, valid, off, nl - 1, scale, row0=row0)
+            torch.cuda.synchronize()
+            ea, er, ok = close(torch, out, ref, F32_ATOL, F32_RTOL)
+            if out.dtype != f32 or not ok:
+                fail(f"K3 in fp32 disagrees with its plain version at Lmax={lmax} Lq={lq} offset={off} "
+                     f"row0={row0}: max_abs {ea:.3e}")
+            nxt = rotating(nl)
+            t = timed(torch, lambda: K3.dense_kv_attention(q, ks, vs, valid, off_t, nxt(), scale, row0=row0),
+                      lambda: K3.dense_kv_attention_plain(q, ks, vs, valid, off_t, nxt(), scale, row0=row0),
+                      20)
+            keys = min(lmax, off + row0 + lq)  # the keys some row can see, read once
+            q_pos = off + row0 + torch.arange(lq, device=dev)
+            mask = causal_valid_mask(valid[:, :keys], q_pos)
+            bd = bound(4 * (2 * kvh * keys * d + 2 * h * lq * d) + lmax, 4 * h * d * int(mask.sum()),
+                       rate=FP32_FLOPS)
+
+            def library():
+                layer = nxt()
+                return F.scaled_dot_product_attention(q, ks[layer][:, :, :keys], vs[layer][:, :, :keys],
+                                                      attn_mask=mask, scale=scale)
+
+            entry("K3", f"Lq={lq} Lmax={lmax} offset={off} row0={row0} ({label})", t, cuda_ms(torch, library, 20),
+                  bd, ea)
+        del ks, vs
+    for name in ("K2", "K3"):
+        fp32 = [t["max_abs_err"] for t in report[name]["timings"] if t["shape"].startswith("fp32")]
+        log(f"{name} fp32: max_abs over the timed cases {max(fp32):.3e}")
+
+
 def phase_quantized_kernels(torch, report):
     """K4 and K5 against their plain versions over int4 caches made by the
     port's own quantizer from random bf16 k/v; K5 at K2's cases."""
@@ -877,6 +1035,35 @@ def phase_quantized_kernels(torch, report):
         log(f"K4 Lq={','.join(map(str, K4_ROWS))} Lmax={lmax} offsets {lmax // 2},{lmax}-Lq H={h} D={d}: "
             f"max_abs={max(errs):.3e} (atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f})")
         del payload, scales
+    # Config 5's decode (verify.py): a 32576-token prompt (bucket 32640, left
+    # pad 64) in a 32768-position int4 cache, decoded from offset 32640; also
+    # the last prompt key's offset and the window's end.  Timed at 32640.
+    nl, lmax = 2, LONG_WINDOW
+    payload, scales = int4_cache(nl, lmax)
+    valid = torch.ones((b_, lmax), dtype=torch.bool, device=dev)
+    valid[:, :LONG_PAD] = False
+    q = torch.randn((b_, 1, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    for offset in LONG_DECODE_OFFSETS:
+        out = KV.quantized_kv_attention(q, payload, scales, valid, dev_offset(torch, offset), nl - 1, scale)
+        ref = KV.quantized_kv_attention_plain(q, payload, scales, valid, offset, nl - 1, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+        errs.append(ea)
+        log(f"K4 Lq=1 Lmax={lmax} offset={offset} pad={LONG_PAD} (config 5's window): max_abs={ea:.3e} "
+            f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f})")
+        if not ok:
+            fail(f"K4 disagrees with its plain version at Lmax={lmax} Lq=1 offset={offset}")
+    offset = LONG_DECODE_OFFSETS[1]
+    nxt, end = rotating(nl), dev_offset(torch, offset)
+    t = timed(torch, lambda: KV.quantized_kv_attention(q, payload, scales, valid, end, nxt(), scale),
+              lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, end, nxt(), scale), 12)
+    keys = offset + 1
+    t.update(bound(kvh * keys * (d + 8 * (d // 32)) + lmax + 2 * 2 * h * d, 4 * h * d * (keys - LONG_PAD)),
+             library_ms=None)
+    shape = f"Lq=1 Lmax={lmax} offset={offset} H=32 D=96 int4 (config 5's first decode step)"
+    log(f"K4 {shape}: {t.pop('text')} bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    report["K4"].setdefault("timings", []).append({"shape": shape, **t})
+    del payload, scales
     report["K4"]["max_abs_err"] = max(errs)
 
     # --- K5 at FLASH_CASES over int4 caches.  K5's K and V tiles hold the
@@ -923,6 +1110,39 @@ def phase_quantized_kernels(torch, report):
             fail(f"K5 disagrees with its plain version at B={nb} lq={lq} lk={lk} q_pos0={q_pos0} "
                  f"KV={kvh_}")
         del payload, scales, q, out
+    # Config 5's second prefill chunk (q_pos0 16384 over the 32768-position
+    # window), held on slices of LONG_SLICE rows: its first rows, the
+    # prompt's last rows and the window's last rows.  Timed at the first.
+    lk = LONG_WINDOW
+    payload, scales = int4_cache(2, lk)
+    valid = torch.ones((b_, lk), dtype=torch.bool, device=dev)
+    valid[:, :LONG_PAD] = False
+    for i, q_pos0 in enumerate(LONG_CHUNK_ROWS):
+        q = torch.randn((b_, LONG_SLICE, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        out = KV.quantized_flash_attention(q, payload, scales, valid, q_pos0, 1, scale)
+        ref = KV.quantized_flash_attention_plain(q, payload, scales, valid, q_pos0, 1, scale)
+        torch.cuda.synchronize()
+        ea, er, ok = close(torch, out, ref, K2_ATOL, ATTN_RTOL)
+        errs.append(ea)
+        line = (f"K5 lq={LONG_SLICE} lk={lk} q_pos0={q_pos0} pad={LONG_PAD} (config 5's second chunk) int4: "
+                f"max_abs={ea:.3e} max(|err| - rtol |ref|)={excess(out, ref):.3e} "
+                f"(atol {K2_ATOL} + rtol {ATTN_RTOL:.4f})")
+        del ref
+        if i == 0:
+            t = timed(torch, lambda: KV.quantized_flash_attention(q, payload, scales, valid, q_pos0, 1, scale),
+                      lambda: KV.quantized_flash_attention_plain(q, payload, scales, valid, q_pos0, 1, scale), 4)
+            pairs = int(causal_valid_mask(valid, q_pos0 + torch.arange(LONG_SLICE, device=dev)).sum())
+            keys = q_pos0 + LONG_SLICE
+            t.update(bound(kvh * keys * (d + 8 * (d // 32)) + lk + 2 * 2 * q.numel(), 4 * h * d * pairs),
+                     library_ms=None)
+            line += f" {t.pop('text')} bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+            report["K5"].setdefault("timings", []).append(
+                {"shape": f"lq={LONG_SLICE} lk={lk} q_pos0={q_pos0} H=32 D=96 int4 (config 5's second chunk)", **t})
+        log(line)
+        if not ok:
+            fail(f"K5 disagrees with its plain version at lq={LONG_SLICE} lk={lk} q_pos0={q_pos0}")
+        del q, out
+    del payload, scales
     report["K5"]["max_abs_err"] = max(errs)
 
 
@@ -1928,38 +2148,20 @@ VISION_REQUESTS = {"square": ("Describe this image in detail.", ("square",)),
                    "portrait": ("What stands in the middle of this picture?", ("portrait",)),
                    "two images": ("Compare the two images.", ("landscape", "portrait"))}
 VISION_MAX_TOKENS = 64
-# Phase 10 (a)'s model: 3 CLIP encoder layers (the penultimate rule runs 2)
-# and 2 decoder layers at full width; its processor cuts an image to at most
+# Phase 10 (a)'s model: 2 CLIP encoder layers (the penultimate rule runs 1)
+# and 1 decoder layer at full width; its processor cuts an image to at most
 # 2 x 2 crops (num_crops 4), so the CPU's plain run stays short.
-REF_CLIP_LAYERS, REF_DECODER_LAYERS, REF_NUM_CROPS = 3, 2, 4
+REF_CLIP_LAYERS, REF_DECODER_LAYERS, REF_NUM_CROPS = 2, 1, 4
 # Phase 10 (c): the continuous server's slots and window.
 VISION_SLOTS, VISION_WINDOW = 4, 4096
 
 
-class ArrayImage:
-    """A decoded image made from a uint8 (H, W, 3) array: ``.size`` is
-    (width, height) and ``.convert("RGB")`` returns an object numpy reads
-    as the array, the duck type ``fetch_image`` and ``Phi3VImageProcessor``
-    accept."""
-
-    def __init__(self, pixels, name):
-        self.pixels, self.name = pixels, name
-        self.size = (pixels.shape[1], pixels.shape[0])
-
-    def convert(self, mode):
-        if mode != "RGB":
-            raise ValueError(mode)
-        return self
-
-    def __array__(self, dtype=None, copy=None):
-        return self.pixels if dtype is None else self.pixels.astype(dtype)
-
-    def __str__(self):
-        return f"{self.name} ({self.size[0]} x {self.size[1]}, seeded uint8)"
-
-
-def seeded_image(name: str) -> ArrayImage:
+def seeded_image(name: str):
+    """A seeded uint8 image without Pillow (``utils/media.py:ArrayImage``,
+    the duck type ``fetch_image`` and ``Phi3VImageProcessor`` accept)."""
     import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.utils.media import ArrayImage
 
     h, w = VISION_IMAGES[name]
     rng = np.random.default_rng(list(VISION_IMAGES).index(name))
@@ -3457,8 +3659,13 @@ def step_profile_idle(torch, fn, reps: int = 8):
     return wall, busy, 1 - busy / wall, launches
 
 
+# Phase 12 (c)'s depth: its eager steps are host-bound (about 1650-2200
+# launches a step at 32 layers), so its time goes with the layers.
+CONSTRAIN_LAYERS = 4
+
+
 def phase_constrain_full(torch, lm, proc, report):
-    """Phase 12 (c): full-size ``api.choose`` on four prompts and
+    """Phase 12 (c): full-width (``CONSTRAIN_LAYERS`` layers) ``api.choose`` on four prompts and
     ``api.constrain`` with the JAX defaults and with SHORT_CONSTRAINTS,
     greedy and with beams, through the normal entry points: the launches of
     the whole run (K1, K2 and K3 with the dense cache; K1, K2, K4 and K5
@@ -3674,8 +3881,13 @@ def phase_constrain(torch, params, lm, lm_int4, proc, report):
     stamp("phase 12 (a)")
     phase_constrain_reference(torch, params, proc)
     stamp("phase 12 (b)")
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+
+    cut = {"model": {**params["model"], "layers": first_layers(params["model"]["layers"], CONSTRAIN_LAYERS)},
+           "lm_head": params["lm_head"]}
     for model in (lm, lm_int4):
-        phase_constrain_full(torch, model, proc, report)
+        phase_constrain_full(torch, LM(model.cfg.replace(num_hidden_layers=CONSTRAIN_LAYERS), cut,
+                                       device="cuda"), proc, report)
     stamp("phase 12 (c)")
     phase_agent(torch, lm, proc, report)
     stamp("phase 12 (d)")
@@ -4126,6 +4338,188 @@ def phase_train(torch, cfg, params, proc, report, raw: str):
     stamp("phase 13")
 
 
+# Phase 14: the runbook (verify.py) and the reference's benchmark at full
+# width, cut to GATE_LAYERS decoder layers (config 5 trains LoRA on 5), config
+# 5's long window at the real gate's GATE_WINDOW tokens.
+GATE_LAYERS = 6
+GATE_WINDOW = 32768
+# The kernels each config must launch (verify record): config 1 runs K2 and K3
+# in fp32 only, and no K1.
+GATE_KERNELS = {1: ("K2", "K3"), 2: ("K4", "K5"), 3: ("K1",), 4: ("K2", "K3"), 5: ("K1", "K4", "K5")}
+GATE_PROMPT = "Write a mystery horror."
+
+
+def fp32_counters() -> dict:
+    """The fp32 kernels' shares of K2's and K3's launches."""
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+    from phi_3_vision_mlx_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    return {"K2 fp32": flash_attention.fp32, "K3 fp32": KV.dense_kv_attention.fp32}
+
+
+def refuse_network(*args, **kw):
+    raise OSError("chip_smoke.py phase 14: no network")
+
+
+def verify_config(torch, mode: str, n: int, common: list, tag: str) -> dict:
+    """``verify <mode>`` of config ``n``: it must return 0 and launch the
+    config's kernels (GATE_KERNELS; config 1 fp32 kernels only, the others
+    none).  Logs its seconds; returns its launches."""
+    from phi_3_vision_mlx_tpu_torch import verify
+
+    counters = {**kernel_counters(), **fp32_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = verify.main([mode, "--configs", str(n), *common])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    log(f"{tag} verify {mode} {verify.CFG_NAMES[n]}: rc {rc} in {secs:.1f} s; launches {launches}")
+    if rc != 0:
+        fail(f"{tag}: verify {mode} of config {n} returned {rc}")
+    if any(not launches.get(k) for k in GATE_KERNELS[n]):
+        fail(f"{tag}: config {n} did not launch {GATE_KERNELS[n]}: {launches}")
+    fp32 = launches.get("K2 fp32", 0), launches.get("K3 fp32", 0)
+    if n == 1 and (fp32 != (launches.get("K2"), launches.get("K3")) or "K1" in launches):
+        fail(f"{tag}: config 1 (fp32) ran other than fp32 K2 and K3 kernels: {launches}")
+    if n != 1 and any(fp32):
+        fail(f"{tag}: config {n} (bf16) launched an fp32 kernel: {launches}")
+    return launches
+
+
+def phase_verify(torch, report):
+    """Phase 14 (a): ``verify record`` then ``verify check`` of configs 1-5
+    (synthetic QA rows, config 5 at GATE_WINDOW), each config's seconds and
+    launches; then one flipped token in config 1's golden must fail."""
+    from phi_3_vision_mlx_tpu_torch import api, verify
+    from phi_3_vision_mlx_tpu_torch.core.registry import processor_for
+
+    common = ["--golden", "goldens", "--dataset", "synthetic", "--long-window", str(GATE_WINDOW),
+              "--device", "cuda"]
+    proc = processor_for("Phi3ForCausalLM")(api.PATH_QUANTIZED_PHI3_BLIND)
+    t0 = time.perf_counter()
+    prompt, n_tok = verify._long_prompt(proc, GATE_WINDOW)
+    log(f"phase 14 (a) config 5's long prompt sized on the host: {n_tok} tokens ({len(prompt)} chars) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for mode in ("record", "check"):
+        for n in sorted(verify.CFG_NAMES):
+            launches = verify_config(torch, mode, n, common, "phase 14 (a)")
+            if mode == "record" and n in (1, 2, 5):
+                report.setdefault("gate_launches", {})[n] = launches
+    with open(os.path.join("goldens", f"{verify.CFG_NAMES[5]}.json")) as f:
+        case = json.load(f)["cases"][0]
+    log(f"phase 14 (a) config 5: a {case['long_prompt_tokens']}-token prompt in a {case['long_window']}-token "
+        f"window over the int4 cache, {len(case['long_tokens'][0])} tokens decoded")
+    path = os.path.join("goldens", f"{verify.CFG_NAMES[1]}.json")
+    with open(path) as f:
+        golden = json.load(f)
+    golden["cases"][0]["tokens"][0][0] ^= 1
+    with open(path, "w") as f:
+        json.dump(golden, f)
+    rc = verify.main(["check", "--configs", "1", *common])
+    log(f"phase 14 (a) verify check with one token of config 1's golden flipped: rc {rc}")
+    if rc != 1:
+        fail(f"phase 14 (a): a corrupted golden passed verify check (rc {rc})")
+
+
+def phase_benchmark(torch):
+    """Phase 14 (b): ``benchmark(train_first=True, dataset_path="synthetic")``
+    on the vision default; the Met Museum URL fails at once (no socket
+    opens) and the local test image stands in.  benchmark.json must hold 4
+    configs x 3 tasks, every generation rate above 0."""
+    import socket
+
+    from phi_3_vision_mlx_tpu_torch import bench
+    from phi_3_vision_mlx_tpu_torch.utils import media
+
+    t0 = time.perf_counter()
+    with mock.patch.object(media, "_http_get", refuse_network), \
+            mock.patch.object(socket.socket, "connect", refuse_network), \
+            mock.patch.object(socket, "create_connection", refuse_network):
+        results = bench.benchmark(train_first=True, dataset_path="synthetic", device="cuda")
+    secs = time.perf_counter() - t0
+    with open("benchmark.json") as f:
+        data = json.load(f)
+    log(f"phase 14 (b) benchmark(train_first=True) at {GATE_LAYERS} layers in {secs:.1f} s: {json.dumps(data)}")
+    if (set(data) != {"vanilla", "q_model", "q_cache", "lora"} or data != json.loads(json.dumps(results))
+            or any(len(rows) != 3 or not all(r[2] > 0 for r in rows) for rows in data.values())):
+        fail(f"phase 14 (b): benchmark.json is not 4 configs x 3 tasks with generation rates above 0: {data}")
+
+
+def phase_chat_and_step_log(torch):
+    """Phase 14 (c): a ChatSession over the port's Agent (text model), one
+    turn, then reset.  (d): config 1's fp32 model through ``api.generate``,
+    64 tokens, twice (the first captures the decode graph), the second under
+    ``PHI3V_TPU_STEP_LOG``: its summary, and both runs' tok/s."""
+    import contextlib
+    import io
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.agent.agent import Agent
+    from phi_3_vision_mlx_tpu_torch.serve.ui import ChatSession
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        session = ChatSession(Agent(blind_model=True, device="cuda", max_tokens=64))
+        session.add_user_message("Say something about lighthouses.", [])
+        history = list(session.run_agent())
+        reset = session.reset()
+    log(f"phase 14 (c) ChatSession over Agent: {len(history)} history entries, the reply "
+        f"{str(history[-1][1])[:60]!r}...; reset gives {reset}")
+    if len(history) < 2 or history[0] != ("Say something about lighthouses.", None) or reset != []:
+        fail(f"phase 14 (c): the chat session's turn or reset went wrong: {history[:3]}")
+
+    preload = api._load(api.PATH_ORIGINAL_PHI3_BLIND, jax_dtype="float32", device="cuda")
+    if preload[0].cfg.dtype != "float32":
+        fail(f"phase 14 (d): config 1's model loaded as {preload[0].cfg.dtype}")
+    kw = dict(preload=preload, max_tokens=64, return_tps=True, verbose=False, stream=False, mute=True)
+    first = api.generate(GATE_PROMPT, **kw)
+    with mock.patch.dict(os.environ, {"PHI3V_TPU_STEP_LOG": "steps.json"}):
+        second = api.generate(GATE_PROMPT, **kw)
+    with open("steps.json") as f:
+        summary = json.load(f)
+    log(f"phase 14 (d) config 1's fp32 model ({GATE_LAYERS} layers), 64 tokens: prompt / decode tok/s "
+        f"{first[0]:.2f} / {first[1]:.2f} (captures the graph), {second[0]:.2f} / {second[1]:.2f} (replays); "
+        f"PHI3V_TPU_STEP_LOG summary {summary}")
+    if summary.get("n", 0) < 1 or not second[1] > 0:
+        fail(f"phase 14 (d): the step log holds no decode chunk: {summary}")
+
+
+def phase_gates(torch, report):
+    """Phase 14 in a temporary working directory (``_setup``, ``verify``,
+    ``benchmark`` and the agent write there), restored afterwards:
+    ``_setup`` writes both random pairs at full width and GATE_LAYERS
+    layers, then (a)-(d)."""
+    import tempfile
+
+    from phi_3_vision_mlx_tpu_torch import api
+
+    cwd = os.getcwd()
+    env = {"PHI3V_TPU_ALLOW_RANDOM": "1", "PHI3V_TPU_RANDOM_LAYERS": str(GATE_LAYERS)}
+    with tempfile.TemporaryDirectory() as work, mock.patch.dict(os.environ, env):
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            api._setup()
+            with open(os.path.join(api.PATH_ORIGINAL_PHI3_BLIND, "config.json")) as f:
+                width = json.load(f)["hidden_size"]
+            log(f"phase 14 _setup: both random pairs at width {width}, {GATE_LAYERS} layers, written in "
+                f"{time.perf_counter() - t0:.1f} s")
+            phase_verify(torch, report)
+            torch.cuda.empty_cache()
+            stamp("phase 14 (a)")
+            phase_benchmark(torch)
+            torch.cuda.empty_cache()
+            stamp("phase 14 (b)")
+            phase_chat_and_step_log(torch)
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    stamp("phase 14")
+
+
 def main() -> None:
     try:
         import torch
@@ -4180,6 +4574,7 @@ def main() -> None:
 
     # Phase 2: each kernel against its plain version.
     phase_kernels(torch, report)
+    phase_fp32_kernels(torch, report)
     phase_quantized_kernels(torch, report)
     phase_paged_kernels(torch, report)
     phase_w8_kernels(torch, report)
@@ -4304,6 +4699,9 @@ def main() -> None:
     del params
     run_dir.cleanup()
     torch.cuda.empty_cache()
+    # Phase 14: the runbook, the reference's benchmark, the chat UI's session
+    # and the step log, through the port's entry points.
+    phase_gates(torch, report)
     for pkg in ("jax", "phi_3_vision_mlx_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             fail(f"{pkg} was imported")

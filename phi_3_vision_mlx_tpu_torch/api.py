@@ -51,14 +51,14 @@ PATH_QUANTIZED_PHI3_BLIND = "models/phi3_mini_128k_Q"
 CHAT_TURN = "<|user|>\n{body}<|end|>\n<|assistant|>\n"
 
 
-def _setup(allow_random: bool = None):
+def _setup(allow_random: bool = None, device="cuda"):
     """The JAX ``_setup`` offline: for each of the text and the vision model
     whose pair is not on disk, under ``PHI3V_TPU_ALLOW_RANDOM=1`` write a
-    random-weight checkpoint and its 4-bit copy (``PHI3V_TPU_RANDOM_LAYERS``
-    sets the decoder's depth, ``PHI3V_TPU_RANDOM_OVERRIDES`` any config
-    fields as JSON); without it raise ``RuntimeError``.  Nothing is
-    downloaded (``download_and_convert`` needs the network and is not
-    ported)."""
+    random-weight checkpoint and its 4-bit copy, both drawn and quantized on
+    ``device`` (``PHI3V_TPU_RANDOM_LAYERS`` sets the decoder's depth,
+    ``PHI3V_TPU_RANDOM_OVERRIDES`` any config fields as JSON); without it
+    raise ``RuntimeError``.  Nothing is downloaded (``download_and_convert``
+    needs the network and is not ported)."""
     if allow_random is None:
         allow_random = os.environ.get("PHI3V_TPU_ALLOW_RANDOM", "") == "1"
     pairs = [
@@ -81,8 +81,8 @@ def _setup(allow_random: bool = None):
         extra = os.environ.get("PHI3V_TPU_RANDOM_OVERRIDES")
         if extra:
             overrides.update(json.loads(extra))
-        W.create_random_checkpoint(local, preset_name, **overrides)
-        W.quantize_checkpoint(local, quant)
+        W.create_random_checkpoint(local, preset_name, device=device, **overrides)
+        W.quantize_checkpoint(local, quant, device=device)
 
 
 def _get_adapter_path(model_path: str) -> str:
@@ -121,7 +121,7 @@ def load(blind_model: bool = False, quantize_model: bool = False, quantize_cache
         model_path = PATH_QUANTIZED_PHI3_VISION if quantize_model else PATH_ORIGINAL_PHI3_VISION
     adapter_path = _get_adapter_path(model_path) if use_adapter else None
     if not os.path.exists(model_path):
-        _setup()
+        _setup(device=device)
     return _load(model_path=model_path, adapter_path=adapter_path, device=device,
                  use_quantized_cache=quantize_cache, **kwargs)
 

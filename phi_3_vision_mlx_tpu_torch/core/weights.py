@@ -650,18 +650,25 @@ def _quantize_tree(params: dict, qcfg: QuantConfig) -> dict:
     return walk(params, [])
 
 
+def _to_device(node, device):
+    return {k: _to_device(v, device) for k, v in node.items()} if isinstance(node, dict) else node.to(device)
+
+
 def _copy_tokenizer_files(from_path: str, to_path: str) -> None:
     for f in glob.glob(f"{from_path}/*.json") + glob.glob(f"{from_path}/*.model"):
         if os.path.basename(f) != "config.json":
             shutil.copy(f, to_path)
 
 
-def quantize_checkpoint(from_path: str, to_path: str, q_group_size: int = 64, q_bits: int = 4):
+def quantize_checkpoint(from_path: str, to_path: str, q_group_size: int = 64, q_bits: int = 4,
+                        device="cpu"):
     """A checkpoint in the (in, out) layout -> its group-quantized copy
     (the reference's ``_quantize``): 4-bit or 8-bit affine, groups of
-    ``q_group_size``.  Floating weights are first cast to the config's
-    dtype, as the JAX package does.  Returns the quantized config."""
+    ``q_group_size``, computed on ``device``.  Floating weights are first
+    cast to the config's dtype, as the JAX package does.  Returns the
+    quantized config."""
     cfg, params = load_params(from_path)
+    params = _to_device(params, device)
     qcfg = QuantConfig(group_size=q_group_size, bits=q_bits)
     cfg = cfg.replace(quantized=qcfg)
     save_checkpoint(to_path, cfg, _quantize_tree(params, qcfg))
@@ -669,13 +676,15 @@ def quantize_checkpoint(from_path: str, to_path: str, q_group_size: int = 64, q_
     return cfg
 
 
-def create_random_checkpoint(path: str, preset_name: str, seed: int = 0, **overrides) -> ModelConfig:
+def create_random_checkpoint(path: str, preset_name: str, seed: int = 0, device="cpu",
+                             **overrides) -> ModelConfig:
     """Write a random-weight checkpoint of a preset (``models/phi3.py:
-    init_params`` from a CPU ``torch.Generator`` seeded with ``seed``); a
-    vision preset (``phi35_vision``, ``tiny_vision``) carries the CLIP tower
-    and projection under ``model.vision_embed_tokens``."""
+    init_params`` from a ``torch.Generator`` on ``device`` seeded with
+    ``seed``; each device draws its own numbers); a vision preset
+    (``phi35_vision``, ``tiny_vision``) carries the CLIP tower and
+    projection under ``model.vision_embed_tokens``."""
     from ..models.phi3 import init_params
 
     cfg = preset(preset_name, **overrides)
-    save_checkpoint(path, cfg, init_params(cfg, torch.Generator().manual_seed(seed)))
+    save_checkpoint(path, cfg, init_params(cfg, torch.Generator(device=device).manual_seed(seed)))
     return cfg

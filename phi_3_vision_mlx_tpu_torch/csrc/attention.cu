@@ -38,6 +38,26 @@
 //   The cache is read in place from the stacked (layers, B, KV, Lmax, D)
 //   buffer: no per-layer copy.
 //
+// Both also run fp32 models (the token-exact fp32 gate, verify.py's config
+// 1), as the JAX kernels are generic in the element type:
+// * K3 in fp32 is the same split and combine, templated on the element
+//   type T: f32 keys, values, output and 16-byte copies of 4 values, the
+//   rest unchanged (the device offset, row0, the window-only plan, the
+//   fixed-order combine).  Its shared memory doubles with the keys' width:
+//   60416 bytes a block at 64 keys, D = 96 and 16 rows (split_smem_bytes),
+//   under the 227 KB a block may take, so the bf16 plan carries over (three
+//   blocks an SM where bf16 fits eight).
+// * K2 in fp32 (flash_f32_kernel) is a simple CUDA-core kernel beside the
+//   tensor-core body: no bf16 rounding anywhere and no TF32, so it is held
+//   to the plain fp32 version at fp32's precision.  A block owns 32 query
+//   rows of one (head, batch), four threads a row; it walks the keys in
+//   tiles of 32 with f32 FMAs and an online softmax (one max and one
+//   rescale per row a tile), with the rules of the bf16 body: the causal
+//   offset q_pos0, the valid bits, tiles past the block's causal horizon
+//   skipped unless a row has seen no visible key, which then walks every
+//   tile to the uniform average of all Lk values.  It is bound by
+//   operations on the CUDA cores (67 TFLOP/s f32), not by bytes.
+//
 // Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
 // cudaErrorInvalidValue until a configuration on the card needs it.
 
@@ -49,9 +69,40 @@ constexpr int kSplitThreads = 128;  // K3: threads per block (4 warps)
 constexpr int kSplitMaxRows = 16;   // K3: query rows per (batch, head)
 constexpr int kCombineThreads = 256;  // K3's combine: threads per query row
 
-template <int D>
+// The element types of K2 and K3: bf16 (the served models) and f32.  A
+// value as f32, an f32 rounded to T, and a 16-byte chunk's 16 / sizeof(T)
+// values as f32.
+__device__ __forceinline__ float to_f(const __nv_bfloat16 v) { return bf(v); }
+__device__ __forceinline__ float to_f(const float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
+__device__ __forceinline__ void unpack(const uint4 raw, float (&f)[8]) {  // 8 bf16
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __bfloat1622float2(p[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint4 raw, float (&f)[4]) {  // 4 f32
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+
+// K3's shared memory: K rows padded by 16 bytes (conflict-free 16-byte
+// reads), V rows, the f32 queries and the f32 scores.
+template <int D, typename T>
 size_t split_smem_bytes(int split_keys, int Lq) {
-  return sizeof(__nv_bfloat16) * (size_t)split_keys * (2 * D + 8) +
+  return sizeof(T) * (size_t)split_keys * (2 * D + 16 / sizeof(T)) +
          sizeof(float) * (size_t)Lq * (D + split_keys);
 }
 
@@ -62,10 +113,10 @@ size_t split_smem_bytes(int split_keys, int Lq) {
 // and keeps an online (max, sum, output) over them, each lane three of the
 // row's dims; then the warps merge through shared memory.  A row that saw
 // no key in any split gets the uniform average of the Lmax values.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kCombineThreads)
-    dense_kv_combine_kernel(const float* __restrict__ partial, const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int H, int KV, int Lq, int Lmax,
+    dense_kv_combine_kernel(const float* __restrict__ partial, const T* __restrict__ v,
+                            T* __restrict__ out, int H, int KV, int Lq, int Lmax,
                             long long osb, long long osh, long long osl, int n_split) {
   constexpr int kWarps = kCombineThreads / 32, PER = D / 32, kDeep = 9;
   __shared__ float sm_acc[kWarps][D];
@@ -74,7 +125,7 @@ __global__ void __launch_bounds__(kCombineThreads)
   const int h = blockIdx.x, b = blockIdx.y / Lq, i = blockIdx.y % Lq;
   const size_t stride = (size_t)gridDim.x * gridDim.y * (D + 2);  // one split's partials
   const float* src = partial + (((size_t)b * H + h) * Lq + i) * (D + 2);
-  __nv_bfloat16* o = out + b * osb + h * osh + i * osl;
+  T* o = out + b * osb + h * osh + i * osl;
 
   float m = kNegInf, lsum = 0.f, a[PER];
 #pragma unroll
@@ -118,12 +169,12 @@ __global__ void __launch_bounds__(kCombineThreads)
     for (int r = 0; r < PER; ++r) a[r] *= g;
   } else {
     // No visible key in the whole window: the uniform average of every value.
-    const __nv_bfloat16* vb = v + ((size_t)b * KV + h / (H / KV)) * (size_t)Lmax * D;
+    const T* vb = v + ((size_t)b * KV + h / (H / KV)) * (size_t)Lmax * D;
 #pragma unroll
     for (int r = 0; r < PER; ++r) a[r] = 0.f;
     for (int j = warp; j < Lmax; j += kWarps) {
 #pragma unroll
-      for (int r = 0; r < PER; ++r) a[r] += bf(vb[(size_t)j * D + lane + 32 * r]);
+      for (int r = 0; r < PER; ++r) a[r] += to_f(vb[(size_t)j * D + lane + 32 * r]);
     }
     lsum = warp == 0 ? (float)Lmax : 0.f;
   }
@@ -138,7 +189,7 @@ __global__ void __launch_bounds__(kCombineThreads)
       acc += sm_acc[w][threadIdx.x];
       l += sm_l[w];
     }
-    o[threadIdx.x] = __float2bfloat16(acc / l);
+    o[threadIdx.x] = from_f<T>(acc / l);
   }
 }
 
@@ -152,19 +203,20 @@ __global__ void __launch_bounds__(kCombineThreads)
 // every block resident on an SM has its whole run in flight.  It writes
 // each row's (max, sum, unnormalized output) to partial[s, row], row = (b *
 // H + h) * Lq + i.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kSplitThreads)
-    dense_kv_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
+    dense_kv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const uint8_t* __restrict__ valid,
                           float* __restrict__ partial, int H, int KV, int Lq, int Lmax,
                           long long qsb, long long qsh, long long qsl,
                           const int* __restrict__ offset_ptr, int row0, float scale, int split_keys) {
-  constexpr int S = D + 8;        // K row stride in shared memory: conflict-free 16-byte reads
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int E = 16 / sizeof(T);  // values per 16-byte chunk
+  constexpr int S = D + E;           // K row stride in shared memory: conflict-free 16-byte reads
+  constexpr int kChunks = D / E;     // 16-byte chunks per row
   constexpr int kWarps = kSplitThreads / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);     // [split_keys][S]
-  __nv_bfloat16* vs = ks + (size_t)split_keys * S;                    // [split_keys][D]
+  T* ks = reinterpret_cast<T*>(smem_raw);                             // [split_keys][S]
+  T* vs = ks + (size_t)split_keys * S;                                // [split_keys][D]
   float* qs = reinterpret_cast<float*>(vs + (size_t)split_keys * D);  // [Lq][D]
   float* ps = qs + Lq * D;                                            // [Lq][split_keys]
   __shared__ float sm_m[kSplitMaxRows], sm_l[kSplitMaxRows];
@@ -190,17 +242,17 @@ __global__ void __launch_bounds__(kSplitThreads)
   const size_t kv0 = ((size_t)b * KV + kvh) * (size_t)Lmax * D;
   for (int idx = tid; idx < n * kChunks; idx += kSplitThreads) {
     const int r = idx / kChunks, c = idx % kChunks;
-    cp_async16(ks + r * S + c * 8, k + kv0 + (size_t)(j0 + r) * D + c * 8);
+    cp_async16(ks + r * S + c * E, k + kv0 + (size_t)(j0 + r) * D + c * E);
   }
   cp_async_commit();
   for (int idx = tid; idx < n * kChunks; idx += kSplitThreads) {
     const int r = idx / kChunks, c = idx % kChunks;
-    cp_async16(vs + r * D + c * 8, v + kv0 + (size_t)(j0 + r) * D + c * 8);
+    cp_async16(vs + r * D + c * E, v + kv0 + (size_t)(j0 + r) * D + c * E);
   }
   cp_async_commit();
   for (int idx = tid; idx < Lq * D; idx += kSplitThreads) {
     const int r = idx / D, c = idx % D;
-    qs[idx] = round_bf(bf(q[b * qsb + h * qsh + r * qsl + c]) * scale);
+    qs[idx] = round_to<T>(to_f(q[b * qsb + h * qsh + r * qsl + c]) * scale);
   }
   cp_async_wait<1>();  // K has arrived; V may still be in flight
   __syncthreads();
@@ -211,31 +263,22 @@ __global__ void __launch_bounds__(kSplitThreads)
     float sc[kSplitMaxRows];
 #pragma unroll
     for (int r = 0; r < kSplitMaxRows; ++r) sc[r] = 0.f;
-    const __nv_bfloat16* kr = ks + c * S;
+    const T* kr = ks + c * S;
 #pragma unroll
     for (int ch = 0; ch < kChunks; ++ch) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kr + ch * 8);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      float kf[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(k2[e]);
-        kf[2 * e] = f.x;
-        kf[2 * e + 1] = f.y;
-      }
+      float kf[E];
+      unpack(*reinterpret_cast<const uint4*>(kr + ch * E), kf);
 #pragma unroll
       for (int r = 0; r < kSplitMaxRows; ++r) {
         if (r >= Lq) break;
-        const float4 qa = *reinterpret_cast<const float4*>(qs + r * D + ch * 8);
-        const float4 qb = *reinterpret_cast<const float4*>(qs + r * D + ch * 8 + 4);
-        sc[r] = fmaf(qa.x, kf[0], sc[r]);
-        sc[r] = fmaf(qa.y, kf[1], sc[r]);
-        sc[r] = fmaf(qa.z, kf[2], sc[r]);
-        sc[r] = fmaf(qa.w, kf[3], sc[r]);
-        sc[r] = fmaf(qb.x, kf[4], sc[r]);
-        sc[r] = fmaf(qb.y, kf[5], sc[r]);
-        sc[r] = fmaf(qb.z, kf[6], sc[r]);
-        sc[r] = fmaf(qb.w, kf[7], sc[r]);
+#pragma unroll
+        for (int e = 0; e < E; e += 4) {
+          const float4 qa = *reinterpret_cast<const float4*>(qs + r * D + ch * E + e);
+          sc[r] = fmaf(qa.x, kf[e], sc[r]);
+          sc[r] = fmaf(qa.y, kf[e + 1], sc[r]);
+          sc[r] = fmaf(qa.z, kf[e + 2], sc[r]);
+          sc[r] = fmaf(qa.w, kf[e + 3], sc[r]);
+        }
       }
     }
     const bool ok = vrow[c] != 0;
@@ -276,7 +319,7 @@ __global__ void __launch_bounds__(kSplitThreads)
 #pragma unroll
   for (int r = 0; r < kSplitMaxRows; ++r) acc[r] = 0.f;
   for (int c = 0; c < n; ++c) {
-    const float vv = bf(vs[c * D + tid]);
+    const float vv = to_f(vs[c * D + tid]);
 #pragma unroll
     for (int r = 0; r < kSplitMaxRows; ++r) {
       if (r >= Lq) break;
@@ -293,7 +336,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* valid,
                           void* out, void* partial, int B, int H, int KV, int Lq, int Lmax,
                           const long long* st, int layer, const int* offset, int row0,
@@ -301,23 +344,176 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
   if (Lq < 1 || Lq > kSplitMaxRows || KV < 1 || H % KV || Lmax < 1 || offset == nullptr || row0 < 0 ||
       split_keys < 1 || partial == nullptr || n_split != (Lmax + split_keys - 1) / split_keys)
     return cudaErrorInvalidValue;
-  const size_t bytes = split_smem_bytes<D>(split_keys, Lq);
-  cudaError_t err = cudaFuncSetAttribute(dense_kv_split_kernel<D>,
+  const size_t bytes = split_smem_bytes<D, T>(split_keys, Lq);
+  cudaError_t err = cudaFuncSetAttribute(dense_kv_split_kernel<D, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const size_t layer_elems = (size_t)B * KV * Lmax * D;
-  const __nv_bfloat16* kl = static_cast<const __nv_bfloat16*>(k) + (size_t)layer * layer_elems;
-  const __nv_bfloat16* vl = static_cast<const __nv_bfloat16*>(v) + (size_t)layer * layer_elems;
-  dense_kv_split_kernel<D><<<dim3(n_split, H, B), kSplitThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), kl, vl, static_cast<const uint8_t*>(valid),
+  const T* kl = static_cast<const T*>(k) + (size_t)layer * layer_elems;
+  const T* vl = static_cast<const T*>(v) + (size_t)layer * layer_elems;
+  dense_kv_split_kernel<D, T><<<dim3(n_split, H, B), kSplitThreads, bytes, stream>>>(
+      static_cast<const T*>(q), kl, vl, static_cast<const uint8_t*>(valid),
       static_cast<float*>(partial), H, KV, Lq, Lmax, st[0], st[1], st[2], offset, row0, scale,
       split_keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dense_kv_combine_kernel<D><<<dim3(H, B * Lq), kCombineThreads, 0, stream>>>(
-      static_cast<const float*>(partial), vl, static_cast<__nv_bfloat16*>(out), H, KV, Lq, Lmax,
+  dense_kv_combine_kernel<D, T><<<dim3(H, B * Lq), kCombineThreads, 0, stream>>>(
+      static_cast<const float*>(partial), vl, static_cast<T*>(out), H, KV, Lq, Lmax,
       st[3], st[4], st[5], n_split);
   return cudaGetLastError();
+}
+
+constexpr int kF32BQ = 32;  // K2 in fp32: query rows per block, four threads a row
+constexpr int kF32BK = 32;  // keys per tile
+constexpr int kF32Threads = 4 * kF32BQ;
+
+// K2 in fp32.  Grid (H, B, ceil(Lq / kF32BQ)), kF32Threads threads; query
+// tile gridDim.z - 1 - blockIdx.z, so the longest causal ranges start
+// first.  Thread t owns row t / 4 of the tile: the scores of keys t % 4 + 4j
+// of each key tile and the output dims 4 (t % 4 + 4i) .. + 3.  Rows of Q, K
+// and V are padded to D + 4 floats (16-byte reads of four rows in distinct
+// banks), P's to kF32BK + 1.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const uint8_t* __restrict__ valid,
+                     float* __restrict__ out, int H, int KV, int Lq, int Lk, long long qsb,
+                     long long qsh, long long qsl, long long osb, long long osh, long long osl,
+                     int q_pos0, float scale) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16 (four float4 groups a row's threads)");
+  constexpr int S = D + 4, PS = kF32BK + 1;
+  constexpr int KJ = kF32BK / 4;  // keys a thread scores per tile
+  constexpr int DV = D / 16;      // float4 output groups a thread owns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [kF32BQ][S]
+  float* ks = qs + kF32BQ * S;                     // [kF32BK][S]
+  float* vs = ks + kF32BK * S;                     // [kF32BK][S]
+  float* ps = vs + kF32BK * S;                     // [kF32BQ][PS]
+  __shared__ bool vbits[kF32BK];
+
+  const int tid = threadIdx.x, row = tid >> 2, qd = tid & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kF32BQ;
+  const int horizon = q_pos0 + min(Lq, i0 + kF32BQ) - 1;
+  const size_t kv0 = ((size_t)b * KV + h / (H / KV)) * (size_t)Lk * D;
+  const uint8_t* vrow = valid + (size_t)b * Lk;
+  for (int idx = tid; idx < kF32BQ * D; idx += kF32Threads) {
+    const int r = idx / D, c = idx % D, qi = i0 + r;
+    qs[r * S + c] = qi < Lq ? q[b * qsb + h * qsh + qi * qsl + c] * scale : 0.f;
+  }
+  const int qi = i0 + row, qpos = q_pos0 + qi;
+  const bool row_ok = qi < Lq;
+  float m = kNegInf, l = 0.f;
+  float4 acc[DV];
+#pragma unroll
+  for (int i = 0; i < DV; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int j0 = 0; j0 < Lk; j0 += kF32BK) {
+    // Past the block's causal horizon: needed only while a row has seen no
+    // visible key.  (The barrier also frees the last tile's K, V and P.)
+    if (!__syncthreads_or(j0 <= horizon || (row_ok && m == kNegInf))) break;
+    for (int idx = tid; idx < kF32BK * (D / 4); idx += kF32Threads) {
+      const int r = idx / (D / 4), c = idx % (D / 4);
+      const size_t src = kv0 + (size_t)min(j0 + r, Lk - 1) * D + c * 4;  // past Lk: key Lk - 1, masked
+      *reinterpret_cast<float4*>(ks + r * S + c * 4) = *reinterpret_cast<const float4*>(k + src);
+      *reinterpret_cast<float4*>(vs + r * S + c * 4) = *reinterpret_cast<const float4*>(v + src);
+    }
+    if (tid < kF32BK) vbits[tid] = j0 + tid < Lk && vrow[j0 + tid] != 0;
+    __syncthreads();
+
+    float s[KJ];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) s[j] = 0.f;
+#pragma unroll 4
+    for (int c4 = 0; c4 < D / 4; ++c4) {
+      const float4 qa = *reinterpret_cast<const float4*>(qs + row * S + c4 * 4);
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const float4 ka = *reinterpret_cast<const float4*>(ks + (qd + 4 * j) * S + c4 * 4);
+        s[j] = fmaf(qa.x, ka.x, s[j]);
+        s[j] = fmaf(qa.y, ka.y, s[j]);
+        s[j] = fmaf(qa.z, ka.z, s[j]);
+        s[j] = fmaf(qa.w, ka.w, s[j]);
+      }
+    }
+    // Mask (a hidden key NEG_INF, a key past Lk -inf), then one max and one
+    // rescale for the row's tile (the four threads of a row are a quad).
+    float mt = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int c = qd + 4 * j, key = j0 + c;
+      s[j] = key >= Lk ? -INFINITY : (vbits[c] && key <= qpos) ? s[j] : kNegInf;
+      mt = fmaxf(mt, s[j]);
+    }
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m, mt), alpha = expf(m - m_new);
+    m = m_new;
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const float p = expf(s[j] - m);
+      ps[row * PS + qd + 4 * j] = p;
+      psum += p;
+    }
+    l = l * alpha + psum;  // this thread's keys; the quad's sum at the end
+#pragma unroll
+    for (int i = 0; i < DV; ++i) {
+      acc[i].x *= alpha;
+      acc[i].y *= alpha;
+      acc[i].z *= alpha;
+      acc[i].w *= alpha;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kF32BK; ++c) {
+      const float p = ps[row * PS + c];
+#pragma unroll
+      for (int i = 0; i < DV; ++i) {
+        const float4 vv = *reinterpret_cast<const float4*>(vs + c * S + (qd + 4 * i) * 4);
+        acc[i].x = fmaf(p, vv.x, acc[i].x);
+        acc[i].y = fmaf(p, vv.y, acc[i].y);
+        acc[i].z = fmaf(p, vv.z, acc[i].z);
+        acc[i].w = fmaf(p, vv.w, acc[i].w);
+      }
+    }
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  if (!row_ok) return;
+  float* orow = out + b * osb + h * osh + (long long)qi * osl;
+#pragma unroll
+  for (int i = 0; i < DV; ++i)
+    *reinterpret_cast<float4*>(orow + (qd + 4 * i) * 4) =
+        make_float4(acc[i].x / l, acc[i].y / l, acc[i].z / l, acc[i].w / l);
+}
+
+template <int D>
+cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const void* valid,
+                             void* out, int B, int H, int KV, int Lq, int Lk, const long long* st,
+                             int q_pos0, float scale, cudaStream_t stream) {
+  if (Lq < 1 || Lk < 1 || KV < 1 || H % KV) return cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * ((kF32BQ + 2 * kF32BK) * (D + 4) + kF32BQ * (kF32BK + 1));
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(H, B, (Lq + kF32BQ - 1) / kF32BQ);
+  flash_f32_kernel<D><<<grid, kF32Threads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(valid), static_cast<float*>(out), H, KV, Lq, Lk, st[0], st[1],
+      st[2], st[3], st[4], st[5], q_pos0, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int k3_launch(const void* q, const void* k, const void* v, const void* valid, void* out,
+              void* partial, int B, int H, int KV, int Lq, int Lmax, int D, const long long* st,
+              int layer, const void* offset, int row0, float scale, int n_split, int split_keys,
+              void* stream_ptr) {
+  switch (D) {
+    case 96: return (int)launch_decode<96, T>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, static_cast<const int*>(offset), row0, scale, n_split, split_keys, static_cast<cudaStream_t>(stream_ptr));
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -340,6 +536,23 @@ extern "C" int k2_flash_attention(const void* q, const void* k, const void* v, c
   }
 }
 
+// K2 in fp32: as k2_flash_attention with f32 q, k, v and out, out 16-byte
+// aligned with strides that are multiples of 4.
+extern "C" int k2_flash_attention_f32(const void* q, const void* k, const void* v,
+                                      const void* valid, void* out, int B, int H, int KV, int Lq,
+                                      int Lk, int D, long long qsb, long long qsh, long long qsl,
+                                      long long osb, long long osh, long long osl, int q_pos0,
+                                      float scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
+  if (osb % 4 || osh % 4 || osl % 4 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 96: return (int)launch_flash_f32<96>(q, k, v, valid, out, B, H, KV, Lq, Lk, st, q_pos0, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // K3.  q (B, H, Lq, D) as in K2, Lq <= 16; k, v the stacked cache (layers,
 // B, KV, Lmax, D) bf16 contiguous, 16-byte aligned, read at `layer` in
 // place; valid (B, Lmax) uint8; partial f32 scratch of n_split * B * H * Lq
@@ -354,10 +567,20 @@ extern "C" int k3_dense_kv_attention(const void* q, const void* k, const void* v
                                      long long qsl, long long osb, long long osh, long long osl,
                                      int layer, const void* offset, int row0, float scale,
                                      int n_split, int split_keys, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
-  switch (D) {
-    case 96: return (int)launch_decode<96>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, static_cast<const int*>(offset), row0, scale, n_split, split_keys, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return k3_launch<__nv_bfloat16>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, D, st, layer,
+                                  offset, row0, scale, n_split, split_keys, stream_ptr);
+}
+
+// K3 in fp32: as k3_dense_kv_attention with f32 q, k, v and out.
+extern "C" int k3_dense_kv_attention_f32(const void* q, const void* k, const void* v,
+                                         const void* valid, void* out, void* partial, int B, int H,
+                                         int KV, int Lq, int Lmax, int D, long long qsb,
+                                         long long qsh, long long qsl, long long osb,
+                                         long long osh, long long osl, int layer,
+                                         const void* offset, int row0, float scale, int n_split,
+                                         int split_keys, void* stream_ptr) {
+  const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
+  return k3_launch<float>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, D, st, layer, offset,
+                          row0, scale, n_split, split_keys, stream_ptr);
 }

@@ -73,7 +73,7 @@ from ..ops.attention import masked_attention
 from ..ops.linear import dense, embedding
 from ..ops.norms import rms_norm
 from ..ops.rope import su_rope_tables
-from .engine import DECODE_CHUNK_MAX, Knobs, round_up, run_prefill, sample_token_rows
+from .engine import DECODE_CHUNK_MAX, Knobs, fp32_refusal, round_up, run_prefill, sample_token_rows
 from .graphs import StepGraph, StepRing
 from .rng import SAMPLE, VANILLA, to_device
 from .speculative import (check_spec_k, greedy_verify, propose_drafts, verify_columns,
@@ -455,6 +455,8 @@ class BatchEngine:
                  seed: int = 0):
         if window % 128:
             raise ValueError("window must be a multiple of 128 (engine bucketing)")
+        if lm.device.type == "cuda" and lm.cfg.dtype == "float32":
+            raise ValueError(fp32_refusal("the slot and paged engines"))
         check_spec_k(spec_k)
         self.lm = lm
         self.processor = processor

@@ -184,13 +184,35 @@ class Knobs:
         return (self.filtered(logits) + self.gen.gumbel(SAMPLE, logits.shape[1:])).argmax(dim=-1)
 
 
+def fp32_refusal(what: str) -> str:
+    """The message of a refused fp32 combination on CUDA."""
+    return (f"{what} in fp32 on CUDA is not ported (ROADMAP.md queue 1 item 4): fp32 on the card "
+            "runs unquantized weights over the dense cache in the single-stream engine")
+
+
+def check_cuda_dtype(cfg: ModelConfig) -> None:
+    """On CUDA a model is bf16, or fp32 with unquantized weights and the
+    dense cache (K2 and K3 in fp32); other fp32 combinations raise: K1, K8
+    and K9 take bf16 activations, K4 and K5 a bf16 query."""
+    if cfg.dtype == "bfloat16":
+        return
+    if cfg.dtype != "float32":
+        raise ValueError(f"the CUDA kernels run bf16 or fp32 models, not {cfg.dtype}")
+    if cfg.quantized is not None:
+        raise ValueError(fp32_refusal(f"{cfg.quantized.bits}-bit weights"))
+    if cfg.use_quantized_cache:
+        raise ValueError(fp32_refusal(f"the int{cfg.kv_quant.bits} KV cache"))
+
+
 class LM:
     """A loaded model: config + params on the device the caller names.
 
-    On CUDA the kernels take bf16 activations, so ``cfg.dtype`` must be
-    ``"bfloat16"`` there; the CPU runs the plain paths in either dtype.
-    ``graphs`` (default: on for CUDA) replays each decode step of this
-    model's engines as a CUDA graph; ``graphs=False`` runs them eagerly.
+    On CUDA the kernels take bf16 activations, and fp32 ones for
+    unquantized weights over the dense cache (:func:`check_cuda_dtype`; the
+    slot and paged engines refuse fp32 there); the CPU runs the plain paths
+    in either dtype.  ``graphs`` (default: on for CUDA) replays each decode
+    step of this model's engines as a CUDA graph; ``graphs=False`` runs
+    them eagerly.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, model_path=None, *, device, graphs=None):
@@ -198,8 +220,8 @@ class LM:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the kernels need one; pass device='cpu' "
                                "to run the plain PyTorch path instead")
-        if self.device.type == "cuda" and cfg.dtype != "bfloat16":
-            raise ValueError(f"the CUDA kernels run bf16 models, not {cfg.dtype}")
+        if self.device.type == "cuda":
+            check_cuda_dtype(cfg)
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
         if self.graphs and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}; pass graphs=False")
@@ -539,6 +561,15 @@ def generate_text(
 
     n_emitted = 1
     stopped = bool(stop_seqs) and stop_seqs.update(token)
+    # PHI3V_TPU_STEP_LOG=<path>: one latency sample per decode chunk (after
+    # its host fetch, outside any captured step), the summary written there.
+    step_log = os.environ.get("PHI3V_TPU_STEP_LOG")
+    step_timer = None
+    if step_log:
+        from ..utils.profiler import StepTimer
+
+        step_timer = StepTimer()
+        step_timer.tick()
 
     def consume(tok, maxlp: float, eoslp: float) -> bool:
         """One emitted token (B,), in the reference order: stream it, the
@@ -560,6 +591,8 @@ def generate_text(
             left = max_tokens - n_emitted
             n_passes = spec.passes_for(left, spec_iters)
             toks, maxlp, eoslp, n_emits = (t.cpu().numpy() for t in spec.chunk(n_passes, left))
+            if step_timer is not None:
+                step_timer.tick()
             dec.advance_mirror(int(n_emits.sum()))
             stats["dead"] += int((n_emits == 0).sum())  # budget or window used up on the device
             for it in range(n_passes):
@@ -581,11 +614,15 @@ def generate_text(
         toks, maxlp, eoslp = dec.chunk(n_steps)
         toks = toks.cpu().numpy().astype(np.int32)  # one host transfer per chunk
         maxlp, eoslp = maxlp.cpu().numpy(), eoslp.cpu().numpy()
+        if step_timer is not None:
+            step_timer.tick()
         for i in range(n_steps):
             if consume(toks[i], float(maxlp[i, 0]), float(eoslp[i, 0])):
                 stopped = True
                 break
     release_decoder(lm, dec)  # not after a failure: that entry is dropped
+    if step_timer is not None:
+        step_timer.dump(step_log)
 
     result, gen_len = streamer.end()
     result = stop_seqs.trim(result)

@@ -55,6 +55,9 @@ SIGNATURES = {
     "k7_paged_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _I, _I, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
 }
+# K2 and K3 in fp32 take the bf16 entries' arguments.
+SIGNATURES["k2_flash_attention_f32"] = SIGNATURES["k2_flash_attention"]
+SIGNATURES["k3_dense_kv_attention_f32"] = SIGNATURES["k3_dense_kv_attention"]
 # The continuous server prefills on its admission thread while its pump
 # thread decodes: the first build and every launch count are shared.
 _BUILD_LOCK = threading.Lock()
@@ -120,6 +123,14 @@ def _library():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, seconds
+
+
+class Launches:
+    """A launch count kept beside a wrapper's own: the share of one of its
+    kernels (``flash_attention.fp32``), counted like a wrapper."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def count_launch(wrapper) -> None:

@@ -9,9 +9,11 @@ i``, so a verify pass of more rows runs as launches on groups of 16
 (:func:`by_row_groups`).  Queries and outputs are in the original D order.
 
 * K3 :func:`dense_kv_attention` — decode (Lq <= 16) over the dense bf16
-  cache ``(layers, B, KV, Lmax, D)``, the window split into runs of
-  ``K3_SPLIT_KEYS`` keys (:func:`dense_kv_split_plan`, the window only), one
-  block each, merged by a second kernel.  Replaces
+  (or, for an fp32 model, fp32) cache ``(layers, B, KV, Lmax, D)``, the
+  window split into runs of ``K3_SPLIT_KEYS`` keys
+  (:func:`dense_kv_split_plan`, the window only), one block each, merged by
+  a second kernel; ``dense_kv_attention.fp32.launches`` counts the fp32
+  kernels' launches among its own.  Replaces
   ``phi_3_vision_mlx_tpu/ops/kernels/kv_attention.py:dense_kv_attention``;
   CUDA source ``csrc/attention.cu`` (``k3_dense_kv_attention``).
 * K4 :func:`quantized_kv_attention` — decode (Lq <= 16) over the int4 cache
@@ -172,19 +174,23 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset, layer_idx: int, scale
     out = head_major_empty(q)
     # Per split: (max score, sum of exp, unnormalized output) of each query row.
     partial = torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
+    entry = "k3_dense_kv_attention" if q.dtype == torch.bfloat16 else "k3_dense_kv_attention_f32"
     lib, _ = _build.library()
-    err = lib.k3_dense_kv_attention(
+    err = getattr(lib, entry)(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
         valid.view(torch.uint8).data_ptr(), out.data_ptr(), partial.data_ptr(), b, h, kvh, lq,
         lmax, d, *q.stride()[:3], *out.stride()[:3], int(layer_idx), offset.data_ptr(), int(row0),
         float(scale), n_split, split_keys, _build.stream_ptr(q.device),
     )
-    _build.check(err, "k3_dense_kv_attention")
+    _build.check(err, entry)
     _build.count_launch(dense_kv_attention)
+    if q.dtype == torch.float32:
+        _build.count_launch(dense_kv_attention.fp32)
     return out
 
 
 dense_kv_attention.launches = 0
+dense_kv_attention.fp32 = _build.Launches()
 
 
 def quantized_kv_attention_plain(q, payload, scales, valid, offset, layer_idx: int, scale: float,

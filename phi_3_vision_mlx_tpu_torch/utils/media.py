@@ -3,7 +3,8 @@
 
 ``PIL`` and ``requests`` are imported inside the functions: a machine
 without Pillow still serves images that arrive decoded, as any object with
-``.convert`` (and ``.size``) passes through :func:`fetch_image` untouched.
+``.convert`` (and ``.size``) passes through :func:`fetch_image` untouched,
+such as :class:`ArrayImage`.
 """
 
 from __future__ import annotations
@@ -11,6 +12,30 @@ from __future__ import annotations
 from io import BytesIO
 from pathlib import Path
 from urllib.parse import urlparse
+
+
+class ArrayImage:
+    """A decoded image held as a uint8 (H, W, 3) array, without Pillow:
+    ``.size`` is (width, height) and ``.convert("RGB")`` returns an object
+    numpy reads as the array, the duck type :func:`fetch_image` and the
+    image processor take."""
+
+    def __init__(self, pixels, name: str = "image"):
+        import numpy as np
+
+        self.pixels, self.name = np.asarray(pixels, np.uint8), name
+        self.size = (self.pixels.shape[1], self.pixels.shape[0])
+
+    def convert(self, mode):
+        if mode != "RGB":
+            raise ValueError(f"ArrayImage holds RGB pixels, not {mode}")
+        return self
+
+    def __array__(self, dtype=None, copy=None):
+        return self.pixels if dtype is None else self.pixels.astype(dtype)
+
+    def __str__(self):
+        return f"{self.name} ({self.size[0]} x {self.size[1]})"
 
 
 def is_url(s) -> bool:

@@ -232,7 +232,7 @@ def test_setup_writes_both_random_pairs_offline(offline):
     vision model and its processor, ``load(blind_model=True)`` the text
     model."""
     offline("setup")
-    TAPI._setup()
+    TAPI._setup(device="cpu")
     for path in (TAPI.PATH_ORIGINAL_PHI3_BLIND, TAPI.PATH_QUANTIZED_PHI3_BLIND,
                  TAPI.PATH_ORIGINAL_PHI3_VISION, TAPI.PATH_QUANTIZED_PHI3_VISION):
         assert os.path.isfile(f"{path}/config.json"), path

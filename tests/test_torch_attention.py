@@ -375,11 +375,12 @@ def test_row_groups_equal_one_pass(lq):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
 
 
-def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p):
-    """K2 as the card computes it: 64-row query tiles, 64-key tiles, one max
-    and one rescale per key tile, tiles past the query tile's causal horizon
-    skipped unless a row has seen no visible key; ``round_p`` rounds the
-    softmax weights to bf16 before p @ v (the row sums stay f32)."""
+def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p, tile=64):
+    """K2 as the card computes it: ``tile``-row query tiles (64 in bf16, 32
+    in fp32), key tiles of as many keys, one max and one rescale per key
+    tile, tiles past the query tile's causal horizon skipped unless a row
+    has seen no visible key; ``round_p`` rounds the softmax weights to bf16
+    before p @ v (the row sums stay f32)."""
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     qs, k, v = (q * scale).float(), k.float(), v.float()
@@ -387,16 +388,16 @@ def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p):
     for bi in range(b):
         for hi in range(h):
             kh, vh = k[bi, hi // (h // kvh)], v[bi, hi // (h // kvh)]
-            for i0 in range(0, lq, 64):
-                rows = torch.arange(i0, min(i0 + 64, lq))
-                horizon = q_pos0 + min(lq, i0 + 64) - 1
+            for i0 in range(0, lq, tile):
+                rows = torch.arange(i0, min(i0 + tile, lq))
+                horizon = q_pos0 + min(lq, i0 + tile) - 1
                 m = torch.full((len(rows),), TA.NEG_INF)
                 l = torch.zeros(len(rows))
                 acc = torch.zeros((len(rows), d))
-                for j0 in range(0, lk, 64):
+                for j0 in range(0, lk, tile):
                     if j0 > horizon and not (m == TA.NEG_INF).any():
                         break
-                    j = torch.arange(j0, min(j0 + 64, lk))
+                    j = torch.arange(j0, min(j0 + tile, lk))
                     ok = valid[bi, j][None, :] & (j[None, :] <= q_pos0 + rows[:, None])
                     s = torch.where(ok, qs[bi, hi, rows] @ kh[j].T, TA.NEG_INF)
                     m_new = torch.maximum(m, s.amax(dim=-1))

@@ -406,21 +406,22 @@ def port_proc(ckpt):
 
 
 def test_export_table_matches_jax():
-    """Every name the JAX package exports resolves in the port, or waits on
-    the ROADMAP item the port's ``_WAITING`` names; importing the port and
-    resolving its names loads no ``jax`` and initializes no CUDA."""
-    assert set(JPKG._LAZY) == set(TPKG._LAZY) | set(TPKG._WAITING)
-    assert not set(TPKG._LAZY) & set(TPKG._WAITING)
+    """Every name the JAX package exports resolves in the port (``_WAITING``,
+    the names still to port, is empty; ``benchmark`` and ``chat_ui`` are the
+    port's own); importing the port and resolving its names loads no
+    ``jax`` and initializes no CUDA."""
+    assert set(JPKG._LAZY) == set(TPKG._LAZY) and TPKG._WAITING == {}
     for name in TPKG._LAZY:
         assert getattr(TPKG, name) is not None
-    for name in TPKG._WAITING:
-        assert not hasattr(TPKG, name)
-        with pytest.raises(AttributeError, match="ROADMAP.md queue 1"):
-            getattr(TPKG, name)
+    assert TPKG.benchmark.__module__ == "phi_3_vision_mlx_tpu_torch.bench"
+    assert TPKG.chat_ui.__module__ == "phi_3_vision_mlx_tpu_torch.serve.ui"
+    with pytest.raises(AttributeError, match="has no attribute"):
+        TPKG.no_such_name  # noqa: B018
     assert set(TPKG._LAZY) <= set(dir(TPKG))
     code = ("import sys, torch, phi_3_vision_mlx_tpu_torch as pv\n"
             "[getattr(pv, n) for n in pv._LAZY]\n"
             "assert pv.ID_ASS == 32001 and callable(pv.train_lora) and pv.PATH_ADAPTERS == 'adapters'\n"
+            "assert callable(pv.benchmark) and callable(pv.chat_ui)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'phi_3_vision_mlx_tpu.'))]\n"
             "assert not bad and not torch.cuda.is_initialized(), bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

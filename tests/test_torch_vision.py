@@ -46,7 +46,7 @@ from phi_3_vision_mlx_tpu_torch.models import vision as TV  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models.image_processor import Phi3VImageProcessor as TIP  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3VProcessor  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models.tokenizer import ByteTokenizer  # noqa: E402
-from phi_3_vision_mlx_tpu_torch.utils.media import fetch_image  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.utils.media import ArrayImage, fetch_image  # noqa: E402
 
 CLIP_TOL = 2e-4  # the tower: f32 sums in another order through the layers
 FEATURE_TOL = 3e-4  # the image features: the tower, then pooling and projection
@@ -60,22 +60,6 @@ SHAPES = {"landscape": (75, 125), "portrait": (130, 90)}
 def image(shape, seed=0):
     h, w = shape
     return Image.fromarray(np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8))
-
-
-class ArrayImage:
-    """A decoded image without PIL: ``.size`` is (width, height) and
-    ``.convert("RGB")`` returns an object numpy reads as (H, W, 3) uint8."""
-
-    def __init__(self, pixels):
-        self.pixels = np.asarray(pixels, np.uint8)
-        self.size = (self.pixels.shape[1], self.pixels.shape[0])
-
-    def convert(self, mode):
-        assert mode == "RGB"
-        return self
-
-    def __array__(self, dtype=None, copy=None):
-        return self.pixels if dtype is None else self.pixels.astype(dtype)
 
 
 def rel_l2(a, b):
