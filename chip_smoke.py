@@ -199,11 +199,12 @@ caught and carried on):
 Phase 2 also holds K2 and K3 in fp32 (an fp32 model's kernels) against
 their plain versions in fp32 (``F32_ATOL`` and ``F32_RTOL``): K2 at the
 runbook's config 1 prefill (lq 64 over 128 keys, left pad 34), at lq 1024
-over 1152 keys, an extend chunk and a batch of two pads; K3 at Lq 1 in
+over 1152 keys, at the 4207-token prompt's bucket (lq 4224 over 4352 keys),
+an extend chunk and a batch of two pads; K3 at Lq 1 in
 config 1's 128-key window (its first decode step and the window's end), at
 Lq 1 and 8 over 640 and 4224 keys, at offset 100 of 4352 keys and from row0
-16; each timed beside fp32 SDPA over the same mask and a bound at 67
-TFLOP/s f32.  It holds K4 and K5 at the runbook's config 5 shapes in a
+16; each timed beside fp32 SDPA over the same mask and a bound (K2's
+operations at 165 TFLOP/s of 3xTF32 products, K3's at 67 TFLOP/s f32).  It holds K4 and K5 at the runbook's config 5 shapes in a
 32768-position int4 cache: K4 at Lq 1 from offsets 32639, 32640 and 32767,
 K5 on 256-row slices of the second 16384-row prefill chunk (q_pos0 16384,
 32384 and 32512), each under the limits of its shorter cases.
@@ -222,8 +223,9 @@ checked at every main-path (K, N) for M = 1, 4, 8, 15, 16, 17, 192 and 256
 per column, each call repeated and required bit-identical, and timed at
 M = 1-256 beside ``_weight_int4pack_mm``.  Each kernel's line in the
 JSON carries its bound (its bytes at 3.35 TB/s or its operations at 989
-TFLOP/s bf16, 1979 TOP/s int8 or 67 TFLOP/s f32 on the CUDA cores,
-whichever is longer, from this run's inputs)
+TFLOP/s bf16, 1979 TOP/s int8, 165 TFLOP/s of f32 products in 3xTF32 (fp32
+K2) or 67 TFLOP/s f32 on the CUDA cores (fp32 K3), whichever is longer,
+from this run's inputs)
 and the time of one PyTorch call computing the same function where there is
 one (``library_ms``).  E1-E3's launches are counted over their experiment's
 run, the others' over the served path.
@@ -289,15 +291,17 @@ ATTN_ATOL, ATTN_RTOL = 2e-3, 2 * 2.0**-7
 K2_ATOL = 4e-3
 # K2 and K3 in fp32 (an fp32 model: the runbook's config 1) against their
 # plain versions in fp32, TF32 off: both sides sum in f32, each in its own
-# order, with no rounding below f32.  An H100 run measured at most 1.2e-6
-# over outputs of O(1) (K2 at lq 64-4224, K3 at Lq 1-16, 640 and 4224 keys).
+# order (K2's products in 3xTF32, f32-accurate), with no rounding below f32.
+# H100 runs measured at most 2.9e-6 (K2 at lq 64-4224) and 3.6e-7 (K3 at Lq
+# 1-16, 128 to 4224 keys) over outputs of O(1).
 F32_ATOL, F32_RTOL = 1e-5, 1e-5
 # fp32 K2's cases, (lq, lk, q_pos0, left pad of each batch row, timed): the
 # runbook's config 1 prefill (its 30-token chat prompt in the 64-token bucket
 # of a 128-token window), K2's lq 1024 over 1152 keys, an extend chunk, a
-# batch of two pads.  32 query and 32 kv heads of 96.
+# batch of two pads, the 4207-token prompt's bucket.  32 query and 32 kv
+# heads of 96.
 K2_F32_CASES = ((64, 128, 0, (34,), True), (1024, 1152, 0, (24,), True), (100, 1152, 1000, (24,), False),
-                (256, 384, 0, (0, 100), False))
+                (256, 384, 0, (0, 100), False), (4224, 4352, 0, (17,), True))
 # The flash kernels' cases (K2 over the dense cache, K5 over the int4 cache):
 # (lq, lk, q_pos0, left pad of each batch row, kv heads, timed).  Left-padded
 # prompts (window = prompt bucket + decode budget), a batch of two prompts
@@ -358,7 +362,9 @@ REF_INT4_OWN_LOGPROB = 0.1
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
-FP32_FLOPS = 67e12  # f32 on the CUDA cores: fp32 K2 and K3 use no tensor cores
+FP32_FLOPS = 67e12  # f32 on the CUDA cores: fp32 K3 uses no tensor cores
+# fp32 K2's products in 3xTF32: three tf32 products (495 TFLOP/s dense) a product.
+TF32X3_FLOPS = 495e12 / 3
 
 
 def bound(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> dict:
@@ -841,7 +847,8 @@ def phase_fp32_kernels(torch, report):
     plain versions in fp32, TF32 off: K2 at K2_F32_CASES, K3 at Lq 1 and 8
     over 640 and 4224 keys (the window's end), at offset 100 of 4352 keys
     and on a later row group (row0 16); each timed beside its bound (bytes at
-    3.35 TB/s or operations at 67 TFLOP/s f32, the longer) and fp32 SDPA
+    3.35 TB/s or operations, the longer: K2's at 165 TFLOP/s of 3xTF32
+    products, K3's at 67 TFLOP/s f32) and fp32 SDPA
     over the same mask, kept in K2's and K3's ``timings``."""
     import torch.nn.functional as F
 
@@ -886,7 +893,7 @@ def phase_fp32_kernels(torch, report):
         mask = causal_valid_mask(valid, q_pos0 + torch.arange(lq, device=dev))
         keys = min(lk, q_pos0 + lq)
         bd = bound(4 * (2 * q.numel() + 2 * nb * kvh * keys * d) + nb * lk, 4 * h * d * int(mask.sum()),
-                   rate=FP32_FLOPS)
+                   rate=TF32X3_FLOPS)
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask, scale=scale),
                       iters)
         entry("K2", shape, t, lib, bd, ea)

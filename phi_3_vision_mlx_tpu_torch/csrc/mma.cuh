@@ -1,9 +1,11 @@
 // Tensor-core and copy helpers shared by the flash body of K2 and K5
 // (flash_mma.cuh), the split runs of K4, K6 and K7 (split_runs.cuh) and the
-// quantized matmuls' tensor-core routes (quant_matmul.cu, w4a8_matmul.cu):
-// cp.async into shared memory, ldmatrix, bf16 mma.sync.m16n8k16 with f32
-// sums, int8 mma.sync.m16n8k32 with int32 sums, and packing two f32 values
-// into one bf16x2 operand register.
+// quantized matmuls' tensor-core routes (quant_matmul.cu, w4a8_matmul.cu),
+// and fp32 K2's 3xTF32 body (attention.cu): cp.async into shared memory,
+// ldmatrix, bf16 mma.sync.m16n8k16 with f32 sums, tf32 mma.sync.m16n8k8
+// with f32 sums (and the hi/lo split of 3xTF32), int8 mma.sync.m16n8k32
+// with int32 sums, and packing two f32 values into one bf16x2 operand
+// register.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +62,46 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An f32 value rounded to tf32 (10 mantissa bits; to nearest, ties away from
+// zero, as cvt.rna.tf32.f32), as the b32 operand register of a tf32 mma: half
+// an ulp (bit 12) added to the bits, the low 13 cleared.  Two integer ops;
+// cvt.rna.tf32.f32 becomes a longer sequence with NaN and infinity checks
+// (fp32 K2 took 0.373 ms with it against 0.284 at lq 1024 over 1152 keys on
+// an NVIDIA H100 80GB HBM3).  Finite inputs only.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as hi + lo, both tf32: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact
+// in f32).  hi + lo differs from x by at most 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a (16 x 8, row-major) * b (8 x 8, column-major), tf32 in, f32 sums.
+// a0: row gid, k tig; a1: row gid + 8, k tig; a2, a3: the same rows at k
+// tig + 4; b0: k tig, column gid; b1: k tig + 4; c as mma_bf16's.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in 3xTF32: a_lo b_hi + a_hi b_lo, then a_hi b_hi (the small
+// terms first).  Each tf32 product is exact in the f32 sum; only a_lo b_lo,
+// at most 2^-22 of |a b|, is dropped.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], unsigned bh0, unsigned bh1,
+                                           unsigned bl0, unsigned bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
 }
 
 // d = c + a (16 x 32, row-major) * b (32 x 8, column-major), signed int8 in,

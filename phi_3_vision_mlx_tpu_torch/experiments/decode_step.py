@@ -13,8 +13,10 @@ synth_quantized_params``), a prompt of ``--prompt-tokens`` byte tokens, its
 bucketed prefill and 64 tokens of budget (the window rounds their sum up to
 128), then the decode step as the engine runs it: a CUDA graph replay (its
 capture in a warm-up chunk).  Wall: host clock over 16 steps ending in the
-chunk's device-to-host copy; busy: the profiler's kernel time over 4 steps.
-Prints one JSON line.
+chunk's device-to-host copy; busy: the profiler's kernel time over 4 steps;
+prefill: host clock, synchronized, the first (``prefill_ms``, first-call
+costs included) and, after the decode steps, the same prompt again
+(``prefill_warm_ms``).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -90,12 +92,20 @@ def main(argv=None) -> dict:
             busy, kernels = sum(e.device_time_total for e in events) / 1e3 / 4, len(events) / 4
             break
     release_decoder(lm, dec)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec, _ = prefill_decoder(lm, dict_input, max_tokens)  # again, warm: no first-call costs
+    torch.cuda.synchronize()
+    prefill_warm_ms = (time.perf_counter() - t0) * 1e3
+    release_decoder(lm, dec)
     out = {"card": card(device), "dtype": args.dtype, "bits": args.bits, "cache": args.cache,
            "prompt_tokens": int(dict_input["input_ids"].shape[1]),
            "window": dec.state.window, "build_s": build_s, "prefill_ms": prefill_ms,
+           "prefill_warm_ms": prefill_warm_ms,
            "first_chunk_ms": capture_ms, "wall_ms": wall, "busy_ms": busy,
            "idle": None if busy is None else 1 - busy / wall, "kernels": kernels,
-           "tok_s": 1e3 / wall, "launches": {k: fn.launches for k, fn in counters.items()}}
+           "tok_s": 1e3 / wall, "launches": launches}
     print(json.dumps(out), flush=True)
     return out
 

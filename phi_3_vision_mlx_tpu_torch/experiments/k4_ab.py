@@ -1,7 +1,7 @@
 """Time kernels of several source trees of this repository in turns, on one
 card, each tree in its own process built from its own ``csrc/``.
 
-    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,...,K9,E1,E3,K4S] TREE [TREE ...]
+    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,...,K9,E1,E3,K4S,K2F] TREE [TREE ...]
 
 Give the trees in the order to run them (parent, change, change, parent) so
 that drift on the card shows.  Each run times every case of the chosen
@@ -14,6 +14,10 @@ kernels (K1-K9 by default) at chip_smoke.py's shapes:
   them;
 * K2 (flash attention, dense): lq = 1024 over 1152 keys (24 left-pad rows)
   and lq = 4224 over 4352 keys (the 4207-token prompt's bucket);
+* K2F (flash attention in fp32, an fp32 model's prefill): lq = 64 over 128
+  keys (34 left-pad rows: the runbook's config 1), lq = 1024 over 1152 (24)
+  and lq = 4224 over 4352 (17), each beside fp32 SDPA over the same mask
+  (one PyTorch call, timed in every tree's run);
 * K3 (decode, dense cache): Lq = 1 at the end of a 640- and a 4224-key
   window and at offset 100 of a 4352-key window, 8 stacked layers rotated
   past the L2; K4 (decode, int4 cache)
@@ -53,7 +57,7 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "E1", "E3", "K4S")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "E1", "E3", "K4S", "K2F")
 DEFAULT = KERNELS[:9]
 
 _RUN = r'''
@@ -129,6 +133,18 @@ if "K2" in kernels:
         k, v = (bf16(torch.randn((b, h, lk, d), generator=g, device="cuda")) for _ in range(2))
         cases[f"K2 lq={lq} lk={lk}"] = (lambda q=q, k=k, v=v, valid=valid: FA.flash_attention(
             q, k, v, valid, 0, scale), iters)
+if "K2F" in kernels:
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
+    for lq, lk, pad, iters in ((64, 128, 34, 200), (1024, 1152, 24, 50), (4224, 4352, 17, 5)):
+        q = torch.randn((b, lq, h, d), generator=g, device="cuda").transpose(1, 2)
+        valid = flash_window(lq, lk, pad)
+        k, v = (torch.randn((b, h, lk, d), generator=g, device="cuda") for _ in range(2))
+        mask = causal_valid_mask(valid, torch.arange(lq, device="cuda"))
+        cases[f"K2F lq={lq} lk={lk}"] = (lambda q=q, k=k, v=v, valid=valid: FA.flash_attention(
+            q, k, v, valid, 0, scale), iters)
+        cases[f"K2F SDPA lq={lq} lk={lk}"] = (
+            lambda q=q, k=k, v=v, mask=mask: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale), iters)
 def int4_stack(lmax):
     kk = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") + 0.5
     vv = torch.randn((nl, b, h, lmax, d), generator=g, device="cuda") - 0.3

@@ -5,8 +5,12 @@ the CUDA source is ``csrc/attention.cu`` (``k2_flash_attention``) over the
 tensor-core body of ``csrc/flash_mma.cuh``, which rounds the softmax
 weights to bf16 before ``p @ v`` as the JAX kernel does (the plain version
 keeps them in f32).  An fp32 model's q, k and v run the fp32 kernel
-(``k2_flash_attention_f32``, CUDA cores, no rounding below f32), as the
-JAX kernel computes in its inputs' type.  Query
+(``k2_flash_attention_f32``), as the JAX kernel computes in its inputs'
+type: the same tiling on the tensor cores in 3xTF32 (each f32 operand split
+into two tf32 parts, hi + lo, each product run as three tf32 products with
+f32 sums, only lo * lo dropped, at most 2^-22 of a product), so P and every
+sum keep f32's accuracy; bound by operations at 165 TFLOP/s of f32
+products (a third of 495 TFLOP/s TF32).  Query
 ``i`` sits at absolute position ``q_pos0 + i`` and sees key ``j`` iff
 ``j <= q_pos0 + i`` and ``valid[b, j]``.  Head dim 96 runs as is (no padding
 to 128 lanes, which was TPU-only); GQA maps query head ``h`` to kv head

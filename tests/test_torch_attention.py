@@ -19,6 +19,7 @@ from phi_3_vision_mlx_tpu.ops import attention as JA  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops import attention as TA  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as K2  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as K3  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 D = 32
 SCALE = D**-0.5
@@ -375,40 +376,88 @@ def test_row_groups_equal_one_pass(lq):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
 
 
-def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p, tile=64):
-    """K2 as the card computes it: ``tile``-row query tiles (64 in bf16, 32
-    in fp32), key tiles of as many keys, one max and one rescale per key
-    tile, tiles past the query tile's causal horizon skipped unless a row
-    has seen no visible key; ``round_p`` rounds the softmax weights to bf16
-    before p @ v (the row sums stay f32)."""
+def _tf32(x):
+    """x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+    zero: the card's ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as fp32 K2's tensor cores compute it: each operand split into
+    tf32 parts hi + lo, then a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 sums
+    (every tf32 product is exact in f32; a_lo b_lo is dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p, tile=64, tf32x3=False):
+    """K2 as the card computes it: ``tile``-row query tiles (64 in bf16 and
+    fp32), key tiles of as many keys, one max and one rescale per key tile,
+    tiles past the query tile's causal horizon skipped unless a row has
+    seen no visible key; ``round_p`` rounds the softmax weights to bf16
+    before p @ v (the row sums stay f32); ``tf32x3`` runs both products as
+    fp32 K2's 3xTF32 (P split, never rounded below f32), each tile's p @ v
+    summed on its own before it joins the rescaled output."""
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
+    mm = _mm_3xtf32 if tf32x3 else torch.matmul
     qs, k, v = (q * scale).float(), k.float(), v.float()
     out = torch.empty((b, h, lq, d))
     for bi in range(b):
         for hi in range(h):
             kh, vh = k[bi, hi // (h // kvh)], v[bi, hi // (h // kvh)]
             for i0 in range(0, lq, tile):
-                rows = torch.arange(i0, min(i0 + tile, lq))
+                qi = torch.arange(i0, min(i0 + tile, lq))
                 horizon = q_pos0 + min(lq, i0 + tile) - 1
-                m = torch.full((len(rows),), TA.NEG_INF)
-                l = torch.zeros(len(rows))
-                acc = torch.zeros((len(rows), d))
+                m = torch.full((len(qi),), TA.NEG_INF)
+                l = torch.zeros(len(qi))
+                acc = torch.zeros((len(qi), d))
                 for j0 in range(0, lk, tile):
                     if j0 > horizon and not (m == TA.NEG_INF).any():
                         break
                     j = torch.arange(j0, min(j0 + tile, lk))
-                    ok = valid[bi, j][None, :] & (j[None, :] <= q_pos0 + rows[:, None])
-                    s = torch.where(ok, qs[bi, hi, rows] @ kh[j].T, TA.NEG_INF)
+                    ok = valid[bi, j][None, :] & (j[None, :] <= q_pos0 + qi[:, None])
+                    s = torch.where(ok, mm(qs[bi, hi, qi], kh[j].T), TA.NEG_INF)
                     m_new = torch.maximum(m, s.amax(dim=-1))
                     alpha = torch.exp(m - m_new)
                     p = torch.exp(s - m_new[:, None])
                     l = l * alpha + p.sum(dim=-1)
                     pv = p.to(torch.bfloat16).float() if round_p else p
-                    acc = acc * alpha[:, None] + pv @ vh[j]
+                    acc = acc * alpha[:, None] + mm(pv, vh[j])
                     m = m_new
-                out[bi, hi, rows] = acc / torch.where(l == 0, 1.0, l)[:, None]
+                out[bi, hi, qi] = acc / torch.where(l == 0, 1.0, l)[:, None]
     return out
+
+
+def test_tf32_split_is_exact_to_2_22():
+    """tf32 rounds to nearest on 10 mantissa bits (ties away from zero), and
+    hi + lo holds an f32 value to 2^-22 of itself: 3xTF32's operands."""
+    x = torch.tensor([1.0, 1 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-10 + 2.0**-11, 1 + 2.0**-12])
+    assert _tf32(x).tolist() == [1.0, 1 + 2.0**-10, -(1 + 2.0**-10), 1 + 2.0**-9, 1.0]
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(100000) * 10.0 ** rng.integers(-6, 6, 100000))
+                         .astype(np.float32))
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all() and ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    err = ((hi.double() + lo.double()) - x.double()).abs() / x.double().abs()
+    assert err.max() <= 2.0**-22
+    assert err.max() > 2.0**-25  # lo's own rounding is real
+
+
+def test_3xtf32_products_keep_f32_accuracy():
+    """Against float64, a 64 x 96 by 96 x 64 product in 3xTF32 errs about as
+    much as in f32, where plain TF32 (one product) errs over 100x more."""
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((64, 96)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((96, 64)).astype(np.float32))
+    exact = a.double() @ b.double()
+    err = lambda x: (x.double() - exact).abs().max().item()
+    f32 = err(a @ b)
+    assert err(_mm_3xtf32(a, b)) <= 2 * f32
+    assert err(_tf32(a) @ _tf32(b)) > 100 * f32
 
 
 # (lq, q_pos0, lk, left pads per batch row): prompts left-padded differently

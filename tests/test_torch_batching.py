@@ -40,6 +40,7 @@ from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine as TPaged 
 from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3Processor  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.serve import server as TSV  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 PROMPTS = ["Tell me about the sea.", "Write a poem in winter, with snow and pines.",
            "Explain tides briefly."]

@@ -32,6 +32,7 @@ from phi_3_vision_mlx_tpu_torch.experiments import qdecode_sweep, qkv_probe, w4a
 from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as TKV  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels.quant_matmul import quant_matmul_plain  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as TE1  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E1_TOL = 1e-5
@@ -269,7 +270,7 @@ def test_experiments_refuse_a_missing_card():
             main([])
 
 
-@pytest.mark.parametrize("kernels", ["E1", "K1,E1,E3", None])
+@pytest.mark.parametrize("kernels", ["E1", "K1,E1,E3", None, "K2F"])
 def test_k4_ab_takes_its_kernels(monkeypatch, kernels):
     """``k4_ab`` runs its timing code once per tree, in the given order, for
     the named kernels (E1 among them; K1-K9 by default), and refuses an

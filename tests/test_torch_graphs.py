@@ -24,6 +24,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from test_torch_batching import PLAN, _drive  # noqa: E402
 from test_torch_model import FP32_ATOL, PROMPT, ReplayJaxCache, make_checkpoint  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 from phi_3_vision_mlx_tpu.api import _load as jax_load  # noqa: E402
 from phi_3_vision_mlx_tpu.core.config import KVQuantConfig  # noqa: E402
@@ -410,17 +411,6 @@ def test_static_buffers_keep_the_streams_when_pipelined(pair, jax_streams, paged
 # --- sampling and speculation: the sampled step and the verify pass -----------
 
 SAMPLER = (0.8, 0.9, 20, 0.05)
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the sampled and speculative runs below: their
-    many small sorts and noise draws would otherwise keep every thread of
-    the suite's parallel workers spinning."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _no_sync(ops):

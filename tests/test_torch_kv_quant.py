@@ -29,6 +29,7 @@ from phi_3_vision_mlx_tpu.ops.kernels import kv_attention as JK  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.core.convert import d_perm, from_jax_kv_cache  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine import state as TS  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as TK  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 # The TPU kernels round dequantized values to bf16 and factor the bias out of
 # the dot products; the plain versions dequantize in f32.  The JAX package's

@@ -34,6 +34,21 @@ from phi_3_vision_mlx_tpu_torch.engine import state as TS  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.rope import su_rope_tables  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread for a whole test module, its module-scoped
+    fixtures included (a module fixture is set up before any function
+    fixture).  The suite runs in parallel workers (``-n 6``), and ops
+    spread over every core in each of them keep all their threads spinning:
+    the tiny models gain nothing from them.  Modules that import it get it
+    too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB = 32064  # full id space, so the ByteTokenizer's special ids are valid
 PROMPT = "<|user|>\nTell me about lighthouses.<|end|>\n<|assistant|>\n"
 # fp32 logits of O(1-10): both sides run the same f32 math, the sums in

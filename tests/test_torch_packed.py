@@ -37,6 +37,7 @@ from phi_3_vision_mlx_tpu_torch.core.convert import from_numpy_params  # noqa: E
 from phi_3_vision_mlx_tpu_torch.engine.engine import LM  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops import linear as TL  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as TK  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 GROUP = 64
 F32_TOL = 1e-5

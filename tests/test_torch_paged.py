@@ -27,6 +27,7 @@ from phi_3_vision_mlx_tpu.engine import state as JS  # noqa: E402
 from phi_3_vision_mlx_tpu.ops.kernels import kv_attention as JK  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.core.convert import from_jax_paged_pool  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as TK  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 # Both sides round to bf16 at different points (the TPU kernels round p
 # before P.V and scale after Q.K; the plain versions round q * scale and

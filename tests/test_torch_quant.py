@@ -25,6 +25,7 @@ from phi_3_vision_mlx_tpu_torch.ops import linear as TL  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops import quant as TQ  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as TK  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as TE1  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 GROUP = 64
 K, N = 512, 512  # the JAX tiled layout needs multiples of its 512 blocks

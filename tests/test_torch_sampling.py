@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from test_torch_batching import PROMPTS  # noqa: E402
 from test_torch_model import PROMPT, make_checkpoint  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 from phi_3_vision_mlx_tpu.api import _load as jax_load  # noqa: E402
 from phi_3_vision_mlx_tpu.engine import engine as JE  # noqa: E402
@@ -36,17 +37,6 @@ from phi_3_vision_mlx_tpu_torch.engine import graphs as TG  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine import rng as TR  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine.batching import BatchEngine as TBatch  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine as TPaged  # noqa: E402
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the many small sorts and noise draws of these
-    tests would otherwise keep every thread of the suite's parallel workers
-    spinning."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 V = 777
 NEAR = 1e-6  # cumulative-mass distance to top_p below which the two sums may disagree

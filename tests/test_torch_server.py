@@ -33,6 +33,7 @@ from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.api import _load as torch_load  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.serve.server import make_handler as torch_handler  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

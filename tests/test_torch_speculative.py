@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from test_torch_batching import ReplayJaxPool  # noqa: E402
 from test_torch_model import ReplayJaxCache, _jax_decode, make_checkpoint  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 from phi_3_vision_mlx_tpu.api import _load as jax_load  # noqa: E402
 from phi_3_vision_mlx_tpu.engine import engine as JE  # noqa: E402
@@ -40,17 +41,6 @@ from phi_3_vision_mlx_tpu_torch.engine.batching import BatchEngine as TBatch  # 
 from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine as TPaged  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine.rng import NoiseGen  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the many small sorts and noise draws of these
-    tests would otherwise keep every thread of the suite's parallel workers
-    spinning."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 REPEAT = "<|user|>\nThe cat sat on the mat. The cat sat on the mat. The cat<|end|>\n<|assistant|>\n"
 PLAIN = "<|user|>\nQ: summarize the following paragraph in one word.<|end|>\n<|assistant|>\n"

@@ -9,13 +9,16 @@ keeps them in bf16).  The port's ``check`` passes on them, the port's
 ``record`` writes the same goldens field for field (but ``recorded_by``),
 which the JAX ``check`` passes, and a corrupted golden fails.  The fp32
 checks of ``LM`` and the engines run without a card, and plain-PyTorch
-models of the card's fp32 K2 (32-row, 32-key tiles) and fp32 K3 (the bf16
-split plan) are held to the plain versions in fp32 at D = 96.
+models of the card's fp32 K2 (64-row blocks, 64-key tiles, 3xTF32
+products) and fp32 K3 (the bf16 split plan) are held to the plain versions
+in fp32 at D = 96.
 """
 
 import contextlib
+import io
 import json
 import os
+import re
 import shutil
 
 import numpy as np
@@ -107,14 +110,28 @@ def _copy_goldens(src, dst):
     return dst
 
 
+@pytest.fixture(scope="module")
+def port_check(ckpts, jax_goldens):
+    """The port's ``check`` of configs 1-5 on the CPU, once, over copies of
+    the JAX goldens: (each config's printed verdict, the output, the goldens
+    checked)."""
+    work = ckpts["root"] / "check_port"
+    golden = _copy_goldens(jax_goldens, work / "goldens")
+    out = io.StringIO()
+    with _cwd(work), contextlib.redirect_stdout(out):
+        TV.main(_args(ckpts, "check", golden, ",".join(map(str, CONFIGS)), port=True))
+    text = out.getvalue()
+    return dict(re.findall(r"^(\S+): (PASS|FAIL)$", text, re.M)), text, golden
+
+
 @pytest.mark.parametrize("n", CONFIGS)
-def test_port_check_passes_on_jax_goldens(ckpts, jax_goldens, n, tmp_path):
+def test_port_check_passes_on_jax_goldens(port_check, n):
     """The port's ``check`` of each config on the CPU passes on the goldens
-    the JAX ``record`` wrote from the same checkpoints."""
-    golden = _copy_goldens(jax_goldens, tmp_path / "goldens")
+    the JAX ``record`` wrote from the same checkpoints (one ``check`` run of
+    all five configs; each case reads its config's verdict)."""
+    verdicts, text, golden = port_check
     assert _golden(golden, n)["recorded_by"] == "phi_3_vision_mlx_tpu"
-    with _cwd(tmp_path):
-        assert TV.main(_args(ckpts, "check", golden, str(n), port=True)) == 0
+    assert verdicts.get(TV.CFG_NAMES[n]) == "PASS", text
 
 
 def test_jax_check_passes_on_port_goldens(ckpts, port_goldens, tmp_path):
@@ -286,7 +303,7 @@ def test_fp32_wrappers_take_fp32_and_refuse_mixed_types():
 D96 = 96
 SCALE96 = D96**-0.5
 # (lq, q_pos0, lk, left pads per batch row): a left-padded prompt bucket, a
-# batch of two pads, an extend chunk, tiles off 32, and a row with no valid
+# batch of two pads, an extend chunk, tiles off 64, and a row with no valid
 # key at all (the uniform average of every value).
 K2_F32_EDGES = {
     "prompt-bucket": (64, 0, 128, (14,)),
@@ -297,28 +314,45 @@ K2_F32_EDGES = {
 }
 
 
-@pytest.mark.parametrize("g", [1, 2])
-@pytest.mark.parametrize("edge", list(K2_F32_EDGES))
-def test_k2_fp32_tile_walk_matches_plain(edge, g):
-    """The card's fp32 K2 walk (32-row blocks, 32-key tiles, f32 throughout,
-    an online softmax, causal skipping but for rows that have seen no key)
-    equals flash_attention_plain in fp32 at D = 96."""
-    lq, q_pos0, lk, pads = K2_F32_EDGES[edge]
-    b, kvh = len(pads), 2
-    rng = np.random.default_rng(sorted(K2_F32_EDGES).index(edge) + 10 * g)
-    q = torch.from_numpy(rng.standard_normal((b, kvh * g, lq, D96)).astype(np.float32))
+def _k2_fp32_inputs(lq, lk, pads, h, kvh, seed):
+    b = len(pads)
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, h, lq, D96)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((b, kvh, lk, D96)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((b, kvh, lk, D96)).astype(np.float32))
     valid = torch.ones((b, lk), dtype=torch.bool)
     for bi, pad in enumerate(pads):
         valid[bi, :pad] = False
-    out = _k2_tile_model(q, k, v, valid, q_pos0, SCALE96, round_p=False, tile=32)
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("edge", list(K2_F32_EDGES))
+def test_k2_fp32_tile_walk_matches_plain(edge, g):
+    """The card's fp32 K2 walk (64-row blocks, 64-key tiles, both products
+    in 3xTF32, an online softmax, causal skipping but for rows that have
+    seen no key) equals flash_attention_plain in fp32 at D = 96."""
+    lq, q_pos0, lk, pads = K2_F32_EDGES[edge]
+    q, k, v, valid = _k2_fp32_inputs(lq, lk, pads, 2 * g, 2, sorted(K2_F32_EDGES).index(edge) + 10 * g)
+    out = _k2_tile_model(q, k, v, valid, q_pos0, SCALE96, round_p=False, tile=64, tf32x3=True)
     ref = K2.flash_attention(q, k, v, valid, q_pos0, SCALE96)  # the plain version on the CPU
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0, atol=F32_ATOL)
     if edge == "no-valid-key":
         mean_v = v[0].mean(dim=1).repeat_interleave(g, dim=0)
         for i in range(lq):
             np.testing.assert_allclose(out[0, :, i].numpy(), mean_v.numpy(), rtol=0, atol=F32_ATOL)
+
+
+def test_k2_fp32_tile_walk_full_width():
+    """The 3xTF32 walk at chip_smoke.py's timed shape, lq 1024 over 1152
+    keys with 24 left-pad rows, on one pair of query heads over one kv head:
+    within F32_ATOL of the plain fp32 version, the card's limit, so the
+    error budget is known before a chip run."""
+    q, k, v, valid = _k2_fp32_inputs(1024, 1152, (24,), 2, 1, 1024)
+    out = _k2_tile_model(q, k, v, valid, 0, SCALE96, round_p=False, tile=64, tf32x3=True)
+    ref = K2.flash_attention(q, k, v, valid, 0, SCALE96)
+    err = (out - ref).abs().max().item()
+    assert 0 < err <= F32_ATOL, err
 
 
 @pytest.mark.parametrize("lq,row0", [(1, 0), (8, 0), (16, 0), (16, 16)])

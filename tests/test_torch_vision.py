@@ -47,6 +47,7 @@ from phi_3_vision_mlx_tpu_torch.models.image_processor import Phi3VImageProcesso
 from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3VProcessor  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models.tokenizer import ByteTokenizer  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.utils.media import ArrayImage, fetch_image  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 CLIP_TOL = 2e-4  # the tower: f32 sums in another order through the layers
 FEATURE_TOL = 3e-4  # the image features: the tower, then pooling and projection

@@ -43,6 +43,7 @@ from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine as TPaged 
 from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops import linear as TL  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as TK  # noqa: E402
+from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
 GROUP = 64
 K, N = 512, 512  # the JAX interleaved kernel needs multiples of its 512 blocks
