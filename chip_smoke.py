@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failure exits non-zero, nothing is
-caught and carried on):
+caught and carried on; phase 15 runs after phase 2, on a card nothing else
+holds yet):
 
 1. device   — requires a CUDA card; prints its name and power limit and
                builds the kernels from ``phi_3_vision_mlx_tpu_torch/csrc``.
@@ -195,6 +196,34 @@ caught and carried on):
                port's ``Agent`` (text model): one turn, then reset.  (d)
                Config 1's fp32 model through ``api.generate``, twice, the
                second under ``PHI3V_TPU_STEP_LOG``: tok/s and the summary.
+15. long context and checkpoint I/O — full width and depth, 4-bit weights
+               from seed 0.  (a) A 130900-token prompt (bucket 130944) with
+               max_tokens 128, so a 131072-position window, in HBM: with the
+               int4 cache, then the dense one, a measured run (prefill ms;
+               graph steps bitwise against eager steps on the same state;
+               decode wall and device busy ms a token, the idle share), then
+               a request through ``api.generate`` (prefill ms, tok/s,
+               launches, peak memory against the cache's reckoned bytes);
+               then the int4 request again, the second 128K request after
+               the dense one.  (b) ``TieredEngine`` at the 131072 window (at
+               65536 where the host cannot hold the ~16 GB cold tier twice):
+               prefill ms, first logits and greedy tokens against (a)'s
+               in-HBM int4 run up to the first near tie, decode ms a step
+               with prefetch and with serial copies, the cold stream's
+               host-to-device GB/s beside the PCIe link ``nvidia-smi``
+               reports.  (c) A raw HF-layout directory of the full-size text
+               model written from the weights, ``sanitize_checkpoint`` and
+               ``quantize_checkpoint`` of it, each loaded through the native
+               reader (seconds) and generating; then the 8-bit and the
+               packed 4-bit vision checkpoints, generating with the local
+               test image (K8; K9 and K1).
+
+Phase 2 also holds K3 and K4 at phase 15's 131072-key window (Lq 1, offsets
+130943, 131071 and 100, in the first layer and in a seventh whose offset
+passes 2**31 elements) and K2 and K5 on its last prefill chunk (16384
+queries at q_pos0 114688 over 131072 keys, held on 256-row slices: the plain
+version of the whole chunk does not fit the card), each timed with its bound
+and, for K2 and K3, SDPA.
 
 Phase 2 also holds K2 and K3 in fp32 (an fp32 model's kernels) against
 their plain versions in fp32 (``F32_ATOL`` and ``F32_RTOL``): K2 at the
@@ -4527,6 +4556,820 @@ def phase_gates(torch, report):
     stamp("phase 14")
 
 
+# Phase 15 (and phase 2's checks at its shapes): long context and checkpoint
+# I/O.  A 130900-token prompt, bucketed to 130944 (left pad 44), decoded in a
+# 131072-position window (max_tokens 128).  The in-HBM path prefills it in
+# chunks of PREFILL_CHUNK = 16384 rows, the last starting at 114688, and
+# decodes from offset 130944.
+WINDOW_128K = 131072
+PROMPT_128K = 130900
+BUCKET_128K = 130944
+MAX_TOKENS_128K = WINDOW_128K - BUCKET_128K
+OFFSETS_128K = (130943, 131071, 100)  # the last prompt key, the window's end, a short prefix
+CHUNK_128K = 114688  # the last prefill chunk's first row
+# Phase 2's 128K caches stack 7 layers: the last one starts past 2**31
+# elements (6 x 32 x 131072 x 96 = 2.42e9), where an offset product in 32
+# bits would read another layer.
+LAYERS_128K = 7
+ROW_SLICE = 256  # rows of a 16384-query chunk held against the plain version at once
+PARITY_STEPS_128K = (8, 24)  # graph against eager on the 128K state, chunk by chunk
+PROFILE_STEPS_128K = 16
+# The tiered engine's chunk at each window: a divisor of the prompt's bucket
+# (window - 128), so its prompt has the in-HBM path's padding and positions;
+# one key block a chunk.  131072: 33 chunks of 3968 (= 130944); 65536: 7 of
+# 9344 (= 65408).  Decode runs on the state as prefilled, through
+# ``decode_step`` (the tokens) and ``decode_chunk`` (``generate``'s steps,
+# timed).
+TIERED_CHUNKS = {131072: 3968, 65536: 9344}
+TIERED_STEPS = 8
+# The tiered engine's logits against the in-HBM int4 path's on the same
+# prompt: the tiered attention is plain PyTorch (bf16 dots, f32 sums, stats
+# merged block by block, chunks of 3968) and the in-HBM path's K5 and K4
+# (bf16 P, chunks of 16384), and each path quantizes its own keys, so their
+# activations differ by bf16 rounding, which 32 layers of random weights
+# amplify (phase 3).  H100 runs measured 2.14e-2 and 2.21e-2 in relative L2
+# for the first logits and 2.14e-2 for the first decode step (fed the
+# in-HBM first token), and 6.47e-2 for that step with a planted fault, one
+# cold chunk of 33 (3968 of 130944 keys) masked; REF_INT4_OWN_REL_L2
+# (7.5e-2) would pass that fault.  TIERED_REL_L2 sits between the two; the
+# planted fault runs every time and must read above it.  Greedy tokens
+# agree up to their first difference, which must be a near tie as phase 11
+# (b) judges one: at that step, over the in-HBM prefix, the two paths'
+# logits within TIERED_REL_L2 and the in-HBM step's gap between its token
+# and the tiered one no larger than the change of those tokens' log-probs
+# between the paths, nor than NEAR_TIE_ULPS bf16 ulps of its top logit.
+TIERED_REL_L2 = 4e-2
+
+
+def phase_long_kernels(torch, report):
+    """K2, K3, K4 and K5 at phase 15's 128K shapes against their plain
+    versions: K3 and K4 (Lq = 1) over a 131072-key window at the offsets of
+    OFFSETS_128K, in the first layer and the seventh (past 2**31 elements);
+    K2 (dense cache) and K5 (int4 cache) on the last 16384-query prefill
+    chunk (q_pos0 114688) over 131072 keys, its rows held in slices of
+    ROW_SLICE (the plain version of the whole chunk does not fit the card:
+    its f32 scores are 256 GiB).  Each timed, with its bound and, where one
+    call fits, SDPA's time."""
+    import torch.nn.functional as F
+
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
+    from phi_3_vision_mlx_tpu_torch.engine.state import quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as K2
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(15)
+    b_, h, kvh, d, lmax, nl = 1, 32, 32, 96, WINDOW_128K, LAYERS_128K
+    scale = d**-0.5
+    pad = BUCKET_128K - PROMPT_128K
+    top = nl - 1
+    valid = torch.ones((b_, lmax), dtype=torch.bool, device=dev)
+    valid[:, :pad] = False
+    q1 = torch.randn((b_, 1, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    lq = WINDOW_128K - CHUNK_128K
+    qc = torch.randn((b_, lq, h, d), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    # Causal pairs of the chunk: row i at position q_pos0 + i sees keys pad..q_pos0 + i.
+    chunk_pairs = lq * (CHUNK_128K + 1 - pad) + lq * (lq - 1) // 2
+    slices = (0, BUCKET_128K - CHUNK_128K - ROW_SLICE, lq - ROW_SLICE)
+
+    def stack():
+        t = torch.empty((nl, b_, kvh, lmax, d), dtype=torch.bfloat16, device=dev)
+        for layer in range(nl):
+            t[layer].normal_(generator=g)
+        return t
+
+    def decode_checks(name, kernel, plain, *cache):
+        errs = []
+        for offset in OFFSETS_128K:
+            for layer in (0, top):
+                out = kernel(q1, *cache, valid, dev_offset(torch, offset), layer, scale)
+                ref = plain(q1, *cache, valid, offset, layer, scale)
+                torch.cuda.synchronize()
+                ea, er, ok = close(torch, out, ref, ATTN_ATOL, ATTN_RTOL)
+                errs.append(ea)
+                log(f"{name} Lq=1 Lmax={lmax} offset={offset} layer {layer} of {nl} pad={pad}: max_abs={ea:.3e} "
+                    f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f})")
+                if not ok:
+                    fail(f"{name} disagrees with its plain version at Lmax={lmax} offset={offset} layer={layer}")
+        return errs
+
+    def chunk_checks(name, kernel, plain):
+        """The whole chunk through the kernel once, its rows held on slices."""
+        out = kernel(qc, CHUNK_128K)
+        errs = []
+        for r0 in slices:
+            ref = plain(qc[:, :, r0 : r0 + ROW_SLICE], CHUNK_128K + r0)
+            torch.cuda.synchronize()
+            ea, er, ok = close(torch, out[:, :, r0 : r0 + ROW_SLICE], ref, K2_ATOL, ATTN_RTOL)
+            errs.append(ea)
+            log(f"{name} lq={lq} lk={lmax} q_pos0={CHUNK_128K} pad={pad}, rows {r0}-{r0 + ROW_SLICE - 1}: "
+                f"max_abs={ea:.3e} max(|err| - rtol |ref|)={excess(out[:, :, r0 : r0 + ROW_SLICE], ref):.3e} "
+                f"(atol {K2_ATOL} + rtol {ATTN_RTOL:.4f})")
+            if not ok:
+                fail(f"{name} disagrees with its plain version on rows {r0}-{r0 + ROW_SLICE - 1} of the "
+                     f"128K chunk")
+            del ref
+        del out
+        return errs
+
+    def chunk_timing(name, kernel, plain, nbytes, library=None):
+        """The whole chunk's kernel time; the plain version's on one slice."""
+        ms = cuda_ms(torch, lambda: kernel(qc, CHUNK_128K), 2, warmup=1)
+        dms = device_ms(torch, lambda: kernel(qc, CHUNK_128K), 2)
+        s_ms = cuda_ms(torch, lambda: kernel(qc[:, :, :ROW_SLICE], CHUNK_128K), 4)
+        p_ms = cuda_ms(torch, lambda: plain(qc[:, :, :ROW_SLICE], CHUNK_128K), 2, warmup=1)
+        lib = None
+        if library is not None:
+            try:
+                lib = cuda_ms(torch, library, 2, warmup=1)
+            except torch.OutOfMemoryError:
+                log(f"{name}: SDPA over the 128K chunk's mask does not fit beside the phase: library not measured")
+            torch.cuda.empty_cache()
+        b2 = bound(nbytes, 4 * h * d * chunk_pairs)
+        entry = {"shape": f"lq={lq} lk={lmax} q_pos0={CHUNK_128K} pad={pad} H=32 D=96 (the 128K prompt's "
+                          f"last prefill chunk)", "ms": ms, "device_ms": dms, "plain_ms": None,
+                 "plain_device_ms": None, "slice_ms": s_ms, "slice_plain_ms": p_ms, "library_ms": lib, **b2}
+        report[name].setdefault("timings", []).append(entry)
+        dtext = "not measured" if dms is None else f"{dms:.3f}"
+        ltext = "not measured" if lib is None else f"{lib:.3f} ms"
+        log(f"{name} 128K chunk lq={lq} lk={lmax}: kernel {ms:.3f} ms (device {dtext}), bound {b2['bound_ms']:.3f} ms "
+            f"({b2['bound_by']}), SDPA {ltext}; on rows 0-{ROW_SLICE - 1}: kernel {s_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms (the plain version of the whole chunk does not fit)")
+
+    def decode_timing(name, kernel, plain, cache, offset, nbytes, library=None, extra=""):
+        nxt, off = rotating(nl), dev_offset(torch, offset)
+        t = timed(torch, lambda: kernel(q1, *cache, valid, off, nxt(), scale),
+                  lambda: plain(q1, *cache, valid, off, nxt(), scale), 10)
+        t.update(bound(nbytes, 4 * h * d * (offset + 1 - pad)),
+                 library_ms=None if library is None else cuda_ms(torch, library, 10))
+        shape = f"Lq=1 Lmax={lmax} offset={offset} pad={pad} H=32 D=96{extra} (128K window)"
+        log(f"{name} {shape}: {t.pop('text')} bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+            + ("" if t["library_ms"] is None else f" library (SDPA, same mask) {t['library_ms']:.4f} ms"))
+        report[name].setdefault("timings", []).append({"shape": shape, **t})
+
+    # --- The dense cache: K3 (decode), K2 (the chunk).
+    ks, vs = stack(), stack()
+    errs = decode_checks("K3", KV.dense_kv_attention, KV.dense_kv_attention_plain, ks, vs)
+    n_split, split_keys = KV.dense_kv_split_plan(lmax)
+    log(f"K3 plan at {lmax} keys: {n_split} splits of {split_keys} keys, partials "
+        f"{n_split * b_ * h * (d + 2) * 4 / 2**20:.1f} MiB a launch, merged by the combine kernel")
+    mask = causal_valid_mask(valid, torch.tensor([lmax - 1], device=dev))
+    decode_timing("K3", KV.dense_kv_attention, KV.dense_kv_attention_plain, (ks, vs), lmax - 1,
+                  2 * 2 * kvh * lmax * d + lmax + 2 * 2 * h * d,
+                  library=lambda: F.scaled_dot_product_attention(q1, ks[top], vs[top], attn_mask=mask,
+                                                                 scale=scale))
+    report["K3"]["max_abs_err"] = max(report["K3"]["max_abs_err"], *errs)
+    k_top, v_top = ks[top], vs[top]
+    errs = chunk_checks("K2", lambda q, p0: K2.flash_attention(q, k_top, v_top, valid, p0, scale),
+                        lambda q, p0: K2.flash_attention_plain(q, k_top, v_top, valid, p0, scale))
+    report["K2"]["max_abs_err"] = max(report["K2"]["max_abs_err"], *errs)
+    cmask = causal_valid_mask(valid, CHUNK_128K + torch.arange(lq, device=dev))
+    chunk_timing("K2", lambda q, p0: K2.flash_attention(q, k_top, v_top, valid, p0, scale),
+                 lambda q, p0: K2.flash_attention_plain(q, k_top, v_top, valid, p0, scale),
+                 2 * (2 * qc.numel() + 2 * kvh * lmax * d) + lmax,
+                 library=lambda: F.scaled_dot_product_attention(qc, k_top, v_top, attn_mask=cmask, scale=scale))
+    del ks, vs, k_top, v_top, mask, cmask
+    torch.cuda.empty_cache()
+
+    # --- The int4 cache: K4 (decode), K5 (the chunk).
+    kvq = KVQuantConfig(group_size=32, bits=4)
+    payload = torch.empty((nl, b_, kvh, lmax, d), dtype=torch.uint8, device=dev)
+    scales = torch.empty((nl, b_, kvh, lmax, 4 * (d // 32)), dtype=torch.bfloat16, device=dev)
+    for layer in range(nl):
+        k = (torch.randn((b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[0]).to(torch.bfloat16)
+        v = (torch.randn((b_, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[1]).to(torch.bfloat16)
+        payload[layer], scales[layer] = quantize_chunk(k, v, kvq)
+        del k, v
+    errs = decode_checks("K4", KV.quantized_kv_attention, KV.quantized_kv_attention_plain, payload, scales)
+    n_split, block_keys = KV.quantized_split_plan(lmax)
+    log(f"K4 plan at {lmax} keys: {n_split} blocks of {block_keys} keys ({block_keys // KV.RUN_KEYS} runs of "
+        f"{KV.RUN_KEYS}), partials {n_split * b_ * h * (d + 2) * 4 / 2**20:.1f} MiB a launch")
+    for offset in (BUCKET_128K, lmax - 1):
+        decode_timing("K4", KV.quantized_kv_attention, KV.quantized_kv_attention_plain, (payload, scales), offset,
+                      kvh * (offset + 1) * (d + 8 * (d // 32)) + lmax + 2 * 2 * h * d, extra=" int4")
+    report["K4"]["max_abs_err"] = max(report["K4"]["max_abs_err"], *errs)
+    p_top, s_top = payload, scales
+    errs = chunk_checks("K5", lambda q, p0: KV.quantized_flash_attention(q, p_top, s_top, valid, p0, top, scale),
+                        lambda q, p0: KV.quantized_flash_attention_plain(q, p_top, s_top, valid, p0, top, scale))
+    report["K5"]["max_abs_err"] = max(report["K5"]["max_abs_err"], *errs)
+    chunk_timing("K5", lambda q, p0: KV.quantized_flash_attention(q, p_top, s_top, valid, p0, top, scale),
+                 lambda q, p0: KV.quantized_flash_attention_plain(q, p_top, s_top, valid, p0, top, scale),
+                 kvh * lmax * (d + 8 * (d // 32)) + lmax + 2 * 2 * qc.numel())
+    del payload, scales, p_top, s_top, qc, q1
+    torch.cuda.empty_cache()
+
+
+def long_prompt(proc):
+    """(text, processor output) of the 128K request: FILLER repeated to
+    PROMPT_128K tokens with the chat template (the byte tokenizer: a token
+    a byte)."""
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+
+    base = len(proc(_apply_chat_template("")[0])["input_ids"][0])
+    text = (FILLER * (PROMPT_128K // len(FILLER) + 2))[: PROMPT_128K - base]
+    dict_input = proc(_apply_chat_template(text)[0])
+    if dict_input["input_ids"].shape[1] != PROMPT_128K:
+        fail(f"the 128K prompt has {dict_input['input_ids'].shape[1]} tokens, not {PROMPT_128K}")
+    return text, dict_input
+
+
+def reset_decoder(dec, offset: int, token) -> None:
+    """Move a decoder back to ``offset`` (the prompt's end) and ``token``:
+    the columns past it are written again by the next steps before any
+    query reads them."""
+    import dataclasses
+
+    dec.state = dataclasses.replace(dec.state, offset=offset)
+    dec.state.pos.fill_(offset)
+    dec.token.copy_(token)
+
+
+def long_profile(torch, lm, first, report) -> list:
+    """On the entry the 128K request left (``lm.decoders``), reset to the
+    prompt's end and its first token: graph steps against eager steps on
+    the same state (bit for bit), then the graph's decode wall, device busy
+    and idle share a token.  The entry goes back through
+    ``release_decoder`` (the dense one is then dropped).  Returns the first
+    token and the graph's tokens."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.engine.engine import Decoder, release_decoder
+
+    cache = cache_of(lm)
+    with lm.lock:
+        dec = lm.decoders.pop((1, WINDOW_128K))
+    reset_decoder(dec, BUCKET_128K, first)
+    g_rows = [tuple(t.cpu().numpy().copy() for t in dec.chunk(n)) for n in PARITY_STEPS_128K]
+    reset_decoder(dec, BUCKET_128K, first)
+    eager = Decoder(eager_twin(lm), dec.state)
+    eager.start(dec.state, first)
+    e_rows = [tuple(t.cpu().numpy().copy() for t in eager.chunk(n)) for n in PARITY_STEPS_128K]
+    g_out = [np.concatenate(p) for p in zip(*g_rows)]
+    e_out = [np.concatenate(p) for p in zip(*e_rows)]
+    same = [np.array_equal(a, b) for a, b in zip(g_out, e_out)]
+    log(f"128K ({cache} cache): {len(g_out[0])} graph steps against eager steps on the request's state from "
+        f"offset {BUCKET_128K}: tokens, max log-prob, EOS log-prob bitwise equal {same}")
+    if not all(same):
+        fail(f"128K ({cache} cache): the graph steps differ from the eager steps on the same state")
+    del eager
+    reset_decoder(dec, BUCKET_128K, first)
+    wall, per_name, kernels = step_profile(torch, dec, PROFILE_STEPS_128K, 4)
+    busy = sum(per_name.values())
+    if busy <= 0:
+        fail(f"128K ({cache} cache): the profiler saw no device time")
+    attn = sum(ms for name, ms in per_name.items() if "kv_" in name or name in SPLIT_RUN_KERNELS)
+    top = ", ".join(f"{name} {ms:.3f}" for name, ms in per_name.most_common(6))
+    log(f"128K ({cache} cache) decode through the graph from offset {BUCKET_128K}: wall {wall:.3f} ms/token "
+        f"({1e3 / wall:.2f} tok/s), device busy {busy:.3f} ms/token, idle share {1 - busy / wall:.3f}, "
+        f"{kernels:.0f} kernels/token; attention kernels {attn:.3f} ms/token; largest (ms/token): {top}; on "
+        f"{report['card']}")
+    report.setdefault("long128", {})[cache] = {"decode_wall_ms": wall, "decode_busy_ms": busy,
+                                              "idle_share": 1 - busy / wall}
+    release_decoder(lm, dec)
+    return [int(first[0, 0])] + [int(t) for t in g_out[0][:, 0]]
+
+
+def long_request(torch, lm, text, proc, report, tag: str, keep: bool = False):
+    """One 128K request through ``api.generate`` (max_tokens 128): prefill ms
+    (synchronized, around the engine's ``run_prefill``), decode tok/s, the
+    launch counts (the cache's flash and decode kernels and K1, nothing
+    else), the peak memory against the cache's bytes reckoned from the
+    shapes, and the kept graph entries.  ``keep``: the request's entry is
+    kept whatever its bytes (``lm.keep_bytes`` lifted for the request), for
+    ``long_profile``.  Returns the prefill's
+    last logits (V,) f32 on the host and its first token (1, 1) on the
+    card."""
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine import engine as E
+    from phi_3_vision_mlx_tpu_torch.engine.state import cache_bytes, state_bytes as entry_state_bytes
+
+    cache = cache_of(lm)
+    flash, decode = ("K5", "K4") if cache == "int4" else ("K2", "K3")
+    run_prefill, seen = E.run_prefill, {}
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        seen["ms"], seen["logits"] = (time.perf_counter() - t0) * 1e3, out[0][0].float()
+        return out
+
+    counters = zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    E.run_prefill, budget = timed_prefill, lm.keep_bytes
+    if keep:
+        lm.keep_bytes = float("inf")
+    try:
+        prompt_tps, gen_tps = api.generate(text, preload=(lm, proc), max_tokens=MAX_TOKENS_128K, verbose=False,
+                                           stream=False, mute=True, return_tps=True)
+    finally:
+        E.run_prefill, lm.keep_bytes = run_prefill, budget
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    need = cache_bytes(lm.cfg, 1, WINDOW_128K)
+    kept = [(key, round(entry_state_bytes(d.state) / 2**30, 3)) for key, d in lm.decoders.items()]
+    log(f"128K request ({tag}) through api.generate: {PROMPT_128K} prompt tokens, max_tokens {MAX_TOKENS_128K}, "
+        f"window {WINDOW_128K}: prefill {seen['ms']:.1f} ms (run_prefill; {PROMPT_128K / prompt_tps * 1e3:.1f} ms "
+        f"to the first token with the processor), decode {gen_tps:.2f} tok/s ({1e3 / gen_tps:.3f} ms/token), "
+        f"{total:.1f} s in all; launches {launches}; peak memory {peak / 2**30:.2f} GiB against a "
+        f"{need / 2**30:.2f} GiB cache reckoned from the shapes; entry uses {dict(lm.entry_uses)}; kept entries "
+        f"(key, GiB) {kept}; on {report['card']}")
+    for name, n in launches.items():
+        if name in ("K1", flash, decode):
+            if n <= 0:
+                fail(f"128K request ({tag}): {name} was never launched")
+        elif n:
+            fail(f"128K request ({tag}): {name} was launched {n} times")
+    report.setdefault("long128_requests", []).append(
+        {"tag": tag, "prefill_ms": seen["ms"], "decode_tps": gen_tps, "peak_gib": peak / 2**30,
+         "cache_gib": need / 2**30, "launches": launches})
+    logits = seen["logits"]
+    return logits.cpu().numpy(), logits.argmax().reshape(1, 1)
+
+
+def phase_long_context(torch, cfg, params, proc, report):
+    """(a) The 128K prompt in HBM: a request through ``api.generate`` with
+    the int4 cache, then the dense one, each followed by ``long_profile``
+    on the entry it left; then the int4 request again, a second 128K
+    request after the dense one, which replays the int4 entry.  Returns the
+    int4 model, the prompt and the int4 run's prefill logits and tokens
+    (the tiered engine's reference)."""
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM, prefill_shape
+
+    text, dict_input = long_prompt(proc)
+    if prefill_shape(dict_input, MAX_TOKENS_128K)[1:] != (BUCKET_128K, WINDOW_128K):
+        fail(f"the 128K prompt's bucket and window are {prefill_shape(dict_input, MAX_TOKENS_128K)[1:]}")
+    lm_int4 = LM(cfg.replace(use_quantized_cache=True), params, device="cuda")
+    logits, first = long_request(torch, lm_int4, text, proc, report, "int4 cache")
+    ref = (logits, long_profile(torch, lm_int4, first, report))
+    lm = LM(cfg, params, device="cuda")
+    _, first = long_request(torch, lm, text, proc, report, "dense cache", keep=True)
+    long_profile(torch, lm, first, report)
+    if lm.decoders:
+        fail(f"128K (dense cache): its {WINDOW_128K}-position entry was kept after its request")
+    del lm
+    long_request(torch, lm_int4, text, proc, report, "int4 cache, again after the dense request")
+    if lm_int4.entry_uses != {"made": 1, "reused": 1}:
+        fail(f"128K (int4 cache): the second request did not replay the first one's entry: {lm_int4.entry_uses}")
+    return lm_int4, dict_input, ref
+
+
+def link_text() -> str:
+    """The PCIe link as ``nvidia-smi`` reports it: generation and width,
+    current and maximum."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current,"
+                              "pcie.link.gen.max,pcie.link.width.max", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+    except OSError as e:
+        return f"not read ({e})"
+    return out.stdout.strip() if out.returncode == 0 else f"not read ({out.stderr.strip()})"
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def phase_tiered(torch, lm_int4, dict_input, ref, proc, report):
+    """(b) The tiered engine at the 131072 window, if the host has room to
+    pin its ~16 GB cold tier twice over, else at 65536: prefill ms, the
+    first logits and greedy tokens against the in-HBM int4 path's at the
+    same window (up to the first near tie), decode ms a step with and
+    without prefetch on the state as prefilled, the cold stream's
+    host-to-device rate against the PCIe link, and the first step against
+    the in-HBM path's, with a planted fault."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.engine.state import cache_bytes
+    from phi_3_vision_mlx_tpu_torch.engine.tiered import TieredEngine
+
+    window = WINDOW_128K
+    cold = cache_bytes(lm_int4.cfg, 1, window)
+    avail = host_available_bytes()
+    if avail < 2 * cold:
+        window = 65536
+    chunk = TIERED_CHUNKS[window]
+    log(f"tiered: host memory available {avail / 2**30:.1f} GiB for a {cold / 2**30:.1f} GiB cold tier at "
+        f"{WINDOW_128K}: window {window}, chunks of {chunk}, hot window {MAX_TOKENS_128K}")
+    if window != WINDOW_128K:
+        from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_decoder, release_decoder
+
+        n = window - MAX_TOKENS_128K - (BUCKET_128K - PROMPT_128K)
+        dict_input = {"input_ids": dict_input["input_ids"][:, -n:]}
+        dec, first = prefill_decoder(lm_int4, dict_input, MAX_TOKENS_128K)
+        toks = dec.chunk(sum(PARITY_STEPS_128K))[0].cpu().numpy().copy()
+        release_decoder(lm_int4, dec)
+        ref = (None, [int(first[0, 0])] + [int(t) for t in toks[:, 0]])
+    ref_logits, ref_toks = ref
+    tiered_dot_check(torch)
+    eng = TieredEngine(lm_int4, chunk=chunk, hot=MAX_TOKENS_128K, k_block=chunk)
+    counters = zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, state = eng.prefill(dict_input)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if state.window != window or not state.cold_k[0].is_pinned():
+        fail(f"tiered: window {state.window}, cold tier pinned {state.cold_k[0].is_pinned()}")
+    line = (f"tiered prefill ({window} window, {len(state.cold_k)} chunks of {chunk}): {prefill_ms:.1f} ms, "
+            f"cold tier {state.cold_bytes() / 2**30:.2f} GiB in pinned host memory, peak device memory "
+            f"{peak / 2**30:.2f} GiB, launches {({k: f.launches for k, f in counters.items()})}")
+    if ref_logits is not None:
+        rel = float(np.linalg.norm(logits[0] - ref_logits) / np.linalg.norm(ref_logits))
+        line += (f"; first logits against the in-HBM int4 path: relative L2 {rel:.3e} (limit "
+                 f"{TIERED_REL_L2})")
+        if not rel <= TIERED_REL_L2:
+            fail(f"tiered: first logits {rel:.3e} from the in-HBM path's in relative L2")
+    log(line)
+    if counters["K1"].launches <= 0:
+        fail("tiered: K1 was never launched")
+
+    first = int(np.argmax(logits[0]))
+    tok, toks, rows = first, [first], [torch.as_tensor(logits[0])]
+    for _ in range(TIERED_STEPS):
+        lg, state = eng.decode_step(state, np.array([[tok]]))
+        tok = int(lg[0].argmax())
+        toks.append(tok)
+        rows.append(lg[0])
+    diff = [i for i, (a, b) in enumerate(zip(toks, ref_toks)) if a != b]
+    log(f"tiered greedy tokens (decode_step) against the in-HBM int4 path: {diff[0] if diff else len(toks)} of "
+        f"{len(toks)} equal")
+    if diff:
+        tiered_near_tie(torch, lm_int4, dict_input, ref_logits, ref_toks, toks, rows[diff[0]], diff[0])
+    counters = zero_counters()
+    rates = {}
+    for mode in ("prefetch", "serial"):
+        dev0 = state.dev0
+        if mode == "serial":
+            state.dev0 = None  # each layer's copy on the compute stream, layer 0's too
+        reset_decoder_hot(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, state = eng.decode_chunk(state, np.array([[first]]), TIERED_STEPS)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / TIERED_STEPS
+        state.dev0 = dev0
+        streamed = state.cold_bytes() * (1 if mode == "serial" else 1 - 1 / lm_int4.cfg.num_hidden_layers)
+        rates[mode] = (step_ms, streamed / step_ms / 1e6)
+        if [first] + [int(t) for t in out[:, 0]] != toks:
+            fail(f"tiered: decode_chunk ({mode}) gives other tokens than decode_step")
+    launches = {k: f.launches for k, f in counters.items()}
+    if launches["K1"] <= 0 or any(n for k, n in launches.items() if k != "K1"):
+        fail(f"tiered decode: launches {launches}")
+    copy_ms = h2d_ms(torch, state)
+    layer_bytes = state.cold_bytes() / lm_int4.cfg.num_hidden_layers
+    log(f"tiered decode through decode_chunk (generate's steps) on the state as prefilled ({window} window, "
+        f"{len(state.cold_k)} chunks of {state.PC}, {TIERED_STEPS} steps, launches {launches}): prefetch "
+        f"{rates['prefetch'][0]:.1f} ms/step ({rates['prefetch'][1]:.2f} GB/s of cold tier streamed), serial "
+        f"{rates['serial'][0]:.1f} ms/step ({rates['serial'][1]:.2f} GB/s); the copies alone: one layer's cold "
+        f"slices {copy_ms:.3f} ms, {layer_bytes / copy_ms / 1e6:.2f} GB/s host to device; PCIe link "
+        f"(gen, width current, gen, width max): {link_text()}; on {report['card']}")
+    report["tiered"] = {"window": window, "prefill_ms": prefill_ms, "prefetch_ms": rates["prefetch"][0],
+                        "serial_ms": rates["serial"][0], "h2d_gbs": layer_bytes / copy_ms / 1e6}
+    tiered_planted_fault(torch, eng, state, lm_int4, window, ref_toks[0])
+    del state, eng
+    torch.cuda.empty_cache()
+
+
+def tiered_dot_check(torch) -> None:
+    """The tiered attention's bf16 product on the card (``torch.bmm`` with an
+    f32 output) at a decode step's score shape: the bf16-rounded inputs'
+    product in f64, within f32 summation error (a bf16 sum would miss it by
+    ~0.1 at these values)."""
+    from phi_3_vision_mlx_tpu_torch.engine.tiered import _dot
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, 32, 1, 1, 96, device="cuda", generator=gen)
+    kt = torch.randn(1, 32, 1, 96, 3968, device="cuda", generator=gen)
+    got = _dot(q, kt, True)
+    want = torch.matmul(q.bfloat16().double(), kt.bfloat16().double())
+    err = (got.double() - want).abs().max().item()
+    log(f"tiered bf16 dot (bmm, f32 output) at (32, 1, 96) x (96, 3968): max abs error {err:.3e} against the "
+        f"bf16 inputs' product in f64 (limit 1e-3; the values reach {want.abs().max().item():.1f})")
+    if got.dtype != torch.float32 or not err <= 1e-3:
+        fail(f"tiered: the bf16 dot on the card is {got.dtype}, {err:.3e} from the rounded inputs' product")
+
+
+def tiered_planted_fault(torch, eng, state, lm, window: int, tok: int) -> None:
+    """The first decode step, fed the in-HBM first token ``tok``: the tiered
+    step against the in-HBM request's (its kept entry, eager, K4), sound
+    and with one cold chunk masked.  The entry is closed afterwards."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    with lm.lock:
+        dec = lm.decoders.pop((1, window))
+    reset_decoder(dec, state.C, torch.tensor([[tok]], device="cuda"))
+    with torch.no_grad():
+        ref = phi3.decode_forward(lm.params, lm.cfg, dec.state, dec.token, advance=0).logits[0, -1].float()
+    dec.close()
+
+    def tiered(masked=None):
+        valid, full = state.cold_valid.clone(), list(state.cold_full)
+        if masked is not None:
+            state.cold_valid[:, masked * state.PC : (masked + 1) * state.PC] = False
+            state.cold_full[masked] = False
+        reset_decoder_hot(state)
+        lg, _ = eng.decode_step(state, np.array([[tok]]))
+        state.cold_valid, state.cold_full = valid, full
+        return ((lg[0].float() - ref).norm() / ref.norm()).item()
+
+    sound, fault = tiered(), tiered(len(state.cold_k) // 2)
+    log(f"tiered first decode step against the in-HBM path's (K4, eager), relative L2: {sound:.3e}; with one cold "
+        f"chunk of {len(state.cold_k)} masked {fault:.3e} (limit {TIERED_REL_L2}: the first within, the second "
+        f"above)")
+    if sound > TIERED_REL_L2:
+        fail(f"tiered: the first decode step {sound:.3e} from the in-HBM path's in relative L2")
+    if not fault > TIERED_REL_L2:
+        fail(f"tiered: a planted fault (one cold chunk masked) reads {fault:.3e}, within TIERED_REL_L2")
+
+
+def tiered_near_tie(torch, lm, dict_input, ref_logits, ref_toks, toks, row, d: int) -> None:
+    """Judge the tiered engine's first token ``d`` that differs from the
+    in-HBM path's: the in-HBM logits of that step over its own prefix (the
+    prefill's, or a step replayed on the request's state) against the
+    tiered step's logits ``row``."""
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_decoder, release_decoder
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    if d == 0 and ref_logits is not None:
+        one = torch.as_tensor(ref_logits).float()
+    else:
+        dec, _ = prefill_decoder(lm, dict_input, MAX_TOKENS_128K)
+        if d > 1:
+            dec.chunk(d - 1)
+        with torch.no_grad():
+            one = phi3.decode_forward(lm.params, lm.cfg, dec.state, dec.token, advance=0).logits[0, -1].float()
+        release_decoder(lm, dec)
+    row = row.to(one.device).float()
+    lp1, lp2 = torch.log_softmax(one, -1), torch.log_softmax(row, -1)
+    a, b = ref_toks[d], toks[d]
+    if int(lp1.argmax()) != a:
+        fail(f"tiered near tie: the replayed in-HBM step gives token {int(lp1.argmax())}, its stream {a}")
+    rel = ((one - row).norm() / one.norm()).item()
+    gap = (lp1[a] - lp1[b]).item()
+    moved = 2 * max(abs((lp1[a] - lp2[a]).item()), abs((lp1[b] - lp2[b]).item()))
+    ulp = 2.0 ** (math.floor(math.log2(abs(one.max().item()))) - 7)
+    log(f"tiered near tie at token {d}: the two paths' logits over the in-HBM prefix differ by {rel:.2e} "
+        f"relative L2 (limit {TIERED_REL_L2}); the in-HBM step's gap between its token {a} and the tiered "
+        f"{b} {gap:.4f} (limit {NEAR_TIE_ULPS} bf16 ulps of its top logit, {NEAR_TIE_ULPS * ulp:.4f}), twice "
+        f"the change of those log-probs {moved:.4f}")
+    if rel > TIERED_REL_L2 or gap > min(moved, NEAR_TIE_ULPS * ulp):
+        fail(f"tiered: token {d} differs from the in-HBM path's beyond a near tie")
+
+
+def reset_decoder_hot(state) -> None:
+    import dataclasses
+
+    state.hot = dataclasses.replace(state.hot, offset=0)
+    state.hot.pos.zero_()
+
+
+def h2d_ms(torch, state, reps: int = 3) -> float:
+    """Device ms of copying one layer's cold slices (every chunk's) from the
+    pinned host tier into device buffers, CUDA events around the copies."""
+    bufs = [torch.empty(t.shape[1:], dtype=t.dtype, device="cuda") for t in state.cold_k + state.cold_s]
+    hosts = state.cold_k + state.cold_s
+
+    def copy():
+        for buf, host in zip(bufs, hosts):
+            buf.copy_(host[1], non_blocking=True)
+
+    return cuda_ms(torch, copy, reps, warmup=1)
+
+
+def dequantized(torch, node, bits: int):
+    """A prepared quantized linear leaf's bf16 weight (..., K, N)."""
+    from phi_3_vision_mlx_tpu_torch.core.weights import LAYOUTS
+    from phi_3_vision_mlx_tpu_torch.ops.quant import QTensor, dequantize
+
+    return dequantize(QTensor(LAYOUTS[bits][2](node["qweight"]), node["scales"], node.get("biases")))
+
+
+def write_hf_checkpoint(torch, path: str, cfg, params) -> int:
+    """A raw HF-layout directory of the model ``params`` hold (the port's
+    prepared 4-bit weights, dequantized to bf16): HF key names, linears
+    ``(out, in)``, per-layer keys in two shards, a config without
+    ``layout``.  Returns its bytes."""
+    from phi_3_vision_mlx_tpu_torch.core.config import config_to_dict
+    from phi_3_vision_mlx_tpu_torch.core.weights import save_safetensors
+    from phi_3_vision_mlx_tpu_torch.ops.quant import QTensor, dequantize
+
+    os.makedirs(path, exist_ok=True)
+    d = config_to_dict(cfg.replace(quantized=None))
+    for key in ("layout", "sanitized", "quantization"):
+        d.pop(key, None)
+    with open(f"{path}/config.json", "w") as f:
+        json.dump(d, f)
+    with open(f"{path}/tokenizer_config.json", "w") as f:
+        json.dump({"model_max_length": WINDOW_128K}, f)
+    bits, nl, size = cfg.quantized.bits, cfg.num_hidden_layers, 0
+    layers = params["model"]["layers"]
+    emb = params["model"]["embed_tokens"]
+    for shard, (lo, hi) in enumerate(((0, nl // 2), (nl // 2, nl))):
+        flat = {}
+        for i in range(lo, hi):
+            for part, names in (("self_attn", ("qkv_proj", "o_proj")), ("mlp", ("gate_up_proj", "down_proj"))):
+                for name in names:
+                    node = {k: v[i] for k, v in layers[part][name].items()}
+                    flat[f"model.layers.{i}.{part}.{name}.weight"] = dequantized(torch, node, bits).t().cpu()
+            for norm in ("input_layernorm", "post_attention_layernorm"):
+                flat[f"model.layers.{i}.{norm}.weight"] = layers[norm]["weight"][i].cpu()
+        if shard:
+            flat["model.embed_tokens.weight"] = dequantize(
+                QTensor(emb["weight"], emb["scales"], emb.get("biases")), axis=-1).cpu()
+            flat["model.norm.weight"] = params["model"]["norm"]["weight"].cpu()
+            flat["lm_head.weight"] = dequantized(torch, params["lm_head"], bits).t().cpu()
+        save_safetensors(f"{path}/model-{shard + 1:05d}-of-00002.safetensors", flat)
+        size += sum(t.numel() * t.element_size() for t in flat.values())
+        del flat
+    return size
+
+
+def checkpoint_tree(params: dict, bits: int) -> dict:
+    """The port's prepared params -> a checkpoint's tree: each K1/K8 leaf's
+    words unpacked to the plain ``(K, N)`` uint8 payload; packed leaves,
+    embeddings and float tensors as they are."""
+    from phi_3_vision_mlx_tpu_torch.core.weights import LAYOUTS
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if "qweight" in node:
+            out = {k: v for k, v in node.items() if k != "qweight"}
+            out["weight"] = LAYOUTS[bits][2](node["qweight"])
+            return out
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
+
+
+def generate_from(torch, path: str, label: str, want: dict, images=None, proc=None) -> None:
+    """``api._load`` of ``path`` on the card (seconds), then a few tokens
+    through ``api.generate``; ``want`` maps kernels that must launch (True)
+    or must not (False)."""
+    from phi_3_vision_mlx_tpu_torch import api
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm, tproc = api._load(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    counters = zero_counters()
+    prompt = "Describe this image." if images else PROMPT_A
+    out = api.generate(prompt, images=images, preload=(lm, proc or tproc), max_tokens=8, verbose=False,
+                       stream=False, mute=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"checkpoint I/O ({label}): api._load on cuda {load_s:.1f} s; api.generate gave {len(out[0])} chars; "
+        f"launches {launches}")
+    if not out or not out[0]:
+        fail(f"checkpoint I/O ({label}): api.generate gave {out!r}")
+    for name, on in want.items():
+        if (launches[name] > 0) != on:
+            fail(f"checkpoint I/O ({label}): {name} launched {launches[name]} times")
+    del lm
+    torch.cuda.empty_cache()
+
+
+def phase_checkpoint_io(torch, cfg, params, report):
+    """(c) A raw HF-layout directory of the full-size text model, written
+    from the synthetic weights, sanitized and quantized by the port, each
+    loaded with the native reader (seconds) and generating; then the 8-bit
+    and the packed 4-bit vision checkpoints, generating with the local test
+    image (K8, K9 launched)."""
+    import shutil
+    import tempfile
+
+    from phi_3_vision_mlx_tpu_torch.bench import _local_test_image
+    from phi_3_vision_mlx_tpu_torch.core import weights as W
+    from phi_3_vision_mlx_tpu_torch.core.config import QuantConfig
+
+    reader, _ = W.safetensors_reader()
+    if reader != "native":
+        fail(f"checkpoint I/O: the safetensors reader is {reader}, not the native one")
+    tmp = tempfile.mkdtemp(prefix="ckpt_io_", dir=os.environ.get("TMPDIR"))
+    try:
+        raw, clean, q4 = (f"{tmp}/{n}" for n in ("raw", "clean", "q4"))
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(torch, raw, cfg, params)
+        t1 = time.perf_counter()
+        W.sanitize_checkpoint(raw, clean)
+        t2 = time.perf_counter()
+        W.quantize_checkpoint(raw, q4, device="cuda")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        loads = {}
+        for name, path in (("sanitized", clean), ("quantized", q4)):
+            s0 = time.perf_counter()
+            _, p = W.load_params(path)
+            loads[name] = time.perf_counter() - s0
+            if name == "sanitized":
+                last = cfg.num_hidden_layers - 1
+                qkv = p["model"]["layers"]["self_attn"]["qkv_proj"]["weight"][last]
+                want = dequantized(torch, {k: v[last] for k, v in
+                                           params["model"]["layers"]["self_attn"]["qkv_proj"].items()}, 4)
+                if not torch.equal(qkv.to(want.device), want):
+                    fail(f"checkpoint I/O: the sanitized qkv_proj of layer {last} is not the source weight")
+            del p
+        said = list(W._READER_SAID)
+        log(f"checkpoint I/O (full-size text model, {cfg.num_hidden_layers} layers): raw HF-layout directory of "
+            f"{nbytes / 1e9:.2f} GB written in {t1 - t0:.1f} s; sanitize_checkpoint {t2 - t1:.1f} s; "
+            f"quantize_checkpoint (4-bit, on cuda) {t3 - t2:.1f} s; load_params with the {said} reader: "
+            f"sanitized {loads['sanitized']:.1f} s, quantized {loads['quantized']:.1f} s (page cache warm: "
+            f"each was just written); on {report['card']}")
+        if said != ["native"]:
+            fail(f"checkpoint I/O: readers used {said}")
+        report["checkpoint_io"] = {"raw_gb": nbytes / 1e9, "write_s": t1 - t0, "sanitize_s": t2 - t1,
+                                   "quantize_s": t3 - t2, **{f"load_{k}_s": v for k, v in loads.items()}}
+        shutil.rmtree(raw)
+        generate_from(torch, clean, "sanitized bf16", {"K1": False, "K2": True, "K3": True})
+        shutil.rmtree(clean)
+        generate_from(torch, q4, "quantized 4-bit", {"K1": True, "K2": True, "K3": True})
+        shutil.rmtree(q4)
+
+        from phi_3_vision_mlx_tpu_torch.core.weights import packed_params, synth_quantized_params
+
+        proc = vision_processor()
+        image = _local_test_image()
+        for bits, packed in ((8, False), (4, True)):
+            vcfg = vision_config().replace(quantized=QuantConfig(group_size=64, bits=bits, mode="affine"))
+            vp = synth_quantized_params(vcfg, device="cuda", seed=0)
+            if packed:
+                vp = packed_params(vp, vcfg)
+            path = f"{tmp}/vision_{bits}{'_packed' if packed else ''}"
+            s0 = time.perf_counter()
+            W.save_checkpoint(path, vcfg, checkpoint_tree(vp, bits))
+            del vp
+            torch.cuda.empty_cache()
+            label = f"{bits}-bit{' packed' if packed else ''} vision checkpoint, written in " \
+                    f"{time.perf_counter() - s0:.1f} s"
+            want = {"K8": True, "K1": False, "K9": False} if bits == 8 else {"K9": True, "K1": True, "K8": False}
+            generate_from(torch, path, label, want, images=[image], proc=proc)
+            shutil.rmtree(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_long(torch, report):
+    """Phase 15: long context and checkpoint I/O at full width and depth on
+    the 4-bit weights from seed 0."""
+    import gc
+
+    from phi_3_vision_mlx_tpu_torch.core.weights import flatten_params, synth_quantized_params
+    from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3Processor
+    from phi_3_vision_mlx_tpu_torch.models.tokenizer import ByteTokenizer
+
+    gc.collect()  # earlier phases' models and their graph entries refer to each other
+    torch.cuda.empty_cache()
+    cfg = full_config()
+    params = synth_quantized_params(cfg, device="cuda", seed=0)
+    proc = Phi3Processor(tokenizer=ByteTokenizer())
+    log(f"phase 15 starts with {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (the weights "
+        f"{sum(t.numel() * t.element_size() for t in flatten_params(params).values()) / 2**30:.2f} GiB)")
+    # (c), the disk's part, first: the card's parts then run while the host
+    # writes back what (c) wrote.
+    phase_checkpoint_io(torch, cfg, params, report)
+    stamp("phase 15 (c)")
+    lm_int4, dict_input, ref = phase_long_context(torch, cfg, params, proc, report)
+    stamp("phase 15 (a)")
+    phase_tiered(torch, lm_int4, dict_input, ref, proc, report)
+    del lm_int4, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("phase 15 (b)")
+
+
+def live_tensors(torch, top: int = 8) -> None:
+    """The card's memory still allocated at the end, and its largest live
+    tensors by (shape, dtype)."""
+    import gc
+    from collections import Counter
+
+    gc.collect()
+    sizes = Counter()
+    for obj in gc.get_objects():
+        try:
+            if torch.is_tensor(obj) and obj.is_cuda:
+                sizes[(tuple(obj.shape), str(obj.dtype))] += obj.numel() * obj.element_size()
+        except Exception:  # objects that refuse inspection
+            continue
+    log(f"left allocated at the end: {torch.cuda.memory_allocated() / 2**30:.2f} GiB; largest live tensors (GiB): "
+        + ", ".join(f"{shape} {dtype} {n / 2**30:.2f}" for (shape, dtype), n in sizes.most_common(top)))
+
+
 def main() -> None:
     try:
         import torch
@@ -4587,8 +5430,13 @@ def main() -> None:
     phase_w8_kernels(torch, report)
     phase_packed_kernels(torch, report)
     phase_experiment_kernels(torch, report)
+    phase_long_kernels(torch, report)
     torch.cuda.empty_cache()
     stamp("phase 2")
+    # Phase 15 runs here, on a card nothing else holds yet: its dense 128K
+    # request needs 48 GiB of cache beside the kept 15 GiB int4 entry, and
+    # the later phases leave models and graph entries allocated.
+    phase_long(torch, report)
 
     # Phases 3-5 share the full-size weights.
     from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
@@ -4709,6 +5557,7 @@ def main() -> None:
     # Phase 14: the runbook, the reference's benchmark, the chat UI's session
     # and the step log, through the port's entry points.
     phase_gates(torch, report)
+    live_tensors(torch)
     for pkg in ("jax", "phi_3_vision_mlx_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             fail(f"{pkg} was imported")

@@ -90,12 +90,16 @@ def _get_adapter_path(model_path: str) -> str:
 
 
 def _load(model_path=PATH_ORIGINAL_PHI3_VISION, adapter_path=None, device="cuda", **kwargs):
-    """Checkpoint dir in the (in, out) layout, unquantized or with 4-bit or
-    8-bit weights -> (LM, processor), with the LoRA adapter at
+    """Checkpoint dir, in the (in, out) layout or raw HF, unquantized or with
+    4-bit or 8-bit weights -> (LM, processor), with the LoRA adapter at
     ``adapter_path`` applied (``core/weights.py:load_adapter``).  The
-    default is the unquantized vision checkpoint, as in the JAX package."""
+    default is the unquantized vision checkpoint, as in the JAX package.
+    The checkpoint's tensors go to ``device`` first and the kernels' layouts
+    are built there (``prepare_params``): on the host, packing a full-size
+    4-bit model's nibbles took 19 s."""
     cfg, params = W.load_params(model_path, **kwargs)
-    params = W.prepare_params(params, cfg)
+    lm = LM(cfg, params, model_path=model_path, device=device)
+    params = W.prepare_params(lm.params, cfg)
     if adapter_path:
         with open(f"{adapter_path}/adapter_config.json") as f:
             lora_cfg = json.load(f)
@@ -105,8 +109,8 @@ def _load(model_path=PATH_ORIGINAL_PHI3_VISION, adapter_path=None, device="cuda"
                 f"used with {model_path}"
             )
         params = W.load_adapter(params, cfg, adapter_path)
-    processor = processor_for(cfg.architecture)(model_path)
-    return LM(cfg, params, model_path=model_path, device=device), processor
+    lm.params = params
+    return lm, processor_for(cfg.architecture)(model_path)
 
 
 def load(blind_model: bool = False, quantize_model: bool = False, quantize_cache: bool = False,

@@ -6,9 +6,15 @@ Counterpart of ``phi_3_vision_mlx_tpu/core/weights.py``:
   safetensors format in pure Python (8-byte little-endian header length, a
   JSON header, then raw bytes), so neither the ``safetensors`` package nor
   ``ml_dtypes`` is needed; BF16 is read as int16 and reinterpreted.
+  :func:`load_safetensors_dir` prefers the native zero-copy reader
+  (``core/native.py``) and says once, on stderr, which reader it used.
 * :func:`build_params` / :func:`load_params` stack the per-layer tensors of a
-  checkpoint in the (in, out) layout (linear weights stored ``(in, out)``,
-  config ``"layout": "in_out"``), written by either package.
+  checkpoint, either in the (in, out) layout (linear weights stored ``(in,
+  out)``, config ``"layout": "in_out"``), written by either package, or a raw
+  HuggingFace directory: its linears and their scales and biases, stored
+  ``(out, in)``, are transposed, and its NCHW patch embedding becomes OHWI.
+  :func:`sanitize_checkpoint` writes a raw directory out in the (in, out)
+  layout (the reference's ``_sanitize``).
   :func:`load_adapter` adds a LoRA adapter either package wrote
   (``adapters.safetensors`` + ``adapter_config.json``); :func:`prepare_params`
   and :func:`params_to` keep its float32 leaves as they are.
@@ -41,9 +47,8 @@ Vision checkpoints load through the same path: the tower's per-layer keys
 (``model.vision_embed_tokens.img_processor.vision_model.encoder.layers.N``)
 stack like the decoder's, its linears (q/k/v/out_proj, fc1, fc2,
 ``img_projection.{0,2}``) quantize like the decoder's, and the patch
-embedding's weight stays as stored, OHWI (E, P, P, 3).  A raw HF
-directory's NCHW patch weight is the JAX ``sanitize_checkpoint``'s to
-convert, which is not ported.
+embedding's weight is OHWI (E, P, P, 3) in the (in, out) layout; a raw
+HF directory's NCHW weight is transposed to it once, as it loads.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import os
 import re
 import shutil
 import struct
+import sys
 from typing import Dict
 
 import torch
@@ -128,13 +134,34 @@ def save_safetensors(path: str, flat: Dict[str, torch.Tensor]) -> None:
         for name in names:  # one tensor's bytes in memory at a time
             t = flat[name].detach().to("cpu").contiguous()
             if t.numel():
-                f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+                f.write(t.reshape(-1).view(torch.uint8).numpy())  # the tensor's own bytes, no copy
+
+
+_READER_SAID = []  # the reader load_safetensors_dir said it used, once a process
+
+
+def safetensors_reader():
+    """``(name, reader)`` of :func:`load_safetensors_dir`: the native
+    zero-copy reader (``core/native.py``) unless ``PHI3V_TPU_NATIVE_IO=0``
+    or it does not build here (no g++), else :func:`load_safetensors`
+    (JAX ``core/weights.py:load_safetensors_dir``)."""
+    if os.environ.get("PHI3V_TPU_NATIVE_IO", "1") == "1":
+        from . import native
+
+        if native.available():
+            return "native", native.load_file_mmap
+    return "python", load_safetensors
 
 
 def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every ``*.safetensors`` shard of a checkpoint directory."""
+    name, reader = safetensors_reader()
+    if name not in _READER_SAID:
+        _READER_SAID.append(name)
+        print(f"safetensors reader: {name}", file=sys.stderr, flush=True)
     flat: Dict[str, torch.Tensor] = {}
     for wf in sorted(glob.glob(f"{path}/*.safetensors")):
-        flat.update(load_safetensors(wf))
+        flat.update(reader(wf))
     if not flat:
         raise FileNotFoundError(f"no *.safetensors under {path}")
     return flat
@@ -159,21 +186,44 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]
 
 
-def build_params(cfg: ModelConfig, flat: Dict[str, torch.Tensor]) -> dict:
+def _is_linear_weight(name: str) -> bool:
+    return _LINEAR_RE.search(name) is not None
+
+
+def _from_hf(name: str, arr: torch.Tensor) -> torch.Tensor:
+    """A raw HF tensor in the (in, out) layout (JAX ``build_params`` with
+    ``pre_transposed=False``): a linear's weight (out, in) transposed,
+    whether float or an integer payload others saved (out, in), every
+    ``scales``/``biases`` plane transposed, and the NCHW patch embedding
+    made OHWI."""
+    field = name.rsplit(".", 1)[-1]
+    if "patch_embedding.weight" in name and arr.dim() == 4 and arr.shape[1] == 3:
+        return arr.permute(0, 2, 3, 1)
+    if (field == "weight" and arr.dtype != torch.bool and _is_linear_weight(name)) or \
+            field in ("scales", "biases"):
+        return arr.transpose(-2, -1)
+    return arr
+
+
+def build_params(cfg: ModelConfig, flat: Dict[str, torch.Tensor], *,
+                 pre_transposed: bool = True) -> dict:
     """Nested params with every ``...layers.N.<rest>`` tensor stacked along a
     leading layer axis.  Floating tensors (scales and biases included) are
-    cast to ``cfg.dtype`` as the JAX loader does; payloads stay as stored."""
+    cast to ``cfg.dtype`` as the JAX loader does; payloads stay as stored.
+    ``pre_transposed`` False reads a raw HF checkpoint (:func:`_from_hf`)."""
     want = torch_dtype(cfg.dtype)
     groups: dict = {}
     tree: dict = {}
     for name, arr in flat.items():
+        if not pre_transposed:
+            arr = _from_hf(name, arr)
         if arr.is_floating_point() and arr.dtype != want:
             arr = arr.to(want)
         m = _LAYER_RE.match(name)
-        if m:
+        if m:  # stacked below, which lays out a transposed view
             groups.setdefault(m.group(1), {}).setdefault(m.group(3), {})[int(m.group(2))] = arr
         else:
-            _assign(tree, name, arr)
+            _assign(tree, name, arr.contiguous())
     for prefix, fields in groups.items():
         for rest, by_idx in fields.items():
             n = max(by_idx) + 1
@@ -182,16 +232,26 @@ def build_params(cfg: ModelConfig, flat: Dict[str, torch.Tensor]) -> dict:
 
 
 def load_params(model_path: str, **cfg_overrides):
-    """Checkpoint dir in the (in, out) layout -> (cfg, nested CPU params)."""
+    """Checkpoint dir, in the (in, out) layout or raw HF -> (cfg, nested CPU
+    params)."""
     with open(f"{model_path}/config.json") as f:
         raw_cfg = json.load(f)
-    if raw_cfg.get("layout") != "in_out":
-        raise ValueError(
-            f"{model_path} is not in the (in, out) layout; an HF checkpoint is converted by "
-            "the JAX package's sanitize_checkpoint, which is not ported"
-        )
     cfg = config_from_dict(raw_cfg, **cfg_overrides)
-    return cfg, build_params(cfg, load_safetensors_dir(model_path))
+    return cfg, build_params(cfg, load_safetensors_dir(model_path),
+                             pre_transposed=raw_cfg.get("layout") == "in_out")
+
+
+def sanitize_checkpoint(from_path: str, to_path: str, **cfg_overrides) -> ModelConfig:
+    """Raw HF directory -> a checkpoint in the (in, out) layout, with the
+    tokenizer's files copied (the reference's ``_sanitize``; JAX
+    ``core/weights.py:sanitize_checkpoint``).  Like the JAX one it reads
+    ``from_path`` as raw whatever its config says."""
+    with open(f"{from_path}/config.json") as f:
+        cfg = config_from_dict(json.load(f), **cfg_overrides)
+    params = build_params(cfg, load_safetensors_dir(from_path), pre_transposed=False)
+    save_checkpoint(to_path, cfg, params)
+    _copy_tokenizer_files(from_path, to_path)
+    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -261,11 +321,11 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
     *lead, k, n = q.shape
     if k % WORD:
         raise ValueError(f"K={k} is not a multiple of {WORD}")
-    q8 = q.reshape(*lead, k // WORD, WORD, n).to(torch.int64)
-    shifts = (4 * torch.arange(WORD, dtype=torch.int64, device=q.device)).view(WORD, 1)
-    words = (q8 << shifts).sum(dim=-2)
-    words = torch.where(words >= 2**31, words - 2**32, words)
-    return words.to(torch.int32)
+    q8 = q.reshape(*lead, k // WORD, WORD, n)
+    words = q8[..., 0, :].to(torch.int64)
+    for j in range(1, WORD):  # a nibble plane at a time: no (..., K, N) int64 temporary
+        words |= q8[..., j, :].to(torch.int64) << (4 * j)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def unpack_int4(words: torch.Tensor) -> torch.Tensor:
@@ -655,15 +715,20 @@ def _to_device(node, device):
 
 
 def _copy_tokenizer_files(from_path: str, to_path: str) -> None:
+    """The tokenizer's ``*.json`` and ``*.model`` files, ``config.json``
+    aside; a file that cannot be copied is skipped, as in the JAX package."""
     for f in glob.glob(f"{from_path}/*.json") + glob.glob(f"{from_path}/*.model"):
         if os.path.basename(f) != "config.json":
-            shutil.copy(f, to_path)
+            try:
+                shutil.copy(f, to_path)
+            except OSError:
+                pass
 
 
 def quantize_checkpoint(from_path: str, to_path: str, q_group_size: int = 64, q_bits: int = 4,
                         device="cpu"):
-    """A checkpoint in the (in, out) layout -> its group-quantized copy
-    (the reference's ``_quantize``): 4-bit or 8-bit affine, groups of
+    """A checkpoint, in the (in, out) layout or raw HF -> its group-quantized
+    copy (the reference's ``_quantize``): 4-bit or 8-bit affine, groups of
     ``q_group_size``, computed on ``device``.  Floating weights are first
     cast to the config's dtype, as the JAX package does.  Returns the
     quantized config."""

@@ -16,8 +16,10 @@ keyed by (rows, window) on the model's cache kind, with no key per chunk
 length.  A graph holds the addresses it captured, so its entry owns its
 decode state, and the next request of the same key prefills into those
 buffers (``init_state(into=...)``); ``LM.decoders`` keeps the
-``GRAPH_ENTRIES`` most recently finished entries, and an entry leaves it
-while a request decodes with it (one request at a time).  ``LM(graphs=False)`` runs the same
+``GRAPH_ENTRIES`` most recently finished entries within ``LM.keep_bytes``
+(a share of the card, ``GRAPH_KEEP_SHARE``: a 128K-token dense entry, 48
+GiB, is closed when its request ends), and an entry leaves it while a
+request decodes with it (one request at a time).  ``LM(graphs=False)`` runs the same
 steps eagerly on the card (the reference); the CPU always does.  Prefill and
 extend chunks run eagerly.  A vision prompt (the vision processor's
 ``raw_images``, ``hd_images`` or ``pixel_values``) runs its image pipeline
@@ -60,7 +62,7 @@ from ..models import phi3
 from ..models.vision import compute_inputs_embeds
 from .graphs import StepGraph, StepRing
 from .rng import SAMPLE, NoiseGen, to_device
-from .state import init_state
+from .state import cache_bytes, init_state, state_bytes
 from .stream import LogitStopper, StopSequences, Streamer, TokenStopper
 
 PROMPT_BUCKET = 64
@@ -77,6 +79,14 @@ DECODE_CHUNK_MAX = 256
 # measured yet.  ``LM.entry_uses`` counts the requests that reused an entry
 # and those that made one (and so capture), for a mix to be judged by.
 GRAPH_ENTRIES = 4
+# A model's finished entries are kept while they hold at most this share of
+# the card's memory (``LM.keep_bytes``; least recently finished dropped
+# first), and a larger entry is not kept at all.  At a 131072-position
+# window the dense entry holds 48 GiB and the int4 one 15 GiB
+# (``engine/state.py:cache_bytes``): on an 80 GB card the int4 entry is kept
+# (its next request replays its graph) and the dense one is closed when its
+# request ends, as the JAX engine keeps no finished request's cache.
+GRAPH_KEEP_SHARE = 0.25
 
 
 def round_up(x: int, m: int) -> int:
@@ -232,6 +242,9 @@ class LM:
         self.decoders: OrderedDict = OrderedDict()  # (B, window) -> Decoder, newest last
         self.lock = threading.Lock()  # guards decoders
         self.entry_uses = Counter()  # requests that "reused" an entry or "made" one
+        # Bytes this model's finished entries may hold (no limit on the CPU).
+        self.keep_bytes = (GRAPH_KEEP_SHARE * torch.cuda.get_device_properties(self.device).total_memory
+                           if self.device.type == "cuda" else float("inf"))
 
     # Constrained decoding's device steps (JAX ``LM.score_fn``, ``beam_fn``,
     # ``nocache_fn``): each returns a callable giving f32 log-softmax, as the
@@ -438,6 +451,14 @@ class Decoder:
             self.specs[key] = SpecPass(self, k_draft)
         return self.specs[key]
 
+    def close(self) -> None:
+        """Let go of the state and the graphs (a dropped entry): the
+        decoder and its graphs' steps refer to each other, so without this
+        its cache would wait for the garbage collector."""
+        self.graph = self.sampled_graph = self.knobs = None
+        self.specs = {}
+        self.state = None
+
     def advance_mirror(self, n: int) -> None:
         """Move the host mirror of the offset by ``n`` positions the device
         committed (a speculative chunk's emitted tokens)."""
@@ -471,6 +492,11 @@ def prefill_decoder(lm: LM, dict_input: dict, max_tokens: int, sampler=None, see
     with lm.lock:
         entry = lm.decoders.pop((b, window), None)
         lm.entry_uses["reused" if entry is not None else "made"] += 1
+    if entry is None and lm.device.type == "cuda":
+        # A freed cache's segment that a small tensor has since split cannot
+        # hold a new cache of its size; the card's free memory can.
+        if torch.cuda.mem_get_info(lm.device)[0] < cache_bytes(lm.cfg, b, window, torch_dtype(lm.cfg.dtype)):
+            torch.cuda.empty_cache()
     last_logits, state, _, _ = run_prefill(lm, dict_input, max_tokens,
                                            into=None if entry is None else entry.state)
     dec = entry or Decoder(lm, state)
@@ -482,15 +508,23 @@ def prefill_decoder(lm: LM, dict_input: dict, max_tokens: int, sampler=None, see
 
 def release_decoder(lm: LM, dec: Decoder) -> None:
     """Keep a finished request's decoder as its key's newest entry (with
-    graphs), dropping the least recently used beyond ``GRAPH_ENTRIES``."""
+    graphs), dropping the least recently finished beyond ``GRAPH_ENTRIES``
+    or ``lm.keep_bytes``; an entry larger than ``lm.keep_bytes`` is not
+    kept.  A dropped entry is closed (its cache goes now)."""
     if not lm.graphs:
         return
     key = (dec.state.valid.shape[0], dec.state.window)
     with lm.lock:
-        lm.decoders.pop(key, None)  # another request's entry of the key, made meanwhile
-        lm.decoders[key] = dec
-        while len(lm.decoders) > GRAPH_ENTRIES:
-            lm.decoders.popitem(last=False)
+        other = lm.decoders.pop(key, None)  # another request's entry of the key, made meanwhile
+        if other is not None:
+            other.close()
+        if state_bytes(dec.state) > lm.keep_bytes:
+            dec.close()
+        else:
+            lm.decoders[key] = dec
+        while lm.decoders and (len(lm.decoders) > GRAPH_ENTRIES or
+                               sum(state_bytes(d.state) for d in lm.decoders.values()) > lm.keep_bytes):
+            lm.decoders.popitem(last=False)[1].close()
 
 
 def spec_settings(lm: LM):

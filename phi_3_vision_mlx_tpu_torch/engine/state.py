@@ -132,6 +132,24 @@ def alloc_cache(cfg: ModelConfig, lead: tuple, compute_dtype, device) -> dict:
                 kv_quant=kvq)
 
 
+def cache_bytes(cfg: ModelConfig, batch: int, l_all: int, compute_dtype=torch.bfloat16) -> int:
+    """Bytes of a window's cache (:func:`alloc_cache`'s tensors), reckoned
+    from the shapes: at the 131072-position window of Phi-3.5-mini (32
+    layers, 32 KV heads of 96) the dense bf16 cache is 48 GiB and the int4
+    cache 15 GiB."""
+    lead = cfg.num_hidden_layers * batch * cfg.num_key_value_heads * l_all
+    d = cfg.head_dim
+    if not cfg.use_quantized_cache:
+        return 2 * lead * d * torch.empty((), dtype=compute_dtype).element_size()
+    width = d if cfg.kv_quant.bits == 4 else 2 * d
+    return lead * (width + 2 * 4 * (d // min(cfg.kv_quant.group_size, d)))
+
+
+def state_bytes(state: DecodeState) -> int:
+    """Bytes of the tensors a decode state holds."""
+    return sum(t.numel() * t.element_size() for t in vars(state).values() if torch.is_tensor(t))
+
+
 def _kv_quantize(x, kvq: KVQuantConfig):
     """x (..., D) float -> (payload uint8, scales f32, biases f32), with
     groups along D."""

@@ -35,6 +35,7 @@ from phi_3_vision_mlx_tpu_torch.api import _load as torch_load  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.core.convert import from_numpy_params  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine import engine as TE  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine import graphs as TG  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.engine import state as TS  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine.batching import BatchEngine as TBatch  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine as TPaged  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models import phi3 as TM  # noqa: E402
@@ -369,6 +370,42 @@ def test_entries_serve_one_request_at_a_time(pair):
     for i in range(TE.GRAPH_ENTRIES):
         TE.release_decoder(lm, TE.prefill_decoder(lm, dict_input, 200 + 128 * i)[0])
     assert len(lm.decoders) == TE.GRAPH_ENTRIES and c not in lm.decoders.values()
+
+
+def test_entries_keep_within_a_byte_budget(pair):
+    """A model's kept entries hold at most ``lm.keep_bytes`` (on the card
+    ``GRAPH_KEEP_SHARE`` of its memory): an entry larger than that is closed
+    when its request ends, the least recently finished entries go first,
+    and an entry of the key that another request made meanwhile is closed
+    when this one replaces it.  The repair that lets two requests whose
+    caches fill most of the card run one after the other: the dense
+    128K-token entry (48 GiB, ``cache_bytes`` reckoned from the shapes) is
+    not kept."""
+    _, (tlm, tproc) = pair
+    lm = TE.LM(tlm.cfg, tlm.params, device="cpu")
+    assert lm.keep_bytes == float("inf")
+    lm.graphs = True  # the entries' bookkeeping; nothing decodes
+    dict_input = tproc(PROMPT)
+    keys = [TE.prefill_shape(dict_input, n)[::2] for n in (24, 200, 600)]
+    assert len(set(keys)) == 3
+    small, mid, big = (TE.prefill_decoder(lm, dict_input, n)[0] for n in (24, 200, 600))
+    n_small, n_mid = TS.state_bytes(small.state), TS.state_bytes(mid.state)
+    b, window = keys[2]
+    assert TS.cache_bytes(lm.cfg, b, window, torch.float32) <= TS.state_bytes(big.state)
+    lm.keep_bytes = n_small + n_mid
+    TE.release_decoder(lm, big)
+    assert not lm.decoders and big.state is None  # larger than the budget: closed
+    TE.release_decoder(lm, small)
+    TE.release_decoder(lm, mid)
+    assert list(lm.decoders) == keys[:2]
+    lm.keep_bytes = n_small + n_mid - 1  # the older entry goes
+    first, _ = TE.prefill_decoder(lm, dict_input, 200)  # takes the kept entry
+    meanwhile, _ = TE.prefill_decoder(lm, dict_input, 200)  # makes another
+    assert first is mid and lm.entry_uses == {"made": 4, "reused": 1}
+    TE.release_decoder(lm, first)
+    TE.release_decoder(lm, meanwhile)
+    assert list(lm.decoders.items()) == [(keys[1], meanwhile)]
+    assert small.state is None and first.state is None and meanwhile.state is not None
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["slots", "paged"])
