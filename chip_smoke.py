@@ -217,6 +217,25 @@ holds yet):
                reader (seconds) and generating; then the 8-bit and the
                packed 4-bit vision checkpoints, generating with the local
                test image (K8; K9 and K1).
+16. parallelism and RetNet — phase 4's weights at full width and depth,
+               after phase 12.  (a) ``distributed_init(device="cuda")``: a
+               world of one over NCCL and its (1, 1) mesh.  (b)
+               ``LM(sp_mesh=)`` beside the plain ``LM``, dense and int4
+               cache: the 4207-token prompt with max_tokens 32 through
+               ``api.generate``; one ring prefill with no K2 or K5, decode
+               graphs launching K3 or K4; the first logits against the plain
+               route through 2 layers (phase 3's limits) and through 32
+               (phase 11's bar for two routes), the int4 ring's bit for bit
+               its dense ring's (the ring attends to fresh keys); the dense
+               greedy tokens equal up to the first near tie, the int4 ring's
+               graphs bit for bit its eager twin; prefill ms and peak memory
+               of each route.  (c) The tensor-parallel hooks at one rank:
+               prefill and 8 decode steps, dense and int4 cache, bit for bit
+               the plain path, and the collectives a step.  (d)
+               ``dryrun_multichip`` over the card.  (e) RetNet at its default
+               size: both forms, 60 training steps, 4 more against a CPU
+               twin, greedy bytes, ms a recurrent step.  One card shows no
+               collective's cost: at one rank each is an identity.
 
 Phase 2 also holds K3 and K4 at phase 15's 131072-key window (Lq 1, offsets
 130943, 131071 and 100, in the first layer and in a seventh whose offset
@@ -5352,6 +5371,386 @@ def phase_long(torch, report):
     stamp("phase 15 (b)")
 
 
+# Phase 16: the parallel layer (torch.distributed meshes, tensor-parallel
+# hooks, the ring prefill, the dry run) in a world of one, and RetNet.  One
+# card cannot show a collective's cost: at one rank each is an identity.
+PARALLEL_PROMPT = (FILLER * 60)[:4200]  # 4207 tokens, bucket 4224 (phase 4's request (c))
+PARALLEL_MAX_TOKENS = 32
+TP_STEPS = 8
+# The int4 ring's decode steps against the plain int4 route forced with
+# the ring's tokens (phase 16 (b)).  The two prefills attend to other keys
+# (fresh ones, the dequantized cache), so the caches they leave differ by
+# about the int4 cache's own effect: an H100 run measured 0.236-0.281
+# relative L2 a step over 31 steps (the int4 ring against the dense ring
+# forced alike: 0.21-0.26), and 0.648-0.937 with misplaced_scales planted.
+RING_INT4_REL_L2 = 0.4
+RETNET_FORMS_ATOL = 2e-4  # parallel against recurrent (tests/test_retnet.py), fp32 on the CUDA cores
+# The card's first 4 training losses against a CPU twin's, from the same
+# weights, at RETNET_TWIN_LR: at the JAX test's lr 3e-3 Adam's sign-like
+# first steps make the run chaotic (on the CPU, weights moved by 1e-7
+# relative moved the third and fourth losses by 1.2e-3 and 1.6e-3); at 1e-4
+# the same noise moved the first 4 losses by 2.5e-5 at most.
+RETNET_LOSS_RTOL = 1e-4
+RETNET_TWIN_LR = 1e-4
+
+
+def parallel_request(torch, lm, proc, label: str) -> dict:
+    """One request through ``api.generate``: the first logits, prefill ms
+    (synchronized, around ``run_prefill``), the launches of the prefill and
+    of the decode, the greedy tokens, and the peak memory above what was
+    allocated before it."""
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine import engine as E
+
+    counters = zero_counters()
+    run_prefill, chunk, seen, tokens = E.run_prefill, E.Decoder.chunk, {}, []
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        seen["ms"], seen["logits"] = (time.perf_counter() - t0) * 1e3, out[0][0].float().cpu()
+        seen["prefill"] = {name: fn.launches for name, fn in counters.items()}
+        tokens.append(int(seen["logits"].argmax()))
+        return out
+
+    def recorded(self, n_steps):
+        out = chunk(self, n_steps)
+        tokens.extend(out[0][:, 0].cpu().tolist())
+        return out
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    E.run_prefill, E.Decoder.chunk = timed_prefill, recorded
+    try:
+        api.generate(PARALLEL_PROMPT, preload=(lm, proc), max_tokens=PARALLEL_MAX_TOKENS, verbose=False,
+                     stream=False, mute=True)
+    finally:
+        E.run_prefill, E.Decoder.chunk = run_prefill, chunk
+    torch.cuda.synchronize()
+    total = {name: fn.launches for name, fn in counters.items()}
+    out = {"logits": seen["logits"], "ms": seen["ms"], "prefill": seen["prefill"], "tokens": tokens,
+           "decode": {k: total[k] - seen["prefill"][k] for k in total},
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    log(f"phase 16 (b) {label}: prefill {out['ms']:.1f} ms, peak {out['peak_gib']:.3f} GiB above the "
+        f"{base / 2**30:.2f} GiB held before; prefill launches {out['prefill']}, decode launches {out['decode']}; "
+        f"{len(tokens)} tokens")
+    return out
+
+
+def median_prefill_ms(torch, lm, dict_input, reps: int = 3) -> float:
+    """Host wall ms (synchronized) of ``run_prefill``, median of ``reps``."""
+    import statistics
+
+    from phi_3_vision_mlx_tpu_torch.engine.engine import run_prefill
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_prefill(lm, dict_input, PARALLEL_MAX_TOKENS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def split_step(torch, lm, dict_input, d: int, first_logits):
+    """The logits (V,) f32 that chose token ``d`` of a greedy request: the
+    prefill's for d = 0, else a step scored after d - 1 decode steps."""
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_decoder, release_decoder
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    if d == 0:
+        return first_logits.cuda()
+    dec, _ = prefill_decoder(lm, dict_input, PARALLEL_MAX_TOKENS)
+    if d > 1:
+        dec.chunk(d - 1)
+    with torch.no_grad():
+        logits = phi3.decode_forward(lm.params, lm.cfg, dec.state, dec.token, advance=0).logits[0, -1].float()
+    release_decoder(lm, dec)
+    return logits
+
+
+def forced_logits(torch, lm, dict_input, tokens, fault=None):
+    """The f32 logits (1 + len(tokens), V) of ``lm``'s prefill of
+    ``dict_input`` and of eager decode steps (``phi3.decode_forward``)
+    forced with ``tokens``; ``fault(state)`` alters the cache after the
+    prefill."""
+    from phi_3_vision_mlx_tpu_torch.engine.engine import run_prefill
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    with torch.no_grad():
+        last, state, _, _ = run_prefill(lm, dict_input, PARALLEL_MAX_TOKENS)
+        if fault is not None:
+            fault(state)
+        rows = [last[0].float()]
+        for tok in tokens:
+            res = phi3.decode_forward(lm.params, lm.cfg, state, torch.full((1, 1), tok, device="cuda"),
+                                      last_logit_only=True)
+            state = res.state
+            rows.append(res.logits[0, -1].float())
+    return torch.stack(rows)
+
+
+def misplaced_scales(state) -> None:
+    """A planted fault of the ring's gathered int4 cache: the first half
+    of the prompt's scales and biases written over the second half's, as
+    a gather that put one rank's columns in another's place would.  The
+    logits stay finite."""
+    h = state.offset // 2
+    state.k_scales[:, :, :, h : 2 * h] = state.k_scales[:, :, :, :h].clone()
+
+
+def ring_int4_readings(torch, ring_lm, plain_lm, proc, tokens) -> dict:
+    """The int4 ring's decode against the plain int4 route, both forced
+    with the ring's greedy ``tokens``: each decode step's relative L2
+    between the two routes' logits, for the ring's own cache and for the
+    ring's cache with ``misplaced_scales`` planted; and whether the ring's
+    forced steps give its own tokens again."""
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+
+    dict_input = proc(_apply_chat_template(PARALLEL_PROMPT)[0])
+    plain = forced_logits(torch, plain_lm, dict_input, tokens[:-1])
+    rel = {}
+    for label, fault in (("own", None), ("planted", misplaced_scales)):
+        ring = forced_logits(torch, ring_lm, dict_input, tokens[:-1], fault)
+        rel[label] = ((ring - plain).norm(dim=-1) / plain.norm(dim=-1)).tolist()
+        if fault is None:
+            own_tokens = ring.argmax(-1).tolist() == list(tokens)
+    return {"own": rel["own"], "planted": rel["planted"], "own_tokens": own_tokens}
+
+
+def near_tie_split(torch, ring_lm, plain_lm, proc, ring, plain, label: str) -> int:
+    """The ring's greedy tokens equal the plain route's up to the first
+    near tie: where they first part (token d), the plain step's top-two gap
+    is at most NEAR_TIE_ULPS bf16 ulps of its top logit and within twice the
+    change of those two tokens' log-probs between the routes, and the two
+    logit rows agree within SPEC_ROUTE_REL_L2 (phase 11's bar).  Returns
+    the number of equal leading tokens."""
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+
+    a, b = ring["tokens"], plain["tokens"]
+    n = min(len(a), len(b))
+    d = next((i for i in range(n) if a[i] != b[i]), n)
+    if d == n:
+        log(f"phase 16 (b) {label}: the ring's {len(a)} greedy tokens equal the plain route's {len(b)}")
+        return d
+    dict_input = proc(_apply_chat_template(PARALLEL_PROMPT)[0])
+    one = split_step(torch, plain_lm, dict_input, d, plain["logits"])
+    other = split_step(torch, ring_lm, dict_input, d, ring["logits"])
+    lp1, lp2 = torch.log_softmax(one, -1), torch.log_softmax(other, -1)
+    rel = ((one - other).norm() / one.norm()).item()
+    gap = (lp1[b[d]] - lp1[a[d]]).item()
+    moved = 2 * max(abs((lp1[b[d]] - lp2[b[d]]).item()), abs((lp1[a[d]] - lp2[a[d]]).item()))
+    ulp = 2.0 ** (math.floor(math.log2(abs(one.max().item()))) - 7)
+    log(f"phase 16 (b) {label}: tokens part at {d} of {n} (ring {a[d]}, plain {b[d]}): the plain step's gap "
+        f"{gap:.4g} (bf16 ulp {ulp:.4g}), twice the log-probs' change {moved:.4g}, rel L2 {rel:.3e}")
+    if int(one.argmax()) != b[d] or int(other.argmax()) != a[d]:
+        fail(f"phase 16 (b) {label}: the replayed step {d} does not give the runs' tokens")
+    if not (gap <= NEAR_TIE_ULPS * ulp and gap <= moved and rel <= SPEC_ROUTE_REL_L2):
+        fail(f"phase 16 (b) {label}: the ring's tokens part from the plain route's at {d}, no near tie")
+    return d
+
+
+def phase_parallel(torch, params, lm, lm_int4, proc, report):
+    """Phase 16 on phase 4's weights at full width and depth: (a) a world
+    of one over NCCL and its (1, 1) mesh; (b) ``LM(sp_mesh=)`` beside the
+    plain ``LM``, dense and int4 cache, the 4207-token prompt through
+    ``api.generate``, and the int4 ring's decode against the plain int4
+    route forced with its tokens; (c) the tensor-parallel hooks at one rank, bitwise the
+    plain path; (d) ``dryrun_multichip``; (e) RetNet."""
+    import torch.distributed as dist
+
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+    from phi_3_vision_mlx_tpu_torch.parallel.dryrun import dryrun_multichip
+    from phi_3_vision_mlx_tpu_torch.parallel.mesh import distributed_init, make_mesh
+    from phi_3_vision_mlx_tpu_torch.parallel.sharding import local_config, shard_params
+    from phi_3_vision_mlx_tpu_torch.parallel.tensor import TensorParallel
+
+    out = report["parallel"] = {}
+    distributed_init(device="cuda")
+    mesh = make_mesh(1, 1)
+    log(f"phase 16 (a): backend {dist.get_backend()}, world size {dist.get_world_size()}, NCCL "
+        f"{torch.cuda.nccl.version()}, mesh {mesh.mesh_dim_names} of shape {tuple(mesh.shape)}")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1 or tuple(mesh.shape) != (1, 1):
+        fail("phase 16 (a): the world of one is not one NCCL rank")
+    stamp("phase 16 (a)")
+
+    # (b) The ring route beside the plain one.
+    runs = {}
+    for plain_lm in (lm, lm_int4):
+        cache = cache_of(plain_lm)
+        ring_lm = LM(plain_lm.cfg, plain_lm.params, device="cuda", sp_mesh=mesh)
+        ring = parallel_request(torch, ring_lm, proc, f"ring, {cache} cache")
+        plain = parallel_request(torch, plain_lm, proc, f"plain, {cache} cache")
+        runs[cache] = (ring_lm, ring, plain)
+        flash, decode = ("K5", "K4") if cache == "int4" else ("K2", "K3")
+        if ring_lm.ring_prefills != 1:
+            fail(f"phase 16 (b) {cache}: {ring_lm.ring_prefills} ring prefills, not 1")
+        if ring["prefill"]["K2"] or ring["prefill"]["K5"] or not plain["prefill"][flash]:
+            fail(f"phase 16 (b) {cache}: the ring prefill launched {ring['prefill']}, the plain one "
+                 f"{plain['prefill']}")
+        if ring["decode"][decode] <= 0 or not ring_lm.graphs or ring_lm.entry_uses["made"] != 1:
+            fail(f"phase 16 (b) {cache}: the ring's decode replayed no graph of {decode}: {ring['decode']}")
+        out[f"ring_prefill_ms_{cache}"], out[f"plain_prefill_ms_{cache}"] = ring["ms"], plain["ms"]
+        out[f"ring_peak_gib_{cache}"], out[f"plain_peak_gib_{cache}"] = ring["peak_gib"], plain["peak_gib"]
+    dense_ring, int4_ring = runs["dense"][1], runs["int4"][1]
+    # The ring attends to fresh k and v whatever the cache (as the JAX
+    # prefill_ring does): its int4 run's first logits are its dense run's.
+    # They are held to the plain dense route at phase 3's limits through
+    # phase 3's 2 layers, and at phase 11's bar for two routes through 32.
+    if not torch.equal(int4_ring["logits"], dense_ring["logits"]):
+        fail("phase 16 (b): the int4 ring prefill's first logits are not the dense ring's")
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+    from phi_3_vision_mlx_tpu_torch.engine.engine import run_prefill
+
+    small = {"model": {**params["model"], "layers": first_layers(params["model"]["layers"])},
+             "lm_head": params["lm_head"]}
+    cfg2 = lm.cfg.replace(num_hidden_layers=2)
+    dict_input = proc(_apply_chat_template(PARALLEL_PROMPT)[0])
+    two = [run_prefill(LM(cfg2, small, device="cuda", graphs=False, sp_mesh=m), dict_input,
+                       PARALLEL_MAX_TOKENS)[0][0].float().cpu() for m in (mesh, None)]
+    for (a, b), limit, depth in ((two, REF_REL_L2, 2), ((dense_ring["logits"], runs["dense"][2]["logits"]),
+                                                         SPEC_ROUTE_REL_L2, lm.cfg.num_hidden_layers)):
+        rel = float((a - b).norm() / b.norm())
+        dlp = abs(float(torch.log_softmax(a, -1).max() - torch.log_softmax(b, -1).max()))
+        lp_bound = REF_LOGPROB + abs(float(a.max() - b.max()))
+        log(f"phase 16 (b): first logits through {depth} layers, ring against plain (dense cache): rel L2 "
+            f"{rel:.3e} (limit {limit}), max log-prob diff {dlp:.3e} (limit {lp_bound:.4g})")
+        if rel > limit or dlp > lp_bound:
+            fail(f"phase 16 (b): the ring prefill's first logits through {depth} layers disagree with the plain "
+                 "route's")
+        out[f"first_logits_rel_l2_{depth}_layers"] = rel
+    for label, model in (("ring", runs["dense"][0]), ("plain", lm)):  # steady state, after the requests
+        out[f"{label}_prefill_ms_steady"] = median_prefill_ms(torch, model, dict_input)
+    log(f"phase 16 (b): prefill of the {len(dict_input['input_ids'][0])}-token prompt, median of 3 after the "
+        f"requests (dense cache): ring {out['ring_prefill_ms_steady']:.1f} ms, plain "
+        f"{out['plain_prefill_ms_steady']:.1f} ms, on {report['card']}")
+    out["equal_tokens_dense"] = near_tie_split(torch, runs["dense"][0], lm, proc, dense_ring, runs["dense"][2],
+                                               "dense cache")
+    # The int4 ring decodes its own entries (the quantized fresh keys; the
+    # plain int4 prefill attends to its dequantized cache and writes others):
+    # its graphs are held to its eager twin, bit for bit.
+    eager = parallel_request(torch, LM(lm_int4.cfg, lm_int4.params, device="cuda", graphs=False, sp_mesh=mesh),
+                             proc, "ring, int4 cache, eager")
+    if eager["tokens"] != int4_ring["tokens"] or not torch.equal(eager["logits"], int4_ring["logits"]):
+        fail("phase 16 (b): the int4 ring's graph decode differs from its eager twin")
+    plain4 = runs["int4"][2]["tokens"]
+    out["equal_tokens_int4"] = next((i for i, (x, y) in enumerate(zip(int4_ring["tokens"], plain4)) if x != y),
+                                    min(len(plain4), len(int4_ring["tokens"])))
+    log(f"phase 16 (b): the int4 ring's tokens equal the plain int4 route's for {out['equal_tokens_int4']} of "
+        f"{len(plain4)} (the two prefills attend to other keys), its eager twin's for all")
+    # The int4 ring's decode against an independent route: the plain int4
+    # route teacher-forced with the ring's tokens, each decode step within
+    # RING_INT4_REL_L2; with a fault of the gathered scales planted, the
+    # check must fail.
+    readings = ring_int4_readings(torch, runs["int4"][0], lm_int4, proc, int4_ring["tokens"])
+    own, planted = max(readings["own"][1:]), max(readings["planted"][1:])
+    log(f"phase 16 (b): int4 ring against the plain int4 route forced with the ring's tokens, rel L2 of the "
+        f"logits: prefill {readings['own'][0]:.3e}, decode steps max {own:.3e} (limit {RING_INT4_REL_L2}), "
+        f"each {[round(x, 4) for x in readings['own'][1:]]}; with misplaced_scales planted max {planted:.3e}, "
+        f"each {[round(x, 4) for x in readings['planted'][1:]]}; the ring's forced steps give its tokens: "
+        f"{readings['own_tokens']}")
+    if not (readings["own_tokens"] and own <= RING_INT4_REL_L2 < planted):
+        fail("phase 16 (b): the int4 ring's decode disagrees with the plain int4 route forced with its tokens, "
+             "or the planted fault passes the check")
+    out["ring_int4_rel_l2"], out["ring_int4_planted_rel_l2"] = own, planted
+    del runs, eager
+    stamp("phase 16 (b)")
+
+    # (c) The tensor-parallel hooks at one rank: every collective an identity.
+    tp_params = shard_params(params, mesh)
+    ids = torch.as_tensor(proc(_apply_chat_template(PROMPT_A)[0])["input_ids"], device="cuda")
+    for model in (lm, lm_int4):
+        cfg_local = local_config(model.cfg, 1)
+        counters = zero_counters()
+        logits, wall, coll = {}, {}, {}
+        for route in ("plain", "tp"):
+            tp = TensorParallel.of(mesh) if route == "tp" else None
+            with torch.no_grad():
+                res = phi3.prefill(tp_params, cfg_local, ids, max_tokens=16, tp=tp)
+                seq, state = [res.logits], res.state
+                before = tp.collectives if tp else 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TP_STEPS):
+                    res = phi3.decode_forward(tp_params, cfg_local, state, res.logits[:, -1:].argmax(-1), tp=tp)
+                    seq.append(res.logits)
+                    state = res.state
+                torch.cuda.synchronize()
+            wall[route] = (time.perf_counter() - t0) * 1e3 / TP_STEPS
+            coll[route] = ((tp.collectives - before) / TP_STEPS) if tp else 0
+            logits[route] = seq
+        launches = {name: fn.launches for name, fn in counters.items()}
+        cache = cache_of(model)
+        log(f"phase 16 (c) {cache} cache: {coll['tp']:.0f} collectives a decode step (embedding, 2 a layer, "
+            f"lm_head), eager ms a step plain {wall['plain']:.3f} / through the hooks {wall['tp']:.3f}; "
+            f"launches {launches}")
+        if not all(torch.equal(x, y) for x, y in zip(logits["plain"], logits["tp"])):
+            fail(f"phase 16 (c) {cache}: the tensor-parallel hooks at one rank changed the logits")
+        if launches["K3" if cache == "dense" else "K4"] <= 0 or launches["K1"] <= 0:
+            fail(f"phase 16 (c) {cache}: the decode launched {launches}")
+        out[f"tp_collectives_per_step_{cache}"] = coll["tp"]
+        out[f"tp_step_ms_{cache}"], out[f"plain_step_ms_{cache}"] = wall["tp"], wall["plain"]
+    stamp("phase 16 (c)")
+
+    line = dryrun_multichip(torch.cuda.device_count(), device="cuda")
+    if not line.startswith("dryrun_multichip OK:") or "sharded-decode parity=True" not in line:
+        fail(f"phase 16 (d): {line}")
+    stamp("phase 16 (d)")
+    dist.destroy_process_group()
+
+    phase_retnet(torch, out)
+    stamp("phase 16")
+
+
+def phase_retnet(torch, out):
+    """Phase 16 (e): RetNet at its default config (hidden 256, 4 layers, 4
+    heads) from a seeded CUDA generator, fp32: the parallel form against
+    the recurrent one token by token and in chunks of 3; 60 training steps
+    (the loss below half its start); 4 steps at RETNET_TWIN_LR against a CPU
+    twin's within RETNET_LOSS_RTOL; greedy bytes; ms per recurrent step."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch.models import retnet as R
+
+    cfg = R.RetNetConfig()
+    params = R.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ids = torch.as_tensor([R.encode_bytes(PROMPT_A[:63])], device="cuda")
+    with torch.no_grad():
+        par = R.forward_parallel(params, cfg, ids)
+        errs = {}
+        for chunk in (1, 3):
+            state, rec = R.init_state(cfg, 1, params), []
+            for t in range(0, ids.shape[1], chunk):
+                lg, state = R.forward_recurrent(params, cfg, ids[:, t : t + chunk], state)
+                rec.append(lg)
+            errs[chunk] = float((torch.cat(rec, dim=1) - par).abs().max())
+        if not (torch.isfinite(par).all() and max(errs.values()) <= RETNET_FORMS_ATOL):
+            fail(f"phase 16 (e): RetNet's recurrent form differs from its parallel form by {errs}")
+        state = R.init_state(cfg, 1, params)
+        tok = ids[:, :1]
+        step_ms = cuda_ms(torch, lambda: R.forward_recurrent(params, cfg, tok, state), 50)
+    texts = ["ababab"] * 2
+    trained, losses = R.train_byte_lm(params, cfg, texts, steps=60, lr=3e-3)
+    cpu = {**{k: v.cpu() for k, v in params.items() if k != "layers"},
+           "layers": [{k: v.cpu() for k, v in p.items()} for p in params["layers"]]}
+    first = R.train_byte_lm(params, cfg, texts, steps=4, lr=RETNET_TWIN_LR)[1]
+    twin = R.train_byte_lm(cpu, cfg, texts, steps=4, lr=RETNET_TWIN_LR)[1]
+    rel = np.abs(np.array(first) - np.array(twin)) / np.abs(np.array(twin))
+    text = R.generate_bytes(trained, cfg, "abab", max_tokens=16)
+    log(f"phase 16 (e) RetNet (hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, {cfg.num_heads} "
+        f"heads): parallel vs recurrent max abs {errs[1]:.3e} token by token, {errs[3]:.3e} in chunks of 3; "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f} over 60 steps at lr 3e-3; 4 steps at lr {RETNET_TWIN_LR}: "
+        f"{rel.max():.2e} relative at most from the CPU twin's; generate_bytes {text!r}; {step_ms:.3f} ms a recurrent step (CUDA events)")
+    if not (losses[-1] < 0.5 * losses[0] and rel.max() <= RETNET_LOSS_RTOL and "ab" in text):
+        fail("phase 16 (e): RetNet's training or generation is off")
+    out["retnet_step_ms"], out["retnet_forms_err"] = step_ms, max(errs.values())
+
+
 def live_tensors(torch, top: int = 8) -> None:
     """The card's memory still allocated at the end, and its largest live
     tensors by (shape, dtype)."""
@@ -5547,6 +5946,8 @@ def main() -> None:
     phase_spec(torch, lm, lm_int4, proc, report)
     # Phase 12: long verify passes, constrained decoding, the agent, GTE.
     phase_constrain(torch, params, lm, lm_int4, proc, report)
+    # Phase 16: the parallel layer in a world of one, and RetNet.
+    phase_parallel(torch, params, lm, lm_int4, proc, report)
     del lm, lm_int4
     torch.cuda.empty_cache()
     # Phase 13: LoRA training and adapter serving on the same weights.

@@ -29,7 +29,8 @@ linear, norms, rope, attention, kernels/) -> models/ (phi3, vision, gte) ->
 engine/ (state, engine, graphs, batching, paging, speculative, constrain)
 -> train/ (lora, data, trainer, pretrain, checkpoint) -> api -> agent/
 (sandbox, tools, agent), serve/ (server, ui), bench and verify; utils/
-(media, timing, profiler).  Nothing here imports ``jax``.
+(media, timing, profiler); parallel/ (mesh, sharding, tensor,
+ring_attention, dryrun) and models/retnet.  Nothing here imports ``jax``.
 """
 
 __version__ = "0.1.0"

@@ -92,10 +92,13 @@ def from_jax_paged_pool(pool_k, pool_v, quantized: bool = False, bits: int = 4,
     return with_spare(a), with_spare(b)
 
 
-def from_numpy_gte_params(tree: dict, device="cpu") -> dict:
-    """Nested dict of numpy arrays in the GTE layout (the JAX
-    ``init_gte_params`` / ``load_gte_npz`` tree) -> float32 tensors on
-    ``device`` (``models/gte.py``)."""
+def from_numpy_f32_tree(tree, device="cpu"):
+    """A tree of numpy arrays (nested dicts, lists and tuples; the JAX GTE
+    ``init_gte_params`` / ``load_gte_npz`` tree, the JAX RetNet
+    ``init_params`` tree) -> float32 tensors on ``device`` in the same
+    structure (``models/gte.py``, ``models/retnet.py``)."""
     if isinstance(tree, dict):
-        return {k: from_numpy_gte_params(v, device) for k, v in tree.items()}
+        return {k: from_numpy_f32_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_numpy_f32_tree(v, device) for v in tree]
     return torch.from_numpy(np.asarray(tree).astype(np.float32)).to(device)

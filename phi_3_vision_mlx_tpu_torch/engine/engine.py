@@ -60,6 +60,7 @@ from ..core.config import ID_EOS, ModelConfig
 from ..core.weights import params_to, torch_dtype
 from ..models import phi3
 from ..models.vision import compute_inputs_embeds
+from ..parallel.mesh import axis_size
 from .graphs import StepGraph, StepRing
 from .rng import SAMPLE, NoiseGen, to_device
 from .state import cache_bytes, init_state, state_bytes
@@ -223,9 +224,16 @@ class LM:
     in either dtype.  ``graphs`` (default: on for CUDA) replays each decode
     step of this model's engines as a CUDA graph; ``graphs=False`` runs
     them eagerly.
+
+    ``sp_mesh`` (a ``parallel/mesh.py`` mesh): text prompts prefill through
+    ring attention over its ``sp_axis`` (``phi3.prefill_ring``) when the
+    bucketed prompt splits over that axis's ranks; every rank of the world
+    runs the same request and decodes the gathered cache.
+    ``ring_prefills`` counts them.
     """
 
-    def __init__(self, cfg: ModelConfig, params: dict, model_path=None, *, device, graphs=None):
+    def __init__(self, cfg: ModelConfig, params: dict, model_path=None, *, device, graphs=None,
+                 sp_mesh=None, sp_axis: str = "data"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the kernels need one; pass device='cpu' "
@@ -245,6 +253,8 @@ class LM:
         # Bytes this model's finished entries may hold (no limit on the CPU).
         self.keep_bytes = (GRAPH_KEEP_SHARE * torch.cuda.get_device_properties(self.device).total_memory
                            if self.device.type == "cuda" else float("inf"))
+        self.sp_mesh, self.sp_axis = sp_mesh, sp_axis
+        self.ring_prefills = 0
 
     # Constrained decoding's device steps (JAX ``LM.score_fn``, ``beam_fn``,
     # ``nocache_fn``): each returns a callable giving f32 log-softmax, as the
@@ -336,7 +346,9 @@ def run_prefill(lm: LM, dict_input: dict, max_tokens: int, into=None):
     state or reusing ``into``'s tensors (``init_state``).  A vision prompt
     prefills in one pass from its embeddings with the image features
     written in (``models/vision.py:compute_inputs_embeds``; JAX
-    ``engine.py:479-549``).
+    ``engine.py:479-549``).  With ``lm.sp_mesh`` a text prompt whose bucket
+    splits over the ring's ranks prefills through ``phi3.prefill_ring``
+    (JAX ``engine.py:551-567``).
 
     Returns (last_logits (B, V) float32 on the device, state, l_pad, window).
     """
@@ -351,6 +363,13 @@ def run_prefill(lm: LM, dict_input: dict, max_tokens: int, into=None):
             inputs_embeds=compute_inputs_embeds(lm.params, lm.cfg, dict_input, ids_p), last_logit_only=True,
             into=into,
         )
+        return res.logits[:, -1, :].float(), res.state, l_pad, window
+    if lm.sp_mesh is not None and l_pad % axis_size(lm.sp_mesh, lm.sp_axis) == 0:
+        res = phi3.prefill_ring(
+            lm.params, lm.cfg, ids, lm.sp_mesh, max_tokens=window - l_pad, seq_axis=lm.sp_axis,
+            pids=pids, prompt_valid=valid, last_logit_only=True, into=into,
+        )
+        lm.ring_prefills += 1
         return res.logits[:, -1, :].float(), res.state, l_pad, window
     if l_pad <= PREFILL_CHUNK:
         res = phi3.prefill(

@@ -154,7 +154,7 @@ def load_gte_npz(npz_path: str, cfg: GteConfig, device="cpu") -> dict:
     """``model.npz`` (flat MLX module names, linear weights ``(out, in)``)
     -> the stacked float32 tree on ``device``.  A missing key raises, so a
     bad checkpoint cannot half-load."""
-    from ..core.convert import from_numpy_gte_params
+    from ..core.convert import from_numpy_f32_tree
 
     raw = dict(np.load(npz_path))
 
@@ -182,7 +182,7 @@ def load_gte_npz(npz_path: str, cfg: GteConfig, device="cpu") -> dict:
         "layers": layers,
         "pooler": {"weight": get("pooler.weight").T, "bias": get("pooler.bias")},
     }
-    return from_numpy_gte_params(tree, device=device)
+    return from_numpy_f32_tree(tree, device=device)
 
 
 def save_gte_npz(params: dict, cfg: GteConfig, npz_path: str) -> None:

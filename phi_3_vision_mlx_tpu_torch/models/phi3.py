@@ -48,6 +48,18 @@ every path here applies through ``dense_stacked`` and ``dense``.  Training
 ``ops/attention.py:blockwise_attention`` from ``BLOCKWISE_MIN_LEN`` keys on,
 and LoRA-branch dropout with one keep mask per (layer, linear)
 (:func:`lora_dropout_mask`, keyed as the JAX package folds its key).
+
+Parallelism (``parallel/``): :func:`prefill`, :func:`decode_forward`,
+:func:`forward_nocache` and :func:`block` take an optional ``tp``, a
+tensor-parallel rank (``parallel/tensor.py:TensorParallel``) running its
+shards (``parallel/sharding.py:shard_params``) under its
+``local_config``: Megatron's operators around the linears, the
+vocab-parallel embedding and lm_head, a cache of the rank's KV heads, on
+which the kernels run unchanged.  Without it nothing of this runs.
+:func:`prefill_ring` prefills a prompt cut over a mesh axis through ring
+attention (``parallel/ring_attention.py``) and gathers the cache for an
+ordinary decode; ``LM(sp_mesh=)`` takes that route
+(``engine/engine.py:run_prefill``).
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core.config import ModelConfig
@@ -70,6 +83,7 @@ from ..ops.kernels.kv_attention import (by_row_groups, dense_kv_attention, quant
 from ..ops.linear import dense, dense_stacked, embedding
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rotary, su_rope_tables
+from ..parallel.ring_attention import make_ring_attention
 
 MAX_DECODE_ROWS = 16
 BLOCKWISE_MIN_LEN = 2048  # forward_nocache without flash: blockwise attention from here on
@@ -122,31 +136,38 @@ def _attend(q, state: DecodeState, i: int, scale: float, decode=None):
     return flash_attention(q, k_stack[layer], v_stack[layer], state.valid, state.offset, scale)
 
 
-def block(cfg: ModelConfig, x, layers: dict, i: int, cos, sin, attend, dropout=None):
+def block(cfg: ModelConfig, x, layers: dict, i: int, cos, sin, attend, dropout=None, tp=None):
     """Decoder block ``i``.  ``attend(q, k, v)`` gets the rotated chunk
     (B, H|KV, L, D), writes its k/v into the cache and returns the attention
     output (B, H, L, D); the single-stream and the slot engines differ only
     there.  ``dropout(layer, path, h)``, for training, gives the LoRA
-    branch's input mask of each linear that carries LoRA leaves."""
+    branch's input mask of each linear that carries LoRA leaves.
+
+    ``tp`` (``parallel/tensor.py:TensorParallel``): this rank's shards of a
+    tensor-parallel model (``cfg`` its ``local_config``), with Megatron's
+    operators around the linears: ``tp.enter`` before qkv and gate_up,
+    ``tp.reduce`` after o_proj and down_proj.  None runs neither."""
     eps = cfg.rms_norm_eps
+    enter = tp.enter if tp is not None else (lambda t: t)
+    reduce = tp.reduce if tp is not None else (lambda t: t)
 
     def linear(path, h):
         node = layers[path[0]][path[1]]
         mask = dropout(i, path, h) if dropout is not None and "lora_a" in node else None
         return dense_stacked(node, h, i, dropout_mask=mask)
 
-    h = rms_norm(x, layers["input_layernorm"]["weight"][i], eps)
+    h = enter(rms_norm(x, layers["input_layernorm"]["weight"][i], eps))
     q, k, v = _qkv_split(cfg, linear(("self_attn", "qkv_proj"), h))
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     o = attend(q, k, v)
     b, _, l, _ = q.shape
     o = o.transpose(1, 2).reshape(b, l, -1)
-    x = x + linear(("self_attn", "o_proj"), o).to(x.dtype)
-    h = rms_norm(x, layers["post_attention_layernorm"]["weight"][i], eps)
+    x = x + reduce(linear(("self_attn", "o_proj"), o).to(x.dtype))
+    h = enter(rms_norm(x, layers["post_attention_layernorm"]["weight"][i], eps))
     gate, up = linear(("mlp", "gate_up_proj"), h).chunk(2, dim=-1)
     ff = F.silu(gate.float()).to(up.dtype) * up
-    return x + linear(("mlp", "down_proj"), ff).to(x.dtype)
+    return x + reduce(linear(("mlp", "down_proj"), ff).to(x.dtype))
 
 
 def lora_dropout_mask(rng, layer: int, path_id: int, shape, keep: float, device) -> torch.Tensor:
@@ -173,6 +194,8 @@ def decode_forward(
     n_beam: int = 1,
     last_logit_only: bool = False,
     positions: Optional[torch.Tensor] = None,
+    tp=None,
+    write=None,
 ) -> ForwardResult:
     """Run a (B, L) chunk through the decoder against the cache window:
     ``input_ids``, or ``inputs_embeds`` (B, L, E) in their place (a vision
@@ -201,10 +224,23 @@ def decode_forward(
     chunk's k/v: query ``i`` sees the committed keys (``key < pos`` and
     valid) and the chunk's keys up to its own.  The state comes back as it
     was.
+
+    ``tp`` (``parallel/tensor.py:TensorParallel``): a tensor-parallel rank
+    of the model, ``params`` its shards and ``cfg`` its ``local_config``
+    (``parallel/sharding.py``), ``state`` a cache of its KV heads (the
+    kernels run on them unchanged); the logits come back whole on every
+    rank.  None for the whole model.
+
+    ``write(state, layer, pos, k, v)`` writes each layer's chunk into the
+    cache (None: ``engine/state.py:update_layer_chunk``); a check that
+    holds a run to another's quantized entries passes one that writes
+    those (``parallel/dryrun.py:ReplayEntries``).
     """
     if n_beam > 1:
+        if tp is not None:
+            raise ValueError("the beam read has no tensor-parallel form")
         return _beam_forward(params, cfg, state, input_ids, inputs_embeds, n_beam, last_logit_only)
-    x = _embed(params, cfg, input_ids, inputs_embeds)
+    x = _embed(params, cfg, input_ids, inputs_embeds, tp)
     b, l, _ = x.shape
     offset = state.offset
     if positions is not None:
@@ -217,23 +253,27 @@ def decode_forward(
     sin = _rows(state.sin.index_select(1, pos), b)
     scale = cfg.head_dim**-0.5
 
+    write = update_layer_chunk if write is None else write
+
     def attend(q, k, v, i):
-        update_layer_chunk(state, i, pos, k, v)
+        write(state, i, pos, k, v)
         return _attend(q, state, i, scale, decode=True if positions is not None else None)
 
     for i in range(cfg.num_hidden_layers):
-        x = block(cfg, x, params["model"]["layers"], i, cos, sin, functools.partial(attend, i=i))
-    logits = _head(params, cfg, x, last_logit_only)
+        x = block(cfg, x, params["model"]["layers"], i, cos, sin, functools.partial(attend, i=i), tp=tp)
+    logits = _head(params, cfg, x, last_logit_only, tp)
     step = l if advance is None else advance
     if step:
         state.pos.add_(step)
     return ForwardResult(logits, dataclasses.replace(state, offset=offset + step))
 
 
-def _embed(params: dict, cfg: ModelConfig, input_ids, inputs_embeds):
-    if inputs_embeds is None:
-        return embedding(params["model"]["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
-    return inputs_embeds.to(torch_dtype(cfg.dtype))
+def _embed(params: dict, cfg: ModelConfig, input_ids, inputs_embeds, tp=None):
+    if inputs_embeds is not None:
+        return inputs_embeds.to(torch_dtype(cfg.dtype))
+    if tp is not None:  # the vocab-parallel table
+        return tp.embed(params["model"]["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
+    return embedding(params["model"]["embed_tokens"], input_ids, dtype=torch_dtype(cfg.dtype))
 
 
 def _rows(t: torch.Tensor, b: int) -> torch.Tensor:
@@ -246,10 +286,12 @@ def _rows(t: torch.Tensor, b: int) -> torch.Tensor:
     return t.repeat_interleave(b // t.shape[0], dim=0)
 
 
-def _head(params: dict, cfg: ModelConfig, x, last_logit_only: bool = False):
+def _head(params: dict, cfg: ModelConfig, x, last_logit_only: bool = False, tp=None):
     x = rms_norm(x, params["model"]["norm"]["weight"], cfg.rms_norm_eps)
     if last_logit_only:
         x = x[:, -1:]
+    if tp is not None:  # the vocab-parallel lm_head: each rank's columns, gathered
+        return tp.gather(dense(params["lm_head"], tp.enter(x)))[..., : cfg.vocab_size]
     return dense(params["lm_head"], x)[..., : cfg.vocab_size]
 
 
@@ -295,6 +337,7 @@ def forward_nocache(
     dropout_rng=None,
     lora_dropout: float = 0.0,
     allow_flash: bool = True,
+    tp=None,
 ) -> torch.Tensor:
     """One causal pass over a (B, L) chunk with no cache (JAX
     ``forward_nocache``, the reference's ``max_tokens=0`` mode of
@@ -306,9 +349,9 @@ def forward_nocache(
     ``BLOCKWISE_MIN_LEN`` positions on.  With ``dropout_rng`` and
     ``lora_dropout`` > 0 each LoRA branch's input is dropped with rate
     ``lora_dropout`` and the kept values scaled by ``1 / (1 -
-    lora_dropout)`` (:func:`lora_dropout_mask`).  Returns the logits (B, L,
-    V)."""
-    x = _embed(params, cfg, input_ids, inputs_embeds)
+    lora_dropout)`` (:func:`lora_dropout_mask`).  ``tp``: a tensor-parallel
+    rank, as in :func:`decode_forward`.  Returns the logits (B, L, V)."""
+    x = _embed(params, cfg, input_ids, inputs_embeds, tp)
     b, l, _ = x.shape
     dev = x.device
     if prompt_valid is None:
@@ -339,8 +382,8 @@ def forward_nocache(
             return mask.to(h.dtype) / keep
 
     for i in range(cfg.num_hidden_layers):
-        x = block(cfg, x, params["model"]["layers"], i, cos, sin, attend, dropout)
-    return _head(params, cfg, x)
+        x = block(cfg, x, params["model"]["layers"], i, cos, sin, attend, dropout, tp)
+    return _head(params, cfg, x, tp=tp)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None) -> dict:
@@ -400,10 +443,14 @@ def prefill(
     inputs_embeds: Optional[torch.Tensor] = None,
     last_logit_only: bool = False,
     into: Optional[DecodeState] = None,
+    tp=None,
+    write=None,
 ) -> ForwardResult:
     """Allocate a window of ``L + max_tokens`` positions (or reset ``into``,
     ``engine/state.py:init_state``) and run the prompt, given as ids or as
-    ``inputs_embeds``."""
+    ``inputs_embeds``.  ``tp``: a tensor-parallel rank (:func:`decode_forward`;
+    the window holds ``cfg``'s KV heads, the rank's); ``write``: the cache
+    writer, as in :func:`decode_forward`."""
     lead = inputs_embeds if inputs_embeds is not None else input_ids
     b, l = lead.shape[:2]
     state = init_state(
@@ -411,4 +458,77 @@ def prefill(
         compute_dtype=torch_dtype(cfg.dtype), device=lead.device, into=into,
     )
     return decode_forward(params, cfg, state, input_ids, inputs_embeds=inputs_embeds,
-                          last_logit_only=last_logit_only)
+                          last_logit_only=last_logit_only, tp=tp, write=write)
+
+
+def prefill_ring(
+    params: dict,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,
+    mesh,
+    *,
+    max_tokens: int,
+    seq_axis: str = "data",
+    pids=None,
+    prompt_valid=None,
+    last_logit_only: bool = False,
+    into: Optional[DecodeState] = None,
+    write=None,
+) -> ForwardResult:
+    """Sequence-parallel prefill (JAX ``prefill_ring``): the prompt (B, L)
+    is cut over the ranks of ``seq_axis`` of ``mesh`` (L a multiple of
+    their count P; every rank is given the whole prompt), and attention
+    runs as ring attention (``parallel/ring_attention.py``) while K/V
+    blocks travel between the ranks.  Rank i embeds and runs positions
+    ``[i L/P, (i + 1) L/P)`` through every :func:`block`, writing their
+    columns of its window (dense, or int4/int8 entries through
+    ``quantize_chunk``); then the ranks all-gather the cache columns, so
+    that every rank holds the whole window and decodes it as usual, to the
+    same tokens.  The JAX package decodes on the L-cut cache instead; a
+    sharded decode waits for a machine with more than one card.
+
+    Same contract as :func:`prefill` (``into`` reuses a state's tensors,
+    ``write`` writes each rank's columns as in :func:`decode_forward`):
+    the logits of the whole prompt, or of its last position
+    (``last_logit_only``), on every rank.  Each layer holds its block's
+    f32 scores, (B, H, L/P, L/P), while it runs (2.2 GiB at one rank, 4224
+    positions and 32 heads)."""
+    group = mesh.get_group(seq_axis)
+    p, r = dist.get_world_size(group), dist.get_rank(group)
+    b, l = input_ids.shape
+    if l % p:
+        raise ValueError(f"a prompt of {l} positions does not split over {p} ranks of {seq_axis!r}")
+    shard = l // p
+    cols = slice(r * shard, (r + 1) * shard)
+    state = init_state(cfg, b, l, l + max_tokens, pids=pids, prompt_valid=prompt_valid,
+                       compute_dtype=torch_dtype(cfg.dtype), device=input_ids.device, into=into)
+    ring = make_ring_attention(mesh, seq_axis)
+    write = update_layer_chunk if write is None else write
+    x = _embed(params, cfg, input_ids[:, cols], None)
+    cos, sin = _rows(state.cos[:, cols], b), _rows(state.sin[:, cols], b)
+    valid = state.valid[:, cols]
+    positions = torch.arange(r * shard, (r + 1) * shard, device=x.device)
+
+    def attend(q, k, v, i):
+        write(state, i, positions, k, v)
+        return ring(q, k, v, valid)
+
+    for i in range(cfg.num_hidden_layers):
+        x = block(cfg, x, params["model"]["layers"], i, cos, sin, functools.partial(attend, i=i))
+    logits = _head(params, cfg, x, last_logit_only)
+    if p > 1:
+        for t in (state.k, state.v, state.k_scales):  # the cache columns, from every rank
+            if t is not None:
+                parts = [torch.empty_like(t[:, :, :, cols]) for _ in range(p)]
+                dist.all_gather(parts, t[:, :, :, cols].contiguous(), group=group)
+                for j, part in enumerate(parts):
+                    t[:, :, :, j * shard : (j + 1) * shard] = part
+        if last_logit_only:  # the last position is the last rank's
+            logits = logits.contiguous()
+            dist.broadcast(logits, dist.get_global_rank(group, p - 1), group=group)
+        else:
+            parts = [torch.empty_like(logits) for _ in range(p)]
+            dist.all_gather(parts, logits.contiguous(), group=group)
+            logits = torch.cat(parts, dim=1)
+    state.pos.fill_(l)
+    return ForwardResult(logits, dataclasses.replace(state, offset=l))

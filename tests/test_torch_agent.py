@@ -34,7 +34,7 @@ from phi_3_vision_mlx_tpu_torch.agent import agent as TAG  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.agent import external as TX  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.agent import sandbox as TSB  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.agent import tools as TT  # noqa: E402
-from phi_3_vision_mlx_tpu_torch.core.convert import from_numpy_gte_params  # noqa: E402
+from phi_3_vision_mlx_tpu_torch.core.convert import from_numpy_f32_tree  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.models import gte as TG  # noqa: E402
 
 
@@ -254,7 +254,7 @@ def gte_pair():
     mask = np.ones((3, 12), np.int32)
     mask[1, 9:] = 0
     mask[2, 4:] = 0
-    return params, from_numpy_gte_params(params), ids, ttype, mask
+    return params, from_numpy_f32_tree(params), ids, ttype, mask
 
 
 def test_gte_forward_matches_jax_and_reference(gte_pair):
