@@ -236,6 +236,24 @@ holds yet):
                size: both forms, 60 training steps, 4 more against a CPU
                twin, greedy bytes, ms a recurrent step.  One card shows no
                collective's cost: at one rank each is an identity.
+17. fp32 over quantized weights, caches and engines — phase 4's 4-bit
+               weights at full width and depth with ``dtype="float32"``
+               (norms in f32), every kernel through its fp32 entry.  (a)
+               ``api.generate`` of phase 3's prompt for 32 tokens over the
+               dense, int4 and int8 caches, and with 8-bit and packed
+               weights over the dense cache; each step's logits forced with
+               the greedy tokens through the kernels and through the plain
+               route on the card (the kernel run's quantized entries
+               written in the plain run), within ``FP32_STEP_REL_L2``; the
+               tokens equal the plain argmax up to a top-2 gap below
+               ``FP32_TIE``; only fp32 entries launched.  (b) The continuous
+               paged scheduler, 4 slots, window 1024: four concurrent
+               requests over the dense pool, and over the int4 pool with
+               ``spec_k=7``; each request's tokens against the plain route
+               forced with them, to the first tie (the int4 pool's tie bound
+               twice (a)'s own-quantization noise); the fp32 paged step
+               profiled through its graph.  (c) One ``train_lora`` step of
+               a 2-layer fp32 4-bit model against its CPU twin.
 
 Phase 2 also holds K3 and K4 at phase 15's 131072-key window (Lq 1, offsets
 130943, 131071 and 100, in the first layer and in a seventh whose offset
@@ -256,6 +274,16 @@ operations at 165 TFLOP/s of 3xTF32 products, K3's at 67 TFLOP/s f32).  It holds
 32768-position int4 cache: K4 at Lq 1 from offsets 32639, 32640 and 32767,
 K5 on 256-row slices of the second 16384-row prefill chunk (q_pos0 16384,
 32384 and 32512), each under the limits of its shorter cases.
+
+Phase 2 also holds the other kernels' fp32 entries against their plain
+fp32 versions: K1 (affine and symmetric), K8 and K9 at M = 1, 8 and 192
+(K1 also at lm_head's ragged N) within ``F32_ATOL + F32_RTOL |ref|`` plus
+``F32_MM_ULPS`` sqrt(K) f32 ulps of ``|x| @ |W|``; K4 at Lq 1, 8 and 16 over
+640 and 4224 keys, from row0 16 and over a row with no valid key; K5 at
+K2's fp32 cases; K6 (an f32 pool) and K7 at Lq 1, 8 and 16, from row0 16
+and through table entries outside the pool; each timed beside its bound
+(f32 operations at 67 TFLOP/s, K5's 3xTF32 products at 165) and, for K6,
+fp32 SDPA over the gathered windows.
 
 Phase 2 also holds K2 and K5 at phase 10's square-image prefill (its
 prompt bucket over its window, one left pad; K2 beside SDPA and its bound),
@@ -287,6 +315,7 @@ describing each kernel, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -796,22 +825,20 @@ def phase_kernels(torch, report):
         t = timed(torch, lambda: K3.dense_kv_attention(q, ks, vs, valid, end, nxt(), scale),
                   lambda: K3.dense_kv_attention_plain(q, ks, vs, valid, end, nxt(), scale), 20)
         nbytes = 2 * 2 * kvh * lmax * d + lmax + 2 * 2 * h * d
-        t.update(bound(nbytes, 4 * h * d * int(valid.sum())), library_ms=None)
+        mask = causal_valid_mask(valid, torch.tensor([lmax - 1], device=dev))
+
+        def library():  # SDPA over the window with the same mask computes the same function
+            layer = nxt()
+            return F.scaled_dot_product_attention(q, ks[layer], vs[layer], attn_mask=mask, scale=scale)
+
+        lib = cuda_ms(torch, library, 20)
+        t.update(bound(nbytes, 4 * h * d * int(mask.sum())), library_ms=lib)
         report["K3"].setdefault("timings", []).append({"shape": f"Lq=1 Lmax={lmax} offset={lmax - 1}", **t})
         log(f"K3 Lq=1 Lmax={lmax} offsets {lmax // 2},{lmax - 1} H={h} D={d}: max_abs={max(errs):.3e} "
             f"(atol {ATTN_ATOL} + rtol {ATTN_RTOL:.4f}); at offset {lmax - 1}: {t.pop('text')} "
-            f"({K3.dense_kv_split_plan(lmax)[0]} splits)")
+            f"({K3.dense_kv_split_plan(lmax)[0]} splits); library (SDPA, same mask) {lib:.4f} ms")
         if lmax == 4224:
-            mask = causal_valid_mask(valid, torch.tensor([lmax - 1], device=dev))
-
-            def library():
-                layer = nxt()
-                return F.scaled_dot_product_attention(q, ks[layer], vs[layer], attn_mask=mask,
-                                                      scale=scale)
-
-            lib = cuda_ms(torch, library, 20)
-            report["K3"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96", library_ms=lib,
-                                **bound(nbytes, 4 * h * d * int(mask.sum())))
+            report["K3"].update(t, shape="Lq=1 Lmax=4224 offset=4223 H=32 D=96")
         del ks, vs
 
     # K3's plan takes the window only: at a short offset in a 4352-key window
@@ -1773,7 +1800,7 @@ def phase_paged_kernels(torch, report):
     lib = sdpa_ms(q1)
     t.update(needed(1, 2 * 2 * d), library_ms=lib)
     report["K6"].update(t, shape=shape + " Lq=1", max_abs_err=err)
-    report["K6"]["timings"] = [{"shape": shape + " Lq=1", **t}]
+    report["K6"].setdefault("timings", []).append({"shape": shape + " Lq=1", **t})
     log(f"K6 library call (SDPA on the gathered windows): {lib:.4f} ms")
     edges("K6", KV.paged_kv_attention, KV.paged_kv_attention_plain, (pk, pv), nl - 1)
     timed_rows("K6", KV.paged_kv_attention, KV.paged_kv_attention_plain, (pk, pv), nl, 2 * 2 * d, "",
@@ -1789,7 +1816,7 @@ def phase_paged_kernels(torch, report):
                    pools, nl)
     t.update(needed(1, d + 8 * (d // 32)), library_ms=None)
     report["K7"].update(t, shape=shape + " Lq=1 int4", max_abs_err=err)
-    report["K7"]["timings"] = [{"shape": shape + " Lq=1 int4", **t}]
+    report["K7"].setdefault("timings", []).append({"shape": shape + " Lq=1 int4", **t})
     edges("K7", KV.paged_quantized_kv_attention, KV.paged_quantized_kv_attention_plain, pools, nl - 1)
     timed_rows("K7", KV.paged_quantized_kv_attention, KV.paged_quantized_kv_attention_plain, pools, nl,
                d + 8 * (d // 32), " int4")
@@ -1919,20 +1946,23 @@ def zero_counters() -> dict:
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+        fn.fp32.launches = 0
     return counters
 
 
-def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int = 4):
-    """Steady decode of 4 busy slots over the paged pool, eager and through
-    the step's CUDA graph: aggregate tok/s over timed chunks, then one
-    profiled chunk (device busy, idle share, kernels per step), beside the
-    single-stream figure of this run; the graph's capture ms and bytes."""
+def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int = 4, modes=("eager", "graph")):
+    """Steady decode of 4 busy slots over the paged pool, eager and (or,
+    ``modes``) through the step's CUDA graph: aggregate tok/s over timed
+    chunks, then one profiled chunk (device busy, idle share, kernels per
+    step), beside the single-stream figure of this run; the graph's capture
+    ms and bytes."""
     from phi_3_vision_mlx_tpu_torch.engine.paging import PagedBatchEngine
 
     cache = cache_of(lm)
     prompts = [(FILLER * 6)[: 150 + 150 * i] for i in range(SERVE_SLOTS)]
     single = report.get(f"single_stream_tps_{weights_of(lm)}_{cache}", float("nan"))
-    for mode, model in (("eager", eager_twin(lm)), ("graph", lm)):
+    for mode in modes:
+        model = eager_twin(lm) if mode == "eager" else lm
         eng = PagedBatchEngine(model, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW)
         t0 = time.perf_counter()
         eng.capture()
@@ -1965,7 +1995,7 @@ def phase_paged_profile(torch, lm, proc, report, chunk: int = 8, profiled: int =
         captured = (f"; capture {g.capture_ms:.1f} ms ({capture_ms:.1f} ms with the warm-up), graph pool "
                     f"{g.pool_bytes / 2**20:.1f} MiB beside the {state_bytes(eng.state) / 2**30:.3f} GiB "
                     f"state, {sum(g.launches.values())} wrapper launches a replay" if g.graphs else "")
-        log(f"paged decode ({cache} pool, {mode}, {SERVE_SLOTS} busy slots, window {SERVE_WINDOW}, chunks "
+        log(f"paged decode ({lm.cfg.dtype}, {cache} pool, {mode}, {SERVE_SLOTS} busy slots, window {SERVE_WINDOW}, chunks "
             f"of {chunk}): {rate:.2f} tok/s aggregate ({rate / SERVE_SLOTS:.2f} per slot) against "
             f"{single:.2f} tok/s single-stream (graphs) in this run; step wall {step_ms:.2f} ms, device "
             f"busy {busy:.3f} ms, idle share {1 - busy / step_ms:.3f}, {launches / profiled:.0f} kernels "
@@ -5751,20 +5781,638 @@ def phase_retnet(torch, out):
     out["retnet_step_ms"], out["retnet_forms_err"] = step_ms, max(errs.values())
 
 
-def live_tensors(torch, top: int = 8) -> None:
-    """The card's memory still allocated at the end, and its largest live
-    tensors by (shape, dtype)."""
+# --- fp32 beyond the dense single stream (phases 2 and 17) -------------------
+#
+# An fp32 model runs every kernel's fp32 entry: f32 activations and queries,
+# quantized weights and cache entries dequantized in f32 (the JAX XLA path's
+# function).  A quantized matmul's f32 sums run in another order than its
+# plain version's: over K terms each order's rounding error is about sqrt(K)
+# f32 ulps of the sum of |x w| (a random walk of K roundings), so the check
+# allows F32_MM_ULPS * sqrt(K) * 2^-24 * (|x| @ |W|) beside F32_ATOL +
+# F32_RTOL |ref|: 1.3e-5 of sum |x w| at K = 3072, 2.2e-5 at 8192.  Outputs
+# of 8-bit weights (|w| up to 1) reach tens where rows cancel, so the
+# relative term alone would reject a correct kernel.
+F32_MM_ULPS = 4
+F32_MM_ROWS = (1, 8, 192)  # a decode step, a verify pass, a prefill slice
+F32_MM_TIMED = ((3072, 9216, 1), (3072, 9216, 192), (3072, 32064, 1))  # K1a decode and prefill, K1b (K8, K9: M = 1)
+F32_ATTN_ROWS = (1, 8, 16)
+
+
+def f32_matmul_check(torch, name, out, ref, x, w, k):
+    """``out`` against ``ref`` within the fp32 matmul limit; returns the
+    max abs error and the largest share of its limit used."""
+    mag = x.abs() @ w.abs()
+    limit = F32_ATOL + F32_RTOL * ref.abs() + F32_MM_ULPS * math.sqrt(k) * 2.0**-24 * mag
+    err = (out - ref).abs()
+    used = float((err / limit).max())
+    if out.dtype != torch.float32 or not bool(torch.isfinite(out).all()) or used > 1:
+        fail(f"{name} in fp32 disagrees with its plain version: max abs {float(err.max()):.3e}, "
+             f"{used:.2f} of its limit, {out.dtype}")
+    return float(err.max()), used
+
+
+def f32_entry(report, name, shape, t, bd, ea, lib=None):
+    """Keep an fp32 timing in ``report[name]["timings"]`` and log it."""
+    report[name].setdefault("timings", []).append(
+        {"shape": f"fp32 {shape}", **t, "library_ms": lib, **bd, "max_abs_err": ea})
+    lib_text = "none" if lib is None else f"{lib:.4f} ms"
+    log(f"{name} fp32 {shape}: max_abs={ea:.3e} {t.pop('text')} bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}) library {lib_text}")
+
+
+def phase_fp32_quantized_kernels(torch, report):
+    """K1, K8 and K9 (M = 1, 8, 192; K1 also symmetric and at lm_head's
+    ragged N), K4 (Lq 1, 8, 16 over 640 and 4224 keys, row0 16, a row with
+    no valid key), K5 (K2's fp32 cases), K6 and K7 (phase 2's paged shapes,
+    Lq 1, 8, 16, row0 16, clamped tables) in fp32 against their plain fp32
+    versions; each timed beside its bound (bytes, or f32 operations at 67
+    TFLOP/s on the CUDA cores, K5's at 165 TFLOP/s of 3xTF32 products) and,
+    for K6, fp32 SDPA over the gathered windows."""
+    import random
+
+    import torch.nn.functional as F
+
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
+    from phi_3_vision_mlx_tpu_torch.core.weights import pack_int4, pack_int8
+    from phi_3_vision_mlx_tpu_torch.engine.state import dequantize_kv, quantize_chunk
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as QM
+    from phi_3_vision_mlx_tpu_torch.ops.quant import QTensor, dequantize
+
+    dev, f32 = "cuda", torch.float32
+    g = torch.Generator(device=dev).manual_seed(17)
+    before = {name: fn.fp32.launches for name, fn in kernel_counters().items()}
+
+    # --- K1, K8, K9: x f32, out f32, weights rotated past the L2 for timing.
+    layouts = {"K1": (QM.quant_matmul, QM.quant_matmul_plain, 4), "K8": (QM.quant_matmul_w8, QM.quant_matmul_w8_plain, 8),
+               "K9": (QM.quant_matmul_packed, QM.quant_matmul_packed_plain, 4)}
+    for k, n in ((3072, 9216), (3072, 32064)):
+        wbytes = k * n // 2 + 2 * 2 * (k // 64) * n
+        copies = max(1, math.ceil(150e6 / wbytes))
+        s, b = w4_planes(torch, k, n, g)
+        for name, (kernel, plain, bits) in layouts.items():
+            if n % 512 and name == "K9":
+                continue
+            if n == 32064 and name == "K8":
+                continue
+            levels = [torch.randint(0, 1 << bits, (k, n), dtype=torch.uint8, generator=g, device=dev)
+                      for _ in range(copies)]
+            sb = (s, b) if bits == 4 else ((s.float() * 15 / 255).to(torch.bfloat16), b)
+            if name == "K9":
+                from phi_3_vision_mlx_tpu_torch.core.weights import to_packed_layout
+
+                ws = [(to_packed_layout(q), *sb) for q in levels]
+            else:
+                ws = [((pack_int4 if bits == 4 else pack_int8)(q), *sb) for q in levels]
+            w = dequantize(QTensor(levels[0], *sb), dtype=f32)
+            errs, used = [], []
+            for m in F32_MM_ROWS:
+                x = torch.randn((m, k), generator=g, device=dev)
+                out = kernel(x, *ws[0])
+                ref = plain(x, *ws[0])
+                torch.cuda.synchronize()
+                ea, u = f32_matmul_check(torch, f"{name} K={k} N={n} M={m}", out, ref, x, w, k)
+                errs.append(ea)
+                used.append(u)
+                if name == "K1" and m in (1, 8):  # symmetric mode: no biases
+                    w_sym = dequantize(QTensor(levels[0], s, None), dtype=f32)
+                    ea, u = f32_matmul_check(torch, f"K1 symmetric K={k} N={n} M={m}", kernel(x, ws[0][0], s, None),
+                                             plain(x, ws[0][0], s, None), x, w_sym, k)
+                    errs.append(ea)
+                    used.append(u)
+                if (k, n, m) in F32_MM_TIMED and (name == "K1" or m == 1):
+                    nxt = rotating(copies)
+                    t = timed(torch, lambda: kernel(x, *ws[nxt()]), lambda: plain(x, *ws[nxt()]), 20)
+                    wb = k * n * bits // 8 + 2 * 2 * (k // 64) * n
+                    bd = bound(wb + 4 * m * k + 4 * m * n, 2 * m * k * n, rate=FP32_FLOPS)
+                    f32_entry(report, name, f"K={k} N={n} M={m}", t, bd, ea)
+            log(f"{name} fp32 K={k} N={n} M={','.join(map(str, F32_MM_ROWS))}: max_abs={max(errs):.3e}, at most "
+                f"{max(used):.3f} of the limit (F32_ATOL + F32_RTOL |ref| + {F32_MM_ULPS} sqrt(K) 2^-24 |x| @ |W|)")
+            del ws, levels, w
+
+    # --- K4: the int4 stacked cache, f32 queries.
+    kvq = KVQuantConfig(group_size=32, bits=4)
+    h = kvh = 32
+    d = 96
+    scale = d**-0.5
+
+    def int4_cache(nl, rows, lmax):
+        k_ = torch.randn((nl, rows, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[0]
+        v_ = torch.randn((nl, rows, kvh, lmax, d), generator=g, device=dev) + KV_MEAN[1]
+        return quantize_chunk(k_, v_, kvq)
+
+    def attn_check(name, out, ref, what):
+        ea, er, ok = close(torch, out, ref, F32_ATOL, F32_RTOL)
+        if out.dtype != f32 or not ok:
+            fail(f"{name} in fp32 disagrees with its plain version at {what}: max_abs {ea:.3e}")
+        return ea
+
+    nl = 8
+    for lmax in (640, 4224):
+        payload, scales = int4_cache(nl, 1, lmax)
+        valid = torch.rand((1, lmax), generator=g, device=dev) > 0.05
+        valid[:, :10] = False
+        errs = []
+        for lq in F32_ATTN_ROWS:
+            q = torch.randn((1, lq, h, d), generator=g, device=dev).transpose(1, 2)
+            for offset, row0 in ((lmax // 2, 0), (lmax - lq, 0), (lmax - 2 * 16, 16)):
+                if row0 and lq != 16:
+                    continue
+                out = KV.quantized_kv_attention(q, payload, scales, valid, dev_offset(torch, offset), nl - 1, scale,
+                                                row0=row0)
+                ref = KV.quantized_kv_attention_plain(q, payload, scales, valid, offset, nl - 1, scale, row0=row0)
+                torch.cuda.synchronize()
+                errs.append(attn_check("K4", out, ref, f"Lmax={lmax} Lq={lq} offset={offset} row0={row0}"))
+            if lq == 1 or lmax == 4224 and lq == 8:
+                nxt, end = rotating(nl), dev_offset(torch, lmax - lq)
+                t = timed(torch, lambda: KV.quantized_kv_attention(q, payload, scales, valid, end, nxt(), scale),
+                          lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, end, nxt(), scale), 20)
+                pairs = int(causal_valid_mask(valid, lmax - lq + torch.arange(lq, device=dev)).sum())
+                bd = bound(kvh * lmax * (d + 8 * (d // 32)) + lmax + 2 * 4 * h * lq * d, 4 * h * d * pairs,
+                           rate=FP32_FLOPS)
+                f32_entry(report, "K4", f"Lq={lq} Lmax={lmax} offset={lmax - lq} H=32 D=96 int4", t, bd, max(errs))
+        none = torch.zeros_like(valid)  # a row with no valid key: the uniform average
+        q = torch.randn((1, 1, h, d), generator=g, device=dev).transpose(1, 2)
+        out = KV.quantized_kv_attention(q, payload, scales, none, dev_offset(torch, lmax // 2), nl - 1, scale)
+        mean_v = dequantize_kv(payload[nl - 1], scales[nl - 1], f32)[1].mean(dim=2)
+        torch.cuda.synchronize()
+        errs.append(attn_check("K4", out, mean_v[:, :, None], f"Lmax={lmax}, no valid key"))
+        log(f"K4 fp32 Lmax={lmax} Lq={','.join(map(str, F32_ATTN_ROWS))}: max_abs={max(errs):.3e} "
+            f"(atol {F32_ATOL} + rtol {F32_RTOL})")
+        del payload, scales
+
+    # --- K5: K2's fp32 cases over int4 caches.
+    errs = []
+    for lq, lk, q_pos0, pads, is_timed in K2_F32_CASES[:4]:
+        nb = len(pads)
+        payload, scales = int4_cache(2, nb, lk)
+        q = torch.randn((nb, lq, h, d), generator=g, device=dev).transpose(1, 2)
+        valid = torch.ones((nb, lk), dtype=torch.bool, device=dev)
+        for i, pad in enumerate(pads):
+            valid[i, :pad] = False
+        out = KV.quantized_flash_attention(q, payload, scales, valid, q_pos0, 1, scale)
+        ref = KV.quantized_flash_attention_plain(q, payload, scales, valid, q_pos0, 1, scale)
+        torch.cuda.synchronize()
+        shape = f"B={nb} lq={lq} lk={lk} q_pos0={q_pos0} pads={pads} H=32 D=96 int4"
+        errs.append(attn_check("K5", out, ref, shape))
+        if lq == 1024:
+            t = timed(torch, lambda: KV.quantized_flash_attention(q, payload, scales, valid, q_pos0, 1, scale),
+                      lambda: KV.quantized_flash_attention_plain(q, payload, scales, valid, q_pos0, 1, scale), 12)
+            pairs = int(causal_valid_mask(valid, q_pos0 + torch.arange(lq, device=dev)).sum())
+            keys = min(lk, q_pos0 + lq)
+            bd = bound(nb * kvh * keys * (d + 8 * (d // 32)) + nb * lk + 2 * 4 * q.numel(), 4 * h * d * pairs,
+                       rate=TF32X3_FLOPS)
+            f32_entry(report, "K5", shape, t, bd, errs[-1])
+        del payload, scales, q, out, ref
+    log(f"K5 fp32 at K2's fp32 cases: max_abs={max(errs):.3e} (atol {F32_ATOL} + rtol {F32_RTOL})")
+
+    # --- K6 (f32 pool) and K7 (int4 pool): phase 2's paged shapes.
+    s_, page, window, pool = 4, 64, 1024, 64
+    offsets_l = (100, 400, 700, 1000 - 16)
+    rng = random.Random(17)
+    ids = rng.sample(range(pool), pool)
+    tables = torch.full((s_, window // page), pool, dtype=torch.int32)
+    for i, off in enumerate(offsets_l):
+        need = -(-(off + 32) // page)
+        tables[i, :need] = torch.tensor([ids.pop() for _ in range(need)])
+    tables = tables.to(dev)
+    offsets = torch.tensor(offsets_l, dtype=torch.int32, device=dev)
+    valid = torch.rand((s_, window), generator=g, device=dev) > 0.05
+    valid[:, :10] = False
+    bad = tables.clone()
+    bad[3, 0], bad[2, 1] = pool + 7, -3  # clamped into the pool by the kernels
+    shape = f"S=4 offsets {','.join(map(str, offsets_l))} window 1024 page 64 pool 64+1 H=32 D=96"
+    nl = 4
+    pk = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev)
+    pv = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev)
+    kq = torch.randn((nl, pool + 1, kvh, page, d), generator=g, device=dev) + KV_MEAN[0]
+    pools = {"K6": (KV.paged_kv_attention, KV.paged_kv_attention_plain, (pk, pv), 2 * 4 * d),
+             "K7": (KV.paged_quantized_kv_attention, KV.paged_quantized_kv_attention_plain,
+                    quantize_chunk(kq, pv + KV_MEAN[1], kvq), d + 8 * (d // 32))}
+    del kq
+    wins = [(KV.gather_pages(pk[i], tables), KV.gather_pages(pv[i], tables)) for i in range(nl)]
+    for name, (kernel, plain, pl, per_key) in pools.items():
+        errs = []
+        for lq in F32_ATTN_ROWS:
+            q = torch.randn((s_, lq, h, d), generator=g, device=dev).transpose(1, 2)
+            for tb, ref_tb, row0 in ((tables, tables, 0), (bad, bad.clamp(0, pool), 0), (tables, tables, 16)):
+                if row0 and lq != 16:
+                    continue
+                out = kernel(q, *pl, tb, valid, offsets, nl - 1, scale, row0=row0)
+                ref = plain(q, *pl, ref_tb, valid, offsets, nl - 1, scale, row0=row0)
+                torch.cuda.synchronize()
+                errs.append(attn_check(name, out, ref, f"Lq={lq} row0={row0}"))
+            if lq in (1, 8):
+                nxt = rotating(nl)
+                t = timed(torch, lambda: kernel(q, *pl, tables, valid, offsets, nxt(), scale),
+                          lambda: plain(q, *pl, tables, valid, offsets, nxt(), scale), 20)
+                keys = sum(o + lq for o in offsets_l)
+                vis = int(KV.paged_visible(valid, offsets, lq).sum())
+                bd = bound(kvh * keys * per_key + s_ * window + 4 * tables.numel() + 2 * 4 * s_ * h * lq * d,
+                           4 * h * d * vis, rate=FP32_FLOPS)
+                lib = None
+                if name == "K6":
+                    mask = KV.paged_visible(valid, offsets, lq)
+                    nxt_l = rotating(nl)
+                    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, *wins[nxt_l()], attn_mask=mask,
+                                                                                scale=scale), 20)
+                f32_entry(report, name, f"{shape} Lq={lq}" + (" int4" if name == "K7" else ""), t, bd, max(errs), lib)
+        log(f"{name} fp32 Lq={','.join(map(str, F32_ATTN_ROWS))} {shape}: max_abs={max(errs):.3e} (atol {F32_ATOL} "
+            f"+ rtol {F32_RTOL}), table entries outside the pool clamped")
+    del pk, pv, pools, wins
+    counts = {name: fn.fp32.launches - before[name] for name, fn in kernel_counters().items()}
+    log(f"phase 2 fp32 entries launched: {counts}")
+    if any(counts[n] <= 0 for n in ("K1", "K4", "K5", "K6", "K7", "K8", "K9")):
+        fail(f"phase 2: an fp32 entry never launched: {counts}")
+    torch.cuda.empty_cache()
+
+
+
+# Phase 17: an fp32 model with quantized weights, caches and engines.
+FP32_STEP_REL_L2 = 1e-4  # every forced step's logits, kernels against the plain route
+FP32_TIE = 1e-4  # the JAX gate's tie rule: tokens agree up to a top-2 gap below it
+FP32_TOKENS = 32
+FP32_SERVE = ((FILLER * 4)[:300], (FILLER * 4)[:180], PROMPT_A, (FILLER * 4)[:420])  # four requests
+FP32_SERVE_TOKENS = (20, 24, 28, 32)  # distinct, so each request is known by its length
+FP32_LORA_RTOL = 1e-4
+FP32_LORA_COS = 0.999
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every kernel wrapper the model path calls replaced by its plain
+    version, on the card: the reference route of phase 17."""
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as FA
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as KV
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import quant_matmul as QM
+
+    swaps = [(QM, "quant_matmul", QM.quant_matmul_plain), (QM, "quant_matmul_w8", QM.quant_matmul_w8_plain),
+             (QM, "quant_matmul_packed", QM.quant_matmul_packed_plain),
+             (phi3, "flash_attention", FA.flash_attention_plain),
+             (phi3, "dense_kv_attention", KV.dense_kv_attention_plain),
+             (phi3, "quantized_kv_attention", KV.quantized_kv_attention_plain),
+             (phi3, "quantized_flash_attention", KV.quantized_flash_attention_plain)]
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in swaps:
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        yield
+
+
+def entry_writes(torch):
+    """(record, replay): ``update_layer_chunk`` seams that keep each
+    quantized write of one run and write those entries in another."""
+    from phi_3_vision_mlx_tpu_torch.engine import state as S
+
+    written = {}
+
+    def positions(pos, k_new):
+        return torch.arange(pos, pos + k_new.shape[2], device=k_new.device) if isinstance(pos, int) else pos
+
+    def record(state, layer, pos, k_new, v_new):
+        S.update_layer_chunk(state, layer, pos, k_new, v_new)
+        if state.quantized:
+            p = positions(pos, k_new)
+            written[layer, int(p[0])] = (state.k[layer, :, :, p].clone(), state.k_scales[layer, :, :, p].clone())
+
+    def replay(state, layer, pos, k_new, v_new):
+        if not state.quantized:
+            return S.update_layer_chunk(state, layer, pos, k_new, v_new)
+        p = positions(pos, k_new)
+        state.k[layer, :, :, p], state.k_scales[layer, :, :, p] = written[layer, int(p[0])]
+
+    return record, replay
+
+
+def forced_both(torch, lm, dict_input, tokens, own: bool = False):
+    """(kernel route, plain route) f32 logits of ``lm`` forced with
+    ``tokens`` (``forced_logits``), eager; the plain route writes the kernel
+    route's quantized entries, or (``own``) its own."""
+    from phi_3_vision_mlx_tpu_torch.models import phi3
+
+    record, replay = entry_writes(torch)
+    with mock.patch.object(phi3, "update_layer_chunk", record):
+        kern = forced_logits(torch, lm, dict_input, tokens)
+    if own:
+        with plain_route():
+            return kern, forced_logits(torch, lm, dict_input, tokens)
+    with plain_route(), mock.patch.object(phi3, "update_layer_chunk", replay):
+        return kern, forced_logits(torch, lm, dict_input, tokens)
+
+
+def tie_split(torch, tokens, plain, tie: float):
+    """The first step where ``tokens`` part from the plain route's argmax
+    (len(tokens) if never), and whether the plain top-2 gap there is below
+    ``tie``."""
+    top2 = plain.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    picks = plain.argmax(-1).tolist()
+    for d, tok in enumerate(tokens):
+        if tok != picks[d]:
+            return d, gaps[d] < tie, gaps
+    return len(tokens), True, gaps
+
+
+def fp32_launches(tag: str, launches: dict, expected) -> None:
+    """Every expected kernel launched, all of them through its fp32 entry,
+    and no other kernel."""
+    log(f"{tag}: launches (total, of which fp32) {launches}")
+    for name, (total, fp32) in launches.items():
+        if name in expected and (total <= 0 or fp32 != total):
+            fail(f"{tag}: {name} launched {total} times, {fp32} through its fp32 entry")
+        if name not in expected and total != 0:
+            fail(f"{tag}: {name} launched {total} times")
+
+
+def read_counts(counters) -> dict:
+    return {name: (fn.launches, fn.fp32.launches) for name, fn in counters.items()}
+
+
+def fp32_params(torch, params):
+    """``params`` with the norm weights in f32 (an fp32 checkpoint's)."""
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return node.float() if key == "weight" and node.dtype == torch.bfloat16 else node
+
+    return walk(params)
+
+
+def phase_fp32_generate(torch, lm, proc, report) -> float:
+    """Phase 17 (a): ``api.generate`` of phase 3's prompt for FP32_TOKENS
+    greedy tokens; the same tokens from the decode step's graphs; every
+    step's logits forced with them through the kernels and through the plain
+    route on the card (quantized caches: the kernel run's entries written in
+    the plain run), within FP32_STEP_REL_L2; the tokens equal the plain
+    route's argmax up to its first top-2 gap below FP32_TIE.  With the int4
+    cache, the plain route quantizing its own entries is read too: returns
+    the largest logit change that made (0 otherwise), the noise that bounds
+    phase 17 (b)'s int4 tie rule."""
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.api import _apply_chat_template
+
+    tag = f"phase 17 (a) fp32, {weights_of(lm)} weights, {cache_of(lm)} cache"
+    cache = cache_of(lm)
+    expected = set(matmul_kernels(lm)) | {"dense": {"K2", "K3"}, "int4": {"K4", "K5"}, "int8": {"K2", "K3"}}[cache]
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    text = api.generate(PROMPT_A, preload=(lm, proc), max_tokens=FP32_TOKENS, verbose=False, stream=False, mute=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fp32_launches(f"{tag}, api.generate", read_counts(counters), expected)
+    if not isinstance(text, list) or not text or not text[0]:
+        fail(f"{tag}: api.generate gave {text!r}")
+    dict_input = proc(_apply_chat_template(PROMPT_A)[0])
+    out, *_ = decode_run(torch, lm, dict_input, FP32_TOKENS, (FP32_TOKENS - 1,))
+    tokens = [int(out[0][0])] + [int(t) for t in out[1][:, 0]]
+    kern, plain = forced_both(torch, lm, dict_input, tokens[:-1])
+    rel = ((kern - plain).norm(dim=-1) / plain.norm(dim=-1)).tolist()
+    d, tie_ok, gaps = tie_split(torch, tokens, plain, FP32_TIE)
+    log(f"{tag}: api.generate {wall:.2f} s for {FP32_TOKENS} tokens ({len(text[0])} chars); "
+        f"{len(dict_input['input_ids'][0])}-token prompt; forced logits, kernels against the plain route: rel L2 "
+        f"max {max(rel):.3e} (limit {FP32_STEP_REL_L2}); tokens equal the plain argmax for {d} of {len(tokens)} "
+        f"(least plain top-2 gap {min(gaps):.3e})")
+    if not all(math.isfinite(r) for r in rel) or max(rel) > FP32_STEP_REL_L2:
+        fail(f"{tag}: the kernel route's logits disagree with the plain route's")
+    if d < len(tokens) and not tie_ok:
+        fail(f"{tag}: token {d} parts from the plain route with a top-2 gap {gaps[d]:.3e} >= {FP32_TIE}")
+    report.setdefault("fp32", {})[f"{weights_of(lm)} {cache}"] = {"rel_l2": max(rel), "equal_tokens": d}
+    if cache != "int4":
+        return 0.0
+    _, own = forced_both(torch, lm, dict_input, tokens[:-1], own=True)
+    noise = float((own - plain).abs().max())
+    log(f"{tag}: the plain route quantizing its own entries moves the logits by at most {noise:.3e} "
+        f"(rel L2 max {float(((own - plain).norm(dim=-1) / plain.norm(dim=-1)).max()):.3e})")
+    return noise
+
+
+def phase_fp32_serve(torch, lm, proc, report, spec_k: int, tie: float):
+    """Phase 17 (b): a ContinuousScheduler (4 slots, window 1024, the
+    paged pool) serving four concurrent requests of FP32_SERVE; each
+    request's greedy tokens against the plain route forced with them
+    (single stream, the prompt as the engine processes it) up to the first
+    plain top-2 gap below ``tie``; the launch counters show the fp32
+    entries of the cache's kernels only."""
+    from phi_3_vision_mlx_tpu_torch.serve.server import ContinuousScheduler
+
+    cache = cache_of(lm)
+    tag = f"phase 17 (b) fp32 continuous, {cache} pool, spec_k={spec_k}"
+    expected = set(matmul_kernels(lm)) | ({"K5", "K7"} if cache == "int4" else {"K2", "K6"})
+    sched = ContinuousScheduler(lm, proc, slots=SERVE_SLOTS, window=SERVE_WINDOW, paged=True, spec_k=spec_k)
+    counters = zero_counters()
+    texts = {}
+
+    def worker(i):
+        texts[i] = sched.complete(FP32_SERVE[i], FP32_SERVE_TOKENS[i])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(FP32_SERVE))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fp32_launches(tag, read_counts(counters), expected)
+    by_len = {len(r.tokens): r.tokens for r in sched.engine.requests.values()}
+    if sorted(texts) != list(range(len(FP32_SERVE))) or sorted(by_len) != sorted(FP32_SERVE_TOKENS):
+        fail(f"{tag}: answered {sorted(texts)}, token counts {sorted(by_len)}")
+    splits = []
+    for prompt, n in zip(FP32_SERVE, FP32_SERVE_TOKENS):
+        tokens = list(by_len[n])
+        with plain_route():
+            plain = forced_logits(torch, lm, proc(prompt), tokens[:-1])
+        d, tie_ok, gaps = tie_split(torch, tokens, plain, tie)
+        splits.append(d)
+        if d < len(tokens) and not tie_ok:
+            fail(f"{tag}: request of {n} tokens parts from the plain route at token {d} with a top-2 gap "
+                 f"{gaps[d]:.3e} >= {tie:.3e}")
+    log(f"{tag}: {len(FP32_SERVE)} requests in {wall:.2f} s; tokens equal the plain route's for {splits} of "
+        f"{list(FP32_SERVE_TOKENS)} (tie rule: plain top-2 gap below {tie:.3e})")
+    report.setdefault("fp32", {})[f"continuous {cache} spec_k={spec_k}"] = {"equal_tokens": splits}
+    del sched
+
+
+def phase_fp32_lora(torch, cfg, params, proc):
+    """Phase 17 (c): one ``train_lora`` step of a 2-layer fp32 model over
+    4-bit weights on the card (phase 13's 192-token rows, one of them: K1's
+    fp32 entry under the autograd seam, at most 256 rows) against its CPU twin (the linears dequantized once, fp32), from
+    the same initial A: the loss within FP32_LORA_RTOL and each adapter
+    tensor's cosine to the twin's at least FP32_LORA_COS."""
+    import tempfile
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+    from phi_3_vision_mlx_tpu_torch.train import trainer as TT
+
+    cfg2 = cfg.replace(num_hidden_layers=2)
+    small = {"model": {**params["model"], "layers": first_layers(params["model"]["layers"])},
+             "lm_head": params["lm_head"]}
+    card = LM(cfg2, small, device="cuda", graphs=False)
+    twin = LM(cfg2, dequantized_linears(torch, small), device="cpu")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            kw = dict(model_path="phi3_fp32_2_layers", dataset_path="synthetic", take=1, lora_layers=2,
+                      lora_rank=4)  # one row of 192 tokens, no masked copy: K1's rows
+            counters = zero_counters()
+            with mock.patch.object(api, "_load", lambda *a, **k: (card, proc)):
+                TT.train_lora(adapter_path="adapters/card", device="cuda", **kw)
+            launches = read_counts(counters)
+            with mock.patch.object(api, "_load", lambda *a, **k: (twin, proc)):
+                TT.train_lora(adapter_path="adapters/cpu", device="cpu", **kw)
+            card_loss, cpu_loss = train_losses("adapters/card"), train_losses("adapters/cpu")
+            ta, tb = lora_tensors("adapters/card"), lora_tensors("adapters/cpu")
+        finally:
+            os.chdir(cwd)
+    rel = abs(card_loss[0] - cpu_loss[0]) / abs(cpu_loss[0])
+    cos = {k: float(torch.nn.functional.cosine_similarity(ta[k].flatten().float(), tb[k].flatten().float(), dim=0))
+           for k in sorted(ta)}
+    log(f"phase 17 (c) fp32 LoRA step, 2 layers, width 3072, 4-bit weights: loss card {card_loss[0]!r}, CPU twin "
+        f"{cpu_loss[0]!r} ({rel:.3e} relative, limit {FP32_LORA_RTOL}); adapter cosine to the twin's: least "
+        f"{min(cos.values()):.6f} (limit {FP32_LORA_COS}); launches (total, of which fp32) {launches}")
+    if (len(card_loss) != 1 or not math.isfinite(card_loss[0]) or rel > FP32_LORA_RTOL
+            or min(cos.values()) < FP32_LORA_COS or sorted(ta) != sorted(tb)):
+        fail("phase 17 (c): the card's fp32 LoRA step disagrees with the CPU twin's")
+    if launches["K1"][0] <= 0 or launches["K1"][1] != launches["K1"][0]:
+        fail(f"phase 17 (c): K1's fp32 entry did not carry the forward: {launches}")
+
+
+def phase_fp32_models(torch, cfg, params, proc, report):
+    """Phase 17: fp32 Phi-3.5-mini at full size with synthetic 4-bit
+    group-64 weights over the dense, int4 and int8 caches, and with 8-bit
+    and packed weights over the dense cache (a); the continuous paged
+    server, dense and int4 with speculation (b); a LoRA step (c)."""
+    from phi_3_vision_mlx_tpu_torch.core.config import KVQuantConfig
+    from phi_3_vision_mlx_tpu_torch.core.weights import packed_params, synth_quantized_params
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = fp32_params(torch, params)
+    lm = LM(cfg32, p32, device="cuda")
+    phase_fp32_generate(torch, lm, proc, report)
+    lm_int4 = LM(cfg32.replace(use_quantized_cache=True), p32, device="cuda")
+    noise = phase_fp32_generate(torch, lm_int4, proc, report)
+    lm_int8 = LM(cfg32.replace(use_quantized_cache=True, kv_quant=KVQuantConfig(group_size=32, bits=8)), p32,
+                 device="cuda")
+    phase_fp32_generate(torch, lm_int8, proc, report)
+    del lm_int8
+    packed = packed_params(p32, cfg32)
+    phase_fp32_generate(torch, LM(cfg32, packed, device="cuda"), proc, report)
+    del packed
+    cfg8 = full_config(bits=8).replace(dtype="float32")
+    p8 = synth_quantized_params(cfg8, device="cuda", seed=0)
+    phase_fp32_generate(torch, LM(cfg8, p8, device="cuda"), proc, report)
+    del p8
+    torch.cuda.empty_cache()
+    stamp("phase 17 (a)")
+    phase_fp32_serve(torch, lm, proc, report, spec_k=0, tie=FP32_TIE)
+    # The int4 pool quantizes its own entries, from f32 values that differ
+    # from the single stream's in the last bits (other row tiles): a value
+    # at a level boundary then rounds the other way, which moved (a)'s
+    # logits by `noise`.  Below twice that, a top-2 gap is a tie.
+    phase_fp32_serve(torch, lm_int4, proc, report, spec_k=SPEC_K, tie=max(FP32_TIE, 2 * noise))
+    for model in (lm, lm_int4):  # the fp32 paged step, through its graph
+        phase_paged_profile(torch, model, proc, report, modes=("graph",))
+    del lm, lm_int4
+    torch.cuda.empty_cache()
+    stamp("phase 17 (b)")
+    phase_fp32_lora(torch, cfg32, p32, proc)
+    stamp("phase 17")
+
+
+def owner_chain(obj, skip: set, depth: int = 12, max_nodes: int = 20000):
+    """The shortest chain of referrers (``gc.get_referrers``) from ``obj``
+    up to a root: a frame of a running thread, a module's namespace or an
+    object nothing else refers to.  ``skip``: ids of the caller's own
+    containers.  Returns the chain as a list of objects, ``obj`` first."""
+    import gc
+    import types
+    from collections import deque
+
+    names = {t.ident: t.name for t in threading.enumerate()}
+    census = {id(sys._getframe()), id(sys._getframe(1))}
+    roots = {id(m.__dict__) for m in list(sys.modules.values()) if hasattr(m, "__dict__")}
+    thread_of = {}
+    for tid, frame in sys._current_frames().items():
+        while frame is not None:
+            if id(frame) not in census:
+                thread_of[id(frame)] = names.get(tid, str(tid))
+            frame = frame.f_back
+    objs = {id(obj): obj}
+    parent = {id(obj): None}
+    todo = deque([id(obj)])
+    ignore = skip | {id(objs), id(parent), id(todo)}
+    while todo and len(parent) < max_nodes:
+        cur = todo.popleft()
+        hops, up = 0, cur
+        while parent[up] is not None:
+            up, hops = parent[up], hops + 1
+        if hops >= depth:
+            continue
+        refs = gc.get_referrers(objs[cur])
+        for r in refs:
+            if id(r) in parent or id(r) in ignore or id(r) == id(refs):
+                continue
+            if isinstance(r, types.FrameType) and id(r) not in thread_of:
+                continue  # a frame of this census, or a finished one
+            objs[id(r)], parent[id(r)] = r, cur
+            if id(r) in thread_of or id(r) in roots or not gc.get_referrers(r):
+                chain, at = [], id(r)
+                while at is not None:
+                    chain.append(objs[at])
+                    at = parent[at]
+                return chain[::-1], thread_of
+            todo.append(id(r))
+    return None, thread_of
+
+
+def describe_chain(chain, thread_of) -> str:
+    """``Tensor <- dict['k'] <- SlotState <- ...``: each link's type, the
+    key or index holding the one before, a frame's function and thread."""
+    import types
+
+    parts = []
+    for child, holder in zip([None] + chain[:-1], chain):
+        if isinstance(holder, types.FrameType):
+            parts.append(f"frame {holder.f_code.co_name} (thread {thread_of.get(id(holder), '?')})")
+        elif isinstance(holder, dict) and child is not None:
+            key = next((k for k, v in holder.items() if v is child), "?")
+            parts.append(f"dict[{key!r}]" if holder is not getattr(sys.modules.get(holder.get("__name__", "")),
+                                                                    "__dict__", None) else f"module {holder['__name__']}")
+        else:
+            parts.append(type(holder).__qualname__)
+    return " <- ".join(parts)
+
+
+def live_tensors(torch, top: int = 8, owners: int = 4) -> None:
+    """The card's memory still allocated at the end, its largest live
+    tensors by (shape, dtype), and what holds the ``owners`` largest single
+    tensors (``owner_chain``)."""
     import gc
     from collections import Counter
 
     gc.collect()
-    sizes = Counter()
-    for obj in gc.get_objects():
+    sizes, largest = Counter(), []
+    objects = gc.get_objects()
+    for obj in objects:
         try:
             if torch.is_tensor(obj) and obj.is_cuda:
-                sizes[(tuple(obj.shape), str(obj.dtype))] += obj.numel() * obj.element_size()
+                nbytes = obj.numel() * obj.element_size()
+                sizes[(tuple(obj.shape), str(obj.dtype))] += nbytes
+                largest.append((nbytes, id(obj), obj))
         except Exception:  # objects that refuse inspection
             continue
+    largest = sorted(largest, key=lambda t: t[:2], reverse=True)[:owners]
+    skip = {id(objects), id(largest), id(sizes)} | {id(t) for t in largest}
+    del objects
+    for nbytes, _, t in largest:
+        chain, thread_of = owner_chain(t, skip)
+        held = "no root found" if chain is None else describe_chain(chain, thread_of)
+        log(f"live tensor {tuple(t.shape)} {t.dtype} {nbytes / 2**30:.2f} GiB held by: {held}")
+    del largest
     log(f"left allocated at the end: {torch.cuda.memory_allocated() / 2**30:.2f} GiB; largest live tensors (GiB): "
         + ", ".join(f"{shape} {dtype} {n / 2**30:.2f}" for (shape, dtype), n in sizes.most_common(top)))
 
@@ -5824,6 +6472,7 @@ def main() -> None:
     # Phase 2: each kernel against its plain version.
     phase_kernels(torch, report)
     phase_fp32_kernels(torch, report)
+    phase_fp32_quantized_kernels(torch, report)
     phase_quantized_kernels(torch, report)
     phase_paged_kernels(torch, report)
     phase_w8_kernels(torch, report)
@@ -5948,6 +6597,8 @@ def main() -> None:
     phase_constrain(torch, params, lm, lm_int4, proc, report)
     # Phase 16: the parallel layer in a world of one, and RetNet.
     phase_parallel(torch, params, lm, lm_int4, proc, report)
+    # Phase 17: fp32 over quantized weights, caches and engines.
+    phase_fp32_models(torch, cfg, params, proc, report)
     del lm, lm_int4
     torch.cuda.empty_cache()
     # Phase 13: LoRA training and adapter serving on the same weights.

@@ -25,6 +25,9 @@ constexpr int kGroup = 32;  // quantized cache: values per scale/bias group alon
 
 __device__ __forceinline__ float bf(const __nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float round_bf(float v) { return __bfloat162float(__float2bfloat16(v)); }
+// An output value stored in the output's type: bf16, or f32 for an fp32 model.
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 // One quantized value, as the plain path computes it: f32 q * s, then + b,
 // each rounded on its own, then rounded once to bf16 (the bits of

@@ -42,6 +42,12 @@
 // payload and 1.5 KB of scales into a raw stage and dequantizes it once
 // into the same tiles (flash_mma.cuh: dequantize_int4_tile, K5's).
 //
+// fp32 models run both in f32 (the _f32 entries): an f32 query, and for K6
+// an f32 pool, through split_runs.cuh's fp32 body (split_run_f32_kernel):
+// DenseRunF32 copies each key's f32 K and V rows into the f32 tiles (its
+// bound doubles the bf16 bytes: 4 * D * 2 B per (kv head, key)), K7 in
+// fp32 takes Int4RunF32 over the same int4 pool and bytes as in bf16.
+//
 // Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
 // cudaErrorInvalidValue until a configuration on the card needs it.
 
@@ -78,6 +84,7 @@ template <int D>
 struct DenseRun {
   static constexpr int kRawBytes = 0;
   static constexpr int kMode = kFp32;
+  static constexpr bool kF32 = false;
 
   static __device__ __forceinline__ void issue(__nv_bfloat16* kt, __nv_bfloat16* vt, unsigned char*,
                                                const void* __restrict__ a, const void* __restrict__ b,
@@ -101,6 +108,53 @@ struct DenseRun {
     return bf(static_cast<const __nv_bfloat16*>(b)[row * D + d]);
   }
 };
+
+// K6's loader for an fp32 model's f32 pool: a = the layer's keys, b = its
+// values, (P1, KV, page, D) f32, 16-byte aligned; threads 2r and 2r + 1
+// copy half of row r's K and V rows each, 16 bytes at a time, into the f32
+// tiles (keys [kRunKeys][D + 4], values [kRunKeys][D]).
+template <int D>
+struct DenseRunF32 {
+  static constexpr int kRawBytes = 0;
+  static constexpr int kMode = kFp32;
+  static constexpr bool kF32 = true;
+
+  static __device__ __forceinline__ void issue(float* kt, float* vt, unsigned char*, const void* __restrict__ a,
+                                               const void* __restrict__ b, const Pages& pg, int s, int kvh, int j0,
+                                               int n) {
+    static_assert(kRunThreads == 2 * kRunKeys && D % 8 == 0, "two threads per row, 16-byte halves");
+    const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (D / 2);
+    const size_t row = pg.row(s, kvh, j0 + min(r, n - 1));
+    const float* kr = static_cast<const float*>(a) + row * D + c0;
+    const float* vr = static_cast<const float*>(b) + row * D + c0;
+#pragma unroll
+    for (int c = 0; c < D / 2; c += 4) {  // D / 8 chunks of 16 B each
+      cp_async16(kt + r * kF32KStride<D> + c0 + c, kr + c);
+      cp_async16(vt + r * D + c0 + c, vr + c);
+    }
+  }
+
+  static __device__ __forceinline__ void tiles(float*, float*, const unsigned char*) {}
+
+  static __device__ __forceinline__ float window_value(const void* __restrict__, const void* __restrict__ b,
+                                                       size_t row, int d) {
+    return static_cast<const float*>(b)[row * D + d];
+  }
+};
+
+template <int D, class Run>
+int paged_launch(const void* q, const void* a, const void* b, size_t a_row_bytes, size_t b_row_bytes,
+                 const void* tables, const void* valid, const void* offsets, void* out, void* partial, int S,
+                 int H, int KV, int Lq, int P1, int page, int mp, const long long* st, int layer, int row0,
+                 float scale, int n_split, int split_keys, void* stream_ptr) {
+  const Pages pg{static_cast<const int*>(tables), static_cast<const uint8_t*>(valid),
+                 static_cast<const int*>(offsets), mp, page, KV, P1, row0};
+  const size_t layer_rows = (size_t)P1 * KV * page;
+  return (int)launch_split_runs<D, Run>(q, static_cast<const uint8_t*>(a) + layer * layer_rows * a_row_bytes,
+                                        static_cast<const uint8_t*>(b) + layer * layer_rows * b_row_bytes, pg,
+                                        out, partial, S, H, Lq, st, scale, n_split, split_keys,
+                                        static_cast<cudaStream_t>(stream_ptr));
+}
 
 }  // namespace
 
@@ -160,6 +214,42 @@ extern "C" int k7_paged_quantized_kv_attention(const void* q, const void* payloa
           static_cast<const __nv_bfloat16*>(scales) + (size_t)layer * layer_rows * 4 * G, pg, out,
           partial, S, H, Lq, st, scale, n_split, split_keys, stream);
     }
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K6 in fp32: as k6_paged_kv_attention with f32 q, pool_k, pool_v and out.
+extern "C" int k6_paged_kv_attention_f32(const void* q, const void* pool_k, const void* pool_v,
+                                         const void* tables, const void* valid, const void* offsets,
+                                         void* out, void* partial, int S, int H, int KV, int Lq,
+                                         int P1, int page, int mp, int D, long long qsb, long long qsh,
+                                         long long qsl, long long osb, long long osh, long long osl,
+                                         int layer, int row0, float scale, int n_split,
+                                         int split_keys, void* stream_ptr) {
+  const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
+  switch (D) {
+    case 96: return paged_launch<96, DenseRunF32<96>>(q, pool_k, pool_v, 96 * 4, 96 * 4, tables, valid, offsets,
+                                                      out, partial, S, H, KV, Lq, P1, page, mp, st, layer, row0,
+                                                      scale, n_split, split_keys, stream_ptr);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K7 in fp32: as k7_paged_quantized_kv_attention with f32 q and out.
+extern "C" int k7_paged_quantized_kv_attention_f32(const void* q, const void* payload,
+                                                   const void* scales, const void* tables,
+                                                   const void* valid, const void* offsets, void* out,
+                                                   void* partial, int S, int H, int KV, int Lq, int P1,
+                                                   int page, int mp, int D, long long qsb,
+                                                   long long qsh, long long qsl, long long osb,
+                                                   long long osh, long long osl, int layer,
+                                                   int row0, float scale, int n_split,
+                                                   int split_keys, void* stream_ptr) {
+  const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
+  switch (D) {
+    case 96: return paged_launch<96, Int4RunF32<96>>(q, payload, scales, 96, 4 * (96 / kGroup) * 2, tables, valid,
+                                                     offsets, out, partial, S, H, KV, Lq, P1, page, mp, st, layer,
+                                                     row0, scale, n_split, split_keys, stream_ptr);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -49,9 +49,22 @@
 // groups are the port's d / 32, not the TPU's permuted c % G.  K4's
 // production instantiation is MODE = kFp32.
 //
+// fp32 models (the _f32 entries) take an f32 query and write f32 outputs,
+// and dequantize each key and value to f32 (q * s + b, never rounded to
+// bf16), as the JAX XLA path computes an fp32 model (the TPU kernels cast
+// the query to bf16 first, a TPU economy this port does not copy):
+// * K4 in fp32 runs split_runs.cuh's fp32 body (split_run_f32_kernel) with
+//   Int4RunF32: the same plan, runs, raw copies, window and combine, both
+//   products in f32 on the CUDA cores; the same int4 bytes as in bf16.
+// * K5 in fp32 runs fp32 K2's 3xTF32 flash body (flash_tf32.cuh) with
+//   Int4F32Tiles: the raw int4 tile of 64 keys in a two-stage ring, each
+//   dequantized once per block into the f32 K and V tiles (94 KB of shared
+//   memory a block).
+//
 // Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
 // cudaErrorInvalidValue until a configuration on the card needs it.
 
+#include "flash_tf32.cuh"
 #include "split_runs.cuh"
 
 namespace {
@@ -91,6 +104,62 @@ struct Int4Tiles {
   }
 };
 
+// K5's loader in fp32 (flash_tf32.cuh's seam): a and b as in Int4Tiles; the
+// raw tile of keys [j0, j0 + 64) (clamped to Lk - 1) arrives in a two-stage
+// ring, and convert dequantizes it into the single f32 K tile ([64][D + 8])
+// and V tile ([64][D + 4]), 16 values of a key a thread at a time.
+template <int D>
+struct Int4F32Tiles {
+  static constexpr int G = D / kGroup;
+  static constexpr int kKStages = 1;
+  static constexpr int kRawBytes = kInt4TileBytes<D>;
+  static_assert(kF32BK == kMmaBK, "the raw tile holds one fp32 tile of keys");
+
+  static __device__ __forceinline__ void issue_k(float*, unsigned char* raw, const void* __restrict__ a,
+                                                 const void* __restrict__ b, size_t key0, int j0, int Lk) {
+    constexpr int kChunks = D / 16;
+    const uint8_t* p = static_cast<const uint8_t*>(a) + key0 * D;
+    const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(b) + key0 * 4 * G;
+    __nv_bfloat16* rs = reinterpret_cast<__nv_bfloat16*>(raw + kF32BK * D);
+    for (int idx = threadIdx.x; idx < kF32BK * kChunks; idx += kF32Threads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      cp_async16(raw + r * D + c * 16, p + (size_t)min(j0 + r, Lk - 1) * D + c * 16);
+    }
+    for (int idx = threadIdx.x; idx < kF32BK * G; idx += kF32Threads) {
+      const int r = idx / G, c = idx % G;
+      cp_async8(rs + r * 4 * G + c * 4, sc + (size_t)min(j0 + r, Lk - 1) * 4 * G + c * 4);
+    }
+  }
+
+  static __device__ __forceinline__ void issue_v(float*, const void* __restrict__, const void* __restrict__,
+                                                 size_t, int, int) {}
+
+  static __device__ __forceinline__ void convert(float* __restrict__ ks, float* __restrict__ vs,
+                                                 const unsigned char* __restrict__ raw) {
+    constexpr int kChunks = D / 16;
+    const __nv_bfloat16* rs = reinterpret_cast<const __nv_bfloat16*>(raw + kF32BK * D);
+    for (int idx = threadIdx.x; idx < kF32BK * kChunks; idx += kF32Threads) {
+      const int r = idx / kChunks, c = idx % kChunks, g = c * 16 / kGroup;
+      const uint4 w = *reinterpret_cast<const uint4*>(raw + r * D + c * 16);
+      const __nv_bfloat16* sr = rs + r * 4 * G;
+      const float k_s = bf(sr[g]), k_b = bf(sr[G + g]), v_s = bf(sr[2 * G + g]), v_b = bf(sr[3 * G + g]);
+      const unsigned words[4] = {w.x, w.y, w.z, w.w};
+      float* kd = ks + r * (D + 8) + c * 16;
+      float* vd = vs + r * (D + 4) + c * 16;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned kw = words[i] & 0x0F0F0F0Fu, vw = (words[i] >> 4) & 0x0F0F0F0Fu;
+        reinterpret_cast<float4*>(kd)[i] =
+            make_float4(dequant_fma(byte_level(kw, 0), k_s, k_b), dequant_fma(byte_level(kw, 1), k_s, k_b),
+                        dequant_fma(byte_level(kw, 2), k_s, k_b), dequant_fma(byte_level(kw, 3), k_s, k_b));
+        reinterpret_cast<float4*>(vd)[i] =
+            make_float4(dequant_fma(byte_level(vw, 0), v_s, v_b), dequant_fma(byte_level(vw, 1), v_s, v_b),
+                        dequant_fma(byte_level(vw, 2), v_s, v_b), dequant_fma(byte_level(vw, 3), v_s, v_b));
+      }
+    }
+  }
+};
+
 // K4's window (split_runs.cuh) over one layer of the stacked cache (B, KV,
 // Lmax, ...): batch row s's key j of kv head kvh at row (s * KV + kvh) *
 // Lmax + j; query i sits at offset + i for every row and sees key j iff j
@@ -109,7 +178,7 @@ struct Stacked {
   __device__ __forceinline__ bool listed(int s, int j, int) const { return valid[(size_t)s * L + j] != 0; }
 };
 
-template <int D, int MODE>
+template <int D, class Run>
 cudaError_t launch_quantized_decode(const void* q, const void* payload, const void* scales,
                                     const void* valid, void* out, void* partial, int B, int H,
                                     int KV, int Lq, int Lmax, const long long* st, int layer,
@@ -121,8 +190,8 @@ cudaError_t launch_quantized_decode(const void* q, const void* payload, const vo
   const uint8_t* p = static_cast<const uint8_t*>(payload) + (size_t)layer * layer_keys * D;
   const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(scales) + (size_t)layer * layer_keys * 4 * G;
   const Stacked win{static_cast<const uint8_t*>(valid), static_cast<const int*>(offset), KV, Lmax, row0};
-  return launch_split_runs<D, Int4Run<D, MODE>>(q, p, s, win, out, partial, B, H, Lq, st, scale,
-                                                 n_split, block_keys, stream);
+  return launch_split_runs<D, Run>(q, p, s, win, out, partial, B, H, Lq, st, scale, n_split, block_keys,
+                                   stream);
 }
 
 }  // namespace
@@ -148,7 +217,7 @@ extern "C" int k4_quantized_kv_attention(const void* q, const void* payload, con
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   switch (D) {
-    case 96: return (int)launch_quantized_decode<96, kFp32>(q, payload, scales, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, offset, row0, scale, n_split, split_keys, stream);
+    case 96: return (int)launch_quantized_decode<96, Int4Run<96>>(q, payload, scales, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, offset, row0, scale, n_split, split_keys, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -192,7 +261,7 @@ extern "C" int e23_quantized_kv_attention_variant(const void* q, const void* pay
   if (D != 96) return (int)cudaErrorInvalidValue;
 #define E23_CASE(M)                                                                               \
   case M:                                                                                         \
-    return (int)launch_quantized_decode<96, M>(q, payload, scales, valid, out, partial, B, H, KV, \
+    return (int)launch_quantized_decode<96, Int4Run<96, M>>(q, payload, scales, valid, out, partial, B, H, KV, \
                                                Lq, Lmax, st, layer, offset, row0, scale, n_split, \
                                                split_keys, stream);
   switch (mode) {
@@ -206,4 +275,44 @@ extern "C" int e23_quantized_kv_attention_variant(const void* q, const void* pay
     default: return (int)cudaErrorInvalidValue;
   }
 #undef E23_CASE
+}
+
+// K4 in fp32: as k4_quantized_kv_attention with f32 q and out.
+extern "C" int k4_quantized_kv_attention_f32(const void* q, const void* payload, const void* scales,
+                                             const void* valid, void* out, void* partial, int B,
+                                             int H, int KV, int Lq, int Lmax, int D, long long qsb,
+                                             long long qsh, long long qsl, long long osb,
+                                             long long osh, long long osl, int layer,
+                                             const void* offset, int row0, float scale, int n_split,
+                                             int split_keys, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
+  switch (D) {
+    case 96: return (int)launch_quantized_decode<96, Int4RunF32<96>>(q, payload, scales, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, offset, row0, scale, n_split, split_keys, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K5 in fp32: as k5_quantized_flash_attention with f32 q and out, out
+// 16-byte aligned with strides that are multiples of 4.
+extern "C" int k5_quantized_flash_attention_f32(const void* q, const void* payload, const void* scales,
+                                                const void* valid, void* out, int B, int H, int KV,
+                                                int Lq, int Lmax, int D, long long qsb, long long qsh,
+                                                long long qsl, long long osb, long long osh,
+                                                long long osl, int layer, int q_pos0, float scale,
+                                                void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
+  const size_t layer_keys = (size_t)B * KV * Lmax;
+  if (osb % 4 || osh % 4 || osl % 4 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 96: {
+      constexpr int G = Int4F32Tiles<96>::G;
+      const void* p = static_cast<const uint8_t*>(payload) + (size_t)layer * layer_keys * 96;
+      const void* s = static_cast<const __nv_bfloat16*>(scales) + (size_t)layer * layer_keys * 4 * G;
+      return (int)launch_flash_f32<96, Int4F32Tiles<96>>(q, p, s, valid, out, B, H, KV, Lq, Lmax, st, q_pos0, scale, stream);
+    }
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

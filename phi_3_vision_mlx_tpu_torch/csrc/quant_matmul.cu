@@ -43,6 +43,19 @@
 // slower).  Layouts reach the routes through a loader (the seam, as
 // flash_mma.cuh's Tiles): WordTiles<4> for K1's (K/8, N) words,
 // WordTiles<8> for K8's (K/4, N) words, PackedTiles for K9's bytes.
+//
+// fp32 models (the _f32 entries) take f32 x and write f32 y.  They compute
+// the JAX package's XLA path (ops/quant.py:quantized_matmul at HIGHEST
+// precision), not its TPU kernels, which round x to bf16 first: W = s * q +
+// b in f32 (one FMA, exact as above), never rounded to bf16, and f32 products
+// summed in f32.  Route A is the same GEMV with x staged as it comes and the
+// weights kept in f32 (the same weight bytes, so the same bound).  Route B
+// runs on the CUDA cores (wf32_tile_kernel): the bf16 route's cp.async stages
+// of x, payload and scales through the same loaders, each group's payload
+// tile dequantized once per block into a 64 x 128 f32 tile in shared memory
+// (tile_f32, the loader's other hook), and a register tile of rows x 8
+// columns a thread; bound by the products at 67 TFLOP/s f32 from some tens
+// of rows on.  K9 takes route B at every M in fp32 too.
 
 #include "mma.cuh"
 #include "quant_matmul.cuh"
@@ -123,7 +136,17 @@ __device__ __forceinline__ void gemv_load(GemvUnit& d, const GemvUnit& first, co
 // acc[c] += the unit's rows of column c times x; xg is x at the unit's first
 // row of K.  4 bits: nibble n of word row r is row 8 r + n.  8 bits: byte e
 // of word row r is row 4 r + e.
-template <int BITS, bool AFFINE>
+// F32: the weights stay f32 (an fp32 model); else each is rounded to bf16.
+template <bool F32>
+__device__ __forceinline__ void weight_pair(float& w0, float& w1) {
+  if constexpr (!F32) {
+    const unsigned u = pack_bf16(w0, w1);
+    w0 = lo_f32(u);
+    w1 = hi_f32(u);
+  }
+}
+
+template <int BITS, bool AFFINE, bool F32>
 __device__ __forceinline__ void gemv_compute(float (&acc)[4], const GemvUnit& d, const float* xg) {
   const float zero = AFFINE ? kAffineZero : kSymmetricZero;
   const float s[4] = {lo_f32(d.s.x), hi_f32(d.s.x), lo_f32(d.s.y), hi_f32(d.s.y)};
@@ -141,24 +164,26 @@ __device__ __forceinline__ void gemv_compute(float (&acc)[4], const GemvUnit& d,
         const unsigned lo = wc[c] & 0x0F0F0F0Fu, hi = (wc[c] >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const unsigned u = pack_bf16(dequant<AFFINE>(level(lo, e, zero), s[c], b[c]),
-                                       dequant<AFFINE>(level(hi, e, zero), s[c], b[c]));
-          acc[c] = fmaf(xv[2 * e], lo_f32(u), acc[c]);
-          acc[c] = fmaf(xv[2 * e + 1], hi_f32(u), acc[c]);
+          float w0 = dequant<AFFINE>(level(lo, e, zero), s[c], b[c]);
+          float w1 = dequant<AFFINE>(level(hi, e, zero), s[c], b[c]);
+          weight_pair<F32>(w0, w1);
+          acc[c] = fmaf(xv[2 * e], w0, acc[c]);
+          acc[c] = fmaf(xv[2 * e + 1], w1, acc[c]);
         }
       }
     } else {
       const float4 p = *reinterpret_cast<const float4*>(xg + r * 4);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const unsigned u0 = pack_bf16(dequant<AFFINE>(level(wc[c], 0, zero), s[c], b[c]),
-                                      dequant<AFFINE>(level(wc[c], 1, zero), s[c], b[c]));
-        const unsigned u1 = pack_bf16(dequant<AFFINE>(level(wc[c], 2, zero), s[c], b[c]),
-                                      dequant<AFFINE>(level(wc[c], 3, zero), s[c], b[c]));
-        acc[c] = fmaf(p.x, lo_f32(u0), acc[c]);
-        acc[c] = fmaf(p.y, hi_f32(u0), acc[c]);
-        acc[c] = fmaf(p.z, lo_f32(u1), acc[c]);
-        acc[c] = fmaf(p.w, hi_f32(u1), acc[c]);
+        float w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = dequant<AFFINE>(level(wc[c], e, zero), s[c], b[c]);
+        weight_pair<F32>(w[0], w[1]);
+        weight_pair<F32>(w[2], w[3]);
+        acc[c] = fmaf(p.x, w[0], acc[c]);
+        acc[c] = fmaf(p.y, w[1], acc[c]);
+        acc[c] = fmaf(p.z, w[2], acc[c]);
+        acc[c] = fmaf(p.w, w[3], acc[c]);
       }
     }
   }
@@ -172,13 +197,15 @@ __device__ __forceinline__ void gemv_compute(float (&acc)[4], const GemvUnit& d,
 // its two halves at 8 bits.  The next unit's loads are issued before this
 // one's arithmetic (two register buffers), so the bytes stream while the CUDA
 // cores dequantize.  Warps 1-3 hand their sums to warp 0 through red, which
-// adds them in warp order.
-template <int BITS, bool AFFINE>
+// adds them in warp order.  XT: bf16 x (weights rounded to bf16), or f32 x
+// of an fp32 model (weights kept in f32).
+template <int BITS, bool AFFINE, typename XT>
 __global__ void __launch_bounds__(kThreads)
-    k1_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ qw,
+    k1_gemv_kernel(const XT* __restrict__ x, const int32_t* __restrict__ qw,
                    const __nv_bfloat16* __restrict__ scales, const __nv_bfloat16* __restrict__ biases,
                    void* __restrict__ dst, int dst_bf16, int K, int N, int gps) {
   static_assert(BITS == 4 || (BITS == 8 && AFFINE), "4-bit levels, or affine 8-bit ones");
+  constexpr bool F32 = sizeof(XT) == 4;
   constexpr int U = BITS / 4;  // units per group
   extern __shared__ __align__(16) float xs[];  // [kr]
   __shared__ __align__(16) float4 red[kAWarps - 1][32];
@@ -190,11 +217,16 @@ __global__ void __launch_bounds__(kThreads)
   auto group = [&](int u) { return g0 + warp + kAWarps * (u / U); };
   GemvUnit da, db;
   if (n < N && nu > 0) gemv_load<BITS, AFFINE>(da, da, qw, scales, biases, group(0), 0, n, N);  // over the x copy
-  for (int c = threadIdx.x; c < kr / 8; c += kThreads) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(x + g0 * kGroup + c * 8));
-    float4* d = reinterpret_cast<float4*>(xs + c * 8);
-    d[0] = make_float4(lo_f32(v.x), hi_f32(v.x), lo_f32(v.y), hi_f32(v.y));
-    d[1] = make_float4(lo_f32(v.z), hi_f32(v.z), lo_f32(v.w), hi_f32(v.w));
+  if constexpr (F32) {
+    for (int c = threadIdx.x; c < kr / 4; c += kThreads)
+      reinterpret_cast<float4*>(xs)[c] = __ldg(reinterpret_cast<const float4*>(x + g0 * kGroup) + c);
+  } else {
+    for (int c = threadIdx.x; c < kr / 8; c += kThreads) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(x + g0 * kGroup + c * 8));
+      float4* d = reinterpret_cast<float4*>(xs + c * 8);
+      d[0] = make_float4(lo_f32(v.x), hi_f32(v.x), lo_f32(v.y), hi_f32(v.y));
+      d[1] = make_float4(lo_f32(v.z), hi_f32(v.z), lo_f32(v.w), hi_f32(v.w));
+    }
   }
   __syncthreads();
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -204,10 +236,10 @@ __global__ void __launch_bounds__(kThreads)
     auto xg = [&](int u) { return xs + (group(u) - g0) * kGroup + (u % U) * (kGroup / U); };
     for (int u = 0; u < nu; u += 2) {
       if (u + 1 < nu) gemv_load<BITS, AFFINE>(db, da, qw, scales, biases, group(u + 1), (u + 1) % U, n, N);
-      gemv_compute<BITS, AFFINE>(acc, da, xg(u));
+      gemv_compute<BITS, AFFINE, F32>(acc, da, xg(u));
       if (u + 1 >= nu) break;
       if (u + 2 < nu) gemv_load<BITS, AFFINE>(da, db, qw, scales, biases, group(u + 2), (u + 2) % U, n, N);
-      gemv_compute<BITS, AFFINE>(acc, db, xg(u + 1));
+      gemv_compute<BITS, AFFINE, F32>(acc, db, xg(u + 1));
     }
   }
   if (warp > 0) red[warp - 1][lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -321,6 +353,29 @@ struct WordTiles {
       }
     }
   }
+  // fp32 route B: the group's weights as f32 into w[64][kBN] (tile column c
+  // is column tile * kBN + c); ss: the staged scales, then the biases.
+  // Thread i takes the word (row r, column c) of idx = i + kThreads * u:
+  // consecutive threads read consecutive words of a staged row.
+  template <bool AFFINE>
+  static __device__ __forceinline__ void tile_f32(const uint8_t* st, const __nv_bfloat16* ss,
+                                                  float* __restrict__ w) {
+    constexpr int kPer = 32 / BITS;  // levels a word: row r's word holds rows kPer r ..
+    const float zero = AFFINE ? kAffineZero : kSymmetricZero;
+    for (int idx = threadIdx.x; idx < kRows * kBN; idx += kThreads) {
+      const int r = idx / kBN, c = idx % kBN;
+      const unsigned v = *reinterpret_cast<const unsigned*>(st + slot(r) * kRowBytes + 4 * c);
+      const unsigned lo = BITS == 4 ? v & 0x0F0F0F0Fu : v, hi = (v >> 4) & 0x0F0F0F0Fu;
+      const float s = __bfloat162float(ss[c]), b = AFFINE ? __bfloat162float(ss[kBN + c]) : 0.f;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {  // 4 bits: nibble e is byte e / 2 of lo (e even) or hi
+        const float lv = BITS == 4 ? level(e & 1 ? hi : lo, e >> 1, zero) : level(lo, e, zero);
+        w[(kPer * r + e) * kBN + c] = dequant<AFFINE>(lv, s, b);
+      }
+    }
+  }
+  // fp32 route B: the output column of tile column c (runs of 4 stay runs).
+  static __device__ __forceinline__ int out_col(int tile, int c) { return tile * kBN + c; }
   // v[j][c]: the sum of n-tile j at the mma's column 2 t + c.
   static __device__ __forceinline__ int run_col(int tile, int warp, int t, int which) {
     return tile * kBN + warp * 32 + 8 * t + 4 * which;
@@ -384,6 +439,24 @@ struct PackedTiles {
         f[sx][j][1] = pack_bf16(wv[j][2], wv[j][3]);
       }
     }
+  }
+  // fp32 route B: tile column c < 64 is the low nibble of byte column c, c
+  // >= 64 the high nibble of byte column c - 64, as the staged scales lie.
+  template <bool AFFINE>
+  static __device__ __forceinline__ void tile_f32(const uint8_t* st, const __nv_bfloat16* ss,
+                                                  float* __restrict__ w) {
+    for (int idx = threadIdx.x; idx < kGroup * (kBN / 2); idx += kThreads) {
+      const int i = idx / (kBN / 2), j = idx % (kBN / 2);
+      const unsigned v = st[i * kRowBytes + (i / 16) * 16 + j];
+      w[i * kBN + j] = dequant<AFFINE>(level(v & 0x0Fu, 0, kAffineZero), __bfloat162float(ss[j]),
+                                       __bfloat162float(ss[kBN + j]));
+      w[i * kBN + kBN / 2 + j] = dequant<AFFINE>(level(v >> 4, 0, kAffineZero),
+                                                 __bfloat162float(ss[kBN / 2 + j]),
+                                                 __bfloat162float(ss[kBN + kBN / 2 + j]));
+    }
+  }
+  static __device__ __forceinline__ int out_col(int tile, int c) {
+    return (tile / 4) * 512 + (tile % 4) * 64 + (c < 64 ? c : 256 + c - 64);
   }
   static __device__ __forceinline__ int run_col(int tile, int warp, int t, int which) {
     return (tile / 4) * 512 + (tile % 4) * 64 + 256 * which + warp * 16 + 4 * t;
@@ -497,22 +570,139 @@ void launch_mma(const __nv_bfloat16* x, const void* q, const __nv_bfloat16* s,
                                                               block_k, gps);
 }
 
+// --- fp32 route B: every layout at M >= 2 (K9 at every M), CUDA cores ---
+//
+// A block owns BM rows x kBN = 128 columns.  Per 64-row group of K one
+// cp.async stage brings the f32 x tile (BM x 64, rows padded to 68 floats),
+// the payload tile (the loader's issue, as in route B) and the 128 scales
+// and biases, the next group's stage in flight while this one is used; the
+// block dequantizes the payload tile once into w (64 x 128 f32, the loader's
+// tile_f32), then thread (ty, tx) = (tid / 16, tid % 16) sums rows ty + 8 i
+// (i < BM / 8) x tile columns 4 tx .. 4 tx + 3 and 64 + 4 tx .. + 3, k in
+// order (f32 FMAs).  Shared memory: 2 x (BM x 272 + the payload tile + 512)
+// + 32768 bytes, 86 KB at BM = 64.
+constexpr int kF32XStride = kGroup + 4;  // floats per staged x row
+
+template <int BM, class L>
+constexpr size_t kF32Stage = (size_t)BM * kF32XStride * 4 + L::kBytes + 2 * kBN * 2;
+template <int BM, class L>
+constexpr size_t kF32Smem = 2 * kF32Stage<BM, L> + (size_t)kGroup * kBN * 4;
+
+// Grid (tiles, ceil(M / BM), splits); split z covers groups [z gps, (z + 1) gps).
+template <int BM, class L, bool AFFINE>
+__global__ void __launch_bounds__(kThreads)
+    wf32_tile_kernel(const float* __restrict__ x, const void* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ scales, const __nv_bfloat16* __restrict__ biases,
+                     void* __restrict__ dst, int dst_bf16, int M, int K, int N, int block_k, int gps) {
+  constexpr int RT = BM / 8;  // rows a thread
+  constexpr size_t kStage = kF32Stage<BM, L>;
+  constexpr size_t kXBytes = (size_t)BM * kF32XStride * 4;
+  extern __shared__ __align__(16) uint8_t f32_smem[];
+  float* w = reinterpret_cast<float*>(f32_smem + 2 * kStage);  // [kGroup][kBN]
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tile = blockIdx.x, m0 = blockIdx.y * BM;
+  const int G = K / kGroup, g0 = blockIdx.z * gps, g1 = min(G, g0 + gps);
+
+  auto issue = [&](int g) {
+    uint8_t* st = f32_smem + ((g - g0) & 1) * kStage;
+    for (int idx = tid; idx < BM * (kGroup / 4); idx += kThreads) {
+      const int r = idx / (kGroup / 4), c = idx % (kGroup / 4), m = m0 + r;
+      cp_async16_zfill(st + (r * kF32XStride + 4 * c) * 4, x + (size_t)min(m, M - 1) * K + g * kGroup + c * 4,
+                       m < M ? 16 : 0);
+    }
+    L::issue(st + kXBytes, q, N, block_k, g, tile);
+    if (tid < 32 && (AFFINE || tid < 16)) {  // 16 runs of 8 scales, then of 8 biases
+      const int c8 = tid & 15, col = L::scale_col(tile, c8);
+      const __nv_bfloat16* src = (tid < 16 ? scales : biases) + (size_t)g * N + min(col, N - 8);
+      cp_async16_zfill(st + kXBytes + L::kBytes + tid * 16, src, col < N ? 16 : 0);
+    }
+  };
+
+  float acc[RT][8];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  issue(g0);
+  cp_async_commit();
+  for (int g = g0; g < g1; ++g) {
+    if (g + 1 < g1) issue(g + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint8_t* st = f32_smem + ((g - g0) & 1) * kStage;
+    L::template tile_f32<AFFINE>(st + kXBytes,
+                                 reinterpret_cast<const __nv_bfloat16*>(st + kXBytes + L::kBytes), w);
+    __syncthreads();
+    const float* xt = reinterpret_cast<const float*>(st) + ty * kF32XStride;
+#pragma unroll 4
+    for (int k = 0; k < kGroup; ++k) {
+      const float4 w0 = *reinterpret_cast<const float4*>(w + k * kBN + 4 * tx);
+      const float4 w1 = *reinterpret_cast<const float4*>(w + k * kBN + kBN / 2 + 4 * tx);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float xv = xt[i * 8 * kF32XStride + k];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();  // the stage and w are free
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int m = m0 + ty + 8 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = L::out_col(tile, half * (kBN / 2) + 4 * tx);
+      if (L::kRagged && col >= N) continue;
+      store4(dst, dst_bf16, ((size_t)blockIdx.z * M + m) * N + col, acc[i][4 * half], acc[i][4 * half + 1],
+             acc[i][4 * half + 2], acc[i][4 * half + 3]);
+    }
+  }
+}
+
+template <int BM, class L, bool AFFINE>
+cudaError_t launch_f32_tiles(const float* x, const void* q, const __nv_bfloat16* s, const __nv_bfloat16* b,
+                             void* dst, int dst_bf16, int M, int K, int N, int block_k, int splits, int gps,
+                             cudaStream_t stream) {
+  constexpr size_t bytes = kF32Smem<BM, L>;
+  const cudaError_t err = cudaFuncSetAttribute(wf32_tile_kernel<BM, L, AFFINE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, splits);
+  wf32_tile_kernel<BM, L, AFFINE><<<grid, kThreads, bytes, stream>>>(x, q, s, b, dst, dst_bf16, M, K, N,
+                                                                     block_k, gps);
+  return cudaSuccess;
+}
+
 // Route A for K1 and K8 at M = 1, else route B with the smallest row tile
 // that holds M (the wrapper's plan() sizes the K split for the same route).
-template <class L, bool AFFINE>
-void launch_route(const __nv_bfloat16* x, const void* q, const __nv_bfloat16* s,
+template <class L, bool AFFINE, typename XT>
+void launch_route(const XT* x, const void* q, const __nv_bfloat16* s,
                   const __nv_bfloat16* b, void* dst, int dst_bf16, int M, int K, int N, int block_k,
                   int splits, int gps, cudaStream_t stream) {
 #define ARGS x, q, s, b, dst, dst_bf16, M, K, N, block_k, splits, gps, stream
   if constexpr (L::kGemv) {
     if (M == 1) {
       dim3 grid((N / 4 + 31) / 32, splits);  // 32 lanes x 4 columns per block
-      k1_gemv_kernel<L::kBits, AFFINE><<<grid, kThreads, (size_t)gps * kGroup * sizeof(float), stream>>>(
+      k1_gemv_kernel<L::kBits, AFFINE, XT><<<grid, kThreads, (size_t)gps * kGroup * sizeof(float), stream>>>(
           x, static_cast<const int32_t*>(q), s, b, dst, dst_bf16, K, N, gps);
       return;
     }
   }
-  if (M <= 16) {
+  if constexpr (sizeof(XT) == 4) {  // fp32: route B on the CUDA cores
+    if (M <= 16)
+      launch_f32_tiles<16, L, AFFINE>(ARGS);
+    else if (M <= 32)
+      launch_f32_tiles<32, L, AFFINE>(ARGS);
+    else
+      launch_f32_tiles<64, L, AFFINE>(ARGS);
+  } else if (M <= 16) {
     launch_mma<16, L, AFFINE>(ARGS);
   } else if (M <= 32) {
     launch_mma<32, L, AFFINE>(ARGS);
@@ -522,17 +712,19 @@ void launch_route(const __nv_bfloat16* x, const void* q, const __nv_bfloat16* s,
 #undef ARGS
 }
 
-// Every layout: check the plan, launch a route, then add the splits.
-template <class L>
+// Every layout: check the plan, launch a route, then add the splits.  XT:
+// the activations' type, bf16 or f32 (an fp32 model).
+template <class L, typename XT>
 int wq_matmul(const void* x, const void* q, const void* scales, const void* biases, void* partial,
               void* out, int M, int K, int N, int block_k, int splits, int gps, int out_f32,
               void* stream_ptr) {
   const int G = K / kGroup;
   const bool plan_ok = M >= 1 && K % kGroup == 0 && gps >= 1 && splits == (G + gps - 1) / gps &&
-                       (splits == 1 || partial != nullptr) && (!L::kGemv || M > 1 || gps <= kAMaxGroups);
+                       (splits == 1 || partial != nullptr) && (!L::kGemv || M > 1 || gps <= kAMaxGroups) &&
+                       (sizeof(XT) == 2 || out_f32);
   if (!plan_ok) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* xp = static_cast<const XT*>(x);
   const auto* sp = static_cast<const __nv_bfloat16*>(scales);
   const auto* bp = static_cast<const __nv_bfloat16*>(biases);
   void* dst = splits > 1 ? partial : out;
@@ -562,7 +754,7 @@ extern "C" int k1_w4a16_matmul(const void* x, const void* qw, const void* scales
                                int N, int splits, int groups_per_split, int out_f32,
                                void* stream_ptr) {
   if (N % 8) return (int)cudaErrorInvalidValue;
-  return wq_matmul<WordTiles<4>>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
+  return wq_matmul<WordTiles<4>, __nv_bfloat16>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
                                   groups_per_split, out_f32, stream_ptr);
 }
 
@@ -577,7 +769,7 @@ extern "C" int k8_w8a16_matmul(const void* x, const void* qw, const void* scales
                                int N, int splits, int groups_per_split, int out_f32,
                                void* stream_ptr) {
   if (N % 8 || biases == nullptr) return (int)cudaErrorInvalidValue;
-  return wq_matmul<WordTiles<8>>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
+  return wq_matmul<WordTiles<8>, __nv_bfloat16>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
                                  groups_per_split, out_f32, stream_ptr);
 }
 
@@ -593,6 +785,38 @@ extern "C" int k9_w4a16_packed_matmul(const void* x, const void* qp, const void*
                                       int out_f32, void* stream_ptr) {
   if (N % 512 || block_k % kGroup || block_k < kGroup || K % block_k || biases == nullptr)
     return (int)cudaErrorInvalidValue;
-  return wq_matmul<PackedTiles>(x, qp, scales, biases, partial, out, M, K, N, block_k, splits,
+  return wq_matmul<PackedTiles, __nv_bfloat16>(x, qp, scales, biases, partial, out, M, K, N, block_k, splits,
                                 groups_per_split, out_f32, stream_ptr);
+}
+
+// The fp32 entries: as k1_w4a16_matmul, k8_w8a16_matmul and
+// k9_w4a16_packed_matmul with f32 x (M, K) and f32 out (out_f32 must be 1),
+// for fp32 models (route A at M = 1 for K1 and K8, the f32 route B above it
+// and for K9 at every M).
+extern "C" int k1_w4a16_matmul_f32(const void* x, const void* qw, const void* scales,
+                                   const void* biases, void* partial, void* out, int M, int K,
+                                   int N, int splits, int groups_per_split, int out_f32,
+                                   void* stream_ptr) {
+  if (N % 8) return (int)cudaErrorInvalidValue;
+  return wq_matmul<WordTiles<4>, float>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
+                                        groups_per_split, out_f32, stream_ptr);
+}
+
+extern "C" int k8_w8a16_matmul_f32(const void* x, const void* qw, const void* scales,
+                                   const void* biases, void* partial, void* out, int M, int K,
+                                   int N, int splits, int groups_per_split, int out_f32,
+                                   void* stream_ptr) {
+  if (N % 8 || biases == nullptr) return (int)cudaErrorInvalidValue;
+  return wq_matmul<WordTiles<8>, float>(x, qw, scales, biases, partial, out, M, K, N, 0, splits,
+                                        groups_per_split, out_f32, stream_ptr);
+}
+
+extern "C" int k9_w4a16_packed_matmul_f32(const void* x, const void* qp, const void* scales,
+                                          const void* biases, void* partial, void* out, int M,
+                                          int K, int N, int block_k, int splits,
+                                          int groups_per_split, int out_f32, void* stream_ptr) {
+  if (N % 512 || block_k % kGroup || block_k < kGroup || K % block_k || biases == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return wq_matmul<PackedTiles, float>(x, qp, scales, biases, partial, out, M, K, N, block_k, splits,
+                                       groups_per_split, out_f32, stream_ptr);
 }

@@ -66,6 +66,8 @@
 // score), every run of the whole window is live, and the combine adds.
 #pragma once
 
+#include <type_traits>
+
 #include "flash_mma.cuh"
 
 namespace {
@@ -100,6 +102,7 @@ struct Int4Run {
   static constexpr int G = D / kGroup;
   static constexpr int kRawBytes = kInt4TileBytes<D>;
   static constexpr int kMode = MODE;
+  static constexpr bool kF32 = false;
 
   template <class Win>
   static __device__ __forceinline__ void issue(__nv_bfloat16*, __nv_bfloat16*, unsigned char* raw,
@@ -132,6 +135,62 @@ struct Int4Run {
     const unsigned lvl = static_cast<const uint8_t*>(a)[row * D + d] >> 4;
     if constexpr (kRaw<MODE>) return level_f(lvl);
     else return mode_value<MODE>(level_f(lvl), bf(sr[2 * G + g]), bf(sr[3 * G + g]));
+  }
+};
+
+// The f32 tiles of the fp32 body: keys [kRunKeys][D + 4] (float4 reads by
+// two threads a key fall in distinct banks), values [kRunKeys][D].
+template <int D>
+constexpr int kF32KStride = D + 4;
+
+// The int4 loader of an fp32 model (K4, K7 in fp32): Int4Run's raw stage and
+// copies; tiles() dequantizes each value to f32 as dequant_fma gives it (the
+// plain fp32 path's bits: q * s exact, one rounding of + b) and keeps it.
+template <int D>
+struct Int4RunF32 {
+  static constexpr int G = D / kGroup;
+  static constexpr int kRawBytes = kInt4TileBytes<D>;
+  static constexpr int kMode = kFp32;
+  static constexpr bool kF32 = true;
+
+  template <class Win>
+  static __device__ __forceinline__ void issue(float* kt, float* vt, unsigned char* raw, const void* __restrict__ a,
+                                               const void* __restrict__ b, const Win& win, int s, int kvh, int j0,
+                                               int n) {
+    Int4Run<D>::issue(nullptr, nullptr, raw, a, b, win, s, kvh, j0, n);
+  }
+
+  static __device__ __forceinline__ void tiles(float* __restrict__ ks, float* __restrict__ vs,
+                                               const unsigned char* __restrict__ raw) {
+    constexpr int kChunks = D / 16;
+    const __nv_bfloat16* rs = reinterpret_cast<const __nv_bfloat16*>(raw + kRunKeys * D);
+    for (int idx = threadIdx.x; idx < kRunKeys * kChunks; idx += kRunThreads) {
+      const int r = idx / kChunks, c = idx % kChunks, g = c * 16 / kGroup;
+      const uint4 w = *reinterpret_cast<const uint4*>(raw + r * D + c * 16);
+      const __nv_bfloat16* sr = rs + r * 4 * G;
+      const float k_s = bf(sr[g]), k_b = bf(sr[G + g]), v_s = bf(sr[2 * G + g]), v_b = bf(sr[3 * G + g]);
+      const unsigned words[4] = {w.x, w.y, w.z, w.w};
+      float* kd = ks + r * kF32KStride<D> + c * 16;
+      float* vd = vs + r * D + c * 16;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // bytes 4i .. 4i + 3 of the chunk: values 4i .. 4i + 3
+        const unsigned kw = words[i] & 0x0F0F0F0Fu, vw = (words[i] >> 4) & 0x0F0F0F0Fu;
+        reinterpret_cast<float4*>(kd)[i] =
+            make_float4(dequant_fma(byte_level(kw, 0), k_s, k_b), dequant_fma(byte_level(kw, 1), k_s, k_b),
+                        dequant_fma(byte_level(kw, 2), k_s, k_b), dequant_fma(byte_level(kw, 3), k_s, k_b));
+        reinterpret_cast<float4*>(vd)[i] =
+            make_float4(dequant_fma(byte_level(vw, 0), v_s, v_b), dequant_fma(byte_level(vw, 1), v_s, v_b),
+                        dequant_fma(byte_level(vw, 2), v_s, v_b), dequant_fma(byte_level(vw, 3), v_s, v_b));
+      }
+    }
+  }
+
+  static __device__ __forceinline__ float window_value(const void* __restrict__ a, const void* __restrict__ b,
+                                                       size_t row, int d) {
+    const __nv_bfloat16* sr = static_cast<const __nv_bfloat16*>(b) + row * 4 * G;
+    const int g = d / kGroup;
+    return dequant_fma(level_f(static_cast<const uint8_t*>(a)[row * D + d] >> 4), bf(sr[2 * G + g]),
+                       bf(sr[3 * G + g]));
   }
 };
 
@@ -394,6 +453,166 @@ __global__ void __launch_bounds__(kRunThreads)
   }
 }
 
+// The fp32 body (Run::kF32): split_run_kernel's grid, plan, window and
+// partials, with f32 q, f32 tiles and both products on the CUDA cores.
+// Thread t scores key t / 2 of the run over half t % 2 of D for every query
+// row (the halves added by one shuffle); warp w updates rows w, w + 4, ..
+// (one max and one sum per run, alpha for the rows' output so far); thread
+// d < D owns output dim d of every row.  Shared memory: the raw ring, the
+// key and value tiles, P [Lq][kPStride] and q * scale [Lq][D], all f32.
+template <int D, class Run, class Win, bool kMulti>
+__global__ void __launch_bounds__(kRunThreads)
+    split_run_f32_kernel(const float* __restrict__ q, const void* __restrict__ a, const void* __restrict__ b,
+                         Win win, float* __restrict__ partial, int H, int Lq, long long qsb, long long qsh,
+                         long long qsl, float scale, int block_keys) {
+  static_assert(kRunThreads == 2 * kRunKeys && D <= kRunThreads && D % 8 == 0, "two threads a key, a thread a dim");
+  constexpr int KS = kF32KStride<D>, HD = D / 2;
+  constexpr int kWarps = kRunThreads / 32;
+  constexpr int kStages = kMulti ? 2 : 1;
+  constexpr bool kRawRing = Run::kRawBytes > 0;
+  constexpr int kTileStages = kRawRing ? 1 : kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* raw = smem_raw;  // [kStages][kRawBytes]
+  float* kt0 = reinterpret_cast<float*>(smem_raw + kStages * Run::kRawBytes);  // [kTileStages][kRunKeys][KS]
+  float* vt0 = kt0 + kTileStages * kRunKeys * KS;                              // [kTileStages][kRunKeys][D]
+  float* ps = vt0 + kTileStages * kRunKeys * D;                                // [Lq][kPStride]
+  float* qs = ps + Lq * kPStride;                                              // [Lq][D]: q * scale
+  __shared__ float sm_m[kRunMaxRows], sm_l[kRunMaxRows], sm_a[kRunMaxRows];
+  __shared__ bool listed[kRunKeys];
+
+  const int blk = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int kvh = h / (H / win.KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int W = win.width(), off = win.offset(s), q0 = off + win.row0;
+  const int jb = blk * block_keys;
+  const int je = min(min(W, q0 + Lq), jb + block_keys);
+  float* dst = partial + ((size_t)blk * gridDim.y * gridDim.z * Lq + ((size_t)s * H + h) * Lq) * (D + 2);
+  if (je <= jb) {
+    if (tid < Lq) {
+      dst[tid * (D + 2)] = kNegInf;
+      dst[tid * (D + 2) + 1] = 0.f;
+    }
+    return;
+  }
+  const int n_runs = kMulti ? (je - jb + kRunKeys - 1) / kRunKeys : 1;
+  auto kt = [&](int t) { return kt0 + (t & (kTileStages - 1)) * kRunKeys * KS; };
+  auto vt = [&](int t) { return vt0 + (t & (kTileStages - 1)) * kRunKeys * D; };
+  auto rw = [&](int t) { return raw + (t & (kStages - 1)) * Run::kRawBytes; };
+  auto issue = [&](int t) {
+    const int j0 = jb + t * kRunKeys;
+    Run::issue(kt(t), vt(t), rw(t), a, b, win, s, kvh, j0, min(kRunKeys, je - j0));
+  };
+  issue(0);
+  cp_async_commit();
+  const float* qb = q + s * qsb + h * qsh;
+  for (int x = tid; x < Lq * D; x += kRunThreads) {
+    const int r = x / D, c = x % D;
+    qs[x] = qb[r * qsl + c] * scale;  // f32, as the plain path
+  }
+  if (tid < kRunMaxRows) {
+    sm_m[tid] = -INFINITY;
+    sm_l[tid] = 0.f;
+  }
+  float acc[kRunMaxRows];
+#pragma unroll
+  for (int r = 0; r < kRunMaxRows; ++r) acc[r] = 0.f;
+
+  for (int t = 0; t < n_runs; ++t) {
+    const int j0 = jb + t * kRunKeys, n = min(kRunKeys, je - j0);
+    if (kMulti && t + 1 < n_runs) issue(t + 1);
+    cp_async_commit();
+    if (tid < kRunKeys) listed[tid] = tid < n && win.listed(s, j0 + tid, off);
+    cp_async_wait<1>();
+    __syncthreads();
+    Run::tiles(kt(t), vt(t), rw(t));
+    if constexpr (kRawRing) __syncthreads();
+
+    {  // S = Q K^T: key c, half `half` of D, every row; masked scores to P.
+      const int c = tid >> 1, half = tid & 1;
+      const float* kr = kt(t) + c * KS + half * HD;
+      const float* qh = qs + half * HD;
+      float sc[kRunMaxRows];
+#pragma unroll
+      for (int r = 0; r < kRunMaxRows; ++r) sc[r] = 0.f;
+#pragma unroll 4
+      for (int e = 0; e < HD; e += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(kr + e);
+#pragma unroll
+        for (int r = 0; r < kRunMaxRows; ++r) {
+          if (r >= Lq) break;
+          const float4 qv = *reinterpret_cast<const float4*>(qh + r * D + e);
+          sc[r] = fmaf(qv.x, kv.x, sc[r]);
+          sc[r] = fmaf(qv.y, kv.y, sc[r]);
+          sc[r] = fmaf(qv.z, kv.z, sc[r]);
+          sc[r] = fmaf(qv.w, kv.w, sc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRunMaxRows; ++r) {
+        if (r >= Lq) break;
+        const float v = sc[r] + __shfl_xor_sync(0xffffffffu, sc[r], 1);
+        if (half == 0) ps[r * kPStride + c] = listed[c] && j0 + c <= q0 + r ? v : -INFINITY;  // -inf: not seen
+      }
+    }
+    __syncthreads();
+
+    // One max per row over the run, the row's new running max, and p (over
+    // the scores, in place); the running sum rescaled.
+    for (int r = warp; r < Lq; r += kWarps) {
+      float* pr = ps + r * kPStride;
+      float mx = -INFINITY;
+      for (int c = lane; c < kRunKeys; c += 32) mx = fmaxf(mx, pr[c]);
+#pragma unroll
+      for (int sh = 16; sh > 0; sh >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+      const float m_old = sm_m[r], m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int c = lane; c < kRunKeys; c += 32) {
+        const float p = m_new == -INFINITY ? 0.f : expf(pr[c] - m_new);
+        pr[c] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int sh = 16; sh > 0; sh >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, sh);
+      if (lane == 0) {
+        const float alpha = m_new == -INFINITY ? 1.f : expf(m_old - m_new);  // exp(-inf) = 0: a first max
+        sm_a[r] = alpha;
+        sm_m[r] = m_new;
+        sm_l[r] = fmaf(sm_l[r], alpha, sum);
+      }
+    }
+    __syncthreads();
+
+    // O = O * alpha + P V: thread d owns dim d of every row.
+    if (tid < D) {
+      if (kMulti && t > 0) {
+#pragma unroll
+        for (int r = 0; r < kRunMaxRows; ++r) {
+          if (r >= Lq) break;
+          acc[r] *= sm_a[r];
+        }
+      }
+      const float* vtt = vt(t);
+      for (int c = 0; c < n; ++c) {
+        const float vv = vtt[c * D + tid];
+#pragma unroll
+        for (int r = 0; r < kRunMaxRows; ++r) {
+          if (r >= Lq) break;
+          acc[r] = fmaf(ps[r * kPStride + c], vv, acc[r]);
+        }
+      }
+    }
+    __syncthreads();  // the scores, the listed bits, the tiles and the raw stage are free
+  }
+
+  if (tid < D) {
+    for (int r = 0; r < Lq; ++r) dst[(size_t)r * (D + 2) + 2 + tid] = acc[r];
+  }
+  if (tid < Lq) {
+    dst[(size_t)tid * (D + 2)] = sm_m[tid] == -INFINITY ? kNegInf : sm_m[tid];
+    dst[(size_t)tid * (D + 2) + 1] = sm_l[tid];
+  }
+}
+
 // Grid (H, rows of the cache), 32 * Lq threads: warp i merges query row i's
 // blocks up to its last visible key, offset + row0 + i (the blocks after it are
 // empty for the row), in block order (deterministic), kDeep at a time with
@@ -401,10 +620,10 @@ __global__ void __launch_bounds__(kRunThreads)
 // key in any block gets the uniform average of every value of its window,
 // read through the window, which the block computes once when a row needs
 // it.  kNoSoftmax adds every block's output.
-template <int D, class Run, class Win>
+template <int D, class Run, class Win, typename T>
 __global__ void __launch_bounds__(32 * kRunMaxRows)
     run_combine_kernel(const float* __restrict__ partial, const void* __restrict__ a,
-                       const void* __restrict__ b, Win win, __nv_bfloat16* __restrict__ out, int H,
+                       const void* __restrict__ b, Win win, T* __restrict__ out, int H,
                        int Lq, long long osb, long long osh, long long osl, int n_split,
                        int block_keys) {
   constexpr int PER = D / 32, kDeep = 16;  // a 1024-key window's 64-key blocks in one round trip
@@ -413,7 +632,7 @@ __global__ void __launch_bounds__(32 * kRunMaxRows)
   const int W = win.width();
   const size_t stride = (size_t)gridDim.y * H * Lq * (D + 2);  // one block's partials
   const float* src = partial + (((size_t)s * H + h) * Lq + i) * (D + 2);
-  __nv_bfloat16* o = out + s * osb + h * osh + i * osl;
+  T* o = out + s * osb + h * osh + i * osl;
   float acc[PER];
 #pragma unroll
   for (int r = 0; r < PER; ++r) acc[r] = 0.f;
@@ -424,7 +643,7 @@ __global__ void __launch_bounds__(32 * kRunMaxRows)
       for (int r = 0; r < PER; ++r) acc[r] += src[t * stride + 2 + lane + 32 * r];
     }
 #pragma unroll
-    for (int r = 0; r < PER; ++r) o[lane + 32 * r] = __float2bfloat16(acc[r]);
+    for (int r = 0; r < PER; ++r) put(o + lane + 32 * r, acc[r]);
     return;
   }
   const int live = min(n_split, min(W - 1, win.offset(s) + win.row0 + i) / block_keys + 1);
@@ -483,34 +702,47 @@ __global__ void __launch_bounds__(32 * kRunMaxRows)
     }
   }
 #pragma unroll
-  for (int r = 0; r < PER; ++r) o[lane + 32 * r] = __float2bfloat16(acc[r] / lsum);
+  for (int r = 0; r < PER; ++r) put(o + lane + 32 * r, acc[r] / lsum);
+}
+
+// The split kernel of a Run: the fp32 body for an fp32 Run, else the bf16 one.
+template <int D, class Run, class Win, bool kMulti>
+auto split_kernel() {
+  if constexpr (Run::kF32) return split_run_f32_kernel<D, Run, Win, kMulti>;
+  else return split_run_kernel<D, Run, Win, kMulti>;
 }
 
 // Launches both kernels over `rows` rows of the cache (slots or batch rows)
 // with n_split = ceil(W / block_keys) blocks each; block_keys a multiple of
 // kRunKeys; partial f32 scratch of n_split * rows * H * Lq * (D + 2) floats.
+// q and out are bf16, or f32 for an fp32 Run (Run::kF32).
 template <int D, class Run, class Win, bool kMulti>
 cudaError_t launch_split_runs(const void* q, const void* a, const void* b, const Win& win,
                               void* out, void* partial, int rows, int H, int Lq,
                               const long long* st, float scale, int n_split, int block_keys,
                               cudaStream_t stream) {
   constexpr int kStages = kMulti ? 2 : 1;
+  constexpr int kTileStages = Run::kRawBytes > 0 ? 1 : kStages;
+  using T = typename std::conditional<Run::kF32, float, __nv_bfloat16>::type;
+  const auto kernel = split_kernel<D, Run, Win, kMulti>();
   const size_t bytes = kStages * Run::kRawBytes +
-                       (Run::kRawBytes > 0 ? 1 : kStages) * 2 * sizeof(__nv_bfloat16) * kRunKeys * (D + 8) +
-                       sizeof(float) * (size_t)Lq * kPStride +
-                       sizeof(__nv_bfloat16) * (size_t)(Lq + 1) * (D + 8);  // int4 35-51 KB, dense 27-62 KB a block
+                       (Run::kF32 ? kTileStages * sizeof(float) * kRunKeys * (kF32KStride<D> + D) +
+                                        sizeof(float) * (size_t)Lq * (kPStride + D)
+                                  : kTileStages * 2 * sizeof(__nv_bfloat16) * kRunKeys * (D + 8) +
+                                        sizeof(float) * (size_t)Lq * kPStride +
+                                        sizeof(__nv_bfloat16) * (size_t)(Lq + 1) * (D + 8));
+  // bf16: int4 35-51 KB, dense 27-62 KB a block; f32: int4 58-76 KB, dense 56-111 KB
   if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(split_run_kernel<D, Run, Win, kMulti>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  split_run_kernel<D, Run, Win, kMulti><<<dim3(n_split, H, rows), kRunThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), a, b, win, static_cast<float*>(partial), H, Lq, st[0],
+  kernel<<<dim3(n_split, H, rows), kRunThreads, bytes, stream>>>(
+      static_cast<const T*>(q), a, b, win, static_cast<float*>(partial), H, Lq, st[0],
       st[1], st[2], scale, block_keys);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  run_combine_kernel<D, Run, Win><<<dim3(H, rows), 32 * Lq, 0, stream>>>(
-      static_cast<const float*>(partial), a, b, win, static_cast<__nv_bfloat16*>(out), H, Lq, st[3],
+  run_combine_kernel<D, Run, Win, T><<<dim3(H, rows), 32 * Lq, 0, stream>>>(
+      static_cast<const float*>(partial), a, b, win, static_cast<T*>(out), H, Lq, st[3],
       st[4], st[5], n_split, block_keys);
   return cudaGetLastError();
 }

@@ -195,35 +195,22 @@ class Knobs:
         return (self.filtered(logits) + self.gen.gumbel(SAMPLE, logits.shape[1:])).argmax(dim=-1)
 
 
-def fp32_refusal(what: str) -> str:
-    """The message of a refused fp32 combination on CUDA."""
-    return (f"{what} in fp32 on CUDA is not ported (ROADMAP.md queue 1 item 4): fp32 on the card "
-            "runs unquantized weights over the dense cache in the single-stream engine")
-
-
 def check_cuda_dtype(cfg: ModelConfig) -> None:
-    """On CUDA a model is bf16, or fp32 with unquantized weights and the
-    dense cache (K2 and K3 in fp32); other fp32 combinations raise: K1, K8
-    and K9 take bf16 activations, K4 and K5 a bf16 query."""
-    if cfg.dtype == "bfloat16":
-        return
-    if cfg.dtype != "float32":
+    """On CUDA a model is bf16 or fp32: every kernel has an entry for each
+    (fp32: f32 activations and queries, quantized weights and caches
+    dequantized in f32); another dtype raises."""
+    if cfg.dtype not in ("bfloat16", "float32"):
         raise ValueError(f"the CUDA kernels run bf16 or fp32 models, not {cfg.dtype}")
-    if cfg.quantized is not None:
-        raise ValueError(fp32_refusal(f"{cfg.quantized.bits}-bit weights"))
-    if cfg.use_quantized_cache:
-        raise ValueError(fp32_refusal(f"the int{cfg.kv_quant.bits} KV cache"))
 
 
 class LM:
     """A loaded model: config + params on the device the caller names.
 
-    On CUDA the kernels take bf16 activations, and fp32 ones for
-    unquantized weights over the dense cache (:func:`check_cuda_dtype`; the
-    slot and paged engines refuse fp32 there); the CPU runs the plain paths
-    in either dtype.  ``graphs`` (default: on for CUDA) replays each decode
-    step of this model's engines as a CUDA graph; ``graphs=False`` runs
-    them eagerly.
+    On CUDA the kernels take bf16 or fp32 activations
+    (:func:`check_cuda_dtype`), with any weights, cache and engine; the CPU
+    runs the plain paths in either dtype.  ``graphs`` (default: on for
+    CUDA) replays each decode step of this model's engines as a CUDA graph;
+    ``graphs=False`` runs them eagerly.
 
     ``sp_mesh`` (a ``parallel/mesh.py`` mesh): text prompts prefill through
     ring attention over its ``sp_axis`` (``phi3.prefill_ring``) when the

@@ -6,10 +6,13 @@ a 32768-token window).
 
     python -m phi_3_vision_mlx_tpu_torch.experiments.decode_step --dtype float32 --prompt-tokens 49
     python -m phi_3_vision_mlx_tpu_torch.experiments.decode_step --bits 4 --cache int4 --prompt-tokens 32576
+    python -m phi_3_vision_mlx_tpu_torch.experiments.decode_step --dtype float32 --bits 8 --cache int8
+    python -m phi_3_vision_mlx_tpu_torch.experiments.decode_step --dtype float32 --bits 4 --packed
 
 All 32 layers, random weights from seed 0 built on the card (fp32:
-``models/phi3.py:init_params``; 4-bit: ``core/weights.py:
-synth_quantized_params``), a prompt of ``--prompt-tokens`` byte tokens, its
+``models/phi3.py:init_params``; 4-bit and 8-bit: ``core/weights.py:
+synth_quantized_params``, ``--packed`` moving the 4-bit linears to the
+flat packed layout), a prompt of ``--prompt-tokens`` byte tokens, its
 bucketed prefill and 64 tokens of budget (the window rounds their sum up to
 128), then the decode step as the engine runs it: a CUDA graph replay (its
 capture in a warm-up chunk).  Wall: host clock over 16 steps ending in the
@@ -31,8 +34,8 @@ from . import card, device_from
 
 
 def main(argv=None) -> dict:
-    from ..core.config import QuantConfig, preset
-    from ..core.weights import prepare_params, synth_quantized_params
+    from ..core.config import KVQuantConfig, QuantConfig, preset
+    from ..core.weights import packed_params, prepare_params, synth_quantized_params
     from ..engine.engine import LM, prefill_decoder, release_decoder
     from ..models import phi3
     from ..models.preprocess import Phi3Processor
@@ -43,19 +46,27 @@ def main(argv=None) -> dict:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
-    parser.add_argument("--bits", type=int, default=0, choices=[0, 4], help="4 (0: unquantized weights)")
-    parser.add_argument("--cache", default="dense", choices=["dense", "int4"])
+    parser.add_argument("--bits", type=int, default=0, choices=[0, 4, 8],
+                        help="4 or 8 (0: unquantized weights)")
+    parser.add_argument("--packed", action="store_true", help="4-bit linears in the flat packed layout (K9)")
+    parser.add_argument("--cache", default="dense", choices=["dense", "int4", "int8"])
     parser.add_argument("--prompt-tokens", type=int, default=175)
     args, device = device_from(parser, argv)
     max_tokens, steps = 64, 16
     if device.type != "cuda":
         raise SystemExit("decode_step times the card: it has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = preset("phi35_mini").replace(dtype=args.dtype, use_quantized_cache=args.cache == "int4")
+    if args.packed and args.bits != 4:
+        parser.error("--packed takes 4-bit weights")
+    cfg = preset("phi35_mini").replace(dtype=args.dtype, use_quantized_cache=args.cache != "dense")
+    if args.cache == "int8":
+        cfg = cfg.replace(kv_quant=KVQuantConfig(group_size=32, bits=8))
     t0 = time.perf_counter()
     if args.bits:
         cfg = cfg.replace(quantized=QuantConfig(group_size=64, bits=args.bits))
         params = synth_quantized_params(cfg, device=device, seed=0)
+        if args.packed:
+            params = packed_params(params, cfg)
     else:
         params = prepare_params(phi3.init_params(cfg, torch.Generator(device=device).manual_seed(0)), cfg)
     torch.cuda.synchronize()
@@ -64,9 +75,10 @@ def main(argv=None) -> dict:
     proc = Phi3Processor(tokenizer=ByteTokenizer())  # a byte a token
     prompt = "The lighthouse keeper logged the weather. " * (args.prompt_tokens // 40 + 1)
     dict_input = {"input_ids": proc(prompt)["input_ids"][:, -args.prompt_tokens:]}
-    counters = {"K1": K1.quant_matmul, "K2": K2.flash_attention, "K2 fp32": K2.flash_attention.fp32,
-                "K3": KV.dense_kv_attention, "K3 fp32": KV.dense_kv_attention.fp32,
-                "K4": KV.quantized_kv_attention, "K5": KV.quantized_flash_attention}
+    counters = {"K1": K1.quant_matmul, "K2": K2.flash_attention, "K3": KV.dense_kv_attention,
+                "K4": KV.quantized_kv_attention, "K5": KV.quantized_flash_attention,
+                "K8": K1.quant_matmul_w8, "K9": K1.quant_matmul_packed}
+    counters.update({f"{name} fp32": fn.fp32 for name, fn in list(counters.items())})
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -100,7 +112,8 @@ def main(argv=None) -> dict:
     prefill_warm_ms = (time.perf_counter() - t0) * 1e3
     window = dec.state.window
     release_decoder(lm, dec)  # an entry too large to keep is closed here
-    out = {"card": card(device), "dtype": args.dtype, "bits": args.bits, "cache": args.cache,
+    out = {"card": card(device), "dtype": args.dtype, "bits": args.bits, "packed": args.packed,
+           "cache": args.cache,
            "prompt_tokens": int(dict_input["input_ids"].shape[1]),
            "window": window, "build_s": build_s, "prefill_ms": prefill_ms,
            "prefill_warm_ms": prefill_warm_ms,

@@ -21,7 +21,8 @@ kernels (K1-K9 by default) at chip_smoke.py's shapes:
 * K3 (decode, dense cache): Lq = 1 at the end of a 640- and a 4224-key
   window and at offset 100 of a 4352-key window, 8 stacked layers rotated
   past the L2; K4 (decode, int4 cache)
-  the same at Lq = 1, 4 and 16;
+  the same at Lq = 1, 4 and 16, and at Lq = 8 (a verify pass of K = 7) at
+  the end of a 768- and a 4352-key window;
 * E1 (W4A8) and K1 (symmetric, bf16 out, as ``w4a8_bench`` calls it) on
   the same words and scales at w4a8_bench's shape (K = 3072, N = 9216) with
   M = 1, 2, 16, 64, 192 and 256, rotated past the L2;
@@ -34,7 +35,8 @@ kernels (K1-K9 by default) at chip_smoke.py's shapes:
   (offset 200 of a 768-key window, 4220 of 4352);
 * K5 (flash attention, int4 cache): lq = 1024 over 1152 keys and lq = 4224
   over 4352 keys, as K2;
-* K6 (paged, dense pool) and K7 (paged, int4 pool) at Lq = 1, 4 and 16:
+* K6 (paged, dense pool) at Lq = 1, 4 and 16 and K7 (paged, int4 pool)
+  at Lq = 1, 4, 8 (a verify pass) and 16:
   the continuous server's shapes (4 slots at offsets 100, 400, 700
   and 1000, a window of 16 pages of 64, a pool of 64 pages and the spare),
   4 (K6) or 8 (K7) stacked layers rotated past the L2;
@@ -194,6 +196,14 @@ for lmax in (640, 4224):
                 variant_case(f"K4S Lq={lq} Lmax={lmax} offset={lmax - lq} keys={split}", qs[lq],
                              (payload, scales), valid, lmax - lq, "fp32", split)
     del payload, scales
+if "K4" in kernels:  # a verify pass of K = 7 drafts: Lq = 8 at the window's end
+    for lmax in (768, 4352):
+        payload, scales = int4_stack(lmax)
+        turn = iter(range(10**9))
+        cases[f"K4 Lq=8 Lmax={lmax}"] = (
+            lambda q=qrow(8), p=payload, s=scales, valid=decode_window(lmax),
+            off=device_offset(lmax - 8), turn=turn:
+            KV.quantized_kv_attention(q, p, s, valid, off, next(turn) % nl, scale), 200)
 if "K3" in kernels:  # a long prompt's first decode steps: few keys seen in a long window
     q, valid = qrow(1), decode_window(4352)
     ks, vs = (bf16(torch.randn((nl, b, h, 4352, d), generator=g, device="cuda")) for _ in range(2))
@@ -282,7 +292,7 @@ if "K6" in kernels or "K7" in kernels:
         vv = torch.randn(shape(8), generator=g, device="cuda") - 0.3
         pools = quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
         del kk, vv
-        for lq in (1, 4, 16):
+        for lq in (1, 4, 8, 16):
             turn = iter(range(10**9))
             cases[f"K7 Lq={lq}"] = (lambda q=srow(lq), turn=turn: KV.paged_quantized_kv_attention(
                 q, *pools, tables, pvalid, offsets, next(turn) % 8, scale), 200)

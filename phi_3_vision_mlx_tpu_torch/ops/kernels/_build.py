@@ -55,9 +55,12 @@ SIGNATURES = {
     "k7_paged_quantized_kv_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _I, _I, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I, _P],
 }
-# K2 and K3 in fp32 take the bf16 entries' arguments.
-SIGNATURES["k2_flash_attention_f32"] = SIGNATURES["k2_flash_attention"]
-SIGNATURES["k3_dense_kv_attention_f32"] = SIGNATURES["k3_dense_kv_attention"]
+# Each kernel's fp32 entry (an fp32 model's) takes its bf16 entry's arguments.
+for _name in ("k1_w4a16_matmul", "k8_w8a16_matmul", "k9_w4a16_packed_matmul", "k2_flash_attention",
+              "k3_dense_kv_attention", "k4_quantized_kv_attention", "k5_quantized_flash_attention",
+              "k6_paged_kv_attention", "k7_paged_quantized_kv_attention"):
+    SIGNATURES[_name + "_f32"] = SIGNATURES[_name]
+del _name
 # The continuous server prefills on its admission thread while its pump
 # thread decodes: the first build and every launch count are shared.
 _BUILD_LOCK = threading.Lock()
@@ -127,7 +130,7 @@ def _library():
 
 class Launches:
     """A launch count kept beside a wrapper's own: the share of one of its
-    kernels (``flash_attention.fp32``), counted like a wrapper."""
+    kernels (``<wrapper>.fp32``, its fp32 entry's), counted like a wrapper."""
 
     def __init__(self):
         self.launches = 0
@@ -163,6 +166,23 @@ def add_launches(tally: dict, times: int = 1) -> None:
     with _COUNT_LOCK:
         for wrapper, n in tally.items():
             wrapper.launches += n * times
+
+
+def entry_of(entry: str, dtype) -> str:
+    """The C entry of a kernel for activations of ``dtype``: its bf16 entry,
+    or its ``_f32`` one for an fp32 model."""
+    import torch
+
+    return entry + "_f32" if dtype == torch.float32 else entry
+
+
+def count(wrapper, dtype) -> None:
+    """Count a launch on ``wrapper``, and on ``wrapper.fp32`` for fp32."""
+    import torch
+
+    count_launch(wrapper)
+    if dtype == torch.float32:
+        count_launch(wrapper.fp32)
 
 
 def check(err: int, name: str) -> None:

@@ -32,7 +32,7 @@ from . import _build
 # Head dims the CUDA source instantiates: Phi-3.5-mini's 96.  Add one here and
 # in csrc/attention.cu when a configuration on the card needs it.
 HEAD_DIMS = (96,)
-# K2's and K3's element types: bf16 (the served models) and fp32.
+# The attention kernels' query types: bf16 (the served models) and fp32.
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -82,7 +82,7 @@ def flash_attention(q, k, v, valid, q_pos0: int, scale: float):
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     out = head_major_empty(q)
-    entry = "k2_flash_attention" if q.dtype == torch.bfloat16 else "k2_flash_attention_f32"
+    entry = _build.entry_of("k2_flash_attention", q.dtype)
     lib, _ = _build.library()
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.view(torch.uint8).data_ptr(),
@@ -90,9 +90,7 @@ def flash_attention(q, k, v, valid, q_pos0: int, scale: float):
         int(q_pos0), float(scale), _build.stream_ptr(q.device),
     )
     _build.check(err, entry)
-    _build.count_launch(flash_attention)
-    if q.dtype == torch.float32:
-        _build.count_launch(flash_attention.fp32)
+    _build.count(flash_attention, q.dtype)
     return out
 
 

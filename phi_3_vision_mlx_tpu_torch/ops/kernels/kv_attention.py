@@ -68,6 +68,15 @@ window dequantized to ``q.dtype``, then ``ops/attention.py``) only for CPU
 tensors; ``<wrapper>.launches`` counts kernel launches.  The kernels
 dequantize to the same bits as the plain version (f32 ``q * s``, then
 ``+ b``, one rounding to bf16).
+
+An fp32 model's f32 query runs each kernel's ``_f32`` entry, which returns
+f32: the JAX XLA path's function in f32 (keys and values dequantized in f32
+and never rounded, f32 products and softmax), not the TPU kernels', which
+cast the query to bf16.  K4, K6 and K7 in fp32 run the split-run plan and
+combine with both products on the CUDA cores; K5 in fp32 runs fp32 K2's
+3xTF32 flash body; K6 in fp32 reads an f32 page pool.
+``<wrapper>.fp32.launches`` counts the fp32 entries' launches among the
+wrapper's own (K3's too).
 """
 
 from __future__ import annotations
@@ -77,7 +86,8 @@ import torch
 from ...engine.state import dequantize_kv
 from ..attention import decode_attention, masked_attention
 from . import _build
-from .flash_attention import HEAD_DIMS, check_attention_inputs, flash_attention_plain, head_major_empty
+from .flash_attention import (DTYPES, HEAD_DIMS, check_attention_inputs, flash_attention_plain,
+                              head_major_empty)
 
 KV_GROUP = 32  # the kernels' quantization group along D
 # K3: keys per block of the split window.  A block requests its run's K and
@@ -174,7 +184,7 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset, layer_idx: int, scale
     out = head_major_empty(q)
     # Per split: (max score, sum of exp, unnormalized output) of each query row.
     partial = torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
-    entry = "k3_dense_kv_attention" if q.dtype == torch.bfloat16 else "k3_dense_kv_attention_f32"
+    entry = _build.entry_of("k3_dense_kv_attention", q.dtype)
     lib, _ = _build.library()
     err = getattr(lib, entry)(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
@@ -183,9 +193,7 @@ def dense_kv_attention(q, k_stack, v_stack, valid, offset, layer_idx: int, scale
         float(scale), n_split, split_keys, _build.stream_ptr(q.device),
     )
     _build.check(err, entry)
-    _build.count_launch(dense_kv_attention)
-    if q.dtype == torch.float32:
-        _build.count_launch(dense_kv_attention.fp32)
+    _build.count(dense_kv_attention, q.dtype)
     return out
 
 
@@ -210,8 +218,8 @@ def check_quantized_inputs(q, payload, scales, valid, layer_idx: int, name: str)
     b, h, _, d = q.shape
     if any(t.device != q.device for t in (payload, scales, valid)):
         raise ValueError(f"{name}: all tensors must be on one device")
-    if q.dtype != torch.bfloat16 or payload.dtype != torch.uint8 or scales.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel takes bf16 q, a uint8 payload and bf16 scales, "
+    if q.dtype not in DTYPES or payload.dtype != torch.uint8 or scales.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bf16 or fp32 q, a uint8 payload and bf16 scales, "
                         f"got {q.dtype}/{payload.dtype}/{scales.dtype}")
     if valid.dtype != torch.bool or not valid.is_contiguous():
         raise TypeError(f"{name}: valid must be a contiguous bool tensor")
@@ -243,7 +251,8 @@ def quantized_split_plan(lmax: int) -> tuple[int, int]:
 
 def _quantized_decode_launch(entry: str, q, payload, scales, valid, offset, layer_idx: int,
                              scale: float, block_keys: int, *mode, row0: int = 0):
-    """Launch K4 or E2/E3 (``entry``) with ``block_keys`` keys per block."""
+    """Launch K4 or E2/E3 (``entry``, its ``_f32`` one for an f32 query)
+    with ``block_keys`` keys per block."""
     b, h, lq, d = q.shape
     kvh, lmax = payload.shape[2], payload.shape[3]
     if not 1 <= lq <= MAX_PAGED_ROWS or row0 < 0:
@@ -256,6 +265,7 @@ def _quantized_decode_launch(entry: str, q, payload, scales, valid, offset, laye
     out = head_major_empty(q)
     # Per block: (max score, sum of exp, unnormalized output) of each query row.
     partial = torch.empty((n_split, b * h * lq, d + 2), dtype=torch.float32, device=q.device)
+    entry = _build.entry_of(entry, q.dtype)
     lib, _ = _build.library()
     err = getattr(lib, entry)(
         q.data_ptr(), payload.data_ptr(), scales.data_ptr(), valid.view(torch.uint8).data_ptr(),
@@ -281,11 +291,12 @@ def quantized_kv_attention(q, payload, scales, valid, offset, layer_idx: int, sc
     out = _quantized_decode_launch("k4_quantized_kv_attention", q, payload, scales, valid, offset,
                                    layer_idx, scale, quantized_split_plan(payload.shape[3])[1],
                                    row0=row0)
-    _build.count_launch(quantized_kv_attention)
+    _build.count(quantized_kv_attention, q.dtype)
     return out
 
 
 quantized_kv_attention.launches = 0
+quantized_kv_attention.fp32 = _build.Launches()
 
 
 # E2/E3 modes, in the order of csrc/attention.cuh's Mode: how a level q of
@@ -352,6 +363,8 @@ def quantized_kv_attention_variant(q, payload, scales, valid, offset, layer_idx:
     if q.device.type != "cuda":
         raise RuntimeError(f"quantized_kv_attention_variant: no kernel for device {q.device}")
     check_quantized_inputs(q, payload, scales, valid, layer_idx, "quantized_kv_attention_variant")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"quantized_kv_attention_variant kernel takes a bf16 q, got {q.dtype}")
     block_keys = quantized_split_plan(payload.shape[3])[1] if split_keys is None else split_keys
     out = _quantized_decode_launch("e23_quantized_kv_attention_variant", q, payload, scales, valid,
                                    offset, layer_idx, scale, block_keys, VARIANT_MODES.index(mode))
@@ -373,21 +386,28 @@ def quantized_flash_attention(q, payload, scales, valid, q_pos0: int, layer_idx:
     check_quantized_inputs(q, payload, scales, valid, layer_idx, "quantized_flash_attention")
     if payload.data_ptr() % 16:
         raise ValueError("quantized_flash_attention: the payload must be 16-byte aligned")
+    return _flash_launch(q, payload, scales, valid, q_pos0, layer_idx, scale)
+
+
+def _flash_launch(q, payload, scales, valid, q_pos0: int, layer_idx: int, scale: float):
+    """Launch K5 (its ``_f32`` entry for an f32 query) and count it."""
     b, h, lq, d = q.shape
     kvh, lmax = payload.shape[2], payload.shape[3]
     out = head_major_empty(q)
+    entry = _build.entry_of("k5_quantized_flash_attention", q.dtype)
     lib, _ = _build.library()
-    err = lib.k5_quantized_flash_attention(
+    err = getattr(lib, entry)(
         q.data_ptr(), payload.data_ptr(), scales.data_ptr(), valid.view(torch.uint8).data_ptr(),
         out.data_ptr(), b, h, kvh, lq, lmax, d, *q.stride()[:3], *out.stride()[:3],
         int(layer_idx), int(q_pos0), float(scale), _build.stream_ptr(q.device),
     )
-    _build.check(err, "k5_quantized_flash_attention")
-    _build.count_launch(quantized_flash_attention)
+    _build.check(err, entry)
+    _build.count(quantized_flash_attention, q.dtype)
     return out
 
 
 quantized_flash_attention.launches = 0
+quantized_flash_attention.fp32 = _build.Launches()
 
 
 def gather_pages(pool_layer, page_tables):
@@ -429,8 +449,8 @@ def check_paged_inputs(q, pool_a, pool_b, page_tables, valid, offsets, layer_idx
     s, h, lq, d = q.shape
     if any(t.device != q.device for t in (pool_a, pool_b, page_tables, valid, offsets)):
         raise ValueError(f"{name}: all tensors must be on one device")
-    if q.dtype != torch.bfloat16 or page_tables.dtype != torch.int32 or offsets.dtype != torch.int32:
-        raise TypeError(f"{name} kernel takes bf16 q and int32 page tables and offsets, got "
+    if q.dtype not in DTYPES or page_tables.dtype != torch.int32 or offsets.dtype != torch.int32:
+        raise TypeError(f"{name} kernel takes bf16 or fp32 q and int32 page tables and offsets, got "
                         f"{q.dtype}/{page_tables.dtype}/{offsets.dtype}")
     if valid.dtype != torch.bool:
         raise TypeError(f"{name}: valid must be a bool tensor")
@@ -473,6 +493,7 @@ def _paged_launch(entry: str, q, pool_a, pool_b, page_tables, valid, offsets, la
     out = head_major_empty(q)
     # Per run: (max score, sum of exp, unnormalized output) of each query row.
     partial = torch.empty((n_split, s * h * lq, d + 2), dtype=torch.float32, device=q.device)
+    entry = _build.entry_of(entry, q.dtype)
     lib, _ = _build.library()
     err = getattr(lib, entry)(
         q.data_ptr(), pool_a.data_ptr(), pool_b.data_ptr(), page_tables.data_ptr(),
@@ -482,6 +503,13 @@ def _paged_launch(entry: str, q, pool_a, pool_b, page_tables, valid, offsets, la
     )
     _build.check(err, entry)
     return out
+
+
+def check_pool_dtype(q, pool_k, pool_v) -> None:
+    """K6 reads a pool of its query's type: bf16, or f32 for an fp32 model."""
+    if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+        raise TypeError(f"paged_kv_attention kernel takes a pool of q's type {q.dtype}, got "
+                        f"{pool_k.dtype}/{pool_v.dtype}")
 
 
 def paged_kv_attention(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx: int, scale: float,
@@ -498,18 +526,18 @@ def paged_kv_attention(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx
         raise RuntimeError(f"paged_kv_attention: no kernel for device {q.device}")
     check_paged_inputs(q, pool_k, pool_v, page_tables, valid, offsets, layer_idx, q.shape[-1],
                        "paged_kv_attention")
-    if pool_k.dtype != torch.bfloat16 or pool_v.dtype != torch.bfloat16:
-        raise TypeError(f"paged_kv_attention kernel takes a bf16 pool, got {pool_k.dtype}")
+    check_pool_dtype(q, pool_k, pool_v)
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError("paged_kv_attention: the pools must be 16-byte aligned")
     n_split, split_keys = paged_split_plan(page_tables.shape[1] * pool_k.shape[3])
     out = _paged_launch("k6_paged_kv_attention", q, pool_k, pool_v, page_tables, valid, offsets,
                         layer_idx, scale, n_split, split_keys, row0)
-    _build.count_launch(paged_kv_attention)
+    _build.count(paged_kv_attention, q.dtype)
     return out
 
 
 paged_kv_attention.launches = 0
+paged_kv_attention.fp32 = _build.Launches()
 
 
 def paged_quantized_kv_attention(q, payload, scales, page_tables, valid, offsets, layer_idx: int,
@@ -534,8 +562,9 @@ def paged_quantized_kv_attention(q, payload, scales, page_tables, valid, offsets
     n_split, split_keys = paged_split_plan(page_tables.shape[1] * payload.shape[3])
     out = _paged_launch("k7_paged_quantized_kv_attention", q, payload, scales, page_tables, valid,
                         offsets, layer_idx, scale, n_split, split_keys, row0)
-    _build.count_launch(paged_quantized_kv_attention)
+    _build.count(paged_quantized_kv_attention, q.dtype)
     return out
 
 
 paged_quantized_kv_attention.launches = 0
+paged_quantized_kv_attention.fp32 = _build.Launches()

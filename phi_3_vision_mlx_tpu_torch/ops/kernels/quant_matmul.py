@@ -17,6 +17,13 @@ K8 computes the function the JAX package means, the XLA path
 (``ops/quant.py:quantized_matmul``) on unsigned 8-bit levels 0..255; the TPU
 kernel's signed int8 payload turns levels >= 128 into ``q - 256``.
 
+An fp32 model's f32 x runs each kernel's ``_f32`` entry (f32 output): the
+XLA path's function in f32 (W dequantized in f32 and never rounded, f32
+products and sums), not the TPU kernels', which cast x to bf16 first.  Route
+A stays the GEMV; route B runs on the CUDA cores (PERF.md section 6).
+``<wrapper>.fp32.launches`` counts the fp32 entries' launches among the
+wrapper's own.
+
 Each wrapper (:func:`quant_matmul`, :func:`quant_matmul_w8`,
 :func:`quant_matmul_packed`) launches its kernel for CUDA tensors and runs
 its plain PyTorch version (``*_plain``) only for CPU tensors; a CUDA tensor
@@ -128,13 +135,21 @@ def _check_cuda(name, x, payload, payload_dtype, scales, biases, out_dtype, n):
     """Device, dtype, group and layout checks before a launch."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {x.device}")
+    check_kernel_inputs(name, x, payload, payload_dtype, scales, biases, out_dtype, n)
+
+
+def check_kernel_inputs(name, x, payload, payload_dtype, scales, biases, out_dtype, n):
+    """The checks of :func:`_check_cuda` past the device: one device, the
+    dtypes (bf16 x with bf16 or f32 output, or f32 x with f32 output; never
+    a mix), the group and contiguity."""
     k = x.shape[1]
     tensors = [x, payload, scales] + ([] if biases is None else [biases])
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one device")
-    if x.dtype != torch.bfloat16 or out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{name} kernel takes bf16 x and bf16/f32 output, got "
-                        f"{x.dtype} -> {out_dtype}")
+    if not ((x.dtype == torch.bfloat16 and out_dtype in (torch.bfloat16, torch.float32))
+            or (x.dtype == torch.float32 and out_dtype == torch.float32)):
+        raise TypeError(f"{name} kernel takes bf16 x with bf16/f32 output or f32 x with f32 "
+                        f"output, got {x.dtype} -> {out_dtype}")
     if payload.dtype != payload_dtype or scales.dtype != torch.bfloat16 or (
         biases is not None and biases.dtype != torch.bfloat16
     ):
@@ -154,11 +169,13 @@ def _check_aligned(name, *tensors):
 
 
 def _launch(wrapper, entry, layout, x, payload, scales, biases, out_dtype, n, *extra):
-    """Launch the C entry ``entry`` on :func:`plan`'s K split for ``layout``,
-    f32 partial sums in a scratch tensor only for more than one split (one
-    split writes the output itself), and count the launch on ``wrapper``."""
+    """Launch the C entry ``entry`` (its ``_f32`` one for f32 x) on
+    :func:`plan`'s K split for ``layout``, f32 partial sums in a scratch
+    tensor only for more than one split (one split writes the output
+    itself), and count the launch on ``wrapper``."""
     m, k = x.shape
     splits, per = plan(m, k, n, layout)
+    entry = _build.entry_of(entry, x.dtype)
     lib, _ = _build.library()
     partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -169,7 +186,7 @@ def _launch(wrapper, entry, layout, x, payload, scales, biases, out_dtype, n, *e
         splits, per, int(out_dtype == torch.float32), _build.stream_ptr(x.device),
     )
     _build.check(err, entry)
-    _build.count_launch(wrapper)
+    _build.count(wrapper, x.dtype)
     return out
 
 
@@ -255,9 +272,10 @@ def quant_matmul_packed(
                    out_dtype, n, packed_block_k(k))
 
 
-quant_matmul.launches = 0
-quant_matmul_w8.launches = 0
-quant_matmul_packed.launches = 0
+for _wrapper in (quant_matmul, quant_matmul_w8, quant_matmul_packed):
+    _wrapper.launches = 0
+    _wrapper.fp32 = _build.Launches()
+del _wrapper
 
 
 # -- the autograd seam --------------------------------------------------------

@@ -15,9 +15,9 @@ The JAX dry run re-executes itself on a virtual CPU mesh when the chips
 are too few; here the caller names the device: ``"cuda"`` needs a card a
 rank, ``"cpu"`` runs a gloo world.  Inside a world of the right size
 (``distributed_init`` already called) it runs in this process, as each
-rank; otherwise it spawns the world (``mesh.run_world``).  On the card
-the model runs in bf16 (the int4 cache's kernels take a bf16 query), on
-the CPU in fp32 as the JAX one does.
+rank; otherwise it spawns the world (``mesh.run_world``).  The model
+runs in fp32, as the JAX one does, on the card through the kernels' fp32
+entries.
 """
 
 from __future__ import annotations
@@ -184,8 +184,7 @@ def _dryrun(n: int, device: str) -> tuple:
     # The card's attention kernels take Phi-3.5's head size, 96.
     width = 96 * 8 if device == "cuda" else 256
     cfg = preset("tiny", hidden_size=width, intermediate_size=2 * width, num_attention_heads=8,
-                 num_key_value_heads=8, num_hidden_layers=2, vocab_size=4096,
-                 dtype="bfloat16" if device == "cuda" else "float32")
+                 num_key_value_heads=8, num_hidden_layers=2, vocab_size=4096, dtype="float32")
     full = params_to(phi3.init_params(cfg, torch.Generator().manual_seed(0)), dev)
     params = shard_params(full, mesh)
     lcfg = local_config(cfg, model)
@@ -207,7 +206,7 @@ def _dryrun(n: int, device: str) -> tuple:
         # with the whole model's greedy tokens, with the dense cache and
         # with the int4 cache (the whole model's entries of this rank's
         # heads replayed, ``ReplayEntries``).  The int4 decode on each
-        # rank's own entries is read beside the JAX bar and reported.
+        # rank's own entries is held to the JAX bar too, and reported.
         parity = True
         for quantized in (False, True):
             single, state = _decode(full, cfg.replace(use_quantized_cache=quantized), ids[:1], 4, max_tokens=16)
@@ -226,6 +225,11 @@ def _dryrun(n: int, device: str) -> tuple:
                             f"{'met' if _parity(single, own) else 'not met'}; replayed: {replay.flips} of "
                             f"{replay.values} entries of this rank a level apart (limit "
                             f"{replay.MAX_FLIP_SHARE:g} of them)")
+                # The JAX gate holds its sharded run on its own entries to
+                # this bar, and meets it at these shapes (no level flipped:
+                # tests/test_torch_dryrun_jax.py): so is the port's.
+                if not _parity(single, own):
+                    raise AssertionError(own_line)
             if not _parity(single, sharded):
                 raise AssertionError(f"sharded decode logits ({'int4' if quantized else 'dense'} cache) diverged "
                                      f"from the whole model's by {[float(np.abs(a - b).max()) for a, b in zip(single, sharded)]}")

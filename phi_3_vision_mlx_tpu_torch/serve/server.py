@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import json
 import threading
+import weakref
 from collections import deque
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
@@ -120,7 +121,15 @@ class ContinuousScheduler:
     stream) can overlap a capture, and every decode step is a
     replay on the default stream.  An engine error fails the requests it
     owns, not the pump.
+
+    The two threads hold the scheduler by weak reference only (``_serve``)
+    and wait for work without it, at most ``IDLE_WAIT`` seconds at a time:
+    once its last user drops it, they end within one wait, and the engine
+    with its cache and graphs is freed (a thread holding it would keep it
+    alive for the life of the process).
     """
+
+    IDLE_WAIT = 0.25  # seconds a thread waits for work before it looks for its scheduler again
 
     def __init__(self, lm, processor, slots: int = 4, window: int = 1024, paged: bool = False,
                  admit_batch: int = 0, chunk: int = 8, pipelined: bool = True, **engine_kw):
@@ -140,8 +149,10 @@ class ContinuousScheduler:
         self.chunk, self.pipelined = chunk, pipelined
         self._cv = threading.Condition()
         self._tickets = deque()
-        threading.Thread(target=self._admission_worker, daemon=True).start()
-        threading.Thread(target=self._pump, daemon=True).start()
+        ref = weakref.ref(self)
+        for turn in (ContinuousScheduler._admission_turn, ContinuousScheduler._pump_turn):
+            threading.Thread(target=_serve, args=(ref, turn), daemon=True,
+                             name=f"ContinuousScheduler.{turn.__name__}").start()
 
     def complete(self, prompt: str, max_tokens: int, temperature: float = 0.0, top_p: float = 1.0,
                  top_k: int = 0, min_p: float = 0.0, stop=None, images=None, seed=None) -> str:
@@ -162,75 +173,99 @@ class ContinuousScheduler:
                 self._cv.wait()
             return self.engine.result(ticket["rid"])  # raises if the request failed
 
-    def _admission_worker(self):
-        while True:
-            with self._cv:
-                while not self._tickets:
-                    self._cv.wait()
-                n = min(len(self._tickets), self.admit_batch)
-                batch = [self._tickets.popleft() for _ in range(n)]
-            # Text tickets share one batched prefill; image tickets prefill
-            # one at a time.  Errors stay per ticket: a bad image does not
-            # fail the text requests of its batch.
-            text = [t for t in batch if not t["images"]]
-            pairs, failed = [], []
-            if text:
+    def _admission_turn(self):
+        """Admit one batch of queued tickets; with none queued, return what
+        to wait on (``_serve``)."""
+        with self._cv:
+            if not self._tickets:
+                return self._cv, self._tickets.__len__
+            n = min(len(self._tickets), self.admit_batch)
+            batch = [self._tickets.popleft() for _ in range(n)]
+        # Text tickets share one batched prefill; image tickets prefill
+        # one at a time.  Errors stay per ticket: a bad image does not
+        # fail the text requests of its batch.
+        text = [t for t in batch if not t["images"]]
+        pairs, failed = [], []
+        if text:
+            try:
+                pairs += zip(text, self.engine.prepare_many([t["prompt"] for t in text],
+                                                            [t["opts"] for t in text]))
+            except Exception as e:
+                failed += [(t, f"{type(e).__name__}: {e}") for t in text]
+        for t in batch:
+            if t["images"]:
                 try:
-                    pairs += zip(text, self.engine.prepare_many([t["prompt"] for t in text],
-                                                                [t["opts"] for t in text]))
+                    pairs.append((t, self.engine.prepare(t["prompt"], images=t["images"], **t["opts"])))
                 except Exception as e:
-                    failed += [(t, f"{type(e).__name__}: {e}") for t in text]
-            for t in batch:
-                if t["images"]:
-                    try:
-                        pairs.append((t, self.engine.prepare(t["prompt"], images=t["images"], **t["opts"])))
-                    except Exception as e:
-                        failed.append((t, f"{type(e).__name__}: {e}"))
-            if failed:
-                with self._cv:
-                    for t, msg in failed:
-                        t["error"] = msg
-                    self._cv.notify_all()
-            for t, p in pairs:
-                with self._cv:
-                    try:
-                        while not self.engine.can_admit(p):
-                            self._cv.wait()
-                        t["rid"] = self.engine.admit(p)
-                    except Exception as e:
-                        t["error"] = f"{type(e).__name__}: {e}"
-                    self._cv.notify_all()
-
-    def _pump(self):
-        while True:
+                    failed.append((t, f"{type(e).__name__}: {e}"))
+        if failed:
             with self._cv:
-                while not self.engine.pending():
-                    self._cv.wait()
-                resume = getattr(self.engine, "resume_candidate", None)
-                rid = resume() if resume else None
-            prepared = None
-            if rid is not None:
-                try:
-                    prepared = self.engine.prepare_resume(rid)
-                except Exception as e:
-                    with self._cv:
-                        self.engine._fail_request(self.engine.requests[rid], f"{type(e).__name__}: {e}")
-                        if self.engine.preempted and self.engine.preempted[0] == rid:
-                            self.engine.preempted.pop(0)
-                        self._cv.notify_all()
-            with self._cv:
-                try:
-                    if prepared is not None:
-                        self.engine.admit_resume(prepared)
-                    if self.pipelined:
-                        # Ticking while pending() also collects the last
-                        # in-flight chunk once by_slot is empty.
-                        self.engine.step_pipelined(self.chunk)
-                    elif self.engine.by_slot:
-                        self.engine.step(self.chunk)
-                except Exception as e:  # fail the owners, keep the pump alive
-                    self.engine.fail_all_active(f"{type(e).__name__}: {e}")
+                for t, msg in failed:
+                    t["error"] = msg
                 self._cv.notify_all()
+        for t, p in pairs:
+            with self._cv:
+                try:
+                    while not self.engine.can_admit(p):
+                        self._cv.wait()
+                    t["rid"] = self.engine.admit(p)
+                except Exception as e:
+                    t["error"] = f"{type(e).__name__}: {e}"
+                self._cv.notify_all()
+        return None
+
+    def _pump_turn(self):
+        """Step the engine by one chunk; with nothing pending, return what
+        to wait on (``_serve``)."""
+        with self._cv:
+            if not self.engine.pending():
+                return self._cv, self.engine.pending
+            resume = getattr(self.engine, "resume_candidate", None)
+            rid = resume() if resume else None
+        prepared = None
+        if rid is not None:
+            try:
+                prepared = self.engine.prepare_resume(rid)
+            except Exception as e:
+                with self._cv:
+                    self.engine._fail_request(self.engine.requests[rid], f"{type(e).__name__}: {e}")
+                    if self.engine.preempted and self.engine.preempted[0] == rid:
+                        self.engine.preempted.pop(0)
+                    self._cv.notify_all()
+        with self._cv:
+            try:
+                if prepared is not None:
+                    self.engine.admit_resume(prepared)
+                if self.pipelined:
+                    # Ticking while pending() also collects the last
+                    # in-flight chunk once by_slot is empty.
+                    self.engine.step_pipelined(self.chunk)
+                elif self.engine.by_slot:
+                    self.engine.step(self.chunk)
+            except Exception as e:  # fail the owners, keep the pump alive
+                self.engine.fail_all_active(f"{type(e).__name__}: {e}")
+            self._cv.notify_all()
+        return None
+
+
+def _serve(ref, turn) -> None:
+    """Run ``turn(scheduler)`` while ``ref`` (a weak reference) still
+    reaches the scheduler.  A turn with no work returns (condition, ready):
+    the thread then waits, holding no reference to the scheduler (two
+    threads each waiting with one would keep it alive between them), up to
+    ``IDLE_WAIT`` seconds or until ``ready()`` under the condition."""
+    while True:
+        scheduler = ref()
+        if scheduler is None:
+            return
+        idle = turn(scheduler)
+        del scheduler
+        if idle is not None:
+            cv, ready = idle
+            with cv:
+                if not ready():
+                    cv.wait(ContinuousScheduler.IDLE_WAIT)
+            del cv, ready, idle
 
 
 def make_continuous_handler(scheduler: ContinuousScheduler):

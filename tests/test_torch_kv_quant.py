@@ -273,7 +273,7 @@ def test_k5_tile_model_matches_plain(edge, g):
 
 
 def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys, mode="fp32",
-                    row0=0):
+                    row0=0, f32_body=False):
     """K4 (mode "fp32") and E2/E3's modes as the card computes them over one
     layer of the stacked int4 cache.  The window is cut into blocks of
     ``block_keys`` keys, each walked in 64-key runs: the tiles hold the
@@ -289,7 +289,10 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
     row's merge reads its blocks up to its last visible key; a row that
     sees no key gets the uniform average of the window's values.
     kNoSoftmax: no mask, P is the score, every block is added.  Query row i
-    sits at offset + row0 + i.  Returns (out, live blocks per query row)."""
+    sits at offset + row0 + i.  ``f32_body``: the fp32 model's body
+    (split_run_f32_kernel), whose scores add the two halves of D each
+    thread pair sums, and whose P enters P V as f32, unsplit.  Returns
+    (out, live blocks per query row)."""
     from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
 
     b, h, lq, d = q.shape
@@ -312,7 +315,7 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
     factored, softmax = mode in ("fbias", "mxu"), mode != "nosoftmax"
     qs = (q * scale).float()
     qsum = qs.reshape(b, h, lq, g, d // g).sum(-1)  # (B, H, Lq, G)
-    hl = lambda p: bf(p) + bf(p - bf(p))  # noqa: E731 - P as bf16 hi + lo
+    hl = (lambda p: p) if f32_body else (lambda p: bf(p) + bf(p - bf(p)))  # noqa: E731 - P as bf16 hi + lo
     n_split = -(-lmax // block_keys)
     kend = min(lmax, offset + row0 + lq) if softmax else lmax
     rows = offset + row0 + torch.arange(lq)
@@ -327,6 +330,9 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
             if mode == "mxu":
                 sc = sum((qs[..., c * 32 : (c + 1) * 32] @ kt[:, :, j, c * 32 : (c + 1) * 32].transpose(-1, -2))
                          * ks[:, :, None, j, c] for c in range(g))
+            elif f32_body:  # each key's halves of D, summed apart, then added
+                sc = sum(qs[..., x] @ kt[:, :, j][..., x].transpose(-1, -2)
+                         for x in (slice(0, d // 2), slice(d // 2, d)))
             else:
                 sc = qs @ kt[:, :, j].transpose(-1, -2)  # (B, H, Lq, n)
             if factored:

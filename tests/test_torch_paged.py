@@ -187,7 +187,7 @@ def test_wrappers_raise_without_a_kernel():
 # holds the kernels to their plain versions there.
 
 
-def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0):
+def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0, f32_body=False):
     """K6 and K7 as the card computes them, over one layer's pool of keys
     and values ``(P1, KV, page, D)`` (K7's dequantized).  Each run of
     ``paged_split_plan`` gives every row of a slot its (max, sum,
@@ -199,7 +199,9 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0):
     max); a row that sees no key gets the uniform average of every value of
     its window.  Each key's row comes from the table, clamped into the pool.
     Query row i sits at offset + row0 + i (a later row group of a pass); the
-    fresh region still starts at the offset.  Returns (out, live runs per
+    fresh region still starts at the offset.  ``f32_body``: the fp32
+    model's body (split_run_f32_kernel), scores summed over the two halves
+    of D apart and P entering P V as f32.  Returns (out, live runs per
     (slot, row))."""
     from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
 
@@ -219,13 +221,18 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0):
         for r in range(n_split):
             j = torch.arange(r * split, max(r * split, min((r + 1) * split, w, off + row0 + lq)))
             seen = (valid[s, j] | (j >= off))[None, :] & (j[None, :] <= off + row0 + torch.arange(lq)[:, None])
-            sc = torch.where(seen, qs[s] @ ks[:, j].transpose(-1, -2), -torch.inf)  # (H, Lq, n)
+            if f32_body:
+                raw = sum(qs[s][..., x] @ ks[:, j][..., x].transpose(-1, -2)
+                          for x in (slice(0, d // 2), slice(d // 2, d)))
+            else:
+                raw = qs[s] @ ks[:, j].transpose(-1, -2)
+            sc = torch.where(seen, raw, -torch.inf)  # (H, Lq, n)
             mx = sc.amax(dim=-1, keepdim=True) if len(j) else torch.full((h, lq, 1), -torch.inf)
             p = torch.where(seen, torch.exp(sc - mx), 0.0)
             ms.append(torch.where(mx == -torch.inf, NEG_INF, mx))
             ls.append(p.sum(dim=-1, keepdim=True))
             hi = p.to(torch.bfloat16).float()
-            accs.append((hi + (p - hi).to(torch.bfloat16).float()) @ vs[:, j])
+            accs.append((p if f32_body else hi + (p - hi).to(torch.bfloat16).float()) @ vs[:, j])
         for i in range(lq):
             live[s, i] = n = min(n_split, min(w - 1, off + row0 + i) // split + 1)
             m_all = torch.stack([m[:, i] for m in ms[:n]]).amax(dim=0)
@@ -235,13 +242,14 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0):
     return out, live
 
 
-def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale, row0=0):
-    """K7: the int4 pool's layer dequantized once (``Int4Run``'s tiles),
-    then the runs and merge of :func:`_paged_split_model`."""
+def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale, row0=0, f32_body=False):
+    """K7: the int4 pool's layer dequantized once (``Int4Run``'s tiles, or
+    ``Int4RunF32``'s in f32), then the runs and merge of
+    :func:`_paged_split_model`."""
     from phi_3_vision_mlx_tpu_torch.engine.state import dequantize_kv
 
     k, v = dequantize_kv(payload[layer], scales[layer], q.dtype)  # (P1, KV, page, D)
-    return _paged_split_model(q, k, v, tables, valid, offsets, scale, row0)
+    return _paged_split_model(q, k, v, tables, valid, offsets, scale, row0, f32_body)
 
 
 # (spare pages withheld from the table, offsets): slot 0 past its window

@@ -433,13 +433,14 @@ def test_dp_tp_lora_step_matches_jax_and_one_process(world):
 
 def test_dryrun_multichip_cpu(capsys):
     """The JAX OK line, after the reading of the int4 sharded decode on the
-    ranks' own entries (reported beside the JAX bar, which the replayed
-    run is held to)."""
+    ranks' own entries, which meets the JAX bar (the JAX package's own run
+    does at these shapes: tests/test_torch_dryrun_jax.py), as the replayed
+    run does."""
     line = dryrun_multichip(4, device="cpu")
     printed = capsys.readouterr().out.splitlines()
     assert printed[-1] == line and printed[-2].startswith(
         "dryrun_multichip int4 sharded decode on each rank's own entries: max |logit diff| ")
-    assert "the JAX bar (rtol 1e-4, atol 1e-5)" in printed[-2] and "a level apart" in printed[-2]
+    assert "the JAX bar (rtol 1e-4, atol 1e-5) met" in printed[-2] and "a level apart" in printed[-2]
     assert line.startswith("dryrun_multichip OK: mesh=(2x2), train loss=")
     assert "decode logits=(4, 4096)" in line and "sharded-decode parity=True" in line
     assert "ring-attn out=(2, 8, 64, 32)" in line

@@ -291,3 +291,39 @@ def test_several_prompts_with_images_get_400(vision_pair, tmp_path):
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slots", "pages"])
+def test_dropped_scheduler_frees_its_engine(paged):
+    """A ContinuousScheduler's threads hold it by weak reference: once its
+    last user drops it, both threads end within their wait and its engine's
+    cache is freed (threads on bound methods kept every scheduler, and its
+    engine, alive to the end of the process; the JAX scheduler does)."""
+    import gc
+    import time
+    import weakref
+
+    from phi_3_vision_mlx_tpu_torch.core.config import QuantConfig, preset
+    from phi_3_vision_mlx_tpu_torch.core.weights import synth_quantized_params
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+    from phi_3_vision_mlx_tpu_torch.models.preprocess import Phi3Processor
+    from phi_3_vision_mlx_tpu_torch.models.tokenizer import ByteTokenizer
+    from phi_3_vision_mlx_tpu_torch.serve.server import ContinuousScheduler
+
+    cfg = preset("tiny", vocab_size=32064).replace(quantized=QuantConfig(group_size=64, bits=4), dtype="float32")
+    lm = LM(cfg, synth_quantized_params(cfg, "cpu"), device="cpu")
+    before = set(threading.enumerate())
+    sched = ContinuousScheduler(lm, Phi3Processor(tokenizer=ByteTokenizer()), slots=2, window=256,
+                                paged=paged)
+    threads = [t for t in threading.enumerate() if t not in before]
+    assert len(threads) == 2 and sched.complete("Hi", 4)
+    cache = weakref.ref(sched.engine.state.k)
+    del sched
+    deadline = time.monotonic() + 5
+    while cache() is not None and time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.05)
+    assert cache() is None
+    for t in threads:
+        t.join(timeout=5)
+        assert not t.is_alive()

@@ -252,18 +252,27 @@ FP32_REFUSED = {
 }
 
 
+def _mock_cuda(monkeypatch):
+    """A card as far as ``LM`` asks: available, 80 GiB of memory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: type("Props", (), {"total_memory": 80 << 30})())
+
+
 @pytest.mark.parametrize("combo", list(FP32_REFUSED))
 def test_fp32_on_cuda_refuses_other_combinations(combo, monkeypatch):
-    """fp32 on CUDA takes unquantized weights over the dense cache; any other
-    fp32 combination raises when the ``LM`` is built, naming the ROADMAP
-    item (checked without a card: the check runs before any tensor moves)."""
+    """Every fp32 combination that fp32 on CUDA once refused (quantized
+    weights, the quantized caches) now passes ``check_cuda_dtype`` and
+    builds an ``LM`` on the card (mocked: the check runs before any tensor
+    moves), as bf16 does: each kernel has an fp32 entry."""
     cfg = preset("tiny").replace(dtype="float32", **FP32_REFUSED[combo])
-    with pytest.raises(ValueError, match=f"{combo} in fp32 on CUDA .*ROADMAP.md queue 1 item 4"):
-        TE.check_cuda_dtype(cfg)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 4"):
-        TE.LM(cfg, {}, device="cuda")
+    assert TE.check_cuda_dtype(cfg) is None
+    _mock_cuda(monkeypatch)
+    lm = TE.LM(cfg, {}, device="cuda")
+    assert lm.device.type == "cuda" and lm.cfg.dtype == "float32" and lm.graphs
     assert TE.check_cuda_dtype(cfg.replace(dtype="bfloat16")) is None
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        TE.check_cuda_dtype(cfg.replace(dtype="float16"))
 
 
 def test_fp32_on_cuda_accepts_the_single_stream_dense_path():
@@ -275,14 +284,36 @@ def test_fp32_on_cuda_accepts_the_single_stream_dense_path():
         TE.check_cuda_dtype(preset("tiny").replace(dtype="float16"))
 
 
+class _Reached(Exception):
+    """The engine got as far as allocating its state."""
+
+
 @pytest.mark.parametrize("engine", [TB.BatchEngine, TP.PagedBatchEngine])
-def test_fp32_on_cuda_refuses_the_batching_engines(engine):
-    """The slot and paged engines refuse an fp32 model on CUDA when they are
-    built; on the CPU they take it (the fp32 parity tests run there)."""
-    cuda_lm = type("StubLM", (), {"device": torch.device("cuda"),
-                                  "cfg": preset("tiny").replace(dtype="float32")})()
-    with pytest.raises(ValueError, match="the slot and paged engines in fp32 on CUDA.*queue 1 item 4"):
-        engine(cuda_lm, None, slots=2, window=256)
+def test_fp32_on_cuda_refuses_the_batching_engines(engine, monkeypatch):
+    """The slot and paged engines take an fp32 model on CUDA: over a stub
+    card model with 4-bit, 8-bit or packed weights and the dense, int4 or
+    int8 cache, the constructor goes on to allocate its state (stubbed: the
+    CPU has no card); and a tiny fp32 4-bit model over the int4 cache builds
+    the engine on the CPU."""
+    def reached(self):
+        raise _Reached(self.lm.cfg)
+
+    monkeypatch.setattr(engine, "_init_state", reached)
+    tiny = preset("tiny").replace(dtype="float32")
+    combos = [dict(quantized=QuantConfig(group_size=64, bits=bits)) for bits in (4, 8)]
+    combos += [dict(quantized=QuantConfig(group_size=64, bits=4), use_quantized_cache=True,
+                    kv_quant=KVQuantConfig(group_size=32, bits=bits)) for bits in (4, 8)]
+    for kw in combos:
+        cuda_lm = type("StubLM", (), {"device": torch.device("cuda"), "cfg": tiny.replace(**kw)})()
+        with pytest.raises(_Reached):
+            engine(cuda_lm, None, slots=2, window=256)
+    monkeypatch.undo()
+    from phi_3_vision_mlx_tpu_torch.core.weights import synth_quantized_params
+
+    cfg = tiny.replace(quantized=QuantConfig(group_size=64, bits=4), use_quantized_cache=True)
+    lm = TE.LM(cfg, synth_quantized_params(cfg, device="cpu"), device="cpu")
+    eng = engine(lm, None, slots=2, window=256)
+    assert eng.state.k.dtype == torch.uint8 and eng.state.valid.shape == (2, 256)
 
 
 def test_fp32_wrappers_take_fp32_and_refuse_mixed_types():
