@@ -135,18 +135,24 @@ holds yet):
                each bitwise equal to its forced-reject baseline.  (b) A
                2-layer full-width model: ``choose`` on three prompts of
                unequal length and ``constrain`` greedy and with beams on
-               the card, each step repeated on the CPU's plain path
-               (fp32) on the same inputs: the steps' log-probs within a
-               stated limit, and the CPU's decisions (the run replayed on
-               the host with its numbers) the card's but at ties.  (c)
-               Full width, the first 4 layers (its eager steps are
-               host-bound, so its time goes with the depth), dense and
-               int4 cache: ``api.choose`` on four
-               prompts, ``api.constrain`` with the JAX defaults and with
-               ``[(16, " A"), "ABCDE"]`` (the K3/K4 route), greedy and with
-               beams; the launches (K1, K2, K3 dense; K1, K2, K4, K5
-               int4), wall ms per step and per beam step, the choose time,
-               one profiled step of each kind.  (d) ``Agent()`` with its
+               the card (each step a graph replay), each step repeated
+               on the CPU's plain path (fp32) on the same inputs: the
+               steps' log-probs within a stated limit, and the CPU's
+               decisions (the run replayed on the host with its numbers)
+               the card's but at ties.  (c) Dense and int4 cache, the
+               JAX defaults and ``[(16, " A"), "ABCDE"]``: on the first 4
+               layers, ``api.constrain`` greedy and with beams through the
+               graphs and with ``graphs=False``, every step's log-probs
+               bitwise equal, and a 23-row score step two K3/K4 launches
+               a layer, no K2/K5; then at full depth (32 layers, every
+               step replayed) ``api.choose`` on four prompts and each
+               ``api.constrain`` twice (capturing, then replaying): the
+               seconds per question, the launches (K1, K2, K3 dense; K1,
+               K2, K4, K5 int4), wall ms per replayed step, each graph's
+               capture ms and pool, and a replayed score step of 1 + 22
+               and 1 + 2 rows and a 3 x 23-row beam step profiled beside
+               the eager ones (idle share at most 0.5 replayed).  (d)
+               ``Agent()`` with its
                default toolchain on a 2-layer model whose lm_head makes
                its greedy output a python block, which the sandbox runs;
                ``generate(enable_api=True)`` on a quoted prompt.  (e)
@@ -511,9 +517,12 @@ def kernel_times(torch, run, per: int, tries: int = 3, expected: int = 1):
             run()
             torch.cuda.synchronize()
         per_name, launches = Counter(), 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                per_name[short_name(e.name)] += e.device_time_total / 1e3 / per
+        # The raw Kineto events, the same device events as ``prof.events()``
+        # without its event tree, which took 1.4 s for an eager decode
+        # step's host ops on an H100 (the raw list 0.27 s).
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                per_name[short_name(e.name())] += e.duration_ns() / 1e6 / per
                 launches += 1
         if sum(per_name.values()) > 0 and launches >= expected:
             return per_name, launches
@@ -3228,7 +3237,8 @@ LONG_SPEC_BUDGET = SPEC_BUDGET
 CHOOSE_PROMPTS = ["Is the sea salty? A: yes B: no", "Pick a colour: A red, B green, C blue",
                   "Which is larger, 3 or 5? A: 3 B: 5", "Name the best answer."]
 # Phase 12 (b): three prompts of unequal length (left padding); the long
-# constraint's steps (1 + 22 rows) take K2, the short one's (1 + 2) K3.
+# constraint's steps (1 + 22 rows) take K3 in two launches, the short one's
+# (1 + 2) in one.
 REF_PROMPTS = ["Is the sea salty?", "Which planet is the largest, Mars or Jupiter? Answer with a letter.",
                "Pick one."]
 REF_CONSTRAINTS = [(2, " The correct answer is"), (2, " A"), "ABCDE"]
@@ -3459,32 +3469,36 @@ class StepMirror:
     on a CPU twin with the same inputs (the twin's state follows the same
     calls): ``records`` holds (kind, ids, card log-probs, CPU log-probs,
     extra) per call, in order, where ``extra`` is the prefill's (l_pad,
-    window).  The card's host bookkeeping drives; the twin only mirrors."""
+    window).  The card's host bookkeeping drives, its prefills into the
+    model's entries and its steps through their graphs; the twin (eager on
+    the CPU) only mirrors."""
 
     def __init__(self, torch, lm, twin, constrain):
+        from phi_3_vision_mlx_tpu_torch.engine.engine import run_prefill
+
         self.torch, self.lm, self.twin, self.C = torch, lm, twin, constrain
         self.records, self.cpu_state = [], None
-        self.run_prefill = constrain.run_prefill
-        constrain.run_prefill = self._prefill
+        self.prefill_entry, self.run_prefill = constrain.prefill_entry, run_prefill
+        constrain.prefill_entry = self._prefill
         for name in ("score_fn", "beam_fn", "nocache_fn"):
             setattr(lm, name, getattr(self, "_" + name))
 
     def restore(self):
-        self.C.run_prefill = self.run_prefill
+        self.C.prefill_entry = self.prefill_entry
         for name in ("score_fn", "beam_fn", "nocache_fn"):
             delattr(self.lm, name)
 
     def _keep(self, kind, ids, card, cpu, extra=None):
-        self.records.append((kind, ids.cpu().numpy(), card.float().cpu().numpy(), cpu.float().numpy(), extra))
+        self.records.append((kind, ids.cpu().numpy(), card.float().cpu().numpy().copy(), cpu.float().numpy(), extra))
 
     def _prefill(self, lm, dict_input, max_tokens):
-        out = self.run_prefill(lm, dict_input, max_tokens)
+        out = self.prefill_entry(lm, dict_input, max_tokens)  # (entry, logits, state, l_pad, window)
         cpu = self.run_prefill(self.twin, dict_input, max_tokens)
         self.cpu_state = cpu[1]
         import numpy as np
 
-        self._keep("prefill", self.torch.as_tensor(np.asarray(dict_input["input_ids"])), out[0], cpu[0],
-                   (out[2], out[3]))
+        self._keep("prefill", self.torch.as_tensor(np.asarray(dict_input["input_ids"])), out[1], cpu[0],
+                   out[3:])
         return out
 
     def _score_fn(self, b, l, window, advance=None):
@@ -3537,12 +3551,12 @@ class ReplayLM:
     def __init__(self, torch, records, constrain):
         self.torch, self.records, self.C, self.n = torch, records, constrain, 0
         self.device = torch.device("cpu")
-        self.params = None
-        self.run_prefill = constrain.run_prefill
-        constrain.run_prefill = lambda lm, dict_input, max_tokens: self._prefill(dict_input)
+        self.params, self.graphs = None, False  # no entry to give back
+        self.prefill_entry = constrain.prefill_entry
+        constrain.prefill_entry = lambda lm, dict_input, max_tokens: self._prefill(dict_input)
 
     def restore(self):
-        self.C.run_prefill = self.run_prefill
+        self.C.prefill_entry = self.prefill_entry
 
     def _next(self, kind, ids, n_beam: int = 1):
         """The next record's CPU log-probs for ``ids``.  A beam call whose
@@ -3569,7 +3583,7 @@ class ReplayLM:
         import numpy as np
 
         extra = self.records[min(self.n, len(self.records) - 1)][4]
-        return self._next("prefill", np.asarray(dict_input["input_ids"])), None, *(extra or (0, 0))
+        return None, self._next("prefill", np.asarray(dict_input["input_ids"])), None, *(extra or (0, 0))
 
     def score_fn(self, b, l, window, advance=None):
         return lambda params, ids, state: (self._next(f"score{advance}", ids.numpy()), state)
@@ -3632,10 +3646,12 @@ def dequantized_linears(torch, node):
 def phase_constrain_reference(torch, params, proc):
     """Phase 12 (b): a 2-layer full-width model, ``choose`` on three prompts
     of unequal length and ``constrain`` (REF_CONSTRAINTS) greedy and with
-    beams, on the card (bf16), each step repeated on the CPU's plain path
-    (fp32, its 4-bit linears dequantized once: ``dequantized_linears``) on
-    the same inputs: every step's log-probs within STEP_LP_ATOL;
-    then the whole run replayed on the host with the CPU's numbers.  Every
+    beams, on the card (bf16; each step a graph replay of the model's
+    entries, the first of a shape capturing), each step repeated on the
+    CPU's plain path (fp32, its 4-bit linears dequantized once:
+    ``dequantized_linears``) on the same inputs: every step's log-probs
+    within STEP_LP_ATOL; then the whole run replayed on the host with the
+    CPU's numbers.  Every
     decision of the run (an argmax, a choice, a top-3 set, a mean-score
     comparison) compares sums of those log-probs, so where the steps agree
     within STEP_LP_ATOL the CPU's decisions part from the card's only at a
@@ -3697,35 +3713,55 @@ def phase_constrain_reference(torch, params, proc):
 
 
 class StepClock:
-    """Wall time of each ``score_fn`` step with ``advance`` 1 (``cfn``) and
-    each ``beam_fn`` call of an LM, synchronized (the caller reads the
-    log-probs back at once anyway)."""
+    """Around ``lm``'s constrained-decoding steps (``score_fn``, ``beam_fn``,
+    ``nocache_fn``): each call as (kind, rows, synchronized wall ms, whether
+    it replayed a graph captured before it), ``kind`` being ``score0`` /
+    ``score1`` (the ``advance``), ``beam`` or ``nocache``; with ``keep``, a
+    host copy of each call's log-probs.  A replay is a call in which every
+    ``StepGraph`` call found its graph already captured (an eager model
+    calls none)."""
 
-    def __init__(self, torch, lm):
-        self.torch, self.lm, self.ms = torch, lm, {"cfn": [], "beam": []}
-        lm.score_fn = self._wrap(type(lm).score_fn, "cfn", lambda advance: advance == 1)
-        lm.beam_fn = self._wrap(type(lm).beam_fn, "beam", lambda n_beam: True)
+    def __init__(self, torch, lm, keep: bool = False):
+        from phi_3_vision_mlx_tpu_torch.engine import graphs
 
-    def _wrap(self, make, kind, timed_if):
-        def maker(b, l, window, *last, **kw):  # advance (score_fn) or n_beam (beam_fn)
-            last = last[0] if last else next(iter(kw.values()))
-            fn = make(self.lm, b, l, window, last)
-            if not timed_if(last):
-                return fn
+        self.torch, self.lm, self.keep = torch, lm, keep
+        self.calls, self.outs, self.seen = [], [], []
+        self.graphs, self.graph_call = graphs, graphs.StepGraph.__call__
+        graph_call = self.graph_call
 
-            def call(*a):
-                t0 = time.perf_counter()
-                out = fn(*a)
-                self.torch.cuda.synchronize()
-                self.ms[kind].append((time.perf_counter() - t0) * 1e3)
-                return out
+        def seen_call(g):
+            self.seen.append(g.graph is not None)
+            return graph_call(g)
 
-            return call
+        graphs.StepGraph.__call__ = seen_call
+        make = type(lm)
+        lm.score_fn = lambda b, l, window, advance: self._timed(make.score_fn(lm, b, l, window, advance),
+                                                                f"score{advance}", l)
+        lm.beam_fn = lambda b, l, window, n_beam: self._timed(make.beam_fn(lm, b, l, window, n_beam), "beam", l)
+        lm.nocache_fn = lambda b, l: self._timed(make.nocache_fn(lm, b, l), "nocache", l)
 
-        return maker
+    def _timed(self, fn, kind: str, rows: int):
+        def call(*a):
+            n = len(self.seen)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            self.torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if self.keep:
+                self.outs.append((kind, (out[0] if isinstance(out, tuple) else out).cpu().numpy().copy()))
+            self.calls.append((kind, rows, ms, len(self.seen) > n and all(self.seen[n:])))
+            return out
+
+        return call
+
+    def ms(self, kind: str):
+        import numpy as np
+
+        return np.array([ms for k, _, ms, replayed in self.calls if k == kind and replayed])
 
     def restore(self):
-        del self.lm.score_fn, self.lm.beam_fn
+        self.graphs.StepGraph.__call__ = self.graph_call
+        del self.lm.score_fn, self.lm.beam_fn, self.lm.nocache_fn
 
 
 def step_profile_idle(torch, fn, reps: int = 8):
@@ -3744,84 +3780,188 @@ def step_profile_idle(torch, fn, reps: int = 8):
     return wall, busy, 1 - busy / wall, launches
 
 
-# Phase 12 (c)'s depth: its eager steps are host-bound (about 1650-2200
-# launches a step at 32 layers), so its time goes with the layers.
+# Phase 12 (c)'s cut model for its graph-against-eager check (the eager
+# steps are host-bound, about 1650-2200 launches a step at 32 layers); its
+# timed runs take the full 32 layers, replayed.
 CONSTRAIN_LAYERS = 4
+CONSTRAIN_RUNS = (("defaults", DEFAULT_CONSTRAINTS), ("short", SHORT_CONSTRAINTS))
+STEP_KINDS = ("score0", "score1", "beam", "nocache")
+IDLE_MAX = 0.5  # a replayed step's idle share: a graph step should sit near its busy time
 
 
-def phase_constrain_full(torch, lm, proc, report):
-    """Phase 12 (c): full-width (``CONSTRAIN_LAYERS`` layers) ``api.choose`` on four prompts and
-    ``api.constrain`` with the JAX defaults and with SHORT_CONSTRAINTS,
-    greedy and with beams, through the normal entry points: the launches of
-    the whole run (K1, K2 and K3 with the dense cache; K1, K2, K4 and K5
-    with the int4 cache), wall ms per step and per beam step, the choose
-    time, and one profiled step of each kind (idle share)."""
+def constrain_answer_ok(tag: str, text) -> bool:
+    want = "The correct answer is" if tag == "defaults" else " A"
+    return isinstance(text, str) and want in text and text.rstrip()[-1] in "ABCDE"
+
+
+def phase_constrain_parity(torch, params, model, proc, report):
+    """Phase 12 (c), correctness, on the first ``CONSTRAIN_LAYERS`` layers of
+    ``model``'s weights and cache: one greedy and one beam ``api.constrain``
+    of each constraint set with graphs and again with ``graphs=False``
+    (the same kernels on the same routes): every score, beam and cache-free
+    output bitwise equal, the texts equal; then a replayed score step of 1 +
+    22 rows runs two launches of K3 (K4 on the int4 cache) a layer and no
+    K2/K5."""
     import numpy as np
 
     from phi_3_vision_mlx_tpu_torch import api
     from phi_3_vision_mlx_tpu_torch.engine.constrain import encode_suffix
-    from phi_3_vision_mlx_tpu_torch.engine.engine import run_prefill
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM, prefill_entry, release_decoder
+
+    cut = {"model": {**params["model"], "layers": first_layers(params["model"]["layers"], CONSTRAIN_LAYERS)},
+           "lm_head": params["lm_head"]}
+    graph = LM(model.cfg.replace(num_hidden_layers=CONSTRAIN_LAYERS), cut, device="cuda")
+    eager = eager_twin(graph)
+    cache = cache_of(graph)
+    label = f"{weights_of(graph)} weights, {cache} cache, {CONSTRAIN_LAYERS} layers"
+    for tag, constraints in CONSTRAIN_RUNS:
+        for beam in (False, True):
+            runs = {}
+            for mode, m in (("graph", graph), ("eager", eager)):
+                clock = StepClock(torch, m, keep=True)
+                try:
+                    text = api.constrain(CONSTRAIN_PROMPT, constraints=constraints, preload=(m, proc),
+                                         verbose=False, use_beam=beam)
+                finally:
+                    clock.restore()
+                runs[mode] = (text, clock)
+            (gt, g_clock), (et, e_clock) = runs["graph"], runs["eager"]
+            kinds = [k for k, _ in g_clock.outs]
+            equal = (gt == et and kinds == [k for k, _ in e_clock.outs]
+                     and all(np.array_equal(a, b) for (_, a), (_, b) in zip(g_clock.outs, e_clock.outs)))
+            replayed = sorted({k for k, _, _, r in g_clock.calls if r})
+            log(f"phase 12 (c) graph vs eager ({label}, {tag} constraints, {'beam' if beam else 'greedy'}): "
+                f"{len(kinds)} step outputs ({', '.join(f'{k} {kinds.count(k)}' for k in sorted(set(kinds)))}) "
+                f"bitwise equal: {equal}; texts equal: {gt == et}; kinds replayed {replayed}")
+            if not equal:
+                fail(f"phase 12 (c) ({label}, {tag}, beam {beam}): the graph run's steps or text differ from "
+                     f"the eager run's: {gt!r} / {et!r}")
+            if not constrain_answer_ok(tag, gt):
+                fail(f"phase 12 (c) ({label}, {tag}, beam {beam}): {gt!r}")
+    ids = encode_suffix(proc.tokenizer, " The correct answer is")
+    plus = torch.as_tensor(np.concatenate([ids[:1], ids])[None], dtype=torch.long, device="cuda")
+    entry, _, state, _, window = prefill_entry(graph, proc(api._apply_chat_template(CONSTRAIN_PROMPT)[0]), 64)
+    try:
+        step = graph.score_fn(1, plus.shape[1], window, advance=0)
+        step(graph.params, plus, state)  # captures
+        counters = zero_counters()
+        step(graph.params, plus, state)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+    finally:
+        release_decoder(graph, entry)
+    decode = "K4" if cache == "int4" else "K3"
+    log(f"phase 12 (c) one replayed score step of {plus.shape[1]} rows ({label}): launches {launches}")
+    if launches[decode] != 2 * CONSTRAIN_LAYERS or launches["K2"] or launches["K5"]:
+        fail(f"phase 12 (c) ({label}): a {plus.shape[1]}-row score step launched {launches}, not two {decode} "
+             f"launches a layer and no K2/K5")
+    del graph, eager
+
+
+def phase_constrain_full(torch, lm, proc, report):
+    """Phase 12 (c), full depth (``lm``'s 32 layers, every step replayed):
+    ``api.choose`` on four prompts and ``api.constrain`` with the JAX
+    defaults and with SHORT_CONSTRAINTS, greedy and with beams, each
+    question twice (the first captures its shapes' graphs, the second
+    replays them): seconds per question, the launches of the runs (K1, K2
+    and K3 with the dense cache; K1, K2, K4 and K5 with the int4 cache),
+    wall ms per replayed step, each graph's capture ms and pool, and a
+    replayed score step of 1 + 22 and 1 + 2 rows and a 3 x 23-row beam step
+    profiled (wall, busy, idle share, kernels) beside the same step run
+    eagerly.  Fails if a step kind never replayed or a replayed step's idle
+    share passes IDLE_MAX."""
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.constrain import encode_suffix
+    from phi_3_vision_mlx_tpu_torch.engine.engine import prefill_entry, release_decoder, run_prefill
 
     cache = cache_of(lm)
-    label = f"{weights_of(lm)} weights, {cache} cache"
+    n_layers = lm.cfg.num_hidden_layers
+    label = f"{weights_of(lm)} weights, {cache} cache, {n_layers} layers, replayed"
+    card = report["card"]
     expected = ("K1", "K2") + (("K4", "K5") if cache == "int4" else ("K3",))
     clock = StepClock(torch, lm)
     counters = zero_counters()
-    outs = {}
+    outs, choose_ms = {}, []
     try:
-        api.choose(CHOOSE_PROMPTS[:1], preload=(lm, proc), verbose=False)  # first use of the shape
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        letters = api.choose(CHOOSE_PROMPTS, preload=(lm, proc), verbose=False)
-        choose_ms = (time.perf_counter() - t0) * 1e3
-        for tag, constraints in (("defaults", DEFAULT_CONSTRAINTS), ("short", SHORT_CONSTRAINTS)):
+        for _ in range(2):  # the first captures the cache-free pass
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            letters = api.choose(CHOOSE_PROMPTS, preload=(lm, proc), verbose=False)
+            choose_ms.append((time.perf_counter() - t0) * 1e3)
+        for tag, constraints in CONSTRAIN_RUNS:
             for beam in (False, True):
-                t0 = time.perf_counter()
-                outs[tag, beam] = (api.constrain(CONSTRAIN_PROMPT, constraints=constraints,
-                                                 preload=(lm, proc), verbose=False, use_beam=beam),
-                                   time.perf_counter() - t0)
+                for question in ("first", "second"):
+                    t0 = time.perf_counter()
+                    outs[tag, beam, question] = (api.constrain(CONSTRAIN_PROMPT, constraints=constraints,
+                                                               preload=(lm, proc), verbose=False, use_beam=beam),
+                                                 time.perf_counter() - t0)
         launches = {n: fn.launches for n, fn in counters.items()}
     finally:
         clock.restore()
-    log(f"phase 12 (c) api.choose ({label}, 4 prompts, one cache-free pass): {letters} in {choose_ms:.1f} ms "
-        f"on {report['card']}")
-    for (tag, beam), (text, secs) in outs.items():
-        log(f"phase 12 (c) api.constrain ({label}, {tag} constraints, {'beam' if beam else 'greedy'}): "
-            f"{secs:.2f} s, {text!r}")
-        want = "The correct answer is" if tag == "defaults" else " A"
-        if not isinstance(text, str) or want not in text or text.rstrip()[-1] not in "ABCDE":
-            fail(f"phase 12 (c) ({label}, {tag}, beam {beam}): {text!r}")
+    log(f"phase 12 (c) api.choose ({label}, 4 prompts, one cache-free pass): {letters} in {choose_ms[0]:.1f} ms "
+        f"(capturing), {choose_ms[1]:.1f} ms (replayed) on {card}")
     if len(letters) != 4 or any(c not in "ABCDE" for c in letters):
         fail(f"phase 12 (c) ({label}): choose gave {letters}")
-    cfn, beam_ms = np.array(clock.ms["cfn"]), np.array(clock.ms["beam"])
-    log(f"phase 12 (c) steps ({label}): {len(cfn)} constrained steps, wall {cfn.mean():.3f} ms mean "
+    for (tag, beam, question), (text, secs) in outs.items():
+        log(f"phase 12 (c) api.constrain ({label}, {tag} constraints, {'beam' if beam else 'greedy'}, "
+            f"{question} question): {secs:.3f} s, {text!r} on {card}")
+        if not constrain_answer_ok(tag, text):
+            fail(f"phase 12 (c) ({label}, {tag}, beam {beam}): {text!r}")
+    replays = {k: sum(1 for c in clock.calls if c[0] == k and c[3]) for k in STEP_KINDS}
+    captures = {k: sum(1 for c in clock.calls if c[0] == k and not c[3]) for k in STEP_KINDS}
+    log(f"phase 12 (c) calls ({label}): replayed {replays}, capturing {captures}; entries "
+        f"{dict(lm.entry_uses)}")
+    for kind, n in replays.items():
+        if n == 0:
+            fail(f"phase 12 (c) ({label}): no {kind} step replayed a graph")
+    cfn, beam_ms = clock.ms("score1"), clock.ms("beam")
+    log(f"phase 12 (c) replayed steps ({label}): {len(cfn)} constrained steps, wall {cfn.mean():.3f} ms mean "
         f"(median {np.median(cfn):.3f}); {len(beam_ms)} beam steps, wall {beam_ms.mean():.3f} ms mean "
-        f"(median {np.median(beam_ms):.3f}) on {report['card']}")
-    log(f"phase 12 (c) launches over choose and the four constrain runs ({label}): {launches}")
+        f"(median {np.median(beam_ms):.3f}) on {card}")
+    row0 = sum(-(-rows // 16) - 1 for kind, rows, _, _ in clock.calls if kind.startswith("score")) * n_layers
+    log(f"phase 12 (c) launches over choose and the eight constrain runs ({label}): {launches}; "
+        f"{row0} of the {'K4' if cache == 'int4' else 'K3'} launches at row0 16")
     for name in expected:
         if launches[name] <= 0:
             fail(f"phase 12 (c) ({label}): {name} was never launched")
-    # One profiled step of each kind: the long constraint's (1 + 22 rows,
-    # K2/K5), the short one's (1 + 2 rows, K3/K4) and a beam step.
+    graphs = [(key, g) for key, entry in lm.decoders.items()
+              for g in ([entry.step.graph] if key[0] == "nocache" else [s.graph for s in entry.steps.values()])]
+    log(f"phase 12 (c) graphs kept ({label}): " + "; ".join(
+        f"{key} capture {g.capture_ms or 0.0:.1f} ms, pool {g.pool_bytes / 2**20:.1f} MiB" for key, g in graphs))
+    # One profiled step of each kind, replayed and eager: the long
+    # constraint's (1 + 22 rows), the short one's (1 + 2 rows) and a beam
+    # read of 3 x (1 + 22) rows.
+    eager = eager_twin(lm)
     prompt = api._apply_chat_template(CONSTRAIN_PROMPT)[0]
     for text in (" The correct answer is", " A"):
         ids = encode_suffix(proc.tokenizer, text)
         lcons = len(ids)
-        _, state, _, window = run_prefill(lm, proc(prompt), 100 + lcons + 10)
-        tiled = torch.as_tensor(np.tile(ids, (1, 1)), dtype=torch.long, device="cuda")
-        _, state = lm.score_fn(1, lcons, window, advance=0)(lm.params, tiled, state)
+        tiled = torch.as_tensor(ids[None], dtype=torch.long, device="cuda")
         plus = torch.cat([tiled[:, :1], tiled], dim=1)
-        step = lm.score_fn(1, 1 + lcons, window, advance=0)
-        wall, busy, idle, n = step_profile_idle(torch, lambda: step(lm.params, plus, state)[0])
-        log(f"phase 12 (c) constrained step ({label}, {1 + lcons} rows): wall {wall:.3f} ms, busy {busy:.3f} "
-            f"ms, idle share {idle:.3f}, {n} kernels on {report['card']}")
         beams = torch.cat([torch.tensor([[1005], [1006], [1007]], device="cuda"), tiled.expand(3, -1)], dim=1)
-        bfn = lm.beam_fn(3, 1 + lcons, window, 3)
-        wall, busy, idle, n = step_profile_idle(torch, lambda: bfn(lm.params, beams, state))
-        log(f"phase 12 (c) beam step ({label}, 3 x {1 + lcons} rows over the {state.window}-key window "
-            f"read with read_kv): wall {wall:.3f} ms, busy {busy:.3f} ms, idle share {idle:.3f}, {n} kernels "
-            f"on {report['card']}")
-        del state
+        rows = {}
+        entry, _, state, _, window = prefill_entry(lm, proc(prompt), 100 + lcons + 10)
+        try:
+            for mode, m in (("replayed", lm), ("eager", eager)):
+                if mode == "eager":
+                    state = run_prefill(eager, proc(prompt), 100 + lcons + 10)[1]
+                _, state = m.score_fn(1, lcons, window, advance=0)(m.params, tiled, state)
+                step = m.score_fn(1, 1 + lcons, window, advance=0)
+                bfn = m.beam_fn(3, 1 + lcons, window, 3)
+                rows[mode, "score"] = step_profile_idle(torch, lambda: step(m.params, plus, state)[0])
+                if lcons > 16:
+                    rows[mode, "beam"] = step_profile_idle(torch, lambda: bfn(m.params, beams, state))
+        finally:
+            release_decoder(lm, entry)
+        for (mode, kind), (wall, busy, idle, n) in rows.items():
+            what = f"score step, {1 + lcons} rows" if kind == "score" else f"beam step, 3 x {1 + lcons} rows"
+            log(f"phase 12 (c) {what} ({weights_of(lm)} weights, {cache} cache, {n_layers} layers, {mode}): "
+                f"wall {wall:.3f} ms, busy {busy:.3f} ms, idle share {idle:.3f}, {n} kernels on {card}")
+            if mode == "replayed" and idle > IDLE_MAX:
+                fail(f"phase 12 (c) ({label}): a replayed {what} sits idle {idle:.3f} of its wall")
+    del eager
 
 
 def agent_params(torch, lm, proc, program: str, prompt: str, max_tokens: int):
@@ -3966,13 +4106,11 @@ def phase_constrain(torch, params, lm, lm_int4, proc, report):
     stamp("phase 12 (a)")
     phase_constrain_reference(torch, params, proc)
     stamp("phase 12 (b)")
-    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
-
-    cut = {"model": {**params["model"], "layers": first_layers(params["model"]["layers"], CONSTRAIN_LAYERS)},
-           "lm_head": params["lm_head"]}
     for model in (lm, lm_int4):
-        phase_constrain_full(torch, LM(model.cfg.replace(num_hidden_layers=CONSTRAIN_LAYERS), cut,
-                                       device="cuda"), proc, report)
+        phase_constrain_parity(torch, params, model, proc, report)
+    stamp("phase 12 (c) parity")
+    for model in (lm, lm_int4):
+        phase_constrain_full(torch, model, proc, report)
     stamp("phase 12 (c)")
     phase_agent(torch, lm, proc, report)
     stamp("phase 12 (d)")

@@ -13,9 +13,13 @@ by the constraint against the shared cache, writing nothing.
 The device hands back the (B, L, V) f32 log-probs, and the bookkeeping
 (argmax, argpartition, gathers) runs in NumPy on the host, where the JAX
 package and the reference run it: the code below follows the JAX module
-line for line, so ties break the same way.  On the card a score step of up
-to 16 rows takes K3/K4 on the device offset, a longer one K2/K5 on the host
-mirror; the steps run eagerly (no CUDA graph).
+line for line, so ties break the same way.  Each constraint's prompt
+prefills into an entry of the model (``engine.prefill_entry``), which the
+question holds until it ends and then gives back (``release_decoder``); on
+the card the entry replays a CUDA graph of each step shape (a score step of
+any length takes K3/K4 on the device offset), so the next question of the
+same shape captures nothing.  ``LM(graphs=False)`` and the CPU run the same
+steps eagerly.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 from ..core.config import ID_EOS
 from ..models.tokenizer import ByteTokenizer
 from ..utils.timing import Tic
-from .engine import LM, PROMPT_BUCKET, pad_prompt_inputs, round_up, run_prefill
+from .engine import LM, PROMPT_BUCKET, pad_prompt_inputs, prefill_entry, release_decoder, round_up
 
 
 def _preprocess(s: str) -> str:
@@ -164,75 +168,77 @@ def constrain_decode(
         ids = np.asarray(dict_input["input_ids"])
         max_tokens = n_free + lcons + 10
 
-        last_lp_raw, state, l_pad, window = run_prefill(lm, dict_input, max_tokens)
-        last_lp = last_lp_raw.cpu().numpy()
-        last_lp = last_lp - _logsumexp(last_lp)  # log_softmax of last position
+        entry, last_lp_raw, state, l_pad, window = prefill_entry(lm, dict_input, max_tokens)
+        try:
+            last_lp = last_lp_raw.cpu().numpy()
+            last_lp = last_lp - _logsumexp(last_lp)  # log_softmax of last position
 
-        score_0 = last_lp[:, id_constraint[0]]
-        tiled = np.tile(id_constraint, (b, 1)).astype(np.int32)
+            score_0 = last_lp[:, id_constraint[0]]
+            tiled = np.tile(id_constraint, (b, 1)).astype(np.int32)
 
-        sfn = lm.score_fn(b, lcons, window, advance=0)
-        lp_rest, state = sfn(lm.params, _device_ids(lm, tiled), state)
-        lp_rest = lp_rest.cpu().numpy()
-        rows = np.arange(b)[:, None]
-        score_1 = lp_rest[rows, np.arange(lcons - 1)[None, :], tiled[:, 1:]]
+            sfn = lm.score_fn(b, lcons, window, advance=0)
+            lp_rest, state = sfn(lm.params, _device_ids(lm, tiled), state)
+            lp_rest = lp_rest.cpu().numpy()
+            rows = np.arange(b)[:, None]
+            score_1 = lp_rest[rows, np.arange(lcons - 1)[None, :], tiled[:, 1:]]
 
-        running_score = last_lp.max(axis=-1)[:, None]
-        pre_beam_score = _log_mean(np.concatenate([score_0[:, None], score_1], axis=1), log_norm)
-        pre_beam_synth = np.concatenate([tiled, synth_pad], axis=1)
+            running_score = last_lp.max(axis=-1)[:, None]
+            pre_beam_score = _log_mean(np.concatenate([score_0[:, None], score_1], axis=1), log_norm)
+            pre_beam_synth = np.concatenate([tiled, synth_pad], axis=1)
 
-        if use_beam and n_free > 0:
-            lp3 = last_lp[:, None, :]  # beam_idx=-1 over a (B,1,V) view
-            token, beam_token, beam_score = _get_beam(lm, lp3, state, id_constraint, window,
-                                                      beam_idx=-1)
-            post_beam_score = _log_mean(beam_score, log_norm)
-            post_beam_synth = np.concatenate([beam_token[:, None], tiled], axis=1)
-            win = pre_beam_score > post_beam_score
-            score_sofar = np.where(win, pre_beam_score, post_beam_score)
-            synth_sofar = np.where(win[:, None], pre_beam_synth, post_beam_synth)
-        else:
-            token = np.argmax(last_lp, axis=-1)
-            score_sofar = pre_beam_score
-            synth_sofar = pre_beam_synth
-
-        token = token[:, None].astype(np.int32)
-        tokens: List[np.ndarray] = []
-        finished_rows = np.ones(b, bool)
-        prompt_time += tic()
-
-        cfn = lm.score_fn(b, 1 + lcons, window, advance=1)
-        for _ in range(n_free):
-            tokens.append(token)
-            token_plus = np.concatenate([token, tiled], axis=1)
-            lp_c, state = cfn(lm.params, _device_ids(lm, token_plus), state)
-            lp_c = lp_c.cpu().numpy()  # (B, 1+L, V)
-            cont = lp_c[rows, np.arange(lcons)[None, :], token_plus[:, 1:]]
-            pre_beam_score = _log_mean(np.concatenate([running_score, cont], axis=1), log_norm)
-            pre_beam_synth = np.concatenate(tokens + [tiled, synth_pad], axis=1)
-            if use_beam:
-                token, beam_token, beam_score = _get_beam(lm, lp_c, state, id_constraint, window)
-                post_beam_score = _log_mean(np.concatenate([running_score, beam_score], axis=1),
-                                            log_norm)
-                post_beam_synth = np.concatenate(tokens + [beam_token[:, None], tiled], axis=1)
+            if use_beam and n_free > 0:
+                lp3 = last_lp[:, None, :]  # beam_idx=-1 over a (B,1,V) view
+                token, beam_token, beam_score = _get_beam(lm, lp3, state, id_constraint, window,
+                                                          beam_idx=-1)
+                post_beam_score = _log_mean(beam_score, log_norm)
+                post_beam_synth = np.concatenate([beam_token[:, None], tiled], axis=1)
                 win = pre_beam_score > post_beam_score
-                score = np.where(win, pre_beam_score, post_beam_score)
-                synth = np.where(win[:, None], pre_beam_synth, post_beam_synth)
+                score_sofar = np.where(win, pre_beam_score, post_beam_score)
+                synth_sofar = np.where(win[:, None], pre_beam_synth, post_beam_synth)
             else:
-                token = np.argmax(lp_c[:, 0, :], axis=-1)
-                score = pre_beam_score
-                synth = pre_beam_synth
-            synth_sofar = np.concatenate([synth_sofar, synth_pad], axis=1)
-            finished_rows &= _already(np.concatenate(tokens, axis=1), id_constraint)
-            rows_to_update = (score > score_sofar) & finished_rows
-            synth_sofar = np.where(rows_to_update[:, None], synth, synth_sofar)
-            score_sofar = np.where(rows_to_update, score, score_sofar)
-            running_score = np.concatenate([running_score, lp_c[np.arange(b), 0, token][:, None]],
-                                           axis=1)
-            finished_rows &= token != ID_EOS
-            if not finished_rows.any():
-                break
-            token = token[:, None].astype(np.int32)
+                token = np.argmax(last_lp, axis=-1)
+                score_sofar = pre_beam_score
+                synth_sofar = pre_beam_synth
 
+            token = token[:, None].astype(np.int32)
+            tokens: List[np.ndarray] = []
+            finished_rows = np.ones(b, bool)
+            prompt_time += tic()
+
+            cfn = lm.score_fn(b, 1 + lcons, window, advance=1)
+            for _ in range(n_free):
+                tokens.append(token)
+                token_plus = np.concatenate([token, tiled], axis=1)
+                lp_c, state = cfn(lm.params, _device_ids(lm, token_plus), state)
+                lp_c = lp_c.cpu().numpy()  # (B, 1+L, V)
+                cont = lp_c[rows, np.arange(lcons)[None, :], token_plus[:, 1:]]
+                pre_beam_score = _log_mean(np.concatenate([running_score, cont], axis=1), log_norm)
+                pre_beam_synth = np.concatenate(tokens + [tiled, synth_pad], axis=1)
+                if use_beam:
+                    token, beam_token, beam_score = _get_beam(lm, lp_c, state, id_constraint, window)
+                    post_beam_score = _log_mean(np.concatenate([running_score, beam_score], axis=1),
+                                                log_norm)
+                    post_beam_synth = np.concatenate(tokens + [beam_token[:, None], tiled], axis=1)
+                    win = pre_beam_score > post_beam_score
+                    score = np.where(win, pre_beam_score, post_beam_score)
+                    synth = np.where(win[:, None], pre_beam_synth, post_beam_synth)
+                else:
+                    token = np.argmax(lp_c[:, 0, :], axis=-1)
+                    score = pre_beam_score
+                    synth = pre_beam_synth
+                synth_sofar = np.concatenate([synth_sofar, synth_pad], axis=1)
+                finished_rows &= _already(np.concatenate(tokens, axis=1), id_constraint)
+                rows_to_update = (score > score_sofar) & finished_rows
+                synth_sofar = np.where(rows_to_update[:, None], synth, synth_sofar)
+                score_sofar = np.where(rows_to_update, score, score_sofar)
+                running_score = np.concatenate([running_score, lp_c[np.arange(b), 0, token][:, None]],
+                                               axis=1)
+                finished_rows &= token != ID_EOS
+                if not finished_rows.any():
+                    break
+                token = token[:, None].astype(np.int32)
+        finally:
+            release_decoder(lm, entry)
         constrain_time += tic()
         out_rows = np.concatenate([ids, synth_sofar], axis=1).tolist()
         s_len = ids.shape[1]

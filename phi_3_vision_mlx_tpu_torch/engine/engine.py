@@ -38,9 +38,18 @@ engine.  ``speculative=True`` (or ``PHI3V_TPU_SPEC=1``) verifies K
 prompt-lookup drafts a pass (``engine/speculative.py``), a third and fourth
 graph of the entry over the same state, then finishes the window's tail
 through the vanilla graph.  The continuous-batching engines are
-``engine/batching.py`` and ``engine/paging.py``.  Constrained decoding's
-device steps (:meth:`LM.score_fn`, :meth:`LM.beam_fn`,
-:meth:`LM.nocache_fn`; ``engine/constrain.py``) run eagerly.
+``engine/batching.py`` and ``engine/paging.py``.
+
+Constrained decoding's device steps (:meth:`LM.score_fn`,
+:meth:`LM.beam_fn`, :meth:`LM.nocache_fn`; ``engine/constrain.py``) replay
+graphs too, one a shape, as the JAX engine compiles one a shape: a question
+prefills into an entry (:func:`prefill_entry`), whose score steps (keyed L
+and ``advance``) and beam reads (L and ``n_beam``) are static steps over the
+entry's state (``engine/graphs.py:StaticStep``); the cache-free pass is an
+entry of its own (:class:`NocachePass`, keyed B and l_pad) under the same
+budget, which counts each entry's graph pools beside its tensors.  With
+graphs a step handed a state that belongs to no taken entry raises; without
+them each step runs eagerly on the same route.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import functools
 import os
 import threading
 import time
+import weakref
 from collections import Counter, OrderedDict
 from typing import Optional
 
@@ -60,8 +70,9 @@ from ..core.config import ID_EOS, ModelConfig
 from ..core.weights import params_to, torch_dtype
 from ..models import phi3
 from ..models.vision import compute_inputs_embeds
+from ..ops.rope import su_rope_tables
 from ..parallel.mesh import axis_size
-from .graphs import StepGraph, StepRing
+from .graphs import StaticStep, StepGraph, StepRing
 from .rng import SAMPLE, NoiseGen, to_device
 from .state import cache_bytes, init_state, state_bytes
 from .stream import LogitStopper, StopSequences, Streamer, TokenStopper
@@ -234,8 +245,11 @@ class LM:
         self.params = params_to(params, self.device)
         self.model_path = model_path
         self.eos_id = ID_EOS if cfg.vocab_size > ID_EOS else cfg.vocab_size - 1
-        self.decoders: OrderedDict = OrderedDict()  # (B, window) -> Decoder, newest last
-        self.lock = threading.Lock()  # guards decoders
+        # Kept entries, newest last: (B, window) -> Decoder, ("nocache", B,
+        # l_pad) -> NocachePass.
+        self.decoders: OrderedDict = OrderedDict()
+        self.taken = weakref.WeakSet()  # entries out of ``decoders``, serving a request
+        self.lock = threading.Lock()  # guards decoders and taken
         self.entry_uses = Counter()  # requests that "reused" an entry or "made" one
         # Bytes this model's finished entries may hold (no limit on the CPU).
         self.keep_bytes = (GRAPH_KEEP_SHARE * torch.cuda.get_device_properties(self.device).total_memory
@@ -245,50 +259,103 @@ class LM:
 
     # Constrained decoding's device steps (JAX ``LM.score_fn``, ``beam_fn``,
     # ``nocache_fn``): each returns a callable giving f32 log-softmax, as the
-    # JAX ones do.  The JAX package compiles one per shape; these run
-    # eagerly and check the shape they were made for.
+    # JAX ones do, and checks the shape it was made for.  With graphs the
+    # callable replays the graph of its shape (captured at first use) and
+    # returns its static output, which the next call of that shape
+    # overwrites: read it first.
 
     def score_fn(self, b: int, l: int, window: int, advance: Optional[int]):
         """``f(params, ids (B, L), state) -> (log-probs (B, L, V), state)``:
-        score a chunk through ``decode_forward``, committing ``advance``
-        positions (0: written but not committed, the next call overwrites
-        it; 1: a constrained step; None: all)."""
-        cfg = self.cfg
+        score a chunk through ``decode_forward`` on the decode route at any
+        L, committing ``advance`` positions (0: written but not committed,
+        the next call overwrites it; 1: a constrained step; None: all)."""
 
         @torch.no_grad()
         def f(params, ids, state):
             _check_step("score_fn", ids, (b, l), state, window)
-            res = phi3.decode_forward(params, cfg, state, ids, advance=advance)
-            return torch.log_softmax(res.logits.float(), dim=-1), res.state
+            if not self.graphs:
+                return score_logprobs(self, params, state, ids, advance)
+            entry = self._entry_of(params, state, l)
+            lp = entry.score_step(l, advance)(ids)
+            entry.state = dataclasses.replace(state, offset=state.offset + (l if advance is None else advance))
+            return lp, entry.state
 
         return f
 
     def beam_fn(self, b: int, l: int, window: int, n_beam: int):
         """``f(params, beam_ids (B * n_beam, L), state) -> log-probs (B *
         n_beam, L, V)``: the beam read path, which writes nothing."""
-        cfg = self.cfg
 
         @torch.no_grad()
         def f(params, beam_ids, state):
             _check_step("beam_fn", beam_ids, (b, l), state, window)
-            res = phi3.decode_forward(params, cfg, state, beam_ids, n_beam=n_beam)
-            return torch.log_softmax(res.logits.float(), dim=-1)
+            if not self.graphs:
+                return beam_logprobs(self, params, state, beam_ids, n_beam)
+            return self._entry_of(params, state, l).beam_step(l, n_beam)(beam_ids)
 
         return f
 
     def nocache_fn(self, b: int, l: int):
         """``f(params, ids, pids, valid) -> log-probs (B, V)`` of the last
-        position of a cache-free causal pass (``phi3.forward_nocache``)."""
-        cfg = self.cfg
+        position of a cache-free causal pass (``phi3.forward_nocache``);
+        with graphs, through the (B, l) :class:`NocachePass` entry, taken
+        for the call."""
 
         @torch.no_grad()
         def f(params, ids, pids, valid):
             if tuple(ids.shape) != (b, l):
                 raise ValueError(f"nocache_fn made for {(b, l)}, called with {tuple(ids.shape)}")
-            logits = phi3.forward_nocache(params, cfg, ids, pids=pids, prompt_valid=valid)
-            return torch.log_softmax(logits[:, -1, :].float(), dim=-1)
+            if not self.graphs:
+                return nocache_logprobs(self, params, ids, pids, valid)
+            _check_params(self, params)
+            entry = take_entry(self, ("nocache", b, l)) or NocachePass(self, b, l)
+            try:
+                # A copy: the entry, back in ``decoders``, serves the next call.
+                return entry(ids, pids, valid).clone()
+            finally:
+                release_decoder(self, entry)
 
         return f
+
+    def _entry_of(self, params, state, l: int):
+        """The taken entry whose state ``state`` is (its device offset),
+        made current; raises for a state of no entry (no eager fallback)
+        and for a chunk past the window (a replay checks nothing)."""
+        _check_params(self, params)
+        with self.lock:
+            entry = next((e for e in self.taken if e.state is not None and e.state.pos is state.pos), None)
+        if entry is None:
+            raise ValueError("with graphs a constrained-decoding step runs on a state prefilled into "
+                             "an entry (engine.prefill_entry); this one belongs to none")
+        if state.offset + l > state.window:
+            raise ValueError(f"chunk of {l} at offset {state.offset} overflows window {state.window}")
+        entry.state = state
+        return entry
+
+
+def _check_params(lm: LM, params) -> None:
+    if params is not lm.params:
+        raise ValueError("a graph replays the model's own params (lm.params), not others")
+
+
+def score_logprobs(lm: LM, params, state, ids, advance: Optional[int]):
+    """A score step (:meth:`LM.score_fn`): (f32 log-probs (B, L, V), the
+    state advanced by ``advance``)."""
+    res = phi3.decode_forward(params, lm.cfg, state, ids, advance=advance, decode_route=True)
+    return torch.log_softmax(res.logits.float(), dim=-1), res.state
+
+
+def beam_logprobs(lm: LM, params, state, beam_ids, n_beam: int):
+    """A beam read (:meth:`LM.beam_fn`): f32 log-probs (B * n_beam, L, V)."""
+    res = phi3.decode_forward(params, lm.cfg, state, beam_ids, n_beam=n_beam)
+    return torch.log_softmax(res.logits.float(), dim=-1)
+
+
+def nocache_logprobs(lm: LM, params, ids, pids, valid, rope=None):
+    """A cache-free pass (:meth:`LM.nocache_fn`): the last position's f32
+    log-probs (B, V); ``rope`` as ``phi3.forward_nocache`` takes it."""
+    logits = phi3.forward_nocache(params, lm.cfg, ids, pids=pids, prompt_valid=valid, rope=rope)
+    return torch.log_softmax(logits[:, -1, :].float(), dim=-1)
 
 
 def _check_step(name: str, ids, shape, state, window: int) -> None:
@@ -382,7 +449,8 @@ class Decoder:
     and takes its argmax (``graph``), or a draw under the sampling knobs
     (``sampled_graph``, made at the entry's first sampled request); the ring
     takes the statistics the stoppers need.  :meth:`spec_pass` gives the
-    entry's speculative verify pass over the same state and token.
+    entry's speculative verify pass over the same state and token;
+    :meth:`score_step` and :meth:`beam_step` its constrained-decoding steps.
 
     Usage: ``set_sampler(...)`` and ``first_token(logits)`` after a prefill
     into this decoder's state (the first request's own), ``start(state,
@@ -398,6 +466,46 @@ class Decoder:
         self.sampling = False
         self.knobs = self.sampled_graph = None
         self.specs = {}  # (K, sampling) -> speculative.SpecPass
+        self.steps = {}  # ("score", L, advance) | ("beam", L, n_beam) -> StaticStep
+
+    @property
+    def key(self):
+        return self.state.valid.shape[0], self.state.window
+
+    def held_bytes(self) -> int:
+        """Bytes the entry holds: its state's tensors and its graphs' pools."""
+        graphs = [self.graph, self.sampled_graph, *(s.graph for s in self.specs.values()),
+                  *(s.graph for s in self.steps.values())]
+        return state_bytes(self.state) + sum(g.pool_bytes for g in graphs if g is not None)
+
+    def score_step(self, l: int, advance: Optional[int]) -> StaticStep:
+        """This entry's score step of L ids (B, L) -> log-probs (B, L, V)
+        over its state (made at first use); the caller sets ``state`` to
+        the current one and advances its mirror after."""
+        return self._static_step(("score", l, advance), self.token.shape[0],
+                                 functools.partial(self._score, advance=advance), save=(self.state.pos,))
+
+    def beam_step(self, l: int, n_beam: int) -> StaticStep:
+        """This entry's beam read of (B * n_beam, L) ids -> log-probs (B *
+        n_beam, L, V) over its state (made at first use)."""
+        return self._static_step(("beam", l, n_beam), self.token.shape[0] * n_beam,
+                                 functools.partial(self._beam, n_beam=n_beam))
+
+    def _static_step(self, key, rows: int, fn, save=()) -> StaticStep:
+        if key not in self.steps:
+            l, dev = key[1], self.lm.device
+            ids = torch.zeros((rows, l), dtype=torch.long, device=dev)
+            out = torch.zeros((rows, l, self.lm.cfg.vocab_size), dtype=torch.float32, device=dev)
+            self.steps[key] = StaticStep(fn, (ids,), out, dev, self.lm.graphs, save=save)
+        return self.steps[key]
+
+    @torch.no_grad()
+    def _score(self, ids, advance):
+        return score_logprobs(self.lm, self.lm.params, self.state, ids, advance)[0]
+
+    @torch.no_grad()
+    def _beam(self, ids, n_beam):
+        return beam_logprobs(self.lm, self.lm.params, self.state, ids, n_beam)
 
     @torch.no_grad()
     def _step(self, sampled: bool) -> None:
@@ -461,8 +569,10 @@ class Decoder:
         """Let go of the state and the graphs (a dropped entry): the
         decoder and its graphs' steps refer to each other, so without this
         its cache would wait for the garbage collector."""
+        for step in self.steps.values():
+            step.graph = None  # a static step and its graph refer to each other
         self.graph = self.sampled_graph = self.knobs = None
-        self.specs = {}
+        self.specs, self.steps = {}, {}
         self.state = None
 
     def advance_mirror(self, n: int) -> None:
@@ -486,50 +596,108 @@ class Decoder:
         return self.ring.rows(n_steps)
 
 
-def prefill_decoder(lm: LM, dict_input: dict, max_tokens: int, sampler=None, seed: int = 0):
-    """Prefill a request and return (its Decoder, started on the first
-    token, and that token (B, 1) on the device): the prefill's argmax, or
-    with ``sampler`` a draw seeded by ``seed`` (:meth:`Decoder.set_sampler`).
-    With graphs the decoder is the (B, window) entry of ``lm.decoders``,
-    taken out of it (reused) or made: an entry serves one request at a time,
-    so a second request of the key meanwhile makes its own.  Give it back
-    with :func:`release_decoder` when the request ends."""
-    b, _, window = prefill_shape(dict_input, max_tokens)
+class NocachePass:
+    """The cache-free pass of one (B, l_pad) (:meth:`LM.nocache_fn`), an
+    entry of ``LM.decoders`` beside the decoders: static ids, RoPE tables
+    and valid mask in, the last position's f32 log-probs (B, V) out.  The
+    tables are made from the pids before the step (``su_rope_tables``
+    copies host values to the device, which a capture refuses)."""
+
+    def __init__(self, lm: LM, b: int, l: int):
+        cfg, dev = lm.cfg, lm.device
+        self.lm, self.key = lm, ("nocache", b, l)
+        table = lambda: torch.zeros((b, l, cfg.head_dim), dtype=torch.float32, device=dev)  # noqa: E731
+        inputs = (torch.zeros((b, l), dtype=torch.long, device=dev), table(), table(),
+                  torch.zeros((b, l), dtype=torch.bool, device=dev))
+        out = torch.zeros((b, cfg.vocab_size), dtype=torch.float32, device=dev)
+        self.step = StaticStep(self._logprobs, inputs, out, dev, lm.graphs)
+
+    @torch.no_grad()
+    def _logprobs(self, ids, cos, sin, valid):
+        return nocache_logprobs(self.lm, self.lm.params, ids, None, valid, rope=(cos, sin))
+
+    def __call__(self, ids, pids, valid) -> torch.Tensor:
+        b, l = self.key[1:]
+        cos, sin = su_rope_tables(self.lm.cfg, l, pids, device=self.lm.device)
+        return self.step(ids, cos.expand(b, -1, -1), sin.expand(b, -1, -1), valid)
+
+    def held_bytes(self) -> int:
+        return (sum(t.numel() * t.element_size() for t in (*self.step.inputs, self.step.out))
+                + self.step.graph.pool_bytes)
+
+    def close(self) -> None:
+        self.step.graph = self.step = None  # the step and its graph refer to each other
+
+
+def take_entry(lm: LM, key):
+    """With graphs, the kept entry of ``key`` taken out of ``lm.decoders``
+    (None if there is none); ``lm.entry_uses`` counts the request as one
+    that reused an entry or made one."""
+    if not lm.graphs:
+        return None
     with lm.lock:
-        entry = lm.decoders.pop((b, window), None)
+        entry = lm.decoders.pop(key, None)
         lm.entry_uses["reused" if entry is not None else "made"] += 1
+    return entry
+
+
+def prefill_entry(lm: LM, dict_input: dict, max_tokens: int):
+    """Prefill a request into its (B, window) entry's buffers (with graphs:
+    the kept entry, taken out of ``lm.decoders``, or a new one) and return
+    (the :class:`Decoder`, its state set, the last logits (B, V) f32, the
+    state, l_pad, window).  An entry serves one request at a time, so a
+    second request of the key meanwhile makes its own.  Give it back with
+    :func:`release_decoder` when the request ends."""
+    b, _, window = prefill_shape(dict_input, max_tokens)
+    entry = take_entry(lm, (b, window))
     if entry is None and lm.device.type == "cuda":
         # A freed cache's segment that a small tensor has since split cannot
         # hold a new cache of its size; the card's free memory can.
         if torch.cuda.mem_get_info(lm.device)[0] < cache_bytes(lm.cfg, b, window, torch_dtype(lm.cfg.dtype)):
             torch.cuda.empty_cache()
-    last_logits, state, _, _ = run_prefill(lm, dict_input, max_tokens,
-                                           into=None if entry is None else entry.state)
+    last_logits, state, l_pad, window = run_prefill(lm, dict_input, max_tokens,
+                                                    into=None if entry is None else entry.state)
     dec = entry or Decoder(lm, state)
+    dec.state = state
+    if lm.graphs:
+        with lm.lock:
+            lm.taken.add(dec)
+    return dec, last_logits, state, l_pad, window
+
+
+def prefill_decoder(lm: LM, dict_input: dict, max_tokens: int, sampler=None, seed: int = 0):
+    """Prefill a request (:func:`prefill_entry`) and return (its Decoder,
+    started on the first token, and that token (B, 1) on the device): the
+    prefill's argmax, or with ``sampler`` a draw seeded by ``seed``
+    (:meth:`Decoder.set_sampler`)."""
+    dec, last_logits, state, _, _ = prefill_entry(lm, dict_input, max_tokens)
     dec.set_sampler(sampler, seed)
     token = dec.first_token(last_logits)
     dec.start(state, token)
     return dec, token
 
 
-def release_decoder(lm: LM, dec: Decoder) -> None:
-    """Keep a finished request's decoder as its key's newest entry (with
-    graphs), dropping the least recently finished beyond ``GRAPH_ENTRIES``
-    or ``lm.keep_bytes``; an entry larger than ``lm.keep_bytes`` is not
-    kept.  A dropped entry is closed (its cache goes now)."""
+def release_decoder(lm: LM, dec) -> None:
+    """Keep a finished request's entry (a :class:`Decoder` or a
+    :class:`NocachePass`) as its key's newest (with graphs), dropping the
+    least recently finished beyond ``GRAPH_ENTRIES`` or ``lm.keep_bytes``
+    (each entry's tensors and graph pools); an entry larger than
+    ``lm.keep_bytes`` is not kept.  A dropped entry is closed (its cache
+    and graphs go now)."""
     if not lm.graphs:
         return
-    key = (dec.state.valid.shape[0], dec.state.window)
+    key = dec.key
     with lm.lock:
+        lm.taken.discard(dec)
         other = lm.decoders.pop(key, None)  # another request's entry of the key, made meanwhile
         if other is not None:
             other.close()
-        if state_bytes(dec.state) > lm.keep_bytes:
+        if dec.held_bytes() > lm.keep_bytes:
             dec.close()
         else:
             lm.decoders[key] = dec
         while lm.decoders and (len(lm.decoders) > GRAPH_ENTRIES or
-                               sum(state_bytes(d.state) for d in lm.decoders.values()) > lm.keep_bytes):
+                               sum(d.held_bytes() for d in lm.decoders.values()) > lm.keep_bytes):
             lm.decoders.popitem(last=False)[1].close()
 
 

@@ -20,6 +20,15 @@ card: the reference) or, on the card, captures it once and replays it.
 There is no fallback: a capture or a replay that fails raises.  Launch
 counts (``ops/kernels/_build.count_launch``) do not run in a replay, so the
 capture records each wrapper's launches and every replay adds them.
+
+Constrained decoding's device steps (the JAX engine's compiled
+``score_fn``, ``beam_fn`` and ``nocache_fn``) are static steps
+(:class:`StaticStep`): the caller copies its inputs into static tensors,
+the step writes its f32 log-probs into a static output, and a graph per
+shape replays it.  The score step and the beam read belong to a decode
+entry (``engine/engine.py:Decoder``), keyed (L, advance) and (L, n_beam)
+over the entry's state; the cache-free pass is an entry of its own
+(``NocachePass``), keyed (B, l_pad).
 """
 
 from __future__ import annotations
@@ -171,3 +180,28 @@ class StepGraph:
         self.capture()
         self.graph.replay()
         _build.add_launches(self.launches)
+
+
+class StaticStep:
+    """A device step with static inputs and a static output (constrained
+    decoding's score step, beam read and cache-free pass).  A call copies
+    its arguments into ``inputs``, runs ``fn(*inputs)`` through a
+    :class:`StepGraph` (eager, or captured at the first call and replayed)
+    with the result written into ``out``, and returns ``out``: the next call
+    overwrites it, so read it first.  ``save`` is the graph's (the tensors
+    whose value the step advances)."""
+
+    def __init__(self, fn, inputs, out: torch.Tensor, device, graphs: bool, save=()):
+        self.fn, self.inputs, self.out = fn, tuple(inputs), out
+        self.graph = StepGraph(self._step, device, graphs, save=save)
+
+    def _step(self) -> None:
+        self.out.copy_(self.fn(*self.inputs))
+
+    def __call__(self, *args) -> torch.Tensor:
+        for buf, arg in zip(self.inputs, args, strict=True):
+            if tuple(arg.shape) != tuple(buf.shape):
+                raise ValueError(f"a static input of {tuple(buf.shape)} given {tuple(arg.shape)}")
+            buf.copy_(arg)
+        self.graph()
+        return self.out

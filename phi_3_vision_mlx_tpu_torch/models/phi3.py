@@ -25,8 +25,9 @@ int8           ``read_kv`` of the layer to the  ``read_kv``, then K2
 The int8 row is explicit routing, not a fallback: K4 and K5 read the
 nibble-packed int4 layout only (the JAX package dispatches its int4 decode
 kernel without checking the bits).  A decode-route chunk of more than 16
-rows (a verify pass) runs K3/K4 on groups of 16 rows.  On the CPU every
-wrapper runs its plain ``ops/attention.py`` path.
+rows (a verify pass, a constrained-decoding score step) runs K3/K4 on
+groups of 16 rows.  On the CPU every wrapper runs its plain
+``ops/attention.py`` path.
 
 Two read paths write nothing (constrained decoding, ``engine/constrain.py``):
 the beam read (``decode_forward(n_beam=...)``) repeats each cache row's
@@ -194,6 +195,7 @@ def decode_forward(
     n_beam: int = 1,
     last_logit_only: bool = False,
     positions: Optional[torch.Tensor] = None,
+    decode_route: bool = False,
     tp=None,
     write=None,
 ) -> ForwardResult:
@@ -208,14 +210,19 @@ def decode_forward(
     position), and carries the advanced mirror.  The state passed in keeps
     its mirror, so it no longer describes the device: use the returned one.
     ``last_logit_only`` runs the lm_head for the last position only.  With L
-    <= ``MAX_DECODE_ROWS`` nothing reads the mirror on the device path, so
-    a CUDA graph of a decode step replays at any offset.
+    <= ``MAX_DECODE_ROWS`` (or ``decode_route``) nothing reads the mirror on
+    the device path, so a CUDA graph of the step replays at any offset.
 
     ``positions`` (L,) int64 on the device, in the window: a speculative
     verify pass, whose offset the host learns only later.  The chunk's k/v
     and RoPE take these columns, the queries sit at ``pos + i`` as always,
     attention takes the decode route (K3/K4) at any length, and the mirror
     is not checked: the caller keeps the columns in the window.
+
+    ``decode_route``: the decode route (K3/K4 at the device offset, in
+    launches of 16 query rows) at any length, the chunk's columns at ``pos
+    + arange(L)``: a constrained-decoding score step, whose graph replays
+    at any offset (``engine/engine.py:LM.score_fn``).
 
     ``n_beam`` > 1: a (B * n_beam, L) chunk, beam rows ``r * n_beam + j`` of
     cache row ``r``, scored against the shared cache without writing it
@@ -257,7 +264,7 @@ def decode_forward(
 
     def attend(q, k, v, i):
         write(state, i, pos, k, v)
-        return _attend(q, state, i, scale, decode=True if positions is not None else None)
+        return _attend(q, state, i, scale, decode=True if positions is not None or decode_route else None)
 
     for i in range(cfg.num_hidden_layers):
         x = block(cfg, x, params["model"]["layers"], i, cos, sin, functools.partial(attend, i=i), tp=tp)
@@ -337,6 +344,7 @@ def forward_nocache(
     dropout_rng=None,
     lora_dropout: float = 0.0,
     allow_flash: bool = True,
+    rope=None,
     tp=None,
 ) -> torch.Tensor:
     """One causal pass over a (B, L) chunk with no cache (JAX
@@ -349,8 +357,11 @@ def forward_nocache(
     ``BLOCKWISE_MIN_LEN`` positions on.  With ``dropout_rng`` and
     ``lora_dropout`` > 0 each LoRA branch's input is dropped with rate
     ``lora_dropout`` and the kept values scaled by ``1 / (1 -
-    lora_dropout)`` (:func:`lora_dropout_mask`).  ``tp``: a tensor-parallel
-    rank, as in :func:`decode_forward`.  Returns the logits (B, L, V)."""
+    lora_dropout)`` (:func:`lora_dropout_mask`).  ``rope``: the (cos, sin)
+    tables of the L positions, made beforehand (a captured pass:
+    ``su_rope_tables`` copies host values to the device); None makes them
+    from ``pids``.  ``tp``: a tensor-parallel rank, as in
+    :func:`decode_forward`.  Returns the logits (B, L, V)."""
     x = _embed(params, cfg, input_ids, inputs_embeds, tp)
     b, l, _ = x.shape
     dev = x.device
@@ -358,7 +369,7 @@ def forward_nocache(
         valid = torch.ones((b, l), dtype=torch.bool, device=dev)
     else:
         valid = torch.as_tensor(prompt_valid, device=dev).bool().contiguous()
-    cos, sin = su_rope_tables(cfg, l, pids, device=dev)
+    cos, sin = su_rope_tables(cfg, l, pids, device=dev) if rope is None else rope
     cos, sin = _rows(cos, b), _rows(sin, b)
     scale = cfg.head_dim**-0.5
     if allow_flash:

@@ -183,9 +183,7 @@ class StepLog:
             keep(out[0], out[1])
             return out
 
-        monkeypatch.setattr(engine_module, "run_prefill", prefill)
-        if not is_jax:
-            monkeypatch.setattr(TC, "run_prefill", prefill)
+        monkeypatch.setattr(engine_module, "run_prefill", prefill)  # the port's prefill_entry calls it
 
 
 def _snapshot(state):
@@ -281,6 +279,44 @@ def test_constrain_decode_matches_jax(pair, monkeypatch, bits, use_beam, log_nor
     want, got, jsteps, tsteps = _run_both(_with_cache(pair, bits), monkeypatch, call)
     assert got == want and all(len(s) > 0 for s in got)
     _assert_steps(jsteps, tsteps)
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "int8", "int4"])
+def test_long_score_step_takes_the_decode_route(pair, monkeypatch, bits):
+    """A score step of 1 + 22 rows (the JAX defaults' long constraint), with
+    ``advance`` 0 and then 1, runs the decode route (K3/K4 in launches of 16
+    rows at the device offset, never K2/K5) and gives the JAX ``score_fn``'s
+    log-probs within STEP_ATOL; the quantized caches replay the JAX
+    package's entries."""
+    routes = []
+    for name in ("flash_attention", "quantized_flash_attention", "dense_kv_attention",
+                 "quantized_kv_attention"):
+        def spy(*a, _name=name, _fn=getattr(TM, name), **kw):
+            routes.append((_name, kw.get("row0", 0)))
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(TM, name, spy)
+    cons = np.asarray([ord(c) for c in " The correct answer is"], np.int32)[None]  # ByteTokenizer ids
+
+    def call(lm, proc, mod):
+        steps = []
+        eng, as_ids = (JE, jnp.asarray) if mod is JC else (TE, lambda x: torch.as_tensor(x).long())
+        _, state, _, window = eng.run_prefill(lm, proc(QUESTION), 40)
+        del routes[:]
+        steps.append(lm.score_fn(1, 22, window, advance=0)(lm.params, as_ids(cons), state))
+        for tok in (65, 66):
+            plus = np.concatenate([[[tok]], cons], axis=1).astype(np.int32)
+            lp, state = lm.score_fn(1, 23, window, advance=1)(lm.params, as_ids(plus), steps[-1][1])
+            steps.append((lp, state))
+        return len(steps)
+
+    _, _, jsteps, tsteps = _run_both(_with_cache(pair, bits), monkeypatch, call)
+    _assert_steps(jsteps, tsteps)
+    assert [t.shape[1] for t in tsteps[1:]] == [22, 23, 23]
+    decode = {"dense_kv_attention"} if bits != 4 else {"quantized_kv_attention"}
+    n_layers = pair[1][0].cfg.num_hidden_layers
+    assert {name for name, _ in routes} == decode
+    assert sorted(row0 for _, row0 in routes) == [0] * 3 * n_layers + [16] * 3 * n_layers
 
 
 def test_api_choose_matches_jax(pair):

@@ -26,11 +26,13 @@ from test_torch_batching import PLAN, _drive  # noqa: E402
 from test_torch_model import FP32_ATOL, PROMPT, ReplayJaxCache, make_checkpoint  # noqa: E402
 from test_torch_model import one_thread  # noqa: E402,F401  (autouse: one torch thread)
 
+from phi_3_vision_mlx_tpu import api as JAPI  # noqa: E402
 from phi_3_vision_mlx_tpu.api import _load as jax_load  # noqa: E402
 from phi_3_vision_mlx_tpu.core.config import KVQuantConfig  # noqa: E402
 from phi_3_vision_mlx_tpu.engine import engine as JE  # noqa: E402
 from phi_3_vision_mlx_tpu.engine.batching import BatchEngine as JBatch  # noqa: E402
 from phi_3_vision_mlx_tpu.engine.paging import PagedBatchEngine as JPaged  # noqa: E402
+from phi_3_vision_mlx_tpu_torch import api as TAPI  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.api import _load as torch_load  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.core.convert import from_numpy_params  # noqa: E402
 from phi_3_vision_mlx_tpu_torch.engine import engine as TE  # noqa: E402
@@ -551,3 +553,147 @@ def test_capture_keeps_the_slot_engines_sampled_and_speculative_streams(pair, pa
         return [eng.tokens(r) for r in rids]
 
     assert run(True) == run(False)
+
+
+# --- constrained decoding: the score step, the beam read, the cache-free pass --
+
+CONSTRAINTS = [(3, " The correct answer is"), (2, " A"), "ABC"]  # steps of 1 + 22 and 1 + 2 rows
+
+
+@pytest.mark.parametrize("cache", list(CACHES))
+def test_constrained_steps_have_no_host_sync(ckpt, cache):
+    """An entry's score steps (advance 0 and 1, 3 and 23 rows: one and two
+    launches of the decode route), its beam read (3 x 23 rows) and a
+    cache-free pass, run eagerly on their static tensors: no aten op that
+    waits for the device or sizes its output from data, on the dense, int4
+    and int8 caches."""
+    _, (tlm, tproc) = _pair(ckpt, CACHES[cache])
+    entry, _, state, _, _ = TE.prefill_entry(tlm, tproc(PROMPT), 64)
+    ids = torch.arange(3, 3 + 23)[None]
+    for l, advance in ((3, 0), (3, 1), (23, 0), (23, 1)):
+        step = entry.score_step(l, advance)
+        step.inputs[0].copy_(ids[:, :l])
+        ops = _recorded(step.graph.step)
+        _no_sync(ops)
+        assert "index_copy_" in ops  # the chunk's k/v at the device offset
+    beam = entry.beam_step(23, 3)
+    beam.inputs[0].copy_(ids.expand(3, -1))
+    _no_sync(_recorded(beam.graph.step))
+    nocache = TE.NocachePass(tlm, 2, 64)
+    nocache.step.inputs[0].fill_(7)
+    nocache.step.inputs[3].fill_(True)
+    _no_sync(_recorded(nocache.step.graph.step))
+
+
+def stub_static_steps(monkeypatch, lm):
+    """Give every static step of ``lm`` made from now on a stub capture
+    (``StubStepGraph``: the capture runs nothing, as on the card) that puts
+    back the taken entries' states and the step's ``save``; returns the
+    list of the stubs made."""
+    made = []
+
+    def make(step, device, graphs, save=()):
+        touched = [t for e in list(lm.taken) if e.state is not None for t in tensors_of(e.state)]
+        made.append(StubStepGraph(step, "cpu", graphs, save=save, touched=[*touched, *save]))
+        return made[-1]
+
+    monkeypatch.setattr(TG, "StepGraph", make)
+    return made
+
+
+class StepOutputs:
+    """Every output of ``lm``'s score, beam and cache-free steps, copied, in
+    call order."""
+
+    def __init__(self, lm, monkeypatch):
+        self.outs = []
+        for name in ("score_fn", "beam_fn", "nocache_fn"):
+            monkeypatch.setattr(lm, name, self._wrap(getattr(lm, name)))
+
+    def _wrap(self, make):
+        def maker(*a, **kw):
+            fn = make(*a, **kw)
+
+            def call(*args):
+                out = fn(*args)
+                self.outs.append((out[0] if isinstance(out, tuple) else out).clone())
+                return out
+
+            return call
+
+        return maker
+
+
+def _questions(lm, proc, api=TAPI):
+    """``api.choose`` and ``api.constrain``, greedy and beam."""
+    kw = dict(preload=(lm, proc), verbose=False)
+    return [api.choose(["Pick!", "Choose one of them!"], choices="ABC", **kw)] + [
+        api.constrain("Which is larger, 3 or 5?", constraints=CONSTRAINTS, use_beam=beam, **kw)
+        for beam in (False, True)]
+
+
+@pytest.mark.parametrize("cache", list(CACHES))
+def test_stub_capture_keeps_constrained_decoding(ckpt, cache, monkeypatch):
+    """``api.choose`` and ``api.constrain`` (greedy and beam, a score step
+    of 1 + 22 rows) with graphs, every step captured at its first call
+    through the stub, give the eager run's outputs and every step's
+    log-probs exactly; with the dense cache also the JAX package's
+    answers (fp32)."""
+    (jlm, jproc), (tlm, tproc) = _pair(ckpt, CACHES[cache])
+    with monkeypatch.context() as m:
+        eager = StepOutputs(tlm, m)
+        want = _questions(tlm, tproc)
+    lm = TE.LM(tlm.cfg, tlm.params, device="cpu")
+    lm.graphs = True
+    made = stub_static_steps(monkeypatch, lm)
+    graphed = StepOutputs(lm, monkeypatch)
+    assert _questions(lm, tproc) == want
+    assert made and all(g.graph is not None for g in made)
+    assert len(graphed.outs) == len(eager.outs) > 0
+    assert all(torch.equal(g, e) for g, e in zip(graphed.outs, eager.outs))
+    if cache == "dense":
+        assert want == _questions(jlm, jproc, JAPI)
+
+
+def test_a_second_question_replays_its_entries(pair, monkeypatch):
+    """The same questions again: every entry is reused (``entry_uses``)
+    and no step is made or captured anew; a state prefilled outside an
+    entry, handed to a step, raises (no eager fallback)."""
+    _, (tlm, tproc) = pair
+    lm = TE.LM(tlm.cfg, tlm.params, device="cpu")
+    lm.graphs = True
+    made = stub_static_steps(monkeypatch, lm)
+    first = _questions(lm, tproc)
+    n_made, uses = len(made), dict(lm.entry_uses)
+    assert uses["made"] >= 3 and not lm.taken
+    assert _questions(lm, tproc) == first
+    assert len(made) == n_made and lm.entry_uses["made"] == uses["made"]
+    assert lm.entry_uses["reused"] == uses.get("reused", 0) + sum(uses.values())  # every request
+    _, state, _, window = TE.run_prefill(lm, tproc(PROMPT), 40)
+    ids = torch.zeros((1, 3), dtype=torch.long)
+    with pytest.raises(ValueError, match="belongs to none"):
+        lm.score_fn(1, 3, window, advance=0)(lm.params, ids, state)
+    with pytest.raises(ValueError, match="belongs to none"):
+        lm.beam_fn(3, 3, window, 3)(lm.params, ids.expand(3, -1), state)
+
+
+def test_entry_budget_counts_graph_pools(pair, monkeypatch):
+    """An entry's bytes are its tensors and its graphs' pools: a cache-free
+    entry or a question's decoder whose pools pass ``lm.keep_bytes`` is
+    closed when its call ends, not kept."""
+    _, (tlm, tproc) = pair
+    lm = TE.LM(tlm.cfg, tlm.params, device="cpu")
+    lm.graphs = True
+    stub_static_steps(monkeypatch, lm)
+    _questions(lm, tproc)
+    nocache = next(e for k, e in lm.decoders.items() if k[0] == "nocache")
+    dec = next(e for k, e in lm.decoders.items() if k[0] != "nocache" and e.steps)
+    lm.keep_bytes = 2**30
+    for entry, graph in ((nocache, nocache.step.graph), (dec, next(iter(dec.steps.values())).graph)):
+        before, key = entry.held_bytes(), entry.key
+        graph.pool_bytes = 2**30
+        assert entry.held_bytes() == before + 2**30
+        lm.decoders.pop(key)  # taken, as a call takes it
+        TE.release_decoder(lm, entry)
+        assert key not in lm.decoders
+    assert nocache.step is None and dec.state is None
