@@ -171,19 +171,34 @@ holds yet):
                [0.0]``) on the card and on a CPU fp32 twin from the same
                initial A, each step's loss and each adapter tensor's cosine
                held to the twin's; then ``_load(adapter_path=)``,
-               ``test_lora(take=2)`` and ``generate(use_adapter=True)``.  (c)
-               ``train_lora`` at full size through its entry point (its
-               ``_load`` pointed at an ``LM`` over the built weights): the
-               JAX defaults, then 5 layers of rank 16 over batches of 768
-               rows (the dequantize route); step wall, one more step's
-               forward and backward (wall, busy, idle share), the
-               backward's dequantization, tokens/s, peak memory, K1
-               launches; a non-finite loss, a ``lora_b`` left 0 or a zero
+               ``test_lora(take=2)`` and ``generate(use_adapter=True)``;
+               ``train_lora`` with graphs (each step a CUDA graph replay)
+               against ``graphs=False`` on the same weights, plain, with
+               ``mask_ratios=[0.0, 0.1]`` and with ``lora_dropout=0.1``, and
+               one step at 2048 positions (blockwise attention): losses and
+               adapters bit for bit, or within an eager run's own spread;
+               a run resumed from step 2 with graphs against the
+               uninterrupted one, bit for bit.  (c) ``train_lora`` at full
+               size through its entry point (its ``_load`` pointed at an
+               ``LM`` over the built weights, graphs on): the JAX defaults,
+               then 5 layers of rank 16 over batches of 768 rows (the
+               dequantize route); step wall, a replayed step's and an eager
+               step's wall, busy and idle share (a 192-row replay above 0.5
+               idle, or a step not replayed, fails), the captures' ms and
+               pools, one more step's forward and backward (wall, busy, idle
+               share), the backward's dequantization, tokens/s, peak memory,
+               K1 launches; a non-finite loss, a ``lora_b`` left 0 or a zero
                LoRA gradient below the top active layer fails.  (d) The wide
                run's adapter through ``load_adapter``: 64 greedy tokens
                through ``api.generate`` from graphs against the same model
                eager, dense and int4 cache, the adapter's effect on the
-               logits, the graph step's wall, busy and idle share.
+               logits, the graph step's wall, busy and idle share.  (e)
+               ``train_induction_lm`` with the JAX defaults at
+               ``scan_steps`` 16 and 1 (each must halve its first loss), K2
+               and K3 at head dim 32 (bf16 and fp32; K3 at Lq 1 and 8)
+               against their plain versions and timed, then
+               ``measure_tokens_per_pass`` on 3 held-out docs (K2 and K3
+               launched; tokens a pass strictly between 1 and K + 1).
 14. the runbook, the benchmark, the chat session and the step log — in a
                temporary working directory (restored after), the port's
                ``_setup`` writes both random pairs (Phi-3.5-mini and
@@ -4170,6 +4185,17 @@ SEAM_DX_ATOL, SEAM_DX_RTOL = 2e-2, 2 * 2.0**-7
 LORA_LOSS_ATOL = 5e-2
 LORA_COS_MIN = 0.9
 TRAIN_RUNS = {"defaults": {}, "wide": dict(lora_layers=5, lora_rank=16, batch_size=2, epochs=2, mask_ratios=[0.0])}
+# Phase 13 (b): train_lora with graphs against graphs=False on the same
+# weights, in each of these settings (4 steps of 192-token rows: 1 row, 3
+# rows, 1 row with dropout), and one step at 2048 positions (a 2000-character
+# question: forward_nocache's blockwise attention from BLOCKWISE_MIN_LEN =
+# 2048 positions on; a bucket of 2048 keeps its 512 x 1024 blocks, where
+# 2176 halves them to 128 x 128).  Equal bit for bit (the same kernels in the
+# same order), or within an eager run's own spread, printed.
+GRAPH_PARITY_RUNS = {"plain": {}, "mask_ratios": dict(mask_ratios=[0.0, 0.1]), "dropout": dict(lora_dropout=0.1)}
+LONG_QUESTION = (FILLER * 30)[:2000]
+# A replayed 192-row step's idle share: the graph takes the host out of the step.
+TRAIN_IDLE_MAX = 0.5
 ADAPTER_TOKENS = 64
 TM_PATHS = (("self_attn", "qkv_proj"), ("self_attn", "o_proj"), ("mlp", "gate_up_proj"), ("mlp", "down_proj"))
 KERNEL_ROWS = 256  # ops/linear.py:KERNEL_MAX_ROWS: above it a linear takes the dequantize route
@@ -4269,6 +4295,93 @@ def train_losses(path: str) -> list:
         return json.load(f)["step_loss"]
 
 
+def lora_run(torch, base, proc, path: str, graphs: bool, **kw):
+    """``train_lora`` on the card through its entry point, its ``_load``
+    pointed at an ``LM`` over ``base``'s weights with ``graphs`` on or off;
+    returns (losses, adapter tensors, the run's static steps)."""
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.engine.engine import LM
+    from phi_3_vision_mlx_tpu_torch.train import trainer as TT
+
+    lm = LM(base.cfg, base.params, device="cuda", graphs=graphs)
+    runs = []
+
+    class Kept(TT.TrainingCallback):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            runs.append(self)
+
+    with (mock.patch.object(api, "_load", lambda *a, **k: (lm, proc)),
+          mock.patch.object(TT, "TrainingCallback", Kept)):
+        TT.train_lora(adapter_path=path, device="cuda", **kw)
+    return train_losses(path), lora_tensors(path), runs[0].steps
+
+
+def run_gap(a, b) -> tuple:
+    """(largest loss difference, largest adapter difference) of two runs."""
+    return (max(abs(x - y) for x, y in zip(a[0], b[0], strict=True)),
+            max(float((a[1][k] - b[1][k]).abs().max()) for k in a[1]))
+
+
+def lora_graph_parity(torch, q: str) -> None:
+    """Phase 13 (b), graphs: each GRAPH_PARITY_RUNS setting trained with
+    graphs and with ``graphs=False`` on the 2-layer weights at ``q``; a run
+    resumed from step 2 with graphs against the uninterrupted graph run; one
+    step at the blockwise route's length.  Each pair bit for bit, or, where
+    an eager run does not repeat itself, within its own spread (printed)."""
+    import shutil
+
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.models.phi3 import BLOCKWISE_MIN_LEN
+
+    base, proc = api._load(q, device="cuda")
+    common = dict(model_path=q, dataset_path="synthetic", take=4, lora_layers=2, lora_rank=4)
+    long_row = {"input": f"{LONG_QUESTION} A: x", "summary": "It is x.", "output": "A"}
+    settings = {**{tag: {**common, **extra} for tag, extra in GRAPH_PARITY_RUNS.items()},
+                "blockwise": {**common, "dataset_path": [long_row], "take": 1}}
+    for tag, kw in settings.items():
+        t0 = time.perf_counter()
+        g = lora_run(torch, base, proc, f"adapters/{tag}-graph", True, **kw)
+        t1 = time.perf_counter()
+        e = lora_run(torch, base, proc, f"adapters/{tag}-eager", False, **kw)
+        t2 = time.perf_counter()
+        shapes = sorted(g[2])
+        captured = all(st.graph.graphs and st.graph.graph is not None for st in g[2].values())
+        gap = run_gap(g, e)
+        line = (f"phase 13 (b) graphs, {tag}: {len(g[0])} steps of {shapes} (rows, length), graph run "
+                f"{t1 - t0:.1f} s (captures {[round(st.graph.capture_ms, 1) for st in g[2].values()]} ms, pools "
+                f"{[st.graph.pool_bytes for st in g[2].values()]} B), eager {t2 - t1:.1f} s; graph against eager: "
+                f"losses {g[0]} / {e[0]}, largest differences {gap[0]!r} (loss), {gap[1]!r} (adapter)")
+        ok = gap == (0.0, 0.0)
+        if not ok:
+            spread = run_gap(e, lora_run(torch, base, proc, f"adapters/{tag}-eager2", False, **kw))
+            ok = gap[0] <= spread[0] and gap[1] <= spread[1]
+            line += f"; the eager run's own spread {spread[0]!r} (loss), {spread[1]!r} (adapter)"
+        log(line)
+        long_enough = tag != "blockwise" or shapes[0][1] >= BLOCKWISE_MIN_LEN
+        if not (ok and captured and long_enough and np.isfinite(g[0]).all()):
+            fail(f"phase 13 (b) {tag}: graph and eager training runs differ beyond the eager spread, a step was "
+                 f"not captured ({captured}), or the blockwise step was short ({shapes})")
+        if tag == "plain":
+            full = g
+    # Resume: checkpoint every step, drop the last two states, resume with graphs.
+    kw = settings["plain"]
+    path = "adapters/resumed"
+    lora_run(torch, base, proc, path, True, checkpoint_every=1, **kw)
+    for step in ("3", "4"):
+        shutil.rmtree(f"{path}/train_state/{step}")
+    os.remove(f"{path}/adapters.safetensors")
+    res = lora_run(torch, base, proc, path, True, resume=True, **kw)
+    same = res[0] == full[0][2:] and all(torch.equal(res[1][k], full[1][k]) for k in full[1])
+    log(f"phase 13 (b) graphs, resumed from step 2: losses {res[0]} against {full[0][2:]}, adapter bit for bit "
+        f"{same}")
+    if not same:
+        fail("phase 13 (b): the resumed graph run differs from the uninterrupted one")
+    del base
+
+
 def phase_lora_reference(torch, raw: str):
     """Phase 13 (b): the 2-layer full-width checkpoint the port wrote in
     phase 7 (``raw``), quantized to 4 bits, ``train_lora`` through its entry point on the card
@@ -4318,6 +4431,7 @@ def phase_lora_reference(torch, raw: str):
             if (len(card) != 4 or len(cpu) != 4 or not np.isfinite(card).all() or dl > LORA_LOSS_ATOL
                     or cos[worst] < LORA_COS_MIN or sorted(ta) != sorted(tb)):
                 fail("phase 13 (b): the card's training run disagrees with the CPU twin's")
+            lora_graph_parity(torch, q)
             lm, proc = api._load(q, adapter_path=card_dir, device="cuda")
             node = lm.params["model"]["layers"]["self_attn"]["qkv_proj"]
             if node["lora_a"].dtype != torch.float32 or float(node["lora_b"].abs().max()) == 0:
@@ -4357,6 +4471,47 @@ def profile_window(torch, fn, tries: int = 3):
     return None, None, 0
 
 
+def kernel_split(by_name: dict) -> dict:
+    """Device ms by kind of kernel: K1's (``MATMUL_KERNELS``), cuBLAS's
+    GEMMs and the rest (elementwise ops, the dequantization among them)."""
+    out = {"K1": 0.0, "GEMM": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        kind = ("K1" if name in MATMUL_KERNELS else
+                "GEMM" if any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")) else "other")
+        out[kind] += ms
+    return out
+
+
+def step_walls(torch, graph, reps: int = 5) -> dict:
+    """A training step's ``StepGraph`` replayed and its step run eagerly
+    (on the same static inputs; each call takes one more optimizer step):
+    wall (host clock around a synchronized call, median of ``reps``; eager
+    3), busy (profiler, one call), idle share (None where the busy time
+    exceeds the wall), kernels, and the replay's busy time by kind."""
+    import numpy as np
+
+    def wall(fn, n):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    out = {}
+    for mode, fn, n in (("replay", graph, reps), ("eager", graph.step, 3)):
+        w = wall(fn, n)
+        by_name, kernels = kernel_times(torch, fn, 1)
+        busy = sum(by_name.values()) or None
+        out.update({f"{mode}_wall": w, f"{mode}_busy": busy, f"{mode}_kernels": kernels,
+                    f"{mode}_idle": None if busy is None or busy > w else 1 - busy / w})
+        if mode == "replay":
+            out["replay_split"] = kernel_split(by_name)
+    return out
+
+
 def train_full(torch, cfg, params, proc, run: str, kw: dict, adapter_path: str):
     """One ``train_lora`` run at full size through its entry point, the
     trainer's ``_load`` pointed at an ``LM`` over the built weights; then
@@ -4372,10 +4527,14 @@ def train_full(torch, cfg, params, proc, run: str, kw: dict, adapter_path: str):
     from phi_3_vision_mlx_tpu_torch.train import trainer as TT
     from phi_3_vision_mlx_tpu_torch.train.data import load_qa_dataset
 
-    lm = LM(cfg, params, device="cuda")
-    stamps = []
+    lm = LM(cfg, params, device="cuda")  # graphs: each batch shape's step is captured, then replayed
+    stamps, callbacks = [], []
 
     class Timed(TT.TrainingCallback):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            callbacks.append(self)
+
         def __call__(self, step_loss):
             stamps.append(time.perf_counter())
             super().__call__(step_loss)
@@ -4397,6 +4556,10 @@ def train_full(torch, cfg, params, proc, run: str, kw: dict, adapter_path: str):
     step_wall = float(np.median(walls[1:])) if len(walls) > 1 else float(walls[0])
     trained = lora_tensors(adapter_path)
     zero_b = [k for k, t in trained.items() if k.endswith("lora_b") and float(t.abs().max()) == 0]
+    steps = callbacks[0].steps
+    replayed = bool(steps) and all(st.graph.graphs and st.graph.graph is not None for st in steps.values())
+    captures = {f"{r}x{l}": (st.graph.capture_ms, st.graph.pool_bytes) for (r, l), st in steps.items()}
+    graph_step = step_walls(torch, next(iter(steps.values())).graph)
 
     # One more step of the trained model: forward and backward profiled
     # apart, the LoRA gradients checked.
@@ -4461,6 +4624,7 @@ def train_full(torch, cfg, params, proc, run: str, kw: dict, adapter_path: str):
         return None if b is None or b > w else 1 - b / w
 
     res = dict(steps=len(losses), losses=losses, total_s=total, step_wall_ms=step_wall, rows=tokens,
+               replayed=replayed, captures=captures, graph_step=graph_step,
                fwd_wall=walls["forward"], bwd_wall=walls["backward"], fwd_busy=fwd_busy, bwd_busy=bwd_busy,
                bwd_dq_profiled=bwd_dq, bwd_dequantize_ms=bwd_deq, dq_share=bwd_deq / walls["backward"],
                fwd_kernels=fwd_kernels, bwd_kernels=bwd_kernels, fwd_idle=idle(fwd_busy, walls["forward"]),
@@ -4476,9 +4640,19 @@ def train_full(torch, cfg, params, proc, run: str, kw: dict, adapter_path: str):
         f"{res['dq_share']:.3f} of its wall; {res['tok_s']:.1f} tokens/s; peak memory above the weights "
         f"{peak:.2f} GiB; "
         f"launches {launches}")
+    gs = graph_step
+    log(f"phase 13 (c) train_lora {run}, the step of {next(iter(steps))} (rows, length), replayed against eager: "
+        f"wall {gs['replay_wall']:.2f} / {gs['eager_wall']:.2f} ms, busy {dev(gs['replay_busy'])} / "
+        f"{dev(gs['eager_busy'])} ms ({gs['replay_kernels']} / {gs['eager_kernels']} kernels), idle share "
+        f"{dev(gs['replay_idle'])} / {dev(gs['eager_idle'])}; the replay's busy time by kernel: "
+        f"{by_text(gs['replay_split'])}; captures (ms, pool bytes) by shape {captures}; every step replayed: "
+        f"{replayed}")
     if not np.isfinite(losses).all() or zero_b or no_grad or top_grad == 0:
         fail(f"phase 13 (c) {run}: non-finite loss {losses}, lora_b left 0 at {zero_b}, no LoRA gradient "
              f"below the top layer at {no_grad}, top layer's lora_b gradient {top_grad}")
+    if not replayed or (tokens <= 192 and (gs["replay_idle"] is None or gs["replay_idle"] > TRAIN_IDLE_MAX)):
+        fail(f"phase 13 (c) {run}: a step was not captured and replayed ({replayed}), or the replayed "
+             f"{tokens}-row step's idle share {gs['replay_idle']} is above {TRAIN_IDLE_MAX}")
     k1_expected = tokens <= KERNEL_ROWS  # else every linear takes the dequantize route
     if (launches.get("K1", 0) > 0) != k1_expected or launches.get("K2", 0):
         fail(f"phase 13 (c) {run}: launches {launches} at {tokens} rows (K1 expected: {k1_expected}; no K2: "
@@ -4539,11 +4713,175 @@ def phase_adapter_serving(torch, cfg, params, proc, adapter_path: str, report):
         torch.cuda.empty_cache()
 
 
+# Phase 13 (e): the tiny induction model (train/pretrain.py), the JAX
+# defaults: 240 steps of 8 x 128 tokens, scan_steps 16 (and 1); held-out
+# docs of 24 phrases, 96 tokens each at K = SPEC_K.  Its attention is K2 and
+# K3 at head dim 32 (4 heads over 2 kv heads), checked here at its shapes:
+# a 216-token prompt's prefill (lq 256 over a 384-key window, left pad 40)
+# and verify passes of Lq 1 and 8 at the window's offset 300.
+INDUCTION_DOCS = 3
+HD32 = dict(h=4, kvh=2, d=32, lq=256, lk=384, pad=40, offset=300)
+
+
+def phase_hd32_kernels(torch, report) -> None:
+    """Phase 13 (e): K2 (bf16, fp32) and K3 (bf16, fp32; Lq 1 and 8) at head
+    dim 32 against their plain versions, at HD32's shapes, with phase 2's
+    tolerances (K2_ATOL / ATTN_ATOL + ATTN_RTOL in bf16, F32_ATOL + F32_RTOL
+    in fp32); the fp32 ones, which the induction model runs, timed
+    (:func:`hd32_timing`)."""
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as K2
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as K3
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(23)
+    h, kvh, d, lq, lk, pad, offset = (HD32[k] for k in ("h", "kvh", "d", "lq", "lk", "pad", "offset"))
+    scale = d**-0.5
+    nl = 8  # layers of the stacked cache, rotated in the timing
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        tag = "fp32" if f32 else "bf16"
+        q = torch.randn((1, lq, h, d), generator=g, device=dev).to(dtype).transpose(1, 2)
+        kk, vv = (torch.randn((1, kvh, lk, d), generator=g, device=dev).to(dtype) for _ in range(2))
+        valid = torch.ones((1, lk), dtype=torch.bool, device=dev)
+        valid[:, :pad] = False
+        out = K2.flash_attention(q, kk, vv, valid, 0, scale)
+        ref = K2.flash_attention_plain(q, kk, vv, valid, 0, scale)
+        torch.cuda.synchronize()
+        atol, rtol = (F32_ATOL, F32_RTOL) if f32 else (K2_ATOL, ATTN_RTOL)
+        ea, _, ok = close(torch, out, ref, atol, rtol)
+        shape = f"{tag} D=32 lq={lq} lk={lk} pad={pad} H={h} KV={kvh} (induction prefill)"
+        if not ok or out.dtype != dtype:
+            fail(f"phase 13 (e): K2 at head dim 32 ({tag}) disagrees with its plain version: {ea:.3e}")
+        if not f32:  # checked only: the induction model (fp32) runs the fp32 entries
+            log(f"phase 13 (e) K2 {shape}: max_abs={ea:.3e} (atol {atol} + rtol {rtol:.4g})")
+        else:
+            hd32_timing(torch, report, "K2", shape, q, kk, vv, valid, ea, atol, rtol)
+        ks, vs = (torch.randn((nl, 1, kvh, lk, d), generator=g, device=dev).to(dtype) for _ in range(2))
+        off_t = dev_offset(torch, offset)
+        atol = F32_ATOL if f32 else ATTN_ATOL
+        for lq3 in (1, SPEC_K + 1):
+            q3 = torch.randn((1, lq3, h, d), generator=g, device=dev).to(dtype).transpose(1, 2)
+            out = K3.dense_kv_attention(q3, ks, vs, valid, off_t, nl - 1, scale)
+            ref = K3.dense_kv_attention_plain(q3, ks, vs, valid, offset, nl - 1, scale)
+            torch.cuda.synchronize()
+            ea, _, ok = close(torch, out, ref, atol, rtol)
+            shape = f"{tag} D=32 Lq={lq3} Lmax={lk} offset={offset} H={h} KV={kvh} (induction verify)"
+            if not ok or out.dtype != dtype:
+                fail(f"phase 13 (e): K3 at head dim 32 ({tag}, Lq {lq3}) disagrees with its plain version: "
+                     f"{ea:.3e}")
+            if not f32:
+                log(f"phase 13 (e) K3 {shape}: max_abs={ea:.3e} (atol {atol} + rtol {rtol:.4g})")
+            else:
+                hd32_timing(torch, report, "K3", shape, q3, ks, vs, valid, ea, atol, rtol)
+        del q, kk, vv, ks, vs
+
+
+def hd32_timing(torch, report, name, shape, q, k, v, valid, ea, atol, rtol) -> None:
+    """Phase 13 (e): fp32 K2 (``k`` and ``v`` one layer's) or K3 (the
+    stacked cache, layers rotated) at head dim 32 timed beside its plain
+    version, its bound (bytes at 3.35 TB/s, or operations: K2's at 165
+    TFLOP/s of 3xTF32 products, K3's at 67 TFLOP/s f32) and fp32 SDPA over
+    the same mask; kept in ``report[name]["timings"]``."""
+    import torch.nn.functional as F
+
+    from phi_3_vision_mlx_tpu_torch.ops.attention import causal_valid_mask
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import flash_attention as K2
+    from phi_3_vision_mlx_tpu_torch.ops.kernels import kv_attention as K3
+
+    h, kvh, d, offset = HD32["h"], HD32["kvh"], HD32["d"], HD32["offset"]
+    scale, lq, lk = d**-0.5, q.shape[2], valid.shape[1]
+    if name == "K2":
+        t = timed(torch, lambda: K2.flash_attention(q, k, v, valid, 0, scale),
+                  lambda: K2.flash_attention_plain(q, k, v, valid, 0, scale), 20)
+        mask = causal_valid_mask(valid, torch.arange(lq, device="cuda"))
+        bd = bound(4 * (2 * q.numel() + 2 * kvh * lq * d) + lk, 4 * h * d * int(mask.sum()), rate=TF32X3_FLOPS)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale,
+                                                                    enable_gqa=True), 20)
+    else:
+        nl = k.shape[0]
+        off_t, nxt = dev_offset(torch, offset), rotating(nl)
+        t = timed(torch, lambda: K3.dense_kv_attention(q, k, v, valid, off_t, nxt(), scale),
+                  lambda: K3.dense_kv_attention_plain(q, k, v, valid, off_t, nxt(), scale), 20)
+        keys = min(lk, offset + lq)
+        mask = causal_valid_mask(valid[:, :keys], offset + torch.arange(lq, device="cuda"))
+        bd = bound(4 * (2 * kvh * keys * d + 2 * h * lq * d) + lk, 4 * h * d * int(mask.sum()), rate=FP32_FLOPS)
+
+        def library():
+            layer = nxt()
+            return F.scaled_dot_product_attention(q, k[layer][:, :, :keys], v[layer][:, :, :keys], attn_mask=mask,
+                                                  scale=scale, enable_gqa=True)
+
+        lib = cuda_ms(torch, library, 20)
+    report[name].setdefault("timings", []).append({"shape": shape, **t, "library_ms": lib, **bd, "max_abs_err": ea})
+    log(f"phase 13 (e) {name} {shape}: max_abs={ea:.3e} (atol {atol} + rtol {rtol:.4g}) {t.pop('text')} bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) library (fp32 SDPA, same mask) {lib:.4f} ms")
+
+
+def phase_induction(torch, report) -> None:
+    """Phase 13 (e): ``train_induction_lm`` on the card with the JAX
+    defaults at ``scan_steps`` 16 and 1 (each loss history must fall below
+    half its first loss; the two runs' largest loss difference printed),
+    K2/K3 at head dim 32 (:func:`phase_hd32_kernels`), then
+    ``measure_tokens_per_pass`` on INDUCTION_DOCS held-out docs through
+    ``api.generate(speculative=True)``: K2 and K3 launched, tokens a pass
+    strictly between 1 and K + 1."""
+    import tempfile
+
+    import numpy as np
+
+    from phi_3_vision_mlx_tpu_torch import api
+    from phi_3_vision_mlx_tpu_torch.train import pretrain as TP
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for scan in (16, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg, losses = TP.train_induction_lm(f"{tmp}/scan{scan}", scan_steps=scan, device="cuda")
+            runs[scan] = (losses, time.perf_counter() - t0)
+        gap = max(abs(a - b) for a, b in zip(runs[16][0], runs[1][0]))
+        log(f"phase 13 (e) train_induction_lm (JAX defaults: {len(runs[16][0])} steps of 8 x 128, head dim "
+            f"{cfg.head_dim}): scan_steps 16 in {runs[16][1]:.2f} s ({runs[16][1] / len(runs[16][0]) * 1e3:.2f} ms a "
+            f"step), scan_steps 1 in {runs[1][1]:.2f} s ({runs[1][1] / len(runs[1][0]) * 1e3:.2f} ms a step; both with "
+            f"their captures); losses {runs[16][0][0]:.4f} -> {runs[16][0][-1]:.4f} / "
+            f"{runs[1][0][0]:.4f} -> {runs[1][0][-1]:.4f}; largest loss difference between the runs {gap!r}")
+        for scan, (losses, _) in runs.items():
+            if not np.isfinite(losses).all() or not losses[-1] < 0.5 * losses[0]:
+                fail(f"phase 13 (e): the induction model did not learn at scan_steps {scan}: {losses[0]} -> "
+                     f"{losses[-1]}")
+        phase_hd32_kernels(torch, report)
+        lm, proc = api._load(f"{tmp}/scan16", device="cuda")
+        rng = np.random.default_rng(99)  # held-out docs (training drew from seed 1)
+        counters = zero_counters()
+        tpps, walls, passes = [], [], 0
+        with mock.patch.dict(os.environ, {"PHI3V_TPU_SPEC_K": str(SPEC_K)}):
+            for _ in range(INDUCTION_DOCS):
+                doc = TP.induction_docs(rng, 1, n_phrases=4, phrase_len=8, phrases_per_doc=24)[0]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tpp, _ = TP.measure_tokens_per_pass((lm, proc), doc, max_tokens=96, spec_k=SPEC_K)
+                walls.append(time.perf_counter() - t0)
+                tpps.append(tpp)
+                passes += lm._spec_stats["iters"]
+        launches = read_counts(counters)
+        mean = float(np.mean(tpps))
+        log(f"phase 13 (e) measure_tokens_per_pass on {INDUCTION_DOCS} held-out docs at K = {SPEC_K}: tokens a "
+            f"pass {[round(x, 3) for x in tpps]} (mean {mean:.3f}; strictly between 1 and {SPEC_K + 1}); "
+            f"{sum(walls):.2f} s for {passes} passes ({sum(walls) / passes * 1e3:.2f} ms a pass, prefill "
+            f"included); launches (total, fp32) K2 {launches['K2']}, K3 {launches['K3']}")
+        report["induction"] = dict(tokens_a_pass=tpps, train_s={k: v[1] for k, v in runs.items()},
+                                   ms_a_pass=sum(walls) / passes * 1e3, launches=launches)
+        if not 1.0 < mean < SPEC_K + 1 or launches["K2"][0] <= 0 or launches["K3"][0] <= 0:
+            fail(f"phase 13 (e): tokens a pass {tpps}, launches {launches}")
+        del lm
+
+
 def phase_train(torch, cfg, params, proc, report, raw: str):
     """Phase 13: (a) the autograd seam, (b) 2 layers against the CPU
-    through the entry points (the checkpoint ``raw`` of phase 7), (c)
-    full-size ``train_lora`` with the JAX defaults and a wider run, (d) the
-    wider run's adapter served."""
+    through the entry points (the checkpoint ``raw`` of phase 7), graphs
+    against eager, (c) full-size ``train_lora`` with the JAX defaults and a
+    wider run, each step a graph replay, (d) the wider run's adapter served,
+    (e) the induction model trained and served with speculation."""
     import gc
     import tempfile
 
@@ -4558,6 +4896,8 @@ def phase_train(torch, cfg, params, proc, report, raw: str):
             report.setdefault("train", {})[run] = train_full(torch, cfg, params, proc, run, kw, f"{tmp}/{run}")
         stamp("phase 13 (c)")
         phase_adapter_serving(torch, cfg, params, proc, f"{tmp}/wide", report)
+    stamp("phase 13 (d)")
+    phase_induction(torch, report)
     stamp("phase 13")
 
 

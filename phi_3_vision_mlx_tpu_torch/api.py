@@ -42,6 +42,10 @@ from .engine.constrain import choose_from, constrain_decode
 from .engine.engine import LM, generate_text
 from .utils.media import fetch_image, fetch_text
 
+# The hub ids of the two models (the JAX package downloads them; the port's
+# ``_setup`` writes random pairs offline instead).
+HUB_VISION = "microsoft/Phi-3.5-vision-instruct"
+HUB_BLIND = "microsoft/Phi-3.5-mini-instruct"
 PATH_ADAPTERS = "adapters"
 PATH_ORIGINAL_PHI3_VISION = "models/phi3_v"
 PATH_QUANTIZED_PHI3_VISION = "models/phi3_v_Q"

@@ -11,6 +11,7 @@ run time.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Tuple
 
 # Token ids fixed by the Phi-3 tokenizer.
@@ -118,6 +119,20 @@ def _rope_scaling_from_dict(d) -> Optional[RopeScalingConfig]:
         long_factor=tuple(float(x) for x in d.get("long_factor", ())),
         short_factor=tuple(float(x) for x in d.get("short_factor", ())),
     )
+
+
+def load_config(json_path: str, **overrides) -> ModelConfig:
+    """A ModelConfig from a ``config.json`` file (:func:`config_from_dict`
+    with ``overrides``); ``FileNotFoundError`` for a missing file and
+    ``ValueError`` for one that is not JSON, as the JAX package raises."""
+    try:
+        with open(json_path, "r") as f:
+            raw = json.load(f)
+    except FileNotFoundError:
+        raise FileNotFoundError(f"Configuration file not found: {json_path}")
+    except json.JSONDecodeError:
+        raise ValueError(f"Invalid JSON in configuration file: {json_path}")
+    return config_from_dict(raw, **overrides)
 
 
 def config_from_dict(raw: dict, **overrides) -> ModelConfig:

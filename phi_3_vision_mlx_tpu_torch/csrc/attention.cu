@@ -75,8 +75,14 @@
 //   block's causal horizon skipped unless a row has seen no visible key,
 //   which then walks every tile to the uniform average of all Lk values.
 //
-// Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
-// cudaErrorInvalidValue until a configuration on the card needs it.
+// D = 96 (Phi-3.5-mini) and D = 32 (the tiny induction model that
+// train/pretrain.py trains and serves with speculation) are instantiated;
+// another head dim returns cudaErrorInvalidValue until a configuration on
+// the card needs it.  Nothing in either body assumes 96: the flash bodies
+// ask D % 32 == 0 (k-steps and n-tiles in pairs) and D % 16 == 0, K3's
+// split kernel gives output dims to threads < D and its combine D / 32 dims
+// to a lane, and every row stride stays a multiple of 16 bytes (D + 8 bf16
+// or f32 elements, D + 16 / sizeof(T) in K3's K tile).
 
 #include "flash_tf32.cuh"
 
@@ -387,6 +393,7 @@ int k3_launch(const void* q, const void* k, const void* v, const void* valid, vo
               void* stream_ptr) {
   switch (D) {
     case 96: return (int)launch_decode<96, T>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, static_cast<const int*>(offset), row0, scale, n_split, split_keys, static_cast<cudaStream_t>(stream_ptr));
+    case 32: return (int)launch_decode<32, T>(q, k, v, valid, out, partial, B, H, KV, Lq, Lmax, st, layer, static_cast<const int*>(offset), row0, scale, n_split, split_keys, static_cast<cudaStream_t>(stream_ptr));
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -407,6 +414,7 @@ extern "C" int k2_flash_attention(const void* q, const void* k, const void* v, c
   const long long st[6] = {qsb, qsh, qsl, osb, osh, osl};
   switch (D) {
     case 96: return (int)launch_flash_mma<96, DenseTiles<96>>(q, k, v, valid, out, B, H, KV, Lq, Lk, st, q_pos0, scale, stream);
+    case 32: return (int)launch_flash_mma<32, DenseTiles<32>>(q, k, v, valid, out, B, H, KV, Lq, Lk, st, q_pos0, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -424,6 +432,7 @@ extern "C" int k2_flash_attention_f32(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   switch (D) {
     case 96: return (int)launch_flash_f32<96, DenseF32Tiles<96>>(q, k, v, valid, out, B, H, KV, Lq, Lk, st, q_pos0, scale, stream);
+    case 32: return (int)launch_flash_f32<32, DenseF32Tiles<32>>(q, k, v, valid, out, B, H, KV, Lq, Lk, st, q_pos0, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

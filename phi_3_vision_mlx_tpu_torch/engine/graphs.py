@@ -29,6 +29,17 @@ shape replays it.  The score step and the beam read belong to a decode
 entry (``engine/engine.py:Decoder``), keyed (L, advance) and (L, n_beam)
 over the entry's state; the cache-free pass is an entry of its own
 (``NocachePass``), keyed (B, l_pad).
+
+Training steps are static steps too (the JAX trainer's compiled
+``train_step`` and ``pretrain``'s scanned chunk): the inputs of a step (ids,
+RoPE tables, masks, the rate, the dropout key) are static tensors, the
+loss is the static output, and the step computes the loss, its gradients
+(``torch.autograd.grad``) and the AdamW update (``train/adamw.py``) in
+place.  ``save`` holds the trainable tensors, the moments and the step
+count, so the warm-up's update is undone and the first replay takes the
+batch's step once.  ``train/trainer.py`` keeps a graph per batch shape,
+``train/pretrain.py`` one per chunk length; the graphs of one run share one
+memory pool (``pool``: ``torch.cuda.graph_pool_handle()``).
 """
 
 from __future__ import annotations
@@ -107,17 +118,22 @@ class StepGraph:
     ``capture_error_mode="thread_local"``, with Python's garbage collector
     off until the capture ends.  The capture runs nothing, so
     ``save`` must hold every tensor whose value a step advances and a later
-    step reads (the offsets, the fed-back token, the ring's step index): the
-    first replay then redoes the warm-up's step, overwriting its cache and
-    ring writes with the same values.  Replays run on the current
-    stream.  ``capture_ms`` and ``pool_bytes`` (the device memory the
-    capture reserved for the graph's intermediates) describe the capture."""
+    step reads (the offsets, the fed-back token, the ring's step index; a
+    training step's params and optimizer state): the first replay then
+    redoes the warm-up's step, overwriting its cache and ring writes with
+    the same values.  Replays run on the current stream.  ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``, or None for a pool of its own) is
+    the memory pool the capture allocates in; graphs that share one must
+    replay one at a time.  ``capture_ms`` and ``pool_bytes`` (the device
+    memory the capture reserved for the graph's intermediates) describe the
+    capture."""
 
-    def __init__(self, step, device, graphs: bool, save=()):
+    def __init__(self, step, device, graphs: bool, save=(), pool=None):
         self.step = step
         self.device = torch.device(device)
         self.graphs = bool(graphs)
         self.save = tuple(save)
+        self.pool = pool
         self.graph = None
         self.launches: dict = {}  # wrapper -> kernel launches per replay
         self.capture_ms = None
@@ -127,7 +143,7 @@ class StepGraph:
         return torch.cuda.CUDAGraph()
 
     def capturing(self, graph):
-        return torch.cuda.graph(graph, capture_error_mode="thread_local")
+        return torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local")
 
     def warm_up(self) -> None:
         """Run the step once on a side stream, ordered after the current
@@ -144,10 +160,12 @@ class StepGraph:
         if not self.graphs or self.graph is not None:
             return
         t0 = time.perf_counter()
-        saved = [t.clone() for t in self.save]
+        with torch.no_grad():  # a training step's save holds leaves that require grad
+            saved = [t.clone() for t in self.save]
         self.warm_up()
-        for t, s in zip(self.save, saved):
-            t.copy_(s)
+        with torch.no_grad():
+            for t, s in zip(self.save, saved):
+                t.copy_(s)
         reserved = 0
         if self.device.type == "cuda":
             torch.cuda.empty_cache()  # as the capture itself does first
@@ -188,12 +206,12 @@ class StaticStep:
     its arguments into ``inputs``, runs ``fn(*inputs)`` through a
     :class:`StepGraph` (eager, or captured at the first call and replayed)
     with the result written into ``out``, and returns ``out``: the next call
-    overwrites it, so read it first.  ``save`` is the graph's (the tensors
-    whose value the step advances)."""
+    overwrites it, so read it first.  ``save`` and ``pool`` are the
+    graph's (the tensors whose value the step advances; the memory pool)."""
 
-    def __init__(self, fn, inputs, out: torch.Tensor, device, graphs: bool, save=()):
+    def __init__(self, fn, inputs, out: torch.Tensor, device, graphs: bool, save=(), pool=None):
         self.fn, self.inputs, self.out = fn, tuple(inputs), out
-        self.graph = StepGraph(self._step, device, graphs, save=save)
+        self.graph = StepGraph(self._step, device, graphs, save=save, pool=pool)
 
     def _step(self) -> None:
         self.out.copy_(self.fn(*self.inputs))

@@ -66,6 +66,10 @@ class DecodeState:
     kv_quant: Optional[KVQuantConfig] = None
 
     @property
+    def batch(self) -> int:
+        return self.valid.shape[0]
+
+    @property
     def window(self) -> int:
         return self.valid.shape[1]
 

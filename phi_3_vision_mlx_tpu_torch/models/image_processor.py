@@ -102,6 +102,8 @@ def count_tokens(h: int, w: int) -> int:
 
 
 class Phi3VImageProcessor:
+    count_tokens = staticmethod(count_tokens)
+
     def __init__(self, num_crops: int = 16):
         self.num_crops = num_crops
         self.image_mean = np.array(IMAGE_MEAN)

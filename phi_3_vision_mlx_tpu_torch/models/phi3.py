@@ -48,7 +48,8 @@ every path here applies through ``dense_stacked`` and ``dense``.  Training
 ``allow_flash=False``: plain masked attention, or
 ``ops/attention.py:blockwise_attention`` from ``BLOCKWISE_MIN_LEN`` keys on,
 and LoRA-branch dropout with one keep mask per (layer, linear)
-(:func:`lora_dropout_mask`, keyed as the JAX package folds its key).
+(:func:`lora_dropout_mask`: a counter-based hash of a device key, so that a
+captured training step draws each step's own mask).
 
 Parallelism (``parallel/``): :func:`prefill`, :func:`decode_forward`,
 :func:`forward_nocache` and :func:`block` take an optional ``tp``, a
@@ -76,6 +77,7 @@ import torch.nn.functional as F
 
 from ..core.config import ModelConfig
 from ..core.weights import torch_dtype
+from ..engine.rng import MASK, hash32
 from ..engine.state import DecodeState, init_state, read_kv, update_layer_chunk
 from ..ops.attention import blockwise_attention, causal_valid_mask, masked_attention
 from ..ops.kernels.flash_attention import flash_attention
@@ -87,6 +89,7 @@ from ..ops.rope import apply_rotary, su_rope_tables
 from ..parallel.ring_attention import make_ring_attention
 
 MAX_DECODE_ROWS = 16
+DROPOUT = 0x5BD1E995  # the LoRA dropout's stream (engine/rng.py's streams are a step's draws)
 BLOCKWISE_MIN_LEN = 2048  # forward_nocache without flash: blockwise attention from here on
 # Stable ids of the linears for LoRA dropout keys (JAX models/phi3.py:93-97).
 _PATH_IDS = {
@@ -175,13 +178,22 @@ def lora_dropout_mask(rng, layer: int, path_id: int, shape, keep: float, device)
     """Keep decisions (bool, ``shape``) of the LoRA-branch dropout of linear
     ``path_id`` (``_PATH_IDS``) in layer ``layer``: one stream per (``rng``,
     layer, linear), as the JAX package folds its key
-    (``fold_in(fold_in(key, layer), path_id)``).  ``rng`` is an int or a
-    tuple of ints (the trainer's ``(seed + 1, step)``); the stream is a
-    ``torch.Generator`` seeded from them, so its numbers are not JAX's."""
-    entropy = [rng] if isinstance(rng, int) else list(rng)
-    seed = int(np.random.SeedSequence([*entropy, layer, path_id]).generate_state(1)[0])
-    g = torch.Generator(device=device).manual_seed(seed)
-    return torch.rand(shape, generator=g, device=device) < keep
+    (``fold_in(fold_in(key, layer), path_id)``).  ``rng`` is the trainer's
+    step key, an int64 tensor ``(seed + 1, step)`` on ``device`` (an int or
+    a tuple of ints is made one).  Element ``e`` is kept iff the top 24
+    bits of ``hash32(hash32(e ^ k) ^ DROPOUT)`` fall below ``keep * 2**24``,
+    ``k`` the key's words, layer and linear hashed in turn
+    (``engine/rng.py:hash32``): integer tensor ops only, so the CPU and the
+    card draw the same mask, and a replayed step draws its own step's.  The
+    numbers are not JAX's."""
+    key = torch.as_tensor(rng, dtype=torch.long, device=device).reshape(-1)
+    k = hash32((key[0] & MASK) ^ DROPOUT)
+    for i in range(1, key.shape[0]):
+        k = hash32(k ^ (key[i] & MASK))
+    k = hash32(hash32(k ^ layer) ^ path_id)
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.long, device=device)
+    bits = hash32(hash32(idx ^ k) ^ DROPOUT)
+    return ((bits >> 8) < int(keep * 2**24)).reshape(shape)
 
 
 def decode_forward(

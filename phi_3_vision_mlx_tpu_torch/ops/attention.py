@@ -57,6 +57,13 @@ def decode_attention(q, k_cache, v_cache, valid, q_pos, scale: float):
     return masked_attention(q, k_cache, v_cache, causal_valid_mask(valid, q_pos), scale)
 
 
+def prefill_attention(q, k, v, valid, scale: float):
+    """Causal self-attention over a fresh prompt chunk: q (B, H, L, D); k, v
+    (B, KV, L, D); valid (B, L) bool, False at left-pad positions.  Returns
+    (B, H, L, D) in ``q.dtype``."""
+    return masked_attention(q, k, v, causal_valid_mask(valid, torch.arange(q.shape[2], device=q.device)), scale)
+
+
 def _blockwise_rows(q_blk, k, v, valid, q0: int, k_block: int, scale: float):
     """One query block's online softmax over the key blocks (float32)."""
     b, h, qb, d = q_blk.shape
@@ -98,7 +105,10 @@ def blockwise_attention(q, k, v, valid, scale: float, q_block: int = 512, k_bloc
         q_block //= 2
     while l % k_block:
         k_block //= 2
+    # The block draws no random number, so the recomputation needs no RNG
+    # state: the default (preserve_rng_state) reads the CUDA generator's,
+    # which a captured training step must not.
     blocks = [checkpoint(_blockwise_rows, q[:, :, q0:q0 + q_block], k, v, valid, q0, k_block, scale,
-                         use_reentrant=False)
+                         use_reentrant=False, preserve_rng_state=False)
               for q0 in range(0, l, q_block)]
     return torch.cat(blocks, dim=2).to(q.dtype)

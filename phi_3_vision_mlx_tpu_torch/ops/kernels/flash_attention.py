@@ -12,8 +12,8 @@ f32 sums, only lo * lo dropped, at most 2^-22 of a product), so P and every
 sum keep f32's accuracy; bound by operations at 165 TFLOP/s of f32
 products (a third of 495 TFLOP/s TF32).  Query
 ``i`` sits at absolute position ``q_pos0 + i`` and sees key ``j`` iff
-``j <= q_pos0 + i`` and ``valid[b, j]``.  Head dim 96 runs as is (no padding
-to 128 lanes, which was TPU-only); GQA maps query head ``h`` to kv head
+``j <= q_pos0 + i`` and ``valid[b, j]``.  Head dims 96 and 32 run as they
+are (no padding to 128 lanes, which was TPU-only); GQA maps query head ``h`` to kv head
 ``h // (H // KV)``.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs the
@@ -29,9 +29,12 @@ import torch
 from ..attention import causal_valid_mask, masked_attention
 from . import _build
 
-# Head dims the CUDA source instantiates: Phi-3.5-mini's 96.  Add one here and
-# in csrc/attention.cu when a configuration on the card needs it.
-HEAD_DIMS = (96,)
+# Head dims csrc/attention.cu instantiates for K2 and K3: Phi-3.5-mini's 96
+# and the tiny induction model's 32 (train/pretrain.py).  Add one here and
+# there when a configuration on the card needs it.
+HEAD_DIMS = (32, 96)
+# Head dims of the int4-cache and paged kernels (K4-K7): 96 only.
+CACHE_HEAD_DIMS = (96,)
 # The attention kernels' query types: bf16 (the served models) and fp32.
 DTYPES = (torch.bfloat16, torch.float32)
 

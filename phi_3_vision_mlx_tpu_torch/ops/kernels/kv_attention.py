@@ -86,7 +86,7 @@ import torch
 from ...engine.state import dequantize_kv
 from ..attention import decode_attention, masked_attention
 from . import _build
-from .flash_attention import (DTYPES, HEAD_DIMS, check_attention_inputs, flash_attention_plain,
+from .flash_attention import (CACHE_HEAD_DIMS, DTYPES, check_attention_inputs, flash_attention_plain,
                               head_major_empty)
 
 KV_GROUP = 32  # the kernels' quantization group along D
@@ -226,7 +226,7 @@ def check_quantized_inputs(q, payload, scales, valid, layer_idx: int, name: str)
     if payload.dim() != 5 or not 0 <= layer_idx < payload.shape[0]:
         raise ValueError(f"{name}: cache {tuple(payload.shape)}, layer {layer_idx}")
     nl, pb, kvh, lmax, width = payload.shape
-    if d not in HEAD_DIMS or width != d or scales.shape != (nl, pb, kvh, lmax, 4 * (d // KV_GROUP)):
+    if d not in CACHE_HEAD_DIMS or width != d or scales.shape != (nl, pb, kvh, lmax, 4 * (d // KV_GROUP)):
         raise ValueError(f"{name}: head dim {d}, int4 payload {tuple(payload.shape)} and scales "
                          f"{tuple(scales.shape)} (group {KV_GROUP}) do not match")
     if h % kvh or pb != b or valid.shape != (b, lmax):
@@ -458,7 +458,7 @@ def check_paged_inputs(q, pool_a, pool_b, page_tables, valid, offsets, layer_idx
         raise ValueError(f"{name}: pool {tuple(pool_a.shape)}, layer {layer_idx}")
     _, _, kvh, page, width = pool_a.shape
     mp = page_tables.shape[-1]
-    if d not in HEAD_DIMS or width != d or pool_b.shape != (*pool_a.shape[:4], b_width):
+    if d not in CACHE_HEAD_DIMS or width != d or pool_b.shape != (*pool_a.shape[:4], b_width):
         raise ValueError(f"{name}: head dim {d}, pools {tuple(pool_a.shape)} and "
                          f"{tuple(pool_b.shape)} do not match")
     if (h % kvh or not 1 <= lq <= MAX_PAGED_ROWS or page_tables.shape != (s, mp)

@@ -39,6 +39,11 @@ KERNEL_MAX_ROWS = 256
 KERNELS = {4: QuantMatmulFn, 8: QuantMatmulW8Fn}  # bits -> K1 or K8, behind the seam
 
 
+def is_quantized(p: dict) -> bool:
+    """Whether a linear or embedding leaf holds a quantized weight."""
+    return "scales" in p
+
+
 def embedding(p: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
     """Token-embedding lookup; quantized tables dequantize only the looked-up
     rows (groups along the embedding dim)."""

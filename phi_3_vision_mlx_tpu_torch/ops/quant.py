@@ -53,6 +53,18 @@ def quantize(
     return out
 
 
+def quantize_for_saving(w_out_in: torch.Tensor, qcfg) -> dict:
+    """Quantize an HF-layout ``(out, in)`` weight for checkpoint storage
+    (``qcfg``: a ``core/config.py:QuantConfig``): ``weight`` (the levels,
+    uint8), ``scales`` and, in affine mode, ``biases``, groups along the
+    input dim, as the JAX package stores them."""
+    t = quantize(w_out_in.T, group_size=qcfg.group_size, bits=qcfg.bits, mode=qcfg.mode)
+    out = {"weight": t.q, "scales": t.scales}
+    if t.biases is not None:
+        out["biases"] = t.biases
+    return out
+
+
 def dequantize(t: QTensor, dtype=torch.bfloat16, axis: int = -2) -> torch.Tensor:
     """Inverse of :func:`quantize`: f32 math, then one rounding to ``dtype``."""
     q, scales, biases = t

@@ -45,6 +45,13 @@ def su_rope_tables(cfg: ModelConfig, l_all: int, pids=None, device=None):
     return torch.cos(emb) * scaling, torch.sin(emb) * scaling
 
 
+def su_rope_tables_np(cfg: ModelConfig, l_all: int, pids=None):
+    """NumPy twin of :func:`su_rope_tables` (on the CPU) for host-side
+    precompute."""
+    cos, sin = su_rope_tables(cfg, l_all, pids, device="cpu")
+    return cos.numpy(), sin.numpy()
+
+
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half RoPE.  x (B, H, L, D); cos/sin float32 (B, L, D)."""
     half = x.shape[-1] // 2

@@ -4,7 +4,8 @@
 The reference keeps only the best-loss adapter; its optimizer state is lost.
 The JAX package adds exact resume with orbax; the port does the same with
 ``torch.save``: ``<directory>/<step>/train_state.pt`` holds the trainable
-LoRA leaves, the ``torch.optim`` state dict and the next step, and only the
+LoRA leaves, the optimizer's state dict (``train/adamw.py``: the step count
+and the moments) and the next step, and only the
 newest ``max_to_keep`` steps are kept.  Only the adapter files
 (``train/lora.py``) are shared with the JAX package; each package's train
 state is its own.
@@ -18,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from .adamw import AdamW
+
 FILE = "train_state.pt"
 
 
@@ -27,7 +30,7 @@ def _steps(directory: str):
     return sorted(int(d) for d in os.listdir(directory) if d.isdigit())
 
 
-def save_train_state(directory: str, step: int, trainable: dict, optimizer: torch.optim.Optimizer,
+def save_train_state(directory: str, step: int, trainable: dict, optimizer: AdamW,
                      next_step: int, max_to_keep: int = 3) -> None:
     """Write the state of ``step`` and drop all but the newest
     ``max_to_keep`` steps."""

@@ -143,8 +143,10 @@ def active_layers(trainable: dict, layer_mask) -> dict:
     its gradients are masked to 0.  But with every layer's leaves taking a
     gradient the backward runs through every layer below the lowest active
     one, dequantizing each weight again; with the inactive ones detached it
-    stops there."""
-    active = [m > 0 for m in torch.as_tensor(layer_mask).tolist()]
+    stops there.  ``layer_mask``: a tensor, or its values as a list (a
+    captured step reads no tensor on the host)."""
+    values = layer_mask.tolist() if torch.is_tensor(layer_mask) else layer_mask
+    active = [m > 0 for m in values]
 
     def walk(node):
         if isinstance(node, dict):

@@ -21,13 +21,24 @@ The inactive layers' LoRA leaves enter the loss detached
 (``train/lora.py:active_layers``): the same loss and kept gradients, and a
 backward that stops at the lowest active layer.
 
-The step is ``loss.backward()`` over ``forward_nocache(allow_flash=False)``
-(``models/phi3.py``): on the card the base's linears run K1 / K8 / K9 up to
-256 rows and the dequantize route above, each behind the autograd seam of
+A step (:func:`lora_step`) is the loss over ``forward_nocache(allow_flash=
+False)`` (``models/phi3.py``), its gradients (``torch.autograd.grad``), the
+gradient mask and the AdamW update (``train/adamw.py``), all on device
+tensors: on the card the base's linears run K1 / K8 / K9 up to 256 rows and
+the dequantize route above, each behind the autograd seam of
 ``ops/kernels/quant_matmul.py``, and the LoRA leaves, the AdamW state and
-the loss are float32 over a bf16 base.  ``train_lora`` and ``test_lora``
-run on ``device`` (the card unless the caller names another).  Mid-run
-resume saves ``torch.save`` states (``train/checkpoint.py``).
+the loss are float32 over a bf16 base.  As the JAX trainer compiles its
+step once a batch shape, ``train_lora`` keeps a static step a (rows,
+bucketed length) (``engine/graphs.py:StaticStep``: the batch, its RoPE
+tables, the rate and the dropout key copied into static inputs, the loss
+its static output): with ``lm.graphs`` (the card's default) each is a CUDA
+graph, captured at its first batch and replayed after, the graphs of a run
+in one memory pool; ``LM(graphs=False)``, and the CPU, run the same step
+eagerly (the reference).  A capture or a replay that fails raises.  The
+dropout mask is keyed on the step's device key (``phi3.lora_dropout_mask``).
+``train_lora`` and ``test_lora`` run on ``device`` (the card unless the
+caller names another).  Mid-run resume saves ``torch.save`` states
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +56,10 @@ import torch
 from ..core import weights as W
 from ..core.config import ID_ASS
 from ..engine.engine import round_up
+from ..engine.graphs import StaticStep
 from ..models import phi3
+from ..ops.rope import su_rope_tables
+from .adamw import AdamW
 from .data import load_qa_dataset
 from .lora import (active_layers, adapter_flat_dict, inject_lora, lora_leaves, mask_lora_grads, merge_lora,
                    partition_lora)
@@ -67,6 +81,7 @@ class TrainingCallback:
         self.start_time = time.perf_counter()
         os.makedirs(self.adapter_path, exist_ok=True)
         self._save_adapter = None  # bound by train_lora
+        self.steps = {}  # the run's static steps by (rows, length), bound by train_lora
 
     def __call__(self, step_loss: float):
         self.current_step += 1
@@ -219,7 +234,8 @@ def batch_to(batch: dict, device) -> dict:
 def make_loss_fn(cfg, lora_dropout: float = 0.0):
     """``loss_fn(trainable, frozen, batch)``: the scaled sum of each row's
     mean cross-entropy over its loss mask (``batch`` as :func:`batch_to`
-    gives it, plus ``dropout_rng`` for LoRA dropout)."""
+    gives it, or with ``rope``, the (cos, sin) tables, in place of ``pids``;
+    plus ``dropout_rng``, the step key, for LoRA dropout)."""
 
     def loss_fn(trainable, frozen, batch):
         params = merge_lora(frozen, trainable)
@@ -227,11 +243,12 @@ def make_loss_fn(cfg, lora_dropout: float = 0.0):
             params,
             cfg,
             batch["ids"],
-            pids=batch["pids"],
+            pids=batch.get("pids"),
             prompt_valid=batch["valid"],
             dropout_rng=batch.get("dropout_rng"),
             lora_dropout=lora_dropout,
             allow_flash=False,  # K2 is forward-only
+            rope=batch.get("rope"),
         )
         logits = logits[:, :-1].float()
         ce = -torch.log_softmax(logits, dim=-1).gather(-1, batch["targets"].long()[..., None])[..., 0]
@@ -240,6 +257,38 @@ def make_loss_fn(cfg, lora_dropout: float = 0.0):
         return (ce * batch["loss_scales"]).sum()
 
     return loss_fn
+
+
+def step_inputs(cfg, batch: dict) -> tuple:
+    """A training batch (:func:`batch_to`'s dict plus ``rate`` (1,) f32 and
+    ``key`` (2,) int64) as the static step's inputs, in :func:`lora_step`'s
+    order; the RoPE tables are made here from the pids (``su_rope_tables``
+    copies host values to the device, which a capture refuses)."""
+    cos, sin = su_rope_tables(cfg, batch["ids"].shape[1], batch["pids"], device=batch["ids"].device)
+    return (batch["ids"], cos, sin, batch["valid"], batch["targets"], batch["loss_masks"], batch["loss_scales"],
+            batch["rate"], batch["key"])
+
+
+def lora_step(loss_fn, trainable: dict, frozen: dict, layer_mask, optimizer: AdamW, dropout: bool):
+    """The LoRA training step on device tensors (the JAX trainer's jitted
+    ``train_step``): ``step(ids, cos, sin, valid, targets, loss_masks,
+    loss_scales, rate, key)`` computes the loss, its gradients with respect
+    to the optimizer's params (``trainable``'s leaves), masks the inactive
+    layers' and takes one AdamW step at ``rate``, in place; it returns the
+    loss.  No host value is read, so the step can be captured.  ``key`` is
+    the dropout's step key (used with ``dropout``)."""
+    active = torch.as_tensor(layer_mask).tolist()
+    mask = torch.as_tensor(layer_mask).to(optimizer.params[0].device)
+
+    def step(ids, cos, sin, valid, targets, loss_masks, loss_scales, rate, key):
+        batch = dict(ids=ids, rope=(cos, sin), valid=valid, targets=targets, loss_masks=loss_masks,
+                     loss_scales=loss_scales, dropout_rng=key if dropout else None)
+        loss = loss_fn(active_layers(trainable, active), frozen, batch)
+        grads = torch.autograd.grad(loss, optimizer.params)
+        optimizer.step([mask_lora_grads(g, mask) for g in grads], lr=rate)
+        return loss.detach()
+
+    return step
 
 
 def train_lora(
@@ -308,20 +357,9 @@ def train_lora(
     leaves = [t.requires_grad_() for t in lora_leaves(trainable)]
 
     lr_schedule = _get_lr_schedule(lr, len(batch_idx), warmup)
-    optimizer = torch.optim.AdamW(leaves, lr=float(lr_schedule[0]), betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=0.01)
-    loss_fn = make_loss_fn(cfg, lora_dropout)
-
-    def train_step(batch, lr_value: float):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(active_layers(trainable, layer_mask), frozen, batch)
-        loss.backward()
-        for t in leaves:
-            t.grad = mask_lora_grads(t.grad, layer_mask)
-        for group in optimizer.param_groups:
-            group["lr"] = lr_value
-        optimizer.step()
-        return loss.detach()
+    optimizer = AdamW(leaves, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    step_fn = lora_step(make_loss_fn(cfg, lora_dropout), trainable, frozen, layer_mask, optimizer,
+                        lora_dropout > 0.0)
 
     callback = TrainingCallback(lora_cfg, lr_schedule, batch_idx)
 
@@ -347,18 +385,25 @@ def train_lora(
             callback.current_step = start_step
             print(f"Resumed training from step {start_step}")
 
+    # One static step a (rows, bucketed length); with graphs, one memory pool.
+    steps = callback.steps
+    pool = torch.cuda.graph_pool_handle() if lm.graphs else None
     # Per-batch RNGs drawn up front so a resumed run augments identically to
     # an uninterrupted one (skipped batches must not shift the stream).
     batch_rngs = [random.Random(rng.random()) for _ in batch_idx]
     for i, idx in enumerate(batch_idx):
         if i < start_step:
             continue
-        batch = batch_to(_prepare_batch(
-            processor, [list_prompts[j] for j in idx], mask_ratios, batch_rngs[i]
-        ), lm.device)
-        if lora_dropout > 0.0:
-            batch["dropout_rng"] = (seed + 1, i)
-        lvalue = train_step(batch, float(lr_schedule[i]))
+        batch = _prepare_batch(processor, [list_prompts[j] for j in idx], mask_ratios, batch_rngs[i])
+        batch["rate"] = np.asarray([lr_schedule[i]], np.float32)
+        batch["key"] = np.asarray([seed + 1, i], np.int64)  # the dropout's step key
+        args = step_inputs(cfg, batch_to(batch, lm.device))
+        shape = tuple(args[0].shape)
+        if shape not in steps:
+            steps[shape] = StaticStep(step_fn, [torch.empty_like(a) for a in args],
+                                      torch.zeros((), dtype=torch.float32, device=lm.device), lm.device,
+                                      lm.graphs, save=leaves + optimizer.state_tensors(), pool=pool)
+        lvalue = steps[shape](*args)
         callback(float(lvalue))
         if checkpoint_every and (i + 1) % checkpoint_every == 0:
             from .checkpoint import save_train_state

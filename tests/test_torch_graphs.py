@@ -246,10 +246,12 @@ class StubStepGraph(TG.StepGraph):
     @contextlib.contextmanager
     def capturing(self, graph):
         graph.body = self.step
-        before = [t.clone() for t in self.touched]
+        with torch.no_grad():  # a training step touches leaves that require grad
+            before = [t.clone() for t in self.touched]
         yield
-        for t, b in zip(self.touched, before):
-            t.copy_(b)
+        with torch.no_grad():
+            for t, b in zip(self.touched, before):
+                t.copy_(b)
 
     def warm_up(self):
         self.step()
@@ -592,7 +594,7 @@ def stub_static_steps(monkeypatch, lm):
     list of the stubs made."""
     made = []
 
-    def make(step, device, graphs, save=()):
+    def make(step, device, graphs, save=(), pool=None):  # no pool: nothing is captured
         touched = [t for e in list(lm.taken) if e.state is not None for t in tensors_of(e.state)]
         made.append(StubStepGraph(step, "cpu", graphs, save=save, touched=[*touched, *save]))
         return made[-1]
