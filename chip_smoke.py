@@ -299,12 +299,13 @@ K5 on 256-row slices of the second 16384-row prefill chunk (q_pos0 16384,
 Phase 2 also holds the other kernels' fp32 entries against their plain
 fp32 versions: K1 (affine and symmetric), K8 and K9 at M = 1, 8 and 192
 (K1 also at lm_head's ragged N) within ``F32_ATOL + F32_RTOL |ref|`` plus
-``F32_MM_ULPS`` sqrt(K) f32 ulps of ``|x| @ |W|``; K4 at Lq 1, 8 and 16 over
-640 and 4224 keys, from row0 16 and over a row with no valid key; K5 at
-K2's fp32 cases; K6 (an f32 pool) and K7 at Lq 1, 8 and 16, from row0 16
-and through table entries outside the pool; each timed beside its bound
-(f32 operations at 67 TFLOP/s, K5's 3xTF32 products at 165) and, for K6,
-fp32 SDPA over the gathered windows.
+``F32_MM_ULPS`` sqrt(K) f32 ulps of ``|x| @ |W|``, each call repeated
+bit for bit; K4 at Lq 1, 8 and 16 over 640 and 4224 keys, from row0 16 and
+over a row with no valid key; K5 at K2's fp32 cases; K6 (an f32 pool) and
+K7 at Lq 1, 8 and 16, from row0 16 and through table entries outside the
+pool; each timed beside its bound (bytes, or its products at 165 TFLOP/s
+of 3xTF32: route B, K4-K7's split runs and K5 run 3xTF32 on the tensor
+cores) and, for K6, fp32 SDPA over the gathered windows.
 
 Phase 2 also holds K2 and K5 at phase 10's square-image prefill (its
 prompt bucket over its window, one left pad; K2 beside SDPA and its bound),
@@ -461,7 +462,8 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 FP32_FLOPS = 67e12  # f32 on the CUDA cores: fp32 K3 uses no tensor cores
-# fp32 K2's products in 3xTF32: three tf32 products (495 TFLOP/s dense) a product.
+# The fp32 entries' products in 3xTF32 (K2, K5, route B of K1/K8/K9, K4, K6,
+# K7): three tf32 products (495 TFLOP/s dense) a product.
 TF32X3_FLOPS = 495e12 / 3
 
 
@@ -2092,10 +2094,12 @@ def phase_paged_parity(torch, lm, proc):
             fail(f"paged parity ({cache}, {mode}): launch totals differ from the eager run's")
 
 
-# The quantized matmuls' kernels (K1, K8: route A or B and the split sum; K9: route B).
-MATMUL_KERNELS = ("k1_gemv_kernel", "wq_mma_kernel", "sum_splits_kernel")
-# The split-run decode attention's kernels (K4, K6, K7: csrc/split_runs.cuh).
-SPLIT_RUN_KERNELS = ("split_run_kernel", "run_combine_kernel")
+# The quantized matmuls' kernels (K1, K8: route A or B and the split sum; K9:
+# route B; fp32 route B: wq_tf32_kernel).
+MATMUL_KERNELS = ("k1_gemv_kernel", "wq_mma_kernel", "wq_tf32_kernel", "sum_splits_kernel")
+# The split-run decode attention's kernels (K4, K6, K7: csrc/split_runs.cuh;
+# the fp32 body split_run_tf32_kernel).
+SPLIT_RUN_KERNELS = ("split_run_kernel", "split_run_tf32_kernel", "run_combine_kernel")
 
 
 def by_text(by_name: dict) -> str:
@@ -6300,12 +6304,14 @@ def f32_entry(report, name, shape, t, bd, ea, lib=None):
 
 def phase_fp32_quantized_kernels(torch, report):
     """K1, K8 and K9 (M = 1, 8, 192; K1 also symmetric and at lm_head's
-    ragged N), K4 (Lq 1, 8, 16 over 640 and 4224 keys, row0 16, a row with
-    no valid key), K5 (K2's fp32 cases), K6 and K7 (phase 2's paged shapes,
-    Lq 1, 8, 16, row0 16, clamped tables) in fp32 against their plain fp32
-    versions; each timed beside its bound (bytes, or f32 operations at 67
-    TFLOP/s on the CUDA cores, K5's at 165 TFLOP/s of 3xTF32 products) and,
-    for K6, fp32 SDPA over the gathered windows."""
+    ragged N; each called twice, bit-identical), K4 (Lq 1, 8, 16 over 640
+    and 4224 keys, row0 16, a row with no valid key), K5 (K2's fp32 cases),
+    K6 and K7 (phase 2's paged shapes, Lq 1, 8, 16, row0 16, clamped tables)
+    in fp32 against their plain fp32 versions; each timed beside its bound
+    (bytes, or its products at 165 TFLOP/s of 3xTF32, the tensor cores' tf32
+    rate over three products; K1 and K8's route A at M = 1 runs on the CUDA
+    cores but is bound by its bytes) and, for K6, fp32 SDPA over the
+    gathered windows."""
     import random
 
     import torch.nn.functional as F
@@ -6351,6 +6357,8 @@ def phase_fp32_quantized_kernels(torch, report):
                 ref = plain(x, *ws[0])
                 torch.cuda.synchronize()
                 ea, u = f32_matmul_check(torch, f"{name} K={k} N={n} M={m}", out, ref, x, w, k)
+                if not torch.equal(out, kernel(x, *ws[0])):
+                    fail(f"{name} in fp32 at K={k} N={n} M={m}: two calls on the same inputs differ")
                 errs.append(ea)
                 used.append(u)
                 if name == "K1" and m in (1, 8):  # symmetric mode: no biases
@@ -6359,14 +6367,15 @@ def phase_fp32_quantized_kernels(torch, report):
                                              plain(x, ws[0][0], s, None), x, w_sym, k)
                     errs.append(ea)
                     used.append(u)
-                if (k, n, m) in F32_MM_TIMED and (name == "K1" or m == 1):
+                if (k, n, m) in F32_MM_TIMED and (name == "K1" or n == 9216):
                     nxt = rotating(copies)
                     t = timed(torch, lambda: kernel(x, *ws[nxt()]), lambda: plain(x, *ws[nxt()]), 20)
                     wb = k * n * bits // 8 + 2 * 2 * (k // 64) * n
-                    bd = bound(wb + 4 * m * k + 4 * m * n, 2 * m * k * n, rate=FP32_FLOPS)
+                    bd = bound(wb + 4 * m * k + 4 * m * n, 2 * m * k * n, rate=TF32X3_FLOPS)
                     f32_entry(report, name, f"K={k} N={n} M={m}", t, bd, ea)
             log(f"{name} fp32 K={k} N={n} M={','.join(map(str, F32_MM_ROWS))}: max_abs={max(errs):.3e}, at most "
-                f"{max(used):.3f} of the limit (F32_ATOL + F32_RTOL |ref| + {F32_MM_ULPS} sqrt(K) 2^-24 |x| @ |W|)")
+                f"{max(used):.3f} of the limit (F32_ATOL + F32_RTOL |ref| + {F32_MM_ULPS} sqrt(K) 2^-24 |x| @ |W|); "
+                f"repeat bit-identical")
             del ws, levels, w
 
     # --- K4: the int4 stacked cache, f32 queries.
@@ -6408,7 +6417,7 @@ def phase_fp32_quantized_kernels(torch, report):
                           lambda: KV.quantized_kv_attention_plain(q, payload, scales, valid, end, nxt(), scale), 20)
                 pairs = int(causal_valid_mask(valid, lmax - lq + torch.arange(lq, device=dev)).sum())
                 bd = bound(kvh * lmax * (d + 8 * (d // 32)) + lmax + 2 * 4 * h * lq * d, 4 * h * d * pairs,
-                           rate=FP32_FLOPS)
+                           rate=TF32X3_FLOPS)
                 f32_entry(report, "K4", f"Lq={lq} Lmax={lmax} offset={lmax - lq} H=32 D=96 int4", t, bd, max(errs))
         none = torch.zeros_like(valid)  # a row with no valid key: the uniform average
         q = torch.randn((1, 1, h, d), generator=g, device=dev).transpose(1, 2)
@@ -6488,7 +6497,7 @@ def phase_fp32_quantized_kernels(torch, report):
                 keys = sum(o + lq for o in offsets_l)
                 vis = int(KV.paged_visible(valid, offsets, lq).sum())
                 bd = bound(kvh * keys * per_key + s_ * window + 4 * tables.numel() + 2 * 4 * s_ * h * lq * d,
-                           4 * h * d * vis, rate=FP32_FLOPS)
+                           4 * h * d * vis, rate=TF32X3_FLOPS)
                 lib = None
                 if name == "K6":
                     mask = KV.paged_visible(valid, offsets, lq)

@@ -43,10 +43,11 @@
 // into the same tiles (flash_mma.cuh: dequantize_int4_tile, K5's).
 //
 // fp32 models run both in f32 (the _f32 entries): an f32 query, and for K6
-// an f32 pool, through split_runs.cuh's fp32 body (split_run_f32_kernel):
-// DenseRunF32 copies each key's f32 K and V rows into the f32 tiles (its
-// bound doubles the bf16 bytes: 4 * D * 2 B per (kv head, key)), K7 in
-// fp32 takes Int4RunF32 over the same int4 pool and bytes as in bf16.
+// an f32 pool, through split_runs.cuh's fp32 body (split_run_tf32_kernel,
+// 3xTF32 on the tensor cores): DenseRunF32 reads each key's f32 K row
+// straight into the fragments and copies its V row into the stage (its
+// bound doubles the bf16 bytes: 4 * D * 2 B per (kv head, key)), K7 in fp32
+// takes Int4RunF32 over the same int4 pool and bytes as in bf16.
 //
 // Only D = 96 (Phi-3.5-mini) is instantiated; another head dim returns
 // cudaErrorInvalidValue until a configuration on the card needs it.
@@ -109,32 +110,54 @@ struct DenseRun {
   }
 };
 
-// K6's loader for an fp32 model's f32 pool: a = the layer's keys, b = its
-// values, (P1, KV, page, D) f32, 16-byte aligned; threads 2r and 2r + 1
-// copy half of row r's K and V rows each, 16 bytes at a time, into the f32
-// tiles (keys [kRunKeys][D + 4], values [kRunKeys][D]).
+// K6's loader for an fp32 model's f32 pool (split_runs.cuh's fp32 seam): a
+// = the layer's keys, b = its values, (P1, KV, page, D) f32, 16-byte
+// aligned.  Keys go from device memory straight into the S fragments
+// (kKGlobal: thread tig of key r reads dims 8 kk + 2 tig, +1, 8 bytes at a
+// time, a key's 32 bytes of each k-step in one sector), so only the values
+// are staged: [kRunKeys][D] f32, unpadded, 16-byte chunk c of key r's row at
+// chunk c ^ 2 (r & 3) (an XOR within aligned groups of eight chunks), so the
+// P V fragment reads (keys 8 j + tig, dims 32 i + 8 w + gid) fall in
+// distinct banks.  Threads 2r and 2r + 1 copy half of row r's values each,
+// 16 bytes at a time.
 template <int D>
 struct DenseRunF32 {
-  static constexpr int kRawBytes = 0;
+  static constexpr int kChunks = D / 4;  // 16-byte chunks a row
+  static constexpr int kRawBytes = kRunKeys * D * 4;
+  static constexpr int kQStride = D + 8;  // q rows eight banks apart: 8-byte reads conflict-free
+  static constexpr bool kKGlobal = true;
   static constexpr int kMode = kFp32;
   static constexpr bool kF32 = true;
+  static_assert(kChunks % 8 == 0, "the swizzle stays inside a row");
 
-  static __device__ __forceinline__ void issue(float* kt, float* vt, unsigned char*, const void* __restrict__ a,
+  static __device__ __forceinline__ int chunk(int key, int c) { return c ^ (2 * (key & 3)); }
+
+  static __device__ __forceinline__ void issue(unsigned char* raw, const void* __restrict__,
                                                const void* __restrict__ b, const Pages& pg, int s, int kvh, int j0,
                                                int n) {
-    static_assert(kRunThreads == 2 * kRunKeys && D % 8 == 0, "two threads per row, 16-byte halves");
-    const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (D / 2);
-    const size_t row = pg.row(s, kvh, j0 + min(r, n - 1));
-    const float* kr = static_cast<const float*>(a) + row * D + c0;
-    const float* vr = static_cast<const float*>(b) + row * D + c0;
+    static_assert(kRunThreads == 2 * kRunKeys, "two threads per row");
+    const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (kChunks / 2);
+    const float* vr = static_cast<const float*>(b) + pg.row(s, kvh, j0 + min(r, n - 1)) * D;
+    float* vt = reinterpret_cast<float*>(raw) + r * D;
 #pragma unroll
-    for (int c = 0; c < D / 2; c += 4) {  // D / 8 chunks of 16 B each
-      cp_async16(kt + r * kF32KStride<D> + c0 + c, kr + c);
-      cp_async16(vt + r * D + c0 + c, vr + c);
-    }
+    for (int c = c0; c < c0 + kChunks / 2; ++c) cp_async16(vt + 4 * chunk(r, c), vr + 4 * c);
   }
 
-  static __device__ __forceinline__ void tiles(float*, float*, const unsigned char*) {}
+  static __device__ __forceinline__ int kdim(int kk, int tig) { return 8 * kk + 2 * tig; }
+
+  static __device__ __forceinline__ void k_pairs(const unsigned char*, const void* __restrict__ a, const Pages& pg,
+                                                 int s, int kvh, int j, int, int tig, float2 (&k)[D / 8]) {
+    const float* kr = static_cast<const float*>(a) + pg.row(s, kvh, j) * D + 2 * tig;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) k[kk] = __ldg(reinterpret_cast<const float2*>(kr + 8 * kk));
+  }
+
+  static __device__ __forceinline__ void v_cols(const unsigned char* __restrict__ raw, int key, int col0,
+                                                float (&v)[D / 32]) {
+    const float* vt = reinterpret_cast<const float*>(raw) + key * D + (col0 & 3);
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) v[i] = vt[4 * chunk(key, (col0 >> 2) + 8 * i)];
+  }
 
   static __device__ __forceinline__ float window_value(const void* __restrict__, const void* __restrict__ b,
                                                        size_t row, int d) {

@@ -53,9 +53,11 @@
 // and dequantize each key and value to f32 (q * s + b, never rounded to
 // bf16), as the JAX XLA path computes an fp32 model (the TPU kernels cast
 // the query to bf16 first, a TPU economy this port does not copy):
-// * K4 in fp32 runs split_runs.cuh's fp32 body (split_run_f32_kernel) with
+// * K4 in fp32 runs split_runs.cuh's fp32 body (split_run_tf32_kernel) with
 //   Int4RunF32: the same plan, runs, raw copies, window and combine, both
-//   products in f32 on the CUDA cores; the same int4 bytes as in bf16.
+//   products in 3xTF32 on the tensor cores, each key and value dequantized
+//   in f32 straight from the raw stage into its fragment; the same int4
+//   bytes as in bf16.
 // * K5 in fp32 runs fp32 K2's 3xTF32 flash body (flash_tf32.cuh) with
 //   Int4F32Tiles: the raw int4 tile of 64 keys in a two-stage ring, each
 //   dequantized once per block into the f32 K and V tiles (94 KB of shared

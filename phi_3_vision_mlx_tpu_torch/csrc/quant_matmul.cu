@@ -50,12 +50,20 @@
 // b in f32 (one FMA, exact as above), never rounded to bf16, and f32 products
 // summed in f32.  Route A is the same GEMV with x staged as it comes and the
 // weights kept in f32 (the same weight bytes, so the same bound).  Route B
-// runs on the CUDA cores (wf32_tile_kernel): the bf16 route's cp.async stages
-// of x, payload and scales through the same loaders, each group's payload
-// tile dequantized once per block into a 64 x 128 f32 tile in shared memory
-// (tile_f32, the loader's other hook), and a register tile of rows x 8
-// columns a thread; bound by the products at 67 TFLOP/s f32 from some tens
-// of rows on.  K9 takes route B at every M in fp32 too.
+// (wq_tf32_kernel) is route B's skeleton on the tensor cores in 3xTF32:
+// tf32 mma.sync.m16n8k8, each f32 operand split into tf32 hi + lo and each
+// product run as lo hi + hi lo + hi hi (lo lo, at most 2^-22 of the product,
+// dropped), with x staged as f32 and each thread's B fragments dequantized
+// in f32 straight from the staged payload (the loader's load_f32 and
+// frag_f32 hooks), split once and reused for every row tile.  What bounds it:
+// the weight bytes at M <= 16 (the same bytes as bf16: 0.0048 ms for qkv at
+// 3.35 TB/s, where a 16-row tile's three products take longer than the
+// bytes at one row), the products above (three tf32 products a product:
+// 165 TFLOP/s of f32 products on the 495 TFLOP/s tf32 tensor cores, 0.066 ms
+// for qkv at M = 192).  The tensor cores round their f32 sums toward zero,
+// so each 64-row group is summed from zero and added to the running sum with
+// one rounded add: the chains that drift stay 24 products long.  K9 takes
+// route B at every M in fp32 too.
 
 #include "mma.cuh"
 #include "quant_matmul.cuh"
@@ -353,29 +361,44 @@ struct WordTiles {
       }
     }
   }
-  // fp32 route B: the group's weights as f32 into w[64][kBN] (tile column c
-  // is column tile * kBN + c); ss: the staged scales, then the biases.
-  // Thread i takes the word (row r, column c) of idx = i + kThreads * u:
-  // consecutive threads read consecutive words of a staged row.
-  template <bool AFFINE>
-  static __device__ __forceinline__ void tile_f32(const uint8_t* st, const __nv_bfloat16* ss,
-                                                  float* __restrict__ w) {
-    constexpr int kPer = 32 / BITS;  // levels a word: row r's word holds rows kPer r ..
-    const float zero = AFFINE ? kAffineZero : kSymmetricZero;
-    for (int idx = threadIdx.x; idx < kRows * kBN; idx += kThreads) {
-      const int r = idx / kBN, c = idx % kBN;
-      const unsigned v = *reinterpret_cast<const unsigned*>(st + slot(r) * kRowBytes + 4 * c);
-      const unsigned lo = BITS == 4 ? v & 0x0F0F0F0Fu : v, hi = (v >> 4) & 0x0F0F0F0Fu;
-      const float s = __bfloat162float(ss[c]), b = AFFINE ? __bfloat162float(ss[kBN + c]) : 0.f;
+  // fp32 route B (wq_tf32_kernel): thread (gid, t) holds the same rows 16 t
+  // .. 16 t + 15 of the group as above, the (BITS / 2) word rows that carry
+  // them, read once a group (load_f32).  For k-step s of m16n8k8, k slot t
+  // stands for row 16 t + 2 s and slot t + 4 for row 16 t + 2 s + 1, so
+  // frag_f32 gives w[j][0] (b0) and w[j][1] (b1) of column j from one word
+  // (4 bits: nibbles 2 (s % 4) and + 1 of word row 2 t + s / 4, byte s % 4 of
+  // lo and of hi; 8 bits: bytes 2 (s % 2) and + 1 of word row 4 t + s / 2).
+  struct RawF32 {
+    unsigned w[BITS / 2][4];
+  };
+  static __device__ __forceinline__ void load_f32(const uint8_t* st, int warp, int gid, int t, RawF32& r) {
+    const uint8_t* p = st + warp * 128 + gid * 16;
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) {  // 4 bits: nibble e is byte e / 2 of lo (e even) or hi
-        const float lv = BITS == 4 ? level(e & 1 ? hi : lo, e >> 1, zero) : level(lo, e, zero);
-        w[(kPer * r + e) * kBN + c] = dequant<AFFINE>(lv, s, b);
+    for (int h = 0; h < BITS / 2; ++h) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + slot((BITS / 2) * t + h) * kRowBytes);
+      r.w[h][0] = v.x;
+      r.w[h][1] = v.y;
+      r.w[h][2] = v.z;
+      r.w[h][3] = v.w;
+    }
+  }
+  template <bool AFFINE>
+  static __device__ __forceinline__ void frag_f32(const RawF32& r, int s, const float (&sc)[4],
+                                                  const float (&bi)[4], float (&w)[4][2]) {
+    const float zero = AFFINE ? kAffineZero : kSymmetricZero;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (BITS == 4) {
+        const unsigned v = r.w[s / 4][j];
+        w[j][0] = dequant<AFFINE>(level(v & 0x0F0F0F0Fu, s % 4, zero), sc[j], bi[j]);
+        w[j][1] = dequant<AFFINE>(level((v >> 4) & 0x0F0F0F0Fu, s % 4, zero), sc[j], bi[j]);
+      } else {
+        const unsigned v = r.w[s / 2][j];
+        w[j][0] = dequant<AFFINE>(level(v, 2 * (s % 2), zero), sc[j], bi[j]);
+        w[j][1] = dequant<AFFINE>(level(v, 2 * (s % 2) + 1, zero), sc[j], bi[j]);
       }
     }
   }
-  // fp32 route B: the output column of tile column c (runs of 4 stay runs).
-  static __device__ __forceinline__ int out_col(int tile, int c) { return tile * kBN + c; }
   // v[j][c]: the sum of n-tile j at the mma's column 2 t + c.
   static __device__ __forceinline__ int run_col(int tile, int warp, int t, int which) {
     return tile * kBN + warp * 32 + 8 * t + 4 * which;
@@ -440,23 +463,30 @@ struct PackedTiles {
       }
     }
   }
-  // fp32 route B: tile column c < 64 is the low nibble of byte column c, c
-  // >= 64 the high nibble of byte column c - 64, as the staged scales lie.
-  template <bool AFFINE>
-  static __device__ __forceinline__ void tile_f32(const uint8_t* st, const __nv_bfloat16* ss,
-                                                  float* __restrict__ w) {
-    for (int idx = threadIdx.x; idx < kGroup * (kBN / 2); idx += kThreads) {
-      const int i = idx / (kBN / 2), j = idx % (kBN / 2);
-      const unsigned v = st[i * kRowBytes + (i / 16) * 16 + j];
-      w[i * kBN + j] = dequant<AFFINE>(level(v & 0x0Fu, 0, kAffineZero), __bfloat162float(ss[j]),
-                                       __bfloat162float(ss[kBN + j]));
-      w[i * kBN + kBN / 2 + j] = dequant<AFFINE>(level(v >> 4, 0, kAffineZero),
-                                                 __bfloat162float(ss[kBN / 2 + j]),
-                                                 __bfloat162float(ss[kBN + kBN / 2 + j]));
-    }
+  // fp32 route B: the thread's 16 rows (16 t ..) of its two byte columns as
+  // above, rows 2 s and 2 s + 1 in word s (bytes: row 2 s's two columns, then
+  // row 2 s + 1's), so k-step s's b0 and b1 of every column j come from word s.
+  struct RawF32 {
+    unsigned w[8];
+  };
+  static __device__ __forceinline__ void load_f32(const uint8_t* st, int warp, int gid, int t, RawF32& r) {
+    const uint8_t* p = st + (16 * t) * kRowBytes + t * 16 + warp * 16 + 2 * gid;
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+      r.w[s] = *reinterpret_cast<const uint16_t*>(p + (2 * s) * kRowBytes) |
+               (unsigned)*reinterpret_cast<const uint16_t*>(p + (2 * s + 1) * kRowBytes) << 16;
   }
-  static __device__ __forceinline__ int out_col(int tile, int c) {
-    return (tile / 4) * 512 + (tile % 4) * 64 + (c < 64 ? c : 256 + c - 64);
+  template <bool AFFINE>
+  static __device__ __forceinline__ void frag_f32(const RawF32& r, int s, const float (&sc)[4],
+                                                  const float (&bi)[4], float (&w)[4][2]) {
+    const unsigned lo = r.w[s] & 0x0F0F0F0Fu, hi = (r.w[s] >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // row 2 s + e: byte 2 e (column j = 0 / 2), 2 e + 1 (j = 1 / 3)
+      w[0][e] = dequant<AFFINE>(level(lo, 2 * e, kAffineZero), sc[0], bi[0]);
+      w[1][e] = dequant<AFFINE>(level(lo, 2 * e + 1, kAffineZero), sc[1], bi[1]);
+      w[2][e] = dequant<AFFINE>(level(hi, 2 * e, kAffineZero), sc[2], bi[2]);
+      w[3][e] = dequant<AFFINE>(level(hi, 2 * e + 1, kAffineZero), sc[3], bi[3]);
+    }
   }
   static __device__ __forceinline__ int run_col(int tile, int warp, int t, int which) {
     return (tile / 4) * 512 + (tile % 4) * 64 + 256 * which + warp * 16 + 4 * t;
@@ -570,45 +600,59 @@ void launch_mma(const __nv_bfloat16* x, const void* q, const __nv_bfloat16* s,
                                                               block_k, gps);
 }
 
-// --- fp32 route B: every layout at M >= 2 (K9 at every M), CUDA cores ---
+// --- fp32 route B: every layout at M >= 2 (K9 at every M), 3xTF32 ---------
 //
-// A block owns BM rows x kBN = 128 columns.  Per 64-row group of K one
-// cp.async stage brings the f32 x tile (BM x 64, rows padded to 68 floats),
-// the payload tile (the loader's issue, as in route B) and the 128 scales
-// and biases, the next group's stage in flight while this one is used; the
-// block dequantizes the payload tile once into w (64 x 128 f32, the loader's
-// tile_f32), then thread (ty, tx) = (tid / 16, tid % 16) sums rows ty + 8 i
-// (i < BM / 8) x tile columns 4 tx .. 4 tx + 3 and 64 + 4 tx .. + 3, k in
-// order (f32 FMAs).  Shared memory: 2 x (BM x 272 + the payload tile + 512)
-// + 32768 bytes, 86 KB at BM = 64.
-constexpr int kF32XStride = kGroup + 4;  // floats per staged x row
+// wq_mma_kernel's blocks, warps, stages and output runs, with f32 x and the
+// products in tf32 mma.sync.m16n8k8 (mma.cuh: mma_3xtf32).  Per 64-row group
+// of K one cp.async stage brings the f32 x tile (BM x 64, rows of 72 floats),
+// the payload tile (the loader's issue) and the 128 scales and biases, the
+// next group's stage in flight while this one is used.  Thread (gid, t) reads
+// its payload words once a group (load_f32) and, k-step by k-step (only one
+// k-step's fragments live at a time), dequantizes its B fragments in f32
+// (frag_f32: s q + b, one FMA, exact) and splits them into tf32 hi + lo once
+// for all row tiles; each A value is split as it is read (splitting the x tile
+// once a stage, in a pass of its own behind one more barrier, measured
+// slower).  k slot t of k-step s stands for row 16 t + 2 s of the group and
+// slot t + 4 for row 16 t + 2 s + 1 (the k order inside a group is free), so a
+// thread's x values of k-steps 2 u and 2 u + 1 are one 16-byte load of its row
+// at columns 16 t + 4 u: x columns 32 .. 63 of a row are staged 4 floats
+// further on (tf32_x_col), so the four t and two rows of a quarter-warp read
+// distinct banks.  Each group's products are summed from zero (grp) and added
+// to the block's sums with one rounded add.  Shared memory: 2 x (BM x 288 +
+// the payload tile + 512) bytes, 46-55 KB at BM = 64, 19-28 KB at BM = 16 (a
+// ring of three or four stages measured no faster).  Registers (ptxas_report):
+// 113-127 at BM = 16 and 160-168 at 32, no spills; 255 at 64, where the 64 row
+// sums and 64 group sums take 128, with 4-8 bytes of spills for K8 and affine
+// K1 (BM = 32 tiles above 32 rows, which spill nothing, measured 12% slower at
+// M = 192; PERF.md section 6).
+constexpr int kTf32XStride = kGroup + 8;  // floats per staged x row: row r starts at bank 8 r
+
+// Where column c of a group's x row is staged.
+__host__ __device__ constexpr int tf32_x_col(int c) { return c + (c >= 32 ? 4 : 0); }
 
 template <int BM, class L>
-constexpr size_t kF32Stage = (size_t)BM * kF32XStride * 4 + L::kBytes + 2 * kBN * 2;
-template <int BM, class L>
-constexpr size_t kF32Smem = 2 * kF32Stage<BM, L> + (size_t)kGroup * kBN * 4;
+constexpr size_t kTf32Stage = (size_t)BM * kTf32XStride * 4 + L::kBytes + 2 * kBN * 2;
 
 // Grid (tiles, ceil(M / BM), splits); split z covers groups [z gps, (z + 1) gps).
 template <int BM, class L, bool AFFINE>
 __global__ void __launch_bounds__(kThreads)
-    wf32_tile_kernel(const float* __restrict__ x, const void* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ scales, const __nv_bfloat16* __restrict__ biases,
-                     void* __restrict__ dst, int dst_bf16, int M, int K, int N, int block_k, int gps) {
-  constexpr int RT = BM / 8;  // rows a thread
-  constexpr size_t kStage = kF32Stage<BM, L>;
-  constexpr size_t kXBytes = (size_t)BM * kF32XStride * 4;
-  extern __shared__ __align__(16) uint8_t f32_smem[];
-  float* w = reinterpret_cast<float*>(f32_smem + 2 * kStage);  // [kGroup][kBN]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    wq_tf32_kernel(const float* __restrict__ x, const void* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ scales, const __nv_bfloat16* __restrict__ biases,
+                   void* __restrict__ dst, int dst_bf16, int M, int K, int N, int block_k, int gps) {
+  constexpr int MT = BM / 16;
+  constexpr size_t kStage = kTf32Stage<BM, L>;
+  constexpr size_t kXBytes = (size_t)BM * kTf32XStride * 4;
+  extern __shared__ __align__(16) uint8_t tf32_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, t = lane & 3;
   const int tile = blockIdx.x, m0 = blockIdx.y * BM;
   const int G = K / kGroup, g0 = blockIdx.z * gps, g1 = min(G, g0 + gps);
 
   auto issue = [&](int g) {
-    uint8_t* st = f32_smem + ((g - g0) & 1) * kStage;
+    uint8_t* st = tf32_smem + ((g - g0) & 1) * kStage;
     for (int idx = tid; idx < BM * (kGroup / 4); idx += kThreads) {
       const int r = idx / (kGroup / 4), c = idx % (kGroup / 4), m = m0 + r;
-      cp_async16_zfill(st + (r * kF32XStride + 4 * c) * 4, x + (size_t)min(m, M - 1) * K + g * kGroup + c * 4,
-                       m < M ? 16 : 0);
+      cp_async16_zfill(st + (r * kTf32XStride + tf32_x_col(4 * c)) * 4,
+                       x + (size_t)min(m, M - 1) * K + g * kGroup + c * 4, m < M ? 16 : 0);
     }
     L::issue(st + kXBytes, q, N, block_k, g, tile);
     if (tid < 32 && (AFFINE || tid < 16)) {  // 16 runs of 8 scales, then of 8 biases
@@ -618,11 +662,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  float acc[RT][8];
+  float acc[MT][4][4];
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
 
   issue(g0);
   cp_async_commit();
@@ -631,52 +675,91 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const uint8_t* st = f32_smem + ((g - g0) & 1) * kStage;
-    L::template tile_f32<AFFINE>(st + kXBytes,
-                                 reinterpret_cast<const __nv_bfloat16*>(st + kXBytes + L::kBytes), w);
-    __syncthreads();
-    const float* xt = reinterpret_cast<const float*>(st) + ty * kF32XStride;
-#pragma unroll 4
-    for (int k = 0; k < kGroup; ++k) {
-      const float4 w0 = *reinterpret_cast<const float4*>(w + k * kBN + 4 * tx);
-      const float4 w1 = *reinterpret_cast<const float4*>(w + k * kBN + kBN / 2 + 4 * tx);
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const uint8_t* st = tf32_smem + ((g - g0) & 1) * kStage;
+    const __nv_bfloat16* ss = reinterpret_cast<const __nv_bfloat16*>(st + kXBytes + L::kBytes);
+    float sc[4], bi[4];
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float xv = xt[i * 8 * kF32XStride + k];
+    for (int j = 0; j < 4; ++j) {
+      const int i = L::scale_idx(warp, gid, j);
+      sc[j] = __bfloat162float(ss[i]);
+      bi[j] = AFFINE ? __bfloat162float(ss[kBN + i]) : 0.f;
+    }
+    typename L::RawF32 raw;
+    L::load_f32(st + kXBytes, warp, gid, t, raw);
+    const float* xt = reinterpret_cast<const float*>(st) + gid * kTf32XStride + tf32_x_col(16 * t);
+    float grp[MT][4][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) grp[mt][j][0] = grp[mt][j][1] = grp[mt][j][2] = grp[mt][j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {  // k-step ks: its B fragments alone are live
+      unsigned bh[4][2], bl[4][2];
+      float w[4][2];
+      L::template frag_f32<AFFINE>(raw, ks, sc, bi, w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split_tf32(w[j][0], bh[j][0], bl[j][0]);
+        split_tf32(w[j][1], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        // rows gid and gid + 8 of row tile mt, columns 16 t + 4 (ks / 2) .. + 3: this k-step's half
+        const float4 r0 = *reinterpret_cast<const float4*>(xt + mt * 16 * kTf32XStride + 4 * (ks / 2));
+        const float4 r1 = *reinterpret_cast<const float4*>(xt + (mt * 16 + 8) * kTf32XStride + 4 * (ks / 2));
+        const float a[4] = {ks % 2 ? r0.z : r0.x, ks % 2 ? r1.z : r1.x, ks % 2 ? r0.w : r0.y, ks % 2 ? r1.w : r1.y};
+        unsigned ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_3xtf32(grp[mt][j], ah, al, bh[j][0], bh[j][1], bl[j][0], bl[j][1]);
       }
     }
-    __syncthreads();  // the stage and w are free
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = __fadd_rn(acc[mt][j][e], grp[mt][j][e]);
+    __syncthreads();  // the stage is free for the copy after next
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int m = m0 + ty + 8 * i;
-    if (m >= M) continue;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = L::out_col(tile, half * (kBN / 2) + 4 * tx);
-      if (L::kRagged && col >= N) continue;
-      store4(dst, dst_bf16, ((size_t)blockIdx.z * M + m) * N + col, acc[i][4 * half], acc[i][4 * half + 1],
-             acc[i][4 * half + 2], acc[i][4 * half + 3]);
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + mt * 16 + gid + 8 * h;
+      if (m >= M) continue;
+      float v[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j][0] = acc[mt][j][2 * h];
+        v[j][1] = acc[mt][j][2 * h + 1];
+      }
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const int col = L::run_col(tile, warp, t, which);
+        if (L::kRagged && col >= N) continue;
+        store4(dst, dst_bf16, ((size_t)blockIdx.z * M + m) * N + col, L::run_val(v, which, 0),
+               L::run_val(v, which, 1), L::run_val(v, which, 2), L::run_val(v, which, 3));
+      }
     }
-  }
 }
 
 template <int BM, class L, bool AFFINE>
-cudaError_t launch_f32_tiles(const float* x, const void* q, const __nv_bfloat16* s, const __nv_bfloat16* b,
-                             void* dst, int dst_bf16, int M, int K, int N, int block_k, int splits, int gps,
-                             cudaStream_t stream) {
-  constexpr size_t bytes = kF32Smem<BM, L>;
-  const cudaError_t err = cudaFuncSetAttribute(wf32_tile_kernel<BM, L, AFFINE>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
+cudaError_t launch_tf32(const float* x, const void* q, const __nv_bfloat16* s, const __nv_bfloat16* b,
+                        void* dst, int dst_bf16, int M, int K, int N, int block_k, int splits, int gps,
+                        cudaStream_t stream) {
+  constexpr size_t bytes = 2 * kTf32Stage<BM, L>;
+  if constexpr (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(wq_tf32_kernel<BM, L, AFFINE>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, splits);
-  wf32_tile_kernel<BM, L, AFFINE><<<grid, kThreads, bytes, stream>>>(x, q, s, b, dst, dst_bf16, M, K, N,
-                                                                     block_k, gps);
+  wq_tf32_kernel<BM, L, AFFINE><<<grid, kThreads, bytes, stream>>>(x, q, s, b, dst, dst_bf16, M, K, N,
+                                                                   block_k, gps);
   return cudaSuccess;
 }
 
@@ -695,13 +778,13 @@ void launch_route(const XT* x, const void* q, const __nv_bfloat16* s,
       return;
     }
   }
-  if constexpr (sizeof(XT) == 4) {  // fp32: route B on the CUDA cores
+  if constexpr (sizeof(XT) == 4) {  // fp32: route B in 3xTF32
     if (M <= 16)
-      launch_f32_tiles<16, L, AFFINE>(ARGS);
+      launch_tf32<16, L, AFFINE>(ARGS);
     else if (M <= 32)
-      launch_f32_tiles<32, L, AFFINE>(ARGS);
+      launch_tf32<32, L, AFFINE>(ARGS);
     else
-      launch_f32_tiles<64, L, AFFINE>(ARGS);
+      launch_tf32<64, L, AFFINE>(ARGS);
   } else if (M <= 16) {
     launch_mma<16, L, AFFINE>(ARGS);
   } else if (M <= 32) {
@@ -791,8 +874,8 @@ extern "C" int k9_w4a16_packed_matmul(const void* x, const void* qp, const void*
 
 // The fp32 entries: as k1_w4a16_matmul, k8_w8a16_matmul and
 // k9_w4a16_packed_matmul with f32 x (M, K) and f32 out (out_f32 must be 1),
-// for fp32 models (route A at M = 1 for K1 and K8, the f32 route B above it
-// and for K9 at every M).
+// for fp32 models (route A at M = 1 for K1 and K8, the 3xTF32 route B above
+// it and for K9 at every M).
 extern "C" int k1_w4a16_matmul_f32(const void* x, const void* qw, const void* scales,
                                    const void* biases, void* partial, void* out, int M, int K,
                                    int N, int splits, int groups_per_split, int out_f32,

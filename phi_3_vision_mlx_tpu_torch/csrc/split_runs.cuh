@@ -138,51 +138,87 @@ struct Int4Run {
   }
 };
 
-// The f32 tiles of the fp32 body: keys [kRunKeys][D + 4] (float4 reads by
-// two threads a key fall in distinct banks), values [kRunKeys][D].
-template <int D>
-constexpr int kF32KStride = D + 4;
-
+// The loader seam of the fp32 body (split_run_tf32_kernel), where the
+// products read their fragments straight from the loader's raw stage (or,
+// for keys, from device memory): a loader of an fp32 model has kRawBytes (a
+// stage), kQStride (the staged q rows' stride), kKGlobal (keys read from
+// device memory, not from the stage) and these hooks:
+// * issue(raw, a, b, win, s, kvh, j0, n) starts the copy of keys [j0, j0 +
+//   n) of row s, kv head kvh, into the raw stage (rows past n repeat key j0
+//   + n - 1); the kernel commits and waits;
+// * kdim(kk, tig): the first of the two dims that k slots tig and tig + 4 of
+//   Q K^T's k-step kk stand for (the loader picks the order in which its
+//   keys read best; the staged q rows are read in the same order);
+// * k_pairs(raw, a, win, s, kvh, j, key, tig, k): the values of key `key`
+//   of the run (logical key j of the window) at those dims for every
+//   k-step, in f32;
+// * v_cols(raw, key, col0, v): key's values at dims col0 + 32 i, in f32;
+// * window_value(a, b, row, d) as for the bf16 body.
+//
 // The int4 loader of an fp32 model (K4, K7 in fp32): Int4Run's raw stage and
-// copies; tiles() dequantizes each value to f32 as dequant_fma gives it (the
-// plain fp32 path's bits: q * s exact, one rounding of + b) and keeps it.
+// copies, each value dequantized in registers as dequant_fma gives it (the
+// plain fp32 path's bits: q * s exact, one rounding of + b).  Thread tig's
+// dims of Q K^T are the D / 4 consecutive ones from D / 4 tig (kdim), so a
+// key's levels are three 8-byte reads, which with rows of D = 96 bytes fall
+// in distinct banks for the four keys and four tig of a half-warp; those
+// dims lie in at most two groups of 32.  A key's value scales and biases
+// are G 4-byte reads.
 template <int D>
 struct Int4RunF32 {
   static constexpr int G = D / kGroup;
+  static constexpr int PER = D / 4;  // a thread's dims of Q K^T
   static constexpr int kRawBytes = kInt4TileBytes<D>;
+  static constexpr int kQStride = D + 2;  // q rows two banks apart: 8-byte reads conflict-free
+  static constexpr bool kKGlobal = false;
   static constexpr int kMode = kFp32;
   static constexpr bool kF32 = true;
+  static_assert(PER % 8 == 0 && PER <= kGroup, "8-byte reads, at most two groups a thread");
 
   template <class Win>
-  static __device__ __forceinline__ void issue(float* kt, float* vt, unsigned char* raw, const void* __restrict__ a,
+  static __device__ __forceinline__ void issue(unsigned char* raw, const void* __restrict__ a,
                                                const void* __restrict__ b, const Win& win, int s, int kvh, int j0,
                                                int n) {
     Int4Run<D>::issue(nullptr, nullptr, raw, a, b, win, s, kvh, j0, n);
   }
 
-  static __device__ __forceinline__ void tiles(float* __restrict__ ks, float* __restrict__ vs,
-                                               const unsigned char* __restrict__ raw) {
-    constexpr int kChunks = D / 16;
-    const __nv_bfloat16* rs = reinterpret_cast<const __nv_bfloat16*>(raw + kRunKeys * D);
-    for (int idx = threadIdx.x; idx < kRunKeys * kChunks; idx += kRunThreads) {
-      const int r = idx / kChunks, c = idx % kChunks, g = c * 16 / kGroup;
-      const uint4 w = *reinterpret_cast<const uint4*>(raw + r * D + c * 16);
-      const __nv_bfloat16* sr = rs + r * 4 * G;
-      const float k_s = bf(sr[g]), k_b = bf(sr[G + g]), v_s = bf(sr[2 * G + g]), v_b = bf(sr[3 * G + g]);
-      const unsigned words[4] = {w.x, w.y, w.z, w.w};
-      float* kd = ks + r * kF32KStride<D> + c * 16;
-      float* vd = vs + r * D + c * 16;
+  static __device__ __forceinline__ int kdim(int kk, int tig) { return PER * tig + 2 * kk; }
+
+  template <class Win>
+  static __device__ __forceinline__ void k_pairs(const unsigned char* __restrict__ raw, const void* __restrict__,
+                                                 const Win&, int, int, int, int key, int tig, float2 (&k)[D / 8]) {
+    const unsigned char* p = raw + key * D + PER * tig;
+    const __nv_bfloat16* sr = reinterpret_cast<const __nv_bfloat16*>(raw + kRunKeys * D) + key * 4 * G;
+    const int g0 = PER * tig / kGroup, g1 = min(g0 + 1, G - 1), edge = (g0 + 1) * kGroup;
+    const float s0 = bf(sr[g0]), b0 = bf(sr[G + g0]), s1 = bf(sr[g1]), b1 = bf(sr[G + g1]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {  // bytes 4i .. 4i + 3 of the chunk: values 4i .. 4i + 3
-        const unsigned kw = words[i] & 0x0F0F0F0Fu, vw = (words[i] >> 4) & 0x0F0F0F0Fu;
-        reinterpret_cast<float4*>(kd)[i] =
-            make_float4(dequant_fma(byte_level(kw, 0), k_s, k_b), dequant_fma(byte_level(kw, 1), k_s, k_b),
-                        dequant_fma(byte_level(kw, 2), k_s, k_b), dequant_fma(byte_level(kw, 3), k_s, k_b));
-        reinterpret_cast<float4*>(vd)[i] =
-            make_float4(dequant_fma(byte_level(vw, 0), v_s, v_b), dequant_fma(byte_level(vw, 1), v_s, v_b),
-                        dequant_fma(byte_level(vw, 2), v_s, v_b), dequant_fma(byte_level(vw, 3), v_s, v_b));
+    for (int i = 0; i < PER / 8; ++i) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p + 8 * i);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // word h: dims 8 i + 4 h .. + 3, k-steps 4 i + 2 h and + 1
+        const unsigned lv = (h ? w.y : w.x) & 0x0F0F0F0Fu;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = 4 * i + 2 * h + e;
+          const bool hi = PER * tig + 2 * kk >= edge;
+          const float sc = hi ? s1 : s0, bi = hi ? b1 : b0;
+          k[kk] = make_float2(dequant_fma(byte_level(lv, 2 * e), sc, bi), dequant_fma(byte_level(lv, 2 * e + 1), sc, bi));
+        }
       }
     }
+  }
+
+  static __device__ __forceinline__ void v_cols(const unsigned char* __restrict__ raw, int key, int col0,
+                                                float (&v)[D / 32]) {
+    static_assert(kGroup == 32, "dims col0 + 32 i lie in group i");
+    const unsigned char* p = raw + key * D + col0;
+    // bf16 m of the key's v scales then v biases: half m % 2 of word m / 2
+    const unsigned* sw = reinterpret_cast<const unsigned*>(raw + kRunKeys * D) + key * 2 * G + G;
+    unsigned w[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) w[i] = sw[i];
+    auto bf_at = [&](int m) { return __uint_as_float(m & 1 ? w[m / 2] & 0xFFFF0000u : w[m / 2] << 16); };
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) v[i] = dequant_fma(level_f(p[32 * i] >> 4), bf_at(i), bf_at(G + i));
   }
 
   static __device__ __forceinline__ float window_value(const void* __restrict__ a, const void* __restrict__ b,
@@ -453,36 +489,59 @@ __global__ void __launch_bounds__(kRunThreads)
   }
 }
 
-// The fp32 body (Run::kF32): split_run_kernel's grid, plan, window and
-// partials, with f32 q, f32 tiles and both products on the CUDA cores.
-// Thread t scores key t / 2 of the run over half t % 2 of D for every query
-// row (the halves added by one shuffle); warp w updates rows w, w + 4, ..
-// (one max and one sum per run, alpha for the rows' output so far); thread
-// d < D owns output dim d of every row.  Shared memory: the raw ring, the
-// key and value tiles, P [Lq][kPStride] and q * scale [Lq][D], all f32.
+// The fp32 body (Run::kF32): split_run_kernel's grid, plan, window, mask,
+// softmax and partials, with f32 q and both products on the tensor cores in
+// 3xTF32 (tf32 mma.sync.m16n8k8, each f32 operand split into tf32 hi + lo,
+// lo * lo dropped: mma.cuh's mma_3xtf32), so the f32 values go through
+// neither the CUDA cores' FMAs nor f32 tiles in shared memory.  The block's
+// Lq rows form one 16-row tile (rows past Lq zero):
+// * S = Q K^T: warp w scores keys [16 w, 16 w + 16), two n-tiles; a thread's
+//   B fragments are its key's values at the loader's dims (k_pairs: for
+//   int4 read and dequantized in f32 straight from the raw stage, for an f32
+//   pool read from device memory, issued before the wait for the run's
+//   stage), split as they are read; its A fragments come from q * scale,
+//   staged once a block already split into tf32 hi and lo; hi * hi sums
+//   apart from the lo terms (the tensor cores round their f32 sums toward
+//   zero: short chains drift less);
+// * the masked scores go to shared memory, and one max and one sum per row
+//   over the run update the row's running (max, sum) and turn the scores
+//   into f32 weights p, as in the bf16 body, written back split into tf32 hi
+//   and lo (once, not once per warp);
+// * O = O * alpha + P V: warp w owns D's 8-wide column tiles w, w + 4, ..
+//   (dims 32 i + 8 w + gid for column gid: tile i lies in group i), key
+//   slots t and t + 4 of k-step j stand for keys 8 j + t and + 4; V's values
+//   (v_cols) are split as they are read; each run's P V is summed from zero
+//   and joins O in one rounded fma.
+// Shared memory: the loader's ring, q * scale's hi and lo [Lq][kQStride]
+// and P's [Lq][kF32PStride]: 9-29 KB a block over the int4 cache (17-37 KB
+// where a block walks several runs), 26-47 KB over an f32 pool (its V stage,
+// 24 KB).
+constexpr int kF32PStride = kRunKeys + 4;  // P's row stride: A-fragment reads conflict-free
+
 template <int D, class Run, class Win, bool kMulti>
 __global__ void __launch_bounds__(kRunThreads)
-    split_run_f32_kernel(const float* __restrict__ q, const void* __restrict__ a, const void* __restrict__ b,
-                         Win win, float* __restrict__ partial, int H, int Lq, long long qsb, long long qsh,
-                         long long qsl, float scale, int block_keys) {
-  static_assert(kRunThreads == 2 * kRunKeys && D <= kRunThreads && D % 8 == 0, "two threads a key, a thread a dim");
-  constexpr int KS = kF32KStride<D>, HD = D / 2;
+    split_run_tf32_kernel(const float* __restrict__ q, const void* __restrict__ a, const void* __restrict__ b,
+                          Win win, float* __restrict__ partial, int H, int Lq, long long qsb, long long qsh,
+                          long long qsl, float scale, int block_keys) {
+  constexpr int KD = D / 8;   // k-steps of Q K^T
+  constexpr int NW = D / 32;  // P V's column tiles a warp
   constexpr int kWarps = kRunThreads / 32;
+  constexpr int QS = Run::kQStride, PS = kF32PStride;
+  static_assert(D % 32 == 0 && kRunKeys == 16 * kWarps && kWarps == 4, "16 keys and D / 32 column tiles a warp");
   constexpr int kStages = kMulti ? 2 : 1;
-  constexpr bool kRawRing = Run::kRawBytes > 0;
-  constexpr int kTileStages = kRawRing ? 1 : kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* raw = smem_raw;  // [kStages][kRawBytes]
-  float* kt0 = reinterpret_cast<float*>(smem_raw + kStages * Run::kRawBytes);  // [kTileStages][kRunKeys][KS]
-  float* vt0 = kt0 + kTileStages * kRunKeys * KS;                              // [kTileStages][kRunKeys][D]
-  float* ps = vt0 + kTileStages * kRunKeys * D;                                // [Lq][kPStride]
-  float* qs = ps + Lq * kPStride;                                              // [Lq][D]: q * scale
-  __shared__ float sm_m[kRunMaxRows], sm_l[kRunMaxRows], sm_a[kRunMaxRows];
+  unsigned char* raw = smem_raw;                                                   // [kStages][kRawBytes]
+  unsigned* qh = reinterpret_cast<unsigned*>(smem_raw + kStages * Run::kRawBytes);  // [Lq][QS]: q * scale, hi
+  unsigned* ql = qh + Lq * QS;                                                     // [Lq][QS]: lo
+  float* ps = reinterpret_cast<float*>(ql + Lq * QS);  // [Lq][PS]: the scores, then P's hi
+  unsigned* pl = reinterpret_cast<unsigned*>(ps + Lq * PS);                        // [Lq][PS]: P's lo
+  __shared__ float sm_m[kRunMaxRows], sm_l[kRunMaxRows], sm_a[kRunMaxRows];        // running max, sum; alpha
   __shared__ bool listed[kRunKeys];
 
   const int blk = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int kvh = h / (H / win.KV);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
   const int W = win.width(), off = win.offset(s), q0 = off + win.row0;
   const int jb = blk * block_keys;
   const int je = min(min(W, q0 + Lq), jb + block_keys);
@@ -495,71 +554,86 @@ __global__ void __launch_bounds__(kRunThreads)
     return;
   }
   const int n_runs = kMulti ? (je - jb + kRunKeys - 1) / kRunKeys : 1;
-  auto kt = [&](int t) { return kt0 + (t & (kTileStages - 1)) * kRunKeys * KS; };
-  auto vt = [&](int t) { return vt0 + (t & (kTileStages - 1)) * kRunKeys * D; };
   auto rw = [&](int t) { return raw + (t & (kStages - 1)) * Run::kRawBytes; };
   auto issue = [&](int t) {
     const int j0 = jb + t * kRunKeys;
-    Run::issue(kt(t), vt(t), rw(t), a, b, win, s, kvh, j0, min(kRunKeys, je - j0));
+    Run::issue(rw(t), a, b, win, s, kvh, j0, min(kRunKeys, je - j0));
+  };
+  float2 kv[2][KD];  // S's B fragments: keys 16 w + 8 nn + gid of the run at the thread's dims
+  auto load_k = [&](int t) {
+    const int j0 = jb + t * kRunKeys, n = min(kRunKeys, je - j0);
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      const int key = 16 * warp + 8 * nn + gid;
+      Run::k_pairs(rw(t), a, win, s, kvh, j0 + min(key, n - 1), key, tig, kv[nn]);
+    }
   };
   issue(0);
   cp_async_commit();
+  if constexpr (Run::kKGlobal) load_k(0);  // in flight with the stage's copy and q's loads
   const float* qb = q + s * qsb + h * qsh;
   for (int x = tid; x < Lq * D; x += kRunThreads) {
     const int r = x / D, c = x % D;
-    qs[x] = qb[r * qsl + c] * scale;  // f32, as the plain path
+    split_tf32(qb[r * qsl + c] * scale, qh[r * QS + c], ql[r * QS + c]);  // q * scale in f32, as the plain path
   }
   if (tid < kRunMaxRows) {
     sm_m[tid] = -INFINITY;
     sm_l[tid] = 0.f;
   }
-  float acc[kRunMaxRows];
-#pragma unroll
-  for (int r = 0; r < kRunMaxRows; ++r) acc[r] = 0.f;
+  const bool row_in[2] = {gid < Lq, gid + 8 < Lq};  // this thread's rows gid and gid + 8
 
+  float o[NW][4] = {};
   for (int t = 0; t < n_runs; ++t) {
     const int j0 = jb + t * kRunKeys, n = min(kRunKeys, je - j0);
     if (kMulti && t + 1 < n_runs) issue(t + 1);
     cp_async_commit();
     if (tid < kRunKeys) listed[tid] = tid < n && win.listed(s, j0 + tid, off);
+    const unsigned char* rt = rw(t);
+    if (Run::kKGlobal && t > 0) load_k(t);  // in flight with the stage's copy
     cp_async_wait<1>();
     __syncthreads();
-    Run::tiles(kt(t), vt(t), rw(t));
-    if constexpr (kRawRing) __syncthreads();
+    if constexpr (!Run::kKGlobal) load_k(t);
 
-    {  // S = Q K^T: key c, half `half` of D, every row; masked scores to P.
-      const int c = tid >> 1, half = tid & 1;
-      const float* kr = kt(t) + c * KS + half * HD;
-      const float* qh = qs + half * HD;
-      float sc[kRunMaxRows];
+    // S = Q K^T, warp w: keys 16 w + 8 nn + gid (B fragments), two n-tiles.
+    {
+      float sc[2][4] = {}, slo[2][4] = {};
 #pragma unroll
-      for (int r = 0; r < kRunMaxRows; ++r) sc[r] = 0.f;
-#pragma unroll 4
-      for (int e = 0; e < HD; e += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + e);
+      for (int kk = 0; kk < KD; ++kk) {
+        const int d0 = Run::kdim(kk, tig);
+        const uint2 z = make_uint2(0u, 0u);
+        const uint2 h0 = row_in[0] ? *reinterpret_cast<const uint2*>(qh + gid * QS + d0) : z;
+        const uint2 h1 = row_in[1] ? *reinterpret_cast<const uint2*>(qh + (gid + 8) * QS + d0) : z;
+        const uint2 l0 = row_in[0] ? *reinterpret_cast<const uint2*>(ql + gid * QS + d0) : z;
+        const uint2 l1 = row_in[1] ? *reinterpret_cast<const uint2*>(ql + (gid + 8) * QS + d0) : z;
+        // a0: row gid, k slot tig; a1: row gid + 8; a2, a3: k slot tig + 4
+        const unsigned qah[4] = {h0.x, h1.x, h0.y, h1.y}, qal[4] = {l0.x, l1.x, l0.y, l1.y};
 #pragma unroll
-        for (int r = 0; r < kRunMaxRows; ++r) {
-          if (r >= Lq) break;
-          const float4 qv = *reinterpret_cast<const float4*>(qh + r * D + e);
-          sc[r] = fmaf(qv.x, kv.x, sc[r]);
-          sc[r] = fmaf(qv.y, kv.y, sc[r]);
-          sc[r] = fmaf(qv.z, kv.z, sc[r]);
-          sc[r] = fmaf(qv.w, kv.w, sc[r]);
+        for (int nn = 0; nn < 2; ++nn) {
+          unsigned bh0, bl0, bh1, bl1;
+          split_tf32(kv[nn][kk].x, bh0, bl0);
+          split_tf32(kv[nn][kk].y, bh1, bl1);
+          mma_tf32(slo[nn], qal, bh0, bh1);
+          mma_tf32(slo[nn], qah, bl0, bl1);
+          mma_tf32(sc[nn], qah, bh0, bh1);
         }
       }
 #pragma unroll
-      for (int r = 0; r < kRunMaxRows; ++r) {
-        if (r >= Lq) break;
-        const float v = sc[r] + __shfl_xor_sync(0xffffffffu, sc[r], 1);
-        if (half == 0) ps[r * kPStride + c] = listed[c] && j0 + c <= q0 + r ? v : -INFINITY;  // -inf: not seen
+      for (int nn = 0; nn < 2; ++nn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = gid + 8 * (e >> 1), c = 16 * warp + 8 * nn + 2 * tig + (e & 1);
+          if (r >= Lq) continue;
+          ps[r * PS + c] = listed[c] && j0 + c <= q0 + r ? sc[nn][e] + slo[nn][e] : -INFINITY;  // -inf: not seen
+        }
       }
     }
     __syncthreads();
 
     // One max per row over the run, the row's new running max, and p (over
-    // the scores, in place); the running sum rescaled.
+    // the scores, in place, as tf32 hi; lo beside it); the running sum
+    // rescaled.
     for (int r = warp; r < Lq; r += kWarps) {
-      float* pr = ps + r * kPStride;
+      float* pr = ps + r * PS;
       float mx = -INFINITY;
       for (int c = lane; c < kRunKeys; c += 32) mx = fmaxf(mx, pr[c]);
 #pragma unroll
@@ -568,7 +642,9 @@ __global__ void __launch_bounds__(kRunThreads)
       float sum = 0.f;
       for (int c = lane; c < kRunKeys; c += 32) {
         const float p = m_new == -INFINITY ? 0.f : expf(pr[c] - m_new);
-        pr[c] = p;
+        unsigned hi;
+        split_tf32(p, hi, pl[r * PS + c]);
+        pr[c] = __uint_as_float(hi);
         sum += p;
       }
 #pragma unroll
@@ -582,30 +658,45 @@ __global__ void __launch_bounds__(kRunThreads)
     }
     __syncthreads();
 
-    // O = O * alpha + P V: thread d owns dim d of every row.
-    if (tid < D) {
-      if (kMulti && t > 0) {
+    // This run's P V, summed from zero: A = P (rows gid, gid + 8; keys 8 j +
+    // tig and + 4), B = V (those keys, dims 32 i + 8 w + gid).
+    const unsigned* ph = reinterpret_cast<const unsigned*>(ps);
+    float pv[NW][4] = {};
 #pragma unroll
-        for (int r = 0; r < kRunMaxRows; ++r) {
-          if (r >= Lq) break;
-          acc[r] *= sm_a[r];
-        }
-      }
-      const float* vtt = vt(t);
-      for (int c = 0; c < n; ++c) {
-        const float vv = vtt[c * D + tid];
+    for (int j = 0; j < kRunKeys / 8; ++j) {
+      const int c = 8 * j + tig;
+      const int i0 = gid * PS + c, i1 = (gid + 8) * PS + c;
+      const unsigned pah[4] = {row_in[0] ? ph[i0] : 0u, row_in[1] ? ph[i1] : 0u, row_in[0] ? ph[i0 + 4] : 0u,
+                               row_in[1] ? ph[i1 + 4] : 0u};
+      const unsigned pal[4] = {row_in[0] ? pl[i0] : 0u, row_in[1] ? pl[i1] : 0u, row_in[0] ? pl[i0 + 4] : 0u,
+                               row_in[1] ? pl[i1 + 4] : 0u};
+      float v0[NW], v1[NW];
+      Run::v_cols(rt, c, 8 * warp + gid, v0);
+      Run::v_cols(rt, c + 4, 8 * warp + gid, v1);
 #pragma unroll
-        for (int r = 0; r < kRunMaxRows; ++r) {
-          if (r >= Lq) break;
-          acc[r] = fmaf(ps[r * kPStride + c], vv, acc[r]);
-        }
+      for (int i = 0; i < NW; ++i) {
+        unsigned bh0, bl0, bh1, bl1;
+        split_tf32(v0[i], bh0, bl0);
+        split_tf32(v1[i], bh1, bl1);
+        mma_3xtf32(pv[i], pah, pal, bh0, bh1, bl0, bl1);
       }
     }
-    __syncthreads();  // the scores, the listed bits, the tiles and the raw stage are free
+    const float al[2] = {row_in[0] ? sm_a[gid] : 0.f, row_in[1] ? sm_a[gid + 8] : 0.f};
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] = fmaf(o[i][e], al[e >> 1], pv[i][e]);
+    __syncthreads();  // the scores, P, the listed bits and the raw stage are free
   }
 
-  if (tid < D) {
-    for (int r = 0; r < Lq; ++r) dst[(size_t)r * (D + 2) + 2 + tid] = acc[r];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (!row_in[x]) continue;
+      const int r = gid + 8 * x, c = 8 * (warp + kWarps * i) + 2 * tig;
+      *reinterpret_cast<float2*>(dst + (size_t)r * (D + 2) + 2 + c) = make_float2(o[i][2 * x], o[i][2 * x + 1]);
+    }
   }
   if (tid < Lq) {
     dst[(size_t)tid * (D + 2)] = sm_m[tid] == -INFINITY ? kNegInf : sm_m[tid];
@@ -708,7 +799,7 @@ __global__ void __launch_bounds__(32 * kRunMaxRows)
 // The split kernel of a Run: the fp32 body for an fp32 Run, else the bf16 one.
 template <int D, class Run, class Win, bool kMulti>
 auto split_kernel() {
-  if constexpr (Run::kF32) return split_run_f32_kernel<D, Run, Win, kMulti>;
+  if constexpr (Run::kF32) return split_run_tf32_kernel<D, Run, Win, kMulti>;
   else return split_run_kernel<D, Run, Win, kMulti>;
 }
 
@@ -725,13 +816,13 @@ cudaError_t launch_split_runs(const void* q, const void* a, const void* b, const
   constexpr int kTileStages = Run::kRawBytes > 0 ? 1 : kStages;
   using T = typename std::conditional<Run::kF32, float, __nv_bfloat16>::type;
   const auto kernel = split_kernel<D, Run, Win, kMulti>();
-  const size_t bytes = kStages * Run::kRawBytes +
-                       (Run::kF32 ? kTileStages * sizeof(float) * kRunKeys * (kF32KStride<D> + D) +
-                                        sizeof(float) * (size_t)Lq * (kPStride + D)
-                                  : kTileStages * 2 * sizeof(__nv_bfloat16) * kRunKeys * (D + 8) +
-                                        sizeof(float) * (size_t)Lq * kPStride +
-                                        sizeof(__nv_bfloat16) * (size_t)(Lq + 1) * (D + 8));
-  // bf16: int4 35-51 KB, dense 27-62 KB a block; f32: int4 58-76 KB, dense 56-111 KB
+  // bf16: int4 35-51 KB, dense 27-62 KB a block; f32: int4 9-37 KB, dense 26-47 KB (one stage)
+  size_t bytes = kStages * Run::kRawBytes;
+  if constexpr (Run::kF32)
+    bytes += 2 * sizeof(float) * (size_t)Lq * (Run::kQStride + kF32PStride);
+  else
+    bytes += kTileStages * 2 * sizeof(__nv_bfloat16) * kRunKeys * (D + 8) + sizeof(float) * (size_t)Lq * kPStride +
+             sizeof(__nv_bfloat16) * (size_t)(Lq + 1) * (D + 8);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;

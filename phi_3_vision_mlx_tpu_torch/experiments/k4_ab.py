@@ -1,7 +1,7 @@
 """Time kernels of several source trees of this repository in turns, on one
 card, each tree in its own process built from its own ``csrc/``.
 
-    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,...,K9,E1,E3,K4S,K2F] TREE [TREE ...]
+    python -m phi_3_vision_mlx_tpu_torch.experiments.k4_ab [--kernels K1,...,K9,E1,E3,K4S,K2F,K1F,...] TREE [TREE ...]
 
 Give the trees in the order to run them (parent, change, change, parent) so
 that drift on the card shows.  Each run times every case of the chosen
@@ -40,6 +40,12 @@ kernels (K1-K9 by default) at chip_smoke.py's shapes:
   the continuous server's shapes (4 slots at offsets 100, 400, 700
   and 1000, a window of 16 pages of 64, a pool of 64 pages and the spare),
   4 (K6) or 8 (K7) stacked layers rotated past the L2;
+* the fp32 entries (an fp32 model's f32 activations and queries): K1F,
+  K8F, K9F (K1, K8, K9 with f32 x and output) at qkv with M = 1, 4, 8 and
+  192, weights rotated past the L2 as above; K4F (K4 with an f32 query) at
+  Lq = 1 and 8 at the end of a 640- and a 4224-key window; K6F (K6 over an
+  f32 pool) and K7F (K7, f32 queries) at Lq = 1 and 8 at the continuous
+  server's shapes above;
 
 attention with 32 heads of 96.  K1's route A (M = 1) against route B at a
 few rows is timed with a sibling tree whose ``route()`` (and the C entry's
@@ -59,7 +65,8 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "E1", "E3", "K4S", "K2F")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "E1", "E3", "K4S", "K2F",
+           "K1F", "K8F", "K9F", "K4F", "K6F", "K7F")
 DEFAULT = KERNELS[:9]
 
 _RUN = r'''
@@ -175,9 +182,16 @@ for lmax in (640, 4224):
         cases[f"K3 Lq=1 Lmax={lmax}"] = (lambda q=q, ks=ks, vs=vs, valid=valid, off=device_offset(lmax - 1),
                                         turn=turn: KV.dense_kv_attention(q, ks, vs, valid, off,
                                                                          next(turn) % nl, scale), 200)
-    if not {"K4", "E3", "K4S"} & set(kernels):
+    if not {"K4", "E3", "K4S", "K4F"} & set(kernels):
         continue
     payload, scales = int4_stack(lmax)
+    if "K4F" in kernels:
+        for lq in (1, 8):
+            turn = iter(range(10**9))
+            cases[f"K4F Lq={lq} Lmax={lmax}"] = (
+                lambda q=torch.randn((b, lq, h, d), generator=g, device="cuda").transpose(1, 2), p=payload,
+                s=scales, valid=valid, off=device_offset(lmax - lq), turn=turn:
+                KV.quantized_kv_attention(q, p, s, valid, off, next(turn) % nl, scale), 200)
     qs = {lq: qrow(lq) for lq in (1, 4, 16)}
     if "K4" in kernels:
         for lq, ql in qs.items():
@@ -237,8 +251,8 @@ def w_weights(k, n, layout):
     return [(q(), s(), b()) for _ in range(copies)]
 
 
-def matmul_case(name, fn, ws, m, k):
-    x = bf16(torch.randn((m, k), generator=g, device="cuda"))
+def matmul_case(name, fn, ws, m, k, dtype=torch.bfloat16):
+    x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
     turn = iter(range(10**9))
     cases[name] = (lambda: fn(x, *ws[next(turn) % len(ws)]), 200)
 
@@ -247,12 +261,19 @@ MATMULS = {"K1": (QM.quant_matmul, "words4", ((3072, 9216, (1, 192)), (3072, 320
            "K8": (QM.quant_matmul_w8, "words8", ((3072, 9216, (1, 192)), (8192, 3072, (1,)))),
            "K9": (QM.quant_matmul_packed, "packed", ((3072, 9216, (1, 192)),))}
 for name, (fn, layout, shapes) in MATMULS.items():
-    if name not in kernels:
+    if name not in kernels and name + "F" not in kernels:
         continue
     for k, n, ms in shapes:
+        if name not in kernels and n != 9216:
+            continue
         ws = w_weights(k, n, layout)
-        for m in ms:
-            matmul_case(f"{name} K={k} N={n} M={m}", fn, ws, m, k)
+        if name in kernels:
+            for m in ms:
+                matmul_case(f"{name} K={k} N={n} M={m}", fn, ws, m, k)
+        if name + "F" in kernels and n == 9216:  # fp32: f32 x and output at qkv
+            for m in (1, 4, 8, 192):
+                matmul_case(f"{name}F K={k} N={n} M={m}", fn, ws, m, k, torch.float32)
+        del ws
 if "E1" in kernels:
     from phi_3_vision_mlx_tpu_torch.ops.kernels import w4a8 as E1
     ws = [(q, s) for q, s, _ in w_weights(3072, 9216, "words4")]
@@ -269,7 +290,7 @@ if "K5" in kernels:
         del kk, vv
         cases[f"K5 lq={lq} lk={lk}"] = (lambda q=q, p=payload, s=scales, valid=valid:
                                        KV.quantized_flash_attention(q, p, s, valid, 0, 1, scale), iters)
-if "K6" in kernels or "K7" in kernels:
+if {"K6", "K7", "K6F", "K7F"} & set(kernels):
     slots, page, window, pool, offs = 4, 64, 1024, 64, (100, 400, 700, 1000)
     ids = random.Random(3).sample(range(pool), pool)
     tables = torch.full((slots, window // page), pool, dtype=torch.int32)
@@ -287,14 +308,24 @@ if "K6" in kernels or "K7" in kernels:
             turn = iter(range(10**9))
             cases[f"K6 Lq={lq}"] = (lambda q=srow(lq), turn=turn: KV.paged_kv_attention(
                 q, pk, pv, tables, pvalid, offsets, next(turn) % 4, scale), 200)
-    if "K7" in kernels:
+    if "K6F" in kernels:
+        fk, fv = (torch.randn(shape(4), generator=g, device="cuda") for _ in range(2))
+        for lq in (1, 8):
+            turn = iter(range(10**9))
+            cases[f"K6F Lq={lq}"] = (lambda q=srow(lq).float(), turn=turn: KV.paged_kv_attention(
+                q, fk, fv, tables, pvalid, offsets, next(turn) % 4, scale), 200)
+    if "K7" in kernels or "K7F" in kernels:
         kk = torch.randn(shape(8), generator=g, device="cuda") + 0.5
         vv = torch.randn(shape(8), generator=g, device="cuda") - 0.3
         pools = quantize_chunk(bf16(kk), bf16(vv), KVQuantConfig(32, 4))
         del kk, vv
-        for lq in (1, 4, 8, 16):
+        for lq in (1, 4, 8, 16) if "K7" in kernels else ():
             turn = iter(range(10**9))
             cases[f"K7 Lq={lq}"] = (lambda q=srow(lq), turn=turn: KV.paged_quantized_kv_attention(
+                q, *pools, tables, pvalid, offsets, next(turn) % 8, scale), 200)
+        for lq in (1, 8) if "K7F" in kernels else ():
+            turn = iter(range(10**9))
+            cases[f"K7F Lq={lq}"] = (lambda q=srow(lq).float(), turn=turn: KV.paged_quantized_kv_attention(
                 q, *pools, tables, pvalid, offsets, next(turn) % 8, scale), 200)
 res = {}
 for name, (call, iters) in cases.items():

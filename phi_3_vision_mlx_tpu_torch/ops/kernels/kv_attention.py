@@ -73,8 +73,9 @@ An fp32 model's f32 query runs each kernel's ``_f32`` entry, which returns
 f32: the JAX XLA path's function in f32 (keys and values dequantized in f32
 and never rounded, f32 products and softmax), not the TPU kernels', which
 cast the query to bf16.  K4, K6 and K7 in fp32 run the split-run plan and
-combine with both products on the CUDA cores; K5 in fp32 runs fp32 K2's
-3xTF32 flash body; K6 in fp32 reads an f32 page pool.
+combine with both products on the tensor cores in 3xTF32 (each f32 operand
+split into tf32 hi + lo); K5 in fp32 runs fp32 K2's 3xTF32 flash body; K6
+in fp32 reads an f32 page pool.
 ``<wrapper>.fp32.launches`` counts the fp32 entries' launches among the
 wrapper's own (K3's too).
 """

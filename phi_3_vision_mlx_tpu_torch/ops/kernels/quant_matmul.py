@@ -20,7 +20,8 @@ kernel's signed int8 payload turns levels >= 128 into ``q - 256``.
 An fp32 model's f32 x runs each kernel's ``_f32`` entry (f32 output): the
 XLA path's function in f32 (W dequantized in f32 and never rounded, f32
 products and sums), not the TPU kernels', which cast x to bf16 first.  Route
-A stays the GEMV; route B runs on the CUDA cores (PERF.md section 6).
+A stays the GEMV; route B runs on the tensor cores in 3xTF32 (each f32
+operand split into tf32 hi + lo; PERF.md section 6).
 ``<wrapper>.fp32.launches`` counts the fp32 entries' launches among the
 wrapper's own.
 

@@ -392,6 +392,42 @@ def _mm_3xtf32(a, b):
     return al @ bh + ah @ bl + ah @ bh
 
 
+def _mm_3xtf32_steps(a, b, steps, apart=False):
+    """a @ b as the 3xTF32 ``mma.sync.m16n8k8`` k-steps of a kernel walk it:
+    k-step i takes columns ``steps[i]`` of a and the same rows of b, and adds
+    a_lo b_hi, a_hi b_lo and a_hi b_hi to the f32 sum in that order;
+    ``apart``: hi * hi in one sum and the lo terms in another, added at the
+    end (the split-run body's scores)."""
+    hi = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    lo = torch.zeros_like(hi)
+    for idx in steps:
+        ak, bk = a[..., idx], b[..., idx, :]
+        ah, bh = _tf32(ak), _tf32(bk)
+        al, bl = _tf32(ak - ah), _tf32(bk - bh)
+        if apart:
+            lo = lo + al @ bh + ah @ bl
+            hi = hi + ah @ bh
+        else:
+            hi = hi + al @ bh + ah @ bl + ah @ bh
+    return hi + lo
+
+
+def _f32_qk_steps(d, loader):
+    """The dims that each k-step of the fp32 split-run body's Q K^T takes, by
+    loader: ``"int4"`` (``Int4RunF32``: k slots t and t + 4 of k-step kk
+    stand for dims d/4 t + 2 kk and + 1), ``"dense"`` (``DenseRunF32``: dims
+    8 kk + 2 t and + 1, so k-step kk is dims 8 kk .. 8 kk + 7)."""
+    if loader == "dense":
+        return [torch.arange(8 * kk, 8 * kk + 8) for kk in range(d // 8)]
+    return [torch.tensor([d // 4 * t + 2 * kk + w for t in range(4) for w in range(2)]) for kk in range(d // 8)]
+
+
+def _key_steps(n):
+    """P V's k-steps over a run's ``n`` keys: eight keys each (k slots t and
+    t + 4 stand for keys 8 j + t and + 4)."""
+    return [torch.arange(j, min(j + 8, n)) for j in range(0, n, 8)]
+
+
 def _k2_tile_model(q, k, v, valid, q_pos0, scale, round_p, tile=64, tf32x3=False):
     """K2 as the card computes it: ``tile``-row query tiles (64 in bf16 and
     fp32), key tiles of as many keys, one max and one rescale per key tile,

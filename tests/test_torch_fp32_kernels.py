@@ -12,9 +12,10 @@ economy the port does not copy).  Here:
   ``read_kv`` + ``masked_attention``), rtol 1e-5, atol 1e-5: f32 sums in
   another order, outputs of O(1);
 * plain-PyTorch models of the card's fp32 walks held to the plain versions:
-  route A's split sums and route B's f32 tiles (``csrc/quant_matmul.cu``),
-  the split-run body in f32 (``csrc/split_runs.cuh``: K4, K6, K7) and K5's
-  3xTF32 tile walk over f32-dequantized int4 tiles;
+  route A's split sums and route B's 3xTF32 k-steps over f32 weights
+  (``csrc/quant_matmul.cu``: ``wq_tf32_kernel``), the split-run body in
+  3xTF32 (``csrc/split_runs.cuh``: ``split_run_tf32_kernel``, K4, K6, K7)
+  and K5's 3xTF32 tile walk over f32-dequantized int4 tiles;
 * the wrappers' dispatch with the library stubbed: an f32 input calls the
   ``_f32`` entry, bf16 the bf16 one, a mix raises, a failed launch raises;
 * the slice: the tiny fp32 model with 4-bit weights over the int4 cache,
@@ -28,7 +29,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from test_torch_attention import _k2_tile_model  # noqa: E402
+from test_torch_attention import _k2_tile_model, _mm_3xtf32_steps  # noqa: E402
 from test_torch_kv_quant import _jax_cache, _k4_split_model, _kv, _xla  # noqa: E402
 from test_torch_model import ReplayJaxCache, make_checkpoint, one_thread  # noqa: E402,F401
 from test_torch_paged import _case, _paged_split_model  # noqa: E402
@@ -207,13 +208,13 @@ def _route_a_f32_model(x, w, layout):
 
 
 def _route_b_f32_tiles(layout, payload, s, b, tile, g):
-    """The f32 tile ``wf32_tile_kernel`` builds for group ``g`` of column
-    tile ``tile``: the loader's ``tile_f32`` read of its staged bytes, as
-    (64, 128) f32, and the output column of each of its 128 tile columns
-    (``out_col``).  WordTiles: word row r of the group holds rows kPer r +
-    e (4 bits: nibble e; 8 bits: byte e), tile column c is column tile *
-    128 + c.  PackedTiles: staged row i is packed row (g / gk) block_k + i
-    gk + g % gk, byte j's low nibble tile column j, its high nibble 64 + j."""
+    """The f32 weights ``wq_tf32_kernel``'s B fragments hold for group ``g``
+    of column tile ``tile`` (the loader's ``frag_f32`` over its staged
+    bytes), as (64, 128) f32, and the output column of each of the tile's
+    128 columns.  WordTiles: word row r of the group holds rows kPer r + e
+    (4 bits: nibble e; 8 bits: byte e), tile column c is column tile * 128 +
+    c.  PackedTiles: staged row i is packed row (g / gk) block_k + i gk + g %
+    gk, byte j's low nibble tile column j, its high nibble 64 + j."""
     n = s.shape[1]
     if layout == "k9":
         lo0 = (tile // 4) * 512 + (tile % 4) * 64
@@ -241,11 +242,18 @@ def _route_b_f32_tiles(layout, payload, s, b, tile, g):
     return w, cols
 
 
+# Route B's k-steps in fp32: k slots t and t + 4 of k-step s stand for rows
+# 16 t + 2 s and + 1 of the group (the rows thread t's payload words carry).
+ROUTE_B_STEPS = [torch.tensor([16 * t + 2 * s + w for t in range(4) for w in range(2)]) for s in range(8)]
+
+
 def _route_b_f32_model(x, layout, payload, s, b, w_ref):
-    """Route B in fp32: per 128-column tile and split of the plan, each
-    group's f32 tile (bit for bit ``w_ref``'s, the plain dequantization) and
-    an f32 sum over the group's 64 rows in order into each output, the
-    splits added in order."""
+    """Route B in fp32 (``wq_tf32_kernel``): per 128-column tile and split of
+    the plan, each group's f32 weights (bit for bit ``w_ref``'s, the plain
+    dequantization, before any split) in the fragments' eight k-steps, each
+    k-step's product in 3xTF32 (x and W split into tf32 hi + lo, lo * lo
+    dropped), the group's k-steps summed from zero and added to the tile's
+    sum, the splits added in order."""
     m, k = x.shape
     n = s.shape[1]
     assert QM.route(m, layout) == "b"
@@ -258,8 +266,7 @@ def _route_b_f32_model(x, layout, payload, s, b, w_ref):
                 w, cols = _route_b_f32_tiles(layout, payload, s, b, tile, g)
                 live = cols < n
                 assert torch.equal(w[:, live], w_ref[g * GROUP:(g + 1) * GROUP, cols[live]])
-                for r in range(GROUP):
-                    acc = acc + x[:, g * GROUP + r, None] * w[r]
+                acc = acc + _mm_3xtf32_steps(x[:, g * GROUP:(g + 1) * GROUP], w, ROUTE_B_STEPS)
             live = cols < n
             out[sp][:, cols[live]] = acc[:, live]
     total = torch.zeros((m, n))
@@ -281,9 +288,10 @@ def test_fp32_route_a_model_matches_plain(layout, symmetric):
 @pytest.mark.parametrize("m", [2, 17])
 @pytest.mark.parametrize("layout,symmetric", [("k1", False), ("k1", True), ("k8", False), ("k9", False)])
 def test_fp32_route_b_model_matches_plain(layout, symmetric, m):
-    """Route B in fp32 (K9 at every M): the tiles the loaders build hold the
-    plain version's f32 W bit for bit at every staged column, the ragged N
-    edge included (K1 and K8 at N = 1160), and the sums equal it."""
+    """Route B in fp32 (K9 at every M): the weights the loaders' fragments
+    hold equal the plain version's f32 W bit for bit at every staged column,
+    the ragged N edge included (K1 and K8 at N = 1160), and the 3xTF32 sums
+    equal it."""
     x, payload, s, b, _ = _matmul_case(layout, 7 + m, m, symmetric)
     if layout != "k9":  # a ragged last tile: 1160 = 9 x 128 + 8
         payload, s = payload[:, :1160].contiguous(), s[:, :1160].contiguous()
@@ -293,11 +301,19 @@ def test_fp32_route_b_model_matches_plain(layout, symmetric, m):
     np.testing.assert_allclose(out.numpy(), PLAIN[layout](x, payload, s, b).numpy(), **F32)
 
 
+def test_fp32_route_b_model_at_one_row():
+    """K9 in fp32 takes route B at one row too: a 16-row tile holding one
+    row of x, the 3xTF32 sums equal the plain version."""
+    x, payload, s, b, _ = _matmul_case("k9", 29, 1)
+    out = _route_b_f32_model(x, "k9", payload, s, b, _f32_weights("k9", payload, s, b))
+    np.testing.assert_allclose(out.numpy(), QM.quant_matmul_packed(x, payload, s, b).numpy(), **F32)
+
+
 @pytest.mark.parametrize("block_keys", [64, 256])
 @pytest.mark.parametrize("lq,row0", [(1, 0), (8, 0), (16, 16)])
 def test_fp32_k4_split_model_matches_plain(lq, row0, block_keys):
-    """The split-run body in fp32 (two threads a key over the halves of D,
-    P in f32, the rescale between runs, the fixed-order merge) over the
+    """The split-run body in fp32 (both products in 3xTF32, P split into
+    tf32 hi + lo, the rescale between runs, the fixed-order merge) over the
     int4 stacked cache equals K4's plain fp32 version; a row with no valid
     key takes the uniform average."""
     b, h, kvh, lmax, d, offset = 2, 4, 2, 320, 96, 150
@@ -316,8 +332,9 @@ def test_fp32_k4_split_model_matches_plain(lq, row0, block_keys):
 @pytest.mark.parametrize("lq,row0", [(1, 0), (16, 16)])
 def test_fp32_k6_k7_split_model_matches_plain(lq, row0, quantized):
     """The fp32 split-run body through page tables: K6 over an f32 pool,
-    K7 over the int4 pool dequantized in f32 (``Int4RunF32``'s tiles), runs
-    merged up to each row's last visible key, against the plain versions."""
+    K7 over the int4 pool dequantized in f32 (``Int4RunF32``'s values), each
+    in its loader's k order, runs merged up to each row's last visible key,
+    against the plain versions."""
     q, k, v, tables, valid, offsets = _case("D96-page64", lq + row0, seed=5)
     q = torch.from_numpy(q[:, :, :lq])
     args = (torch.from_numpy(tables), torch.from_numpy(valid), torch.from_numpy(offsets))
@@ -330,7 +347,33 @@ def test_fp32_k6_k7_split_model_matches_plain(lq, row0, quantized):
     else:
         kd, vd = from_jax_paged_pool(k, v, dtype=torch.float32)
         ref = TK.paged_kv_attention_plain(q, kd[None], vd[None], *args, 0, scale, row0)
-    out, _ = _paged_split_model(q, kd, vd, *args, scale, row0, f32_body=True)
+    out, _ = _paged_split_model(q, kd, vd, *args, scale, row0, f32_body="int4" if quantized else "dense")
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fp32_k6_k7_split_model_clamps_table_entries(quantized):
+    """Table entries outside [0, P] (past the spare page, negative) read the
+    page the kernels clamp them to: the fp32 body's model over the bad table
+    equals the plain versions over the clamped one."""
+    q, k, v, tables, valid, offsets = _case("D96-page64", 8, seed=11)
+    q = torch.from_numpy(q)
+    pages = k.shape[0] + 1  # the pool and its spare page
+    bad = tables.copy()
+    bad[0, 0], bad[1, 1], bad[2, 0] = pages + 5, -3, -1
+    good = np.clip(bad, 0, pages - 1)
+    scale = q.shape[-1] ** -0.5
+    args = (torch.from_numpy(valid), torch.from_numpy(offsets))
+    if quantized:
+        payload, scales = TS.quantize_chunk(torch.from_numpy(k), torch.from_numpy(v), KVQuantConfig(bits=4))
+        pool = [torch.cat([t, torch.zeros_like(t[:1])]) for t in (payload, scales)]
+        kd, vd = TS.dequantize_kv(*pool, torch.float32)
+        ref = TK.paged_quantized_kv_attention_plain(q, pool[0][None], pool[1][None], torch.from_numpy(good), *args,
+                                                    0, scale)
+    else:
+        kd, vd = from_jax_paged_pool(k, v, dtype=torch.float32)
+        ref = TK.paged_kv_attention_plain(q, kd[None], vd[None], torch.from_numpy(good), *args, 0, scale)
+    out, _ = _paged_split_model(q, kd, vd, torch.from_numpy(bad), *args, scale, f32_body="int4" if quantized else "dense")
     np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32)
 
 

@@ -20,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
-from test_torch_attention import F32_TOL, _k2_tile_model  # noqa: E402
+from test_torch_attention import F32_TOL, _f32_qk_steps, _k2_tile_model, _key_steps, _mm_3xtf32_steps  # noqa: E402
 
 from phi_3_vision_mlx_tpu.core.config import KVQuantConfig, preset  # noqa: E402
 from phi_3_vision_mlx_tpu.engine import state as JS  # noqa: E402
@@ -290,9 +290,11 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
     sees no key gets the uniform average of the window's values.
     kNoSoftmax: no mask, P is the score, every block is added.  Query row i
     sits at offset + row0 + i.  ``f32_body``: the fp32 model's body
-    (split_run_f32_kernel), whose scores add the two halves of D each
-    thread pair sums, and whose P enters P V as f32, unsplit.  Returns
-    (out, live blocks per query row)."""
+    (split_run_tf32_kernel with Int4RunF32), both products in 3xTF32 k-steps
+    of eight (the scores' dims in the loader's order, hi * hi apart from the
+    lo terms; P split into tf32 hi + lo, eight keys a k-step), each run's P V
+    summed from zero and added to the rescaled output.  Returns (out, live
+    blocks per query row)."""
     from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
 
     b, h, lq, d = q.shape
@@ -315,7 +317,7 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
     factored, softmax = mode in ("fbias", "mxu"), mode != "nosoftmax"
     qs = (q * scale).float()
     qsum = qs.reshape(b, h, lq, g, d // g).sum(-1)  # (B, H, Lq, G)
-    hl = (lambda p: p) if f32_body else (lambda p: bf(p) + bf(p - bf(p)))  # noqa: E731 - P as bf16 hi + lo
+    hl = lambda p: bf(p) + bf(p - bf(p))  # noqa: E731 - P as bf16 hi + lo
     n_split = -(-lmax // block_keys)
     kend = min(lmax, offset + row0 + lq) if softmax else lmax
     rows = offset + row0 + torch.arange(lq)
@@ -330,9 +332,8 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
             if mode == "mxu":
                 sc = sum((qs[..., c * 32 : (c + 1) * 32] @ kt[:, :, j, c * 32 : (c + 1) * 32].transpose(-1, -2))
                          * ks[:, :, None, j, c] for c in range(g))
-            elif f32_body:  # each key's halves of D, summed apart, then added
-                sc = sum(qs[..., x] @ kt[:, :, j][..., x].transpose(-1, -2)
-                         for x in (slice(0, d // 2), slice(d // 2, d)))
+            elif f32_body:
+                sc = _mm_3xtf32_steps(qs, kt[:, :, j].transpose(-1, -2), _f32_qk_steps(d, "int4"), apart=True)
             else:
                 sc = qs @ kt[:, :, j].transpose(-1, -2)  # (B, H, Lq, n)
             if factored:
@@ -352,6 +353,8 @@ def _k4_split_model(q, payload, scales, valid, offset, layer, scale, block_keys,
             if mode == "mxu":
                 acc = acc + torch.cat([hl(p * vs[:, :, None, j, c]) @ vt[:, :, j, c * 32 : (c + 1) * 32]
                                        for c in range(g)], dim=-1)
+            elif f32_body:
+                acc = acc + _mm_3xtf32_steps(p, vt[:, :, j], _key_steps(len(j)))
             else:
                 acc = acc + hl(p) @ vt[:, :, j]
         if factored:

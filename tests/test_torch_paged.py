@@ -20,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
-from test_torch_attention import F32_TOL  # noqa: E402
+from test_torch_attention import F32_TOL, _f32_qk_steps, _key_steps, _mm_3xtf32_steps  # noqa: E402
 
 from phi_3_vision_mlx_tpu.core.config import KVQuantConfig  # noqa: E402
 from phi_3_vision_mlx_tpu.engine import state as JS  # noqa: E402
@@ -200,9 +200,11 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0, f32_body=
     its window.  Each key's row comes from the table, clamped into the pool.
     Query row i sits at offset + row0 + i (a later row group of a pass); the
     fresh region still starts at the offset.  ``f32_body``: the fp32
-    model's body (split_run_f32_kernel), scores summed over the two halves
-    of D apart and P entering P V as f32.  Returns (out, live runs per
-    (slot, row))."""
+    model's body (split_run_tf32_kernel), ``"dense"`` (DenseRunF32) or
+    ``"int4"`` (Int4RunF32): both products in 3xTF32 k-steps of eight, the
+    scores' dims in that loader's order with hi * hi apart from the lo
+    terms, P split into tf32 hi + lo.  Returns (out, live runs per (slot,
+    row))."""
     from phi_3_vision_mlx_tpu_torch.ops.attention import NEG_INF
 
     s_, h, lq, d = q.shape
@@ -222,8 +224,7 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0, f32_body=
             j = torch.arange(r * split, max(r * split, min((r + 1) * split, w, off + row0 + lq)))
             seen = (valid[s, j] | (j >= off))[None, :] & (j[None, :] <= off + row0 + torch.arange(lq)[:, None])
             if f32_body:
-                raw = sum(qs[s][..., x] @ ks[:, j][..., x].transpose(-1, -2)
-                          for x in (slice(0, d // 2), slice(d // 2, d)))
+                raw = _mm_3xtf32_steps(qs[s], ks[:, j].transpose(-1, -2), _f32_qk_steps(d, f32_body), apart=True)
             else:
                 raw = qs[s] @ ks[:, j].transpose(-1, -2)
             sc = torch.where(seen, raw, -torch.inf)  # (H, Lq, n)
@@ -232,7 +233,8 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0, f32_body=
             ms.append(torch.where(mx == -torch.inf, NEG_INF, mx))
             ls.append(p.sum(dim=-1, keepdim=True))
             hi = p.to(torch.bfloat16).float()
-            accs.append((p if f32_body else hi + (p - hi).to(torch.bfloat16).float()) @ vs[:, j])
+            accs.append(_mm_3xtf32_steps(p, vs[:, j], _key_steps(len(j))) if f32_body
+                        else (hi + (p - hi).to(torch.bfloat16).float()) @ vs[:, j])
         for i in range(lq):
             live[s, i] = n = min(n_split, min(w - 1, off + row0 + i) // split + 1)
             m_all = torch.stack([m[:, i] for m in ms[:n]]).amax(dim=0)
@@ -244,12 +246,13 @@ def _paged_split_model(q, k, v, tables, valid, offsets, scale, row0=0, f32_body=
 
 def _k7_split_model(q, payload, scales, tables, valid, offsets, layer, scale, row0=0, f32_body=False):
     """K7: the int4 pool's layer dequantized once (``Int4Run``'s tiles, or
-    ``Int4RunF32``'s in f32), then the runs and merge of
-    :func:`_paged_split_model`."""
+    ``Int4RunF32``'s values in f32), then the runs and merge of
+    :func:`_paged_split_model` (``f32_body``: the fp32 body in the int4
+    loader's order)."""
     from phi_3_vision_mlx_tpu_torch.engine.state import dequantize_kv
 
     k, v = dequantize_kv(payload[layer], scales[layer], q.dtype)  # (P1, KV, page, D)
-    return _paged_split_model(q, k, v, tables, valid, offsets, scale, row0, f32_body)
+    return _paged_split_model(q, k, v, tables, valid, offsets, scale, row0, f32_body and "int4")
 
 
 # (spare pages withheld from the table, offsets): slot 0 past its window
